@@ -9,18 +9,39 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    (nvidia-smi) and the TF32 switches;
 2. build   — builds every kernel in llm_instance_gateway_tpu_torch/ops/csrc
    with nvcc for sm_90a (one process per source, all at once);
-3. kernels — calls each kernel's wrapper at the serving path's shapes,
-   holds it against its plain PyTorch version, and times kernel, plain
-   version and one PyTorch library call (a yardstick only);
+3. kernels — calls each kernel's wrapper at the serving paths' shapes,
+   holds it against its plain PyTorch version (each output vector's error
+   within 2^-6 of its largest value, SCALED_TOL, and every error within
+   2e-2, ABS_TOL; the plain version with a
+   skipped K/V tile or a misread pool block must fail that check), and
+   times kernel, plain version and one PyTorch library call (a yardstick
+   only): flash prefill, lane decode, chunk attention (C=1024 at start
+   0/2048/5120 of an 8192-position lane, C=64 at start 640) and paged
+   decode (B=8, 64-token blocks, 128-block tables, shuffled, lengths
+   0 .. 8192);
 4. reference — the card's path (kernels) against the CPU path (plain
    versions) on a small f32 model with Llama-3-8B's head layout: prefill
-   logits within a stated tolerance, identical greedy token streams;
+   logits within a stated tolerance and identical greedy token streams,
+   on a lane engine and on a paged engine with prefix cache and two
+   stream lanes (a shared-prefix pair, prompts beyond the largest bucket);
 5. serve   — starts the port's HTTP server at Llama-3-8B width and depth
    (random weights), loads a seeded LoRA adapter from .npz, answers six
    concurrent greedy completions (base and adapter rows, one streamed)
-   and checks both kernels' launch counts over that window;
-6. profile — torch.profiler over one 8B decode step and one 1024-token
-   prefill: host wall, device kernel time, device idle share, top kernels;
+   and checks the launch counts over that window (flash at 32 per
+   request, lane decode at 32 per decode step, chunk and paged none);
+   then profiles one 8B decode step and one 1024-token prefill
+   (torch.profiler: host wall, device time, device idle share, top
+   kernels);
+6. paged serve — the same weights behind ``--max-seq-len 8192
+   --paged-kv-block 64 --paged-kv-blocks 768 --prefix-cache
+   --stream-lanes 2``: five requests sharing a ~600-token system prompt
+   and two concurrent long prompts (~3000 and ~6000 tokens), half on the
+   adapter; checks prefix reuse, the paged kernel at 32 launches per decode
+   step, the lane kernel at none, the chunk kernel at 32 per chunk
+   program, the flash kernel at 32 per bucketed prefill (the cold
+   misses), and KV usage back at its floor after the last request; then
+   profiles one paged decode step over 8 long rows and one 1024-token
+   chunk at start 5120;
 
 then prints one JSON line with every kernel's numbers, the nvidia-smi line,
 and last the device JSON line.  Imports nothing of JAX.
@@ -41,12 +62,41 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
-FLASH_TOL = 2e-2   # bf16 output: 1-2 ulps at |x| ~ 1 plus summation order
-DECODE_TOL = 2e-2
+# Kernel vs plain version, per output vector (hd values): max |got - want|
+# over max |want| of that vector.  The limit scales with the output: a
+# query over n keys with N(0, 1) logits gives outputs of about
+# sqrt(e / n) (~0.02 at n = 6000), where a flat absolute limit would pass
+# a skipped K/V tile.  Rounding the bf16 output makes up to one ulp of it
+# (2^-7 of the vector's largest value); the limit is 4 ulps at 2^-8.
+# The flat absolute limit stays as a ceiling for large outputs.
+SCALED_TOL = 2.0 ** -6
+ABS_TOL = 2e-2
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def scaled_err(got, want) -> float:
+    """Largest error of an output vector (the last dim) over that vector's
+    largest |value| in the plain version."""
+    g, w = got.float(), want.float()
+    num = (g - w).abs().amax(-1)
+    return (num / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def check_kernel(name: str, got, want) -> dict:
+    """Hold a kernel's output to its plain version's: the scaled error
+    within SCALED_TOL and the absolute one within ABS_TOL.  Returns both
+    error measures."""
+    err = (got.float() - want.float()).abs().max().item()
+    scaled = scaled_err(got, want)
+    if not (math.isfinite(err) and math.isfinite(scaled)) \
+            or scaled > SCALED_TOL or err > ABS_TOL:
+        raise AssertionError(f"{name}: scaled error {scaled} (limit "
+                             f"{SCALED_TOL}), max_abs_err {err} (limit "
+                             f"{ABS_TOL})")
+    return dict(max_abs_err=err, scaled_err=scaled)
 
 
 def nvidia_smi_line() -> str:
@@ -126,9 +176,7 @@ def phase_kernels(torch) -> dict:
         got = fl.flash_attention(q, k, v)
         want = fl.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not math.isfinite(err) or err > FLASH_TOL:
-            raise AssertionError(f"flash S={s}: max_abs_err {err} > {FLASH_TOL}")
+        errs = check_kernel(f"flash S={s}", got, want)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         sets = [(q.clone(), k.clone(), v.clone())
                 for _ in range(copies_for(nbytes))]
@@ -139,13 +187,10 @@ def phase_kernels(torch) -> dict:
                   c.transpose(1, 2).contiguous()) for a, b, c in sets]
         lib_ms = time_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=True, enable_gqa=True), bsets)
-        flops = 2 * 1 * H * s * (s + 1) * HD
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / BF16_FLOPS * 1e3
         row = dict(shape=f"B=1 S={s} H={H} K={K} hd={HD} bf16",
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=max(t_bytes, t_flops),
-                   bound_by="bytes" if t_bytes >= t_flops else "operations")
+                   **errs, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms,
+                   **_bound(nbytes, 2 * 1 * H * s * (s + 1) * HD))
         flash_rows.append(row)
         log("kernels", "flash_prefill " + json.dumps(row))
     results["flash_prefill"] = flash_rows
@@ -160,9 +205,7 @@ def phase_kernels(torch) -> dict:
     got = dec.decode_attention(q, kc, vc, lengths)
     want = dec.decode_attention_reference(q, kc, vc, lengths)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    if not math.isfinite(err) or err > DECODE_TOL:
-        raise AssertionError(f"decode: max_abs_err {err} > {DECODE_TOL}")
+    errs = check_kernel("decode", got, want)
     if got[0].abs().max().item() != 0.0:
         raise AssertionError("decode: a length-0 row must give zeros")
     total_len = int(lengths.sum().item())
@@ -178,17 +221,142 @@ def phase_kernels(torch) -> dict:
              for a, b, c, _ in sets]
     lib_ms = time_ms(torch, lambda a, b, c, m: F.scaled_dot_product_attention(
         a, b, c, attn_mask=m, enable_gqa=True), bsets)
-    flops = 2 * 2 * total_len * H * HD
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / BF16_FLOPS * 1e3
     row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} bf16 "
                f"lengths={lengths.tolist()}",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=max(t_bytes, t_flops),
-               bound_by="bytes" if t_bytes >= t_flops else "operations")
+               **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **_bound(nbytes, 2 * 2 * total_len * H * HD))
     log("kernels", "decode_attention " + json.dumps(row))
     results["decode_attention"] = [row]
+    results["chunk_attention"] = _chunk_rows(torch, gen)
+    results["paged_decode_attention"] = _paged_rows(torch, gen)
     return results
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _chunk_rows(torch, gen) -> list:
+    """Chunk attention at the chunk paths' shapes: 1024-token stream chunks
+    at start 0 / 2048 / 5120 of an 8192-position lane, and a 64-token
+    prefix-hit suffix at start 640.  Yardstick: SDPA over the first
+    start + C positions with an explicit boolean mask."""
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    H, K, HD, S_MAX = 32, 8, 128, 8192
+    rows = []
+    for c, start in ((64, 640), (1024, 0), (1024, 2048), (1024, 5120)):
+        q = torch.randn(1, c, H, HD, device=dev, generator=gen).to(bf16)
+        k = torch.randn(1, S_MAX, K, HD, device=dev, generator=gen).to(bf16)
+        v = torch.randn(1, S_MAX, K, HD, device=dev, generator=gen).to(bf16)
+        got = ch.chunk_attention(q, k, v, start)
+        want = ch.chunk_attention_reference(q, k, v, start)
+        torch.cuda.synchronize()
+        errs = check_kernel(f"chunk C={c} start={start}", got, want)
+        if start:
+            # The check's reach: the plain version with one 64-key tile
+            # left out (a kernel that skipped it) must fail it.
+            t0 = start // 128 * 64
+            cut = [torch.cat([x[:, :t0], x[:, t0 + 64:]], 1) for x in (k, v)]
+            skipped = ch.chunk_attention_reference(q, *cut, start - 64)
+            errs["skipped_tile_scaled_err"] = scaled_err(skipped, want)
+            if errs["skipped_tile_scaled_err"] <= SCALED_TOL:
+                raise AssertionError(f"chunk C={c} start={start}: a skipped "
+                                     f"tile passes the check: {errs}")
+            del cut, skipped
+        del want
+        reach = min(start + c, S_MAX)  # key positions the chunk can see
+        sets = [(q.clone(), k.clone(), v.clone(), start)
+                for _ in range(copies_for((q.numel() + 2 * k.numel()) * 2))]
+        ms = time_ms(torch, ch.chunk_attention, sets)
+        plain_ms = time_ms(torch, ch.chunk_attention_reference, sets[:1],
+                           iters=3, warmup=1)
+        mask = (torch.arange(reach, device=dev)[None]
+                <= start + torch.arange(c, device=dev)[:, None])
+        bsets = [(a.transpose(1, 2).contiguous(),
+                  b[:, :reach].transpose(1, 2).contiguous(),
+                  d[:, :reach].transpose(1, 2).contiguous(), mask)
+                 for a, b, d, _ in sets]
+        lib_ms = time_ms(torch, lambda a, b, d, m: F.scaled_dot_product_attention(
+            a, b, d, attn_mask=m, enable_gqa=True), bsets)
+        ops = 4 * H * HD * c * (start + (c + 1) / 2)
+        nbytes = (2 * q.numel() + 2 * reach * K * HD) * 2
+        row = dict(shape=f"B=1 C={c} start={start} S_max={S_MAX} H={H} K={K} "
+                   f"hd={HD} bf16", **errs, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="SDPA, boolean mask over the "
+                   "first start+C positions", **_bound(nbytes, ops))
+        rows.append(row)
+        log("kernels", "chunk_attention " + json.dumps(row))
+        del sets, bsets
+    return rows
+
+
+def _paged_rows(torch, gen) -> list:
+    """Paged decode at the paged engine's shapes: B=8 rows, 64-token
+    blocks, 128-block tables (8192 positions), shuffled physical blocks,
+    lengths 0 / 1 / a mid-block end / ~6000.  Yardstick: gather_pool_rows
+    then masked SDPA, timed as a pair."""
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+    from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    H, K, HD, B, PAGE, M = 32, 8, 128, 8, 64, 128
+    n_blocks = B * M
+    lengths = torch.tensor([0, 1, 100, 6000, 3000, 640, 4096, 8192],
+                           dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, HD, device=dev, generator=gen).to(bf16)
+    kp = torch.randn(n_blocks + 1, PAGE, K, HD, device=dev,
+                     generator=gen).to(bf16)
+    vp = torch.randn(n_blocks + 1, PAGE, K, HD, device=dev,
+                     generator=gen).to(bf16)
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(5))
+    tables = (perm + 1).reshape(B, M).to(torch.int32).to(dev)
+    tables[0] = 0  # the length-0 row maps only the trash block
+    got = pd.paged_decode_attention(q, kp, vp, tables, lengths)
+    want = pd.paged_decode_attention_reference(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    errs = check_kernel("paged decode", got, want)
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("paged decode: a length-0 row must give zeros")
+    # The check's reach: the plain version reading one wrong physical block
+    # of the 6000-token row (a kernel that misread its table) must fail it.
+    wrong = tables.clone()
+    wrong[3, 40] = tables[3, 100]  # a block past that row's length
+    misread = pd.paged_decode_attention_reference(q, kp, vp, wrong, lengths)
+    errs["wrong_block_scaled_err"] = scaled_err(misread, want)
+    if errs["wrong_block_scaled_err"] <= SCALED_TOL:
+        raise AssertionError(f"paged decode: a misread block passes the "
+                             f"check: {errs}")
+    sets = [(q, kp, vp, tables, lengths)]  # the pools alone exceed L2
+    ms = time_ms(torch, pd.paged_decode_attention, sets)
+    plain_ms = time_ms(torch, pd.paged_decode_attention_reference, sets,
+                       iters=5)
+    mask = (torch.arange(M * PAGE, device=dev)[None] < lengths[:, None])
+
+    def gather_sdpa(q, kp, vp, tables, _lengths):
+        k = gather_pool_rows(kp, tables).transpose(1, 2)
+        v = gather_pool_rows(vp, tables).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask[:, None, None],
+            enable_gqa=True)
+
+    lib_ms = time_ms(torch, gather_sdpa, sets)
+    total_len = int(lengths.sum().item())
+    nbytes = (2 * total_len * K * HD * 2 + 2 * q.numel() * 2
+              + B * 4 + total_len // PAGE * 4)
+    row = dict(shape=f"B={B} P={PAGE} M={M} H={H} K={K} hd={HD} bf16 "
+               f"lengths={lengths.tolist()}", **errs, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               library="gather_pool_rows + masked SDPA, timed as a pair",
+               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+    log("kernels", "paged_decode_attention " + json.dumps(row))
+    return [row]
 
 
 def phase_reference(torch) -> None:
@@ -244,6 +412,52 @@ def phase_reference(torch) -> None:
     log("reference", f"narrow Llama-3 layout (d=512, H=8, K=2, hd=128, f32): "
         f"prefill logits max_abs_err {err:.3g} <= {ref_tol}; greedy streams "
         f"identical on cuda and cpu ({sum(map(len, streams['cuda']))} tokens)")
+    _paged_reference(torch, cfg, cpu_params, gpu_params)
+
+
+def _paged_reference(torch, cfg, cpu_params, gpu_params) -> None:
+    """The same model on a paged engine with prefix cache and two stream
+    lanes: a shared-prefix pair (the second maps the first's blocks and
+    prefills only its suffix through the chunk kernel) and two prompts
+    beyond the largest bucket (streamed in 128-token chunks) must give
+    identical greedy streams on the card and on the CPU."""
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request)
+
+    prefix = [256] + [65 + (7 * i) % 50 for i in range(80)]
+    prompts = [prefix + [90, 91, 92], prefix + [100, 101],
+               [256] + [70 + (3 * i) % 40 for i in range(299)],
+               [256] + [66 + (5 * i) % 45 for i in range(199)]]
+    streams, reused, launches = {}, {}, {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        ch.launches = pd.launches = 0
+        eng = Engine(cfg, params, EngineConfig(
+            decode_slots=4, max_seq_len=512, prefill_buckets=(16, 64, 128),
+            adaptive_steps=8, paged_kv_block=16, prefix_cache=True,
+            stream_lanes=2), eos_id=257, dtype=torch.float32, device=dev)
+        eng.start()
+        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
+                for p in prompts]
+        for r in reqs:
+            if not r.done.wait(300) or r.error:
+                raise AssertionError(f"paged reference on {dev}: {r.error}")
+        eng.stop()
+        streams[dev] = [r.output_tokens for r in reqs]
+        reused[dev] = eng.prefix_reused_tokens
+        launches[dev] = (ch.launches, pd.launches)
+    if streams["cpu"] != streams["cuda"]:
+        raise AssertionError(f"paged reference: greedy streams differ: "
+                             f"{streams}")
+    if not reused["cpu"] == reused["cuda"] > 0:
+        raise AssertionError(f"paged reference: prefix reuse {reused}")
+    if launches["cpu"] != (0, 0) or min(launches["cuda"]) <= 0:
+        raise AssertionError(f"paged reference: launches {launches}")
+    log("reference", f"paged engine (16-token blocks, prefix cache, 2 stream "
+        f"lanes, f32): greedy streams identical on cuda and cpu "
+        f"({sum(map(len, streams['cuda']))} tokens), {reused['cuda']} prefix "
+        f"tokens reused, chunk/paged launches on the card {launches['cuda']}")
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -259,9 +473,11 @@ def _post(url: str, body: dict, timeout: float = 600.0):
         return e.code, e.read().decode()
 
 
-def phase_serve(torch) -> dict:
+def phase_serve(torch):
     """The port's server at Llama-3-8B width, six concurrent greedy
-    completions (base and adapter rows, one streamed) through both kernels."""
+    completions (base and adapter rows, one streamed) through the flash and
+    lane decode kernels.  Returns (stats, the loaded params, adapter path)
+    so the paged phase serves the same weights."""
     import threading
     import urllib.request
 
@@ -269,8 +485,10 @@ def phase_serve(torch) -> dict:
 
     from llm_instance_gateway_tpu_torch.models import lora
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
     from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
     from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.server import api_http
     from llm_instance_gateway_tpu_torch.server.lora_manager import save_adapter
 
@@ -310,8 +528,7 @@ def phase_serve(torch) -> dict:
         max_tokens = 32
         letters = "the quick brown fox jumps over the lazy dog "
         snap0 = engine.metrics_snapshot()
-        fl.launches = 0
-        dec.launches = 0
+        fl.launches = dec.launches = ch.launches = pd.launches = 0
         results = [None] * len(jobs)
 
         def run(i, n_chars, model, stream):
@@ -331,7 +548,9 @@ def phase_serve(torch) -> dict:
             th.join(900)
         serve_s = time.time() - t_serve
         launches = {"flash_prefill": fl.launches,
-                    "decode_attention": dec.launches}
+                    "decode_attention": dec.launches,
+                    "chunk_attention": ch.launches,
+                    "paged_decode_attention": pd.launches}
         snap1 = engine.metrics_snapshot()
 
         n_layers = cfg.n_layers
@@ -357,12 +576,17 @@ def phase_serve(torch) -> dict:
                 f"{usage['completion_tokens']} tokens in {secs:.2f} s")
         decode_steps = (snap1["dispatch_steps_hist"]["sum"]
                         - snap0["dispatch_steps_hist"]["sum"])
-        if launches["flash_prefill"] < len(jobs) * n_layers:
-            raise AssertionError(f"flash launches {launches} < "
+        # One bucketed prefill program per request (no prefix cache here).
+        if launches["flash_prefill"] != len(jobs) * n_layers:
+            raise AssertionError(f"flash launches {launches} != "
                                  f"{len(jobs)} x {n_layers}")
-        if launches["decode_attention"] < decode_steps * n_layers:
-            raise AssertionError(f"decode launches {launches} < "
+        if (decode_steps <= 0
+                or launches["decode_attention"] != decode_steps * n_layers):
+            raise AssertionError(f"decode launches {launches} != "
                                  f"{decode_steps} x {n_layers}")
+        if launches["chunk_attention"] or launches["paged_decode_attention"]:
+            raise AssertionError(f"chunk or paged kernels launched on the "
+                                 f"lane path: {launches}")
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
         for family in ("tpu:num_requests_running", "tpu:num_requests_waiting",
@@ -390,6 +614,176 @@ def phase_serve(torch) -> dict:
             + json.dumps(stats))
         # After the counted window: these launches are not the serve's.
         stats["profile"] = phase_profile(torch, engine)
+        return stats, engine.params, path
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+
+
+def phase_paged_serve(torch, params, adapter_path: str) -> dict:
+    """The same 8B weights behind the paged pool, prefix cache and two
+    stream lanes, at Llama-3-8B's published 8192-token context: five
+    requests sharing a ~600-token system prompt, and two concurrent long
+    prompts (~3000 and ~6000 tokens) that stream in 1024-token chunks."""
+    import threading
+    import urllib.request
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+    from llm_instance_gateway_tpu_torch.server import api_http
+
+    t0 = time.time()
+    httpd, engine, _ = api_http.make_server([
+        "--model", "llama3-8b", "--max-seq-len", "8192", "--decode-slots", "8",
+        "--paged-kv-block", "64", "--paged-kv-blocks", "768", "--prefix-cache",
+        "--stream-lanes", "2", "--device", "cuda", "--host", "127.0.0.1",
+        "--port", "0"], params=params)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    try:
+        status, text = _post(url + "/v1/load_lora_adapter",
+                             {"lora_name": "smoke-r8",
+                              "lora_path": adapter_path})
+        if status != 200:
+            raise AssertionError(f"adapter load: {status} {text}")
+        system = ("You are a careful assistant for a travel company. "
+                  * 12)[:600]
+        questions = ["Where can I fly?", "What does a refund cost me now?",
+                     "Which hotels near the old harbour allow pets inside?",
+                     "Can I move my booking from May to June without fees??",
+                     "Is breakfast included?"]
+        jobs = [(system + q, m) for q, m in zip(
+            questions, [None, "smoke-r8", None, "smoke-r8", None])]
+        long_text = "the quick brown fox jumps over the lazy dog "
+        jobs += [(("A long report: " + long_text * 80)[:3000], "smoke-r8"),
+                 (("Another long report: " + long_text * 160)[:6000], None)]
+        max_tokens = 32
+        # Count the programs each kernel's launches follow: chunk programs
+        # (stream chunks, prefix-hit suffixes) and bucketed prefills (the
+        # cold misses).
+        programs = {"chunk": 0, "prefill": 0}
+        chunk_fn, prefill_fn = engine._chunk_fn, engine._prefill_impl
+
+        def counted(kind, fn):
+            def call(*args, **kwargs):
+                programs[kind] += 1
+                return fn(*args, **kwargs)
+            return call
+
+        engine._chunk_fn = counted("chunk", chunk_fn)
+        engine._prefill_impl = counted("prefill", prefill_fn)
+        snap0 = engine.metrics_snapshot()
+        fl.launches = dec.launches = ch.launches = pd.launches = 0
+        results = [None] * len(jobs)
+
+        def run(i, prompt, model):
+            body = {"prompt": prompt, "max_tokens": max_tokens,
+                    "temperature": 0.0}
+            if model:
+                body["model"] = model
+            t = time.time()
+            results[i] = _post(url + "/v1/completions", body) + (time.time() - t,)
+
+        t_serve = time.time()
+        threads = [threading.Thread(target=run, args=(i, *job))
+                   for i, job in enumerate(jobs)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        serve_s = time.time() - t_serve
+        launches = {"flash_prefill": fl.launches,
+                    "decode_attention": dec.launches,
+                    "chunk_attention": ch.launches,
+                    "paged_decode_attention": pd.launches}
+        engine._chunk_fn, engine._prefill_impl = chunk_fn, prefill_fn
+        snap1 = engine.metrics_snapshot()
+
+        for i, ((prompt, adapter), res) in enumerate(zip(jobs, results)):
+            if res is None:
+                raise AssertionError(f"paged request {i} did not return")
+            status, text, secs = res
+            if status != 200:
+                raise AssertionError(f"paged request {i}: {status} {text[:300]}")
+            usage = json.loads(text)["usage"]
+            if usage["completion_tokens"] != max_tokens:
+                raise AssertionError(f"paged request {i}: {usage}")
+            log("paged", f"request {i}: {usage['prompt_tokens']} prompt "
+                f"tokens, adapter={adapter}, {max_tokens} tokens in "
+                f"{secs:.2f} s")
+        n_layers = cfg.n_layers
+        decode_steps = int(snap1["dispatch_steps_hist"]["sum"]
+                           - snap0["dispatch_steps_hist"]["sum"])
+        reused = (snap1["prefix_reused_tokens"]
+                  - snap0["prefix_reused_tokens"])
+        if reused <= 0:
+            raise AssertionError("paged serve: no prefix tokens reused")
+        if launches["paged_decode_attention"] != decode_steps * n_layers:
+            raise AssertionError(f"paged launches {launches} != {decode_steps}"
+                                 f" decode steps x {n_layers}")
+        if launches["decode_attention"] != 0:
+            raise AssertionError(f"lane decode launched on the paged path: "
+                                 f"{launches}")
+        for kind, kernel in (("chunk", "chunk_attention"),
+                             ("prefill", "flash_prefill")):
+            if (programs[kind] == 0
+                    or launches[kernel] != programs[kind] * n_layers):
+                raise AssertionError(f"{kernel} launches {launches} != "
+                                     f"{programs[kind]} {kind} programs x "
+                                     f"{n_layers}")
+        # Every request finished: allocated blocks drain back to the floor
+        # (zero-ref cached prefix blocks count as free).
+        deadline = time.time() + 30
+        while (engine.metrics_snapshot()["kv_cache_usage_perc"] > 0
+               and time.time() < deadline):
+            time.sleep(0.05)
+        snap2 = engine.metrics_snapshot()
+        states = snap2["kv_ledger"]["states"]
+        if snap2["kv_cache_usage_perc"] != 0.0 or states["active"] != 0:
+            raise AssertionError(f"paged serve: KV usage "
+                                 f"{snap2['kv_cache_usage_perc']} / ledger "
+                                 f"{states} after the last request")
+        if sum(states.values()) != snap2["kv_ledger"]["blocks_total"]:
+            raise AssertionError(f"paged serve: ledger not conserved {states}")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
+            metrics_text = f.read().decode()
+        for family in ("tpu:kv_blocks", "tpu:prefix_reused_tokens",
+                       "tpu:kv_prefix_hits_total", "tpu:stream_lanes_active"):
+            if family not in metrics_text:
+                raise AssertionError(f"/metrics lacks {family}")
+        with urllib.request.urlopen(url + "/debug/kv", timeout=60) as f:
+            if f.status != 200:
+                raise AssertionError(f"/debug/kv answered {f.status}")
+        ph0, ph1 = snap0["phase_hist"], snap1["phase_hist"]
+        stats = {
+            "init_s": init_s, "serve_s": serve_s,
+            "decode_steps": decode_steps, "chunk_programs": programs["chunk"],
+            "prefill_programs": programs["prefill"],
+            "prefix_reused_tokens": reused,
+            "decode_step_ms_mean": 1e3 * (
+                (ph1["decode_step"]["sum"] - ph0["decode_step"]["sum"])
+                / max(1, ph1["decode_step"]["count"]
+                      - ph0["decode_step"]["count"])),
+            "prefill_ms_mean": 1e3 * (
+                (ph1["prefill"]["sum"] - ph0["prefill"]["sum"])
+                / max(1, ph1["prefill"]["count"] - ph0["prefill"]["count"])),
+            "tokens": len(jobs) * max_tokens,
+            "kv_usage_after": snap2["kv_cache_usage_perc"],
+            "kv_states_after": states,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches,
+        }
+        log("paged", "llama3-8b paged (64-token blocks x 768, prefix cache, "
+            "2 stream lanes): " + json.dumps(stats))
+        # After the counted window: these launches are not the serve's.
+        stats["profile"] = phase_paged_profile(torch, engine)
         return stats
     finally:
         httpd.shutdown()
@@ -397,12 +791,95 @@ def phase_serve(torch) -> dict:
         engine.stop()
 
 
+def _profile(torch, name: str, fn, reps: int) -> dict:
+    """Host wall per call, device kernel time, device idle share and top
+    kernels of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    rows = []
+    device_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            device_us += us
+            rows.append((us / reps / 1e3, ev.count // reps, ev.key[:60]))
+    rows.sort(reverse=True)
+    device_ms = device_us / reps / 1e3
+    out = {
+        "wall_ms": wall_ms,
+        "device_ms": device_ms if device_us else "not measured",
+        "device_idle_share": (1 - device_ms / wall_ms) if device_us
+        else "not measured",
+        "top_kernels": [{"name": k, "ms": ms, "calls": n}
+                        for ms, n, k in rows[:8]],
+    }
+    log("profile", f"{name}: " + json.dumps(out))
+    return out
+
+
+def phase_paged_profile(torch, engine) -> dict:
+    """One paged decode step over 8 long rows (mixed adapters) and one
+    1024-token chunk at start 5120, on the paged engine's pools (the
+    server is idle; the rows' tables are built here)."""
+    from llm_instance_gateway_tpu_torch.models import paged
+    from llm_instance_gateway_tpu_torch.server.sampling import sample
+
+    cfg, params = engine.model_cfg, engine.params
+    dev = torch.device("cuda")
+    lora_bufs = engine.lora.buffers
+    b, block = engine.cfg.decode_slots, engine._block
+    m = engine.cache["tables"].shape[1]
+    lengths = [4000 + 250 * i for i in range(b)]  # 8 long rows
+    tables = torch.zeros(b, m, dtype=torch.int32)
+    nxt = 1
+    for i, n in enumerate(lengths):
+        need = -(-(n + 1) // block)
+        tables[i, :need] = torch.arange(nxt, nxt + need)
+        nxt += need
+    if nxt - 1 > engine._n_blocks:
+        raise AssertionError("paged profile: rows exceed the pool")
+    cache = dict(engine.cache, tables=tables.to(dev))
+    tokens = torch.arange(b, device=dev) + 65
+    positions = torch.tensor(lengths, device=dev)
+    slots = torch.tensor([-1, 0] * (b // 2), device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    ones = torch.ones(b, device=dev)
+    zeros_i = torch.zeros(b, dtype=torch.int64, device=dev)
+    chunk_tokens = torch.randint(0, 256, (1024,)).numpy()
+    chunk_pos = (5120 + torch.arange(1024)).numpy()
+
+    def decode():
+        logits, _ = paged.decode_step_paged(
+            cfg, params, cache, tokens, positions, lora_bufs=lora_bufs,
+            slot_ids=slots, active=active)
+        return sample(logits, None, 0 * ones, zeros_i, ones,
+                      valid_vocab=cfg.vocab_size)
+
+    def chunk():
+        return paged.prefill_with_cache_paged(
+            cfg, params, cache, chunk_tokens, chunk_pos, 7, 6144, 1023,
+            lora_bufs=lora_bufs, lora_slot=0)[0]
+
+    return {"paged_decode_step": _profile(torch, "paged_decode_step",
+                                          decode, 3),
+            "chunk_1024_at_5120": _profile(torch, "chunk_1024_at_5120",
+                                           chunk, 2)}
+
+
 def phase_profile(torch, engine) -> dict:
     """Where one 8B decode step (8 rows, mixed adapters, ragged lengths)
     and one 1024-token prefill spend their time: host wall per call, device
     kernel time, device idle share, top kernels (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.server.sampling import sample
 
@@ -431,38 +908,8 @@ def phase_profile(torch, engine) -> dict:
                                    lora_bufs=lora_bufs,
                                    slot_ids=slots[1:2])[0]
 
-    out = {}
-    for name, fn, reps in (("decode_step", decode, 3),
-                           ("prefill_1024", prefill, 2)):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-        rows = []
-        device_us = 0.0
-        for ev in prof.key_averages():
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-            if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-                device_us += us
-                rows.append((us / reps / 1e3, ev.count // reps, ev.key[:60]))
-        rows.sort(reverse=True)
-        device_ms = device_us / reps / 1e3
-        out[name] = {
-            "wall_ms": wall_ms,
-            "device_ms": device_ms if device_us else "not measured",
-            "device_idle_share": (1 - device_ms / wall_ms) if device_us
-            else "not measured",
-            "top_kernels": [{"name": k, "ms": ms, "calls": n}
-                            for ms, n, k in rows[:8]],
-        }
-        log("profile", f"{name}: " + json.dumps(out[name]))
-    return out
+    return {"decode_step": _profile(torch, "decode_step", decode, 3),
+            "prefill_1024": _profile(torch, "prefill_1024", prefill, 2)}
 
 
 KERNEL_SOURCES = {
@@ -472,20 +919,30 @@ KERNEL_SOURCES = {
     "decode_attention": (
         "llm_instance_gateway_tpu_torch/ops/csrc/decode_attention.cu",
         "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:176"),
+    "chunk_attention": (
+        "llm_instance_gateway_tpu_torch/ops/csrc/chunk_attention.cu",
+        "llm_instance_gateway_tpu/ops/pallas_attention.py:227"),
+    "paged_decode_attention": (
+        "llm_instance_gateway_tpu_torch/ops/csrc/paged_decode_attention.cu",
+        "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:227"),
 }
 
 
-def kernels_line(kernel_rows: dict, launches: dict) -> dict:
-    """One entry per kernel: numbers at its largest main-path shape,
-    max_abs_err over all shapes checked, launches from the serve phase."""
+def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
+    """One entry per kernel: numbers at its largest main-path shape, the
+    errors over all shapes checked, and launches summed over the two serve
+    phases (``launches_by_path`` splits them: lane serve, paged serve)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
         source, replaces = KERNEL_SOURCES[name]
+        counts = {path: launches[name] for path, launches in by_path.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(counts.values()),
+            "launches_by_path": counts,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "scaled_err": max(r["scaled_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
@@ -502,8 +959,10 @@ def main() -> int:
     phase_build()
     kernel_rows = phase_kernels(torch)
     phase_reference(torch)
-    stats = phase_serve(torch)
-    print(json.dumps(kernels_line(kernel_rows, stats["launches"])))
+    stats, params, adapter_path = phase_serve(torch)
+    paged_stats = phase_paged_serve(torch, params, adapter_path)
+    by_path = {"lane": stats["launches"], "paged": paged_stats["launches"]}
+    print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,183 @@
+"""Paged KV cache: a shared block pool with per-row block tables (port of
+``models/paged.py``).
+
+vLLM's PagedAttention memory model — the one the gateway's KV-threshold
+routing was tuned against (``tpu:kv_cache_usage_perc`` = allocated blocks
+over total blocks):
+
+- one pool per K and V, ``[L, n_blocks + 1, block, K, hd]``, whose shape
+  never depends on allocation state;
+- per-row block tables ``[B, max_blocks_per_seq]`` int32 map logical blocks
+  to physical ones; allocation and freeing live on the host (the engine
+  owns the free list), the device only sees table contents change;
+- physical block 0 is the TRASH block: unallocated table entries, inactive
+  rows and a final chunk's pads past the table's span all write there, so
+  every write stays inside the pool.  Several rows may hit the trash cell
+  in one write; which garbage wins does not matter, so writes are plain
+  index assignments (never ``accumulate=True``).
+
+The decode step reads the pool through ``paged_decode_attention`` — the
+Hopper kernel streams each row's physical blocks straight from the pool
+(no gathered copy of the lane); the chunk path gathers the row's lane view
+(``gather_pool_rows``, an index, as in the reference) and runs the chunk
+kernel over it.  Every function updates the pools IN PLACE and returns the
+same dict.  int8 pools (the reference's scale pools) raise
+``NotImplementedError`` at ``init_paged_cache`` until ROADMAP Queue 1 item
+10, so every function here sees bf16/f32 pools; ``extend_step_paged`` waits
+for item 12 (speculative decoding).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.models.transformer import (
+    check_supported,
+    chunk_forward,
+    decode_forward,
+)
+from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
+from llm_instance_gateway_tpu_torch.ops.paged_decode_attention import (
+    paged_decode_attention,
+)
+
+Params = dict[str, Any]
+
+TRASH_BLOCK = 0  # physical block 0: write target for inactive/unallocated
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     n_blocks: int, block: int, dtype=torch.bfloat16,
+                     device="cuda", quantized: bool = False) -> Params:
+    """Block pools + tables.  ``n_blocks`` EXCLUDES the trash block."""
+    if quantized:
+        raise NotImplementedError(
+            "int8 paged pools (scale pools) are not ported yet: ROADMAP "
+            "Queue 1 item 10")
+    hd = cfg.resolved_head_dim
+    max_blocks_per_seq = -(-max_len // block)
+    shape = (cfg.n_layers, n_blocks + 1, block, cfg.n_kv_heads, hd)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "tables": torch.full((batch, max_blocks_per_seq), TRASH_BLOCK,
+                             dtype=torch.int32, device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _pool_update(pools: tuple, k: torch.Tensor, v: torch.Tensor,
+                 phys_block: torch.Tensor, offset: torch.Tensor) -> tuple:
+    """Write fresh K/V ``[N, K, hd]`` into one layer's pools at
+    (phys_block, offset) — the one write seam every paged step shares."""
+    k_pool, v_pool = pools
+    k_pool[phys_block, offset] = k.to(k_pool.dtype)
+    v_pool[phys_block, offset] = v.to(v_pool.dtype)
+    return pools
+
+
+def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      lora_bufs: Params | None = None,
+                      slot_ids: torch.Tensor | None = None,
+                      active: torch.Tensor | None = None):
+    """One decode step over the paged pool; same semantics as
+    ``transformer.decode_step``.  Each row writes its current position
+    through its table; rows with ``active`` False write the trash block
+    (a reserved row's table may already hold a streaming prompt's real
+    blocks).  Positions must lie below the table span (the engine clamps).
+    Returns (logits [B, V] f32, cache)."""
+    check_supported(cfg)
+    b = tokens.shape[0]
+    dev = tokens.device
+    block = cache["k"].shape[2]
+    tables = cache["tables"]
+    positions = positions.to(dev)
+    pos = positions.long()
+    lengths = (positions + 1).to(torch.int32)
+    phys = tables[torch.arange(b, device=dev), pos // block].long()
+    if active is not None:
+        phys = torch.where(active.to(dev), phys, TRASH_BLOCK)
+    offset = pos % block
+
+    def write_and_attend(i, q, k, v):
+        k_pool, v_pool = _pool_update((cache["k"][i], cache["v"][i]), k, v,
+                                      phys, offset)
+        return paged_decode_attention(q, k_pool, v_pool, tables, lengths)
+
+    logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
+                            slot_ids, write_and_attend)
+    cache["length"] = lengths
+    return logits, cache
+
+
+def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
+                         v_prompt: torch.Tensor, row: int, phys_blocks,
+                         table_row, length: int) -> Params:
+    """Write a prefilled prompt's KV ``[L, 1, S_bucket, K, hd]`` into the
+    pool blocks ``phys_blocks`` (``ceil(S_bucket / block)`` ints; wholly
+    padding blocks point at the trash block) and set row ``row``'s table
+    to ``table_row`` (the FULL new row: allocated blocks + trash tail).
+    The trailing partial block carries bucket padding into a real block,
+    masked by ``length``."""
+    lyr, _, s, kh, hd = k_prompt.shape
+    block = cache["k"].shape[2]
+    dev = cache["k"].device
+    phys = torch.as_tensor(np.asarray(phys_blocks, np.int64)).to(dev)
+    n_b = phys.shape[0]
+    pad = n_b * block - s
+    k_prompt = k_prompt[:, 0].to(cache["k"].dtype)
+    v_prompt = v_prompt[:, 0].to(cache["v"].dtype)
+    if pad:
+        padding = (0, 0, 0, 0, 0, pad)
+        k_prompt = torch.nn.functional.pad(k_prompt, padding)
+        v_prompt = torch.nn.functional.pad(v_prompt, padding)
+    cache["k"][:, phys] = k_prompt.reshape(lyr, n_b, block, kh, hd)
+    cache["v"][:, phys] = v_prompt.reshape(lyr, n_b, block, kh, hd)
+    cache["tables"][int(row)] = torch.as_tensor(
+        np.array(table_row, np.int32)).to(dev)
+    length_vec = cache["length"].clone()
+    length_vec[int(row)] = int(length)
+    cache["length"] = length_vec
+    return cache
+
+
+def prefill_with_cache_paged(cfg: ModelConfig, params: Params, cache: Params,
+                             tokens, positions, row: int, lane_end: int,
+                             last_index: int,
+                             lora_bufs: Params | None = None,
+                             lora_slot: int = -1):
+    """Chunked prefill against the paged pool (parity with
+    ``transformer.prefill_with_cache``): the chunk's K/V write through row
+    ``row``'s table and its queries attend the row's gathered lane view.
+    Positions past the table span route to the trash block — a clipped
+    lookup would alias the row's LAST real block.  ``positions`` is a host
+    array.  Returns (last_logits [V] f32, cache)."""
+    check_supported(cfg)
+    pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
+    block = cache["k"].shape[2]
+    dev = cache["k"].device
+    tables = cache["tables"]
+    max_blocks = tables.shape[1]
+    table_row = tables[int(row)]
+    inside = torch.from_numpy(pos < max_blocks * block).to(dev)
+    logical = torch.from_numpy(np.clip(pos // block, 0, max_blocks - 1)).to(dev)
+    phys = torch.where(inside, table_row[logical].long(), TRASH_BLOCK)
+    offset = torch.from_numpy(pos % block).to(dev)
+
+    def write_and_view(i, k, v):
+        k_pool, v_pool = _pool_update((cache["k"][i], cache["v"][i]), k, v,
+                                      phys, offset)
+        return (gather_pool_rows(k_pool, table_row[None])[0],
+                gather_pool_rows(v_pool, table_row[None])[0])
+
+    last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
+                                lora_slot, last_index, write_and_view)
+    length_vec = cache["length"].clone()
+    length_vec[int(row)] = int(lane_end)
+    cache["length"] = length_vec
+    return last_logits, cache

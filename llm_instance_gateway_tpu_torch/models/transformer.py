@@ -7,17 +7,23 @@ Same parameter tree as the reference — layer-stacked leaves
 leaves.  bf16 params/activations on the card, f32 norms/softmax/logits.
 
 Attention goes through the kernel wrappers: ``flash_attention`` for
-prefill and ``decode_attention`` for the cached step, which launch the
-Hopper kernels on CUDA tensors and take their plain versions on CPU
-tensors.  Every projection adds the per-row LoRA delta.
+prefill, ``decode_attention`` for the cached step and ``chunk_attention``
+for chunked prefill (``prefill_with_cache``, shared with the paged pool's
+chunk path in ``models/paged.py``), which launch the Hopper kernels on
+CUDA tensors and take their plain versions on CPU tensors.  Every
+projection adds the per-row LoRA delta.
 
 Differences from the JAX functions, by design:
-- ``decode_step`` and ``insert_prefill`` update the cache tensors IN PLACE
-  (the reference donates the cache to XLA for the same effect) and return
-  the same dict with a new ``length``;
-- inactive rows' KV writes are masked explicitly (the reference parks them
-  at the out-of-bounds index ``s_max``, which XLA drops; torch would raise
-  on the CPU and corrupt memory on the card).
+- ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
+  cache tensors IN PLACE (the reference donates the cache to XLA for the
+  same effect) and return the same dict with a new ``length``;
+- writes the reference parks at out-of-bounds indices, which XLA drops
+  (inactive rows at ``s_max``, a final chunk's pads past ``s_max``), are
+  masked or skipped explicitly: torch would raise on the CPU and corrupt
+  memory on the card;
+- a chunk's ``positions`` are a host array: the engine holds them in
+  numpy, so where the chunk starts and which cells it writes are decided
+  without a device read.
 Only the dense Llama path is ported: MoE, q/k/v biases and int8 caches
 raise ``NotImplementedError``.
 """
@@ -27,10 +33,12 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.ops.chunk_attention import chunk_attention
 from llm_instance_gateway_tpu_torch.ops.decode_attention import decode_attention
 from llm_instance_gateway_tpu_torch.ops.flash_attention import flash_attention
 from llm_instance_gateway_tpu_torch.ops.layers import apply_rope, rms_norm, swiglu
@@ -223,35 +231,19 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def decode_step(cfg: ModelConfig, params: Params, cache: Params,
-                tokens: torch.Tensor, positions: torch.Tensor,
-                lora_bufs: Params | None = None,
-                slot_ids: torch.Tensor | None = None,
-                active: torch.Tensor | None = None):
-    """One decode step for every slot.  Returns (logits [B,V] f32, cache).
-
-    ``active`` [B] bool gates the KV WRITE: an inactive row's cache cell is
-    rewritten with its own old value, so its lane stays unchanged without a
-    host sync (positions at or past ``S_max`` never write either).  The
-    cache tensors are updated in place.
-    """
-    check_supported(cfg)
+def decode_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, lora_bufs: Params | None,
+                   slot_ids: torch.Tensor | None, write_and_attend):
+    """The layer loop both decode steps share (lanes here, the paged pool
+    in ``models/paged.py``): each row's token at ``positions[b]`` writes
+    its K/V and attends its cache through ``write_and_attend(layer,
+    q [B, H, hd], k [B, K, hd], v) -> attn [B, H, hd]``.  Returns the
+    logits [B, V] (f32)."""
     b = tokens.shape[0]
-    dev = tokens.device
     if slot_ids is None:
-        slot_ids = _no_slots(b, dev)
+        slot_ids = _no_slots(b, tokens.device)
     hd = cfg.resolved_head_dim
-    s_max = cache["k"].shape[2]
     h = _embed(cfg, params, tokens)
-    positions = positions.to(dev)
-    lengths = (positions + 1).to(torch.int32)
-    pos = positions.long()
-    writes = pos < s_max
-    if active is not None:
-        writes = writes & active.to(dev)
-    write_pos = pos.clamp(max=s_max - 1)
-    rows = torch.arange(b, device=dev)
-    keep = writes[:, None, None]
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         layer_lora = (None if lora_bufs is None
@@ -268,19 +260,150 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
                        cfg.rope_scaling)[:, 0].contiguous()
         k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta,
                        cfg.rope_scaling)[:, 0]
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[rows, write_pos] = torch.where(
-            keep, k.to(k_cache.dtype), k_cache[rows, write_pos])
-        v_cache[rows, write_pos] = torch.where(
-            keep, v.to(v_cache.dtype), v_cache[rows, write_pos])
-        attn = decode_attention(q, k_cache, v_cache, lengths)
+        attn = write_and_attend(i, q, k, v)
         h = h + _project(attn.reshape(b, -1), lp["wo"], layer_lora, "o",
                          slot_ids)
         hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
                        plus_one=cfg.norm_plus_one)
         h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
+    return _logits(cfg, params, h)
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params,
+                tokens: torch.Tensor, positions: torch.Tensor,
+                lora_bufs: Params | None = None,
+                slot_ids: torch.Tensor | None = None,
+                active: torch.Tensor | None = None):
+    """One decode step for every slot.  Returns (logits [B,V] f32, cache).
+
+    ``active`` [B] bool gates the KV WRITE: an inactive row's cache cell is
+    rewritten with its own old value, so its lane stays unchanged without a
+    host sync (positions at or past ``S_max`` never write either).  The
+    cache tensors are updated in place.
+    """
+    check_supported(cfg)
+    b = tokens.shape[0]
+    dev = tokens.device
+    s_max = cache["k"].shape[2]
+    positions = positions.to(dev)
+    lengths = (positions + 1).to(torch.int32)
+    pos = positions.long()
+    writes = pos < s_max
+    if active is not None:
+        writes = writes & active.to(dev)
+    write_pos = pos.clamp(max=s_max - 1)
+    rows = torch.arange(b, device=dev)
+    keep = writes[:, None, None]
+
+    def write_and_attend(i, q, k, v):
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache[rows, write_pos] = torch.where(
+            keep, k.to(k_cache.dtype), k_cache[rows, write_pos])
+        v_cache[rows, write_pos] = torch.where(
+            keep, v.to(v_cache.dtype), v_cache[rows, write_pos])
+        return decode_attention(q, k_cache, v_cache, lengths)
+
+    logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
+                            slot_ids, write_and_attend)
     cache["length"] = lengths
-    return _logits(cfg, params, h), cache
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill (prompts beyond the largest bucket, prefix-hit suffixes)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_attend(cfg: ModelConfig, quant: bool, q, lane_k, lane_v,
+                  start: int):
+    """Chunk-vs-lane attention, shared by the lane and paged chunk paths:
+    q [1, C, H, hd] against one lane view [S, K, hd] through the chunk
+    kernel's wrapper.  Returns [1, C, H*hd]."""
+    if quant:
+        raise NotImplementedError(
+            "chunk attention over int8 lanes is not ported yet: ROADMAP "
+            "Queue 1 item 10")
+    c = q.shape[1]
+    return chunk_attention(q.contiguous(), lane_k[None], lane_v[None],
+                           start).reshape(1, c, -1)
+
+
+def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
+                  lora_bufs: Params | None, lora_slot: int, last_index: int,
+                  write_and_view):
+    """The layer loop both chunk paths share: chunk token i at global
+    position ``pos[i]`` writes its K/V and attends the lane view through
+    ``write_and_view(layer, k [C, K, hd], v) -> (lane_k, lane_v)``.
+    Returns the last real token's logits [V] (f32).  ``pos`` is a host
+    int64 array: where the chunk starts and which cells it writes are
+    decided on the host, so no device value steers them."""
+    dev = params["embed"].device
+    c = pos.shape[0]
+    hd = cfg.resolved_head_dim
+    slot_ids = torch.full((1,), int(lora_slot), dtype=torch.int32, device=dev)
+    h = _embed(cfg, params, torch.as_tensor(np.asarray(tokens)).to(dev))[None]
+    pos2d = torch.from_numpy(pos.copy()).to(dev)[None]
+    start = int(pos[0])
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        layer_lora = (None if lora_bufs is None
+                      else lora_lib.layer_slice(lora_bufs, i))
+        hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
+                      plus_one=cfg.norm_plus_one)
+        q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+            1, c, cfg.n_heads, hd)
+        k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+            1, c, cfg.n_kv_heads, hd)
+        v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+            1, c, cfg.n_kv_heads, hd)
+        q = apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_scaling)
+        k = apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_scaling)
+        lane_k, lane_v = write_and_view(i, k[0], v[0])
+        attn = _chunk_attend(cfg, False, q, lane_k, lane_v, start)
+        h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
+        hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
+                       plus_one=cfg.norm_plus_one)
+        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
+    last = int(last_index)
+    return _logits(cfg, params, h[0, last:last + 1])[0]
+
+
+def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
+                       tokens, positions, slot: int, lane_end: int,
+                       last_index: int, lora_bufs: Params | None = None,
+                       lora_slot: int = -1):
+    """Chunked prefill: one prompt chunk against cache lane ``slot``.
+
+    The chunk's K/V land in the lane at their absolute positions and its
+    queries attend everything cached so far plus causally within the
+    chunk (the chunk kernel), so N chunks reproduce a monolithic prefill.
+    A padded final chunk's pad positions continue past the prompt; those
+    at or past ``S_max`` write nothing (the reference's scatter drops them
+    as out of bounds), decided on the host from ``positions`` — so no
+    index ever leaves the lane and nothing syncs.  The cache is updated in
+    place.  Returns (last_logits [V] f32, cache)."""
+    check_supported(cfg)
+    pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
+    s_max = cache["k"].shape[2]
+    dev = cache["k"].device
+    inside = np.nonzero(pos < s_max)[0]
+    rows = torch.from_numpy(inside).to(dev)
+    cells = torch.from_numpy(pos[inside]).to(dev)
+    slot = int(slot)
+
+    def write_and_view(i, k, v):
+        k_lane = cache["k"][i][slot:slot + 1]  # [1, S_max, K, hd], a view
+        v_lane = cache["v"][i][slot:slot + 1]
+        k_lane[0, cells] = k.index_select(0, rows).to(k_lane.dtype)
+        v_lane[0, cells] = v.index_select(0, rows).to(v_lane.dtype)
+        return k_lane[0], v_lane[0]
+
+    last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
+                                lora_slot, last_index, write_and_view)
+    length_vec = cache["length"].clone()
+    length_vec[slot] = int(lane_end)
+    cache["length"] = length_vec
+    return last_logits, cache
 
 
 def insert_prefill(cache: Params, k_prompt: torch.Tensor,

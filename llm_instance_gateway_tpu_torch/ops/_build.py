@@ -13,9 +13,9 @@ in the wrapper instead of passing silently.
 
 Builds run at first use (``python3 chip_smoke.py`` alone builds
 everything); ``build_all`` starts one ``nvcc`` per source at once.  The
-hash of the source names the library, so an edited kernel never loads a
-stale build.  Nothing here runs at import: the CPU tests import every
-module on hosts without ``nvcc``.
+hash of the source and of the shared headers (``csrc/*.cuh``) names the
+library, so an edited kernel never loads a stale build.  Nothing here runs
+at import: the CPU tests import every module on hosts without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
-KERNELS = ("flash_prefill", "decode_attention")
+KERNELS = ("flash_prefill", "decode_attention", "chunk_attention",
+           "paged_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -53,9 +54,13 @@ def source_path(name: str) -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    digest = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(_CSRC, h)
+                                       for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build_all(names=KERNELS, verbose: bool = False) -> dict[str, str]:

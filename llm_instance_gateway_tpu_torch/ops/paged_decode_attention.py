@@ -1,0 +1,133 @@
+"""Paged decode attention: Hopper kernel, plain version, wrapper.
+
+Replaces ``llm_instance_gateway_tpu/ops/pallas_decode_attention.py::
+paged_decode_attention_pallas`` (kernel ``_paged_kernel`` with
+quant=False, entry ``paged_decode_attention``).  The kernel is
+``csrc/paged_decode_attention.cu`` (CUDA C++ for ``sm_90a``, device code
+shared with the lane kernel through ``csrc/decode_tile.cuh``): one thread
+block per (KV head, row) looks up ``tables[b, m]`` for each logical block
+it reaches and streams that physical block of the pool only up to
+``lengths[b]`` — never a gathered copy of the lane, which is what the TPU
+kernel exists to avoid.  Its bound on an H100 is the K/V bytes the lengths
+cover, ``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
+
+``paged_decode_attention`` dispatches on the tensors' device only: CPU
+tensors take ``paged_decode_attention_reference`` (the plain version: the
+pool->lane gather, then the lane kernel's plain version), CUDA tensors
+launch the kernel or raise.  The int8 scale-pool variant is not ported
+(ROADMAP Queue 1 item 10): scale pools raise.  ``launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from llm_instance_gateway_tpu_torch.ops import _build
+from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
+from llm_instance_gateway_tpu_torch.ops.decode_attention import (
+    MAX_GROUP,
+    SUPPORTED_HEAD_DIMS,
+    decode_attention_reference,
+)
+
+PAGE_MULTIPLE = 16  # block sizes the pool takes (bf16 (16, 128) tiling)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches since the count was last reset (plain int, host side).
+launches = 0
+
+
+def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                                     v_pool: torch.Tensor,
+                                     tables: torch.Tensor,
+                                     lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: each row's blocks gathered
+    into its lane view, then the lane kernel's plain version (f32 logits,
+    p cast to the value dtype before PV, length-0 rows give zeros)."""
+    return decode_attention_reference(
+        q, gather_pool_rows(k_pool, tables), gather_pool_rows(v_pool, tables),
+        lengths)
+
+
+def _check(q, k_pool, v_pool, tables, lengths) -> None:
+    if (q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape
+            or tables.dim() != 2):
+        raise ValueError("paged_decode_attention: q [B,H,hd], pools "
+                         "[n_blocks+1,P,K,hd], tables [B,M] expected, got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(tables.shape)}")
+    b, h, hd = q.shape
+    _, page, n_kv, khd = k_pool.shape
+    if tables.shape[0] != b or khd != hd or h % n_kv:
+        raise ValueError("paged_decode_attention: q, pools and tables "
+                         "disagree on B, hd or the head grouping")
+    if page % PAGE_MULTIPLE:
+        raise ValueError(f"paged_decode_attention: block size {page} is not "
+                         f"a multiple of {PAGE_MULTIPLE}")
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"paged_decode_attention: head_dim {hd} not in "
+                         f"{SUPPORTED_HEAD_DIMS}")
+    if h // n_kv > MAX_GROUP or b > 65535:
+        raise ValueError(f"paged_decode_attention: {h // n_kv} query heads "
+                         f"per KV head (max {MAX_GROUP}) or batch {b} too "
+                         "large")
+    if (q.dtype not in _DTYPES or k_pool.dtype != q.dtype
+            or v_pool.dtype != q.dtype):
+        raise ValueError(f"paged_decode_attention: dtype {q.dtype} (float32 "
+                         "or bfloat16, all three alike)")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or lengths.shape != (b,):
+        raise ValueError("paged_decode_attention: tables int32 [B,M] and "
+                         "lengths int32 [B] expected")
+    for t in (q, k_pool, v_pool, tables, lengths):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("paged_decode_attention: inputs must be "
+                             "contiguous on one device")
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError("paged_decode_attention: the pools must be "
+                             "16-byte aligned (the kernel loads 16-byte "
+                             "vectors)")
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, tables: torch.Tensor,
+                           lengths: torch.Tensor,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Cached single-token attention read through block tables.
+
+    CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
+    ``ValueError`` for a shape it does not take.  Scale pools (an int8
+    pool) raise ``NotImplementedError``."""
+    global launches
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "paged_decode_attention: int8 pools with scale pools are not "
+            "ported yet (ROADMAP Queue 1 item 10)")
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(q, k_pool, v_pool, tables,
+                                                lengths)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention: unsupported device {q.device}")
+    _check(q, k_pool, v_pool, tables, lengths)
+    b, h, hd = q.shape
+    out = torch.empty_like(q)
+    fn = _build.load("paged_decode_attention").paged_decode_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
+            tables.shape[1], k_pool.shape[1], h, k_pool.shape[2], hd,
+            _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention")
+    launches += 1
+    return out

@@ -10,13 +10,16 @@ runs on the card).
 - ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz)
 - ``POST /v1/unload_lora_adapter``  ``{"lora_name"}``
 - ``GET  /metrics``                 the ``tpu:*`` exposition the gateway scrapes
+- ``GET  /debug/kv``                the KV ledger's payload (paged pool; 404
+                                    on lanes)
 - ``GET  /health``                  200, or 503 while draining
 
 Parameters the port does not serve yet (chat, ``logprobs``, ``n`` /
 ``best_of``, penalties, ``logit_bias``, ``echo``) answer 400 instead of
 being ignored.
 
-    python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b
+    python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \
+        --max-seq-len 8192 --paged-kv-block 64 --prefix-cache --stream-lanes 2
 """
 
 from __future__ import annotations
@@ -352,6 +355,15 @@ class ModelServer:
             raise HTTPError(404, f"adapter {name!r} not loaded")
         return 200, {"status": "ok", "unloaded": name}
 
+    def debug_kv(self):
+        ledger = self.engine.kv_ledger
+        if ledger is None:
+            raise HTTPError(404, "kv ledger is disabled (non-paged cache or "
+                                 "EngineConfig.kv_ledger=False)")
+        self.engine._kv_ledger_sync()
+        return 200, {"model": self.model_name, "role": self.engine.cfg.role,
+                     **ledger.snapshot()}
+
     def metrics_text(self) -> str:
         snap = self.engine.metrics_snapshot()
         snap.setdefault("model_name", self.model_name)
@@ -403,6 +415,11 @@ def make_handler(server: ModelServer):
                            "text/plain; version=0.0.4")
             elif path == "/v1/models":
                 self._json(*server.models())
+            elif path == "/debug/kv":
+                try:
+                    self._json(*server.debug_kv())
+                except HTTPError as e:
+                    self._error(e.status, str(e))
             else:
                 self._error(404, f"no route {path}")
 
@@ -468,6 +485,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "--decode-steps")
     p.add_argument("--no-device-stops", action="store_true",
                    help="disable the device-side stop-string automata")
+    p.add_argument("--stream-lanes", type=int, default=1,
+                   help="concurrent chunk-stream lanes: how many prompts "
+                        "longer than the largest bucket may stream into "
+                        "reserved rows at once (round-robin)")
+    p.add_argument("--paged-kv-block", type=int, default=None,
+                   metavar="TOKENS",
+                   help="enable the paged KV pool with this block size (a "
+                        "multiple of 16 on the card, e.g. 64); kv metrics "
+                        "then report allocated/total blocks")
+    p.add_argument("--paged-kv-blocks", type=int, default=None, metavar="N",
+                   help="paged pool size in blocks; below "
+                        "slots*ceil(max_seq/block) oversubscribes memory for "
+                        "short-sequence traffic")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="retain finished prompts' full KV blocks "
+                        "(content-addressed, refcounted) so prompts sharing a "
+                        "prefix prefill only their suffix; requires "
+                        "--paged-kv-block")
     p.add_argument("--role", choices=("collocated", "prefill", "decode"),
                    default="collocated")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
@@ -475,14 +510,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def make_server(argv=None):
+def make_server(argv=None, params=None):
     """Build the engine and the HTTP server from CLI arguments; returns
     ``(httpd, engine, args)`` with the engine loop started.  The caller runs
-    ``httpd.serve_forever()``."""
-    args = build_parser().parse_args(argv)
+    ``httpd.serve_forever()``.  ``params`` reuses weights already on the
+    device (same model, dtype and device) instead of drawing them."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
         raise SystemExit(f"--prefill-buckets {max(args.prefill_buckets)} "
                          f"exceeds --max-seq-len {args.max_seq_len}")
+    if args.paged_kv_blocks is not None and args.paged_kv_block is None:
+        parser.error("--paged-kv-blocks requires --paged-kv-block")
+    if args.prefix_cache and args.paged_kv_block is None:
+        parser.error("--prefix-cache requires --paged-kv-block")
+    if (args.device == "cuda" and args.paged_kv_block is not None
+            and args.paged_kv_block % 16):
+        parser.error("--paged-kv-block must be a multiple of 16 on the card "
+                     "(the paged decode kernel's tile)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
@@ -492,9 +537,10 @@ def make_server(argv=None):
     if tokenizer.vocab_size > cfg.vocab_size:
         raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
                          f"model vocab {cfg.vocab_size}")
-    logger.warning("serving RANDOM weights (seed %d)", args.seed)
-    params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
-                                     device=args.device)
+    if params is None:
+        logger.warning("serving RANDOM weights (seed %d)", args.seed)
+        params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
+                                         device=args.device)
     lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device)
     engine = Engine(
         cfg, params,
@@ -508,6 +554,10 @@ def make_server(argv=None):
             decode_steps_per_sync=args.decode_steps,
             adaptive_steps=args.adaptive_steps,
             device_stops=not args.no_device_stops,
+            stream_lanes=args.stream_lanes,
+            paged_kv_block=args.paged_kv_block,
+            paged_kv_blocks=args.paged_kv_blocks,
+            prefix_cache=args.prefix_cache,
             role=args.role,
         ),
         lora_manager=lora_manager, eos_id=tokenizer.eos_id, dtype=dtype,

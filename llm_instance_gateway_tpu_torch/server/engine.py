@@ -1,12 +1,21 @@
 """Continuous-batching serving engine (port of ``server/engine.py``, the
-synchronous loop over contiguous cache lanes).
+synchronous loop).
 
 - **Prefill** runs one prompt at a time, padded to a prefill bucket, and
   samples the first token.
-- **Insert** writes the prompt KV into a free row of the decode cache
-  ``[n_layers, decode_slots, max_seq_len, n_kv, hd]``; with every slot busy
+- **Insert** writes the prompt KV into a free decode row: a contiguous
+  cache lane ``[n_layers, decode_slots, max_seq_len, n_kv, hd]``, or — with
+  ``paged_kv_block`` — pool blocks the host allocator hands the row
+  (``models/paged.py``; block 0 is the trash block).  With every slot busy
   the prompt prefills AHEAD and parks in ``decode_wait`` (KV held
-  off-cache) until a slot frees, FIFO.
+  off-cache) until a slot (and, paged, its blocks) frees, FIFO.
+- **Prefix cache** (paged): full prompt blocks are content-addressed by a
+  chained SHA-256 seeded with the adapter identity, refcounted, and kept
+  in an LRU once unreferenced; a later prompt maps the cached blocks and
+  prefills only its suffix in one chunk program.
+- **Chunk streams**: a prompt longer than the largest bucket streams into
+  a RESERVED row one chunk per engine cycle (up to ``stream_lanes`` at
+  once, round-robin), so decode keeps stepping between chunks.
 - **Generate** advances all active slots ``n_steps`` tokens per dispatch
   (``_plan_steps``, the adaptive planner) with the device-side freeze: a
   row whose budget runs out, or which emits EOS or completes a stop
@@ -16,15 +25,14 @@ synchronous loop over contiguous cache lanes).
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.  Config the port does not
-serve yet raises at construction instead of being ignored: the paged pool,
-speculative decoding, int8 KV, grouped prefill, pipelined decode, prefix
-caching and concurrent chunk-stream lanes; so does a prompt longer than the
-largest bucket (chunk streaming) at submit.
+serve yet raises at construction instead of being ignored: speculative
+decoding, int8 KV, grouped prefill and pipelined decode.
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
 import logging
 import queue as queue_mod
 import threading
@@ -35,8 +43,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.server.kv_ledger import KvLedger
 from llm_instance_gateway_tpu_torch.server.profiler import StepProfiler
 from llm_instance_gateway_tpu_torch.server.sampling import (
     LOGPROB_TOPK,
@@ -88,17 +98,13 @@ class EngineConfig:
     prefix_cache: bool = False
 
 
-# Fields the reference serves and this slice does not: (field, value the
+# Fields the reference serves and the port does not yet: (field, value the
 # port accepts, ROADMAP Queue 1 item that ports it).
 _UNSERVED = (
-    ("paged_kv_block", None, "9 (paged pool)"),
-    ("paged_kv_blocks", None, "9 (paged pool)"),
-    ("prefix_cache", False, "9 (prefix cache)"),
     ("speculative_k", 0, "12 (speculative decoding)"),
     ("kv_cache_quant", None, "10 (int8 KV)"),
     ("prefill_batch", 1, "7 (grouped prefill)"),
     ("pipeline_decode", False, "7 (pipelined decode)"),
-    ("stream_lanes", 1, "8 (chunk-stream lanes)"),
 )
 
 
@@ -156,6 +162,10 @@ class Request:
         return (self.t_first_token - self.t_submit) if self.t_first_token else 0.0
 
 
+class PagedPoolExhausted(Exception):
+    """The paged pool has no free (or evictable) block left."""
+
+
 @dataclass
 class _Slot:
     request: Request
@@ -173,6 +183,18 @@ class _WaitingPrefill:
     v: torch.Tensor
     n: int
     lora_slot: int
+
+
+@dataclass
+class _ChunkStream:
+    """A long prompt streaming into a RESERVED row one chunk per engine
+    cycle, so active decode slots keep stepping between chunks."""
+
+    request: Request
+    slot_idx: int
+    lora_slot: int
+    next_start: int = 0
+    last_logits: torch.Tensor | None = None
 
 
 class Engine:
@@ -194,8 +216,43 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         b = self.cfg.decode_slots
-        self.cache = transformer.init_decode_cache(
-            model_cfg, b, self.cfg.max_seq_len, dtype=dtype, device=self.device)
+        self.paged = self.cfg.paged_kv_block is not None
+        self.prefix_reused_tokens = 0
+        if self.paged:
+            self._block = self.cfg.paged_kv_block
+            self._max_blocks_per_seq = -(-self.cfg.max_seq_len // self._block)
+            self._n_blocks = (self.cfg.paged_kv_blocks
+                              if self.cfg.paged_kv_blocks is not None
+                              else b * self._max_blocks_per_seq)
+            self.cache = paged_lib.init_paged_cache(
+                model_cfg, b, self.cfg.max_seq_len, self._n_blocks,
+                self._block, dtype=dtype, device=self.device)
+            self._max_len = self._max_blocks_per_seq * self._block
+            # Host-side allocator: physical blocks 1..n are allocatable;
+            # block 0 is the trash block (paged_lib.TRASH_BLOCK).
+            self._free_blocks: list[int] = list(range(1, self._n_blocks + 1))
+            self._row_blocks: list[list[int]] = [[] for _ in range(b)]
+            self._tables_host = np.zeros((b, self._max_blocks_per_seq),
+                                         np.int32)
+            self._tables_dirty = False
+            # Prefix cache: chain hash -> block, block -> (hash, refs), and
+            # an LRU of zero-ref cached blocks (evicted on demand).
+            self._prefix_enabled = self.cfg.prefix_cache
+            self._prefix_table: dict[bytes, int] = {}
+            self._block_hash: dict[int, bytes] = {}
+            self._block_refs: dict[int, int] = {}
+            self._evictable: collections.OrderedDict[int, bytes] = (
+                collections.OrderedDict())
+            self._step_fn = paged_lib.decode_step_paged
+            self._chunk_fn = paged_lib.prefill_with_cache_paged
+        else:
+            self._prefix_enabled = False
+            self.cache = transformer.init_decode_cache(
+                model_cfg, b, self.cfg.max_seq_len, dtype=dtype,
+                device=self.device)
+            self._max_len = self.cfg.max_seq_len
+            self._step_fn = transformer.decode_step
+            self._chunk_fn = transformer.prefill_with_cache
         self.slots: list[_Slot | None] = [None] * b
         self._slot_tokens = np.zeros((b,), np.int64)
         self._slot_positions = np.zeros((b,), np.int64)
@@ -217,6 +274,9 @@ class Engine:
         self.decode_wait: collections.deque[_WaitingPrefill] = collections.deque()
         self._parked_kv_tokens = 0
         self._pending: Request | None = None
+        self._streams: list[_ChunkStream] = []
+        self._stream_rr = 0  # round-robin cursor over self._streams
+        self._reserved_slots: set[int] = set()
         self._work = threading.Condition()
         self._running = False
         self._draining = False
@@ -235,9 +295,15 @@ class Engine:
         }
         self.dispatch_steps_hist = Histogram(STEP_BUCKETS)
         self.usage: UsageTracker | None = (
-            UsageTracker(b) if self.cfg.usage_attribution else None)
+            UsageTracker(b, kv_block=self._block if self.paged else 1)
+            if self.cfg.usage_attribution else None)
         self.profiler: StepProfiler | None = (
             StepProfiler() if self.cfg.step_profile else None)
+        # KV economy ledger (paged pool only): charged at the allocator,
+        # prefix and park sites, recounted on every KV sync.
+        self.kv_ledger: KvLedger | None = (
+            KvLedger(self._n_blocks, self._block)
+            if self.paged and self.cfg.kv_ledger else None)
 
     # ------------------------------------------------------------------
     # device compute
@@ -253,7 +319,15 @@ class Engine:
             self.model_cfg, self.params, self._tensor(tokens),
             self._tensor(positions), lora_bufs=self._lora_buffers(),
             slot_ids=self._tensor([lora_slot]))
-        last = logits[:, true_len - 1]  # [1, V]
+        first, lp_info = self._sample_first(logits[0, true_len - 1], sp,
+                                            true_len - 1)
+        return first, k, v, lp_info
+
+    def _sample_first(self, last: torch.Tensor, sp: SamplingParams,
+                      position: int):
+        """Sample a prompt's first new token from its last logits [V].
+        Returns (token device scalar, (logprob, top-K values, top-K ids))."""
+        last = last[None]
         seed = _seed_i32(sp.seed)
         bias_ids, bias_vals = _bias_arrays(sp)
         first = sample(
@@ -261,11 +335,11 @@ class Engine:
             self._tensor([sp.top_k]), self._tensor([sp.top_p], torch.float32),
             valid_vocab=self.model_cfg.vocab_size,
             seeds=self._tensor([seed]) if seed >= 0 else None,
-            positions=self._tensor([true_len - 1]),
+            positions=self._tensor([position]),
             bias_ids=self._tensor(bias_ids[None]),
             bias_vals=self._tensor(bias_vals[None]))
         lp, top_v, top_i = logprob_info(last, first, self.model_cfg.vocab_size)
-        return first[0], k, v, (lp[0], top_v[0], top_i[0])
+        return first[0], (lp[0], top_v[0], top_i[0])
 
     def _decode_impl(self, n_steps: int):
         """``n_steps`` fused decode+sample steps with the device-side freeze.
@@ -278,7 +352,7 @@ class Engine:
         one device-to-host read."""
         cfg = self.model_cfg
         t = self._tensor
-        max_len = self.cache["k"].shape[2]
+        max_len = self._max_len
         tokens = t(self._slot_tokens)
         positions = t(self._slot_positions)
         remaining = t(self._slot_remaining)
@@ -298,7 +372,7 @@ class Engine:
         for _ in range(n_steps):
             active = remaining > 0
             safe_pos = positions.clamp(max=max_len - 1)
-            logits, self.cache = transformer.decode_step(
+            logits, self.cache = self._step_fn(
                 cfg, self.params, self.cache, tokens, safe_pos,
                 lora_bufs=lora_bufs, slot_ids=slot_ids, active=active)
             sampled = sample(logits, self._gen, temp, topk, topp,
@@ -350,6 +424,8 @@ class Engine:
             w = self.decode_wait.popleft()
             self._parked_kv_tokens -= w.k.shape[2]
             stragglers.append(w.request)
+        while self._streams:
+            stragglers.append(self._streams.pop().request)
         stragglers += [s.request for s in self.slots if s is not None]
         for req in stragglers:
             if not req.done.is_set():
@@ -359,13 +435,16 @@ class Engine:
     def _plan_steps(self) -> int:
         """Fused decode steps for the next dispatch (the adaptive planner):
         static ``decode_steps_per_sync`` when ``adaptive_steps`` <= 0, else
-        1 under admission pressure, capped by the minimum remaining budget
+        1 under admission pressure (queued prompts, a parked insert with a
+        free slot, an in-flight chunk stream), capped by the minimum remaining
+        budget
         and by ``adaptive_stream_cap`` for SSE rows, rounded down to a
         power of two."""
         ceiling = self.cfg.adaptive_steps
         if ceiling <= 0:
             return max(1, self.cfg.decode_steps_per_sync)
-        if (self._pending is not None or not self.prefill_queue.empty()
+        if (self._streams or self._pending is not None
+                or not self.prefill_queue.empty()
                 or (self.decode_wait
                     and self._free_slot_index() is not None)):
             return 1
@@ -441,11 +520,16 @@ class Engine:
         if n >= self.cfg.max_seq_len:
             raise ValueError(f"prompt length {n} exceeds max_seq_len "
                              f"{self.cfg.max_seq_len}")
-        if n > self._max_bucket():
+        if self.paged and self._paged_needed(n + 1) > self._n_blocks:
+            # Larger than the ENTIRE pool: admission could never succeed
+            # and the request would head-of-line block the engine forever.
             raise ValueError(
-                f"prompt length {n} exceeds the largest prefill bucket "
-                f"{self._max_bucket()}; chunk-stream prefill is not served by "
-                "the torch port yet (ROADMAP Queue 1 item 8)")
+                f"prompt needs {self._paged_needed(n + 1)} KV blocks but the "
+                f"pool has {self._n_blocks}")
+        if self._max_bucket() <= 0:
+            raise ValueError(
+                f"no usable prefill bucket <= max_seq_len "
+                f"{self.cfg.max_seq_len}: {self.cfg.prefill_buckets}")
 
     def submit(self, request: Request) -> Request:
         """Enqueue; raises queue.Full when saturated."""
@@ -497,6 +581,9 @@ class Engine:
         for s in self.slots:
             if s is not None and s.request.adapter:
                 running.add(s.request.adapter)
+        for stream in list(self._streams):
+            if stream.request.adapter:
+                running.add(stream.request.adapter)
         try:
             for w in list(self.decode_wait):
                 if w.request.adapter:
@@ -510,8 +597,18 @@ class Engine:
 
     def metrics_snapshot(self) -> dict:
         active = sum(1 for s in self.slots if s is not None)
-        used_tokens = sum(s.position for s in self.slots if s is not None)
-        capacity = self.cfg.decode_slots * self.cfg.max_seq_len
+        if self.paged:
+            # vLLM gpu_cache_usage_perc: allocated / total blocks.  Zero-ref
+            # cached prefix blocks are reclaimable on demand, so they count
+            # as free for routing pressure.
+            capacity = self._n_blocks * self._block
+            used_tokens = (self._n_blocks - len(self._free_blocks)
+                           - len(self._evictable)) * self._block
+        else:
+            used_tokens = sum(
+                s.position for s in self.slots if s is not None) + sum(
+                st.next_start for st in list(self._streams))
+            capacity = self.cfg.decode_slots * self.cfg.max_seq_len
         parked = self._parked_kv_tokens
         used_tokens += parked
         with self._lock:
@@ -519,9 +616,10 @@ class Engine:
             phase_hist = {k: h.state() for k, h in self.phase_hist.items()}
             steps_hist = self.dispatch_steps_hist.state()
         running_adapters, waiting_adapters = self._adapter_activity()
+        # In-flight chunk streams count as prefilling.
         prefill_depth = (self.prefill_queue.qsize()
                          + (1 if self._pending is not None else 0)
-                         + self._admitting)
+                         + len(self._streams) + self._admitting)
         decode_depth = len(self.decode_wait)
         residency = {}
         if self.lora is not None:
@@ -547,13 +645,23 @@ class Engine:
             **residency,
             "dispatch_steps_hist": steps_hist,
             "stream_lanes": max(1, self.cfg.stream_lanes),
-            "stream_lanes_active": 0,
+            "stream_lanes_active": len(self._streams),
             "phase_hist": phase_hist,
             **({"usage": self.usage.snapshot()}
                if self.usage is not None else {}),
             **({"profile": self.profiler.hist_state()}
                if self.profiler is not None else {}),
+            **({"kv_ledger": self._kv_ledger_synced_snapshot()}
+               if self.kv_ledger is not None else {}),
+            **({"prefix_reused_tokens": self.prefix_reused_tokens}
+               if self._prefix_enabled else {}),
         }
+
+    def _kv_ledger_synced_snapshot(self) -> dict:
+        """The ledger's payload, recounted first so a scrape between
+        dispatches sees current block states."""
+        self._kv_ledger_sync()
+        return self.kv_ledger.snapshot()
 
     # ------------------------------------------------------------------
     # engine loop
@@ -561,11 +669,12 @@ class Engine:
 
     def _free_slot_index(self) -> int | None:
         for i, s in enumerate(self.slots):
-            if s is None:
+            if s is None and i not in self._reserved_slots:
                 return i
         return None
 
     def _clear_slot(self, i: int) -> None:
+        """Release a decode row (and, when paged, its pool blocks)."""
         self.slots[i] = None
         self._slot_lora[i] = -1
         self._slot_remaining[i] = 0
@@ -578,6 +687,210 @@ class Engine:
         self._slot_seed[i] = -1
         self._slot_bias_ids[i] = -1
         self._slot_bias_vals[i] = 0.0
+        if self.paged:
+            self._paged_free_row(i)
+
+    # -- paged-pool allocator (host side; the device sees table contents) --
+
+    def _paged_needed(self, upto_len: int) -> int:
+        return min(-(-upto_len // self._block), self._max_blocks_per_seq)
+
+    def _paged_can_admit(self, n_prompt: int,
+                         prompt: list[int] | None = None,
+                         adapter: str | None = None,
+                         hashes: list[bytes] | None = None) -> bool:
+        """Capacity gate.  With ``prompt`` given, cached-prefix blocks that
+        would map at zero cost come off the need — but a matched block
+        sitting zero-ref in the evictable LRU gets PINNED by the map, so it
+        cannot count toward the available blocks too."""
+        if not self.paged:
+            return True
+        avail = len(self._free_blocks) + (
+            len(self._evictable) if self._prefix_enabled else 0)
+        needed = self._paged_needed(n_prompt + 1)
+        if needed <= avail:
+            return True
+        if prompt is None:
+            return False
+        matched = self._prefix_match_blocks(prompt, adapter, hashes)
+        reuse_needed = needed - min(len(matched), needed)
+        reuse_avail = avail - sum(1 for b in matched if b in self._evictable)
+        return reuse_needed <= reuse_avail
+
+    def _paged_alloc_block(self) -> int:
+        """One free physical block, evicting the LRU zero-ref cached block
+        when the free list is dry.  Raises ``PagedPoolExhausted``."""
+        if self._free_blocks:
+            blk = self._free_blocks.pop()
+            if self.kv_ledger is not None:
+                self.kv_ledger.note_alloc()
+            return blk
+        if self._prefix_enabled and self._evictable:
+            blk, h = self._evictable.popitem(last=False)  # LRU
+            self._prefix_table.pop(h, None)
+            self._block_hash.pop(blk, None)
+            self._block_refs.pop(blk, None)
+            if self.kv_ledger is not None:
+                self.kv_ledger.note_evict(h.hex()[:16])
+                self.kv_ledger.note_alloc()
+            return blk
+        raise PagedPoolExhausted(
+            f"kv pool exhausted: {self._n_blocks} blocks of {self._block} "
+            "tokens all allocated")
+
+    def _paged_ensure(self, row: int, upto_len: int) -> None:
+        """Grow ``row``'s table to cover positions < upto_len.  Raises
+        ``PagedPoolExhausted``, leaving the row's blocks intact."""
+        blocks = self._row_blocks[row]
+        needed = self._paged_needed(upto_len)
+        while len(blocks) < needed:
+            blk = self._paged_alloc_block()
+            blocks.append(blk)
+            self._tables_host[row, len(blocks) - 1] = blk
+            self._tables_dirty = True
+
+    def _paged_free_row(self, row: int) -> None:
+        blocks = self._row_blocks[row]
+        if not blocks:
+            return
+        freed = cached = 0
+        for blk in blocks:
+            h = self._block_hash.get(blk)
+            if h is None:
+                self._free_blocks.append(blk)
+                freed += 1
+            else:
+                # Cached prefix block: drop this row's reference; at zero
+                # it parks in the evictable LRU (content kept).
+                self._block_refs[blk] -= 1
+                if self._block_refs[blk] == 0:
+                    self._evictable[blk] = h  # fresh key -> MRU end
+                    cached += 1
+        if self.kv_ledger is not None:
+            self.kv_ledger.note_release(freed, cached)
+        self._row_blocks[row] = []
+        self._tables_host[row, :] = paged_lib.TRASH_BLOCK
+        self._tables_dirty = True
+
+    # -- prefix cache (content-addressed full prompt blocks) --
+
+    def _prefix_hashes(self, prompt: list[int], max_blocks: int,
+                       adapter: str | None) -> list[bytes]:
+        """Chained SHA-256 digests of the first ``max_blocks`` full prompt
+        blocks, seeded with the adapter identity (KV depends on the
+        adapter's k/v deltas).  Cryptographic, not ``hash()``: a collision
+        would map another prompt's KV into this request."""
+        bs = self._block
+        h = hashlib.sha256(repr(adapter).encode()).digest()
+        out = []
+        for i in range(max_blocks):
+            h = hashlib.sha256(
+                h + np.asarray(prompt[i * bs:(i + 1) * bs], np.int64).tobytes()
+            ).digest()
+            out.append(h)
+        return out
+
+    def _prefix_hashes_for(self, req: Request) -> list[bytes]:
+        """The request's hash chain, memoized: backpressured admission
+        re-checks the same pending request every engine cycle."""
+        memo = getattr(req, "_prefix_hash_memo", None)
+        if memo is None:
+            memo = self._prefix_hashes(
+                req.prompt_tokens,
+                (len(req.prompt_tokens) - 1) // self._block, req.adapter)
+            req._prefix_hash_memo = memo
+        return memo
+
+    def _prefix_match_blocks(self, prompt: list[int], adapter: str | None,
+                             hashes: list[bytes] | None = None) -> list[int]:
+        """Dry run of the hash walk: the blocks that would map (no incref)."""
+        if not self._prefix_enabled:
+            return []
+        if hashes is None:
+            hashes = self._prefix_hashes(
+                prompt, (len(prompt) - 1) // self._block, adapter)
+        out = []
+        for h in hashes:
+            blk = self._prefix_table.get(h)
+            if blk is None:
+                break
+            out.append(blk)
+        return out
+
+    def _prefix_match_and_map(self, row: int, prompt: list[int],
+                              adapter: str | None,
+                              hashes: list[bytes] | None = None) -> int:
+        """Map the longest cached prefix into ``row``'s table (increfs).
+        Returns the reused TOKENS (a multiple of the block size); the
+        prompt's last token always recomputes, for fresh logits."""
+        if not self._prefix_enabled:
+            return 0
+        blocks = self._row_blocks[row]
+        assert not blocks, "prefix map must precede suffix allocation"
+        if hashes is None:
+            hashes = self._prefix_hashes(
+                prompt, (len(prompt) - 1) // self._block, adapter)
+        for h in hashes:
+            blk = self._prefix_table.get(h)
+            if blk is None:
+                break
+            self._block_refs[blk] += 1
+            self._evictable.pop(blk, None)  # in use again
+            blocks.append(blk)
+            self._tables_host[row, len(blocks) - 1] = blk
+            self._tables_dirty = True
+        reused = len(blocks) * self._block
+        self.prefix_reused_tokens += reused
+        if reused and self.kv_ledger is not None:
+            # Prefix id: hex of the DEEPEST matched chain hash (the same on
+            # every replica for the same adapter and tokens).
+            self.kv_ledger.note_reuse_hit(
+                hashes[len(blocks) - 1].hex()[:16], len(blocks), reused)
+        return reused
+
+    def _prefix_register_row(self, row: int, prompt: list[int],
+                             adapter: str | None,
+                             hashes: list[bytes] | None = None) -> None:
+        """Once a prompt is wholly in the row's blocks, publish its full
+        blocks so later prompts can share them."""
+        if not self._prefix_enabled:
+            return
+        blocks = self._row_blocks[row]
+        if hashes is None:
+            hashes = self._prefix_hashes(
+                prompt, (len(prompt) - 1) // self._block, adapter)
+        for i, h in enumerate(hashes):
+            blk = blocks[i]
+            if self._block_hash.get(blk) is not None:
+                continue  # already a cached block (mapped via reuse)
+            if h in self._prefix_table:
+                continue  # another live block already serves this content
+            self._block_hash[blk] = h
+            self._prefix_table[h] = blk
+            self._block_refs[blk] = 1
+        if hashes and self.kv_ledger is not None:
+            self.kv_ledger.note_register(hashes[-1].hex()[:16], len(hashes))
+
+    def _kv_note_reuse_unwind(self, req: Request, reused: int) -> None:
+        """Ledger mirror of a reuse unwind, where ``prefix_reused_tokens``
+        is decremented."""
+        if self.kv_ledger is None or not reused:
+            return
+        blocks = reused // self._block
+        hashes = self._prefix_hashes_for(req)
+        self.kv_ledger.note_reuse_unwind(
+            hashes[blocks - 1].hex()[:16], blocks, reused)
+
+    def _sync_tables(self) -> None:
+        """Push host-side table changes to the device copy in the cache.
+        COPY, never alias: on the CPU ``torch.from_numpy`` and
+        ``torch.as_tensor`` share the numpy buffer, so the cache's in-place
+        table writes (``insert_prefill_paged``) would reach the allocator's
+        host table, and host edits would reach the device copy unsynced."""
+        if self.paged and self._tables_dirty:
+            self.cache["tables"] = torch.tensor(
+                self._tables_host, dtype=torch.int32, device=self.device)
+            self._tables_dirty = False
 
     def _bucket(self, n: int) -> int:
         for b in self.cfg.prefill_buckets:
@@ -596,6 +909,11 @@ class Engine:
         with torch.no_grad():
             while self._running:
                 did_work = self._admit_and_insert()
+                # One chunk of ONE in-flight long-prompt stream (round-robin
+                # across lanes); decode blocks run between chunks.
+                if self._streams:
+                    self._stream_step()
+                    did_work = True
                 if any(s is not None for s in self.slots):
                     try:
                         self._do_decode_step()
@@ -613,7 +931,9 @@ class Engine:
         """Drain decode_wait into freed slots, direct-prefill into free
         slots, prefill AHEAD when slots are full.  FIFO: decode_wait drains
         before the raw queue, and a direct prefill only happens when nothing
-        is parked."""
+        is parked — whether the head waits on a slot or on pool blocks.
+        Prompts beyond the largest bucket stream into a reserved row, so
+        with no lane free they head-of-line block as ``_pending``."""
         did = self._drain_decode_wait()
         cap = (self.cfg.decode_wait_cap if self.cfg.decode_wait_cap is not None
                else self.cfg.decode_slots)
@@ -629,9 +949,27 @@ class Engine:
                 self._finish(req, "cancelled")
                 did = True
                 continue
+            n_req = len(req.prompt_tokens)
             if self._free_slot_index() is not None:
                 if self.decode_wait:
-                    break
+                    break  # the parked head waits on blocks: strict FIFO
+                if not self._paged_can_admit(
+                        n_req, req.prompt_tokens, req.adapter,
+                        hashes=(self._prefix_hashes_for(req)
+                                if self._prefix_enabled else None)):
+                    break  # pool backpressure: wait for block frees
+                if n_req > self._max_bucket():
+                    if not self._lane_available(n_req):
+                        break  # no lane (count or KV pressure); head waits
+                    self._pending = None
+                    self._admitting += 1
+                    try:
+                        if not self._start_stream(req):
+                            break  # reparked for backpressure
+                    finally:
+                        self._admitting -= 1
+                    did = True
+                    continue
                 self._pending = None
                 self._admitting += 1
                 try:
@@ -640,7 +978,7 @@ class Engine:
                     self._admitting -= 1
                 did = True
                 continue
-            if len(self.decode_wait) < cap:
+            if n_req <= self._max_bucket() and len(self.decode_wait) < cap:
                 self._pending = None
                 self._admitting += 1
                 try:
@@ -652,23 +990,38 @@ class Engine:
             break
         return did
 
-    def _drain_decode_wait(self) -> bool:
-        did = False
+    def _sweep_decode_wait(self) -> bool:
+        """Drop cancelled entries ANYWHERE in decode_wait, freeing their
+        parked KV even while older work blocks the front."""
         keep = collections.deque()
-        for w in self.decode_wait:  # cancelled entries anywhere free their KV
+        swept = False
+        for w in self.decode_wait:
             if w.request.cancelled.is_set():
                 self._parked_kv_tokens -= w.k.shape[2]
+                if self.kv_ledger is not None:
+                    self.kv_ledger.note_sweep(int(w.k.shape[2]), "cancelled")
                 self._finish(w.request, "cancelled")
-                did = True
+                swept = True
             else:
                 keep.append(w)
-        self.decode_wait = keep
+        if swept:
+            self.decode_wait = keep
+            self._usage_sync_kv()
+        return swept
+
+    def _drain_decode_wait(self) -> bool:
+        did = self._sweep_decode_wait()
         while self.decode_wait:
             slot_idx = self._free_slot_index()
             if slot_idx is None:
                 break
-            w = self.decode_wait.popleft()
+            w = self.decode_wait[0]
+            if not self._paged_can_admit(w.n):
+                break  # pool backpressure: KV stays parked off-cache
+            self.decode_wait.popleft()
             self._parked_kv_tokens -= w.k.shape[2]
+            if self.kv_ledger is not None:
+                self.kv_ledger.note_unpark(int(w.k.shape[2]))
             self._admitting += 1
             try:
                 self._insert_waiting(slot_idx, w)
@@ -689,35 +1042,122 @@ class Engine:
         return self._prefill_impl(tokens, positions, n, lora_slot,
                                   req.sampling)
 
+    def _prefill_common(self, req: Request):
+        """Bucketed admission into a free row: a prefix-cache hit prefills
+        only the suffix (``_prefix_bucket_prefill``), anything else runs the
+        bucketed program and inserts its KV.
+        Returns (slot_idx, first_token, n, lora_slot, lp_info)."""
+        self._stamp_prefill_start(req)
+        slot_idx = self._free_slot_index()
+        n = len(req.prompt_tokens)
+        lora_slot = (self.lora.slot_for(req.adapter)
+                     if self.lora is not None else -1)
+        if self._prefix_enabled:
+            res = self._prefix_bucket_prefill(req, slot_idx, n, lora_slot)
+            if res is not None:
+                return res
+        first_token, k, v, lp_info = self._bucket_prefill(req, n, lora_slot)
+        self._insert_prompt_kv(k, v, slot_idx, n)
+        self._prefix_register_row(slot_idx, req.prompt_tokens, req.adapter)
+        return slot_idx, first_token, n, lora_slot, lp_info
+
+    def _prefix_bucket_prefill(self, req: Request, slot_idx: int, n: int,
+                               lora_slot: int):
+        """Map the cached prefix blocks into the row (zero compute), then
+        run ONE chunk program over the suffix, padded to the suffix's own
+        bucket and attending the mapped prefix through the row's table.
+        Returns the ``_prefill_common`` tuple, or None when nothing cached
+        matched (the caller runs the plain bucketed program)."""
+        reused = self._prefix_match_and_map(
+            slot_idx, req.prompt_tokens, req.adapter,
+            hashes=self._prefix_hashes_for(req))
+        if reused == 0:
+            return None
+        try:
+            self._paged_ensure(slot_idx, n)
+        except PagedPoolExhausted:
+            # The gate may have admitted on the plain path's feasibility:
+            # unwind the map (the blocks return to the LRU) and fall back to
+            # the full-prompt program, which can evict them.
+            self._paged_free_row(slot_idx)
+            self.prefix_reused_tokens -= reused
+            self._kv_note_reuse_unwind(req, reused)
+            return None
+        try:
+            self._sync_tables()
+            c = n - reused
+            bucket = self._bucket(c)
+            self._note_padding(bucket - c)
+            tokens = np.zeros((bucket,), np.int64)
+            tokens[:c] = req.prompt_tokens[reused:]
+            positions = reused + np.arange(bucket, dtype=np.int64)
+            last_logits, self.cache = self._chunk_fn(
+                self.model_cfg, self.params, self.cache, tokens, positions,
+                slot_idx, n, c - 1, lora_bufs=self._lora_buffers(),
+                lora_slot=lora_slot)
+            self._prefix_register_row(slot_idx, req.prompt_tokens,
+                                      req.adapter,
+                                      hashes=self._prefix_hashes_for(req))
+            first_token, lp_info = self._sample_first(last_logits,
+                                                      req.sampling, n - 1)
+        except BaseException:
+            # Never strand the mapped prefix refs or fresh suffix blocks.
+            self._paged_free_row(slot_idx)
+            self.prefix_reused_tokens -= reused
+            self._kv_note_reuse_unwind(req, reused)
+            raise
+        return slot_idx, first_token, n, lora_slot, lp_info
+
+    def _insert_prompt_kv(self, k, v, slot_idx: int, n: int) -> None:
+        """Write a bucketed prefill's KV into the cache (lane or pool)."""
+        if not self.paged:
+            self.cache = transformer.insert_prefill(self.cache, k, v,
+                                                    slot_idx, n)
+            return
+        try:
+            self._paged_ensure(slot_idx, n)
+        except PagedPoolExhausted:
+            self._paged_free_row(slot_idx)
+            raise
+        nb_bucket = -(-k.shape[2] // self._block)
+        row_bl = self._row_blocks[slot_idx]
+        # Wholly-padding bucket blocks write the trash block.
+        phys = row_bl + [paged_lib.TRASH_BLOCK] * (nb_bucket - len(row_bl))
+        self._sync_tables()
+        self.cache = paged_lib.insert_prefill_paged(
+            self.cache, k, v, slot_idx, phys, self._tables_host[slot_idx], n)
+
     def _do_prefill(self, req: Request) -> None:
         if req.cancelled.is_set():
             self._finish(req, "cancelled")
             return
+        slot_idx = None
+        registered = False
         try:
-            self._stamp_prefill_start(req)
-            slot_idx = self._free_slot_index()
-            n = len(req.prompt_tokens)
-            lora_slot = (self.lora.slot_for(req.adapter)
-                         if self.lora is not None else -1)
-            first_token, k, v, lp_info = self._bucket_prefill(req, n, lora_slot)
-            self.cache = transformer.insert_prefill(self.cache, k, v,
-                                                    slot_idx, n)
+            slot_idx, first_token, n, lora_slot, lp_info = (
+                self._prefill_common(req))
             tok = int(first_token)
             if self._emit_first_token(req, tok, lp_info):
-                return
+                return  # finished at prefill; the finally frees its blocks
             self._register_slot(slot_idx, _Slot(request=req,
                                                 lora_slot=lora_slot,
                                                 position=n))
+            registered = True
             self._slot_tokens[slot_idx] = tok
             self._slot_positions[slot_idx] = n
         except Exception as e:  # engine must survive a poison request
             logger.exception("prefill failed for %s", req.request_id)
             req.error = str(e)
             self._finish(req, "error")
+        finally:
+            if self.paged and slot_idx is not None and not registered:
+                # A slot-less row would strand its blocks forever.
+                self._paged_free_row(slot_idx)
 
     def _do_prefill_ahead(self, req: Request) -> None:
-        """Prefill with NO slot: the prompt KV parks in decode_wait and the
-        first token is emitted now (TTFT is prefill-bound, not slot-bound)."""
+        """Prefill with NO slot: the prompt KV parks in decode_wait (off the
+        cache and the pool) and the first token is emitted now (TTFT is
+        prefill-bound, not slot-bound)."""
         if req.cancelled.is_set():
             self._finish(req, "cancelled")
             return
@@ -734,6 +1174,8 @@ class Engine:
                 request=req, first_token=tok, k=k, v=v, n=n,
                 lora_slot=lora_slot))
             self._parked_kv_tokens += k.shape[2]
+            if self.kv_ledger is not None:
+                self.kv_ledger.note_park(int(k.shape[2]), "prefill_ahead")
             self._usage_sync_kv()
         except Exception as e:
             logger.exception("prefill-ahead failed for %s", req.request_id)
@@ -743,8 +1185,9 @@ class Engine:
     def _insert_waiting(self, slot_idx: int, w: _WaitingPrefill) -> None:
         req = w.request
         try:
-            self.cache = transformer.insert_prefill(self.cache, w.k, w.v,
-                                                    slot_idx, w.n)
+            self._insert_prompt_kv(w.k, w.v, slot_idx, w.n)
+            self._prefix_register_row(slot_idx, req.prompt_tokens,
+                                      req.adapter)
             self._register_slot(slot_idx, _Slot(
                 request=req, lora_slot=w.lora_slot, position=w.n))
             self._slot_tokens[slot_idx] = w.first_token
@@ -753,6 +1196,142 @@ class Engine:
             logger.exception("decode-wait insert failed for %s", req.request_id)
             req.error = str(e)
             self._finish(req, "error")
+            if self.paged:
+                # No slot was registered, so no _clear_slot frees the row.
+                self._paged_free_row(slot_idx)
+
+    # ------------------------------------------------------------------
+    # interleaved long-prompt streaming (one chunk per engine cycle)
+    # ------------------------------------------------------------------
+
+    def _lane_available(self, n_prompt: int) -> bool:
+        """May a new chunk stream take a reserved row now?  Bounded by
+        ``stream_lanes``; lanes beyond the first also require the paged
+        pool to keep a growth block per active decode row after the
+        stream's whole-prompt allocation."""
+        if len(self._streams) >= max(1, self.cfg.stream_lanes):
+            return False
+        if not self._streams or not self.paged:
+            return True
+        active = sum(1 for s in self.slots if s is not None)
+        avail = len(self._free_blocks) + (
+            len(self._evictable) if self._prefix_enabled else 0)
+        return avail - self._paged_needed(n_prompt + 1) >= active
+
+    def _start_stream(self, req: Request) -> bool:
+        """Reserve a free row and begin streaming a long prompt into it.
+        The row is held out of ``_free_slot_index`` (not a live slot, so
+        decode skips it).  Paged: cached prefix blocks map first, then the
+        WHOLE prompt's blocks are allocated at once, so admissions and
+        decode growth between chunks cannot drain the pool under the
+        stream.  Returns False only when the request was reparked for
+        backpressure."""
+        if req.cancelled.is_set():
+            self._finish(req, "cancelled")
+            return True
+        self._stamp_prefill_start(req)
+        try:
+            slot_idx = self._free_slot_index()
+            lora_slot = (self.lora.slot_for(req.adapter)
+                         if self.lora is not None else -1)
+        except Exception as e:
+            logger.exception("stream admission failed for %s", req.request_id)
+            req.error = str(e)
+            self._finish(req, "error")
+            return True
+        self._reserved_slots.add(slot_idx)
+        reused = 0
+        if self.paged:
+            try:
+                reused = self._prefix_match_and_map(
+                    slot_idx, req.prompt_tokens, req.adapter)
+                self._paged_ensure(slot_idx, len(req.prompt_tokens))
+                self._sync_tables()
+            except PagedPoolExhausted:
+                # Defensive (the gate should prevent this): repark as the
+                # head-of-line request and retry when blocks free.
+                self._paged_free_row(slot_idx)
+                self._reserved_slots.discard(slot_idx)
+                self.prefix_reused_tokens -= reused
+                self._kv_note_reuse_unwind(req, reused)
+                self._pending = req
+                return False
+        self._streams.append(_ChunkStream(request=req, slot_idx=slot_idx,
+                                          lora_slot=lora_slot,
+                                          next_start=reused))
+        return True
+
+    def _abort_stream(self, st: _ChunkStream, reason: str) -> None:
+        if st in self._streams:
+            self._streams.remove(st)
+        self._reserved_slots.discard(st.slot_idx)
+        if self.paged:
+            self._paged_free_row(st.slot_idx)
+        self._finish(st.request, reason)
+
+    def _stream_step(self) -> None:
+        """Run ONE chunk of ONE in-flight stream (the cursor rotates across
+        lanes).  On a stream's final chunk, sample the first token and turn
+        its row into a live decode slot."""
+        if not self._streams:
+            return
+        self._stream_rr %= len(self._streams)
+        st = self._streams[self._stream_rr]
+        self._stream_rr += 1
+        req = st.request
+        if req.cancelled.is_set():
+            self._abort_stream(st, "cancelled")
+            return
+        chunk = self._max_bucket()
+        prompt = req.prompt_tokens
+        n = len(prompt)
+        start = st.next_start
+        piece = prompt[start:start + chunk]
+        c = len(piece)
+        tokens = np.zeros((chunk,), np.int64)
+        tokens[:c] = piece
+        positions = start + np.arange(chunk, dtype=np.int64)
+        try:
+            if self.paged:
+                self._paged_ensure(st.slot_idx, start + c)
+                self._sync_tables()
+            st.last_logits, self.cache = self._chunk_fn(
+                self.model_cfg, self.params, self.cache, tokens, positions,
+                st.slot_idx, start + c, c - 1,
+                lora_bufs=self._lora_buffers(), lora_slot=st.lora_slot)
+        except Exception as e:  # engine must survive a poison request
+            logger.exception("chunk stream failed for %s", req.request_id)
+            req.error = str(e)
+            self._abort_stream(st, "error")
+            return
+        st.next_start = start + c
+        if st.next_start < n:
+            return  # more chunks; the loop decodes before the next one
+        # Final chunk: publish the prompt's full blocks for prefix reuse,
+        # sample the first token, then activate the row as a live slot.
+        if self.paged:
+            self._prefix_register_row(st.slot_idx, prompt, req.adapter)
+        self._streams.remove(st)
+        self._reserved_slots.discard(st.slot_idx)
+        slot_idx = st.slot_idx
+        try:
+            first_token, lp_info = self._sample_first(st.last_logits,
+                                                      req.sampling, n - 1)
+            tok = int(first_token)
+            if self._emit_first_token(req, tok, lp_info):
+                if self.paged:  # finished at prefill; free the row's blocks
+                    self._paged_free_row(slot_idx)
+                return
+            self._register_slot(slot_idx, _Slot(
+                request=req, lora_slot=st.lora_slot, position=n))
+            self._slot_tokens[slot_idx] = tok
+            self._slot_positions[slot_idx] = n
+        except Exception as e:
+            logger.exception("stream activation failed for %s", req.request_id)
+            req.error = str(e)
+            self._finish(req, "error")
+            if self.paged and self.slots[slot_idx] is None:
+                self._paged_free_row(slot_idx)
 
     def _register_slot(self, slot_idx: int, slot: _Slot) -> None:
         sp = slot.request.sampling
@@ -804,13 +1383,33 @@ class Engine:
         if self.profiler is not None:
             self.profiler.note_padding(pad_tokens)
 
+    def _kv_ledger_sync(self) -> None:
+        """Recount the KV ledger's block states from the allocator's ground
+        truth: the free list, DISTINCT blocks across row tables (a shared
+        prefix block mapped into several rows is one block) and the
+        evictable LRU."""
+        if self.kv_ledger is None:
+            return
+        distinct: set[int] = set()
+        for blocks in self._row_blocks:
+            distinct.update(blocks)
+        self.kv_ledger.sync_states(self._free_blocks, len(distinct),
+                                   len(self._evictable),
+                                   self._parked_kv_tokens)
+
     def _usage_sync_kv(self) -> None:
+        """Refresh the KV-holdings integral (active rows at their position,
+        parked KV at its padded size, streams at their filled prefix); the
+        KV ledger's recount rides the same call sites."""
+        self._kv_ledger_sync()
         if self.usage is None:
             return
         holdings = [(s.request.adapter, s.position)
                     for s in self.slots if s is not None]
         holdings += [(w.request.adapter, w.k.shape[2])
                      for w in self.decode_wait]
+        holdings += [(st.request.adapter, st.next_start)
+                     for st in self._streams if st.next_start > 0]
         self.usage.sync_kv(holdings)
 
     @staticmethod
@@ -844,8 +1443,29 @@ class Engine:
             return True
         return False
 
+    def _paged_ensure_decode(self, n_steps: int) -> None:
+        """Pre-dispatch block growth for every active row; a row the
+        exhausted pool cannot grow fails with "kv pool exhausted" without
+        touching the batch."""
+        if not self.paged:
+            return
+        for i, slot in enumerate(self.slots):
+            if slot is None:
+                continue
+            target = min(slot.position + n_steps + 1, self.cfg.max_seq_len)
+            try:
+                self._paged_ensure(i, target)
+            except PagedPoolExhausted as e:
+                req = slot.request
+                logger.warning("kv pool exhausted; failing %s", req.request_id)
+                req.error = str(e)
+                self._finish(req, "error")
+                self._clear_slot(i)
+        self._sync_tables()
+
     def _do_decode_step(self) -> None:
         n_steps = self._plan_steps()
+        self._paged_ensure_decode(n_steps)
         t0 = time.perf_counter()
         out = self._decode_impl(n_steps)  # [n_steps, B, 3 + 2K], host
         step_s = time.perf_counter() - t0

@@ -4,13 +4,14 @@ The port's own copy of the reference's ``server/metrics.py``: the same
 ``tpu:*`` family names and label sets, so the unchanged gateway
 (``gateway/metrics_client.py``) scrapes a torch pod exactly like a JAX
 pod.  Only the families the port's engine produces are rendered (no
-paged-pool ledger, prefix cache, speculation or chunk streams yet).
+speculation yet).
 """
 
 from __future__ import annotations
 
 import time
 
+from llm_instance_gateway_tpu_torch.server.kv_ledger import render_kv
 from llm_instance_gateway_tpu_torch.server.profiler import render_profile
 from llm_instance_gateway_tpu_torch.server.usage import render_usage
 from llm_instance_gateway_tpu_torch.tracing import escape_label, render_histogram
@@ -94,6 +95,11 @@ def render(snapshot: dict, extra: dict | None = None) -> str:
             "# TYPE tpu:pool_role gauge",
             'tpu:pool_role{role="%s"} 1' % escape_label(snapshot["pool_role"]),
         ]
+    if "prefix_reused_tokens" in snapshot:
+        lines += [
+            "# TYPE tpu:prefix_reused_tokens counter",
+            f"tpu:prefix_reused_tokens {snapshot['prefix_reused_tokens']}",
+        ]
     if "stream_lanes" in snapshot:
         lines += [
             "# TYPE tpu:stream_lanes gauge",
@@ -113,6 +119,8 @@ def render(snapshot: dict, extra: dict | None = None) -> str:
                 lines += render_histogram(family, phase_hist[key], labels)
     if snapshot.get("usage"):
         lines += render_usage(snapshot["usage"], snapshot.get("model_name", ""))
+    if snapshot.get("kv_ledger"):
+        lines += render_kv(snapshot["kv_ledger"])
     if snapshot.get("profile"):
         lines += render_profile(snapshot["profile"])
     for name, value in (extra or {}).items():

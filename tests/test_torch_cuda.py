@@ -5,20 +5,39 @@ decided inside the fixture, never at import.  Run on the card with
 
     python -m pytest tests/test_torch_cuda.py
 
-Tolerances: f32 inputs agree to summation order (1e-4); bf16 outputs to
-about two bf16 ulps at |x| ~ 1 (2e-2).
+Tolerances are per output vector (the hd values of one query head): its
+largest error over its largest |value| in the plain version, since the
+outputs shrink as 1/sqrt(keys) on long rows, where a flat absolute limit
+would pass a skipped K/V tile.  f32 agrees to summation order (1e-4);
+bf16 to 4 ulps at 2^-8 (2^-6), one ulp being the output's own rounding.
+The flat absolute limits (f32 1e-4, bf16 2e-2) stay as a ceiling.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch  # noqa: E402
 from llm_instance_gateway_tpu_torch.ops import decode_attention as dec  # noqa: E402
 from llm_instance_gateway_tpu_torch.ops import flash_attention as fl  # noqa: E402
+from llm_instance_gateway_tpu_torch.ops import (  # noqa: E402
+    paged_decode_attention as pd,
+)
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SCALED_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+ABS_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def assert_close(got, want, dtype):
+    """Each output vector's largest error over its largest |value| within
+    SCALED_TOL, and every error within ABS_TOL."""
+    g, w = got.float(), want.float()
+    num = (g - w).abs().amax(-1)
+    scaled = (num / w.abs().amax(-1).clamp_min(1e-30)).max().item()
+    assert scaled < SCALED_TOL[dtype], scaled
+    assert num.max().item() < ABS_TOL[dtype]
 
 
 @pytest.fixture
@@ -45,7 +64,7 @@ def test_flash_matches_plain_version(dev, dtype, s, h, k, hd):
     torch.cuda.synchronize()
     assert fl.launches == before + 1
     want = fl.flash_attention_reference(q, kk, v)
-    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+    assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -63,8 +82,64 @@ def test_decode_matches_plain_version(dev, dtype, h, k, hd):
     torch.cuda.synchronize()
     assert dec.launches == before + 1
     want = dec.decode_attention_reference(q, kc, vc, lengths)
-    assert (got.float() - want.float()).abs().max().item() < TOL[dtype]
+    assert_close(got, want, dtype)
     assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,s_max,start,h,k,hd", [
+    (1024, 8192, 0, 8, 2, 128), (1024, 8192, 5120, 8, 2, 128),
+    (64, 8192, 640, 32, 8, 128), (100, 300, 37, 8, 1, 64),
+    (64, 96, 80, 4, 2, 256)])  # the last: pad queries run past S_max
+def test_chunk_matches_plain_version(dev, dtype, c, s_max, start, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(c + start)
+    q = randn(gen, 1, c, h, hd, dtype=dtype)
+    kc = randn(gen, 1, s_max, k, hd, dtype=dtype)
+    vc = randn(gen, 1, s_max, k, hd, dtype=dtype)
+    before = ch.launches
+    got = ch.chunk_attention(q, kc, vc, start)
+    torch.cuda.synchronize()
+    assert ch.launches == before + 1
+    want = ch.chunk_attention_reference(q, kc, vc, start)
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,h,k,hd", [(16, 8, 2, 64), (64, 32, 8, 128)])
+def test_paged_decode_matches_plain_version(dev, dtype, page, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(page + hd)
+    b, m = 6, 8
+    n_blocks = b * m
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kp = randn(gen, n_blocks + 1, page, k, hd, dtype=dtype)
+    vp = randn(gen, n_blocks + 1, page, k, hd, dtype=dtype)
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(0))
+    tables = (perm + 1).reshape(b, m).to(torch.int32)
+    tables[1, 1:] = 0  # the trash block past a short row's end
+    tables = tables.to(dev)
+    lengths = torch.tensor([0, 1, page + page // 2, 3 * page, m * page - 1,
+                            m * page], dtype=torch.int32, device=dev)
+    before = pd.launches
+    got = pd.paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    want = pd.paged_decode_attention_reference(q, kp, vp, tables, lengths)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+
+
+def test_unsupported_paged_inputs_raise_on_the_card(dev):
+    q = torch.zeros(2, 8, 128, device=dev)
+    pool = torch.zeros(5, 24, 2, 128, device=dev)  # block 24: not 16k
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pd.paged_decode_attention(q, pool, pool, tables, lengths)
+    pool = torch.zeros(5, 16, 2, 128, device=dev)
+    scales = torch.ones(5, 16, 2, device=dev)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        pd.paged_decode_attention(q, pool, pool, tables, lengths, scales,
+                                  scales)
 
 
 def test_unsupported_shapes_raise_on_the_card(dev):

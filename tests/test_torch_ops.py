@@ -238,6 +238,11 @@ def test_port_imports_nothing_of_jax():
     JAX package — not even a module of it that is framework-free."""
     files = _port_files()
     assert len(files) > 15
+    rel = {os.path.relpath(p, REPO) for p in files}
+    for module in ("models/paged.py", "server/kv_ledger.py",
+                   "ops/chunk_attention.py", "ops/paged_decode_attention.py"):
+        # the walk covers every subpackage, the newest modules included
+        assert f"llm_instance_gateway_tpu_torch/{module}" in rel
     offenders = []
     for path in files:
         with open(path, encoding="utf-8") as f:
