@@ -16,14 +16,19 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    skipped K/V tile or a misread pool block must fail that check), and
    times kernel, plain version and one PyTorch library call (a yardstick
    only): flash prefill, lane decode, chunk attention (C=1024 at start
-   0/2048/5120 of an 8192-position lane, C=64 at start 640) and paged
+   0/2048/5120 of an 8192-position lane, C=64 at start 640), paged
    decode (B=8, 64-token blocks, 128-block tables, shuffled, lengths
-   0 .. 8192);
+   0 .. 8192), and the int8 lane and paged decode kernels at the same
+   shapes (int8 K/V with one f32 scale per position and KV head; the
+   plain version fed one KV head's scales in place of another's must fail
+   the check);
 4. reference — the card's path (kernels) against the CPU path (plain
    versions) on a small f32 model with Llama-3-8B's head layout: prefill
    logits within a stated tolerance and identical greedy token streams,
    on a lane engine and on a paged engine with prefix cache and two
-   stream lanes (a shared-prefix pair, prompts beyond the largest bucket);
+   stream lanes (a shared-prefix pair, prompts beyond the largest bucket),
+   each also with an int8 KV cache, and on a lane engine with int8
+   weights;
 5. serve   — starts the port's HTTP server at Llama-3-8B width and depth
    (random weights), loads a seeded LoRA adapter from .npz, answers six
    concurrent greedy completions (base and adapter rows, one streamed)
@@ -42,6 +47,15 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    misses), and KV usage back at its floor after the last request; then
    profiles one paged decode step over 8 long rows and one 1024-token
    chunk at start 5120;
+7. int8 serve — phase 5 again behind ``--quantize int8 --kv-quantize
+   int8`` (the int8 lane kernel at 32 per decode step, every other decode
+   kernel at none), profiling one int8-weight decode step;
+8. int8 paged serve — phase 6 again behind ``--quantize int8
+   --kv-quantize int8`` with 1536 blocks (about the bytes of the bf16
+   pool's 768): the int8 paged kernel at 32 per decode step, the chunk
+   kernel at 32 per chunk program over dequantized lanes, flash at 32 per
+   cold prefill; profiles one int8 paged decode step and one chunk, and
+   prints the int8 profiles beside the bf16 ones;
 
 then prints one JSON line with every kernel's numbers, the nvidia-smi line,
 and last the device JSON line.  Imports nothing of JAX.
@@ -229,7 +243,142 @@ def phase_kernels(torch) -> dict:
     results["decode_attention"] = [row]
     results["chunk_attention"] = _chunk_rows(torch, gen)
     results["paged_decode_attention"] = _paged_rows(torch, gen)
+    results["decode_attention_quant"] = _decode_quant_rows(torch, gen)
+    results["paged_decode_attention_quant"] = _paged_quant_rows(torch, gen)
     return results
+
+
+def _int8_kv(torch, gen, shape):
+    """Random K or V quantized as the serving path does: (int8, f32
+    scales)."""
+    from llm_instance_gateway_tpu_torch.models.transformer import _kv_quantize
+
+    return _kv_quantize(torch.randn(*shape, device="cuda", generator=gen))
+
+
+def _swapped_scales_err(plain, want, args, scale_idx) -> float:
+    """The check's reach on int8: the plain version fed KV head 0's scales
+    in place of head 1's (a kernel that misindexed its scales) must fail
+    it."""
+    wrong = list(args)
+    for i in scale_idx:
+        wrong[i] = wrong[i].clone()
+        wrong[i][..., 1] = wrong[i][..., 0]
+    err = scaled_err(plain(*wrong), want)
+    if err <= SCALED_TOL:
+        raise AssertionError(f"swapped head scales pass the check: {err}")
+    return err
+
+
+def _decode_quant_rows(torch, gen) -> list:
+    """int8 lane decode at the lane path's shape (B=8, S_max=1024, the bf16
+    row's lengths).  Yardstick: dequantize + masked SDPA, timed as a
+    pair."""
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    H, K, HD, B, S_MAX = 32, 8, 128, 8, 1024
+    lengths = torch.tensor([0, 1, 777, 1024, 5, 300, 512, 1000],
+                           dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, HD, device=dev, generator=gen).to(bf16)
+    kq, ks = _int8_kv(torch, gen, (B, S_MAX, K, HD))
+    vq, vs = _int8_kv(torch, gen, (B, S_MAX, K, HD))
+    args = (q, kq, vq, ks, vs, lengths)
+
+    def kernel(q, kq, vq, ks, vs, lengths):
+        return dec.decode_attention(q, kq, vq, lengths, ks, vs)
+
+    got = kernel(*args)
+    want = dec.decode_attention_quant_reference(*args)
+    torch.cuda.synchronize()
+    errs = check_kernel("decode int8", got, want)
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("decode int8: a length-0 row must give zeros")
+    errs["swapped_scales_scaled_err"] = _swapped_scales_err(
+        dec.decode_attention_quant_reference, want, args, (3, 4))
+    total_len = int(lengths.sum().item())
+    sets = [tuple(a.clone() for a in args)
+            for _ in range(copies_for(2 * kq.numel() + 2 * ks.numel() * 4))]
+    ms = time_ms(torch, kernel, sets)
+    plain_ms = time_ms(torch, dec.decode_attention_quant_reference, sets)
+    mask = (torch.arange(S_MAX, device=dev)[None] < lengths[:, None])
+
+    def deq_sdpa(q, kq, vq, ks, vs, _lengths):
+        k = dec.dequantize_kv(kq, ks, bf16).transpose(1, 2)
+        v = dec.dequantize_kv(vq, vs, bf16).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask[:, None, None],
+            enable_gqa=True)
+
+    lib_ms = time_ms(torch, deq_sdpa, sets)
+    nbytes = (2 * total_len * K * (HD + 4) + 2 * q.numel() * 2 + B * 4)
+    row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} q bf16, "
+               f"k/v int8 + f32 scales, lengths={lengths.tolist()}",
+               **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library="dequantize + masked SDPA, timed as a pair",
+               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+    log("kernels", "decode_attention_quant " + json.dumps(row))
+    return [row]
+
+
+def _paged_quant_rows(torch, gen) -> list:
+    """int8 paged decode at the paged path's shape (B=8, 64-token blocks,
+    128-block tables, shuffled, the bf16 row's lengths).  Yardstick:
+    gather + dequantize + masked SDPA, timed as a pair."""
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+    from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    H, K, HD, B, PAGE, M = 32, 8, 128, 8, 64, 128
+    n_blocks = B * M
+    lengths = torch.tensor([0, 1, 100, 6000, 3000, 640, 4096, 8192],
+                           dtype=torch.int32, device=dev)
+    q = torch.randn(B, H, HD, device=dev, generator=gen).to(bf16)
+    kq, ks = _int8_kv(torch, gen, (n_blocks + 1, PAGE, K, HD))
+    vq, vs = _int8_kv(torch, gen, (n_blocks + 1, PAGE, K, HD))
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(6))
+    tables = (perm + 1).reshape(B, M).to(torch.int32).to(dev)
+    tables[0] = 0  # the length-0 row maps only the trash block
+    args = (q, kq, vq, tables, lengths, ks, vs)
+    got = pd.paged_decode_attention(*args)
+    want = pd.paged_decode_attention_quant_reference(*args)
+    torch.cuda.synchronize()
+    errs = check_kernel("paged decode int8", got, want)
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("paged decode int8: a length-0 row must give "
+                             "zeros")
+    errs["swapped_scales_scaled_err"] = _swapped_scales_err(
+        pd.paged_decode_attention_quant_reference, want, args, (5, 6))
+    sets = [args, tuple(a.clone() for a in args)]  # the pools exceed L2
+    ms = time_ms(torch, pd.paged_decode_attention, sets)
+    plain_ms = time_ms(torch, pd.paged_decode_attention_quant_reference,
+                       sets, iters=5)
+    mask = (torch.arange(M * PAGE, device=dev)[None] < lengths[:, None])
+
+    def gather_deq_sdpa(q, kq, vq, tables, _lengths, ks, vs):
+        k = dec.dequantize_kv(gather_pool_rows(kq, tables),
+                              gather_pool_rows(ks, tables), bf16)
+        v = dec.dequantize_kv(gather_pool_rows(vq, tables),
+                              gather_pool_rows(vs, tables), bf16)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None], enable_gqa=True)
+
+    lib_ms = time_ms(torch, gather_deq_sdpa, sets)
+    total_len = int(lengths.sum().item())
+    nbytes = (2 * total_len * K * (HD + 4) + 2 * q.numel() * 2 + B * 4
+              + total_len // PAGE * 4)
+    row = dict(shape=f"B={B} P={PAGE} M={M} H={H} K={K} hd={HD} q bf16, "
+               f"int8 pools + f32 scale pools, lengths={lengths.tolist()}",
+               **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               library="gather_pool_rows + dequantize + masked SDPA, timed "
+               "as a pair",
+               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+    log("kernels", "paged_decode_attention_quant " + json.dumps(row))
+    return [row]
 
 
 def _bound(nbytes: float, ops: float) -> dict:
@@ -362,11 +511,15 @@ def _paged_rows(torch, gen) -> list:
 def phase_reference(torch) -> None:
     """The card's path (kernels, f32) against the CPU path (plain versions)
     on one small model with Llama-3-8B's head layout: prefill logits within
-    REF_TOL, and identical greedy token streams through the Engine."""
+    REF_TOL, and identical greedy token streams through the Engine — with
+    f32 weights and KV, with an int8 KV cache, and with int8
+    weights (``quantize_params``, what ``--quantize int8`` runs)."""
     import dataclasses
 
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
     from llm_instance_gateway_tpu_torch.server.engine import (
         Engine, EngineConfig, Request)
 
@@ -376,67 +529,91 @@ def phase_reference(torch) -> None:
                               head_dim=128, d_ff=1024, vocab_size=320)
     cpu_params = transformer.init_params(cfg, seed=7, dtype=torch.float32,
                                          device="cpu")
-    gpu_params = {
-        "embed": cpu_params["embed"].cuda(),
-        "final_norm": cpu_params["final_norm"].cuda(),
-        "lm_head": cpu_params["lm_head"].cuda(),
-        "layers": {k: v.cuda() for k, v in cpu_params["layers"].items()},
-    }
+    cpu_q = quantize_params(cpu_params)  # what --quantize int8 runs
+
+    def to_card(tree):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
+                for k, v in tree.items()}
+
+    gpu_params, gpu_q = to_card(cpu_params), to_card(cpu_q)
     tokens = torch.randint(0, 256, (1, 64), generator=torch.Generator()
                            .manual_seed(3))
     positions = torch.arange(64)[None]
-    want, _, _ = transformer.prefill(cfg, cpu_params, tokens, positions)
-    got, _, _ = transformer.prefill(cfg, gpu_params, tokens.cuda(),
-                                    positions.cuda())
-    err = (got.cpu() - want).abs().max().item()
-    if not math.isfinite(err) or err > ref_tol:
-        raise AssertionError(f"reference: prefill logits err {err} > {ref_tol}")
+    errs = {}
+    for name, cpu_p, gpu_p in (("f32", cpu_params, gpu_params),
+                               ("int8 weights", cpu_q, gpu_q)):
+        want, _, _ = transformer.prefill(cfg, cpu_p, tokens, positions)
+        got, _, _ = transformer.prefill(cfg, gpu_p, tokens.cuda(),
+                                        positions.cuda())
+        errs[name] = (got.cpu() - want).abs().max().item()
+        if not math.isfinite(errs[name]) or errs[name] > ref_tol:
+            raise AssertionError(f"reference ({name}): prefill logits err "
+                                 f"{errs[name]} > {ref_tol}")
 
     prompts = [[256] + list(range(65, 65 + n)) for n in (5, 40, 100)]
-    streams = {}
-    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        eng = Engine(cfg, params, EngineConfig(max_seq_len=256,
-                                               prefill_buckets=(16, 64, 128),
-                                               adaptive_steps=8),
-                     eos_id=257, dtype=torch.float32, device=dev)
-        eng.start()
-        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
-                for p in prompts]
-        for r in reqs:
-            if not r.done.wait(300) or r.error:
-                raise AssertionError(f"reference engine on {dev}: {r.error}")
-        eng.stop()
-        streams[dev] = [r.output_tokens for r in reqs]
-    if streams["cpu"] != streams["cuda"]:
-        raise AssertionError(f"reference: greedy streams differ: {streams}")
-    log("reference", f"narrow Llama-3 layout (d=512, H=8, K=2, hd=128, f32): "
-        f"prefill logits max_abs_err {err:.3g} <= {ref_tol}; greedy streams "
-        f"identical on cuda and cpu ({sum(map(len, streams['cuda']))} tokens)")
-    _paged_reference(torch, cfg, cpu_params, gpu_params)
+    for name, params_by_dev, kv_quant, counter in (
+            ("f32 weights and KV", (cpu_params, gpu_params), None,
+             "launches"),
+            ("int8 KV", (cpu_params, gpu_params), "int8", "quant_launches"),
+            ("int8 weights", (cpu_q, gpu_q), None, "launches")):
+        streams, launches = {}, {}
+        for dev, params in zip(("cpu", "cuda"), params_by_dev):
+            dec.launches = dec.quant_launches = 0
+            eng = Engine(cfg, params, EngineConfig(
+                max_seq_len=256, prefill_buckets=(16, 64, 128),
+                adaptive_steps=8, kv_cache_quant=kv_quant),
+                eos_id=257, dtype=torch.float32, device=dev)
+            eng.start()
+            reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
+                    for p in prompts]
+            for r in reqs:
+                if not r.done.wait(300) or r.error:
+                    raise AssertionError(f"reference engine ({name}) on "
+                                         f"{dev}: {r.error}")
+            eng.stop()
+            streams[dev] = [r.output_tokens for r in reqs]
+            launches[dev] = getattr(dec, counter)
+        if streams["cpu"] != streams["cuda"]:
+            raise AssertionError(f"reference ({name}): greedy streams "
+                                 f"differ: {streams}")
+        if launches["cpu"] != 0 or launches["cuda"] <= 0:
+            raise AssertionError(f"reference ({name}): lane decode "
+                                 f"launches {launches}")
+        log("reference", f"narrow Llama-3 layout (d=512, H=8, K=2, hd=128, "
+            f"f32), {name}: greedy streams identical on cuda and cpu "
+            f"({sum(map(len, streams['cuda']))} tokens, "
+            f"{launches['cuda']} lane decode launches on the card)")
+    log("reference", f"prefill logits max_abs_err {json.dumps(errs)} <= "
+        f"{ref_tol}")
+    for kv_quant in (None, "int8"):
+        _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant)
 
 
-def _paged_reference(torch, cfg, cpu_params, gpu_params) -> None:
+def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
     """The same model on a paged engine with prefix cache and two stream
     lanes: a shared-prefix pair (the second maps the first's blocks and
     prefills only its suffix through the chunk kernel) and two prompts
     beyond the largest bucket (streamed in 128-token chunks) must give
-    identical greedy streams on the card and on the CPU."""
+    identical greedy streams on the card and on the CPU; ``kv_quant``
+    int8 runs the int8 pool (the int8 paged kernel on the card)."""
     from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
     from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.server.engine import (
         Engine, EngineConfig, Request)
 
+    counter = "quant_launches" if kv_quant else "launches"
     prefix = [256] + [65 + (7 * i) % 50 for i in range(80)]
     prompts = [prefix + [90, 91, 92], prefix + [100, 101],
                [256] + [70 + (3 * i) % 40 for i in range(299)],
                [256] + [66 + (5 * i) % 45 for i in range(199)]]
     streams, reused, launches = {}, {}, {}
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
-        ch.launches = pd.launches = 0
+        ch.launches = pd.launches = pd.quant_launches = 0
         eng = Engine(cfg, params, EngineConfig(
             decode_slots=4, max_seq_len=512, prefill_buckets=(16, 64, 128),
             adaptive_steps=8, paged_kv_block=16, prefix_cache=True,
-            stream_lanes=2), eos_id=257, dtype=torch.float32, device=dev)
+            stream_lanes=2, kv_cache_quant=kv_quant), eos_id=257,
+            dtype=torch.float32, device=dev)
         eng.start()
         reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
                 for p in prompts]
@@ -446,18 +623,19 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params) -> None:
         eng.stop()
         streams[dev] = [r.output_tokens for r in reqs]
         reused[dev] = eng.prefix_reused_tokens
-        launches[dev] = (ch.launches, pd.launches)
+        launches[dev] = (ch.launches, getattr(pd, counter))
     if streams["cpu"] != streams["cuda"]:
-        raise AssertionError(f"paged reference: greedy streams differ: "
-                             f"{streams}")
+        raise AssertionError(f"paged reference ({kv_quant}): greedy streams "
+                             f"differ: {streams}")
     if not reused["cpu"] == reused["cuda"] > 0:
         raise AssertionError(f"paged reference: prefix reuse {reused}")
     if launches["cpu"] != (0, 0) or min(launches["cuda"]) <= 0:
         raise AssertionError(f"paged reference: launches {launches}")
     log("reference", f"paged engine (16-token blocks, prefix cache, 2 stream "
-        f"lanes, f32): greedy streams identical on cuda and cpu "
-        f"({sum(map(len, streams['cuda']))} tokens), {reused['cuda']} prefix "
-        f"tokens reused, chunk/paged launches on the card {launches['cuda']}")
+        f"lanes, f32, KV {kv_quant or 'f32'}): greedy streams identical on "
+        f"cuda and cpu ({sum(map(len, streams['cuda']))} tokens), "
+        f"{reused['cuda']} prefix tokens reused, chunk/paged launches on the "
+        f"card {launches['cuda']}")
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -473,11 +651,50 @@ def _post(url: str, body: dict, timeout: float = 600.0):
         return e.code, e.read().decode()
 
 
-def phase_serve(torch):
+def _counters():
+    """Kernel name -> (module, counter attribute) for every kernel."""
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+
+    return {"flash_prefill": (fl, "launches"),
+            "decode_attention": (dec, "launches"),
+            "chunk_attention": (ch, "launches"),
+            "paged_decode_attention": (pd, "launches"),
+            "decode_attention_quant": (dec, "quant_launches"),
+            "paged_decode_attention_quant": (pd, "quant_launches")}
+
+
+def reset_launches() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_launches() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
+
+
+def check_only(launches: dict, expected: dict, what: str) -> None:
+    """Every kernel's count equals ``expected`` (a missing name: 0)."""
+    for name, got in launches.items():
+        want = expected.get(name, 0)
+        if got != want or (name in expected and want <= 0):
+            raise AssertionError(f"{what}: {name} launched {got} times, "
+                                 f"expected {want}: {launches}")
+
+
+INT8_FLAGS = ["--quantize", "int8", "--kv-quantize", "int8"]
+
+
+def phase_serve(torch, params=None, adapter_path=None, quant=False):
     """The port's server at Llama-3-8B width, six concurrent greedy
     completions (base and adapter rows, one streamed) through the flash and
-    lane decode kernels.  Returns (stats, the loaded params, adapter path)
-    so the paged phase serves the same weights."""
+    lane decode kernels — with ``quant``, behind ``--quantize int8
+    --kv-quantize int8`` and through the int8 lane kernel.  Returns (stats,
+    the bf16 params, adapter path) so later phases serve the same
+    weights."""
     import threading
     import urllib.request
 
@@ -485,38 +702,41 @@ def phase_serve(torch):
 
     from llm_instance_gateway_tpu_torch.models import lora
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
-    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
-    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
-    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
-    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.server import api_http
     from llm_instance_gateway_tpu_torch.server.lora_manager import save_adapter
 
+    tag = "serve-int8" if quant else "serve"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     httpd, engine, _ = api_http.make_server([
         "--model", "llama3-8b", "--max-seq-len", "1024", "--decode-slots", "8",
-        "--device", "cuda", "--host", "127.0.0.1", "--port", "0"])
+        "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
+        + (INT8_FLAGS if quant else []), params=params)
     torch.cuda.synchronize()
     init_s = time.time() - t0
+    params = params if quant else engine.params
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
     try:
-        # Seeded rank-8 adapter on every target, saved as .npz and loaded
-        # through the admin endpoint.
-        rng = np.random.default_rng(11)
-        rank = 8
-        weights = {
-            t: {"a": (rng.standard_normal((cfg.n_layers, d_in, rank))
-                      / math.sqrt(d_in)).astype(np.float32),
-                "b": (rng.standard_normal((cfg.n_layers, rank, d_out))
-                      * 0.05).astype(np.float32)}
-            for t, (d_in, d_out) in lora.target_dims(cfg).items()}
-        os.makedirs(os.path.join(REPO, "build", "smoke"), exist_ok=True)
-        path = os.path.join(REPO, "build", "smoke", "adapter-r8.npz")
-        save_adapter(path, weights, alpha=16.0, rank=rank)
+        if adapter_path is None:
+            # Seeded rank-8 adapter on every target, saved as .npz and
+            # loaded through the admin endpoint.
+            rng = np.random.default_rng(11)
+            rank = 8
+            weights = {
+                t: {"a": (rng.standard_normal((cfg.n_layers, d_in, rank))
+                          / math.sqrt(d_in)).astype(np.float32),
+                    "b": (rng.standard_normal((cfg.n_layers, rank, d_out))
+                          * 0.05).astype(np.float32)}
+                for t, (d_in, d_out) in lora.target_dims(cfg).items()}
+            os.makedirs(os.path.join(REPO, "build", "smoke"), exist_ok=True)
+            adapter_path = os.path.join(REPO, "build", "smoke",
+                                        "adapter-r8.npz")
+            save_adapter(adapter_path, weights, alpha=16.0, rank=rank)
         status, text = _post(url + "/v1/load_lora_adapter",
-                             {"lora_name": "smoke-r8", "lora_path": path})
+                             {"lora_name": "smoke-r8",
+                              "lora_path": adapter_path})
         if status != 200:
             raise AssertionError(f"adapter load: {status} {text}")
 
@@ -528,7 +748,7 @@ def phase_serve(torch):
         max_tokens = 32
         letters = "the quick brown fox jumps over the lazy dog "
         snap0 = engine.metrics_snapshot()
-        fl.launches = dec.launches = ch.launches = pd.launches = 0
+        reset_launches()
         results = [None] * len(jobs)
 
         def run(i, n_chars, model, stream):
@@ -547,10 +767,7 @@ def phase_serve(torch):
         for th in threads:
             th.join(900)
         serve_s = time.time() - t_serve
-        launches = {"flash_prefill": fl.launches,
-                    "decode_attention": dec.launches,
-                    "chunk_attention": ch.launches,
-                    "paged_decode_attention": pd.launches}
+        launches = read_launches()
         snap1 = engine.metrics_snapshot()
 
         n_layers = cfg.n_layers
@@ -571,22 +788,18 @@ def phase_serve(torch):
             if usage["completion_tokens"] != max_tokens:
                 raise AssertionError(f"request {i}: {usage} != {max_tokens} "
                                      "tokens")
-            log("serve", f"request {i}: {n_chars + 1} prompt tokens, "
+            log(tag, f"request {i}: {n_chars + 1} prompt tokens, "
                 f"adapter={adapter}, stream={stream}, "
                 f"{usage['completion_tokens']} tokens in {secs:.2f} s")
-        decode_steps = (snap1["dispatch_steps_hist"]["sum"]
-                        - snap0["dispatch_steps_hist"]["sum"])
-        # One bucketed prefill program per request (no prefix cache here).
-        if launches["flash_prefill"] != len(jobs) * n_layers:
-            raise AssertionError(f"flash launches {launches} != "
-                                 f"{len(jobs)} x {n_layers}")
-        if (decode_steps <= 0
-                or launches["decode_attention"] != decode_steps * n_layers):
-            raise AssertionError(f"decode launches {launches} != "
-                                 f"{decode_steps} x {n_layers}")
-        if launches["chunk_attention"] or launches["paged_decode_attention"]:
-            raise AssertionError(f"chunk or paged kernels launched on the "
-                                 f"lane path: {launches}")
+        decode_steps = int(snap1["dispatch_steps_hist"]["sum"]
+                           - snap0["dispatch_steps_hist"]["sum"])
+        if decode_steps <= 0:
+            raise AssertionError(f"{tag}: no decode steps")
+        # One bucketed prefill program per request (no prefix cache here),
+        # one lane decode launch per layer and decode step, nothing else.
+        lane_kernel = "decode_attention_quant" if quant else "decode_attention"
+        check_only(launches, {"flash_prefill": len(jobs) * n_layers,
+                              lane_kernel: decode_steps * n_layers}, tag)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
         for family in ("tpu:num_requests_running", "tpu:num_requests_waiting",
@@ -610,38 +823,43 @@ def phase_serve(torch):
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": launches,
         }
-        log("serve", "llama3-8b (32 layers, random bf16 weights): "
-            + json.dumps(stats))
+        log(tag, "llama3-8b (32 layers, random bf16 weights"
+            + (", --quantize int8 --kv-quantize int8" if quant else "")
+            + "): " + json.dumps(stats))
         # After the counted window: these launches are not the serve's.
-        stats["profile"] = phase_profile(torch, engine)
-        return stats, engine.params, path
+        stats["profile"] = phase_profile(torch, engine, prefill=not quant)
+        return stats, params, adapter_path
     finally:
         httpd.shutdown()
         httpd.server_close()
         engine.stop()
 
 
-def phase_paged_serve(torch, params, adapter_path: str) -> dict:
+def phase_paged_serve(torch, params, adapter_path: str,
+                      quant: bool = False) -> dict:
     """The same 8B weights behind the paged pool, prefix cache and two
     stream lanes, at Llama-3-8B's published 8192-token context: five
     requests sharing a ~600-token system prompt, and two concurrent long
-    prompts (~3000 and ~6000 tokens) that stream in 1024-token chunks."""
+    prompts (~3000 and ~6000 tokens) that stream in 1024-token chunks.
+    ``quant`` adds ``--quantize int8 --kv-quantize int8`` and doubles the
+    pool to 1536 blocks, about the bytes of the bf16 pool's 768 (64 KiB
+    plus 2 KiB of scales per token against 128 KiB)."""
     import threading
     import urllib.request
 
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
-    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
-    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
-    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
-    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.server import api_http
 
+    tag = "paged-int8" if quant else "paged"
+    n_pool = 1536 if quant else 768
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     httpd, engine, _ = api_http.make_server([
         "--model", "llama3-8b", "--max-seq-len", "8192", "--decode-slots", "8",
-        "--paged-kv-block", "64", "--paged-kv-blocks", "768", "--prefix-cache",
-        "--stream-lanes", "2", "--device", "cuda", "--host", "127.0.0.1",
-        "--port", "0"], params=params)
+        "--paged-kv-block", "64", "--paged-kv-blocks", str(n_pool),
+        "--prefix-cache", "--stream-lanes", "2", "--device", "cuda",
+        "--host", "127.0.0.1", "--port", "0"]
+        + (INT8_FLAGS if quant else []), params=params)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -680,7 +898,7 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
         engine._chunk_fn = counted("chunk", chunk_fn)
         engine._prefill_impl = counted("prefill", prefill_fn)
         snap0 = engine.metrics_snapshot()
-        fl.launches = dec.launches = ch.launches = pd.launches = 0
+        reset_launches()
         results = [None] * len(jobs)
 
         def run(i, prompt, model):
@@ -699,23 +917,21 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
         for th in threads:
             th.join(900)
         serve_s = time.time() - t_serve
-        launches = {"flash_prefill": fl.launches,
-                    "decode_attention": dec.launches,
-                    "chunk_attention": ch.launches,
-                    "paged_decode_attention": pd.launches}
+        launches = read_launches()
         engine._chunk_fn, engine._prefill_impl = chunk_fn, prefill_fn
         snap1 = engine.metrics_snapshot()
 
         for i, ((prompt, adapter), res) in enumerate(zip(jobs, results)):
             if res is None:
-                raise AssertionError(f"paged request {i} did not return")
+                raise AssertionError(f"{tag} request {i} did not return")
             status, text, secs = res
             if status != 200:
-                raise AssertionError(f"paged request {i}: {status} {text[:300]}")
+                raise AssertionError(f"{tag} request {i}: {status} "
+                                     f"{text[:300]}")
             usage = json.loads(text)["usage"]
             if usage["completion_tokens"] != max_tokens:
-                raise AssertionError(f"paged request {i}: {usage}")
-            log("paged", f"request {i}: {usage['prompt_tokens']} prompt "
+                raise AssertionError(f"{tag} request {i}: {usage}")
+            log(tag, f"request {i}: {usage['prompt_tokens']} prompt "
                 f"tokens, adapter={adapter}, {max_tokens} tokens in "
                 f"{secs:.2f} s")
         n_layers = cfg.n_layers
@@ -724,20 +940,16 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
         reused = (snap1["prefix_reused_tokens"]
                   - snap0["prefix_reused_tokens"])
         if reused <= 0:
-            raise AssertionError("paged serve: no prefix tokens reused")
-        if launches["paged_decode_attention"] != decode_steps * n_layers:
-            raise AssertionError(f"paged launches {launches} != {decode_steps}"
-                                 f" decode steps x {n_layers}")
-        if launches["decode_attention"] != 0:
-            raise AssertionError(f"lane decode launched on the paged path: "
-                                 f"{launches}")
-        for kind, kernel in (("chunk", "chunk_attention"),
-                             ("prefill", "flash_prefill")):
-            if (programs[kind] == 0
-                    or launches[kernel] != programs[kind] * n_layers):
-                raise AssertionError(f"{kernel} launches {launches} != "
-                                     f"{programs[kind]} {kind} programs x "
-                                     f"{n_layers}")
+            raise AssertionError(f"{tag}: no prefix tokens reused")
+        if decode_steps <= 0 or min(programs.values()) <= 0:
+            raise AssertionError(f"{tag}: {decode_steps} decode steps, "
+                                 f"programs {programs}")
+        paged_kernel = ("paged_decode_attention_quant" if quant
+                        else "paged_decode_attention")
+        check_only(launches, {
+            paged_kernel: decode_steps * n_layers,
+            "chunk_attention": programs["chunk"] * n_layers,
+            "flash_prefill": programs["prefill"] * n_layers}, tag)
         # Every request finished: allocated blocks drain back to the floor
         # (zero-ref cached prefix blocks count as free).
         deadline = time.time() + 30
@@ -747,11 +959,11 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
         snap2 = engine.metrics_snapshot()
         states = snap2["kv_ledger"]["states"]
         if snap2["kv_cache_usage_perc"] != 0.0 or states["active"] != 0:
-            raise AssertionError(f"paged serve: KV usage "
+            raise AssertionError(f"{tag}: KV usage "
                                  f"{snap2['kv_cache_usage_perc']} / ledger "
                                  f"{states} after the last request")
         if sum(states.values()) != snap2["kv_ledger"]["blocks_total"]:
-            raise AssertionError(f"paged serve: ledger not conserved {states}")
+            raise AssertionError(f"{tag}: ledger not conserved {states}")
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
         for family in ("tpu:kv_blocks", "tpu:prefix_reused_tokens",
@@ -762,6 +974,9 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
             if f.status != 200:
                 raise AssertionError(f"/debug/kv answered {f.status}")
         ph0, ph1 = snap0["phase_hist"], snap1["phase_hist"]
+        pool_bytes = sum(engine.cache[n].numel() * engine.cache[n].element_size()
+                         for n in ("k", "v", "k_scale", "v_scale")
+                         if n in engine.cache)
         stats = {
             "init_s": init_s, "serve_s": serve_s,
             "decode_steps": decode_steps, "chunk_programs": programs["chunk"],
@@ -777,11 +992,14 @@ def phase_paged_serve(torch, params, adapter_path: str) -> dict:
             "tokens": len(jobs) * max_tokens,
             "kv_usage_after": snap2["kv_cache_usage_perc"],
             "kv_states_after": states,
+            "pool_gib": pool_bytes / 2 ** 30,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": launches,
         }
-        log("paged", "llama3-8b paged (64-token blocks x 768, prefix cache, "
-            "2 stream lanes): " + json.dumps(stats))
+        log(tag, f"llama3-8b paged (64-token blocks x {n_pool}, prefix cache, "
+            "2 stream lanes"
+            + (", --quantize int8 --kv-quantize int8" if quant else "")
+            + "): " + json.dumps(stats))
         # After the counted window: these launches are not the serve's.
         stats["profile"] = phase_paged_profile(torch, engine)
         return stats
@@ -830,7 +1048,8 @@ def _profile(torch, name: str, fn, reps: int) -> dict:
 def phase_paged_profile(torch, engine) -> dict:
     """One paged decode step over 8 long rows (mixed adapters) and one
     1024-token chunk at start 5120, on the paged engine's pools (the
-    server is idle; the rows' tables are built here)."""
+    server is idle; the rows' tables are built here) — bf16 or int8, as
+    the engine serves."""
     from llm_instance_gateway_tpu_torch.models import paged
     from llm_instance_gateway_tpu_torch.server.sampling import sample
 
@@ -876,10 +1095,12 @@ def phase_paged_profile(torch, engine) -> dict:
                                            chunk, 2)}
 
 
-def phase_profile(torch, engine) -> dict:
+def phase_profile(torch, engine, prefill: bool = True) -> dict:
     """Where one 8B decode step (8 rows, mixed adapters, ragged lengths)
     and one 1024-token prefill spend their time: host wall per call, device
-    kernel time, device idle share, top kernels (torch.profiler)."""
+    kernel time, device idle share, top kernels (torch.profiler).  On the
+    int8 engine the decode step alone (``prefill`` False): int8 weights
+    widened per call, int8 KV."""
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.server.sampling import sample
 
@@ -903,13 +1124,15 @@ def phase_profile(torch, engine) -> dict:
         return sample(logits, None, 0 * ones, zeros_i, ones,
                       valid_vocab=cfg.vocab_size)
 
-    def prefill():
+    def run_prefill():
         return transformer.prefill(cfg, params, prompt, prompt_pos,
                                    lora_bufs=lora_bufs,
                                    slot_ids=slots[1:2])[0]
 
-    return {"decode_step": _profile(torch, "decode_step", decode, 3),
-            "prefill_1024": _profile(torch, "prefill_1024", prefill, 2)}
+    out = {"decode_step": _profile(torch, "decode_step", decode, 3)}
+    if prefill:
+        out["prefill_1024"] = _profile(torch, "prefill_1024", run_prefill, 2)
+    return out
 
 
 KERNEL_SOURCES = {
@@ -925,13 +1148,21 @@ KERNEL_SOURCES = {
     "paged_decode_attention": (
         "llm_instance_gateway_tpu_torch/ops/csrc/paged_decode_attention.cu",
         "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:227"),
+    "decode_attention_quant": (
+        "llm_instance_gateway_tpu_torch/ops/csrc/decode_attention_quant.cu",
+        "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:188"),
+    "paged_decode_attention_quant": (
+        "llm_instance_gateway_tpu_torch/ops/csrc/"
+        "paged_decode_attention_quant.cu",
+        "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:227"),
 }
 
 
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
-    errors over all shapes checked, and launches summed over the two serve
-    phases (``launches_by_path`` splits them: lane serve, paged serve)."""
+    errors over all shapes checked, and launches summed over the four serve
+    phases (``launches_by_path`` splits them: lane, paged, int8 lane, int8
+    paged)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -951,6 +1182,25 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     return {"kernels": out}
 
 
+def compare_profiles(bf16: dict, int8: dict) -> None:
+    """The int8 serves' profiles beside the bf16 ones of the same run:
+    device ms, idle share and top kernels per step."""
+    pairs = (("lane decode step (int8 weights + int8 KV vs bf16)", "lane",
+              "decode_step"),
+             ("paged decode step over 8 long rows (int8 vs bf16)", "paged",
+              "paged_decode_step"),
+             ("1024-token chunk at 5120 (int8 pool vs bf16)", "paged",
+              "chunk_1024_at_5120"))
+    for what, path, key in pairs:
+        b, q = bf16[path]["profile"][key], int8[path]["profile"][key]
+        log("profile", f"{what}: " + json.dumps({
+            "bf16": {k: b[k] for k in ("wall_ms", "device_ms",
+                                       "device_idle_share")},
+            "int8": {k: q[k] for k in ("wall_ms", "device_ms",
+                                       "device_idle_share")},
+            "int8_top_kernels": q["top_kernels"][:5]}))
+
+
 def main() -> int:
     import torch
 
@@ -961,7 +1211,14 @@ def main() -> int:
     phase_reference(torch)
     stats, params, adapter_path = phase_serve(torch)
     paged_stats = phase_paged_serve(torch, params, adapter_path)
-    by_path = {"lane": stats["launches"], "paged": paged_stats["launches"]}
+    # The int8 serves quantize the same bf16 weights into trees of their own.
+    q_stats = phase_serve(torch, params, adapter_path, quant=True)[0]
+    qp_stats = phase_paged_serve(torch, params, adapter_path, quant=True)
+    compare_profiles({"lane": stats, "paged": paged_stats},
+                     {"lane": q_stats, "paged": qp_stats})
+    by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
+               "lane_int8": q_stats["launches"],
+               "paged_int8": qp_stats["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

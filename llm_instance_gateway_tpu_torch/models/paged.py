@@ -21,10 +21,15 @@ Hopper kernel streams each row's physical blocks straight from the pool
 (no gathered copy of the lane); the chunk path gathers the row's lane view
 (``gather_pool_rows``, an index, as in the reference) and runs the chunk
 kernel over it.  Every function updates the pools IN PLACE and returns the
-same dict.  int8 pools (the reference's scale pools) raise
-``NotImplementedError`` at ``init_paged_cache`` until ROADMAP Queue 1 item
-10, so every function here sees bf16/f32 pools; ``extend_step_paged`` waits
-for item 12 (speculative decoding).
+same dict.
+
+int8 pools (``quantized=True``) keep f32 scale pools ``[L, n_blocks + 1,
+block, K]`` beside the int8 data, indexed by the same physical block, so a
+prefix-cache hit — a table repoint — carries the scales with no copy.
+Values are quantized at the write seam (``_pool_update``), dequantized at
+the chunk path's read seam (``_pool_rows``), and the decode step hands the
+scale pools to the int8 kernel.  ``extend_step_paged`` waits for ROADMAP
+Queue 1 item 12 (speculative decoding).
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import torch
 
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
 from llm_instance_gateway_tpu_torch.models.transformer import (
+    _kv_dequantize,
+    _kv_quantize,
     check_supported,
     chunk_forward,
     decode_forward,
@@ -53,31 +60,63 @@ TRASH_BLOCK = 0  # physical block 0: write target for inactive/unallocated
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      n_blocks: int, block: int, dtype=torch.bfloat16,
                      device="cuda", quantized: bool = False) -> Params:
-    """Block pools + tables.  ``n_blocks`` EXCLUDES the trash block."""
-    if quantized:
-        raise NotImplementedError(
-            "int8 paged pools (scale pools) are not ported yet: ROADMAP "
-            "Queue 1 item 10")
+    """Block pools + tables.  ``n_blocks`` EXCLUDES the trash block.
+    ``quantized`` stores the pools int8 with f32 scale pools ``k_scale`` /
+    ``v_scale`` ``[L, n_blocks + 1, block, K]``."""
     hd = cfg.resolved_head_dim
     max_blocks_per_seq = -(-max_len // block)
     shape = (cfg.n_layers, n_blocks + 1, block, cfg.n_kv_heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         "tables": torch.full((batch, max_blocks_per_seq), TRASH_BLOCK,
                              dtype=torch.int32, device=device),
         "length": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if quantized:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
+def _layer_pools(cache: Params, i: int) -> tuple:
+    """Layer ``i``'s pools: (k, v), or (k, v, k_scale, v_scale) if int8."""
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+        else ("k", "v")
+    return tuple(cache[n][i] for n in names)
 
 
 def _pool_update(pools: tuple, k: torch.Tensor, v: torch.Tensor,
                  phys_block: torch.Tensor, offset: torch.Tensor) -> tuple:
     """Write fresh K/V ``[N, K, hd]`` into one layer's pools at
-    (phys_block, offset) — the one write seam every paged step shares."""
+    (phys_block, offset) — the one write seam every paged step shares.  A
+    4-tuple (k, v, k_scale, v_scale) is an int8 pool: values are quantized
+    per (position, KV head) on the way in."""
+    if len(pools) == 4:
+        k_pool, v_pool, ks_pool, vs_pool = pools
+        k_pool[phys_block, offset], ks_pool[phys_block, offset] = \
+            _kv_quantize(k)
+        v_pool[phys_block, offset], vs_pool[phys_block, offset] = \
+            _kv_quantize(v)
+        return pools
     k_pool, v_pool = pools
     k_pool[phys_block, offset] = k.to(k_pool.dtype)
     v_pool[phys_block, offset] = v.to(v_pool.dtype)
     return pools
+
+
+def _pool_rows(pools: tuple, tables: torch.Tensor, dtype) -> tuple:
+    """Gather each table row's blocks into its lane view — the one read
+    seam of the chunk path.  int8 pools come back dequantized to ``dtype``
+    (``_kv_dequantize``, the reference's arithmetic)."""
+    rows = tuple(gather_pool_rows(p, tables) for p in pools)
+    if len(rows) == 4:
+        return (_kv_dequantize(rows[0], rows[2], dtype),
+                _kv_dequantize(rows[1], rows[3], dtype))
+    return rows
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
@@ -90,7 +129,8 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     through its table; rows with ``active`` False write the trash block
     (a reserved row's table may already hold a streaming prompt's real
     blocks).  Positions must lie below the table span (the engine clamps).
-    Returns (logits [B, V] f32, cache)."""
+    An int8 pool hands its scale pools to the int8 kernel.  Returns
+    (logits [B, V] f32, cache)."""
     check_supported(cfg)
     b = tokens.shape[0]
     dev = tokens.device
@@ -105,9 +145,9 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     offset = pos % block
 
     def write_and_attend(i, q, k, v):
-        k_pool, v_pool = _pool_update((cache["k"][i], cache["v"][i]), k, v,
-                                      phys, offset)
-        return paged_decode_attention(q, k_pool, v_pool, tables, lengths)
+        pools = _pool_update(_layer_pools(cache, i), k, v, phys, offset)
+        return paged_decode_attention(q, pools[0], pools[1], tables, lengths,
+                                      *pools[2:])
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
@@ -123,21 +163,22 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
     padding blocks point at the trash block) and set row ``row``'s table
     to ``table_row`` (the FULL new row: allocated blocks + trash tail).
     The trailing partial block carries bucket padding into a real block,
-    masked by ``length``."""
+    masked by ``length``.  An int8 pool gets the prompt quantized, its
+    scales written to the same blocks of the scale pools."""
     lyr, _, s, kh, hd = k_prompt.shape
     block = cache["k"].shape[2]
     dev = cache["k"].device
     phys = torch.as_tensor(np.asarray(phys_blocks, np.int64)).to(dev)
     n_b = phys.shape[0]
     pad = n_b * block - s
-    k_prompt = k_prompt[:, 0].to(cache["k"].dtype)
-    v_prompt = v_prompt[:, 0].to(cache["v"].dtype)
-    if pad:
-        padding = (0, 0, 0, 0, 0, pad)
-        k_prompt = torch.nn.functional.pad(k_prompt, padding)
-        v_prompt = torch.nn.functional.pad(v_prompt, padding)
-    cache["k"][:, phys] = k_prompt.reshape(lyr, n_b, block, kh, hd)
-    cache["v"][:, phys] = v_prompt.reshape(lyr, n_b, block, kh, hd)
+    for name, prompt in (("k", k_prompt), ("v", v_prompt)):
+        new = torch.nn.functional.pad(prompt[:, 0], (0, 0, 0, 0, 0, pad))
+        if f"{name}_scale" in cache:
+            new, scales = _kv_quantize(new)
+            cache[f"{name}_scale"][:, phys] = scales.reshape(lyr, n_b, block,
+                                                             kh)
+        cache[name][:, phys] = new.to(cache[name].dtype).reshape(
+            lyr, n_b, block, kh, hd)
     cache["tables"][int(row)] = torch.as_tensor(
         np.array(table_row, np.int32)).to(dev)
     length_vec = cache["length"].clone()
@@ -170,10 +211,9 @@ def prefill_with_cache_paged(cfg: ModelConfig, params: Params, cache: Params,
     offset = torch.from_numpy(pos % block).to(dev)
 
     def write_and_view(i, k, v):
-        k_pool, v_pool = _pool_update((cache["k"][i], cache["v"][i]), k, v,
-                                      phys, offset)
-        return (gather_pool_rows(k_pool, table_row[None])[0],
-                gather_pool_rows(v_pool, table_row[None])[0])
+        pools = _pool_update(_layer_pools(cache, i), k, v, phys, offset)
+        return tuple(r[0] for r in _pool_rows(pools, table_row[None],
+                                              k.dtype))
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)

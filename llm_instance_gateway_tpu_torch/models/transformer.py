@@ -7,11 +7,21 @@ Same parameter tree as the reference — layer-stacked leaves
 leaves.  bf16 params/activations on the card, f32 norms/softmax/logits.
 
 Attention goes through the kernel wrappers: ``flash_attention`` for
-prefill, ``decode_attention`` for the cached step and ``chunk_attention``
-for chunked prefill (``prefill_with_cache``, shared with the paged pool's
-chunk path in ``models/paged.py``), which launch the Hopper kernels on
-CUDA tensors and take their plain versions on CPU tensors.  Every
-projection adds the per-row LoRA delta.
+prefill, ``decode_attention`` (given the scales of an int8 cache, its
+int8 kernel) for the cached step and ``chunk_attention`` for chunked prefill
+(``prefill_with_cache``, shared with the paged pool's chunk path in
+``models/paged.py``), which launch the Hopper kernels on CUDA tensors and
+take their plain versions on CPU tensors.  Every projection goes through
+``ops/quant.matmul`` (dense or int8 ``{"q","s"}`` leaves) and adds the
+per-row LoRA delta.
+
+int8 KV caches (``quantized=True``) store K/V int8 with one f32 scale per
+(position, KV head) (``_kv_quantize``; prompt KV is computed in the
+activation dtype and quantized where it lands).  A chunk's attention runs
+the chunk kernel over the slot's lane dequantized to the activation dtype
+(``_kv_dequantize``, one lane per layer); the JAX package sends that view
+to XLA instead, for fusion the card's eager path does not have — the same
+function either way.
 
 Differences from the JAX functions, by design:
 - ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
@@ -24,8 +34,8 @@ Differences from the JAX functions, by design:
 - a chunk's ``positions`` are a host array: the engine holds them in
   numpy, so where the chunk starts and which cells it writes are decided
   without a device read.
-Only the dense Llama path is ported: MoE, q/k/v biases and int8 caches
-raise ``NotImplementedError``.
+Only the dense Llama path is ported: MoE and q/k/v biases raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from llm_instance_gateway_tpu_torch.ops.chunk_attention import chunk_attention
 from llm_instance_gateway_tpu_torch.ops.decode_attention import decode_attention
 from llm_instance_gateway_tpu_torch.ops.flash_attention import flash_attention
 from llm_instance_gateway_tpu_torch.ops.layers import apply_rope, rms_norm, swiglu
+from llm_instance_gateway_tpu_torch.ops.quant import matmul as q_matmul
 
 Params = dict[str, Any]
 
@@ -114,17 +125,40 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, device="cuda",
                       quantized: bool = False) -> Params:
-    """Contiguous-lane decode cache ``[L, B, S_max, K, hd]``."""
-    if quantized:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet: ROADMAP Queue 1 item 10")
+    """Contiguous-lane decode cache ``[L, B, S_max, K, hd]``.  ``quantized``
+    stores K/V int8 with f32 scales ``k_scale``/``v_scale`` of shape
+    ``[L, B, S_max, K]`` (one per position and KV head)."""
     hd = cfg.resolved_head_dim
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, hd)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
         "length": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if quantized:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)
+    return cache
+
+
+def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., hd] -> (int8 [..., hd], f32 scale [...]): symmetric per-vector
+    max-abs quantization (one scale per position per KV head).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    s = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
+def _kv_dequantize(q: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
+    """The reference's dequantize for lanes read outside the decode kernel:
+    both factors in ``dtype``, one product (the decode kernels multiply in
+    f32 instead, as the Pallas kernel does; the two agree at f32)."""
+    return q.to(dtype) * s[..., None].to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +167,8 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _project(x, w, layer_lora, target, slot_ids):
-    """x @ w plus the per-row LoRA delta for ``target``."""
-    out = x @ w
+    """x @ w plus the per-row LoRA delta for ``target`` (w may be int8)."""
+    out = q_matmul(x, w)
     if layer_lora is not None:
         out = out + lora_lib.lora_delta(
             x, layer_lora[f"{target}_a"], layer_lora[f"{target}_b"],
@@ -160,11 +194,15 @@ def _logits(cfg: ModelConfig, params: Params, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.norm_plus_one)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (h @ head).float()
+    return q_matmul(h, head).float()
 
 
 def _layer(params: Params, i: int) -> Params:
-    return {name: leaf[i] for name, leaf in params["layers"].items()}
+    """Layer ``i`` of the stacked leaves; an int8 ``{"q","s"}`` leaf is
+    sliced part by part."""
+    return {name: ({part: t[i] for part, t in leaf.items()}
+                   if isinstance(leaf, dict) else leaf[i])
+            for name, leaf in params["layers"].items()}
 
 
 def _no_slots(b: int, device) -> torch.Tensor:
@@ -278,8 +316,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     ``active`` [B] bool gates the KV WRITE: an inactive row's cache cell is
     rewritten with its own old value, so its lane stays unchanged without a
-    host sync (positions at or past ``S_max`` never write either).  The
-    cache tensors are updated in place.
+    host sync (positions at or past ``S_max`` never write either).  On an
+    int8 cache the row's int8 cells and scales alike keep their old values,
+    and attention runs the int8 kernel.  The cache tensors are updated in
+    place.
     """
     check_supported(cfg)
     b = tokens.shape[0]
@@ -293,15 +333,22 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         writes = writes & active.to(dev)
     write_pos = pos.clamp(max=s_max - 1)
     rows = torch.arange(b, device=dev)
-    keep = writes[:, None, None]
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+        else ("k", "v")
+
+    def write(dst, new):
+        keep = writes.view(-1, *([1] * (new.dim() - 1)))
+        dst[rows, write_pos] = torch.where(keep, new.to(dst.dtype),
+                                           dst[rows, write_pos])
 
     def write_and_attend(i, q, k, v):
-        k_cache, v_cache = cache["k"][i], cache["v"][i]
-        k_cache[rows, write_pos] = torch.where(
-            keep, k.to(k_cache.dtype), k_cache[rows, write_pos])
-        v_cache[rows, write_pos] = torch.where(
-            keep, v.to(v_cache.dtype), v_cache[rows, write_pos])
-        return decode_attention(q, k_cache, v_cache, lengths)
+        lanes = [cache[n][i] for n in names]
+        for j, new in enumerate((k, v)):
+            if len(lanes) == 4:  # int8: values and their scales
+                new, scale = _kv_quantize(new)
+                write(lanes[j + 2], scale)
+            write(lanes[j], new)
+        return decode_attention(q, lanes[0], lanes[1], lengths, *lanes[2:])
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
@@ -314,15 +361,11 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 # ---------------------------------------------------------------------------
 
 
-def _chunk_attend(cfg: ModelConfig, quant: bool, q, lane_k, lane_v,
-                  start: int):
+def _chunk_attend(q, lane_k, lane_v, start: int):
     """Chunk-vs-lane attention, shared by the lane and paged chunk paths:
-    q [1, C, H, hd] against one lane view [S, K, hd] through the chunk
-    kernel's wrapper.  Returns [1, C, H*hd]."""
-    if quant:
-        raise NotImplementedError(
-            "chunk attention over int8 lanes is not ported yet: ROADMAP "
-            "Queue 1 item 10")
+    q [1, C, H, hd] against one lane view [S, K, hd] (an int8 lane arrives
+    dequantized to q's dtype) through the chunk kernel's wrapper.  Returns
+    [1, C, H*hd]."""
     c = q.shape[1]
     return chunk_attention(q.contiguous(), lane_k[None], lane_v[None],
                            start).reshape(1, c, -1)
@@ -333,7 +376,8 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
                   write_and_view):
     """The layer loop both chunk paths share: chunk token i at global
     position ``pos[i]`` writes its K/V and attends the lane view through
-    ``write_and_view(layer, k [C, K, hd], v) -> (lane_k, lane_v)``.
+    ``write_and_view(layer, k [C, K, hd], v) -> (lane_k, lane_v)`` (lane
+    views in the activation dtype, dequantized from an int8 cache).
     Returns the last real token's logits [V] (f32).  ``pos`` is a host
     int64 array: where the chunk starts and which cells it writes are
     decided on the host, so no device value steers them."""
@@ -359,7 +403,7 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
         q = apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_scaling)
         lane_k, lane_v = write_and_view(i, k[0], v[0])
-        attn = _chunk_attend(cfg, False, q, lane_k, lane_v, start)
+        attn = _chunk_attend(q, lane_k, lane_v, start)
         h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
         hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
                        plus_one=cfg.norm_plus_one)
@@ -380,8 +424,10 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
     A padded final chunk's pad positions continue past the prompt; those
     at or past ``S_max`` write nothing (the reference's scatter drops them
     as out of bounds), decided on the host from ``positions`` — so no
-    index ever leaves the lane and nothing syncs.  The cache is updated in
-    place.  Returns (last_logits [V] f32, cache)."""
+    index ever leaves the lane and nothing syncs.  On an int8 cache the
+    chunk's K/V are quantized where they land and the chunk attends the
+    lane dequantized (``_kv_dequantize``).  The cache is updated in place.
+    Returns (last_logits [V] f32, cache)."""
     check_supported(cfg)
     pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
     s_max = cache["k"].shape[2]
@@ -390,13 +436,21 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
     rows = torch.from_numpy(inside).to(dev)
     cells = torch.from_numpy(pos[inside]).to(dev)
     slot = int(slot)
+    quant = "k_scale" in cache
 
     def write_and_view(i, k, v):
-        k_lane = cache["k"][i][slot:slot + 1]  # [1, S_max, K, hd], a view
-        v_lane = cache["v"][i][slot:slot + 1]
-        k_lane[0, cells] = k.index_select(0, rows).to(k_lane.dtype)
-        v_lane[0, cells] = v.index_select(0, rows).to(v_lane.dtype)
-        return k_lane[0], v_lane[0]
+        k_lane = cache["k"][i][slot]  # [S_max, K, hd], a view
+        v_lane = cache["v"][i][slot]
+        if not quant:
+            k_lane[cells] = k.index_select(0, rows).to(k_lane.dtype)
+            v_lane[cells] = v.index_select(0, rows).to(v_lane.dtype)
+            return k_lane, v_lane
+        views = []
+        for lane, scales, new in ((k_lane, cache["k_scale"][i][slot], k),
+                                  (v_lane, cache["v_scale"][i][slot], v)):
+            lane[cells], scales[cells] = _kv_quantize(new.index_select(0, rows))
+            views.append(_kv_dequantize(lane, scales, new.dtype))
+        return tuple(views)
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)
@@ -409,11 +463,15 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
 def insert_prefill(cache: Params, k_prompt: torch.Tensor,
                    v_prompt: torch.Tensor, slot: int, length: int) -> Params:
     """Insert a prefilled sequence's KV ``[L, 1, S, K, hd]`` into decode
-    slot ``slot`` (in place).  ``length`` is the true prompt length; the
-    padded tail is garbage, masked by ``cache['length']``."""
+    slot ``slot`` (in place), quantized on an int8 cache.  ``length`` is the
+    true prompt length; the padded tail is garbage, masked by
+    ``cache['length']``."""
     s = min(k_prompt.shape[2], cache["k"].shape[2])
-    cache["k"][:, slot, :s] = k_prompt[:, 0, :s].to(cache["k"].dtype)
-    cache["v"][:, slot, :s] = v_prompt[:, 0, :s].to(cache["v"].dtype)
+    for name, prompt in (("k", k_prompt), ("v", v_prompt)):
+        new = prompt[:, 0, :s]
+        if f"{name}_scale" in cache:
+            new, cache[f"{name}_scale"][:, slot, :s] = _kv_quantize(new)
+        cache[name][:, slot, :s] = new.to(cache[name].dtype)
     length_vec = cache["length"].clone()
     length_vec[slot] = length
     cache["length"] = length_vec

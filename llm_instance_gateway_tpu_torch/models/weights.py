@@ -32,8 +32,12 @@ def tensor_from_numpy(arr, device="cuda", dtype=None) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device="cuda", dtype=None) -> Any:
     """Nested dict of arrays -> nested dict of tensors.  ``dtype`` casts the
-    floating leaves (integer leaves keep theirs)."""
+    floating leaves (integer leaves keep theirs); an int8 weight's
+    ``{"q", "s"}`` leaf keeps its scale in float32 whatever ``dtype`` is."""
     if isinstance(tree, dict):
+        if set(tree) == {"q", "s"}:
+            return {"q": tensor_from_numpy(tree["q"], device),
+                    "s": tensor_from_numpy(tree["s"], device, torch.float32)}
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     return tensor_from_numpy(tree, device, dtype)
 

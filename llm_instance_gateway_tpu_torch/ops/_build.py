@@ -32,7 +32,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 KERNELS = ("flash_prefill", "decode_attention", "chunk_attention",
-           "paged_decode_attention")
+           "paged_decode_attention", "decode_attention_quant",
+           "paged_decode_attention_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -27,7 +27,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* out, int batch, int s_max,
                                        int n_heads, int n_kv, int hd,
                                        int dtype, float scale, void* stream) {
-  return decode_tile::launch_any<false>(q, k, v, nullptr, lengths, out, batch,
-                                        s_max, 1, n_heads, n_kv, hd, dtype,
-                                        scale, stream);
+  return decode_tile::launch_any<false, false>(
+      q, k, v, nullptr, nullptr, nullptr, lengths, out, batch, s_max, 1,
+      n_heads, n_kv, hd, dtype, scale, stream);
 }

@@ -20,14 +20,26 @@
 // Matches the reference numerics: f32 logits and accumulator, p rounded to
 // the value dtype before the PV product (p.astype(v.dtype)), l summed from
 // the unrounded p, output acc / max(l, 1e-30).
+//
+// int8 storage (S = int8_t; decode_attention_quant.cu and
+// paged_decode_attention_quant.cu): k/v hold int8 values with one f32
+// scale per (position, KV head), k_scale/v_scale [B, S_max, K] (lanes) or
+// [n_blocks + 1, P, K] (pool, read through the same table).  Each 16-byte
+// load carries 16 values of one (position, head); the tile fill reads that
+// position's scale once and stores from_f<T>((float)x * scale) — the Pallas
+// kernel's (x.astype(f32) * s).astype(q.dtype) — into the same T tile, so
+// scores, softmax and PV are the unquantized kernel's own code.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-// Internal linkage: two kernel libraries include this header, and their
-// template instances must not resolve to one another's once both load.
+#include <type_traits>
+
+// Internal linkage: four kernel libraries include this header, and their
+// template instances must not resolve to one another's once they load.
 namespace decode_tile {
 namespace {
 
@@ -50,15 +62,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 }
 
 // s_max: lane length (lanes) or M * P (pool).  page / tables: pool only.
-template <typename T, int HD, bool PAGED>
+// S: storage type, T (k_scale / v_scale unused) or int8_t.
+template <typename T, typename S, int HD, bool PAGED>
 __global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const int* __restrict__ tables,
+    const T* __restrict__ q, const S* __restrict__ k,
+    const S* __restrict__ v, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ lengths, T* __restrict__ out, int s_max,
     int page, int n_heads, int n_kv, float scale) {
-  // Tile rows: K + V tiles take 32 KB of shared memory.
+  constexpr bool QUANT = sizeof(S) == 1;
+  // Tile rows: K + V tiles (in T) take 32 KB of shared memory.
   constexpr int TS = 16384 / (HD * (int)sizeof(T));
-  constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte load
+  constexpr int VEC = 16 / (int)sizeof(S);  // stored values per 16-byte load
   constexpr int VPR = HD / VEC;             // 16-byte loads per row
   constexpr int PER = (kGMax * HD + kThreads - 1) / kThreads;
 
@@ -104,10 +119,24 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
       else
         cell = (size_t)b * s_max + pos;
       const size_t off = cell * pos_stride + head_off;
-      reinterpret_cast<uint4*>(&k_s[t][0])[c] =
-          reinterpret_cast<const uint4*>(k + off)[c];
-      reinterpret_cast<uint4*>(&v_s[t][0])[c] =
-          reinterpret_cast<const uint4*>(v + off)[c];
+      if constexpr (QUANT) {
+        const size_t si = cell * n_kv + kh;  // scale of (position, head)
+        const float ks = __ldg(k_scale + si), vs = __ldg(v_scale + si);
+        const uint4 kr = reinterpret_cast<const uint4*>(k + off)[c];
+        const uint4 vr = reinterpret_cast<const uint4*>(v + off)[c];
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kr);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&vr);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          k_s[t][c * VEC + j] = from_f<T>((float)kb[j] * ks);
+          v_s[t][c * VEC + j] = from_f<T>((float)vb[j] * vs);
+        }
+      } else {
+        reinterpret_cast<uint4*>(&k_s[t][0])[c] =
+            reinterpret_cast<const uint4*>(k + off)[c];
+        reinterpret_cast<uint4*>(&v_s[t][0])[c] =
+            reinterpret_cast<const uint4*>(v + off)[c];
+      }
     }
     __syncthreads();
 
@@ -180,31 +209,38 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32, 1 = bfloat16 (q and out; k/v too unless QUANT, where
+// they are int8 with f32 scales).  Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for a shape the kernel does not take.
-template <bool PAGED>
+template <bool PAGED, bool QUANT>
 int launch_any(const void* q, const void* k, const void* v,
-               const void* tables, const void* lengths, void* out, int batch,
-               int s_max, int page, int n_heads, int n_kv, int hd, int dtype,
-               float scale, void* stream) {
+               const void* k_scale, const void* v_scale, const void* tables,
+               const void* lengths, void* out, int batch, int s_max, int page,
+               int n_heads, int n_kv, int hd, int dtype, float scale,
+               void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || n_heads / n_kv > kGMax ||
-      batch <= 0 || batch > 65535 || (PAGED && (page <= 0 || s_max % page)))
+      batch <= 0 || batch > 65535 || (PAGED && (page <= 0 || s_max % page)) ||
+      (QUANT && (k_scale == nullptr || v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_kv, batch);
   bool launched = true;
 #define DECODE_TILE_CASE(T, HDV)                                            \
-  decode_kernel<T, HDV, PAGED><<<grid, kThreads, 0, st>>>(                  \
-      static_cast<const T*>(q), static_cast<const T*>(k),                   \
-      static_cast<const T*>(v), static_cast<const int*>(tables),            \
-      static_cast<const int*>(lengths), static_cast<T*>(out), s_max, page,  \
-      n_heads, n_kv, scale)
-  if (dtype == 0 && hd == 64) DECODE_TILE_CASE(float, 64);
-  else if (dtype == 0 && hd == 128) DECODE_TILE_CASE(float, 128);
-  else if (dtype == 0 && hd == 256) DECODE_TILE_CASE(float, 256);
-  else if (dtype == 1 && hd == 64) DECODE_TILE_CASE(__nv_bfloat16, 64);
-  else if (dtype == 1 && hd == 128) DECODE_TILE_CASE(__nv_bfloat16, 128);
-  else if (dtype == 1 && hd == 256) DECODE_TILE_CASE(__nv_bfloat16, 256);
+  {                                                                         \
+    using S = typename std::conditional<QUANT, int8_t, T>::type;            \
+    decode_kernel<T, S, HDV, PAGED><<<grid, kThreads, 0, st>>>(             \
+        static_cast<const T*>(q), static_cast<const S*>(k),                 \
+        static_cast<const S*>(v), static_cast<const float*>(k_scale),       \
+        static_cast<const float*>(v_scale),                                 \
+        static_cast<const int*>(tables), static_cast<const int*>(lengths),  \
+        static_cast<T*>(out), s_max, page, n_heads, n_kv, scale);           \
+  }
+  if (dtype == 0 && hd == 64) DECODE_TILE_CASE(float, 64)
+  else if (dtype == 0 && hd == 128) DECODE_TILE_CASE(float, 128)
+  else if (dtype == 0 && hd == 256) DECODE_TILE_CASE(float, 256)
+  else if (dtype == 1 && hd == 64) DECODE_TILE_CASE(__nv_bfloat16, 64)
+  else if (dtype == 1 && hd == 128) DECODE_TILE_CASE(__nv_bfloat16, 128)
+  else if (dtype == 1 && hd == 256) DECODE_TILE_CASE(__nv_bfloat16, 256)
   else launched = false;
 #undef DECODE_TILE_CASE
   if (!launched) return (int)cudaErrorInvalidValue;

@@ -4,7 +4,8 @@
 // Replaces: llm_instance_gateway_tpu/ops/pallas_decode_attention.py::
 //   paged_decode_attention_pallas (kernel _paged_kernel, quant=False),
 //   reached through the entry paged_decode_attention from
-//   paged.decode_step_paged.  The int8 scale-pool variant is not ported.
+//   paged.decode_step_paged.  The int8 scale-pool variant is
+//   paged_decode_attention_quant.cu.
 //
 // q [B, H, hd], pools k/v [n_blocks + 1, P, K, hd] (one layer; physical
 // block 0 is the trash block), tables [B, M] int32, lengths [B] int32,
@@ -36,8 +37,7 @@ extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool, const void* tables,
     const void* lengths, void* out, int batch, int max_blocks, int page,
     int n_heads, int n_kv, int hd, int dtype, float scale, void* stream) {
-  return decode_tile::launch_any<true>(q, k_pool, v_pool, tables, lengths,
-                                       out, batch, max_blocks * page, page,
-                                       n_heads, n_kv, hd, dtype, scale,
-                                       stream);
+  return decode_tile::launch_any<true, false>(
+      q, k_pool, v_pool, nullptr, nullptr, tables, lengths, out, batch,
+      max_blocks * page, page, n_heads, n_kv, hd, dtype, scale, stream);
 }

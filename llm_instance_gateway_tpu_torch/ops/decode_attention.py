@@ -12,6 +12,16 @@ read, ``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
 ``decode_attention`` dispatches on the tensors' device only: CPU tensors
 take ``decode_attention_reference`` (the plain version), CUDA tensors
 launch the kernel or raise.  ``launches`` counts kernel launches.
+
+Given scales (int8 lanes), it replaces ``decode_attention_quant_pallas``
+(``_decode_kernel`` with quant=True) and launches
+``csrc/decode_attention_quant.cu``: the same kernel with an int8 tile
+fill — one f32 scale per (position, KV head), each value dequantized as
+``(x.astype(f32) * scale).astype(q.dtype)`` into the shared tile, the
+Pallas kernel's rounding — so it reads half the K/V bytes plus the scales,
+``2 * sum(lengths) * K * (hd + 4)``.  Its plain version dequantizes the
+same way (``dequantize_kv``) and calls ``decode_attention_reference``.
+``quant_launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -28,8 +38,10 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # query heads per KV head the kernel's shared memory holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the count was last reset (plain int, host side).
+# Kernel launches since the count was last reset (plain ints, host side):
+# the bf16/f32 kernel and the int8 kernel.
 launches = 0
+quant_launches = 0
 
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -56,7 +68,27 @@ def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
     return (acc / denom).reshape(b, h, hd).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, lengths) -> None:
+def dequantize_kv(x: torch.Tensor, scale: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """int8 values [..., hd] with f32 scales [...] -> ``dtype``, as the
+    Pallas kernel dequantizes a tile: f32 multiply, then one rounding."""
+    return (x.float() * scale.float()[..., None]).to(dtype)
+
+
+def decode_attention_quant_reference(q: torch.Tensor, k_cache: torch.Tensor,
+                                     v_cache: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     lengths: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch: k/v int8
+    [B, S_max, K, hd] with f32 scales [B, S_max, K], dequantized to q's
+    dtype (``dequantize_kv``), then ``decode_attention_reference``."""
+    return decode_attention_reference(
+        q, dequantize_kv(k_cache, k_scale, q.dtype),
+        dequantize_kv(v_cache, v_scale, q.dtype), lengths)
+
+
+def _check(q, k_cache, v_cache, lengths, kv_dtype=None) -> None:
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError("decode_attention: q [B,H,hd], k/v [B,S_max,K,hd] "
                          f"expected, got {tuple(q.shape)}, "
@@ -72,10 +104,12 @@ def _check(q, k_cache, v_cache, lengths) -> None:
     if h // n_kv > MAX_GROUP or b > 65535:
         raise ValueError(f"decode_attention: {h // n_kv} query heads per KV "
                          f"head (max {MAX_GROUP}) or batch {b} too large")
-    if (q.dtype not in _DTYPES or k_cache.dtype != q.dtype
-            or v_cache.dtype != q.dtype):
-        raise ValueError(f"decode_attention: dtype {q.dtype} (float32 or "
-                         "bfloat16, all three alike)")
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
+    if (q.dtype not in _DTYPES or k_cache.dtype != kv_dtype
+            or v_cache.dtype != kv_dtype):
+        raise ValueError(f"decode_attention: dtype {q.dtype} / cache "
+                         f"{k_cache.dtype} (q float32 or bfloat16; the cache "
+                         f"{'int8' if kv_dtype == torch.int8 else 'alike'})")
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError("decode_attention: lengths must be int32 [B]")
     for t in (q, k_cache, v_cache, lengths):
@@ -88,30 +122,62 @@ def _check(q, k_cache, v_cache, lengths) -> None:
                              "aligned (the kernel loads 16-byte vectors)")
 
 
+def _check_scales(k_cache, k_scale, v_scale, what: str) -> None:
+    """f32 scales, one per (position, KV head), contiguous beside the cache."""
+    for sc in (k_scale, v_scale):
+        if (sc.dtype != torch.float32 or sc.shape != k_cache.shape[:-1]
+                or sc.device != k_cache.device or not sc.is_contiguous()):
+            raise ValueError(f"{what}: scales must be contiguous float32 "
+                             f"{tuple(k_cache.shape[:-1])} on the cache's "
+                             f"device, got {sc.dtype} {tuple(sc.shape)}")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
-    """Cached single-token attention over contiguous lanes.
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Cached single-token attention over contiguous lanes; with
+    ``k_scale``/``v_scale`` (f32 [B, S_max, K]) the lanes are int8.
 
     CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
     ``ValueError`` for a shape it does not take."""
-    global launches
+    global launches, quant_launches
+    quant = k_scale is not None or v_scale is not None
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError("decode_attention: give both scales")
     if q.device.type == "cpu":
+        if quant:
+            return decode_attention_quant_reference(
+                q, k_cache, v_cache, k_scale, v_scale, lengths)
         return decode_attention_reference(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths,
+           kv_dtype=torch.int8 if quant else None)
     b, h, hd = q.shape
     out = torch.empty_like(q)
-    lib = _build.load("decode_attention")
-    fn = lib.decode_attention_launch
+    geometry = (b, k_cache.shape[1], h, k_cache.shape[2], hd,
+                _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        _check_scales(k_cache, k_scale, v_scale, "decode_attention")
+        fn = _build.load(
+            "decode_attention_quant").decode_attention_quant_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p]
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+                out.data_ptr(), *geometry)
+        _build.check(rc, "decode_attention_quant")
+        quant_launches += 1
+        return out
+    fn = _build.load("decode_attention").decode_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, k_cache.shape[1], h,
-            k_cache.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            lengths.data_ptr(), out.data_ptr(), *geometry)
     _build.check(rc, "decode_attention")
     launches += 1
     return out

@@ -14,9 +14,16 @@ cover, ``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
 ``paged_decode_attention`` dispatches on the tensors' device only: CPU
 tensors take ``paged_decode_attention_reference`` (the plain version: the
 pool->lane gather, then the lane kernel's plain version), CUDA tensors
-launch the kernel or raise.  The int8 scale-pool variant is not ported
-(ROADMAP Queue 1 item 10): scale pools raise.  ``launches`` counts kernel
-launches.
+launch the kernel or raise.  ``launches`` counts kernel launches.
+
+Given scale pools (an int8 pool, the Pallas kernel's quant=True variant),
+it takes ``csrc/paged_decode_attention_quant.cu`` instead: the same walk
+through the table with the int8 tile fill of the lane variant, the scales
+read through the same table, ``2 * sum(lengths) * K * (hd + 4)`` bytes.
+Its plain version is gather, dequantize (the Pallas kernel's rounding),
+then the lane plain version.  ``quant_launches`` counts its launches.  Any
+block size that is a multiple of 16 is taken for int8 too: the TPU's
+32-row int8 floor is a TPU tiling rule.
 """
 
 from __future__ import annotations
@@ -31,14 +38,18 @@ from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
 from llm_instance_gateway_tpu_torch.ops.decode_attention import (
     MAX_GROUP,
     SUPPORTED_HEAD_DIMS,
+    _check_scales,
+    decode_attention_quant_reference,
     decode_attention_reference,
 )
 
-PAGE_MULTIPLE = 16  # block sizes the pool takes (bf16 (16, 128) tiling)
+PAGE_MULTIPLE = 16  # block sizes the pool takes, bf16/f32 and int8 alike
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the count was last reset (plain int, host side).
+# Kernel launches since the count was last reset (plain ints, host side):
+# the bf16/f32 pool kernel and the int8 scale-pool kernel.
 launches = 0
+quant_launches = 0
 
 
 def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -53,7 +64,20 @@ def paged_decode_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
         lengths)
 
 
-def _check(q, k_pool, v_pool, tables, lengths) -> None:
+def paged_decode_attention_quant_reference(
+        q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+        tables: torch.Tensor, lengths: torch.Tensor, k_scale: torch.Tensor,
+        v_scale: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's function in plain PyTorch: int8 pools and their
+    f32 scale pools gathered through the tables into lane views, then the
+    int8 lane plain version (dequantize to q's dtype, f32 multiply, one
+    rounding)."""
+    return decode_attention_quant_reference(
+        q, *(gather_pool_rows(p, tables)
+             for p in (k_pool, v_pool, k_scale, v_scale)), lengths)
+
+
+def _check(q, k_pool, v_pool, tables, lengths, kv_dtype=None) -> None:
     if (q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape
             or tables.dim() != 2):
         raise ValueError("paged_decode_attention: q [B,H,hd], pools "
@@ -75,10 +99,12 @@ def _check(q, k_pool, v_pool, tables, lengths) -> None:
         raise ValueError(f"paged_decode_attention: {h // n_kv} query heads "
                          f"per KV head (max {MAX_GROUP}) or batch {b} too "
                          "large")
-    if (q.dtype not in _DTYPES or k_pool.dtype != q.dtype
-            or v_pool.dtype != q.dtype):
-        raise ValueError(f"paged_decode_attention: dtype {q.dtype} (float32 "
-                         "or bfloat16, all three alike)")
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
+    if (q.dtype not in _DTYPES or k_pool.dtype != kv_dtype
+            or v_pool.dtype != kv_dtype):
+        raise ValueError(f"paged_decode_attention: dtype {q.dtype} / pool "
+                         f"{k_pool.dtype} (q float32 or bfloat16; the pools "
+                         f"{'int8' if kv_dtype == torch.int8 else 'alike'})")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32 \
             or lengths.shape != (b,):
         raise ValueError("paged_decode_attention: tables int32 [B,M] and "
@@ -100,34 +126,50 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            k_scale: torch.Tensor | None = None,
                            v_scale: torch.Tensor | None = None
                            ) -> torch.Tensor:
-    """Cached single-token attention read through block tables.
+    """Cached single-token attention read through block tables; with
+    ``k_scale``/``v_scale`` (f32 [n_blocks+1, P, K]) the pools are int8.
 
     CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
-    ``ValueError`` for a shape it does not take.  Scale pools (an int8
-    pool) raise ``NotImplementedError``."""
-    global launches
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "paged_decode_attention: int8 pools with scale pools are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+    ``ValueError`` for a shape it does not take."""
+    global launches, quant_launches
+    quant = k_scale is not None or v_scale is not None
+    if quant and (k_scale is None or v_scale is None):
+        raise ValueError("paged_decode_attention: give both scale pools")
     if q.device.type == "cpu":
+        if quant:
+            return paged_decode_attention_quant_reference(
+                q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
                                                 lengths)
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
-    _check(q, k_pool, v_pool, tables, lengths)
+    _check(q, k_pool, v_pool, tables, lengths,
+           kv_dtype=torch.int8 if quant else None)
     b, h, hd = q.shape
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    geometry = (b, tables.shape[1], k_pool.shape[1], h, k_pool.shape[2], hd,
+                _DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream)
+    if quant:
+        _check_scales(k_pool, k_scale, v_scale, "paged_decode_attention")
+        fn = _build.load(
+            "paged_decode_attention_quant").paged_decode_attention_quant_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_void_p]
+        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+                lengths.data_ptr(), out.data_ptr(), *geometry)
+        _build.check(rc, "paged_decode_attention_quant")
+        quant_launches += 1
+        return out
     fn = _build.load("paged_decode_attention").paged_decode_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b,
-            tables.shape[1], k_pool.shape[1], h, k_pool.shape[2], hd,
-            _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *geometry)
     _build.check(rc, "paged_decode_attention")
     launches += 1
     return out

@@ -20,6 +20,9 @@ being ignored.
 
     python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \
         --max-seq-len 8192 --paged-kv-block 64 --prefix-cache --stream-lanes 2
+
+``--quantize int8`` serves int8 weights (``ops/quant.py``) and
+``--kv-quantize int8`` an int8 KV cache, on lanes or on the paged pool.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ import torch
 
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
 from llm_instance_gateway_tpu_torch.server import metrics as metrics_mod
 from llm_instance_gateway_tpu_torch.server.engine import (
     Engine,
@@ -503,6 +507,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "(content-addressed, refcounted) so prompts sharing a "
                         "prefix prefill only their suffix; requires "
                         "--paged-kv-block")
+    p.add_argument("--quantize", choices=("none", "int8"), default="none",
+                   help="weight-only int8 quantization of the big "
+                        "projections (per output channel)")
+    p.add_argument("--kv-quantize", choices=("none", "int8"), default="none",
+                   help="store the KV cache int8 with one scale per position "
+                        "and KV head (lanes and the paged pool, prefix cache "
+                        "included)")
     p.add_argument("--role", choices=("collocated", "prefill", "decode"),
                    default="collocated")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
@@ -514,7 +525,9 @@ def make_server(argv=None, params=None):
     """Build the engine and the HTTP server from CLI arguments; returns
     ``(httpd, engine, args)`` with the engine loop started.  The caller runs
     ``httpd.serve_forever()``.  ``params`` reuses weights already on the
-    device (same model, dtype and device) instead of drawing them."""
+    device (same model, dtype and device) instead of drawing them; with
+    ``--quantize int8`` the engine gets a new quantized tree and the
+    caller's stays as it was."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
@@ -541,6 +554,9 @@ def make_server(argv=None, params=None):
         logger.warning("serving RANDOM weights (seed %d)", args.seed)
         params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
                                          device=args.device)
+    if args.quantize == "int8":
+        params = quantize_params(params)
+        logger.info("weights quantized to int8 (per output channel)")
     lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device)
     engine = Engine(
         cfg, params,
@@ -558,6 +574,8 @@ def make_server(argv=None, params=None):
             paged_kv_block=args.paged_kv_block,
             paged_kv_blocks=args.paged_kv_blocks,
             prefix_cache=args.prefix_cache,
+            kv_cache_quant=(None if args.kv_quantize == "none"
+                            else args.kv_quantize),
             role=args.role,
         ),
         lora_manager=lora_manager, eos_id=tokenizer.eos_id, dtype=dtype,

@@ -23,10 +23,14 @@ synchronous loop).
   of decode_step + sample whose freeze arithmetic stays in tensors; the
   host reads the block's tokens back once per dispatch.
 
+- **int8 KV** (``kv_cache_quant="int8"``): lanes or pool store K/V int8
+  with one f32 scale per (position, KV head); prompt KV is quantized where
+  it lands, and decode runs the int8 kernels.
+
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.  Config the port does not
 serve yet raises at construction instead of being ignored: speculative
-decoding, int8 KV, grouped prefill and pipelined decode.
+decoding, grouped prefill and pipelined decode.
 """
 
 from __future__ import annotations
@@ -102,7 +106,6 @@ class EngineConfig:
 # port accepts, ROADMAP Queue 1 item that ports it).
 _UNSERVED = (
     ("speculative_k", 0, "12 (speculative decoding)"),
-    ("kv_cache_quant", None, "10 (int8 KV)"),
     ("prefill_batch", 1, "7 (grouped prefill)"),
     ("pipeline_decode", False, "7 (pipelined decode)"),
 )
@@ -208,6 +211,11 @@ class Engine:
                 raise NotImplementedError(
                     f"EngineConfig.{name}={getattr(self.cfg, name)!r} is not "
                     f"served by the torch port yet (ROADMAP Queue 1 item {item})")
+        if self.cfg.kv_cache_quant not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_quant={self.cfg.kv_cache_quant!r}: only 'int8' "
+                "(or None) is supported")
+        kv_quant = self.cfg.kv_cache_quant is not None
         transformer.check_supported(model_cfg)
         self.params = params
         self.lora = lora_manager
@@ -226,7 +234,8 @@ class Engine:
                               else b * self._max_blocks_per_seq)
             self.cache = paged_lib.init_paged_cache(
                 model_cfg, b, self.cfg.max_seq_len, self._n_blocks,
-                self._block, dtype=dtype, device=self.device)
+                self._block, dtype=dtype, device=self.device,
+                quantized=kv_quant)
             self._max_len = self._max_blocks_per_seq * self._block
             # Host-side allocator: physical blocks 1..n are allocatable;
             # block 0 is the trash block (paged_lib.TRASH_BLOCK).
@@ -249,7 +258,7 @@ class Engine:
             self._prefix_enabled = False
             self.cache = transformer.init_decode_cache(
                 model_cfg, b, self.cfg.max_seq_len, dtype=dtype,
-                device=self.device)
+                device=self.device, quantized=kv_quant)
             self._max_len = self.cfg.max_seq_len
             self._step_fn = transformer.decode_step
             self._chunk_fn = transformer.prefill_with_cache

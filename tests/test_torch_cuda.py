@@ -129,17 +129,22 @@ def test_paged_decode_matches_plain_version(dev, dtype, page, h, k, hd):
 
 
 def test_unsupported_paged_inputs_raise_on_the_card(dev):
+    """A block size off the 16 grid raises for bf16/f32 and int8 pools
+    alike; an int8 pool's scales must be f32 of the pool's shape."""
     q = torch.zeros(2, 8, 128, device=dev)
     pool = torch.zeros(5, 24, 2, 128, device=dev)  # block 24: not 16k
     tables = torch.zeros(2, 2, dtype=torch.int32, device=dev)
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="multiple of 16"):
         pd.paged_decode_attention(q, pool, pool, tables, lengths)
-    pool = torch.zeros(5, 16, 2, 128, device=dev)
-    scales = torch.ones(5, 16, 2, device=dev)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        pd.paged_decode_attention(q, pool, pool, tables, lengths, scales,
-                                  scales)
+    scales = torch.ones(5, 24, 2, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pd.paged_decode_attention(q, pool.to(torch.int8), pool.to(torch.int8),
+                                  tables, lengths, scales, scales)
+    pool = torch.zeros(5, 16, 2, 128, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        pd.paged_decode_attention(q, pool, pool, tables, lengths,
+                                  scales[:, :16].half(), scales[:, :16].half())
 
 
 def test_unsupported_shapes_raise_on_the_card(dev):
@@ -155,3 +160,59 @@ def test_unsupported_shapes_raise_on_the_card(dev):
     with pytest.raises(ValueError, match="dtype"):
         dec.decode_attention(q.half(), cache.half(), cache.half(),
                              torch.ones(2, dtype=torch.int32, device=dev))
+
+
+def quantize(x):
+    """[..., hd] -> (int8, f32 scale [...]), per-vector max-abs (the
+    serving path's ``_kv_quantize``)."""
+    from llm_instance_gateway_tpu_torch.models.transformer import _kv_quantize
+
+    return _kv_quantize(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", [(32, 8, 128), (8, 2, 64), (8, 1, 256)])
+def test_decode_quant_matches_plain_version(dev, dtype, h, k, hd):
+    """The int8 lane kernel after the flash and bf16 kernels in one
+    process (the shared headers keep internal linkage)."""
+    gen = torch.Generator(device=dev).manual_seed(hd + 1)
+    b, s_max = 6, 300
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kq, ks = quantize(randn(gen, b, s_max, k, hd, dtype=torch.float32))
+    vq, vs = quantize(randn(gen, b, s_max, k, hd, dtype=torch.float32))
+    lengths = torch.tensor([0, 1, 63, 64, 65, 300], dtype=torch.int32,
+                           device=dev)
+    before = (dec.launches, dec.quant_launches)
+    got = dec.decode_attention(q, kq, vq, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert (dec.launches, dec.quant_launches) == (before[0], before[1] + 1)
+    want = dec.decode_attention_quant_reference(q, kq, vq, ks, vs, lengths)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page,h,k,hd", [(16, 8, 2, 64), (64, 32, 8, 128)])
+def test_paged_decode_quant_matches_plain_version(dev, dtype, page, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(page + hd + 1)
+    b, m = 6, 8
+    n_blocks = b * m
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kq, ks = quantize(randn(gen, n_blocks + 1, page, k, hd,
+                            dtype=torch.float32))
+    vq, vs = quantize(randn(gen, n_blocks + 1, page, k, hd,
+                            dtype=torch.float32))
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(1))
+    tables = (perm + 1).reshape(b, m).to(torch.int32)
+    tables[1, 1:] = 0  # the trash block past a short row's end
+    tables = tables.to(dev)
+    lengths = torch.tensor([0, 1, page + page // 2, 3 * page, m * page - 1,
+                            m * page], dtype=torch.int32, device=dev)
+    before = (pd.launches, pd.quant_launches)
+    got = pd.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert (pd.launches, pd.quant_launches) == (before[0], before[1] + 1)
+    want = pd.paged_decode_attention_quant_reference(q, kq, vq, tables,
+                                                     lengths, ks, vs)
+    assert_close(got, want, dtype)
+    assert not got[0].any()

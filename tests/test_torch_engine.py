@@ -280,15 +280,28 @@ class TestEngineParity:
             te.stop()
 
 
+@pytest.mark.parametrize("extra", [
+    {}, {"paged_kv_block": 16, "prefix_cache": True}],
+    ids=["lanes", "paged"])
+def test_int8_kv_constructs(extra):
+    """int8 KV is served on lanes and on the paged pool: the engine's
+    cache holds int8 K/V with f32 scales, one per (position, KV head)."""
+    cfg = teng.EngineConfig(kv_cache_quant="int8", **extra)
+    eng = teng.Engine(TINY_TEST, {}, cfg, dtype=torch.float32,
+                      device="cpu")
+    for name in ("k", "v"):
+        assert eng.cache[name].dtype == torch.int8
+        assert eng.cache[f"{name}_scale"].dtype == torch.float32
+        assert (eng.cache[f"{name}_scale"].shape
+                == eng.cache[name].shape[:-1])
+    assert ("tables" in eng.cache) == ("paged_kv_block" in extra)
+
+
 class TestUnservedConfigRaises:
-    @pytest.mark.parametrize("field,value,extra", [
-        ("speculative_k", 2, {}), ("kv_cache_quant", "int8", {}),
-        ("prefill_batch", 2, {}), ("pipeline_decode", True, {}),
-        # an int8 PAGED pool (the scale-pool kernel variant) still raises
-        ("kv_cache_quant", "int8", {"paged_kv_block": 16,
-                                    "prefix_cache": True})])
-    def test_construction_raises(self, field, value, extra):
-        cfg = teng.EngineConfig(**{field: value}, **extra)
+    @pytest.mark.parametrize("field,value", [
+        ("speculative_k", 2), ("prefill_batch", 2), ("pipeline_decode", True)])
+    def test_construction_raises(self, field, value):
+        cfg = teng.EngineConfig(**{field: value})
         with pytest.raises(NotImplementedError, match=field):
             teng.Engine(TINY_TEST, {}, cfg, device="cpu")
 

@@ -207,5 +207,13 @@ def test_bf16_leaves_cross_bit_exact():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 13"):
         ttf.init_params(port_cfg(TINY_MOE_TEST), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttf.init_decode_cache(TINY_TEST, 2, 16, device="cpu", quantized=True)
+
+
+def test_int8_decode_cache_has_the_reference_layout():
+    cache = ttf.init_decode_cache(TINY_TEST, 2, 16, device="cpu",
+                                  quantized=True)
+    want = jtf.init_decode_cache(JAX_TINY, 2, 16, quantized=True)
+    assert set(cache) == set(want)
+    for name, leaf in want.items():
+        assert tuple(cache[name].shape) == leaf.shape, name
+        assert str(cache[name].dtype).split(".")[-1] == str(leaf.dtype), name

@@ -122,15 +122,24 @@ class TestPagedKernelPlainVersion:
         assert torch.equal(got, tpd.paged_decode_attention_reference(*args))
         assert tpd.launches == before
 
-    def test_scale_pools_raise(self):
+    def test_scale_pools_take_the_int8_plain_version(self):
+        """Scale pools (an int8 pool) are served: on CPU tensors the
+        wrapper takes the int8 plain version and launches nothing; a
+        missing scale pool raises."""
         q, kp, vp, tables, lengths = map(t, pool_inputs(seed=4))
-        scales = torch.ones(kp.shape[:-1])
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tpd.paged_decode_attention(q, kp, vp, tables, lengths, scales,
-                                       scales)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tpaged.init_paged_cache(TINY_TEST, 2, 32, 8, 8, device="cpu",
-                                    quantized=True)
+        kq, ks = ttf._kv_quantize(kp)
+        vq, vs = ttf._kv_quantize(vp)
+        before = (tpd.launches, tpd.quant_launches)
+        got = tpd.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
+        assert torch.equal(got, tpd.paged_decode_attention_quant_reference(
+            q, kq, vq, tables, lengths, ks, vs))
+        assert (tpd.launches, tpd.quant_launches) == before
+        with pytest.raises(ValueError, match="both scale pools"):
+            tpd.paged_decode_attention(q, kq, vq, tables, lengths, ks)
+        cache = tpaged.init_paged_cache(TINY_TEST, 2, 32, 8, 8, device="cpu",
+                                        quantized=True)
+        assert cache["k"].dtype == torch.int8
+        assert cache["k_scale"].shape == cache["k"].shape[:-1]
 
 
 # ---------------------------------------------------------------------------
