@@ -8,7 +8,9 @@ Phases, each printing its own line; any failure raises (exit code != 0):
 1. device  — requires CUDA, prints the card's name and power limit
    (nvidia-smi) and the TF32 switches;
 2. build   — builds every kernel in llm_instance_gateway_tpu_torch/ops/csrc
-   with nvcc for sm_90a (one process per source, all at once);
+   with nvcc for sm_90a (one process per source, all at once), and reads
+   the flash and chunk libraries' SASS (cuobjdump): their bf16 kernels
+   must run HGMMA (wgmma on the tensor cores), their f32 kernels none;
 3. kernels — calls each kernel's wrapper at the serving paths' shapes,
    holds it against its plain PyTorch version (each output vector's error
    within 2^-6 of its largest value, SCALED_TOL, and every error within
@@ -21,7 +23,10 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    0 .. 8192), and the int8 lane and paged decode kernels at the same
    shapes (int8 K/V with one f32 scale per position and KV head; the
    plain version fed one KV head's scales in place of another's must fail
-   the check);
+   the check); flash and chunk rows add their rate (tflops, the live
+   operations over the time), bound_frac (bound_ms / ms) and, beside the
+   lane decode row, host_us (host time per call: flash and chunk
+   encode three TMA tensor maps per call);
 4. reference — the card's path (kernels) against the CPU path (plain
    versions) on a small f32 model with Llama-3-8B's head layout: prefill
    logits within a stated tolerance and identical greedy token streams,
@@ -138,6 +143,20 @@ def time_ms(torch, fn, arg_sets, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(torch, fn, args, iters: int = 50) -> float:
+    """Host microseconds per call (wrapper checks, the launch and,
+    for flash and chunk, encoding three TMA tensor maps): host clock over
+    ``iters`` calls that are not synchronized."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / iters * 1e6
+
+
 def copies_for(nbytes: int) -> int:
     return max(1, min(16, math.ceil(128e6 / max(nbytes, 1))))
 
@@ -164,9 +183,39 @@ def phase_build() -> None:
     secs = time.time() - t0
     for name, log_text in _build.build_all.last_log.items():
         for line in log_text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "warning" in line):
                 log("build", f"{name}: {line.strip()}")
     log("build", f"built {sorted(paths)} in {secs:.2f} s")
+    for name in ("flash_prefill", "chunk_attention"):
+        check_tensor_cores(name, paths[name])
+
+
+def check_tensor_cores(name: str, path: str) -> None:
+    """The library's SASS, one count per kernel: each bf16 (tensor-core)
+    kernel of flash_tile_sm90.cuh must contain HGMMA, each f32 (FMA)
+    kernel of flash_tile.cuh none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    kernels = re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass,
+                         re.S)
+    counts = {"bf16": {}, "f32": {}}
+    for fn, body in kernels:
+        kind = "bf16" if "flash_tile_sm90" in fn else "f32"
+        hd = int(re.search(r"flash_kernelILi(\d+)E", fn).group(1))
+        counts[kind][hd] = n = body.count("HGMMA")
+        if (n > 0) != (kind == "bf16"):
+            raise AssertionError(f"{name}: {fn} has {n} HGMMA instructions")
+    if sorted(counts["bf16"]) != [64, 128, 256] \
+            or sorted(counts["f32"]) != [64, 128, 256]:
+        raise AssertionError(f"{name}: expected bf16 and f32 kernels at hd "
+                             f"64/128/256, found {counts}")
+    log("build", f"{name} SASS: HGMMA instructions per kernel by head dim "
+        f"{json.dumps(counts)}")
 
 
 def phase_kernels(torch) -> dict:
@@ -201,10 +250,12 @@ def phase_kernels(torch) -> dict:
                   c.transpose(1, 2).contiguous()) for a, b, c in sets]
         lib_ms = time_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=True, enable_gqa=True), bsets)
+        ops = 2 * 1 * H * s * (s + 1) * HD
         row = dict(shape=f"B=1 S={s} H={H} K={K} hd={HD} bf16",
                    **errs, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms,
-                   **_bound(nbytes, 2 * 1 * H * s * (s + 1) * HD))
+                   library_ms=lib_ms, **_bound(nbytes, ops),
+                   host_us=host_us(torch, fl.flash_attention, sets[0]))
+        row.update(_rate(ops, row))
         flash_rows.append(row)
         log("kernels", "flash_prefill " + json.dumps(row))
     results["flash_prefill"] = flash_rows
@@ -238,7 +289,8 @@ def phase_kernels(torch) -> dict:
     row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} bf16 "
                f"lengths={lengths.tolist()}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+               **_bound(nbytes, 2 * 2 * total_len * H * HD),
+               host_us=host_us(torch, dec.decode_attention, sets[0]))
     log("kernels", "decode_attention " + json.dumps(row))
     results["decode_attention"] = [row]
     results["chunk_attention"] = _chunk_rows(torch, gen)
@@ -388,6 +440,13 @@ def _bound(nbytes: float, ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def _rate(ops: float, row: dict) -> dict:
+    """The live operations per second the kernel reached, and its share of
+    the bound."""
+    return dict(tflops=ops / row["ms"] / 1e9,
+                bound_frac=row["bound_ms"] / row["ms"])
+
+
 def _chunk_rows(torch, gen) -> list:
     """Chunk attention at the chunk paths' shapes: 1024-token stream chunks
     at start 0 / 2048 / 5120 of an 8192-position lane, and a 64-token
@@ -438,7 +497,9 @@ def _chunk_rows(torch, gen) -> list:
         row = dict(shape=f"B=1 C={c} start={start} S_max={S_MAX} H={H} K={K} "
                    f"hd={HD} bf16", **errs, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library="SDPA, boolean mask over the "
-                   "first start+C positions", **_bound(nbytes, ops))
+                   "first start+C positions", **_bound(nbytes, ops),
+                   host_us=host_us(torch, ch.chunk_attention, sets[0]))
+        row.update(_rate(ops, row))
         rows.append(row)
         log("kernels", "chunk_attention " + json.dumps(row))
         del sets, bsets
@@ -1177,6 +1238,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
+            **{k: main[k] for k in ("tflops", "bound_frac") if k in main},
             "shapes": rows,
         })
     return {"kernels": out}

@@ -4,13 +4,16 @@ plain version, wrapper.
 Replaces ``llm_instance_gateway_tpu/ops/pallas_attention.py::
 chunk_attention_pallas`` (kernel ``_chunk_kernel``, entry
 ``chunk_attention``).  The kernel is ``csrc/chunk_attention.cu`` (CUDA C++
-for ``sm_90a``, device code shared with the flash prefill kernel through
-``csrc/flash_tile.cuh``): one thread block per (64-row query tile, head,
-row) streams K/V tiles only up to ``min(start + its last row, S_max - 1)``
-with an online f32 softmax, so reads track the prompt's progress, not
-S_max, and a final chunk's pad queries past S_max never read past the
-lane.  Its bound on an H100 is the operations
-``4 * H * hd * C * (start + (C + 1) / 2)`` at 989 TFLOP/s (bf16).
+for ``sm_90a``), on the flash prefill kernel's device code: bf16 on the
+tensor cores (``csrc/flash_tile_sm90.cuh``: 128-row query tiles, K/V tiles
+by TMA through a two-stage ring, QK^T and PV as ``wgmma``, online f32
+softmax in registers), f32 on CUDA-core FMAs (``csrc/flash_tile.cuh``).
+Each block requests K/V tiles only up to ``min(start + its last row,
+S_max - 1)``, so reads track the prompt's progress, not S_max, and a final
+chunk's pad queries past S_max never read past the lane.  Its bound on an
+H100 is the operations ``4 * H * hd * C * (start + (C + 1) / 2)`` at
+989 TFLOP/s (bf16).  The bf16 kernel rounds P to bf16 before PV, its one
+departure from the TPU kernel (``tests/test_torch_flash_numerics.py``).
 
 ``start`` is a host ``int``.  ``chunk_attention`` dispatches on the
 tensors' device only: CPU tensors take ``chunk_attention_reference`` (the

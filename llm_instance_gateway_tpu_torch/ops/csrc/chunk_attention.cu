@@ -17,13 +17,15 @@
 // bf16 (at C = 1024, start = 5120, H = 32, hd = 128: 9.45e10 operations,
 // 0.096 ms); the K/V it must read there, 6144 positions x 8 heads x 128
 // x 2 x 2 bytes = 25 MB, take 0.0075 ms at 3.35 TB/s.
-// The design does what the TPU kernel's index-map clamp does: one block
-// per (64-row query tile, head, row) loops over K/V tiles only up to
-// min(start + its last row, S_max - 1), so the reads track the prompt's
-// progress and not S_max, and the [C, S_max] scores never reach device
-// memory (flash_tile.cuh, shared with the flash prefill kernel).  It takes
-// every C (16..1024 on prefix hits, 1024 for stream chunks) and every
-// S_max, masking ragged tiles: on the card there is no XLA fallback.
+// The design does what the TPU kernel's index-map clamp does: each block
+// requests K/V tiles only up to min(start + its last row, S_max - 1), so
+// the reads track the prompt's progress and not S_max, and the [C, S_max]
+// scores never reach device memory.  bf16 runs on the tensor cores
+// (flash_tile_sm90.cuh, shared with the flash prefill kernel: K/V tiles by
+// TMA through a two-stage ring, QK^T and PV as wgmma); f32 on CUDA-core
+// FMAs (flash_tile.cuh).  It takes every C (16..1024 on prefix hits, 1024
+// for stream chunks) and every S_max, masking ragged tiles: on the card
+// there is no XLA fallback.
 
 #include "flash_tile.cuh"
 

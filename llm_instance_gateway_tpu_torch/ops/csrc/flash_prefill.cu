@@ -16,11 +16,12 @@
 // q, k, v and out at 3.35 TB/s, whichever is larger (at Llama-3-8B heads,
 // bytes below S ~ 740 and flops above).
 // The design keeps the [S, S] scores out of device memory, as the TPU kernel
-// does: this is the chunk kernel of flash_tile.cuh at start 0 over the
-// prompt's own K/V, so each (64-row query tile, head, row) block streams
-// K/V tiles only up to the diagonal (tiles above it are never read) with
-// the online-softmax state and f32 accumulator on chip.  Its CUDA-core
-// FMAs are far from the flop bound; wgmma is later work.
+// does: this is the chunk kernel at start 0 over the prompt's own K/V, so
+// each block streams K/V tiles only up to the diagonal (tiles above it are
+// never read) with the online-softmax state and f32 accumulator on chip.
+// bf16 runs on the tensor cores (flash_tile_sm90.cuh: TMA ring, wgmma for
+// QK^T and PV, 128-row query tiles, longest tiles launched first); f32 on
+// CUDA-core FMAs (flash_tile.cuh).
 
 #include "flash_tile.cuh"
 

@@ -1,34 +1,40 @@
 // Flash-style attention of a query chunk against a key/value sequence, the
 // device code shared by flash_prefill.cu (start = 0, S_kv = S) and
 // chunk_attention.cu (a chunk at a runtime offset against a cache lane).
+// launch_any dispatches by dtype: bfloat16 runs on the tensor cores
+// (flash_tile_sm90.cuh: wgmma fed by TMA), float32 on the CUDA-core FMA
+// kernel below.  f32 stays off the tensor cores on purpose: there they
+// would run in TF32 (about 3 decimal digits), and the f32 path is what the
+// card-vs-CPU reference checks hold to summation-order agreement.
 //
 // q/out [B, C, H, hd], k/v [B, S_kv, K, hd]; query head h reads KV head
 // h / (H/K); scale 1/sqrt(hd).  Query row i sits at global position
 // start + i and attends key positions j <= start + i with j < S_kv.
 //
-// One thread block per (64-row query tile, head, row) holds its scaled f32
-// query tile, the online-softmax state and the f32 output accumulator on
-// chip while it streams 64-row K/V tiles only up to the tile's last reach,
-// min(start + last row, S_kv - 1): tiles past it are never read, and rows
-// whose position runs past the lane (a final chunk's pad queries) stop at
-// S_kv instead of reading past it.  The tile that straddles the reach is
-// masked; ragged tiles (C or S_kv not a multiple of 64) load zeros and
-// mask.  The products run on CUDA-core FMAs from shared memory, with each
-// thread owning a 4x4 score tile and a 4 x hd/16 accumulator tile; moving
-// them to wgmma on the tensor cores is later work.
+// The f32 kernel: one thread block per (64-row query tile, head, row)
+// holds its scaled query tile, the online-softmax state and the output
+// accumulator on chip while it streams 64-row K/V tiles only up to the
+// tile's last reach, min(start + last row, S_kv - 1): tiles past it are
+// never read, and rows whose position runs past the lane (a final chunk's
+// pad queries) stop at S_kv instead of reading past it.  The tile that
+// straddles the reach is masked; ragged tiles (C or S_kv not a multiple
+// of 64) load zeros and mask.  The products run on CUDA-core FMAs from
+// shared memory, with each thread owning a 4x4 score tile and a
+// 4 x hd/16 accumulator tile.
 // Numerics match the TPU kernels' shared _softmax_block: q * scale in f32,
-// K/V upcast exactly, p kept in f32 for the PV product, output
-// acc / max(l, 1e-30).  Key 0 is always live for every row, so no row's
-// first tile is fully masked (no exp(0) of two -1e30s).
+// p kept in f32 for the PV product, output acc / max(l, 1e-30).  Key 0 is
+// always live for every row, so no row's first tile is fully masked (no
+// exp(0) of two -1e30s).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-// Internal linkage: every kernel library includes this header, and a
+#include "flash_tile_sm90.cuh"
+
+// Internal linkage: two kernel libraries include this header, and a
 // template's function-local static (the smem attribute flag) would
-// otherwise be one GNU-unique symbol shared by all loaded libraries.
+// otherwise be one GNU-unique symbol shared by both.
 namespace flash_tile {
 namespace {
 
@@ -37,35 +43,22 @@ constexpr int kBQ = 64;  // query rows per block
 constexpr int kBK = 64;  // key rows per tile
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int HD>
+template <int HD>
 struct Smem {
   static constexpr int QS = HD + 1;   // f32 row stride (padded: no conflicts)
   static constexpr int SS = kBK + 1;  // f32 score row stride
-  static constexpr int KS = HD + 2;   // T row stride (padded)
+  static constexpr int KS = HD + 2;   // K/V row stride (padded)
   static constexpr size_t kFloats = (size_t)kBQ * QS + (size_t)kBQ * SS + 3 * kBQ;
   static constexpr size_t bytes =
-      kFloats * sizeof(float) + 2 * (size_t)kBK * KS * sizeof(T);
+      kFloats * sizeof(float) + 2 * (size_t)kBK * KS * sizeof(float);
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int n_q, int s_kv,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int n_q, int s_kv,
     int start, int n_heads, int n_kv, float scale) {
-  using L = Smem<T, HD>;
+  using L = Smem<HD>;
   constexpr int QS = L::QS, SS = L::SS, KS = L::KS;
   constexpr int DJ = HD / 16;  // accumulator columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -74,8 +67,8 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   float* m_s = s_s + kBQ * SS;                        // [kBQ]
   float* l_s = m_s + kBQ;                             // [kBQ]
   float* c_s = l_s + kBQ;                             // [kBQ]
-  T* k_s = reinterpret_cast<T*>(c_s + kBQ);          // [kBK][KS]
-  T* v_s = k_s + kBK * KS;                            // [kBK][KS]
+  float* k_s = c_s + kBQ;                             // [kBK][KS]
+  float* v_s = k_s + kBK * KS;                        // [kBK][KS]
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (n_heads / n_kv);
@@ -83,15 +76,15 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t q_pos = (size_t)n_heads * HD;  // stride between positions
   const size_t kv_pos = (size_t)n_kv * HD;
-  const T* qb = q + (size_t)b * n_q * q_pos + (size_t)h * HD;
-  const T* kb = k + (size_t)b * s_kv * kv_pos + (size_t)kh * HD;
-  const T* vb = v + (size_t)b * s_kv * kv_pos + (size_t)kh * HD;
-  T* ob = out + (size_t)b * n_q * q_pos + (size_t)h * HD;
+  const float* qb = q + (size_t)b * n_q * q_pos + (size_t)h * HD;
+  const float* kb = k + (size_t)b * s_kv * kv_pos + (size_t)kh * HD;
+  const float* vb = v + (size_t)b * s_kv * kv_pos + (size_t)kh * HD;
+  float* ob = out + (size_t)b * n_q * q_pos + (size_t)h * HD;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     float x = 0.f;
-    if (q0 + r < n_q) x = to_f(qb[(size_t)(q0 + r) * q_pos + d]) * scale;
+    if (q0 + r < n_q) x = qb[(size_t)(q0 + r) * q_pos + d] * scale;
     q_s[r * QS + d] = x;
   }
   if (tid < kBQ) {
@@ -112,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
     const int k0 = kt * kBK;
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int c = i / HD, d = i % HD;
-      T kx = from_f<T>(0.f), vx = from_f<T>(0.f);
+      float kx = 0.f, vx = 0.f;
       if (k0 + c < s_kv) {
         kx = kb[(size_t)(k0 + c) * kv_pos + d];
         vx = vb[(size_t)(k0 + c) * kv_pos + d];
@@ -134,7 +127,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * QS + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = to_f(k_s[(tx + 16 * j) * KS + d]);
+      for (int j = 0; j < 4; ++j) kv[j] = k_s[(tx + 16 * j) * KS + d];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -190,7 +183,7 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       for (int i = 0; i < 4; ++i) pv[i] = s_s[(ty * 4 + i) * SS + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        const float vv = to_f(v_s[c * KS + tx + 16 * j]);
+        const float vv = v_s[c * KS + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * vv;
       }
@@ -205,33 +198,34 @@ __global__ void __launch_bounds__(kThreads) flash_kernel(
       const float l = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
-        ob[(size_t)(q0 + r) * q_pos + tx + 16 * j] = from_f<T>(acc[i][j] / l);
+        ob[(size_t)(q0 + r) * q_pos + tx + 16 * j] = acc[i][j] / l;
     }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int n_q, int s_kv, int start, int n_heads, int n_kv, float scale,
            cudaStream_t stream) {
-  const size_t smem = Smem<T, HD>::bytes;
+  const size_t smem = Smem<HD>::bytes;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   dim3 grid((n_q + kBQ - 1) / kBQ, n_heads, batch);
-  flash_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), n_q, s_kv, start,
-      n_heads, n_kv, scale);
+  flash_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), n_q, s_kv,
+      start, n_heads, n_kv, scale);
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// dtype: 0 = float32 (the FMA kernel above), 1 = bfloat16 (the tensor-core
+// kernel of flash_tile_sm90.cuh).  Returns cudaGetLastError() after the
 // launch, or a CUDA error code for a shape the kernel does not take.
 inline int launch_any(const void* q, const void* k, const void* v, void* out,
                       int batch, int n_q, int s_kv, int start, int n_heads,
@@ -242,17 +236,17 @@ inline int launch_any(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int rc = (int)cudaErrorInvalidValue;
-#define FLASH_TILE_CASE(T, HDV)                                              \
-  rc = launch<T, HDV>(q, k, v, out, batch, n_q, s_kv, start, n_heads, n_kv, \
-                      scale, st)
+#define FLASH_TILE_CASE(NS, HDV)                                          \
+  rc = NS::launch<HDV>(q, k, v, out, batch, n_q, s_kv, start, n_heads,    \
+                       n_kv, scale, st)
   if (dtype == 0) {
-    if (hd == 64) FLASH_TILE_CASE(float, 64);
-    else if (hd == 128) FLASH_TILE_CASE(float, 128);
-    else if (hd == 256) FLASH_TILE_CASE(float, 256);
+    if (hd == 64) FLASH_TILE_CASE(flash_tile, 64);
+    else if (hd == 128) FLASH_TILE_CASE(flash_tile, 128);
+    else if (hd == 256) FLASH_TILE_CASE(flash_tile, 256);
   } else if (dtype == 1) {
-    if (hd == 64) FLASH_TILE_CASE(__nv_bfloat16, 64);
-    else if (hd == 128) FLASH_TILE_CASE(__nv_bfloat16, 128);
-    else if (hd == 256) FLASH_TILE_CASE(__nv_bfloat16, 256);
+    if (hd == 64) FLASH_TILE_CASE(flash_tile_sm90, 64);
+    else if (hd == 128) FLASH_TILE_CASE(flash_tile_sm90, 128);
+    else if (hd == 256) FLASH_TILE_CASE(flash_tile_sm90, 256);
   }
 #undef FLASH_TILE_CASE
   if (rc != 0) return rc;

@@ -2,12 +2,19 @@
 
 Replaces ``llm_instance_gateway_tpu/ops/pallas_attention.py::
 flash_attention_bhsd`` (and its entry ``flash_attention``).  The kernel is
-``csrc/flash_prefill.cu`` (CUDA C++ for ``sm_90a``): one thread block per
-(64-row query tile, head, row) streams K/V tiles up to the diagonal with an
-online f32 softmax, so the [S, S] scores never reach device memory.  Its
-bound on an H100 is the causal flops ``2*B*H*S*(S+1)*hd`` at 989 TFLOP/s
-(bf16) or its bytes at 3.35 TB/s, whichever is larger; the source note
-says how far the simple FMA design is from it.
+``csrc/flash_prefill.cu`` (CUDA C++ for ``sm_90a``).  bf16 runs on the
+tensor cores (``csrc/flash_tile_sm90.cuh``): one block per (128-row query
+tile, head, row), a producer warpgroup loading K/V tiles by TMA through a
+two-stage shared-memory ring, two consumer warpgroups running QK^T and PV
+as ``wgmma`` with the online f32 softmax in registers, tiles above the
+diagonal never loaded.  f32 runs on CUDA-core FMAs (``csrc/flash_tile.cuh``),
+which keeps the card's f32 checks at summation-order agreement.  Either
+way the [S, S] scores never reach device memory.  Its bound on an H100 is
+the causal flops ``2*B*H*S*(S+1)*hd`` at 989 TFLOP/s (bf16) or its bytes
+at 3.35 TB/s, whichever is larger.  The bf16 kernel rounds P to bf16 before
+PV (a relative 2^-9 per probability), its one departure from the TPU
+kernel; ``tests/test_torch_flash_numerics.py`` shows it within the card
+checks' limit.
 
 ``flash_attention`` dispatches on the tensors' device only: a CPU tensor
 takes ``flash_attention_reference`` (the plain version, used by the CPU

@@ -11,6 +11,13 @@ outputs shrink as 1/sqrt(keys) on long rows, where a flat absolute limit
 would pass a skipped K/V tile.  f32 agrees to summation order (1e-4);
 bf16 to 4 ulps at 2^-8 (2^-6), one ulp being the output's own rounding.
 The flat absolute limits (f32 1e-4, bf16 2e-2) stay as a ceiling.
+
+bf16 flash and chunk attention run on the tensor cores (wgmma fed by TMA,
+128-row query tiles, 128-key tiles, 64 at hd 256); f32 runs on the FMA
+kernel.  The shapes below cover the tensor-core kernel's edges: a single
+key, one key past a tile, ragged tiles that border the next batch row,
+starts off the tile grid, a one-token chunk, pads past S_max, every head
+dim.
 """
 
 import pytest
@@ -53,7 +60,8 @@ def randn(gen, *shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s,h,k,hd", [
-    (16, 32, 8, 128), (100, 8, 2, 64), (257, 8, 1, 256), (1024, 32, 8, 128)])
+    (16, 32, 8, 128), (100, 8, 2, 64), (257, 8, 1, 256), (1024, 32, 8, 128),
+    (1, 8, 2, 128), (129, 8, 2, 128), (129, 8, 2, 64), (200, 8, 2, 256)])
 def test_flash_matches_plain_version(dev, dtype, s, h, k, hd):
     gen = torch.Generator(device=dev).manual_seed(s)
     q = randn(gen, 2, s, h, hd, dtype=dtype)
@@ -90,7 +98,11 @@ def test_decode_matches_plain_version(dev, dtype, h, k, hd):
 @pytest.mark.parametrize("c,s_max,start,h,k,hd", [
     (1024, 8192, 0, 8, 2, 128), (1024, 8192, 5120, 8, 2, 128),
     (64, 8192, 640, 32, 8, 128), (100, 300, 37, 8, 1, 64),
-    (64, 96, 80, 4, 2, 256)])  # the last: pad queries run past S_max
+    (64, 96, 80, 4, 2, 256),  # pad queries run past S_max
+    (200, 1000, 77, 8, 2, 128),  # start off the 64 and 128 grids
+    (1, 8192, 5000, 32, 8, 128), (1, 300, 0, 8, 2, 64),  # one-token chunks
+    (128, 300, 250, 8, 2, 128),  # pads past S_max at hd 128
+    (300, 2000, 700, 8, 1, 64), (256, 1000, 300, 8, 2, 256)])
 def test_chunk_matches_plain_version(dev, dtype, c, s_max, start, h, k, hd):
     gen = torch.Generator(device=dev).manual_seed(c + start)
     q = randn(gen, 1, c, h, hd, dtype=dtype)
@@ -102,6 +114,29 @@ def test_chunk_matches_plain_version(dev, dtype, c, s_max, start, h, k, hd):
     assert ch.launches == before + 1
     want = ch.chunk_attention_reference(q, kc, vc, start)
     assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_tensor_core_and_fma_kernels_side_by_side(dev, hd):
+    """Flash bf16, then chunk bf16, then flash f32 in one process: the two
+    headers' launchers (flash_tile_sm90.cuh and flash_tile.cuh, both in
+    each library) keep their own state."""
+    gen = torch.Generator(device=dev).manual_seed(hd + 2)
+    for run, dtype in (("flash", torch.bfloat16), ("chunk", torch.bfloat16),
+                       ("flash", torch.float32)):
+        q = randn(gen, 2, 150, 8, hd, dtype=dtype)
+        if run == "flash":
+            kk = randn(gen, 2, 150, 2, hd, dtype=dtype)
+            v = randn(gen, 2, 150, 2, hd, dtype=dtype)
+            got = fl.flash_attention(q, kk, v)
+            want = fl.flash_attention_reference(q, kk, v)
+        else:
+            kk = randn(gen, 2, 700, 2, hd, dtype=dtype)
+            v = randn(gen, 2, 700, 2, hd, dtype=dtype)
+            got = ch.chunk_attention(q, kk, v, 333)
+            want = ch.chunk_attention_reference(q, kk, v, 333)
+        torch.cuda.synchronize()
+        assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
