@@ -26,7 +26,13 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    the check); flash and chunk rows add their rate (tflops, the live
    operations over the time), bound_frac (bound_ms / ms) and, beside the
    lane decode row, host_us (host time per call: flash and chunk
-   encode three TMA tensor maps per call);
+   encode three TMA tensor maps per call); the bf16 lane and paged decode
+   rows (split-S: a split kernel and a combine kernel per call) add the
+   plan's split length and count, host_us, the profiler's device time per
+   call (split + combine: at the lane shape a call costs the device less
+   than the host spends issuing it, so CUDA events over back-to-back calls
+   time the host) with its bound fraction, and the event time at other
+   split lengths (split_sweep_ms);
 4. reference — the card's path (kernels) against the CPU path (plain
    versions) on a small f32 model with Llama-3-8B's head layout: prefill
    logits within a stated tolerance and identical greedy token streams,
@@ -155,6 +161,42 @@ def host_us(torch, fn, args, iters: int = 50) -> float:
     secs = time.perf_counter() - t0
     torch.cuda.synchronize()
     return secs / iters * 1e6
+
+
+def device_ms(torch, fn, arg_sets, calls: int = 20) -> dict:
+    """Device time per call from torch.profiler: every CUDA kernel the
+    calls ran (split-S decode: split + combine), summed, over ``calls``
+    calls cycling through ``arg_sets`` — where a call costs the device less
+    than the host spends issuing it, CUDA events over back-to-back calls
+    time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ("combine" if "combine_kernel" in ev.key else "split"
+                    if "split_kernel" in ev.key else ev.key[:60])
+            kernels[name] = kernels.get(name, 0.0) + us / calls / 1e3
+    total = sum(kernels.values())
+    return {"device_ms": total if total else "not measured",
+            "device_kernels_ms": kernels}
+
+
+def split_sweep(torch, fn, arg_sets, split_lens) -> dict:
+    """CUDA-event ms per call of a split-S decode kernel at other split
+    lengths than the plan's, on the same inputs."""
+    return {str(n): time_ms(torch, lambda *a, n=n: fn(*a, split_len=n),
+                            arg_sets) for n in split_lens}
 
 
 def copies_for(nbytes: int) -> int:
@@ -286,11 +328,20 @@ def phase_kernels(torch) -> dict:
              for a, b, c, _ in sets]
     lib_ms = time_ms(torch, lambda a, b, c, m: F.scaled_dot_product_attention(
         a, b, c, attn_mask=m, enable_gqa=True), bsets)
+    split_len, n_split = dec.split_plan(B, K, S_MAX,
+                                        dec.tile_positions(HD, bf16),
+                                        dec.sm_count(dev))
     row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} bf16 "
                f"lengths={lengths.tolist()}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
-               host_us=host_us(torch, dec.decode_attention, sets[0]))
+               host_us=host_us(torch, dec.decode_attention, sets[0]),
+               split_len=split_len, n_split=n_split,
+               **device_ms(torch, dec.decode_attention, sets),
+               split_sweep_ms=split_sweep(
+                   torch, dec.decode_attention_split, sets,
+                   (64, 128, 256, 512, 1024)))
+    row.update(_split_fracs(row))
     log("kernels", "decode_attention " + json.dumps(row))
     results["decode_attention"] = [row]
     results["chunk_attention"] = _chunk_rows(torch, gen)
@@ -447,6 +498,15 @@ def _rate(ops: float, row: dict) -> dict:
                 bound_frac=row["bound_ms"] / row["ms"])
 
 
+def _split_fracs(row: dict) -> dict:
+    """A split-S decode row's share of its bound, by event time and by the
+    profiler's device time."""
+    out = {"bound_frac": row["bound_ms"] / row["ms"]}
+    if isinstance(row["device_ms"], float):
+        out["device_bound_frac"] = row["bound_ms"] / row["device_ms"]
+    return out
+
+
 def _chunk_rows(torch, gen) -> list:
     """Chunk attention at the chunk paths' shapes: 1024-token stream chunks
     at start 0 / 2048 / 5120 of an 8192-position lane, and a 64-token
@@ -511,6 +571,7 @@ def _paged_rows(torch, gen) -> list:
     blocks, 128-block tables (8192 positions), shuffled physical blocks,
     lengths 0 / 1 / a mid-block end / ~6000.  Yardstick: gather_pool_rows
     then masked SDPA, timed as a pair."""
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
     from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
     import torch.nn.functional as F
@@ -560,11 +621,21 @@ def _paged_rows(torch, gen) -> list:
     total_len = int(lengths.sum().item())
     nbytes = (2 * total_len * K * HD * 2 + 2 * q.numel() * 2
               + B * 4 + total_len // PAGE * 4)
+    split_len, n_split = dec.split_plan(B, K, M * PAGE,
+                                        dec.tile_positions(HD, bf16),
+                                        dec.sm_count(dev), PAGE)
     row = dict(shape=f"B={B} P={PAGE} M={M} H={H} K={K} hd={HD} bf16 "
                f"lengths={lengths.tolist()}", **errs, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms,
                library="gather_pool_rows + masked SDPA, timed as a pair",
-               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+               **_bound(nbytes, 2 * 2 * total_len * H * HD),
+               host_us=host_us(torch, pd.paged_decode_attention, sets[0]),
+               split_len=split_len, n_split=n_split,
+               **device_ms(torch, pd.paged_decode_attention, sets),
+               split_sweep_ms=split_sweep(
+                   torch, pd.paged_decode_attention_split, sets,
+                   (128, 256, 512, 1024, 2048)))
+    row.update(_split_fracs(row))
     log("kernels", "paged_decode_attention " + json.dumps(row))
     return [row]
 
@@ -1101,6 +1172,11 @@ def _profile(torch, name: str, fn, reps: int) -> dict:
         else "not measured",
         "top_kernels": [{"name": k, "ms": ms, "calls": n}
                         for ms, n, k in rows[:8]],
+        # The port's own kernels, in the top 8 or not (split-S decode:
+        # split and combine).
+        "port_kernels": [{"name": k, "ms": ms, "calls": n}
+                         for ms, n, k in rows
+                         if "decode_tile" in k or "flash_tile" in k],
     }
     log("profile", f"{name}: " + json.dumps(out))
     return out
@@ -1238,7 +1314,8 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "shape": main["shape"],
-            **{k: main[k] for k in ("tflops", "bound_frac") if k in main},
+            **{k: main[k] for k in ("tflops", "bound_frac", "device_ms",
+                                    "split_len", "n_split") if k in main},
             "shapes": rows,
         })
     return {"kernels": out}

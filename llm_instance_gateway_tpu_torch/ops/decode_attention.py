@@ -3,20 +3,26 @@
 Replaces ``llm_instance_gateway_tpu/ops/pallas_decode_attention.py::
 decode_attention_pallas`` (kernel ``_decode_kernel`` with quant=False, entry
 ``decode_attention``).  The kernel is ``csrc/decode_attention.cu`` (CUDA C++
-for ``sm_90a``): one thread block per (KV head, row) walks that row's cache
-lane in shared-memory tiles only up to ``lengths[b]`` — the same skipping
-the TPU kernel's DMA clamp buys — and shares each K/V tile among the H/K
-query heads of the group.  Its bound on an H100 is the K/V bytes actually
-read, ``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
+for ``sm_90a``), split-S: each row's positions are cut into splits of
+``split_len`` positions (``split_plan``), each split is a thread block per
+(KV head, row, split) that reads its positions only up to ``lengths[b]`` —
+the same skipping the TPU kernel's DMA clamp buys — shares each K/V tile
+among the H/K query heads of the group and writes an f32 partial softmax
+into scratch the wrapper allocates; a combine pass merges a row's splits.
+Both launches are made by the one C entry point.  Its bound on an H100 is
+the K/V bytes actually read, ``2 * sum(lengths) * K * hd * itemsize``, at
+3.35 TB/s.
 
 ``decode_attention`` dispatches on the tensors' device only: CPU tensors
 take ``decode_attention_reference`` (the plain version), CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+launch the kernel or raise.  ``launches`` counts kernel launches (one per
+call: the split and combine kernels go out together).
 
 Given scales (int8 lanes), it replaces ``decode_attention_quant_pallas``
 (``_decode_kernel`` with quant=True) and launches
-``csrc/decode_attention_quant.cu``: the same kernel with an int8 tile
-fill — one f32 scale per (position, KV head), each value dequantized as
+``csrc/decode_attention_quant.cu``, not yet split: one block per (KV head,
+row) walks the row, with an int8 tile fill — one f32 scale per
+(position, KV head), each value dequantized as
 ``(x.astype(f32) * scale).astype(q.dtype)`` into the shared tile, the
 Pallas kernel's rounding — so it reads half the K/V bytes plus the scales,
 ``2 * sum(lengths) * K * (hd + 4)``.  Its plain version dequantizes the
@@ -27,6 +33,7 @@ same way (``dequantize_kv``) and calls ``decode_attention_reference``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -38,10 +45,71 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # query heads per KV head the kernel's shared memory holds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# Split-S geometry (csrc/decode_tile.cuh): a K or V tile is 16 KB of q's
+# dtype (64 positions at bf16 hd 128); a split is at most SPLIT_TILES tiles
+# long, and there are enough splits that full rows would fill the card
+# SPLIT_WAVES times over at SPLIT_BLOCKS_PER_SM resident blocks per SM
+# (one split block takes ~72 KB of shared memory).
+TILE_BYTES = 16384
+SPLIT_TILES = 8
+SPLIT_BLOCKS_PER_SM = 3
+SPLIT_WAVES = 2
+
 # Kernel launches since the count was last reset (plain ints, host side):
 # the bf16/f32 kernel and the int8 kernel.
 launches = 0
 quant_launches = 0
+
+
+def tile_positions(hd: int, dtype: torch.dtype) -> int:
+    """Positions per K/V tile of the split kernel for q's dtype."""
+    return TILE_BYTES // (hd * dtype.itemsize)
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(batch: int, n_kv: int, s_max: int, tile: int, n_sm: int,
+               page: int = 1) -> tuple[int, int]:
+    """(split_len, n_split) for the split kernel: how many positions of a
+    row one block covers, and how many splits cover S_max.
+
+    From shapes the host knows and the card's SM count only — never from
+    the lengths, which live on the device (reading them would add a host
+    sync to every decode step).  split_len is a multiple of the tile and
+    of the pool's block size ``page``; a split is at most SPLIT_TILES
+    tiles, and there are at least enough splits for SPLIT_WAVES full waves
+    of blocks if every row were S_max long.  B=8, K=8 on 132 SMs: 16
+    splits of 512 at S_max 8192, 8 of 128 at 1024."""
+    def cdiv(a, b):
+        return -(-a // b)
+
+    unit = math.lcm(tile, page)
+    want = max(cdiv(s_max, SPLIT_TILES * tile),
+               cdiv(SPLIT_WAVES * SPLIT_BLOCKS_PER_SM * n_sm, batch * n_kv))
+    split_len = cdiv(cdiv(s_max, want), unit) * unit
+    return split_len, cdiv(s_max, split_len)
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
+def split_scratch(b: int, h: int, hd: int, n_split: int,
+                  device: torch.device) -> torch.Tensor:
+    """The split kernel's f32 partials: acc [B, H, n_split, hd], then m and
+    l [B, H, n_split], in one buffer.  The wrapper drops it once both
+    kernels are queued: the caching allocator hands its memory only to
+    work queued later on the same stream."""
+    return torch.empty(b * h * n_split * (hd + 2), dtype=torch.float32,
+                       device=device)
 
 
 def decode_attention_reference(q: torch.Tensor, k_cache: torch.Tensor,
@@ -152,32 +220,55 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_reference(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    _check(q, k_cache, v_cache, lengths,
-           kv_dtype=torch.int8 if quant else None)
+    if not quant:
+        return decode_attention_split(q, k_cache, v_cache, lengths)
+    _check(q, k_cache, v_cache, lengths, kv_dtype=torch.int8)
+    _check_scales(k_cache, k_scale, v_scale, "decode_attention")
     b, h, hd = q.shape
     out = torch.empty_like(q)
-    geometry = (b, k_cache.shape[1], h, k_cache.shape[2], hd,
-                _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if quant:
-        _check_scales(k_cache, k_scale, v_scale, "decode_attention")
-        fn = _build.load(
-            "decode_attention_quant").decode_attention_quant_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), *geometry)
-        _build.check(rc, "decode_attention_quant")
-        quant_launches += 1
-        return out
-    fn = _build.load("decode_attention").decode_attention_launch
+    fn = _build.load("decode_attention_quant").decode_attention_quant_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), *geometry)
+            k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, k_cache.shape[1], h, k_cache.shape[2], hd,
+            _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "decode_attention_quant")
+    quant_launches += 1
+    return out
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor,
+                           split_len: int | None = None) -> torch.Tensor:
+    """The bf16/f32 lane kernel on CUDA tensors: the split kernel, then the
+    combine kernel, from one C call.  ``split_len`` (a multiple of
+    ``tile_positions``) defaults to ``split_plan``'s; another one serves
+    to measure the plan."""
+    global launches
+    _check(q, k_cache, v_cache, lengths)
+    b, h, hd = q.shape
+    s_max = k_cache.shape[1]
+    if split_len is None and s_max >= 1:
+        split_len = split_plan(b, k_cache.shape[2], s_max,
+                               tile_positions(hd, q.dtype),
+                               sm_count(q.device))[0]
+    if s_max < 1 or split_len < 1 or split_len % tile_positions(hd, q.dtype):
+        raise ValueError(f"decode_attention: S_max {s_max} must be >= 1 and "
+                         f"split_len {split_len} a positive multiple of "
+                         f"{tile_positions(hd, q.dtype)}")
+    out = torch.empty_like(q)
+    part = split_scratch(b, h, hd, -(-s_max // split_len), q.device)
+    fn = _build.load("decode_attention").decode_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), b, s_max, h,
+            k_cache.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            split_len, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "decode_attention")
     launches += 1
     return out

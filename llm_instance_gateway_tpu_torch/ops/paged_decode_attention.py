@@ -4,22 +4,26 @@ Replaces ``llm_instance_gateway_tpu/ops/pallas_decode_attention.py::
 paged_decode_attention_pallas`` (kernel ``_paged_kernel`` with
 quant=False, entry ``paged_decode_attention``).  The kernel is
 ``csrc/paged_decode_attention.cu`` (CUDA C++ for ``sm_90a``, device code
-shared with the lane kernel through ``csrc/decode_tile.cuh``): one thread
-block per (KV head, row) looks up ``tables[b, m]`` for each logical block
-it reaches and streams that physical block of the pool only up to
-``lengths[b]`` — never a gathered copy of the lane, which is what the TPU
-kernel exists to avoid.  Its bound on an H100 is the K/V bytes the lengths
-cover, ``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
+shared with the lane kernel through ``csrc/decode_tile.cuh``), split-S as
+the lane kernel is: a thread block per (KV head, row, split) reads its
+split's ``tables[b, m]`` entries once and streams those physical blocks of
+the pool only up to ``lengths[b]`` — never a gathered copy of the lane,
+which is what the TPU kernel exists to avoid — and a combine pass merges
+a row's splits.  ``split_plan`` sizes the splits in whole pool blocks.
+Its bound on an H100 is the K/V bytes the lengths cover,
+``2 * sum(lengths) * K * hd * itemsize``, at 3.35 TB/s.
 
 ``paged_decode_attention`` dispatches on the tensors' device only: CPU
 tensors take ``paged_decode_attention_reference`` (the plain version: the
 pool->lane gather, then the lane kernel's plain version), CUDA tensors
-launch the kernel or raise.  ``launches`` counts kernel launches.
+launch the kernel or raise.  ``launches`` counts kernel launches (one per
+call: the split and combine kernels go out together).
 
 Given scale pools (an int8 pool, the Pallas kernel's quant=True variant),
-it takes ``csrc/paged_decode_attention_quant.cu`` instead: the same walk
-through the table with the int8 tile fill of the lane variant, the scales
-read through the same table, ``2 * sum(lengths) * K * (hd + 4)`` bytes.
+it takes ``csrc/paged_decode_attention_quant.cu`` instead, not yet split:
+one block per (KV head, row) walks the table with the int8 tile fill of
+the lane variant, the scales read through the same table,
+``2 * sum(lengths) * K * (hd + 4)`` bytes.
 Its plain version is gather, dequantize (the Pallas kernel's rounding),
 then the lane plain version.  ``quant_launches`` counts its launches.  Any
 block size that is a multiple of 16 is taken for int8 too: the TPU's
@@ -41,9 +45,14 @@ from llm_instance_gateway_tpu_torch.ops.decode_attention import (
     _check_scales,
     decode_attention_quant_reference,
     decode_attention_reference,
+    sm_count,
+    split_plan,
+    split_scratch,
+    tile_positions,
 )
 
 PAGE_MULTIPLE = 16  # block sizes the pool takes, bf16/f32 and int8 alike
+MAX_SPLIT_BLOCKS = 1024  # table entries one split holds in shared memory
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the count was last reset (plain ints, host side):
@@ -144,32 +153,64 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
-    _check(q, k_pool, v_pool, tables, lengths,
-           kv_dtype=torch.int8 if quant else None)
+    if not quant:
+        return paged_decode_attention_split(q, k_pool, v_pool, tables,
+                                            lengths)
+    _check(q, k_pool, v_pool, tables, lengths, kv_dtype=torch.int8)
+    _check_scales(k_pool, k_scale, v_scale, "paged_decode_attention")
     b, h, hd = q.shape
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    geometry = (b, tables.shape[1], k_pool.shape[1], h, k_pool.shape[2], hd,
-                _DTYPES[q.dtype], 1.0 / math.sqrt(hd), stream)
-    if quant:
-        _check_scales(k_pool, k_scale, v_scale, "paged_decode_attention")
-        fn = _build.load(
-            "paged_decode_attention_quant").paged_decode_attention_quant_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p]
-        rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-                lengths.data_ptr(), out.data_ptr(), *geometry)
-        _build.check(rc, "paged_decode_attention_quant")
-        quant_launches += 1
-        return out
-    fn = _build.load("paged_decode_attention").paged_decode_attention_launch
+    fn = _build.load(
+        "paged_decode_attention_quant").paged_decode_attention_quant_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), *geometry)
+            k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), b, tables.shape[1],
+            k_pool.shape[1], h, k_pool.shape[2], hd, _DTYPES[q.dtype],
+            1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_decode_attention_quant")
+    quant_launches += 1
+    return out
+
+
+def paged_decode_attention_split(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor, tables: torch.Tensor,
+                                 lengths: torch.Tensor,
+                                 split_len: int | None = None
+                                 ) -> torch.Tensor:
+    """The bf16/f32 pool kernel on CUDA tensors: the split kernel, then the
+    combine kernel, from one C call.  ``split_len`` (a multiple of the
+    block size and of ``tile_positions``) defaults to ``split_plan``'s;
+    another one serves to measure the plan."""
+    global launches
+    _check(q, k_pool, v_pool, tables, lengths)
+    b, h, hd = q.shape
+    page, n_kv = k_pool.shape[1], k_pool.shape[2]
+    s_max = tables.shape[1] * page
+    tile = tile_positions(hd, q.dtype)
+    if split_len is None and s_max >= 1:
+        split_len = split_plan(b, n_kv, s_max, tile, sm_count(q.device),
+                               page)[0]
+    if (s_max < 1 or split_len < 1 or split_len % math.lcm(tile, page)
+            or split_len // page > MAX_SPLIT_BLOCKS):
+        raise ValueError(f"paged_decode_attention: tables [B, M>=1] expected "
+                         f"and split_len {split_len} a positive multiple of "
+                         f"{math.lcm(tile, page)} of at most "
+                         f"{MAX_SPLIT_BLOCKS} blocks")
+    out = torch.empty_like(q)
+    part = split_scratch(b, h, hd, -(-s_max // split_len), q.device)
+    fn = _build.load("paged_decode_attention").paged_decode_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part.data_ptr(), b, tables.shape[1], page, h, n_kv, hd,
+            _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "paged_decode_attention")
     launches += 1
     return out

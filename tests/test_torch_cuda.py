@@ -18,6 +18,11 @@ kernel.  The shapes below cover the tensor-core kernel's edges: a single
 key, one key past a tile, ragged tiles that border the next batch row,
 starts off the tile grid, a one-token chunk, pads past S_max, every head
 dim.
+
+bf16/f32 lane and paged decode are split-S (a block per KV head, row and
+split of ``split_plan``'s length, then a combine pass); their cases cross
+many splits at Llama-3-8B's grouping, with lengths at the split
+boundaries, and run the unchanged int8 kernels beside them.
 """
 
 import pytest
@@ -195,6 +200,156 @@ def test_unsupported_shapes_raise_on_the_card(dev):
     with pytest.raises(ValueError, match="dtype"):
         dec.decode_attention(q.half(), cache.half(), cache.half(),
                              torch.ones(2, dtype=torch.int32, device=dev))
+
+
+def split_boundary_lengths(split_len, s_max, extra):
+    """Lengths at the split length's edges (L-1, L, L+1), a full row, a 0
+    row and ``extra``, clipped to S_max, int32."""
+    return [min(n, s_max) for n in
+            (0, split_len - 1, split_len, split_len + 1, s_max, 1, *extra)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_at_llama3_8b_grouping(dev, dtype):
+    """The lane serve's shape (B=8, S_max=1024, H=32, K=8, hd 128) with
+    lengths at the plan's split boundaries: rows cross many splits."""
+    gen = torch.Generator(device=dev).manual_seed(80)
+    b, s_max, h, k, hd = 8, 1024, 32, 8, 128
+    split_len, n_split = dec.split_plan(b, k, s_max,
+                                        dec.tile_positions(hd, dtype),
+                                        dec.sm_count(dev))
+    assert n_split >= 8
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kc = randn(gen, b, s_max, k, hd, dtype=dtype)
+    vc = randn(gen, b, s_max, k, hd, dtype=dtype)
+    lengths = torch.tensor(split_boundary_lengths(
+        split_len, s_max, (3 * split_len + 7, 2 * split_len)),
+        dtype=torch.int32, device=dev)
+    before = dec.launches
+    got = dec.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    want = dec.decode_attention_reference(q, kc, vc, lengths)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_split_at_llama3_8b_grouping(dev, dtype, page):
+    """The paged serve's shape (B=8, S_max=8192, H=32, K=8, hd 128), P=16
+    and 64, shuffled tables with the trash block past each row's end, and
+    lengths at the plan's split boundaries."""
+    gen = torch.Generator(device=dev).manual_seed(81 + page)
+    b, s_max, h, k, hd = 8, 8192, 32, 8, 128
+    m = s_max // page
+    split_len, n_split = dec.split_plan(b, k, s_max,
+                                        dec.tile_positions(hd, dtype),
+                                        dec.sm_count(dev), page)
+    assert n_split >= 16 and split_len % page == 0
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kp = randn(gen, b * m + 1, page, k, hd, dtype=dtype)
+    vp = randn(gen, b * m + 1, page, k, hd, dtype=dtype)
+    perm = torch.randperm(b * m, generator=torch.Generator().manual_seed(page))
+    tables = (perm + 1).reshape(b, m).to(torch.int32)
+    lengths = split_boundary_lengths(split_len, s_max,
+                                     (6000, 3 * split_len + 5))
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // page):] = 0  # past the row's end: the trash block
+    tables = tables.to(dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    before = pd.launches
+    got = pd.paged_decode_attention(q, kp, vp, tables, lengths)
+    torch.cuda.synchronize()
+    assert pd.launches == before + 1
+    want = pd.paged_decode_attention_reference(q, kp, vp, tables, lengths)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_decode_split_other_head_dims(dev, dtype, hd):
+    """hd 64 and 256 at H=8, K=2 over many splits: the lane kernel at one
+    tile, a few tiles and the plan's split length, the pool at P=16."""
+    gen = torch.Generator(device=dev).manual_seed(82 + hd)
+    b, s_max, h, k, page = 6, 2048, 8, 2, 16
+    tile = dec.tile_positions(hd, dtype)
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kc = randn(gen, b, s_max, k, hd, dtype=dtype)
+    vc = randn(gen, b, s_max, k, hd, dtype=dtype)
+    lengths = torch.tensor([0, 1, tile - 1, 3 * tile + 1, 1500, s_max],
+                           dtype=torch.int32, device=dev)
+    want = dec.decode_attention_reference(q, kc, vc, lengths)
+    for split_len in (tile, 3 * tile, None):
+        got = dec.decode_attention_split(q, kc, vc, lengths, split_len)
+        torch.cuda.synchronize()
+        assert_close(got, want, dtype)
+        assert not got[0].any()
+    # The same rows as a pool: block i of row r is physical block
+    # r * m + i + 1, so the pool's plain version is the lanes' one.
+    m = s_max // page
+    kp = torch.cat([kc[:1, :page] * 0, kc.reshape(b * m, page, k, hd)])
+    vp = torch.cat([vc[:1, :page] * 0, vc.reshape(b * m, page, k, hd)])
+    tables = (torch.arange(b * m, device=dev) + 1).reshape(b, m)
+    got = pd.paged_decode_attention(q, kp, vp, tables.to(torch.int32),
+                                    lengths)
+    torch.cuda.synchronize()
+    assert_close(got, want, dtype)
+
+
+def test_int8_kernels_after_the_split_kernels(dev):
+    """bf16 split kernels (lanes, pool), then the unchanged int8 lane and
+    pool kernels, in one process: the shared header's old and new code
+    side by side."""
+    gen = torch.Generator(device=dev).manual_seed(83)
+    b, s_max, h, k, hd, page = 4, 1024, 32, 8, 128, 64
+    bf16 = torch.bfloat16
+    lengths = torch.tensor([0, 300, 1023, 1024], dtype=torch.int32,
+                           device=dev)
+    q = randn(gen, b, h, hd, dtype=bf16)
+    kf = torch.randn(b, s_max, k, hd, generator=gen, device=dev)
+    vf = torch.randn(b, s_max, k, hd, generator=gen, device=dev)
+    m = s_max // page
+    tables = (torch.arange(b * m, device=dev, dtype=torch.int32)
+              + 1).reshape(b, m)
+
+    def pool(x):  # row r's block i at physical block r * m + i + 1
+        return torch.cat([x[:1, :page] * 0,
+                          x.reshape(b * m, page, k, *x.shape[3:])])
+
+    kc, vc = kf.to(bf16), vf.to(bf16)
+    assert_close(dec.decode_attention(q, kc, vc, lengths),
+                 dec.decode_attention_reference(q, kc, vc, lengths), bf16)
+    assert_close(pd.paged_decode_attention(q, pool(kc), pool(vc), tables,
+                                           lengths),
+                 dec.decode_attention_reference(q, kc, vc, lengths), bf16)
+    (kq, ks), (vq, vs) = quantize(kf), quantize(vf)
+    before = (dec.launches, dec.quant_launches, pd.launches,
+              pd.quant_launches)
+    got = dec.decode_attention(q, kq, vq, lengths, ks, vs)
+    got_pool = pd.paged_decode_attention(q, pool(kq), pool(vq), tables,
+                                         lengths, pool(ks), pool(vs))
+    torch.cuda.synchronize()
+    assert (dec.launches, dec.quant_launches, pd.launches,
+            pd.quant_launches) == (before[0], before[1] + 1, before[2],
+                                   before[3] + 1)
+    want = dec.decode_attention_quant_reference(q, kq, vq, ks, vs, lengths)
+    assert_close(got, want, bf16)
+    assert_close(got_pool, want, bf16)
+    assert not got[0].any() and not got_pool[0].any()
+
+
+def test_split_len_off_the_tile_grid_raises(dev):
+    q = torch.zeros(2, 8, 128, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 256, 2, 128, device=dev, dtype=torch.bfloat16)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="split_len"):
+        dec.decode_attention_split(q, cache, cache, lengths, 48)
+    pool = torch.zeros(5, 64, 2, 128, device=dev, dtype=torch.bfloat16)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="split_len"):
+        pd.paged_decode_attention_split(q, pool, pool, tables, lengths, 32)
 
 
 def quantize(x):
