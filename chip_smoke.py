@@ -26,13 +26,14 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    the check); flash and chunk rows add their rate (tflops, the live
    operations over the time), bound_frac (bound_ms / ms) and, beside the
    lane decode row, host_us (host time per call: flash and chunk
-   encode three TMA tensor maps per call); the bf16 lane and paged decode
-   rows (split-S: a split kernel and a combine kernel per call) add the
-   plan's split length and count, host_us, the profiler's device time per
-   call (split + combine: at the lane shape a call costs the device less
-   than the host spends issuing it, so CUDA events over back-to-back calls
-   time the host) with its bound fraction, and the event time at other
-   split lengths (split_sweep_ms);
+   encode three TMA tensor maps per call); the lane and paged decode
+   rows, bf16 and int8 (split-S: a split kernel and a combine kernel per
+   call) add the plan's split length and count, host_us, the profiler's
+   device time per call (split + combine: at the lane shape a call costs
+   the device less than the host spends issuing it, so CUDA events over
+   back-to-back calls time the host) with its bound fraction, and the
+   event and device times at other split lengths (split_sweep_ms,
+   split_sweep_device_ms);
 4. reference — the card's path (kernels) against the CPU path (plain
    versions) on a small f32 model with Llama-3-8B's head layout: prefill
    logits within a stated tolerance and identical greedy token streams,
@@ -193,10 +194,16 @@ def device_ms(torch, fn, arg_sets, calls: int = 20) -> dict:
 
 
 def split_sweep(torch, fn, arg_sets, split_lens) -> dict:
-    """CUDA-event ms per call of a split-S decode kernel at other split
-    lengths than the plan's, on the same inputs."""
-    return {str(n): time_ms(torch, lambda *a, n=n: fn(*a, split_len=n),
-                            arg_sets) for n in split_lens}
+    """A split-S decode kernel at other split lengths than the plan's, on
+    the same inputs: CUDA-event ms per call (``split_sweep_ms``) and the
+    profiler's device ms per call (``split_sweep_device_ms``), which alone
+    ranks the split lengths where the host paces the events."""
+    fns = {n: (lambda *a, n=n: fn(*a, split_len=n)) for n in split_lens}
+    return dict(
+        split_sweep_ms={str(n): time_ms(torch, f, arg_sets)
+                        for n, f in fns.items()},
+        split_sweep_device_ms={str(n): device_ms(torch, f, arg_sets)[
+            "device_ms"] for n, f in fns.items()})
 
 
 def copies_for(nbytes: int) -> int:
@@ -338,7 +345,7 @@ def phase_kernels(torch) -> dict:
                host_us=host_us(torch, dec.decode_attention, sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, dec.decode_attention, sets),
-               split_sweep_ms=split_sweep(
+               **split_sweep(
                    torch, dec.decode_attention_split, sets,
                    (64, 128, 256, 512, 1024)))
     row.update(_split_fracs(row))
@@ -416,11 +423,25 @@ def _decode_quant_rows(torch, gen) -> list:
 
     lib_ms = time_ms(torch, deq_sdpa, sets)
     nbytes = (2 * total_len * K * (HD + 4) + 2 * q.numel() * 2 + B * 4)
+    split_len, n_split = dec.split_plan(B, K, S_MAX,
+                                        dec.tile_positions(HD, bf16),
+                                        dec.sm_count(dev))
+
+    def split(q, kq, vq, ks, vs, lengths, split_len):
+        return dec.decode_attention_split(q, kq, vq, lengths, split_len, ks,
+                                          vs)
+
     row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} q bf16, "
                f"k/v int8 + f32 scales, lengths={lengths.tolist()}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library="dequantize + masked SDPA, timed as a pair",
-               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+               **_bound(nbytes, 2 * 2 * total_len * H * HD),
+               host_us=host_us(torch, kernel, sets[0]),
+               split_len=split_len, n_split=n_split,
+               **device_ms(torch, kernel, sets),
+               **split_sweep(torch, split, sets,
+                             (64, 128, 256, 512, 1024)))
+    row.update(_split_fracs(row))
     log("kernels", "decode_attention_quant " + json.dumps(row))
     return [row]
 
@@ -474,12 +495,26 @@ def _paged_quant_rows(torch, gen) -> list:
     total_len = int(lengths.sum().item())
     nbytes = (2 * total_len * K * (HD + 4) + 2 * q.numel() * 2 + B * 4
               + total_len // PAGE * 4)
+    split_len, n_split = dec.split_plan(B, K, M * PAGE,
+                                        dec.tile_positions(HD, bf16),
+                                        dec.sm_count(dev), PAGE)
+
+    def split(q, kq, vq, tables, lengths, ks, vs, split_len):
+        return pd.paged_decode_attention_split(q, kq, vq, tables, lengths,
+                                               split_len, ks, vs)
+
     row = dict(shape=f"B={B} P={PAGE} M={M} H={H} K={K} hd={HD} q bf16, "
                f"int8 pools + f32 scale pools, lengths={lengths.tolist()}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library="gather_pool_rows + dequantize + masked SDPA, timed "
                "as a pair",
-               **_bound(nbytes, 2 * 2 * total_len * H * HD))
+               **_bound(nbytes, 2 * 2 * total_len * H * HD),
+               host_us=host_us(torch, pd.paged_decode_attention, sets[0]),
+               split_len=split_len, n_split=n_split,
+               **device_ms(torch, pd.paged_decode_attention, sets),
+               **split_sweep(torch, split, sets,
+                             (128, 256, 512, 1024, 2048)))
+    row.update(_split_fracs(row))
     log("kernels", "paged_decode_attention_quant " + json.dumps(row))
     return [row]
 
@@ -632,7 +667,7 @@ def _paged_rows(torch, gen) -> list:
                host_us=host_us(torch, pd.paged_decode_attention, sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, pd.paged_decode_attention, sets),
-               split_sweep_ms=split_sweep(
+               **split_sweep(
                    torch, pd.paged_decode_attention_split, sets,
                    (128, 256, 512, 1024, 2048)))
     row.update(_split_fracs(row))

@@ -29,7 +29,7 @@ prefix-cache hit — a table repoint — carries the scales with no copy.
 Values are quantized at the write seam (``_pool_update``), dequantized at
 the chunk path's read seam (``_pool_rows``), and the decode step hands the
 scale pools to the int8 kernel.  ``extend_step_paged`` waits for ROADMAP
-Queue 1 item 12 (speculative decoding).
+Queue 1, speculative decoding.
 """
 
 from __future__ import annotations

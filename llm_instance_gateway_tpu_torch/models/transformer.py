@@ -60,12 +60,12 @@ Params = dict[str, Any]
 def check_supported(cfg: ModelConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError(
-            "MoE models (n_experts > 0) are not ported yet: ROADMAP Queue 1 "
-            "item 13 (model families)")
+            "MoE models (n_experts > 0) are not ported yet: ROADMAP Queue 1, "
+            "model families")
     if cfg.attention_bias:
         raise NotImplementedError(
             "q/k/v attention biases (Qwen2) are not ported yet: ROADMAP "
-            "Queue 1 item 13 (model families)")
+            "Queue 1, model families")
     if not (cfg.use_flash_attention and cfg.use_pallas_decode):
         raise NotImplementedError(
             "the port's attention always runs through its kernel wrappers "

@@ -36,6 +36,7 @@ extern "C" int chunk_attention_launch(const void* q, const void* k,
                                       int chunk, int s_max, int start,
                                       int n_heads, int n_kv, int hd,
                                       int dtype, float scale, void* stream) {
-  return flash_tile::launch_any(q, k, v, out, batch, chunk, s_max, start,
-                                n_heads, n_kv, hd, dtype, scale, stream);
+  return flash_tile::launch_by_dtype(q, k, v, out, batch, chunk, s_max,
+                                     start, n_heads, n_kv, hd, dtype, scale,
+                                     stream);
 }

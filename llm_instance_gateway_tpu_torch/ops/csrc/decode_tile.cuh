@@ -17,8 +17,8 @@
 // before the PV product (p.astype(v.dtype)), l summed from the unrounded
 // p, output acc / max(l, 1e-30).
 //
-// Split-S (split_kernel + combine_kernel, launch_split; the bf16/f32
-// kernels).  The TPU kernel walks a row's positions as the sequential
+// Split-S (split_kernel + combine_kernel, launch_split; every library
+// that includes this header).  The TPU kernel walks a row's positions as the sequential
 // grid axis of one core.  On Hopper a block that walks a row alone is a
 // chain of dependent tile latencies (one block per (KV head, row) took
 // ~16 us per 64-position tile, 128 tiles in series for an 8192-long row),
@@ -43,8 +43,10 @@
 //     16-byte rows of scattered pool cells, which a tensor map of the pool
 //     would have to describe per cell, and 128 threads start them with 8
 //     instructions each).  int8 storage is staged in registers instead
-//     (its tile fill dequantizes) and written to the other buffer after
-//     the PV product.
+//     (its tile fill dequantizes): the next tile's 16-byte loads and
+//     scales issue right after the tile-landed barrier, and are
+//     dequantized into the other buffer after the PV product, so the
+//     loads stay in flight across the scores, softmax and PV.
 //   - the pool's table entries for the split (L / P ints) are read once
 //     into shared memory, so no 16-byte load waits on a table load;
 //   - scores: R = 128 / TS threads per position each sweep 8 16-byte
@@ -58,23 +60,27 @@
 //     (a column chunk each) read distinct banks in every quarter warp; q's
 //     per-thread segments are padded by 16 bytes for the same reason.
 // Three __syncthreads() per tile: tile landed, scores written, softmax
-// written.  ptxas: 140-150 registers, no spills, ~72 KB of shared memory
-// at hd 128, so 3 blocks per SM.
+// written.  ptxas: 140-150 registers (int8 storage: 158-168, under the
+// 168 that 3 blocks of 128 threads leave), no spills, ~72 KB of shared
+// memory at hd 128, so 3 blocks per SM.
 //
 // Bound on an H100: the K/V bytes the lengths cover at 3.35 TB/s.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W), device
 // time per call (split + combine): 0.0580 ms for the paged table's 8 rows
 // of up to 8192 positions (0.47 of the bound; 2.09 ms with one block per
 // (KV head, row)), 0.0186 ms for the lane rows of up to 1024 (0.24; 0.261).
+// Over int8 storage at the same shapes: 0.0709 ms paged (0.20 of its
+// bound, half the bytes plus scales; 2.30 ms with one block per row) and
+// 0.0209 ms lanes (0.11; 0.283).
 //
 // int8 storage (S = int8_t): k/v hold int8 values with one f32 scale per
 // (position, KV head), k_scale/v_scale [B, S_max, K] (lanes) or
 // [n_blocks + 1, P, K] (pool, read through the same table).  The tile fill
 // stores from_f<T>((float)x * scale) — the Pallas kernel's
 // (x.astype(f32) * s).astype(q.dtype) — into the same T tile, so scores,
-// softmax and PV are the unquantized kernel's own code.  Today the int8
-// libraries still launch decode_kernel (launch_any, one block per
-// (KV head, row)); split_kernel takes S = int8_t for them.
+// softmax and PV are the unquantized kernel's own code.  The splits are
+// counted in tiles of T, since the dequantized tile is what a block holds
+// (64 positions at bf16 hd 128, 8 KB of int8 per K or V tile).
 
 #pragma once
 
@@ -105,186 +111,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
     float x) {
   return __float2bfloat16(x);  // round to nearest even, like astype
-}
-
-// s_max: lane length (lanes) or M * P (pool).  page / tables: pool only.
-// int8 storage only (S = int8_t, k_scale / v_scale): the bf16/f32 kernels
-// are split_kernel below.
-template <typename T, typename S, int HD, bool PAGED>
-__global__ void __launch_bounds__(kThreads) decode_kernel(
-    const T* __restrict__ q, const S* __restrict__ k,
-    const S* __restrict__ v, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ lengths, T* __restrict__ out, int s_max,
-    int page, int n_heads, int n_kv, float scale) {
-  static_assert(sizeof(S) == 1, "decode_kernel takes int8 storage");
-  // Tile rows: K + V tiles (in T) take 32 KB of shared memory.
-  constexpr int TS = 16384 / (HD * (int)sizeof(T));
-  constexpr int VEC = 16 / (int)sizeof(S);  // stored values per 16-byte load
-  constexpr int VPR = HD / VEC;             // 16-byte loads per row
-  constexpr int PER = (kGMax * HD + kThreads - 1) / kThreads;
-
-  __shared__ float q_s[kGMax][HD];
-  __shared__ __align__(16) T k_s[TS][HD];
-  __shared__ __align__(16) T v_s[TS][HD];
-  __shared__ float p_s[kGMax][TS];
-  __shared__ float m_s[kGMax], l_s[kGMax], c_s[kGMax];
-
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int g_n = n_heads / n_kv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  int len = lengths[b];
-  len = len < 0 ? 0 : (len > s_max ? s_max : len);
-
-  for (int i = tid; i < g_n * HD; i += kThreads) {
-    const int g = i / HD, d = i % HD;
-    q_s[g][d] = to_f(q[((size_t)b * n_heads + kh * g_n + g) * HD + d]);
-  }
-  if (tid < g_n) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-  float acc[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) acc[j] = 0.f;
-
-  const size_t pos_stride = (size_t)n_kv * HD;
-  const size_t head_off = (size_t)kh * HD;
-  const int* row_table = PAGED ? tables + (size_t)b * (s_max / page) : nullptr;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += TS) {
-    const int n = min(TS, len - t0);
-    for (int i = tid; i < n * VPR; i += kThreads) {
-      const int t = i / VPR, c = i % VPR;
-      const int pos = t0 + t;
-      size_t cell;  // index of (position, head 0) in the lane or the pool
-      if (PAGED)
-        cell = (size_t)__ldg(row_table + pos / page) * page + pos % page;
-      else
-        cell = (size_t)b * s_max + pos;
-      const size_t off = cell * pos_stride + head_off;
-      const size_t si = cell * n_kv + kh;  // scale of (position, head)
-      const float ks = __ldg(k_scale + si), vs = __ldg(v_scale + si);
-      const uint4 kr = reinterpret_cast<const uint4*>(k + off)[c];
-      const uint4 vr = reinterpret_cast<const uint4*>(v + off)[c];
-      const int8_t* kb = reinterpret_cast<const int8_t*>(&kr);
-      const int8_t* vb = reinterpret_cast<const int8_t*>(&vr);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) {
-        k_s[t][c * VEC + j] = from_f<T>((float)kb[j] * ks);
-        v_s[t][c * VEC + j] = from_f<T>((float)vb[j] * vs);
-      }
-    }
-    __syncthreads();
-
-    // Scores: one warp per (group head, position) pair, lanes split hd.
-    for (int pi = warp; pi < g_n * TS; pi += kWarps) {
-      const int g = pi / TS, t = pi % TS;
-      float s = kNegInf;
-      if (t < n) {
-        float part = 0.f;
-#pragma unroll
-        for (int d = lane; d < HD; d += 32) part += q_s[g][d] * to_f(k_s[t][d]);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          part += __shfl_xor_sync(0xffffffffu, part, o);
-        s = part * scale;
-      }
-      if (lane == 0) p_s[g][t] = s;
-    }
-    __syncthreads();
-
-    // Online softmax: one warp per group head.
-    for (int g = warp; g < g_n; g += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < TS; t += 32) mx = fmaxf(mx, p_s[g][t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int t = lane; t < TS; t += 32) {
-        const float p = expf(p_s[g][t] - m_new);  // masked: exp(-1e30) = 0
-        sum += p;
-        p_s[g][t] = to_f(from_f<T>(p));  // p.astype(v.dtype)
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        c_s[g] = corr;
-        l_s[g] = l_s[g] * corr + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // Accumulator: thread owns (g, d) pairs tid + j * kThreads.
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int e = tid + j * kThreads;
-      if (e < g_n * HD) {
-        const int g = e / HD, d = e % HD;
-        float a = acc[j] * c_s[g];
-        for (int t = 0; t < n; ++t) a += p_s[g][t] * to_f(v_s[t][d]);
-        acc[j] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int e = tid + j * kThreads;
-    if (e < g_n * HD) {
-      const int g = e / HD, d = e % HD;
-      out[((size_t)b * n_heads + kh * g_n + g) * HD + d] =
-          from_f<T>(acc[j] / fmaxf(l_s[g], 1e-30f));
-    }
-  }
-}
-
-// int8 only: dtype 0 = float32, 1 = bfloat16 (q and out; k/v int8 with f32
-// scales).  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for a shape the kernel does not take.
-template <bool PAGED, bool QUANT>
-int launch_any(const void* q, const void* k, const void* v,
-               const void* k_scale, const void* v_scale, const void* tables,
-               const void* lengths, void* out, int batch, int s_max, int page,
-               int n_heads, int n_kv, int hd, int dtype, float scale,
-               void* stream) {
-  static_assert(QUANT, "bf16/f32 decode launches launch_split");
-  if (n_kv <= 0 || n_heads % n_kv != 0 || n_heads / n_kv > kGMax ||
-      batch <= 0 || batch > 65535 || (PAGED && (page <= 0 || s_max % page)) ||
-      k_scale == nullptr || v_scale == nullptr)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_kv, batch);
-  bool launched = true;
-#define DECODE_TILE_CASE(T, HDV)                                            \
-  {                                                                         \
-    decode_kernel<T, int8_t, HDV, PAGED><<<grid, kThreads, 0, st>>>(        \
-        static_cast<const T*>(q), static_cast<const int8_t*>(k),            \
-        static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),  \
-        static_cast<const float*>(v_scale),                                 \
-        static_cast<const int*>(tables), static_cast<const int*>(lengths),  \
-        static_cast<T*>(out), s_max, page, n_heads, n_kv, scale);           \
-  }
-  if (dtype == 0 && hd == 64) DECODE_TILE_CASE(float, 64)
-  else if (dtype == 0 && hd == 128) DECODE_TILE_CASE(float, 128)
-  else if (dtype == 0 && hd == 256) DECODE_TILE_CASE(float, 256)
-  else if (dtype == 1 && hd == 64) DECODE_TILE_CASE(__nv_bfloat16, 64)
-  else if (dtype == 1 && hd == 128) DECODE_TILE_CASE(__nv_bfloat16, 128)
-  else if (dtype == 1 && hd == 256) DECODE_TILE_CASE(__nv_bfloat16, 256)
-  else launched = false;
-#undef DECODE_TILE_CASE
-  if (!launched) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

@@ -31,6 +31,6 @@ extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, void* out, int batch,
                                     int seq, int n_heads, int n_kv, int hd,
                                     int dtype, float scale, void* stream) {
-  return flash_tile::launch_any(q, k, v, out, batch, seq, seq, 0, n_heads,
-                                n_kv, hd, dtype, scale, stream);
+  return flash_tile::launch_by_dtype(q, k, v, out, batch, seq, seq, 0,
+                                     n_heads, n_kv, hd, dtype, scale, stream);
 }

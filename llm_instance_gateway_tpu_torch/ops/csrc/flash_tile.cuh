@@ -1,7 +1,7 @@
 // Flash-style attention of a query chunk against a key/value sequence, the
 // device code shared by flash_prefill.cu (start = 0, S_kv = S) and
 // chunk_attention.cu (a chunk at a runtime offset against a cache lane).
-// launch_any dispatches by dtype: bfloat16 runs on the tensor cores
+// launch_by_dtype dispatches by dtype: bfloat16 runs on the tensor cores
 // (flash_tile_sm90.cuh: wgmma fed by TMA), float32 on the CUDA-core FMA
 // kernel below.  f32 stays off the tensor cores on purpose: there they
 // would run in TF32 (about 3 decimal digits), and the f32 path is what the
@@ -227,10 +227,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // dtype: 0 = float32 (the FMA kernel above), 1 = bfloat16 (the tensor-core
 // kernel of flash_tile_sm90.cuh).  Returns cudaGetLastError() after the
 // launch, or a CUDA error code for a shape the kernel does not take.
-inline int launch_any(const void* q, const void* k, const void* v, void* out,
-                      int batch, int n_q, int s_kv, int start, int n_heads,
-                      int n_kv, int hd, int dtype, float scale,
-                      void* stream) {
+inline int launch_by_dtype(const void* q, const void* k, const void* v,
+                           void* out, int batch, int n_q, int s_kv,
+                           int start, int n_heads, int n_kv, int hd,
+                           int dtype, float scale, void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || n_q <= 0 || s_kv <= 0 ||
       start < 0 || batch > 65535 || n_heads > 65535)
     return (int)cudaErrorInvalidValue;

@@ -14,25 +14,29 @@
 // (the TPU's 32-row int8 floor is its own tiling rule).
 //
 // Bound on an H100: 2 * sum_b lengths[b] * K * (hd * 1 + 4) bytes at
-// 3.35 TB/s.  Design: the bf16 paged kernel's (decode_tile.cuh) — each
-// block (KV head, row) looks up tables[b, pos / P] per position and
-// streams the physical block straight from the pool, only up to
-// lengths[b] — with the int8 tile fill: one scale per (position, head),
-// values dequantized into the shared tile in q's type.  Its limit is the
-// bf16 kernel's: the longest row's block walks it alone (64 blocks on 132
-// SMs at B=8), so the halved bytes buy little until S is split.
+// 3.35 TB/s.  Design: the bf16 paged kernel's (decode_tile.cuh) — split-S,
+// each block (KV head, row, split) reads its split's table entries once
+// and streams those physical blocks straight from the pool, only up to
+// lengths[b], then a combine pass merges a row's splits — with the int8
+// tile fill: one scale per (position, head), read through the same table,
+// values dequantized into the shared tile in q's type.  split_len is a
+// multiple of both the tile (in q's type) and P.
 
 #include "decode_tile.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out).  Returns cudaGetLastError()
-// after the launch, or cudaErrorInvalidValue for a shape the kernel does
-// not take.
+// dtype: 0 = float32, 1 = bfloat16 (q and out).  part: f32 scratch of
+// batch * n_heads * ceil(max_blocks * page / split_len) * (hd + 2) values.
+// Launches the split kernel and the combine kernel; returns
+// cudaGetLastError() after each, or cudaErrorInvalidValue for a shape the
+// kernels do not take.
 extern "C" int paged_decode_attention_quant_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* lengths, void* out, int batch, int max_blocks, int page,
-    int n_heads, int n_kv, int hd, int dtype, float scale, void* stream) {
-  return decode_tile::launch_any<true, true>(
-      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, batch,
-      max_blocks * page, page, n_heads, n_kv, hd, dtype, scale, stream);
+    const void* lengths, void* out, void* part, int batch, int max_blocks,
+    int page, int n_heads, int n_kv, int hd, int dtype, float scale,
+    int split_len, void* stream) {
+  return decode_tile::launch_split<true, true>(
+      q, k_pool, v_pool, k_scale, v_scale, tables, lengths, out, part, batch,
+      max_blocks * page, page, n_heads, n_kv, hd, dtype, scale, split_len,
+      stream);
 }

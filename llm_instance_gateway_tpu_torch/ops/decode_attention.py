@@ -20,13 +20,14 @@ call: the split and combine kernels go out together).
 
 Given scales (int8 lanes), it replaces ``decode_attention_quant_pallas``
 (``_decode_kernel`` with quant=True) and launches
-``csrc/decode_attention_quant.cu``, not yet split: one block per (KV head,
-row) walks the row, with an int8 tile fill — one f32 scale per
-(position, KV head), each value dequantized as
-``(x.astype(f32) * scale).astype(q.dtype)`` into the shared tile, the
-Pallas kernel's rounding — so it reads half the K/V bytes plus the scales,
-``2 * sum(lengths) * K * (hd + 4)``.  Its plain version dequantizes the
-same way (``dequantize_kv``) and calls ``decode_attention_reference``.
+``csrc/decode_attention_quant.cu``: the same split kernel and combine pass
+over int8 storage, each tile dequantized in shared memory — one f32 scale
+per (position, KV head), each value ``(x.astype(f32) *
+scale).astype(q.dtype)``, the Pallas kernel's rounding — so it reads half
+the K/V bytes plus the scales, ``2 * sum(lengths) * K * (hd + 4)``.  The
+splits are sized as for bf16/f32, in tiles of q's dtype (the dequantized
+tile is what a block holds).  Its plain version dequantizes the same way
+(``dequantize_kv``) and calls ``decode_attention_reference``.
 ``quant_launches`` counts its launches.
 """
 
@@ -209,66 +210,62 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
     CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
     ``ValueError`` for a shape it does not take."""
-    global launches, quant_launches
-    quant = k_scale is not None or v_scale is not None
-    if quant and (k_scale is None or v_scale is None):
+    if (k_scale is None) != (v_scale is None):
         raise ValueError("decode_attention: give both scales")
     if q.device.type == "cpu":
-        if quant:
+        if k_scale is not None:
             return decode_attention_quant_reference(
                 q, k_cache, v_cache, k_scale, v_scale, lengths)
         return decode_attention_reference(q, k_cache, v_cache, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    if not quant:
-        return decode_attention_split(q, k_cache, v_cache, lengths)
-    _check(q, k_cache, v_cache, lengths, kv_dtype=torch.int8)
-    _check_scales(k_cache, k_scale, v_scale, "decode_attention")
-    b, h, hd = q.shape
-    out = torch.empty_like(q)
-    fn = _build.load("decode_attention_quant").decode_attention_quant_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, k_cache.shape[1], h, k_cache.shape[2], hd,
-            _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "decode_attention_quant")
-    quant_launches += 1
-    return out
+    return decode_attention_split(q, k_cache, v_cache, lengths,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, lengths: torch.Tensor,
-                           split_len: int | None = None) -> torch.Tensor:
-    """The bf16/f32 lane kernel on CUDA tensors: the split kernel, then the
-    combine kernel, from one C call.  ``split_len`` (a multiple of
-    ``tile_positions``) defaults to ``split_plan``'s; another one serves
-    to measure the plan."""
-    global launches
-    _check(q, k_cache, v_cache, lengths)
+                           split_len: int | None = None,
+                           k_scale: torch.Tensor | None = None,
+                           v_scale: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """The lane kernel on CUDA tensors (int8 lanes given scales): the split
+    kernel, then the combine kernel, from one C call.  ``split_len`` (a
+    multiple of ``tile_positions``) defaults to ``split_plan``'s; another
+    one serves to measure the plan."""
+    global launches, quant_launches
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention: give both scales")
+    quant = k_scale is not None
+    _check(q, k_cache, v_cache, lengths,
+           kv_dtype=torch.int8 if quant else None)
+    if quant:
+        _check_scales(k_cache, k_scale, v_scale, "decode_attention")
     b, h, hd = q.shape
     s_max = k_cache.shape[1]
+    tile = tile_positions(hd, q.dtype)
     if split_len is None and s_max >= 1:
-        split_len = split_plan(b, k_cache.shape[2], s_max,
-                               tile_positions(hd, q.dtype),
+        split_len = split_plan(b, k_cache.shape[2], s_max, tile,
                                sm_count(q.device))[0]
-    if s_max < 1 or split_len < 1 or split_len % tile_positions(hd, q.dtype):
+    if s_max < 1 or split_len < 1 or split_len % tile:
         raise ValueError(f"decode_attention: S_max {s_max} must be >= 1 and "
                          f"split_len {split_len} a positive multiple of "
-                         f"{tile_positions(hd, q.dtype)}")
+                         f"{tile}")
     out = torch.empty_like(q)
     part = split_scratch(b, h, hd, -(-s_max // split_len), q.device)
-    fn = _build.load("decode_attention").decode_attention_launch
+    name = "decode_attention_quant" if quant else "decode_attention"
+    ptrs = [q, k_cache, v_cache] + ([k_scale, v_scale] if quant else []) \
+        + [lengths, out, part]
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part.data_ptr(), b, s_max, h,
-            k_cache.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-            split_len, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "decode_attention")
-    launches += 1
+    rc = fn(*(t.data_ptr() for t in ptrs), b, s_max, h, k_cache.shape[2], hd,
+            _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, name)
+    if quant:
+        quant_launches += 1
+    else:
+        launches += 1
     return out

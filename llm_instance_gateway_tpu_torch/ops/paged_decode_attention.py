@@ -20,10 +20,10 @@ launch the kernel or raise.  ``launches`` counts kernel launches (one per
 call: the split and combine kernels go out together).
 
 Given scale pools (an int8 pool, the Pallas kernel's quant=True variant),
-it takes ``csrc/paged_decode_attention_quant.cu`` instead, not yet split:
-one block per (KV head, row) walks the table with the int8 tile fill of
-the lane variant, the scales read through the same table,
-``2 * sum(lengths) * K * (hd + 4)`` bytes.
+it takes ``csrc/paged_decode_attention_quant.cu`` instead: the same split
+kernel and combine pass with the int8 lane variant's dequantizing tile,
+the scales read through the same table, ``2 * sum(lengths) * K * (hd +
+4)`` bytes.
 Its plain version is gather, dequantize (the Pallas kernel's rounding),
 then the lane plain version.  ``quant_launches`` counts its launches.  Any
 block size that is a multiple of 16 is taken for int8 too: the TPU's
@@ -140,12 +140,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
     ``ValueError`` for a shape it does not take."""
-    global launches, quant_launches
-    quant = k_scale is not None or v_scale is not None
-    if quant and (k_scale is None or v_scale is None):
+    if (k_scale is None) != (v_scale is None):
         raise ValueError("paged_decode_attention: give both scale pools")
     if q.device.type == "cpu":
-        if quant:
+        if k_scale is not None:
             return paged_decode_attention_quant_reference(
                 q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
         return paged_decode_attention_reference(q, k_pool, v_pool, tables,
@@ -153,40 +151,29 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(
             f"paged_decode_attention: unsupported device {q.device}")
-    if not quant:
-        return paged_decode_attention_split(q, k_pool, v_pool, tables,
-                                            lengths)
-    _check(q, k_pool, v_pool, tables, lengths, kv_dtype=torch.int8)
-    _check_scales(k_pool, k_scale, v_scale, "paged_decode_attention")
-    b, h, hd = q.shape
-    out = torch.empty_like(q)
-    fn = _build.load(
-        "paged_decode_attention_quant").paged_decode_attention_quant_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, tables.shape[1],
-            k_pool.shape[1], h, k_pool.shape[2], hd, _DTYPES[q.dtype],
-            1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged_decode_attention_quant")
-    quant_launches += 1
-    return out
+    return paged_decode_attention_split(q, k_pool, v_pool, tables, lengths,
+                                        k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_decode_attention_split(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor, tables: torch.Tensor,
                                  lengths: torch.Tensor,
-                                 split_len: int | None = None
+                                 split_len: int | None = None,
+                                 k_scale: torch.Tensor | None = None,
+                                 v_scale: torch.Tensor | None = None
                                  ) -> torch.Tensor:
-    """The bf16/f32 pool kernel on CUDA tensors: the split kernel, then the
-    combine kernel, from one C call.  ``split_len`` (a multiple of the
-    block size and of ``tile_positions``) defaults to ``split_plan``'s;
-    another one serves to measure the plan."""
-    global launches
-    _check(q, k_pool, v_pool, tables, lengths)
+    """The pool kernel on CUDA tensors (int8 pools given scale pools): the
+    split kernel, then the combine kernel, from one C call.  ``split_len``
+    (a multiple of the block size and of ``tile_positions``) defaults to
+    ``split_plan``'s; another one serves to measure the plan."""
+    global launches, quant_launches
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_decode_attention: give both scale pools")
+    quant = k_scale is not None
+    _check(q, k_pool, v_pool, tables, lengths,
+           kv_dtype=torch.int8 if quant else None)
+    if quant:
+        _check_scales(k_pool, k_scale, v_scale, "paged_decode_attention")
     b, h, hd = q.shape
     page, n_kv = k_pool.shape[1], k_pool.shape[2]
     s_max = tables.shape[1] * page
@@ -202,15 +189,20 @@ def paged_decode_attention_split(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{MAX_SPLIT_BLOCKS} blocks")
     out = torch.empty_like(q)
     part = split_scratch(b, h, hd, -(-s_max // split_len), q.device)
-    fn = _build.load("paged_decode_attention").paged_decode_attention_launch
+    name = ("paged_decode_attention_quant" if quant
+            else "paged_decode_attention")
+    ptrs = [q, k_pool, v_pool] + ([k_scale, v_scale] if quant else []) \
+        + [tables, lengths, out, part]
+    fn = getattr(_build.load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part.data_ptr(), b, tables.shape[1], page, h, n_kv, hd,
-            _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
+    rc = fn(*(t.data_ptr() for t in ptrs), b, tables.shape[1], page, h, n_kv,
+            hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(rc, "paged_decode_attention")
-    launches += 1
+    _build.check(rc, name)
+    if quant:
+        quant_launches += 1
+    else:
+        launches += 1
     return out

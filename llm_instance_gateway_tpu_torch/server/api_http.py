@@ -49,6 +49,7 @@ from llm_instance_gateway_tpu_torch.server.engine import (
     EngineDraining,
     Request,
     SamplingParams,
+    check_served,
 )
 from llm_instance_gateway_tpu_torch.server.lora_manager import (
     AdapterBusyError,
@@ -515,7 +516,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "and KV head (lanes and the paged pool, prefix cache "
                         "included)")
     p.add_argument("--role", choices=("collocated", "prefill", "decode"),
-                   default="collocated")
+                   default="collocated",
+                   help="the reference's choices; the port serves only "
+                        "collocated and refuses the two-hop roles at startup "
+                        "(no /v1/prefill or /v1/attach yet)")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
@@ -544,6 +548,25 @@ def make_server(argv=None, params=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda but no CUDA device is available "
                          "(pass --device cpu to run on the CPU)")
+    engine_cfg = EngineConfig(
+        decode_slots=args.decode_slots, max_seq_len=args.max_seq_len,
+        prefill_buckets=(
+            tuple(sorted(args.prefill_buckets)) if args.prefill_buckets
+            else tuple(b for b in (16, 32, 64, 128, 256, 512, 1024)
+                       if b <= args.max_seq_len)
+            or (min(args.max_seq_len, 1024),)),
+        decode_steps_per_sync=args.decode_steps,
+        adaptive_steps=args.adaptive_steps,
+        device_stops=not args.no_device_stops,
+        stream_lanes=args.stream_lanes,
+        paged_kv_block=args.paged_kv_block,
+        paged_kv_blocks=args.paged_kv_blocks,
+        prefix_cache=args.prefix_cache,
+        kv_cache_quant=(None if args.kv_quantize == "none"
+                        else args.kv_quantize),
+        role=args.role,
+    )
+    check_served(engine_cfg)  # before any weight is drawn
     cfg = dataclasses.replace(CONFIGS[args.model], max_lora_slots=args.max_loras)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     tokenizer = load_tokenizer(None)
@@ -558,28 +581,8 @@ def make_server(argv=None, params=None):
         params = quantize_params(params)
         logger.info("weights quantized to int8 (per output channel)")
     lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device)
-    engine = Engine(
-        cfg, params,
-        EngineConfig(
-            decode_slots=args.decode_slots, max_seq_len=args.max_seq_len,
-            prefill_buckets=(
-                tuple(sorted(args.prefill_buckets)) if args.prefill_buckets
-                else tuple(b for b in (16, 32, 64, 128, 256, 512, 1024)
-                           if b <= args.max_seq_len)
-                or (min(args.max_seq_len, 1024),)),
-            decode_steps_per_sync=args.decode_steps,
-            adaptive_steps=args.adaptive_steps,
-            device_stops=not args.no_device_stops,
-            stream_lanes=args.stream_lanes,
-            paged_kv_block=args.paged_kv_block,
-            paged_kv_blocks=args.paged_kv_blocks,
-            prefix_cache=args.prefix_cache,
-            kv_cache_quant=(None if args.kv_quantize == "none"
-                            else args.kv_quantize),
-            role=args.role,
-        ),
-        lora_manager=lora_manager, eos_id=tokenizer.eos_id, dtype=dtype,
-        device=args.device)
+    engine = Engine(cfg, params, engine_cfg, lora_manager=lora_manager,
+                    eos_id=tokenizer.eos_id, dtype=dtype, device=args.device)
     engine.start()
     server = ModelServer(engine, tokenizer, args.model, lora_manager)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))

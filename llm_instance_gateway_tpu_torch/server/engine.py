@@ -103,12 +103,26 @@ class EngineConfig:
 
 
 # Fields the reference serves and the port does not yet: (field, value the
-# port accepts, ROADMAP Queue 1 item that ports it).
+# port accepts, title of the ROADMAP Queue 1 item that ports it).  A role
+# other than "collocated" would advertise two-hop endpoints
+# (/v1/prefill, /v1/attach) the port does not serve.
 _UNSERVED = (
-    ("speculative_k", 0, "12 (speculative decoding)"),
-    ("prefill_batch", 1, "7 (grouped prefill)"),
-    ("pipeline_decode", False, "7 (pipelined decode)"),
+    ("speculative_k", 0, "speculative decoding"),
+    ("prefill_batch", 1, "grouped and pipelined dispatch"),
+    ("pipeline_decode", False, "grouped and pipelined dispatch"),
+    ("role", "collocated", "disaggregation"),
+    ("handoff_ttl_s", 0.0, "disaggregation"),
 )
+
+
+def check_served(cfg: EngineConfig) -> None:
+    """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
+    the port does not serve yet."""
+    for name, ok, item in _UNSERVED:
+        if getattr(cfg, name) != ok:
+            raise NotImplementedError(
+                f"EngineConfig.{name}={getattr(cfg, name)!r} is not served "
+                f"by the torch port yet (ROADMAP Queue 1, {item})")
 
 
 @dataclass
@@ -206,11 +220,7 @@ class Engine:
                  dtype=torch.bfloat16, seed: int = 0, device="cuda"):
         self.model_cfg = model_cfg
         self.cfg = engine_cfg or EngineConfig()
-        for name, ok, item in _UNSERVED:
-            if getattr(self.cfg, name) != ok:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self.cfg, name)!r} is not "
-                    f"served by the torch port yet (ROADMAP Queue 1 item {item})")
+        check_served(self.cfg)
         if self.cfg.kv_cache_quant not in (None, "int8"):
             raise ValueError(
                 f"kv_cache_quant={self.cfg.kv_cache_quant!r}: only 'int8' "
@@ -505,7 +515,8 @@ class Engine:
         sp = request.sampling
         if sp.presence_penalty or sp.frequency_penalty:
             raise ValueError("presence/frequency penalties are not served by "
-                             "the torch port yet (ROADMAP Queue 1 item 12)")
+                             "the torch port yet (ROADMAP Queue 1, "
+                             "speculative decoding, penalties, logit_bias)")
         if sp.logit_bias:
             if len(sp.logit_bias) > MAX_LOGIT_BIAS:
                 raise ValueError(

@@ -7,7 +7,8 @@ reference checkpoint's tree flattened: ``alpha``, ``rank`` and one
 Loading writes the slot through ``models.lora.load_adapter`` — new buffers,
 swapped in one assignment, so the engine thread never sees a half-written
 slot.  The host-RAM and disk tiers of the residency ladder are not ported
-yet (ROADMAP Queue 1 item 14); the residency snapshot reports them empty.
+yet (ROADMAP Queue 1, LoRA residency ladder); the residency snapshot
+reports them empty.
 """
 
 from __future__ import annotations

@@ -33,6 +33,6 @@ class ByteTokenizer:
 def load_tokenizer(path: str | None = None):
     if path:
         raise NotImplementedError(
-            "local HF tokenizers are not ported yet (ROADMAP Queue 1 item 13); "
-            "the port serves the byte tokenizer")
+            "local HF tokenizers are not ported yet (ROADMAP Queue 1, model "
+            "families); the port serves the byte tokenizer")
     return ByteTokenizer()

@@ -19,11 +19,14 @@ key, one key past a tile, ragged tiles that border the next batch row,
 starts off the tile grid, a one-token chunk, pads past S_max, every head
 dim.
 
-bf16/f32 lane and paged decode are split-S (a block per KV head, row and
-split of ``split_plan``'s length, then a combine pass); their cases cross
-many splits at Llama-3-8B's grouping, with lengths at the split
-boundaries, and run the unchanged int8 kernels beside them.
+Lane and paged decode are split-S (a block per KV head, row and split of
+``split_plan``'s length, then a combine pass), over bf16/f32 storage and
+over int8 storage with f32 scales (the tile dequantized in shared memory);
+their cases cross many splits at Llama-3-8B's grouping, with lengths at
+the split boundaries, at the plan's split length and at explicit ones.
 """
+
+import math
 
 import pytest
 
@@ -299,9 +302,9 @@ def test_decode_split_other_head_dims(dev, dtype, hd):
 
 
 def test_int8_kernels_after_the_split_kernels(dev):
-    """bf16 split kernels (lanes, pool), then the unchanged int8 lane and
-    pool kernels, in one process: the shared header's old and new code
-    side by side."""
+    """bf16 split kernels (lanes, pool), then the int8 lane and pool
+    kernels, in one process: the shared header's bf16 and int8 instances
+    side by side, each call counted once on its own counter."""
     gen = torch.Generator(device=dev).manual_seed(83)
     b, s_max, h, k, hd, page = 4, 1024, 32, 8, 128, 64
     bf16 = torch.bfloat16
@@ -406,3 +409,138 @@ def test_paged_decode_quant_matches_plain_version(dev, dtype, page, h, k, hd):
                                                      lengths, ks, vs)
     assert_close(got, want, dtype)
     assert not got[0].any()
+
+
+def quant_lanes(gen, b, s_max, k, hd):
+    """Seeded int8 lanes and their f32 scales, quantized as the serving
+    path does."""
+    (kq, ks), (vq, vs) = (quantize(randn(gen, b, s_max, k, hd,
+                                         dtype=torch.float32))
+                          for _ in range(2))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_quant_split_at_llama3_8b_grouping(dev, dtype):
+    """The int8 lane serve's shape (B=8, S_max=1024, H=32, K=8, hd 128) at
+    the plan's split length, one tile and the whole row, with lengths at
+    the plan's split boundaries."""
+    gen = torch.Generator(device=dev).manual_seed(90)
+    b, s_max, h, k, hd = 8, 1024, 32, 8, 128
+    tile = dec.tile_positions(hd, dtype)
+    split_len, n_split = dec.split_plan(b, k, s_max, tile, dec.sm_count(dev))
+    assert n_split >= 8
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kq, vq, ks, vs = quant_lanes(gen, b, s_max, k, hd)
+    lengths = torch.tensor(split_boundary_lengths(
+        split_len, s_max, (3 * split_len + 7, 2 * split_len)),
+        dtype=torch.int32, device=dev)
+    want = dec.decode_attention_quant_reference(q, kq, vq, ks, vs, lengths)
+    before = (dec.launches, dec.quant_launches)
+    got = dec.decode_attention(q, kq, vq, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert (dec.launches, dec.quant_launches) == (before[0], before[1] + 1)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+    for n in (tile, s_max):
+        got = dec.decode_attention_split(q, kq, vq, lengths, n, ks, vs)
+        torch.cuda.synchronize()
+        assert_close(got, want, dtype)
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [16, 64])
+def test_paged_quant_split_at_llama3_8b_grouping(dev, dtype, page):
+    """The int8 paged serve's shape (B=8, S_max=8192, H=32, K=8, hd 128),
+    P=16 and 64, shuffled tables with the trash block past each row's end
+    (its values and scales garbage), at the plan's split length and at
+    the smallest aligned one."""
+    gen = torch.Generator(device=dev).manual_seed(91 + page)
+    b, s_max, h, k, hd = 8, 8192, 32, 8, 128
+    m = s_max // page
+    tile = dec.tile_positions(hd, dtype)
+    split_len, n_split = dec.split_plan(b, k, s_max, tile, dec.sm_count(dev),
+                                        page)
+    assert n_split >= 16 and split_len % page == 0
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kq, vq, ks, vs = quant_lanes(gen, b * m + 1, page, k, hd)
+    for pool, sc in ((kq, ks), (vq, vs)):
+        pool[0] = 127  # the trash block
+        sc[0] = 1e3
+    perm = torch.randperm(b * m, generator=torch.Generator().manual_seed(page))
+    tables = (perm + 1).reshape(b, m).to(torch.int32)
+    lengths = split_boundary_lengths(split_len, s_max,
+                                     (6000, 3 * split_len + 5))
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // page):] = 0  # past the row's end: the trash block
+    tables = tables.to(dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    want = pd.paged_decode_attention_quant_reference(q, kq, vq, tables,
+                                                     lengths, ks, vs)
+    before = (pd.launches, pd.quant_launches)
+    got = pd.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
+    torch.cuda.synchronize()
+    assert (pd.launches, pd.quant_launches) == (before[0], before[1] + 1)
+    assert_close(got, want, dtype)
+    assert not got[0].any()
+    got = pd.paged_decode_attention_split(q, kq, vq, tables, lengths,
+                                          math.lcm(tile, page), ks, vs)
+    torch.cuda.synchronize()
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 256])
+def test_decode_quant_split_other_head_dims(dev, dtype, hd):
+    """int8 at hd 64 and 256, H=8, K=2, over many splits: the lane kernel
+    at one tile, a few tiles and the plan's split length, the pool at
+    P=16."""
+    gen = torch.Generator(device=dev).manual_seed(92 + hd)
+    b, s_max, h, k, page = 6, 2048, 8, 2, 16
+    tile = dec.tile_positions(hd, dtype)
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kq, vq, ks, vs = quant_lanes(gen, b, s_max, k, hd)
+    lengths = torch.tensor([0, 1, tile - 1, 3 * tile + 1, 1500, s_max],
+                           dtype=torch.int32, device=dev)
+    want = dec.decode_attention_quant_reference(q, kq, vq, ks, vs, lengths)
+    for split_len in (tile, 3 * tile, None):
+        got = dec.decode_attention_split(q, kq, vq, lengths, split_len, ks,
+                                         vs)
+        torch.cuda.synchronize()
+        assert_close(got, want, dtype)
+        assert not got[0].any()
+    # The same rows as a pool: block i of row r is physical block
+    # r * m + i + 1, so the pool's plain version is the lanes' one.
+    m = s_max // page
+
+    def pool(x):
+        return torch.cat([x[:1, :page] * 0,
+                          x.reshape(b * m, page, k, *x.shape[3:])])
+
+    tables = (torch.arange(b * m, device=dev, dtype=torch.int32)
+              + 1).reshape(b, m)
+    got = pd.paged_decode_attention(q, pool(kq), pool(vq), tables, lengths,
+                                    pool(ks), pool(vs))
+    torch.cuda.synchronize()
+    assert_close(got, want, dtype)
+
+
+def test_int8_split_len_off_the_grid_raises(dev):
+    """An int8 split length is counted in tiles of q's dtype (64 positions
+    at bf16 hd 128, 32 at f32) and, for the pool, in whole blocks."""
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    cache = torch.zeros(2, 256, 2, 128, device=dev, dtype=torch.int8)
+    scales = torch.ones(2, 256, 2, device=dev)
+    for dtype, off in ((torch.bfloat16, 32), (torch.float32, 48)):
+        q = torch.zeros(2, 8, 128, device=dev, dtype=dtype)
+        with pytest.raises(ValueError, match="split_len"):
+            dec.decode_attention_split(q, cache, cache, lengths, off, scales,
+                                       scales)
+    q = torch.zeros(2, 8, 128, device=dev, dtype=torch.float32)
+    pool = torch.zeros(5, 48, 2, 128, device=dev, dtype=torch.int8)
+    pool_scales = torch.ones(5, 48, 2, device=dev)
+    tables = torch.zeros(2, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="split_len"):  # lcm(32, 48) = 96
+        pd.paged_decode_attention_split(q, pool, pool, tables, lengths, 48,
+                                        pool_scales, pool_scales)

@@ -15,6 +15,12 @@ the CPU, before any card run.  The pool is read through
 ``gather_pool_rows`` first: a split covers whole pool blocks, so reading
 through the table is the lane read of the gathered row.
 
+int8 storage (one f32 scale per position and KV head) runs the same
+split and combine over the tile a block holds: the values dequantized to
+q's dtype, ``dequantize_kv`` — the Pallas kernel's
+``(x.astype(f32) * s).astype(q.dtype)`` — so ``emulate`` takes the
+dequantized lanes, and the splits are counted in tiles of q's dtype.
+
 Tolerances: bf16 — each output vector's largest error within 2^-6 of its
 largest |value| (the card checks' limit, ``chip_smoke.py``,
 ``tests/test_torch_cuda.py``); f32 — 1e-5 absolute (summation order).
@@ -29,6 +35,7 @@ import pytest
 
 from llm_instance_gateway_tpu.ops.pallas_decode_attention import (
     decode_attention_pallas,
+    decode_attention_quant_pallas,
     paged_decode_attention_pallas,
 )
 
@@ -214,6 +221,78 @@ def test_splits_are_independent_of_each_other(dtype):
     tl = torch.tensor([S_MAX, 2 * tile + 5], dtype=torch.int32)
     got = emulate(tq, tk, tv, tl, tile, tile)
     assert_close(got, tdec.decode_attention_reference(tq, tk, tv, tl), dtype)
+
+
+def int8_kv(rng, shape):
+    """Seeded int8 values [..., hd] and one f32 scale per (position, KV
+    head), about what max-abs quantization of N(0, 1) values gives."""
+    x = rng.integers(-127, 128, size=shape, dtype=np.int8)
+    scale = (rng.uniform(0.5, 1.5, size=shape[:-1]) / 50).astype(np.float32)
+    return x, scale
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", KINDS)
+def test_lane_int8_split_matches_pallas_and_plain_version(dtype, kind):
+    tile = tdec.tile_positions(HD, dtype)
+    split_len = split_len_for(kind, tile)
+    lengths = boundary_lengths(split_len)
+    b = len(lengths)
+    rng = np.random.default_rng(100 + split_len + tile)
+    tq, jq = pair(rng.standard_normal((b, H, HD)).astype(np.float32), dtype)
+    kv = [*int8_kv(rng, (b, S_MAX, K, HD)), *int8_kv(rng, (b, S_MAX, K, HD))]
+    tk, tks, tv, tvs = map(torch.from_numpy, kv)
+    tl = torch.from_numpy(lengths)
+    got = emulate(tq, tdec.dequantize_kv(tk, tks, dtype),
+                  tdec.dequantize_kv(tv, tvs, dtype), tl, split_len, tile)
+    assert got.dtype == dtype
+    jk, jks, jv, jvs = map(jnp.asarray, kv)
+    want = decode_attention_quant_pallas(jq, jk, jv, jks, jvs,
+                                         jnp.asarray(lengths), interpret=True)
+    assert_close(got, to_torch(want), dtype)
+    assert_close(got, tdec.decode_attention_quant_reference(
+        tq, tk, tv, tks, tvs, tl), dtype)
+    assert not got[0].any()  # a length-0 row: exact zeros
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind,page", [("one_tile", 16), ("few_tiles", 16),
+                                       ("whole_row", 16), ("plan", 16),
+                                       ("one_tile", 64), ("plan", 64)])
+def test_paged_int8_split_matches_pallas_and_plain_version(dtype, kind, page):
+    """int8 pools and scale pools read through shuffled tables; the trash
+    block's values and scales are garbage and never count."""
+    tile = tdec.tile_positions(HD, dtype)
+    split_len = split_len_for(kind, tile, page)
+    assert split_len % page == 0
+    lengths = boundary_lengths(split_len)
+    b = len(lengths)
+    rng = np.random.default_rng(200 + split_len + page)
+    m = S_MAX // page
+    pools = [*int8_kv(rng, (b * m + 1, page, K, HD)),
+             *int8_kv(rng, (b * m + 1, page, K, HD))]
+    pools[0][0], pools[1][0] = 127, 1e3  # the trash block: K and its scales
+    pools[2][0], pools[3][0] = -127, 1e3  # V and its scales
+    tables = (rng.permutation(b * m) + 1).reshape(b, m).astype(np.int32)
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // page):] = 0  # past the row's end: the trash block
+    tq, jq = pair(rng.standard_normal((b, H, HD)).astype(np.float32), dtype)
+    tk, tks, tv, tvs = map(torch.from_numpy, pools)
+    tt, tl = torch.from_numpy(tables), torch.from_numpy(lengths)
+    got = emulate(tq, tdec.dequantize_kv(gather_pool_rows(tk, tt),
+                                         gather_pool_rows(tks, tt), dtype),
+                  tdec.dequantize_kv(gather_pool_rows(tv, tt),
+                                     gather_pool_rows(tvs, tt), dtype),
+                  tl, split_len, tile)
+    jk, jks, jv, jvs = map(jnp.asarray, pools)
+    want = paged_decode_attention_pallas(jq, jk, jv, jnp.asarray(tables),
+                                         jnp.asarray(lengths), jks, jvs,
+                                         interpret=True)
+    assert_close(got, to_torch(want), dtype)
+    assert_close(got, tpd.paged_decode_attention_quant_reference(
+        tq, tk, tv, tt, tl, tks, tvs), dtype)
+    assert not got[0].any()
+    assert torch.isfinite(got.float()).all()  # the trash block never counts
 
 
 def test_split_plan_meets_the_targets_on_an_h100():

@@ -205,7 +205,7 @@ def test_bf16_leaves_cross_bit_exact():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="model families"):
         ttf.init_params(port_cfg(TINY_MOE_TEST), device="cpu")
 
 

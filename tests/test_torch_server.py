@@ -183,3 +183,13 @@ def test_cli_defaults_mirror_the_reference():
     args = api_http.build_parser().parse_args([])
     assert (args.device, args.decode_slots, args.max_seq_len,
             args.adaptive_steps, args.max_loras) == ("cuda", 8, 1024, 8, 4)
+
+
+@pytest.mark.parametrize("role", ["prefill", "decode"])
+def test_two_hop_roles_are_refused_at_startup(role):
+    """The port serves no /v1/prefill or /v1/attach, so a pod started as a
+    prefill or decode replica fails before it draws weights, instead of
+    advertising a role it cannot serve."""
+    with pytest.raises(NotImplementedError, match="role"):
+        api_http.make_server(["--device", "cpu", "--dtype", "float32",
+                              "--port", "0", "--role", role])
