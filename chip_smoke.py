@@ -17,16 +17,19 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    2e-2, ABS_TOL; the plain version with a
    skipped K/V tile or a misread pool block must fail that check), and
    times kernel, plain version and one PyTorch library call (a yardstick
-   only): flash prefill, lane decode, chunk attention (C=1024 at start
+   only): flash prefill (B=1; B=4 at bucket 128, a grouped prefill), lane
+   decode, chunk attention (C=1024 at start
    0/2048/5120 of an 8192-position lane, C=64 at start 640), paged
    decode (B=8, 64-token blocks, 128-block tables, shuffled, lengths
    0 .. 8192), and the int8 lane and paged decode kernels at the same
    shapes (int8 K/V with one f32 scale per position and KV head; the
    plain version fed one KV head's scales in place of another's must fail
    the check); flash and chunk rows add their rate (tflops, the live
-   operations over the time), bound_frac (bound_ms / ms) and, beside the
-   lane decode row, host_us (host time per call: flash and chunk
-   encode three TMA tensor maps per call); the lane and paged decode
+   operations over the time), bound_frac (bound_ms / ms); every row
+   host_us (host time per call: flash and chunk encode three TMA tensor
+   maps per call) beside host_us_argtypes_per_call (the same wrapper with
+   its ctypes restype/argtypes set again per call, as before
+   ``_build.load`` set them once); the lane and paged decode
    rows, bf16 and int8 (split-S: a split kernel and a combine kernel per
    call) add the plan's split length and count, host_us, the profiler's
    device time per call (split + combine: at the lane shape a call costs
@@ -40,15 +43,18 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    on a lane engine and on a paged engine with prefix cache and two
    stream lanes (a shared-prefix pair, prompts beyond the largest bucket),
    each also with an int8 KV cache, and on a lane engine with int8
-   weights;
+   weights; then a pipelined lane engine with prefill_batch=4 and a
+   pipelined paged engine (prefix cache, stream lanes) — graph replays of
+   the decode block — against the CPU's sync engine;
 5. serve   — starts the port's HTTP server at Llama-3-8B width and depth
    (random weights), loads a seeded LoRA adapter from .npz, answers six
    concurrent greedy completions (base and adapter rows, one streamed)
    and checks the launch counts over that window (flash at 32 per
-   request, lane decode at 32 per decode step, chunk and paged none);
-   then profiles one 8B decode step and one 1024-token prefill
-   (torch.profiler: host wall, device time, device idle share, top
-   kernels);
+   request, lane decode at 32 per decode step — graph replays counted —
+   chunk and paged none); then profiles one 8B decode step and one
+   1024-token prefill (torch.profiler: host wall, device time, device idle
+   share, top kernels), each eager and as replays of a CUDA graph of the
+   same call;
 6. paged serve — the same weights behind ``--max-seq-len 8192
    --paged-kv-block 64 --paged-kv-blocks 768 --prefix-cache
    --stream-lanes 2``: five requests sharing a ~600-token system prompt
@@ -69,8 +75,17 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    cold prefill; profiles one int8 paged decode step and one chunk, and
    prints the int8 profiles beside the bf16 ones;
 
-then prints one JSON line with every kernel's numbers, the nvidia-smi line,
-and last the device JSON line.  Imports nothing of JAX.
+9. dispatch — ``bench.py``'s device traffic on Llama-3-8B (int8 weights,
+   four rank-8 adapters, 48 requests of 100 + 64 tokens at once, 16 slots,
+   buckets 128/256, 32 steps per dispatch) in turns A B B A: A the sync
+   loop with the eager block and prefill_batch=1, B the pipelined loop
+   replaying the block's graph with prefill_batch=4; decode tokens/s,
+   TPOT and TTFT p50/p95, exact launch counts per run, and the greedy
+   tokens where B differs from A;
+
+then prints one JSON line with every kernel's numbers (launches over the
+serve phases and the dispatch phase's B runs), the nvidia-smi line, and
+last the device JSON line.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -162,6 +177,26 @@ def host_us(torch, fn, args, iters: int = 50) -> float:
     secs = time.perf_counter() - t0
     torch.cuda.synchronize()
     return secs / iters * 1e6
+
+
+def host_us_pair(torch, lib: str, fn, args) -> dict:
+    """``host_us`` of the wrapper as it is (``_build.load`` typed the
+    launch function once) and with the launch function's ``restype`` and
+    ``argtypes`` set again before every call, as the wrappers did before:
+    the host cost of that per-call setting, in the same run."""
+    import ctypes
+
+    from llm_instance_gateway_tpu_torch.ops import _build
+
+    launch = getattr(_build.load(lib), f"{lib}_launch")
+
+    def per_call(*a):
+        launch.restype = ctypes.c_int
+        launch.argtypes = list(_build.SIGNATURES[lib])
+        return fn(*a)
+
+    return dict(host_us=host_us(torch, fn, args),
+                host_us_argtypes_per_call=host_us(torch, per_call, args))
 
 
 def device_ms(torch, fn, arg_sets, calls: int = 20) -> dict:
@@ -279,16 +314,17 @@ def phase_kernels(torch) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1234)
     results = {}
 
-    # -- flash prefill: B=1 at buckets 16, 128, 1024 --
+    # -- flash prefill: B=1 at buckets 16, 128, 1024; B=4 at 128 (a
+    # grouped prefill, prefill_batch=4, of the dispatch phase's bucket) --
     flash_rows = []
-    for s in (16, 128, 1024):
-        q = torch.randn(1, s, H, HD, device=dev, generator=gen).to(bf16)
-        k = torch.randn(1, s, K, HD, device=dev, generator=gen).to(bf16)
-        v = torch.randn(1, s, K, HD, device=dev, generator=gen).to(bf16)
+    for b, s in ((1, 16), (1, 128), (4, 128), (1, 1024)):
+        q = torch.randn(b, s, H, HD, device=dev, generator=gen).to(bf16)
+        k = torch.randn(b, s, K, HD, device=dev, generator=gen).to(bf16)
+        v = torch.randn(b, s, K, HD, device=dev, generator=gen).to(bf16)
         got = fl.flash_attention(q, k, v)
         want = fl.flash_attention_reference(q, k, v)
         torch.cuda.synchronize()
-        errs = check_kernel(f"flash S={s}", got, want)
+        errs = check_kernel(f"flash B={b} S={s}", got, want)
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
         sets = [(q.clone(), k.clone(), v.clone())
                 for _ in range(copies_for(nbytes))]
@@ -299,11 +335,12 @@ def phase_kernels(torch) -> dict:
                   c.transpose(1, 2).contiguous()) for a, b, c in sets]
         lib_ms = time_ms(torch, lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=True, enable_gqa=True), bsets)
-        ops = 2 * 1 * H * s * (s + 1) * HD
-        row = dict(shape=f"B=1 S={s} H={H} K={K} hd={HD} bf16",
+        ops = 2 * b * H * s * (s + 1) * HD
+        row = dict(shape=f"B={b} S={s} H={H} K={K} hd={HD} bf16",
                    **errs, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, **_bound(nbytes, ops),
-                   host_us=host_us(torch, fl.flash_attention, sets[0]))
+                   **host_us_pair(torch, "flash_prefill", fl.flash_attention,
+                                  sets[0]))
         row.update(_rate(ops, row))
         flash_rows.append(row)
         log("kernels", "flash_prefill " + json.dumps(row))
@@ -342,7 +379,8 @@ def phase_kernels(torch) -> dict:
                f"lengths={lengths.tolist()}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
-               host_us=host_us(torch, dec.decode_attention, sets[0]),
+               **host_us_pair(torch, "decode_attention", dec.decode_attention,
+                              sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, dec.decode_attention, sets),
                **split_sweep(
@@ -436,7 +474,8 @@ def _decode_quant_rows(torch, gen) -> list:
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library="dequantize + masked SDPA, timed as a pair",
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
-               host_us=host_us(torch, kernel, sets[0]),
+               **host_us_pair(torch, "decode_attention_quant", kernel,
+                              sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, kernel, sets),
                **split_sweep(torch, split, sets,
@@ -509,7 +548,8 @@ def _paged_quant_rows(torch, gen) -> list:
                library="gather_pool_rows + dequantize + masked SDPA, timed "
                "as a pair",
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
-               host_us=host_us(torch, pd.paged_decode_attention, sets[0]),
+               **host_us_pair(torch, "paged_decode_attention_quant",
+                              pd.paged_decode_attention, sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, pd.paged_decode_attention, sets),
                **split_sweep(torch, split, sets,
@@ -593,7 +633,8 @@ def _chunk_rows(torch, gen) -> list:
                    f"hd={HD} bf16", **errs, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library="SDPA, boolean mask over the "
                    "first start+C positions", **_bound(nbytes, ops),
-                   host_us=host_us(torch, ch.chunk_attention, sets[0]))
+                   **host_us_pair(torch, "chunk_attention",
+                                  ch.chunk_attention, sets[0]))
         row.update(_rate(ops, row))
         rows.append(row)
         log("kernels", "chunk_attention " + json.dumps(row))
@@ -664,7 +705,8 @@ def _paged_rows(torch, gen) -> list:
                plain_ms=plain_ms, library_ms=lib_ms,
                library="gather_pool_rows + masked SDPA, timed as a pair",
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
-               host_us=host_us(torch, pd.paged_decode_attention, sets[0]),
+               **host_us_pair(torch, "paged_decode_attention",
+                              pd.paged_decode_attention, sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, pd.paged_decode_attention, sets),
                **split_sweep(
@@ -752,8 +794,66 @@ def phase_reference(torch) -> None:
             f"{launches['cuda']} lane decode launches on the card)")
     log("reference", f"prefill logits max_abs_err {json.dumps(errs)} <= "
         f"{ref_tol}")
+    _pipelined_reference(torch, cfg, cpu_params, gpu_params)
     for kv_quant in (None, "int8"):
         _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant)
+
+
+def _run_engine(eng, prompts, max_new: int = 12) -> list:
+    """Start ``eng``, submit ``prompts`` at once (greedy), return the
+    streams."""
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    eng.start()
+    try:
+        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=max_new))
+                for p in prompts]
+        for r in reqs:
+            if not r.done.wait(300) or r.error:
+                raise AssertionError(f"engine on {eng.device}: {r.error}")
+        return [r.output_tokens for r in reqs]
+    finally:
+        eng.stop()
+
+
+def _pipelined_reference(torch, cfg, cpu_params, gpu_params) -> None:
+    """A pipelined lane engine with grouped prefill (prefill_batch=4) on
+    the card — graph replays of the decode block, first tokens scattered
+    on the device, [P, bucket] flash prefills — against the CPU's sync
+    engine: identical greedy streams.  Three of the six prompts share the
+    16-token bucket, two the 64-token one."""
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig)
+
+    prompts = [[256] + list(range(65, 65 + n))
+               for n in (5, 9, 12, 40, 50, 100)]
+    base = dict(max_seq_len=256, prefill_buckets=(16, 64, 128),
+                adaptive_steps=8)
+    want = _run_engine(Engine(cfg, cpu_params, EngineConfig(**base),
+                              eos_id=257, dtype=torch.float32, device="cpu"),
+                       prompts)
+    eng = Engine(cfg, gpu_params, EngineConfig(
+        pipeline_decode=True, prefill_batch=4, **base), eos_id=257,
+        dtype=torch.float32, device="cuda")
+    grouped = []
+    many = eng._prefill_many_impl
+
+    def counted(*args, **kwargs):
+        grouped.append(len(args[0]))
+        return many(*args, **kwargs)
+
+    eng._prefill_many_impl = counted
+    got = _run_engine(eng, prompts)
+    if got != want:
+        raise AssertionError(f"pipelined reference: greedy streams differ: "
+                             f"cuda {got} cpu {want}")
+    if not grouped or eng._graphs.replays <= 0:
+        raise AssertionError(f"pipelined reference: grouped prefills "
+                             f"{grouped}, replays {eng._graphs.replays}")
+    log("reference", f"pipelined lane engine, prefill_batch=4 (f32): greedy "
+        f"streams identical on cuda and cpu ({sum(map(len, got))} tokens), "
+        f"grouped prefills of {grouped} rows, {eng._graphs.replays} graph "
+        f"replays of shapes {eng._graphs.shapes}")
 
 
 def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
@@ -803,6 +903,22 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
         f"cuda and cpu ({sum(map(len, streams['cuda']))} tokens), "
         f"{reused['cuda']} prefix tokens reused, chunk/paged launches on the "
         f"card {launches['cuda']}")
+    if kv_quant is None:
+        # The same traffic on a pipelined paged engine (its streams' last
+        # chunks and prefix-hit suffixes activate rows on the device).
+        eng = Engine(cfg, gpu_params, EngineConfig(
+            decode_slots=4, max_seq_len=512, prefill_buckets=(16, 64, 128),
+            adaptive_steps=8, paged_kv_block=16, prefix_cache=True,
+            stream_lanes=2, pipeline_decode=True, prefill_batch=4),
+            eos_id=257, dtype=torch.float32, device="cuda")
+        got = _run_engine(eng, prompts)
+        if got != streams["cpu"] or eng.prefix_reused_tokens != reused["cpu"]:
+            raise AssertionError(f"pipelined paged reference: {got} "
+                                 f"{eng.prefix_reused_tokens} against "
+                                 f"{streams['cpu']} {reused['cpu']}")
+        log("reference", f"pipelined paged engine (prefix cache, 2 stream "
+            f"lanes, f32): greedy streams identical on cuda and cpu, "
+            f"{eng._graphs.replays} graph replays")
 
 
 def _post(url: str, body: dict, timeout: float = 600.0):
@@ -988,6 +1104,8 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
                       - snap0["phase_hist"]["prefill"]["count"])),
             "tokens": len(jobs) * max_tokens,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "graph_shapes": engine._graphs.shapes,
+            "graph_capture_s": engine._graphs.capture_s,
             "launches": launches,
         }
         log(tag, "llama3-8b (32 layers, random bf16 weights"
@@ -1161,6 +1279,8 @@ def phase_paged_serve(torch, params, adapter_path: str,
             "kv_states_after": states,
             "pool_gib": pool_bytes / 2 ** 30,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "graph_shapes": engine._graphs.shapes,
+            "graph_capture_s": engine._graphs.capture_s,
             "launches": launches,
         }
         log(tag, f"llama3-8b paged (64-token blocks x {n_pool}, prefix cache, "
@@ -1217,6 +1337,45 @@ def _profile(torch, name: str, fn, reps: int) -> dict:
     return out
 
 
+def _graph_profile(torch, name: str, fn, reps: int):
+    """``fn`` captured once as a CUDA graph (after a warm-up call on the
+    capture stream) and profiled as replays, beside its eager profile:
+    the host's share that a graph removes, from the same run."""
+    import gc
+
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    gc.disable()  # as in decode_graphs: nothing freed mid-capture
+    try:
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            fn()
+    finally:
+        gc.enable()
+    return _profile(torch, f"{name} (graph replay)", graph.replay, reps)
+
+
+def _with_graph(torch, name: str, fn, reps: int, capturable: bool = True):
+    """Eager profile of ``fn`` and, beside it, its graph replays — or why
+    there is none."""
+    out = _profile(torch, name, fn, reps)
+    if not capturable:
+        out["graph_replay"] = ("not captured: the chunk program copies host "
+                               "positions to the card per call")
+        return out
+    try:
+        out["graph_replay"] = _graph_profile(torch, name, fn, reps)
+    except RuntimeError as e:  # a probe beside the engine's path
+        out["graph_replay"] = f"capture failed: {str(e)[:200]}"
+        log("profile", f"{name}: {out['graph_replay']}")
+    return out
+
+
 def phase_paged_profile(torch, engine) -> dict:
     """One paged decode step over 8 long rows (mixed adapters) and one
     1024-token chunk at start 5120, on the paged engine's pools (the
@@ -1261,10 +1420,10 @@ def phase_paged_profile(torch, engine) -> dict:
             cfg, params, cache, chunk_tokens, chunk_pos, 7, 6144, 1023,
             lora_bufs=lora_bufs, lora_slot=0)[0]
 
-    return {"paged_decode_step": _profile(torch, "paged_decode_step",
-                                          decode, 3),
-            "chunk_1024_at_5120": _profile(torch, "chunk_1024_at_5120",
-                                           chunk, 2)}
+    return {"paged_decode_step": _with_graph(torch, "paged_decode_step",
+                                             decode, 3),
+            "chunk_1024_at_5120": _with_graph(torch, "chunk_1024_at_5120",
+                                              chunk, 2, capturable=False)}
 
 
 def phase_profile(torch, engine, prefill: bool = True) -> dict:
@@ -1301,9 +1460,186 @@ def phase_profile(torch, engine, prefill: bool = True) -> dict:
                                    lora_bufs=lora_bufs,
                                    slot_ids=slots[1:2])[0]
 
-    out = {"decode_step": _profile(torch, "decode_step", decode, 3)}
+    out = {"decode_step": _with_graph(torch, "decode_step", decode, 3)}
     if prefill:
-        out["prefill_1024"] = _profile(torch, "prefill_1024", run_prefill, 2)
+        out["prefill_1024"] = _with_graph(torch, "prefill_1024", run_prefill,
+                                          2)
+    return out
+
+
+def phase_dispatch(torch, bf16_params) -> dict:
+    """``bench.py``'s device traffic on Llama-3-8B (full width and depth,
+    int8 weights, four rank-8 adapters on q/k/v/o): 48 requests arriving
+    at once, 100-token prompts, 64 new tokens, 16 slots, buckets (128,
+    256), decode_steps_per_sync=32.  Two engines over the same weights and
+    adapters serve it in turns, A B B A: A the sync loop with the eager
+    decode block and prefill_batch=1, B the pipelined loop replaying the
+    block's CUDA graph with prefill_batch=4.  Each run prints decode
+    tokens/s, TPOT and TTFT percentiles and its exact launch counts; the
+    count of greedy tokens where B differs from A closes the phase."""
+    import dataclasses
+
+    import numpy as np
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.models.lora import target_dims
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request)
+    from llm_instance_gateway_tpu_torch.server.lora_manager import LoRAManager
+
+    cfg = dataclasses.replace(LLAMA3_8B, max_lora_slots=4, max_lora_rank=8)
+    params = quantize_params(bf16_params)
+    lora = LoRAManager(cfg, dtype=torch.bfloat16, device="cuda")
+    names = []
+    for i in range(4):  # bench.make_adapter_weights(cfg, rank=8, seed=i)
+        rng = np.random.RandomState(i)
+        dims = target_dims(cfg)
+        lora.load(f"bench-adapter-{i}", weights={
+            t: {"a": rng.randn(cfg.n_layers, dims[t][0], 8) * 0.01,
+                "b": rng.randn(cfg.n_layers, 8, dims[t][1]) * 0.01}
+            for t in ("q", "k", "v", "o")}, alpha=16.0, rank=8)
+        names.append(f"bench-adapter-{i}")
+    rng = np.random.RandomState(0)  # bench.run_phase(seed=0)
+    prompts = [list(rng.randint(1, 250, size=100)) for _ in range(48)]
+    base = dict(decode_slots=16, max_seq_len=512, prefill_buckets=(128, 256),
+                decode_steps_per_sync=32)
+    engines = {
+        "A": Engine(cfg, params, EngineConfig(**base), lora_manager=lora,
+                    eos_id=None, dtype=torch.bfloat16, device="cuda"),
+        "B": Engine(cfg, params, EngineConfig(
+            pipeline_decode=True, prefill_batch=4, **base), lora_manager=lora,
+            eos_id=None, dtype=torch.bfloat16, device="cuda"),
+    }
+    engines["A"]._graphs = None  # the eager block: the A side only
+    programs = {}
+    for name, eng in engines.items():
+        programs[name] = {"prefill": 0, "prefill_many": 0}
+        for attr, kind in (("_prefill_impl", "prefill"),
+                           ("_prefill_many_impl", "prefill_many")):
+            def counted(*a, _fn=getattr(eng, attr), _k=kind, _n=name, **kw):
+                programs[_n][_k] += 1
+                return _fn(*a, **kw)
+            setattr(eng, attr, counted)
+        eng.start()
+
+    def _wait_blocks_processed(eng):
+        """The pipelined loop still holds the block dispatched beside the
+        last one read back: wait until every replayed block is processed
+        (and in the steps histogram the launch check counts from)."""
+        if eng._graphs is None or not eng.cfg.pipeline_decode:
+            return
+        deadline = time.time() + 60
+        while time.time() < deadline:  # every B block is a replay
+            done = eng.metrics_snapshot()["dispatch_steps_hist"]["count"]
+            if done == eng._graphs.replays:
+                return
+            time.sleep(0.01)
+        raise AssertionError("dispatch: a block was never processed")
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    def run(name):
+        eng = engines[name]
+        snap0 = eng.metrics_snapshot()
+        progs0 = dict(programs[name])
+        reset_launches()
+        reqs = [Request(prompt_tokens=p, max_new_tokens=64,
+                        adapter=names[i % len(names)])
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        for r in reqs:
+            if not r.done.wait(900) or r.error:
+                raise AssertionError(f"dispatch {name}: {r.error}")
+        wall = time.perf_counter() - t0
+        _wait_blocks_processed(eng)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        snap1 = eng.metrics_snapshot()
+        steps = int(snap1["dispatch_steps_hist"]["sum"]
+                    - snap0["dispatch_steps_hist"]["sum"])
+        progs = {k: programs[name][k] - progs0[k] for k in progs0}
+        check_only(launches, {
+            "flash_prefill": (progs["prefill"] + progs["prefill_many"])
+            * cfg.n_layers,
+            "decode_attention": steps * cfg.n_layers}, f"dispatch {name}")
+        tokens = sum(len(r.output_tokens) for r in reqs)
+        if tokens != 48 * 64:
+            raise AssertionError(f"dispatch {name}: {tokens} tokens")
+        ttft = [r.ttft_s * 1e3 for r in reqs]
+        tpot = [(r.t_done - r.t_first_token) * 1e3
+                / (len(r.output_tokens) - 1) for r in reqs]
+        ph0, ph1 = (sn["phase_hist"]["decode_step"] for sn in (snap0, snap1))
+        stats = {
+            "engine": ("sync loop, eager block, prefill_batch=1" if name == "A"
+                       else "pipelined loop, graph replays, prefill_batch=4"),
+            "wall_s": wall, "decode_tokens_per_s": tokens / wall,
+            # tpu:decode_step_seconds: a block's wall over its steps (B:
+            # dispatch to read-back, overlapping the next block).
+            "decode_step_ms_mean": 1e3 * (ph1["sum"] - ph0["sum"])
+            / max(1, ph1["count"] - ph0["count"]),
+            "tpot_ms_p50": pct(tpot, 0.5), "tpot_ms_p95": pct(tpot, 0.95),
+            "ttft_ms_p50": pct(ttft, 0.5), "ttft_ms_p95": pct(ttft, 0.95),
+            "decode_steps": steps, "prefill_programs": progs,
+            "launches": launches,
+        }
+        log("dispatch", f"{name}: " + json.dumps(stats))
+        return stats, [r.output_tokens for r in reqs]
+
+    runs = []
+    try:
+        # bench.run_phase's warm-up: 2 requests of 4 tokens per engine,
+        # which captures B's 32-step graph before the timed runs.
+        for name, eng in engines.items():
+            for r in [eng.submit(Request(prompt_tokens=p, max_new_tokens=4))
+                      for p in prompts[:2]]:
+                if not r.done.wait(900) or r.error:
+                    raise AssertionError(f"dispatch warm-up {name}: "
+                                         f"{r.error}")
+            _wait_blocks_processed(eng)
+        log("dispatch", "warm-up done; B captured "
+            f"{engines['B']._graphs.shapes} in "
+            f"{engines['B']._graphs.capture_s:.2f} s")
+        for name in ("A", "B", "B", "A"):
+            runs.append((name,) + run(name))
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    def differing(xs, ys):
+        return sum(x != y for rx, ry in zip(xs, ys) for x, y in zip(rx, ry))
+
+    a1, b1, b2, a2 = (t for _, _, t in runs)
+    # Where B's streams leave A's: at the first token (the prefill, [4,
+    # 128] against [1, 128] in bf16) or later (the decode block).
+    first = [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y),
+                  None) for ra, rb in zip(a1, b1)]
+    out = {"runs": [dict(run=n, **st) for n, st, _ in runs],
+           "differing_greedy_tokens_a_vs_b": differing(a1, b1),
+           "tokens_compared": sum(map(len, a1)),
+           "differing_a_vs_a": differing(a1, a2),
+           "differing_b_vs_b": differing(b1, b2),
+           "requests_identical_a_vs_b": first.count(None),
+           "requests_first_token_differs": first.count(0),
+           "first_divergence_positions": sorted(
+               i for i in first if i is not None),
+           "b_graph_shapes": engines["B"]._graphs.shapes,
+           "b_graph_replays": engines["B"]._graphs.replays}
+    for name in ("A", "B"):
+        sts = [st for n, st, _ in runs if n == name]
+        out[name] = {k: [st[k] for st in sts] for k in (
+            "decode_tokens_per_s", "decode_step_ms_mean", "tpot_ms_p50",
+            "tpot_ms_p95",
+            "ttft_ms_p50", "ttft_ms_p95")}
+    log("dispatch", "llama3-8b, int8 weights, 4 rank-8 adapters, 48 x "
+        "(100 prompt + 64 new) tokens, 16 slots, 32 steps per dispatch: "
+        + json.dumps({k: v for k, v in out.items() if k != "runs"}))
+    # The kernels line counts the B runs' launches (the graph replays).
+    out["launches"] = {k: sum(st["launches"][k] for n, st, _ in runs
+                              if n == "B") for k in runs[0][1]["launches"]}
     return out
 
 
@@ -1356,6 +1692,20 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     return {"kernels": out}
 
 
+def graph_columns(stats: dict) -> None:
+    """Every profiled step's eager and graph-replay columns, side by side:
+    host wall, device time and device idle share (same run)."""
+    keys = ("wall_ms", "device_ms", "device_idle_share")
+    for path, st in stats.items():
+        for step, prof in st["profile"].items():
+            graph = prof.get("graph_replay")
+            log("profile", f"{path} {step}, eager vs graph replay: "
+                + json.dumps({
+                    "eager": {k: prof[k] for k in keys},
+                    "graph": ({k: graph[k] for k in keys}
+                              if isinstance(graph, dict) else graph)}))
+
+
 def compare_profiles(bf16: dict, int8: dict) -> None:
     """The int8 serves' profiles beside the bf16 ones of the same run:
     device ms, idle share and top kernels per step."""
@@ -1390,9 +1740,13 @@ def main() -> int:
     qp_stats = phase_paged_serve(torch, params, adapter_path, quant=True)
     compare_profiles({"lane": stats, "paged": paged_stats},
                      {"lane": q_stats, "paged": qp_stats})
+    graph_columns({"lane": stats, "paged": paged_stats, "lane_int8": q_stats,
+                   "paged_int8": qp_stats})
+    dispatch = phase_dispatch(torch, params)
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
-               "paged_int8": qp_stats["launches"]}
+               "paged_int8": qp_stats["launches"],
+               "dispatch": dispatch["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

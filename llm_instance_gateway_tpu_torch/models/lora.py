@@ -6,9 +6,11 @@ below ``r_max`` are zero-padded (exactly zero contribution); the per-slot
 ``scale`` holds alpha/r.  Slot id -1 means "no adapter": its one-hot row is
 all zero, so base rows get an exact 0 delta.
 
-``load_adapter``/``unload_adapter`` return NEW buffers (the slot's leaves
-are cloned, then written), like the reference's functional updates: the
-engine thread keeps reading a consistent set while an admin thread loads.
+``write_adapter``/``clear_adapter`` write one slot IN PLACE, so every
+buffer keeps its address (the engine's CUDA graph of the decode block reads
+them by address); the manager calls them only for a slot no live row reads.
+``load_adapter``/``unload_adapter`` are their functional forms (new
+buffers), like the reference's updates.
 The delta is plain torch ops (einsum), not a kernel.
 """
 
@@ -55,9 +57,9 @@ def init_lora_buffers(cfg, dtype=torch.bfloat16,
     return bufs
 
 
-def load_adapter(bufs: dict[str, Any], cfg, slot: int, adapter: dict[str, Any],
-                 alpha: float, rank: int) -> dict[str, Any]:
-    """Write an adapter into ``slot``; returns updated buffers.
+def write_adapter(bufs: dict[str, Any], cfg, slot: int,
+                  adapter: dict[str, Any], alpha: float, rank: int) -> None:
+    """Write an adapter into ``slot`` of ``bufs`` in place.
 
     ``adapter`` maps target -> {"a": [n_layers, d_in, r], "b": [n_layers,
     r, d_out]} (numpy or torch) with r <= max_lora_rank; missing targets
@@ -67,8 +69,8 @@ def load_adapter(bufs: dict[str, Any], cfg, slot: int, adapter: dict[str, Any],
     if rank > cfg.max_lora_rank:
         raise ValueError(f"rank {rank} exceeds max_lora_rank {cfg.max_lora_rank}")
     dims = target_dims(cfg)
-    out = dict(bufs)
-    for t in TARGETS:
+    staged = {}
+    for t in TARGETS:  # check every target before the first write
         d_in, d_out = dims[t]
         a_buf = np.zeros((cfg.n_layers, d_in, cfg.max_lora_rank), np.float32)
         b_buf = np.zeros((cfg.n_layers, cfg.max_lora_rank, d_out), np.float32)
@@ -83,26 +85,33 @@ def load_adapter(bufs: dict[str, Any], cfg, slot: int, adapter: dict[str, Any],
                     f"{t}.b shape {b.shape} != {(cfg.n_layers, rank, d_out)}")
             a_buf[:, :, :rank] = a
             b_buf[:, :rank, :] = b
-        for key, host in ((f"{t}_a", a_buf), (f"{t}_b", b_buf)):
-            new = out[key].clone()
-            new[:, slot] = torch.from_numpy(host).to(new.device, new.dtype)
-            out[key] = new
-    scale = out["scale"].clone()
-    scale[slot] = alpha / rank
-    out["scale"] = scale
+        staged[f"{t}_a"], staged[f"{t}_b"] = a_buf, b_buf
+    for key, host in staged.items():
+        bufs[key][:, slot] = torch.from_numpy(host).to(bufs[key].device,
+                                                       bufs[key].dtype)
+    bufs["scale"][slot] = alpha / rank
+
+
+def clear_adapter(bufs: dict[str, Any], cfg, slot: int) -> None:
+    """Zero ``slot`` of ``bufs`` in place (base-model passthrough)."""
+    for t in TARGETS:
+        bufs[f"{t}_a"][:, slot] = 0.0
+        bufs[f"{t}_b"][:, slot] = 0.0
+    bufs["scale"][slot] = 0.0
+
+
+def load_adapter(bufs: dict[str, Any], cfg, slot: int, adapter: dict[str, Any],
+                 alpha: float, rank: int) -> dict[str, Any]:
+    """``write_adapter`` into a copy of ``bufs``; returns the new buffers."""
+    out = {k: v.clone() for k, v in bufs.items()}
+    write_adapter(out, cfg, slot, adapter, alpha, rank)
     return out
 
 
 def unload_adapter(bufs: dict[str, Any], cfg, slot: int) -> dict[str, Any]:
-    """Zero a slot (slot becomes base-model passthrough)."""
-    out = dict(bufs)
-    for key in [f"{t}_{ab}" for t in TARGETS for ab in ("a", "b")] + ["scale"]:
-        new = out[key].clone()
-        if key == "scale":
-            new[slot] = 0.0
-        else:
-            new[:, slot] = 0.0
-        out[key] = new
+    """``clear_adapter`` on a copy of ``bufs``; returns the new buffers."""
+    out = {k: v.clone() for k, v in bufs.items()}
+    clear_adapter(out, cfg, slot)
     return out
 
 

@@ -20,8 +20,8 @@ The decode step reads the pool through ``paged_decode_attention`` — the
 Hopper kernel streams each row's physical blocks straight from the pool
 (no gathered copy of the lane); the chunk path gathers the row's lane view
 (``gather_pool_rows``, an index, as in the reference) and runs the chunk
-kernel over it.  Every function updates the pools IN PLACE and returns the
-same dict.
+kernel over it.  Every function updates the pools, tables and lengths IN
+PLACE and returns the same dict.
 
 int8 pools (``quantized=True``) keep f32 scale pools ``[L, n_blocks + 1,
 block, K]`` beside the int8 data, indexed by the same physical block, so a
@@ -46,6 +46,7 @@ from llm_instance_gateway_tpu_torch.models.transformer import (
     check_supported,
     chunk_forward,
     decode_forward,
+    to_device,
 )
 from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
 from llm_instance_gateway_tpu_torch.ops.paged_decode_attention import (
@@ -151,7 +152,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
-    cache["length"] = lengths
+    cache["length"].copy_(lengths)
     return logits, cache
 
 
@@ -168,7 +169,7 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
     lyr, _, s, kh, hd = k_prompt.shape
     block = cache["k"].shape[2]
     dev = cache["k"].device
-    phys = torch.as_tensor(np.asarray(phys_blocks, np.int64)).to(dev)
+    phys = to_device(np.asarray(phys_blocks, np.int64), dev)
     n_b = phys.shape[0]
     pad = n_b * block - s
     for name, prompt in (("k", k_prompt), ("v", v_prompt)):
@@ -179,11 +180,8 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
                                                              kh)
         cache[name][:, phys] = new.to(cache[name].dtype).reshape(
             lyr, n_b, block, kh, hd)
-    cache["tables"][int(row)] = torch.as_tensor(
-        np.array(table_row, np.int32)).to(dev)
-    length_vec = cache["length"].clone()
-    length_vec[int(row)] = int(length)
-    cache["length"] = length_vec
+    cache["tables"][int(row)] = to_device(np.array(table_row, np.int32), dev)
+    cache["length"][int(row)] = int(length)
     return cache
 
 
@@ -205,10 +203,10 @@ def prefill_with_cache_paged(cfg: ModelConfig, params: Params, cache: Params,
     tables = cache["tables"]
     max_blocks = tables.shape[1]
     table_row = tables[int(row)]
-    inside = torch.from_numpy(pos < max_blocks * block).to(dev)
-    logical = torch.from_numpy(np.clip(pos // block, 0, max_blocks - 1)).to(dev)
+    inside = to_device(pos < max_blocks * block, dev)
+    logical = to_device(np.clip(pos // block, 0, max_blocks - 1), dev)
     phys = torch.where(inside, table_row[logical].long(), TRASH_BLOCK)
-    offset = torch.from_numpy(pos % block).to(dev)
+    offset = to_device(pos % block, dev)
 
     def write_and_view(i, k, v):
         pools = _pool_update(_layer_pools(cache, i), k, v, phys, offset)
@@ -217,7 +215,5 @@ def prefill_with_cache_paged(cfg: ModelConfig, params: Params, cache: Params,
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)
-    length_vec = cache["length"].clone()
-    length_vec[int(row)] = int(lane_end)
-    cache["length"] = length_vec
+    cache["length"][int(row)] = int(lane_end)
     return last_logits, cache

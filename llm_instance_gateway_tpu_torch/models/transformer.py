@@ -26,14 +26,18 @@ function either way.
 Differences from the JAX functions, by design:
 - ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
   cache tensors IN PLACE (the reference donates the cache to XLA for the
-  same effect) and return the same dict with a new ``length``;
+  same effect), ``length`` included, and return the same dict;
 - writes the reference parks at out-of-bounds indices, which XLA drops
   (inactive rows at ``s_max``, a final chunk's pads past ``s_max``), are
   masked or skipped explicitly: torch would raise on the CPU and corrupt
   memory on the card;
 - a chunk's ``positions`` are a host array: the engine holds them in
   numpy, so where the chunk starts and which cells it writes are decided
-  without a device read.
+  without a device read;
+- ``cache["length"]`` (like every cache tensor) keeps its address: the
+  engine's CUDA graph of the decode block writes it in place, and host
+  arrays reach the card through ``to_device`` (pinned memory, no wait
+  for the work already queued, such as a decode block in flight).
 Only the dense Llama path is ported: MoE and q/k/v biases raise
 ``NotImplementedError``.
 """
@@ -205,6 +209,16 @@ def _layer(params: Params, i: int) -> Params:
             for name, leaf in params["layers"].items()}
 
 
+def to_device(x, device) -> torch.Tensor:
+    """A host array (or CPU tensor) on ``device``.  To a card the copy
+    goes through pinned memory without waiting: a copy from pageable
+    memory would first wait for everything queued on the stream."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _no_slots(b: int, device) -> torch.Tensor:
     return torch.full((b,), -1, dtype=torch.int32, device=device)
 
@@ -352,7 +366,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
-    cache["length"] = lengths
+    cache["length"].copy_(lengths)
     return logits, cache
 
 
@@ -385,8 +399,8 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
     c = pos.shape[0]
     hd = cfg.resolved_head_dim
     slot_ids = torch.full((1,), int(lora_slot), dtype=torch.int32, device=dev)
-    h = _embed(cfg, params, torch.as_tensor(np.asarray(tokens)).to(dev))[None]
-    pos2d = torch.from_numpy(pos.copy()).to(dev)[None]
+    h = _embed(cfg, params, to_device(tokens, dev))[None]
+    pos2d = to_device(pos, dev)[None]
     start = int(pos[0])
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
@@ -433,8 +447,8 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
     s_max = cache["k"].shape[2]
     dev = cache["k"].device
     inside = np.nonzero(pos < s_max)[0]
-    rows = torch.from_numpy(inside).to(dev)
-    cells = torch.from_numpy(pos[inside]).to(dev)
+    rows = to_device(inside, dev)
+    cells = to_device(pos[inside], dev)
     slot = int(slot)
     quant = "k_scale" in cache
 
@@ -454,9 +468,7 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)
-    length_vec = cache["length"].clone()
-    length_vec[slot] = int(lane_end)
-    cache["length"] = length_vec
+    cache["length"][slot] = int(lane_end)
     return last_logits, cache
 
 
@@ -472,7 +484,5 @@ def insert_prefill(cache: Params, k_prompt: torch.Tensor,
         if f"{name}_scale" in cache:
             new, cache[f"{name}_scale"][:, slot, :s] = _kv_quantize(new)
         cache[name][:, slot, :s] = new.to(cache[name].dtype)
-    length_vec = cache["length"].clone()
-    length_vec[slot] = length
-    cache["length"] = length_vec
+    cache["length"][slot] = length
     return cache

@@ -11,6 +11,10 @@ with ``ctypes``; pointers and the stream travel as ``c_void_p``, and every
 launch function returns ``cudaGetLastError()`` so a refused launch raises
 in the wrapper instead of passing silently.
 
+``load`` sets each launch function's ``restype``/``argtypes`` once, from
+``SIGNATURES``, so a wrapper's call converts its arguments without
+rebuilding the converters every time.
+
 Builds run at first use (``python3 chip_smoke.py`` alone builds
 everything); ``build_all`` starts one ``nvcc`` per source at once.  The
 hash of the source and of the shared headers (``csrc/*.cuh``) names the
@@ -36,6 +40,18 @@ KERNELS = ("flash_prefill", "decode_attention", "chunk_attention",
            "paged_decode_attention_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# Each library's ``<name>_launch``: pointers (inputs, outputs, scratch),
+# then the int shape arguments, the softmax scale, [split_len,] stream.
+SIGNATURES = {
+    "flash_prefill": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "chunk_attention": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "decode_attention": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    "decode_attention_quant": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "paged_decode_attention": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "paged_decode_attention_quant": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -99,14 +115,18 @@ build_all.last_log = {}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built on first use."""
+    """The loaded library for kernel ``name``, built on first use, its
+    ``<name>_launch`` typed from ``SIGNATURES``."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _libs:
-            path = build_all((name,))[name]
-            _libs[name] = ctypes.CDLL(path)
+            lib = ctypes.CDLL(build_all((name,))[name])
+            fn = getattr(lib, f"{name}_launch")
+            fn.restype = ctypes.c_int
+            fn.argtypes = SIGNATURES[name]
+            _libs[name] = lib
         return _libs[name]
 
 

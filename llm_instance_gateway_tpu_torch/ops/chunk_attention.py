@@ -23,7 +23,6 @@ counts kernel launches.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -101,9 +100,6 @@ def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, c, h, hd = q.shape
     out = torch.empty_like(q)
     fn = _build.load("chunk_attention").chunk_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_void_p]
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             out.data_ptr(), b, c, k_cache.shape[1], start, h,
             k_cache.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),

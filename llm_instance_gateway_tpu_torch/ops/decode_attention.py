@@ -33,7 +33,6 @@ tile is what a block holds).  Its plain version dequantizes the same way
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -257,9 +256,6 @@ def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
     ptrs = [q, k_cache, v_cache] + ([k_scale, v_scale] if quant else []) \
         + [lengths, out, part]
     fn = getattr(_build.load(name), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     rc = fn(*(t.data_ptr() for t in ptrs), b, s_max, h, k_cache.shape[2], hd,
             _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
             torch.cuda.current_stream(q.device).cuda_stream)

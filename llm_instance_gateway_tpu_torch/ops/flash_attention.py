@@ -26,7 +26,6 @@ the kernel.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -98,11 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _check(q, k, v)
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
-    lib = _build.load("flash_prefill")
-    fn = lib.flash_prefill_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
+    fn = _build.load("flash_prefill").flash_prefill_launch
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, s, h, k.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)

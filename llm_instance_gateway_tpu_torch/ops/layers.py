@@ -33,8 +33,10 @@ def rope_frequencies(head_dim: int, theta: float, scaling: tuple | None = None,
     """
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
                              device=device) / head_dim
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=device), exponents)
+    # A fill, not torch.tensor(theta, device=...): no host-to-device copy,
+    # so the decode block's CUDA graph can hold it.
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=device), exponents)
     if scaling is None:
         return freqs
     factor, low_ff, high_ff, original_max = scaling

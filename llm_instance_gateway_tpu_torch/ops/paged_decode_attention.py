@@ -32,7 +32,6 @@ block size that is a multiple of 16 is taken for int8 too: the TPU's
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -194,9 +193,6 @@ def paged_decode_attention_split(q: torch.Tensor, k_pool: torch.Tensor,
     ptrs = [q, k_pool, v_pool] + ([k_scale, v_scale] if quant else []) \
         + [tables, lengths, out, part]
     fn = getattr(_build.load(name), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     rc = fn(*(t.data_ptr() for t in ptrs), b, tables.shape[1], page, h, n_kv,
             hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd), split_len,
             torch.cuda.current_stream(q.device).cuda_stream)

@@ -490,6 +490,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--decode-steps")
     p.add_argument("--no-device-stops", action="store_true",
                    help="disable the device-side stop-string automata")
+    p.add_argument("--prefill-batch", type=int, default=1,
+                   help="group up to P same-bucket queued prompts into "
+                        "one prefill program (contiguous-lane cache)")
+    p.add_argument("--pipeline-decode", action="store_true",
+                   help="overlap token readback with the next decode "
+                        "block (finish detection lags one block)")
     p.add_argument("--stream-lanes", type=int, default=1,
                    help="concurrent chunk-stream lanes: how many prompts "
                         "longer than the largest bucket may stream into "
@@ -559,6 +565,8 @@ def make_server(argv=None, params=None):
         adaptive_steps=args.adaptive_steps,
         device_stops=not args.no_device_stops,
         stream_lanes=args.stream_lanes,
+        pipeline_decode=args.pipeline_decode,
+        prefill_batch=args.prefill_batch,
         paged_kv_block=args.paged_kv_block,
         paged_kv_blocks=args.paged_kv_blocks,
         prefix_cache=args.prefix_cache,

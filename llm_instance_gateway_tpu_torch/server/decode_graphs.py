@@ -1,0 +1,135 @@
+"""CUDA graphs of the engine's fused decode block.
+
+The reference compiles the n-step block once per shape
+(``jax.jit(_decode_impl, static_argnames=("n_steps", "penalized"))``) and
+the TPU then runs one program per dispatch.  Here the counterpart is a CUDA
+graph of the block, captured once per ``(n_steps, seeded)`` and replayed:
+the eager block issues thousands of small launches per step from Python,
+a replay issues one.
+
+A graph reads and writes fixed addresses, so everything the block touches
+keeps its address for the graph's life: the engine's static carry and slot
+buffers, the cache (tables and lengths written in place), the params and
+the LoRA buffers (slots written in place).  Rules on the card:
+
+- capture happens on the engine thread, once per shape, after one eager
+  warm-up with every row inactive (it loads the kernel libraries and runs
+  their one-time setup, creates the thread's cuBLAS handle, and changes no
+  state);
+- every shape shares one memory pool: one block replays at a time, and the
+  engine copies a block's output to the host before the next replay;
+- the engine's ``torch.Generator`` is registered with each graph, so
+  sampled rows draw new noise on every replay;
+- a failed capture or replay raises; there is no eager fallback on the card.
+
+Launch accounting: the kernel wrappers count a launch where they launch,
+which under capture records a launch that has not run.  A capture takes
+back what its wrappers counted and keeps it as the graph's launches; each
+replay adds them.
+"""
+
+from __future__ import annotations
+
+import gc
+import time
+
+import torch
+
+from llm_instance_gateway_tpu_torch.ops import (
+    chunk_attention,
+    decode_attention,
+    flash_attention,
+    paged_decode_attention,
+)
+
+_COUNTERS = ((flash_attention, "launches"), (decode_attention, "launches"),
+             (decode_attention, "quant_launches"),
+             (chunk_attention, "launches"),
+             (paged_decode_attention, "launches"),
+             (paged_decode_attention, "quant_launches"))
+
+
+def launch_counts() -> tuple[int, ...]:
+    """Every kernel wrapper's launch counter, in ``_COUNTERS`` order."""
+    return tuple(getattr(mod, attr) for mod, attr in _COUNTERS)
+
+
+def add_launches(delta) -> None:
+    for (mod, attr), d in zip(_COUNTERS, delta):
+        if d:
+            setattr(mod, attr, getattr(mod, attr) + d)
+
+
+class DecodeGraphs:
+    """The captured blocks of one engine.  ``block(n_steps, seeded)`` runs
+    the fused block on the engine's static buffers and returns its output
+    pack; it must be callable eagerly (warm-up) and under capture.  It is
+    passed per call, not kept: an engine holding its graphs is then no
+    reference cycle, and is freed (graphs, pool and cache) as soon as it is
+    dropped."""
+
+    def __init__(self, generator: torch.Generator, device: torch.device):
+        self._gen = generator
+        self._device = device
+        self._stream = torch.cuda.Stream(device)
+        self._pool = None
+        # (n_steps, seeded) -> (graph, static output, launches per replay)
+        self._graphs: dict[tuple[int, bool], tuple] = {}
+        self.replays = 0
+        self.capture_s = 0.0  # host seconds spent capturing (once per shape)
+
+    @property
+    def shapes(self) -> list[tuple[int, bool]]:
+        return sorted(self._graphs)
+
+    def warm_up(self, block) -> None:
+        """One eager step on the capture stream; the caller guarantees that
+        every row is inactive, so the cache and the carry stay as they
+        were."""
+        current = torch.cuda.current_stream(self._device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            block(1, True)
+        current.wait_stream(self._stream)
+        torch.cuda.synchronize(self._device)
+        self._pool = torch.cuda.graph_pool_handle()
+
+    def run(self, block, n_steps: int, seeded: bool) -> torch.Tensor:
+        """Replay the block's graph (captured on first use); returns the
+        static output pack, valid until the next replay."""
+        if self._pool is None:
+            raise RuntimeError("DecodeGraphs.run before warm_up")
+        key = (n_steps, seeded)
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._graphs[key] = self._capture(block, n_steps, seeded)
+        graph, out, launches = entry
+        graph.replay()
+        add_launches(launches)
+        self.replays += 1
+        return out
+
+    def _capture(self, block, n_steps: int, seeded: bool) -> tuple:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        before = launch_counts()
+        # No garbage collection mid-capture: what it frees (device or
+        # pinned host memory) is bookkept with CUDA calls the capture's
+        # thread may not make.
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: the server's other threads (adapter loads,
+            # scrapes) may call the CUDA runtime during a capture.
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = block(n_steps, seeded)
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+            after = launch_counts()
+            add_launches(tuple(b - a for b, a in zip(before, after)))
+            self.capture_s += time.perf_counter() - t0
+        return graph, out, tuple(a - b for a, b in zip(after, before))

@@ -1,8 +1,11 @@
-"""Continuous-batching serving engine (port of ``server/engine.py``, the
-synchronous loop).
+"""Continuous-batching serving engine (port of ``server/engine.py``: the
+synchronous loop and the pipelined one).
 
-- **Prefill** runs one prompt at a time, padded to a prefill bucket, and
-  samples the first token.
+- **Prefill** pads a prompt to a prefill bucket and samples the first
+  token.  With ``prefill_batch`` P > 1, up to P queued prompts of one
+  bucket prefill as one ``[P, bucket]`` program (``_prefill_many_impl``,
+  per-row true lengths, adapters and sampling) — except on a paged engine
+  with the prefix cache, whose prompts stay per request.
 - **Insert** writes the prompt KV into a free decode row: a contiguous
   cache lane ``[n_layers, decode_slots, max_seq_len, n_kv, hd]``, or — with
   ``paged_kv_block`` — pool blocks the host allocator hands the row
@@ -19,9 +22,18 @@ synchronous loop).
 - **Generate** advances all active slots ``n_steps`` tokens per dispatch
   (``_plan_steps``, the adaptive planner) with the device-side freeze: a
   row whose budget runs out, or which emits EOS or completes a stop
-  sequence, stops advancing mid-block.  The block is an eager Python loop
-  of decode_step + sample whose freeze arithmetic stays in tensors; the
-  host reads the block's tokens back once per dispatch.
+  sequence, stops advancing mid-block.  The block (``_decode_block``) runs
+  n steps of decode_step + sample on device buffers of fixed address —
+  the carry (tokens, positions, budgets, stop history) and the per-row
+  parameters — and returns one output pack.  On the card it is a CUDA
+  graph captured once per ``(n_steps, seeded)`` and replayed
+  (``decode_graphs.py``, the counterpart of the reference's ``jit``); on
+  the CPU it runs eagerly.
+- **Pipelined dispatch** (``pipeline_decode``): block N+1 is dispatched
+  from the device-resident carry before block N's tokens are read back,
+  so the readback and the host's bookkeeping overlap the device; first
+  tokens are scattered into the carry on the device and reach the request
+  (TTFT) when its first block is processed.
 
 - **int8 KV** (``kv_cache_quant="int8"``): lanes or pool store K/V int8
   with one f32 scale per (position, KV head); prompt KV is quantized where
@@ -30,7 +42,7 @@ synchronous loop).
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.  Config the port does not
 serve yet raises at construction instead of being ignored: speculative
-decoding, grouped prefill and pipelined decode.
+decoding and disaggregation.
 """
 
 from __future__ import annotations
@@ -50,6 +62,7 @@ import torch
 from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.server.decode_graphs import DecodeGraphs
 from llm_instance_gateway_tpu_torch.server.kv_ledger import KvLedger
 from llm_instance_gateway_tpu_torch.server.profiler import StepProfiler
 from llm_instance_gateway_tpu_torch.server.sampling import (
@@ -69,6 +82,11 @@ logger = logging.getLogger(__name__)
 
 MAX_LOGIT_BIAS = 32  # per-request logit_bias entries (static lanes)
 STEP_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+# The decode block's device buffers, each mirroring ``Engine._slot_<name>``:
+# the carry the block advances, and the per-row parameters it reads.
+_CARRY = ("tokens", "positions", "remaining", "stop_hist")
+_SLOT_PARAMS = ("lora", "temp", "topk", "topp", "seed", "bias_ids",
+                "bias_vals", "stop_ids", "stop_lens")
 
 
 class EngineDraining(RuntimeError):
@@ -108,8 +126,6 @@ class EngineConfig:
 # (/v1/prefill, /v1/attach) the port does not serve.
 _UNSERVED = (
     ("speculative_k", 0, "speculative decoding"),
-    ("prefill_batch", 1, "grouped and pipelined dispatch"),
-    ("pipeline_decode", False, "grouped and pipelined dispatch"),
     ("role", "collocated", "disaggregation"),
     ("handoff_ttl_s", 0.0, "disaggregation"),
 )
@@ -188,6 +204,66 @@ class _Slot:
     request: Request
     lora_slot: int
     position: int  # position of the NEXT token to generate
+    # Pipelined mode: (first token, lp info) of the prefill, materialized
+    # when this slot's first decode block is processed.
+    pending_first: object = None
+
+
+class _HostBatch:
+    """One device-to-host transfer for a set of device tensors: on the card
+    each is copied into pinned memory without waiting, behind one event,
+    and the first ``host()`` waits for that event alone — not for work
+    queued after it, such as the next decode block."""
+
+    __slots__ = ("_host", "_event", "_np")
+
+    def __init__(self, *tensors: torch.Tensor):
+        self._event = None
+        if tensors[0].is_cuda:
+            self._host = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self._host.append(h)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+        self._np = None
+
+    def host(self) -> tuple:
+        if self._np is None:
+            if self._event is not None:
+                self._event.synchronize()
+            self._np = tuple(h.numpy() for h in self._host)
+        return self._np
+
+
+class _Row:
+    """Row ``i`` of array ``a`` in a ``_HostBatch``: a numpy-protocol view
+    whose first host access materializes the whole batch.  ``dev`` keeps
+    the device slice for the carry scatter, which must not wait for the
+    host (the pipelined loop's no-round-trip contract)."""
+
+    __slots__ = ("_batch", "_a", "_i", "dev")
+
+    def __init__(self, batch: _HostBatch, a: int, i: int, dev=None):
+        self._batch, self._a, self._i, self.dev = batch, a, i, dev
+
+    def _value(self):
+        return self._batch.host()[self._a][self._i]
+
+    def __array__(self, dtype=None, copy=None):
+        v = np.asarray(self._value())
+        return v.astype(dtype) if dtype is not None else v
+
+    def __int__(self):
+        return int(self._value())
+
+
+def _host(x) -> np.ndarray:
+    """A device tensor, ``_Row`` or array as a host array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass
@@ -195,11 +271,13 @@ class _WaitingPrefill:
     """A prefilled request parked in ``decode_wait`` (KV held off-cache)."""
 
     request: Request
-    first_token: int
+    first_token: object  # device scalar or _Row (sync mode: emitted already)
     k: torch.Tensor  # [L, 1, bucket, K, hd]
     v: torch.Tensor
     n: int
     lora_slot: int
+    first_token_host: int | None = None  # sync mode: the emitted token
+    lp_info: object = None  # first token's (lp, top_v, top_i)
 
 
 @dataclass
@@ -287,6 +365,22 @@ class Engine:
         self._slot_stop_lens = np.zeros((b, STOP_SEQS), np.int64)
         self._slot_stop_hist = np.full((b, STOP_LEN), -1, np.int64)
         self._stops_active = 0
+        # The decode block's device buffers, at fixed addresses for its
+        # CUDA graph: the sync loop copies the host carry in before each
+        # block, the pipelined loop keeps the carry on the device (rows
+        # scattered in at activation); the per-row parameters are copied
+        # in before every block.
+        self._dev = {name: torch.from_numpy(
+            getattr(self, f"_slot_{name}").copy()).to(self.device)
+            for name in _CARRY + _SLOT_PARAMS}
+        # Pipelined loop: rows whose device budget must be zeroed before
+        # the next dispatch (freed for host-side reasons), and the steps of
+        # the block in flight (the host record lags it).
+        self._pending_budget_zero: list[int] = []
+        self._prev_dispatch_steps = 0
+        self._graphs: DecodeGraphs | None = (
+            DecodeGraphs(self._gen, self.device)
+            if self.device.type == "cuda" else None)
 
         self.prefill_queue: queue_mod.Queue[Request] = queue_mod.Queue(
             maxsize=self.cfg.max_queue)
@@ -329,7 +423,22 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _tensor(self, arr, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(arr, dtype=dtype).to(self.device)
+        return transformer.to_device(torch.as_tensor(arr, dtype=dtype),
+                                     self.device)
+
+    def _h2d(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into ``dst`` in place, queued on the stream
+        without waiting for the work ahead of it (pinned memory)."""
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+
+    def _push(self, names) -> None:
+        """Copy ``_slot_<name>`` into the block's device buffer, per name."""
+        for name in names:
+            self._h2d(self._dev[name], getattr(self, f"_slot_{name}"))
 
     def _prefill_impl(self, tokens, positions, true_len: int, lora_slot: int,
                       sp: SamplingParams):
@@ -341,6 +450,32 @@ class Engine:
         first, lp_info = self._sample_first(logits[0, true_len - 1], sp,
                                             true_len - 1)
         return first, k, v, lp_info
+
+    def _prefill_many_impl(self, tokens, positions, true_lens, lora_slots,
+                           sps: list[SamplingParams]):
+        """Prefill P padded same-bucket prompts as one program; sample each
+        row's first token (the [P, bucket] form of ``_prefill_impl``, with
+        per-row lengths, adapters and sampling parameters).
+        Returns (first tokens [P], k, v, (lp [P], top_v, top_i))."""
+        cfg = self.model_cfg
+        logits, k, v = transformer.prefill(
+            cfg, self.params, self._tensor(tokens), self._tensor(positions),
+            lora_bufs=self._lora_buffers(), slot_ids=self._tensor(lora_slots))
+        last_pos = self._tensor(np.asarray(true_lens) - 1)
+        last = logits[torch.arange(len(sps), device=self.device), last_pos]
+        seeds = np.array([_seed_i32(sp.seed) for sp in sps], np.int64)
+        bias_ids, bias_vals = (np.stack(a) for a in
+                               zip(*(_bias_arrays(sp) for sp in sps)))
+        first = sample(
+            last, self._gen,
+            self._tensor([sp.temperature for sp in sps], torch.float32),
+            self._tensor([sp.top_k for sp in sps]),
+            self._tensor([sp.top_p for sp in sps], torch.float32),
+            valid_vocab=cfg.vocab_size,
+            seeds=self._tensor(seeds) if (seeds >= 0).any() else None,
+            positions=last_pos, bias_ids=self._tensor(bias_ids),
+            bias_vals=self._tensor(bias_vals))
+        return first, k, v, logprob_info(last, first, cfg.vocab_size)
 
     def _sample_first(self, last: torch.Tensor, sp: SamplingParams,
                       position: int):
@@ -360,31 +495,32 @@ class Engine:
         lp, top_v, top_i = logprob_info(last, first, self.model_cfg.vocab_size)
         return first[0], (lp[0], top_v[0], top_i[0])
 
-    def _decode_impl(self, n_steps: int):
-        """``n_steps`` fused decode+sample steps with the device-side freeze.
+    @staticmethod
+    def _host_rows(first_token: torch.Tensor, lp_info):
+        """A single prefill's first token and lp info as ``_Row`` views of
+        one transfer started now (pipelined mode: no wait here)."""
+        hb = _HostBatch(first_token[None], *(x[None] for x in lp_info))
+        return (_Row(hb, 0, 0, dev=first_token),
+                tuple(_Row(hb, a, 0) for a in (1, 2, 3)))
+
+    def _decode_block(self, n_steps: int, seeded: bool) -> torch.Tensor:
+        """``n_steps`` fused decode+sample steps with the device-side freeze,
+        on the block's device buffers (``self._dev``): it reads the carry
+        and the per-row parameters there and writes the advanced carry
+        back in place, so a CUDA graph of it replays on whatever the
+        buffers hold.  ``seeded`` adds the per-row seeded noise.
 
         Each row carries a ``remaining`` budget; a row is frozen once it
         reaches 0 (budget spent, EOS, or a completed stop suffix): frozen
         rows write no KV, keep their position and emit ``valid=False``
-        steps.  Returns a host array [n_steps, B, 3 + 2*LOGPROB_TOPK]
-        (token, valid, logprob, top-K values, top-K ids) — the dispatch's
-        one device-to-host read."""
+        steps.  Returns the output pack [n_steps, B, 3 + 2*LOGPROB_TOPK]
+        (token, valid, logprob, top-K values, top-K ids) on the device."""
         cfg = self.model_cfg
-        t = self._tensor
+        d = self._dev
         max_len = self._max_len
-        tokens = t(self._slot_tokens)
-        positions = t(self._slot_positions)
-        remaining = t(self._slot_remaining)
-        hist = t(self._sync_stop_hist())
-        slot_ids = t(self._slot_lora)
-        temp = t(self._slot_temp)
-        topk = t(self._slot_topk)
-        topp = t(self._slot_topp)
-        seeds = t(self._slot_seed) if (self._slot_seed >= 0).any() else None
-        bias_ids = t(self._slot_bias_ids)
-        bias_vals = t(self._slot_bias_vals)
-        stop_ids = t(self._slot_stop_ids)
-        stop_lens = t(self._slot_stop_lens)
+        tokens, positions = d["tokens"], d["positions"]
+        remaining, hist = d["remaining"], d["stop_hist"]
+        seeds = d["seed"] if seeded else None
         eos = -1 if self.eos_id is None else self.eos_id
         lora_bufs = self._lora_buffers()
         steps = []
@@ -393,16 +529,18 @@ class Engine:
             safe_pos = positions.clamp(max=max_len - 1)
             logits, self.cache = self._step_fn(
                 cfg, self.params, self.cache, tokens, safe_pos,
-                lora_bufs=lora_bufs, slot_ids=slot_ids, active=active)
-            sampled = sample(logits, self._gen, temp, topk, topp,
-                             valid_vocab=cfg.vocab_size, seeds=seeds,
-                             positions=safe_pos, bias_ids=bias_ids,
-                             bias_vals=bias_vals).long()
+                lora_bufs=lora_bufs, slot_ids=d["lora"], active=active)
+            sampled = sample(logits, self._gen, d["temp"], d["topk"],
+                             d["topp"], valid_vocab=cfg.vocab_size,
+                             seeds=seeds, positions=safe_pos,
+                             bias_ids=d["bias_ids"],
+                             bias_vals=d["bias_vals"]).long()
             lp, top_v, top_i = logprob_info(logits, sampled, cfg.vocab_size)
             valid = active
             hit_eos = valid & (sampled == eos)
             hist = stop_hist_update(hist, sampled, valid)
-            hit_stop = valid & stop_suffix_hit(hist, stop_ids, stop_lens)
+            hit_stop = valid & stop_suffix_hit(hist, d["stop_ids"],
+                                               d["stop_lens"])
             remaining = torch.where(valid, remaining - 1, remaining)
             remaining = torch.where(hit_eos | hit_stop, 0, remaining)
             tokens = torch.where(active, sampled, tokens)
@@ -410,16 +548,60 @@ class Engine:
             steps.append(torch.cat(
                 [sampled[:, None].double(), valid[:, None].double(),
                  lp[:, None].double(), top_v.double(), top_i.double()], dim=1))
-        return torch.stack(steps).cpu().numpy()
+        for name, value in zip(_CARRY, (tokens, positions, remaining, hist)):
+            d[name].copy_(value)
+        return torch.stack(steps)
+
+    def _run_block(self, n_steps: int) -> torch.Tensor:
+        """Copy the per-row parameters in and run one block: a graph
+        replay on the card (its output valid until the next replay), the
+        eager block on the CPU."""
+        seeded = bool((self._slot_seed >= 0).any())
+        self._push(_SLOT_PARAMS)
+        if self._graphs is not None:
+            return self._graphs.run(self._decode_block, n_steps, seeded)
+        return self._decode_block(n_steps, seeded)
+
+    def _decode_impl(self, n_steps: int) -> np.ndarray:
+        """The sync loop's block: the host carry in, one block, the output
+        pack back to the host — the dispatch's one device-to-host read."""
+        self._sync_stop_hist()
+        self._push(_CARRY)
+        return self._run_block(n_steps).cpu().numpy()
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
 
     def start(self) -> None:
+        """Start the engine thread: the pipelined loop with
+        ``pipeline_decode``, else the sync one.  On the card the thread
+        first warms the decode block up (every row inactive), and this
+        returns once it has, or raises what it raised."""
         self._running = True
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        target = (self._loop_pipelined if self.cfg.pipeline_decode
+                  else self._loop)
+        ready = threading.Event()
+        failed: list[BaseException] = []
+
+        def run():
+            with torch.no_grad():
+                try:
+                    if self._graphs is not None:
+                        self._graphs.warm_up(self._decode_block)
+                except BaseException as e:
+                    failed.append(e)
+                    return
+                finally:
+                    ready.set()
+                target()
+
+        self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
+        ready.wait()
+        if failed:
+            self._running = False
+            raise RuntimeError("decode block warm-up failed") from failed[0]
 
     def stop(self) -> None:
         self._running = False
@@ -456,9 +638,9 @@ class Engine:
         static ``decode_steps_per_sync`` when ``adaptive_steps`` <= 0, else
         1 under admission pressure (queued prompts, a parked insert with a
         free slot, an in-flight chunk stream), capped by the minimum remaining
-        budget
-        and by ``adaptive_stream_cap`` for SSE rows, rounded down to a
-        power of two."""
+        budget (pipelined: less the block in flight, which the host record
+        lags) and by ``adaptive_stream_cap`` for SSE rows, rounded down to a
+        power of two: one graph per power of two."""
         ceiling = self.cfg.adaptive_steps
         if ceiling <= 0:
             return max(1, self.cfg.decode_steps_per_sync)
@@ -468,13 +650,16 @@ class Engine:
                     and self._free_slot_index() is not None)):
             return 1
         n = max(1, ceiling)
+        inflight = (self._prev_dispatch_steps if self.cfg.pipeline_decode
+                    else 0)
         for s in self.slots:
             if s is None:
                 continue
             req = s.request
             if req.streaming:
                 n = min(n, max(1, self.cfg.adaptive_stream_cap))
-            n = min(n, max(1, req.max_new_tokens - len(req.output_tokens)))
+            rem = req.max_new_tokens - len(req.output_tokens) - inflight
+            n = min(n, max(1, rem))
         p = 1
         while p * 2 <= n:
             p *= 2
@@ -902,14 +1087,13 @@ class Engine:
             hashes[blocks - 1].hex()[:16], blocks, reused)
 
     def _sync_tables(self) -> None:
-        """Push host-side table changes to the device copy in the cache.
-        COPY, never alias: on the CPU ``torch.from_numpy`` and
-        ``torch.as_tensor`` share the numpy buffer, so the cache's in-place
-        table writes (``insert_prefill_paged``) would reach the allocator's
-        host table, and host edits would reach the device copy unsynced."""
+        """Push host-side table changes into the cache's device tables, in
+        place (the decode block's graph reads them by address), queued
+        behind any block in flight.  A copy of the values, never an alias:
+        the cache's own table writes (``insert_prefill_paged``) must not
+        reach the allocator's host table."""
         if self.paged and self._tables_dirty:
-            self.cache["tables"] = torch.tensor(
-                self._tables_host, dtype=torch.int32, device=self.device)
+            self._h2d(self.cache["tables"], self._tables_host)
             self._tables_dirty = False
 
     def _bucket(self, n: int) -> int:
@@ -926,35 +1110,36 @@ class Engine:
         return self.lora.buffers if self.lora is not None else None
 
     def _loop(self) -> None:
-        with torch.no_grad():
-            while self._running:
-                did_work = self._admit_and_insert()
-                # One chunk of ONE in-flight long-prompt stream (round-robin
-                # across lanes); decode blocks run between chunks.
-                if self._streams:
-                    self._stream_step()
-                    did_work = True
-                if any(s is not None for s in self.slots):
-                    try:
-                        self._do_decode_step()
-                    except Exception as e:  # engine must survive; fail batch
-                        logger.exception("decode step failed")
-                        self._fail_all_slots(e)
-                    did_work = True
-                if not did_work:
-                    if self.profiler is not None:
-                        self.profiler.note_idle()
-                    with self._work:
-                        self._work.wait(timeout=0.05)
+        while self._running:
+            did_work = self._admit_and_insert(pipelined=False)
+            # One chunk of ONE in-flight long-prompt stream (round-robin
+            # across lanes); decode blocks run between chunks.
+            if self._streams:
+                self._stream_step()
+                did_work = True
+            if any(s is not None for s in self.slots):
+                try:
+                    self._do_decode_step()
+                except Exception as e:  # engine must survive; fail batch
+                    logger.exception("decode step failed")
+                    self._fail_all_slots(e)
+                did_work = True
+            if not did_work:
+                if self.profiler is not None:
+                    self.profiler.note_idle()
+                with self._work:
+                    self._work.wait(timeout=0.05)
 
-    def _admit_and_insert(self) -> bool:
-        """Drain decode_wait into freed slots, direct-prefill into free
-        slots, prefill AHEAD when slots are full.  FIFO: decode_wait drains
-        before the raw queue, and a direct prefill only happens when nothing
-        is parked — whether the head waits on a slot or on pool blocks.
-        Prompts beyond the largest bucket stream into a reserved row, so
-        with no lane free they head-of-line block as ``_pending``."""
-        did = self._drain_decode_wait()
+    def _admit_and_insert(self, pipelined: bool) -> bool:
+        """Admission for both loops: drain decode_wait into freed slots,
+        direct-prefill into free slots, prefill AHEAD when slots are full
+        (grouped by bucket with ``prefill_batch`` > 1).  FIFO: decode_wait
+        drains before the raw queue, and a direct prefill only happens when
+        nothing is parked — whether the head waits on a slot or on pool
+        blocks.  Prompts beyond the largest bucket stream into a reserved
+        row, so with no lane free they head-of-line block as
+        ``_pending``."""
+        did = self._drain_decode_wait(pipelined)
         cap = (self.cfg.decode_wait_cap if self.cfg.decode_wait_cap is not None
                else self.cfg.decode_slots)
         while True:
@@ -993,7 +1178,16 @@ class Engine:
                 self._pending = None
                 self._admitting += 1
                 try:
-                    self._do_prefill(req)
+                    if self.cfg.prefill_batch > 1 and not self._prefix_enabled:
+                        # Prefix-cache engines stay per request: the grouped
+                        # program computes full-prompt KV, so a cached-prefix
+                        # row would pay the compute reuse exists to skip.
+                        self._do_prefill_group(
+                            self._collect_prefill_group(req), pipelined)
+                    elif pipelined:
+                        self._do_prefill_pipelined(req)
+                    else:
+                        self._do_prefill(req)
                 finally:
                     self._admitting -= 1
                 did = True
@@ -1002,7 +1196,13 @@ class Engine:
                 self._pending = None
                 self._admitting += 1
                 try:
-                    self._do_prefill_ahead(req)
+                    if self.cfg.prefill_batch > 1:
+                        # Paged included: prefill-ahead KV parks OFF the
+                        # pool; the drain gates each row on its blocks.
+                        self._do_prefill_ahead_group(
+                            self._collect_ahead_group(req, cap), pipelined)
+                    else:
+                        self._do_prefill_ahead(req, pipelined)
                 finally:
                     self._admitting -= 1
                 did = True
@@ -1029,7 +1229,7 @@ class Engine:
             self._usage_sync_kv()
         return swept
 
-    def _drain_decode_wait(self) -> bool:
+    def _drain_decode_wait(self, pipelined: bool) -> bool:
         did = self._sweep_decode_wait()
         while self.decode_wait:
             slot_idx = self._free_slot_index()
@@ -1044,7 +1244,7 @@ class Engine:
                 self.kv_ledger.note_unpark(int(w.k.shape[2]))
             self._admitting += 1
             try:
-                self._insert_waiting(slot_idx, w)
+                self._insert_waiting(slot_idx, w, pipelined)
             finally:
                 self._admitting -= 1
             did = True
@@ -1061,6 +1261,197 @@ class Engine:
         positions[0, :n] = np.arange(n)
         return self._prefill_impl(tokens, positions, n, lora_slot,
                                   req.sampling)
+
+    def _bucket_prefill_many(self, reqs, ns, lora_slots):
+        """One [P, bucket] prefill over same-bucket prompts.
+        Returns (first tokens [P] device, k [L, P, S, ...], v, lp infos)."""
+        bucket = self._bucket(max(ns))
+        p = len(reqs)
+        self._note_padding(sum(bucket - n for n in ns))
+        tokens = np.zeros((p, bucket), np.int64)
+        positions = np.zeros((p, bucket), np.int64)
+        for i, (req, n) in enumerate(zip(reqs, ns)):
+            tokens[i, :n] = req.prompt_tokens
+            positions[i, :n] = np.arange(n)
+        return self._prefill_many_impl(
+            tokens, positions, np.asarray(ns, np.int64),
+            np.asarray(lora_slots, np.int64), [r.sampling for r in reqs])
+
+    def _collect_followers(self, first_req, limit: int) -> list:
+        """Pull same-bucket followers of ``first_req`` for one grouped
+        prefill, up to ``limit`` in all.  The first pull that does not fit
+        parks as ``_pending``, so FIFO order holds."""
+        group = [first_req]
+        bucket = self._bucket(len(first_req.prompt_tokens))
+        while len(group) < limit and self._pending is None:
+            try:
+                nxt = self.prefill_queue.get_nowait()
+            except queue_mod.Empty:
+                break
+            if nxt.cancelled.is_set():
+                self._finish(nxt, "cancelled")
+                continue
+            n = len(nxt.prompt_tokens)
+            if n <= self._max_bucket() and self._bucket(n) == bucket:
+                group.append(nxt)
+            else:
+                self._pending = nxt  # another bucket or a stream: next cycle
+        return group
+
+    def _collect_prefill_group(self, first_req) -> list:
+        """Direct-admission grouping, bounded by the free unreserved slots
+        (only the direct branch calls this: nothing parked, a free slot for
+        the head), so every row admits under the checks a single would."""
+        return self._collect_followers(first_req, min(
+            self.cfg.prefill_batch,
+            sum(1 for i, s in enumerate(self.slots)
+                if s is None and i not in self._reserved_slots)))
+
+    def _collect_ahead_group(self, first_req, cap: int) -> list:
+        """Prefill-ahead grouping, bounded by decode_wait's headroom."""
+        return self._collect_followers(first_req, min(
+            self.cfg.prefill_batch, max(1, cap - len(self.decode_wait))))
+
+    def _grouped_batch(self, reqs, pipelined: bool, single_fn):
+        """The grouped prefills' shared preamble: drop cancelled rows and
+        rows whose adapter is gone (each fails alone), hand a group of one
+        to ``single_fn``, run ONE batched prefill (its failure fails the
+        group).  Returns None when the caller has nothing left to do, else
+        ``(live, ns, lora_slots, k, v, tok_rows, lp_rows)``: in sync mode
+        the first tokens and lp infos come to the host in one transfer per
+        array; in pipelined mode as ``_Row`` views of one transfer started
+        now, each keeping its device slice for the carry scatter."""
+        live, ns, lora_slots = [], [], []
+        for req in reqs:
+            if req.cancelled.is_set():
+                self._finish(req, "cancelled")
+                continue
+            try:
+                lora_slots.append(self.lora.slot_for(req.adapter)
+                                  if self.lora is not None else -1)
+            except Exception as e:  # unknown adapter fails only this row
+                req.error = str(e)
+                self._finish(req, "error")
+                continue
+            live.append(req)
+            ns.append(len(req.prompt_tokens))
+        if not live:
+            return None
+        if len(live) == 1:
+            single_fn(live[0])
+            return None
+        self._stamp_prefill_start(*live)
+        try:
+            first_tokens, k, v, (lps, top_vs, top_is) = (
+                self._bucket_prefill_many(live, ns, lora_slots))
+            p = len(live)
+            if pipelined:
+                hb = _HostBatch(first_tokens, lps, top_vs, top_is)
+                tok_rows = [_Row(hb, 0, i, dev=first_tokens[i])
+                            for i in range(p)]
+                lp_rows = [tuple(_Row(hb, a, i) for a in (1, 2, 3))
+                           for i in range(p)]
+            else:
+                toks, lps_h, top_vs_h, top_is_h = (
+                    _host(x) for x in (first_tokens, lps, top_vs, top_is))
+                tok_rows = [int(t) for t in toks]
+                lp_rows = [(lps_h[i], top_vs_h[i], top_is_h[i])
+                           for i in range(p)]
+        except Exception as e:
+            logger.exception("grouped prefill failed (%d reqs)", len(live))
+            for req in live:
+                req.error = str(e)
+                self._finish(req, "error")
+            return None
+        return live, ns, lora_slots, k, v, tok_rows, lp_rows
+
+    def _do_prefill_group(self, reqs, pipelined: bool) -> None:
+        """Grouped admission: one prefill program fills len(reqs) slots.
+        Each row then goes as ``_do_prefill`` / ``_do_prefill_pipelined``
+        would take it; a row that fails after the batched call fails
+        alone, and a row the pool cannot hold parks (with every later row,
+        for FIFO) like a prefill-ahead."""
+        batch = self._grouped_batch(
+            reqs, pipelined,
+            self._do_prefill_pipelined if pipelined else self._do_prefill)
+        if batch is None:
+            return
+        live, ns, lora_slots, k, v, tok_rows, lp_rows = batch
+        pool_starved = False
+        for i, req in enumerate(live):
+            row_kv = (k[:, i:i + 1], v[:, i:i + 1])
+            try:
+                slot_idx = None if pool_starved else self._free_slot_index()
+                if slot_idx is None:
+                    # Defensive (the group is bounded by the free slots and
+                    # the loop is single-threaded): a computed prefill is
+                    # never dropped.
+                    self._park_waiting(req, tok_rows[i], lp_rows[i], *row_kv,
+                                       ns[i], lora_slots[i], pipelined)
+                    continue
+                try:
+                    self._insert_prompt_kv(*row_kv, slot_idx, ns[i])
+                except PagedPoolExhausted:
+                    # The group outran the pool (_insert_prompt_kv freed
+                    # the partial row): park off-cache until blocks free.
+                    pool_starved = True
+                    self._park_waiting(req, tok_rows[i], lp_rows[i], *row_kv,
+                                       ns[i], lora_slots[i], pipelined)
+                    continue
+                if pipelined:
+                    self._activate_slot_pipelined(
+                        slot_idx, req, lora_slots[i], ns[i], tok_rows[i],
+                        lp_rows[i])
+                    continue
+                if self._emit_first_token(req, tok_rows[i], lp_rows[i]):
+                    if self.paged:  # finished at prefill: free its blocks
+                        self._paged_free_row(slot_idx)
+                    continue
+                self._register_slot(slot_idx, _Slot(
+                    request=req, lora_slot=lora_slots[i], position=ns[i]))
+                self._slot_tokens[slot_idx] = tok_rows[i]
+                self._slot_positions[slot_idx] = ns[i]
+            except Exception as e:
+                logger.exception("grouped admission failed for %s",
+                                 req.request_id)
+                req.error = str(e)
+                self._finish(req, "error")
+
+    def _do_prefill_ahead_group(self, reqs, pipelined: bool) -> None:
+        """Grouped prefill-ahead: one program, every row parks in
+        decode_wait (each as ``_do_prefill_ahead`` parks it)."""
+        batch = self._grouped_batch(
+            reqs, pipelined, lambda req: self._do_prefill_ahead(req, pipelined))
+        if batch is None:
+            return
+        live, ns, lora_slots, k, v, tok_rows, lp_rows = batch
+        for i, req in enumerate(live):
+            try:
+                self._park_waiting(req, tok_rows[i], lp_rows[i],
+                                   k[:, i:i + 1], v[:, i:i + 1], ns[i],
+                                   lora_slots[i], pipelined)
+            except Exception as e:
+                logger.exception("grouped parking failed for %s",
+                                 req.request_id)
+                req.error = str(e)
+                self._finish(req, "error")
+
+    def _park_waiting(self, req, first_token, lp_info, k, v, n: int,
+                      lora_slot: int, pipelined: bool) -> None:
+        """Park one prefilled row in decode_wait.  Sync mode emits its
+        first token now (TTFT is prefill-bound, not slot-bound); pipelined
+        mode keeps it for the row's first block."""
+        w = _WaitingPrefill(request=req, first_token=first_token, k=k, v=v,
+                            n=n, lora_slot=lora_slot, lp_info=lp_info)
+        if not pipelined:
+            w.first_token_host = int(first_token)
+            if self._emit_first_token(req, w.first_token_host, lp_info):
+                return  # finished at prefill; never needed a slot
+        self.decode_wait.append(w)
+        self._parked_kv_tokens += k.shape[2]
+        if self.kv_ledger is not None:
+            self.kv_ledger.note_park(int(k.shape[2]), "prefill_ahead")
+        self._usage_sync_kv()
 
     def _prefill_common(self, req: Request):
         """Bucketed admission into a free row: a prefix-cache hit prefills
@@ -1174,10 +1565,10 @@ class Engine:
                 # A slot-less row would strand its blocks forever.
                 self._paged_free_row(slot_idx)
 
-    def _do_prefill_ahead(self, req: Request) -> None:
+    def _do_prefill_ahead(self, req: Request, pipelined: bool) -> None:
         """Prefill with NO slot: the prompt KV parks in decode_wait (off the
-        cache and the pool) and the first token is emitted now (TTFT is
-        prefill-bound, not slot-bound)."""
+        cache and the pool) — its first token emitted now in sync mode,
+        at its first block in pipelined mode."""
         if req.cancelled.is_set():
             self._finish(req, "cancelled")
             return
@@ -1187,31 +1578,53 @@ class Engine:
             lora_slot = (self.lora.slot_for(req.adapter)
                          if self.lora is not None else -1)
             first_token, k, v, lp_info = self._bucket_prefill(req, n, lora_slot)
-            tok = int(first_token)
-            if self._emit_first_token(req, tok, lp_info):
-                return
-            self.decode_wait.append(_WaitingPrefill(
-                request=req, first_token=tok, k=k, v=v, n=n,
-                lora_slot=lora_slot))
-            self._parked_kv_tokens += k.shape[2]
-            if self.kv_ledger is not None:
-                self.kv_ledger.note_park(int(k.shape[2]), "prefill_ahead")
-            self._usage_sync_kv()
+            if pipelined:
+                first_token, lp_info = self._host_rows(first_token, lp_info)
+            self._park_waiting(req, first_token, lp_info, k, v, n, lora_slot,
+                               pipelined)
         except Exception as e:
             logger.exception("prefill-ahead failed for %s", req.request_id)
             req.error = str(e)
             self._finish(req, "error")
 
-    def _insert_waiting(self, slot_idx: int, w: _WaitingPrefill) -> None:
+    def _activate_slot_pipelined(self, slot_idx: int, req: Request,
+                                 lora_slot: int, n: int, first_token,
+                                 lp_info) -> None:
+        """Pipelined slot activation: scatter the first token (a device
+        value, never read back here), position and budget into the
+        device carry, re-seed the row's stop history there, and register
+        the slot with its pending first token, materialized when its first
+        block is processed.  Shared by every admission path."""
+        self._pending_budget_zero = [i for i in self._pending_budget_zero
+                                     if i != slot_idx]
+        tok_dev = (first_token.dev if isinstance(first_token, _Row)
+                   and first_token.dev is not None else first_token)
+        d = self._dev
+        d["tokens"][slot_idx] = tok_dev
+        d["positions"][slot_idx] = n
+        d["remaining"][slot_idx] = max(0, req.max_new_tokens - 1)
+        slot = _Slot(request=req, lora_slot=lora_slot, position=n)
+        slot.pending_first = (first_token, lp_info)
+        self._register_slot(slot_idx, slot)
+        if self._slot_stop_lens[slot_idx].any():
+            d["stop_hist"][slot_idx] = -1
+            d["stop_hist"][slot_idx, STOP_LEN - 1] = tok_dev
+
+    def _insert_waiting(self, slot_idx: int, w: _WaitingPrefill,
+                        pipelined: bool) -> None:
         req = w.request
         try:
             self._insert_prompt_kv(w.k, w.v, slot_idx, w.n)
             self._prefix_register_row(slot_idx, req.prompt_tokens,
                                       req.adapter)
-            self._register_slot(slot_idx, _Slot(
-                request=req, lora_slot=w.lora_slot, position=w.n))
-            self._slot_tokens[slot_idx] = w.first_token
-            self._slot_positions[slot_idx] = w.n
+            if pipelined:
+                self._activate_slot_pipelined(slot_idx, req, w.lora_slot,
+                                              w.n, w.first_token, w.lp_info)
+            else:
+                self._register_slot(slot_idx, _Slot(
+                    request=req, lora_slot=w.lora_slot, position=w.n))
+                self._slot_tokens[slot_idx] = w.first_token_host
+                self._slot_positions[slot_idx] = w.n
         except Exception as e:
             logger.exception("decode-wait insert failed for %s", req.request_id)
             req.error = str(e)
@@ -1289,10 +1702,11 @@ class Engine:
             self._paged_free_row(st.slot_idx)
         self._finish(st.request, reason)
 
-    def _stream_step(self) -> None:
+    def _stream_step(self, pipelined: bool = False) -> None:
         """Run ONE chunk of ONE in-flight stream (the cursor rotates across
         lanes).  On a stream's final chunk, sample the first token and turn
-        its row into a live decode slot."""
+        its row into a live decode slot (pipelined: with the token kept on
+        the device, as every pipelined admission)."""
         if not self._streams:
             return
         self._stream_rr %= len(self._streams)
@@ -1337,6 +1751,11 @@ class Engine:
         try:
             first_token, lp_info = self._sample_first(st.last_logits,
                                                       req.sampling, n - 1)
+            if pipelined:
+                first_token, lp_info = self._host_rows(first_token, lp_info)
+                self._activate_slot_pipelined(slot_idx, req, st.lora_slot, n,
+                                              first_token, lp_info)
+                return
             tok = int(first_token)
             if self._emit_first_token(req, tok, lp_info):
                 if self.paged:  # finished at prefill; free the row's blocks
@@ -1433,9 +1852,11 @@ class Engine:
         self.usage.sync_kv(holdings)
 
     @staticmethod
-    def _stamp_prefill_start(req: Request) -> None:
-        if not req.t_prefill_start:
-            req.t_prefill_start = time.time()
+    def _stamp_prefill_start(*reqs: Request) -> None:
+        now = time.time()
+        for req in reqs:
+            if not req.t_prefill_start:
+                req.t_prefill_start = now
 
     @staticmethod
     def _store_logprobs(req: Request, lp, top_v, top_i) -> None:
@@ -1452,8 +1873,7 @@ class Engine:
         req.t_first_token = time.time()
         req.output_tokens.append(tok)
         if lp_info is not None and req.logprobs is not None:
-            lp, top_v, top_i = (x.cpu().numpy() for x in lp_info)
-            self._store_logprobs(req, lp, top_v, top_i)
+            self._store_logprobs(req, *(_host(x) for x in lp_info))
         req.stream_event.set()
         with self._lock:
             self.total_generated += 1
@@ -1463,16 +1883,24 @@ class Engine:
             return True
         return False
 
-    def _paged_ensure_decode(self, n_steps: int) -> None:
+    def _paged_ensure_decode(self, n_steps: int,
+                             pipelined: bool = False) -> None:
         """Pre-dispatch block growth for every active row; a row the
         exhausted pool cannot grow fails with "kv pool exhausted" without
-        touching the batch."""
+        touching the batch.  Pipelined, the host's positions lag the device
+        by the block in flight, so the reservation adds that block's steps
+        (over-reservation returns at free)."""
+        prev = self._prev_dispatch_steps if pipelined else 0
+        if pipelined:
+            # Recorded on lanes too: _plan_steps subtracts it.
+            self._prev_dispatch_steps = n_steps
         if not self.paged:
             return
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
-            target = min(slot.position + n_steps + 1, self.cfg.max_seq_len)
+            target = min(slot.position + n_steps + prev + 1,
+                         self.cfg.max_seq_len)
             try:
                 self._paged_ensure(i, target)
             except PagedPoolExhausted as e:
@@ -1481,6 +1909,8 @@ class Engine:
                 req.error = str(e)
                 self._finish(req, "error")
                 self._clear_slot(i)
+                if pipelined:
+                    self._pending_budget_zero.append(i)
         self._sync_tables()
 
     def _do_decode_step(self) -> None:
@@ -1542,6 +1972,174 @@ class Engine:
             self.decode_tps_ema = (1 - a) * self.decode_tps_ema + a * inst
             self.phase_hist["decode_step"].observe(step_s / n_steps)
             self.dispatch_steps_hist.observe(n_steps)
+
+    # ------------------------------------------------------------------
+    # pipelined decode: overlap the readback with the next device block
+    # ------------------------------------------------------------------
+
+    def _loop_pipelined(self) -> None:
+        """Two-deep pipeline: dispatch block N+1 from the device-resident
+        carry BEFORE reading back block N's tokens, so the readback and the
+        host's bookkeeping overlap the device.  Stop detection is on the
+        device (budget, EOS and stop strings freeze rows); rows freed for
+        host-only reasons get their device budget zeroed before the next
+        dispatch; first tokens stay on the device and materialize when
+        their slot's first block is processed."""
+        inflight: dict | None = None
+        while self._running:
+            did_work = self._admit_and_insert(pipelined=True)
+            if self._streams:
+                self._stream_step(pipelined=True)
+                did_work = True
+            block = None
+            if any(s is not None for s in self.slots):
+                try:
+                    block = self._dispatch_block()
+                except Exception as e:
+                    logger.exception("pipelined decode dispatch failed")
+                    self._fail_all_slots(e)
+                did_work = True
+            if inflight is not None:
+                try:
+                    self._process_block(inflight, current=block)
+                except Exception as e:
+                    logger.exception("pipelined block materialization failed")
+                    self._fail_all_slots(e)
+                    block = None
+                did_work = True
+            inflight = block
+            if not did_work:
+                if self.profiler is not None:
+                    self.profiler.note_idle()
+                with self._work:
+                    self._work.wait(timeout=0.05)
+        if inflight is not None:
+            try:
+                self._process_block(inflight, current=None)
+            except Exception as e:
+                logger.exception("final block materialization failed")
+                self._fail_all_slots(e)
+
+    def _do_prefill_pipelined(self, req: Request) -> None:
+        """Prefill + insert with no readback: the first token is scattered
+        into the device carry and copied back behind an event."""
+        if req.cancelled.is_set():
+            self._finish(req, "cancelled")
+            return
+        slot_idx = None
+        registered = False
+        try:
+            slot_idx, first_token, n, lora_slot, lp_info = (
+                self._prefill_common(req))
+            # TTFT is stamped when the token materializes in _process_block.
+            first_token, lp_info = self._host_rows(first_token, lp_info)
+            self._activate_slot_pipelined(slot_idx, req, lora_slot, n,
+                                          first_token, lp_info)
+            registered = True
+        except Exception as e:
+            logger.exception("pipelined prefill failed for %s", req.request_id)
+            req.error = str(e)
+            self._finish(req, "error")
+        finally:
+            if self.paged and slot_idx is not None and not registered:
+                self._paged_free_row(slot_idx)
+
+    def _dispatch_block(self) -> dict:
+        """Queue one block on the device carry and its readback; returns
+        the block's record for ``_process_block``."""
+        n_steps = self._plan_steps()
+        self._paged_ensure_decode(n_steps, pipelined=True)
+        remaining = self._dev["remaining"]
+        for i in self._pending_budget_zero:
+            remaining[i] = 0
+        self._pending_budget_zero.clear()
+        out = _HostBatch(self._run_block(n_steps))
+        return {"out": out, "rows": list(self.slots), "n_steps": n_steps,
+                "t0": time.perf_counter()}
+
+    def _process_block(self, blk: dict, current: dict | None) -> None:
+        """Read block ``blk`` back (it overlaps ``current`` on the device)
+        and walk its tokens per row, as ``_do_decode_step`` does; a row
+        that finishes here is dropped from ``current``, whose lane for it
+        is garbage."""
+        out = blk["out"].host()[0]  # [n_steps, B, 3 + 2K]
+        k = LOGPROB_TOPK
+        n_tokens = 0
+        owners = [s.request.adapter for s in blk["rows"] if s is not None]
+        tok_by_owner: dict[str, int] = {}
+
+        def drop(i, slot):
+            if self.slots[i] is slot:
+                self._clear_slot(i)
+                # Host-side reasons leave a positive device budget.
+                self._pending_budget_zero.append(i)
+            if current is not None and current["rows"][i] is slot:
+                current["rows"][i] = None
+
+        for i, slot in enumerate(blk["rows"]):
+            if slot is None:
+                continue
+            req = slot.request
+            if req.done.is_set():
+                continue
+            if req.cancelled.is_set():
+                self._finish(req, "cancelled")
+                drop(i, slot)
+                continue
+            finished = False
+            if slot.pending_first is not None:
+                tok0, lp0 = slot.pending_first
+                tok0 = int(np.asarray(tok0))
+                slot.pending_first = None
+                req.t_first_token = time.time()
+                req.output_tokens.append(tok0)
+                if lp0 is not None:
+                    self._store_logprobs(req, *(np.asarray(x) for x in lp0))
+                n_tokens += 1
+                self._record_ttft(req)
+                finished = self._is_finished(req, tok0)
+            if not finished:
+                row_tokens = 0
+                for step in range(blk["n_steps"]):
+                    row = out[step, i]
+                    if not row[1]:
+                        continue  # device froze this row (budget/EOS/stop)
+                    tok = int(row[0])
+                    req.output_tokens.append(tok)
+                    self._store_logprobs(req, row[2], row[3:3 + k],
+                                         row[3 + k:3 + 2 * k])
+                    req.stream_event.set()
+                    n_tokens += 1
+                    row_tokens += 1
+                    slot.position += 1
+                    if (self._is_finished(req, tok)
+                            or slot.position >= self.cfg.max_seq_len - 1):
+                        finished = True
+                        break
+                if row_tokens:
+                    key = owner_key(req.adapter)
+                    tok_by_owner[key] = tok_by_owner.get(key, 0) + row_tokens
+            req.stream_event.set()
+            if finished:
+                self._finish(req, "stop" if self._is_stop(
+                    req, req.output_tokens[-1]) else "length")
+                drop(i, slot)
+        # The block's wall runs from its dispatch to its processing: blocks
+        # overlap, so this is the per-step cadence the gateway compares.
+        step_s = time.perf_counter() - blk["t0"]
+        if self.usage is not None:
+            self.usage.charge_decode(step_s, owners, tok_by_owner)
+            self._usage_sync_kv()
+        if self.profiler is not None:
+            self.profiler.note_dispatch("decode", blk["t0"], step_s)
+        with self._lock:
+            self.total_generated += n_tokens
+            inst = n_tokens / step_s if step_s > 0 else 0.0
+            a = self.cfg.tps_ema_alpha
+            self.decode_tps_ema = (1 - a) * self.decode_tps_ema + a * inst
+            self.phase_hist["decode_step"].observe(
+                step_s / max(1, blk["n_steps"]))
+            self.dispatch_steps_hist.observe(blk["n_steps"])
 
     def _fail_all_slots(self, e: Exception) -> None:
         for i, slot in enumerate(self.slots):

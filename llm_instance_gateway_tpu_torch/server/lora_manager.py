@@ -4,9 +4,12 @@ slot tier of ``server/lora_manager.py``).
 Adapters on disk are ``.npz`` files (Orbax is a JAX library) holding the
 reference checkpoint's tree flattened: ``alpha``, ``rank`` and one
 ``<target>.a`` / ``<target>.b`` array per target (``save_adapter``).
-Loading writes the slot through ``models.lora.load_adapter`` — new buffers,
-swapped in one assignment, so the engine thread never sees a half-written
-slot.  The host-RAM and disk tiers of the residency ladder are not ported
+Loading writes the slot in place (``models.lora.write_adapter``), so the
+buffers keep the addresses the engine's CUDA graph of the decode block
+reads.  No live row reads the slot while it is written: a load takes a free
+slot and publishes the adapter only afterwards, and an unload is refused
+while a request holds it.  On the card the write is queued on the default
+stream, where the engine runs, behind any decode block in flight.  The host-RAM and disk tiers of the residency ladder are not ported
 yet (ROADMAP Queue 1, LoRA residency ladder); the residency snapshot
 reports them empty.
 """
@@ -163,8 +166,8 @@ class LoRAManager:
                 if weights is None:
                     raise AdapterError(
                         "either weights or checkpoint_path required")
-                self.buffers = lora_lib.load_adapter(
-                    self.buffers, self.cfg, slot, weights, alpha, rank)
+                lora_lib.write_adapter(self.buffers, self.cfg, slot,
+                                       weights, alpha, rank)
             except Exception:
                 with self._lock:
                     self._free_slots.insert(0, slot)
@@ -193,8 +196,7 @@ class LoRAManager:
                 info = self._adapters.pop(name, None)
                 if info is None:
                     return False
-            self.buffers = lora_lib.unload_adapter(self.buffers, self.cfg,
-                                                   info.slot)
+            lora_lib.clear_adapter(self.buffers, self.cfg, info.slot)
             with self._lock:
                 self._free_slots.append(info.slot)
                 key = (TIER_SLOT, TIER_DISK)

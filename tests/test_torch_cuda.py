@@ -544,3 +544,263 @@ def test_int8_split_len_off_the_grid_raises(dev):
     with pytest.raises(ValueError, match="split_len"):  # lcm(32, 48) = 96
         pd.paged_decode_attention_split(q, pool, pool, tables, lengths, 48,
                                         pool_scales, pool_scales)
+
+
+# ---------------------------------------------------------------------------
+# The engine's fused decode block as a CUDA graph (server/decode_graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def _narrow_cfg():
+    """Llama-3-8B's head layout (hd 128, 4 query heads per KV head) at a
+    small width and depth."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+
+    return dataclasses.replace(LLAMA3_8B, name="llama3-8b-narrow",
+                               d_model=512, n_layers=2, n_heads=8,
+                               n_kv_heads=2, head_dim=128, d_ff=1024,
+                               vocab_size=320, max_lora_slots=2,
+                               max_lora_rank=8)
+
+
+@pytest.fixture(scope="module")
+def narrow():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels compile for sm_90a)")
+    from llm_instance_gateway_tpu_torch.models import transformer
+
+    cfg = _narrow_cfg()
+    return {dtype: (cfg, transformer.init_params(cfg, seed=5, dtype=dtype,
+                                                 device="cuda"))
+            for dtype in (torch.bfloat16, torch.float32)}
+
+
+def _engine(narrow, graphs=True, dtype=torch.bfloat16, lora=None, **cfg):
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine,
+        EngineConfig,
+    )
+
+    model_cfg, params = narrow[dtype]
+    base = dict(decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64),
+                decode_steps_per_sync=4)
+    base.update(cfg)
+    eng = Engine(model_cfg, params, EngineConfig(**base), lora_manager=lora,
+                 eos_id=None, dtype=dtype, device="cuda")
+    if not graphs:
+        eng._graphs = None  # the eager block on the card
+    return eng
+
+
+def _jobs(seeded=False, temperature=0.0):
+    from llm_instance_gateway_tpu_torch.server.engine import SamplingParams
+
+    sp = SamplingParams(temperature=temperature, top_k=50,
+                        seed=77 if seeded else None)
+    return [([256] + [65 + (7 * i + j) % 200 for j in range(n)], m, sp)
+            for i, (n, m) in enumerate(((5, 20), (40, 14), (12, 9),
+                                        (60, 18), (3, 11)))]
+
+
+def _serve(eng, jobs, adapter=None):
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    eng.start()
+    try:
+        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=m,
+                                   sampling=sp, adapter=adapter))
+                for p, m, sp in jobs]
+        for r in reqs:
+            assert r.done.wait(300) and r.error is None, r.error
+        return [r.output_tokens for r in reqs]
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["greedy", "seeded"])
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16-kv", "int8-kv"])
+@pytest.mark.parametrize("paged", [False, True], ids=["lanes", "paged"])
+def test_graph_replay_matches_eager_block(narrow, paged, kv, seeded):
+    """The same requests through the eager block and through its graph
+    replays: the same tokens (the same kernels in the same order), with
+    five requests over four slots (a slot reused under a live graph)."""
+    extra = dict(kv_cache_quant=kv, adaptive_steps=8)
+    if paged:
+        extra.update(paged_kv_block=16)
+    jobs = _jobs(seeded, temperature=0.8 if seeded else 0.0)
+    eager = _serve(_engine(narrow, graphs=False, **extra), jobs)
+    eng = _engine(narrow, **extra)
+    replayed = _serve(eng, jobs)
+    assert replayed == eager
+    assert eng._graphs.replays > 0
+    assert all(seeded_key == seeded for _, seeded_key in eng._graphs.shapes)
+
+
+def test_pipelined_grouped_graph_engine_matches_eager(narrow):
+    """f32: a pipelined, grouped engine replaying graphs gives the eager
+    sync engine's greedy streams."""
+    jobs = _jobs()
+    eager = _serve(_engine(narrow, graphs=False, dtype=torch.float32), jobs)
+    for paged in (False, True):
+        extra = dict(paged_kv_block=16) if paged else {}
+        eng = _engine(narrow, dtype=torch.float32, prefill_batch=4,
+                      pipeline_decode=True, **extra)
+        assert _serve(eng, jobs) == eager
+        assert eng._graphs.replays > 0
+
+
+def test_adapter_swap_between_replays_takes_effect(narrow):
+    """An adapter loaded, unloaded and another loaded between replays of
+    one graph is read by the next replay (the slots are written in place):
+    the graph's engine gives the eager engine's tokens at every stage."""
+    import numpy as np
+
+    from llm_instance_gateway_tpu_torch.models import lora as lora_lib
+    from llm_instance_gateway_tpu_torch.server.lora_manager import LoRAManager
+
+    cfg = narrow[torch.bfloat16][0]
+
+    def weights(seed):
+        rng = np.random.default_rng(seed)
+        return {t: {"a": rng.standard_normal((cfg.n_layers, di, 8)) * 0.3,
+                    "b": rng.standard_normal((cfg.n_layers, 8, do)) * 0.3}
+                for t, (di, do) in lora_lib.target_dims(cfg).items()}
+
+    jobs = _jobs()[:2]
+    streams = {}
+    for graphs in (False, True):
+        lora = LoRAManager(cfg, dtype=torch.bfloat16, device="cuda")
+        eng = _engine(narrow, graphs=graphs, lora=lora)
+        eng.start()
+        try:
+            out = []
+            for step in ("base", "a", "unload", "b"):
+                if step == "a":
+                    lora.load("ad", weights=weights(1), alpha=16.0, rank=8)
+                elif step == "unload":
+                    assert lora.unload("ad")
+                elif step == "b":
+                    lora.load("ad", weights=weights(2), alpha=16.0, rank=8)
+                adapter = "ad" if step in ("a", "b") else None
+                out.append(_serve_running(eng, jobs, adapter))
+        finally:
+            eng.stop()
+        streams[graphs] = out
+        if graphs:
+            assert len(eng._graphs.shapes) == 1  # one graph, replayed
+    assert streams[True] == streams[False]
+    base, a, unloaded, b = streams[True]
+    assert a != base and b != a and unloaded == base
+
+
+def _serve_running(eng, jobs, adapter=None):
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=m,
+                               sampling=sp, adapter=adapter))
+            for p, m, sp in jobs]
+    for r in reqs:
+        assert r.done.wait(300) and r.error is None, r.error
+    return [r.output_tokens for r in reqs]
+
+
+def test_table_grown_between_replays_is_read(narrow):
+    """A paged row crosses many 16-token blocks while one graph replays:
+    each replay reads the table the host grew in place, so the stream
+    equals the eager one's."""
+    jobs = [([256, 70, 71, 72], 120, _jobs()[0][2])]
+    extra = dict(paged_kv_block=16, max_seq_len=256, decode_slots=2)
+    eager = _serve(_engine(narrow, graphs=False, **extra), jobs)
+    eng = _engine(narrow, **extra)
+    assert _serve(eng, jobs) == eager
+    assert eng._graphs.shapes == [(4, False)]
+    assert len(eager[0]) == 120
+
+
+def test_replays_draw_new_noise(dev):
+    """The generator registered with a graph advances on every replay, so
+    two replays of one block draw different uniforms."""
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def block(n_steps, seeded):
+        return torch.rand((n_steps, 64), generator=gen, device=dev)
+
+    graphs = decode_graphs.DecodeGraphs(gen, dev)
+    graphs.warm_up(block)
+    first = graphs.run(block, 2, False).clone()
+    second = graphs.run(block, 2, False).clone()
+    assert not torch.equal(first, second)
+    assert graphs.shapes == [(2, False)] and graphs.replays == 2
+
+
+def test_sampled_rows_draw_new_noise_per_replay(narrow):
+    """On the engine: an unseeded sampled request repeated draws different
+    tokens, while a seeded one repeats its tokens exactly."""
+    from llm_instance_gateway_tpu_torch.server.engine import SamplingParams
+
+    prompt = [256, 80, 81, 82]
+    free = SamplingParams(temperature=1.5)
+    seeded = SamplingParams(temperature=1.5, seed=9)
+    eng = _engine(narrow, decode_slots=1)
+    eng.start()
+    try:
+        frees = [_serve_running(eng, [(prompt, 16, free)])[0]
+                 for _ in range(3)]
+        seeds = [_serve_running(eng, [(prompt, 16, seeded)])[0]
+                 for _ in range(2)]
+    finally:
+        eng.stop()
+    assert len({tuple(f) for f in frees}) > 1
+    assert seeds[0] == seeds[1]
+
+
+def test_launch_counts_exact_under_replay(narrow):
+    """Captures count nothing; each replay adds its graph's launches: the
+    lane kernel at n_layers per decode step, flash at n_layers per
+    prefill, nothing else."""
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    cfg = narrow[torch.bfloat16][0]
+    eng = _engine(narrow, adaptive_steps=8)
+    jobs = _jobs()
+    snap0 = eng.metrics_snapshot()
+    eng.start()  # the warm-up step runs here, before the window
+    try:
+        counters = decode_graphs._COUNTERS
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        _serve_running(eng, jobs)
+        counts = decode_graphs.launch_counts()
+    finally:
+        eng.stop()
+    steps = int(eng.metrics_snapshot()["dispatch_steps_hist"]["sum"]
+                - snap0["dispatch_steps_hist"]["sum"])
+    want = dict.fromkeys(range(len(counters)), 0)
+    want[0] = len(jobs) * cfg.n_layers  # flash, one program per request
+    want[1] = steps * cfg.n_layers      # lane decode
+    assert dict(enumerate(counts)) == want
+    assert len(eng._graphs.shapes) > 1 and eng._graphs.replays > 0
+
+
+def test_capture_failure_raises(dev):
+    """A block that reads a device value back cannot be captured: the
+    capture raises (no eager fallback) and the launch counters are as
+    they were."""
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    x = torch.ones(4, device=dev)
+
+    def block(n_steps, seeded):
+        return x * float((x * n_steps).sum())  # a host sync
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    graphs = decode_graphs.DecodeGraphs(gen, dev)
+    graphs.warm_up(block)
+    before = decode_graphs.launch_counts()
+    with pytest.raises(RuntimeError):
+        graphs.run(block, 2, False)
+    assert decode_graphs.launch_counts() == before

@@ -299,8 +299,8 @@ def test_int8_kv_constructs(extra):
 
 class TestUnservedConfigRaises:
     @pytest.mark.parametrize("field,value", [
-        ("speculative_k", 2), ("prefill_batch", 2), ("pipeline_decode", True),
-        ("role", "prefill"), ("role", "decode"), ("handoff_ttl_s", 5.0)])
+        ("speculative_k", 2), ("role", "prefill"), ("role", "decode"),
+        ("handoff_ttl_s", 5.0)])
     def test_construction_raises(self, field, value):
         cfg = teng.EngineConfig(**{field: value})
         with pytest.raises(NotImplementedError, match=field):
