@@ -82,10 +82,22 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    replaying the block's graph with prefill_batch=4; decode tokens/s,
    TPOT and TTFT p50/p95, exact launch counts per run, and the greedy
    tokens where B differs from A;
+10. disagg — disaggregated serving at 8B: a ``--role prefill`` server
+   (lanes) hands each prompt's KV over ``/v1/prefill`` -> ``/v1/attach`` to
+   a ``--role decode`` server (paged pool, prefix cache, pipelined graph
+   replays), beside a collocated server with the decode server's flags:
+   greedy tokens equal bitwise, exact launch counts (flash 32 per hop on
+   the prefill server only, the paged kernel 32 per decode step on the
+   decode server only), the same graph keys, prefix reuse on repeated
+   prompts, the longest prompt's pool rows equal bitwise, a release
+   mid-stream, KV back at its floor; wire bytes, hop walls, serialize /
+   deserialize / attach ms and TTFTs per request; then all of it again
+   with ``--kv-quantize int8`` (the int8 wire and pools);
 
 then prints one JSON line with every kernel's numbers (launches over the
-serve phases and the dispatch phase's B runs), the nvidia-smi line, and
-last the device JSON line.  Imports nothing of JAX.
+serve phases, the dispatch phase's B runs and the disagg phase's hops),
+the nvidia-smi line, and last the device JSON line.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -935,18 +947,11 @@ def _post(url: str, body: dict, timeout: float = 600.0):
 
 
 def _counters():
-    """Kernel name -> (module, counter attribute) for every kernel."""
-    from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
-    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
-    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
-    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+    """Kernel name -> (module, counter attribute) for every kernel: the
+    port's own map (the one the decode graphs keep their launches by)."""
+    from llm_instance_gateway_tpu_torch.server.decode_graphs import _COUNTERS
 
-    return {"flash_prefill": (fl, "launches"),
-            "decode_attention": (dec, "launches"),
-            "chunk_attention": (ch, "launches"),
-            "paged_decode_attention": (pd, "launches"),
-            "decode_attention_quant": (dec, "quant_launches"),
-            "paged_decode_attention_quant": (pd, "quant_launches")}
+    return _COUNTERS
 
 
 def reset_launches() -> None:
@@ -1467,6 +1472,21 @@ def phase_profile(torch, engine, prefill: bool = True) -> dict:
     return out
 
 
+def wait_blocks_processed(eng) -> None:
+    """The pipelined loop still holds the block dispatched beside the last
+    one read back: wait until every replayed block is processed (and in the
+    steps histogram a launch check counts from)."""
+    if eng._graphs is None or not eng.cfg.pipeline_decode:
+        return
+    deadline = time.time() + 60
+    while time.time() < deadline:  # every block is a replay
+        done = eng.metrics_snapshot()["dispatch_steps_hist"]["count"]
+        if done == eng._graphs.replays:
+            return
+        time.sleep(0.01)
+    raise AssertionError("a dispatched decode block was never processed")
+
+
 def phase_dispatch(torch, bf16_params) -> dict:
     """``bench.py``'s device traffic on Llama-3-8B (full width and depth,
     int8 weights, four rank-8 adapters on q/k/v/o): 48 requests arriving
@@ -1523,20 +1543,6 @@ def phase_dispatch(torch, bf16_params) -> dict:
             setattr(eng, attr, counted)
         eng.start()
 
-    def _wait_blocks_processed(eng):
-        """The pipelined loop still holds the block dispatched beside the
-        last one read back: wait until every replayed block is processed
-        (and in the steps histogram the launch check counts from)."""
-        if eng._graphs is None or not eng.cfg.pipeline_decode:
-            return
-        deadline = time.time() + 60
-        while time.time() < deadline:  # every B block is a replay
-            done = eng.metrics_snapshot()["dispatch_steps_hist"]["count"]
-            if done == eng._graphs.replays:
-                return
-            time.sleep(0.01)
-        raise AssertionError("dispatch: a block was never processed")
-
     def pct(xs, q):
         xs = sorted(xs)
         return xs[min(len(xs) - 1, int(q * len(xs)))]
@@ -1556,7 +1562,7 @@ def phase_dispatch(torch, bf16_params) -> dict:
             if not r.done.wait(900) or r.error:
                 raise AssertionError(f"dispatch {name}: {r.error}")
         wall = time.perf_counter() - t0
-        _wait_blocks_processed(eng)
+        wait_blocks_processed(eng)
         torch.cuda.synchronize()
         launches = read_launches()
         snap1 = eng.metrics_snapshot()
@@ -1600,7 +1606,7 @@ def phase_dispatch(torch, bf16_params) -> dict:
                 if not r.done.wait(900) or r.error:
                     raise AssertionError(f"dispatch warm-up {name}: "
                                          f"{r.error}")
-            _wait_blocks_processed(eng)
+            wait_blocks_processed(eng)
         log("dispatch", "warm-up done; B captured "
             f"{engines['B']._graphs.shapes} in "
             f"{engines['B']._graphs.capture_s:.2f} s")
@@ -1643,6 +1649,422 @@ def phase_dispatch(torch, bf16_params) -> dict:
     return out
 
 
+def _http(url: str, data: bytes, ctype: str = "application/json",
+          timeout: float = 600.0):
+    """POST ``data``; returns (status, body bytes, headers)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as f:
+            return f.status, f.read(), f.headers
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers
+
+
+def _start_server(argv, params, adapter_path: str):
+    """An 8B server over ``params`` with the smoke's adapter loaded, its
+    HTTP loop on a thread; returns (httpd, engine, url)."""
+    import threading
+
+    from llm_instance_gateway_tpu_torch.server import api_http
+
+    httpd, engine, _ = api_http.make_server(
+        ["--model", "llama3-8b", "--max-seq-len", "1024", "--decode-slots",
+         "8", "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
+        + argv, params=params)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    status, text = _post(url + "/v1/load_lora_adapter",
+                         {"lora_name": "smoke-r8", "lora_path": adapter_path})
+    if status != 200:
+        raise AssertionError(f"adapter load: {status} {text}")
+    return httpd, engine, url
+
+
+def _record(engine, method: str, store: list) -> None:
+    """Wrap ``engine.<method>`` to keep every Request it admits."""
+    fn = getattr(engine, method)
+
+    def call(*args, **kwargs):
+        req = fn(*args, **kwargs)
+        store.append(req)
+        return req
+
+    setattr(engine, method, call)
+
+
+def _count_programs(engine, programs: dict) -> None:
+    """Count the engine's bucketed prefills and chunk programs (the flash
+    and chunk kernels' launches follow them)."""
+    for attr, kind in (("_prefill_impl", "prefill"), ("_chunk_fn", "chunk")):
+        def call(*args, _fn=getattr(engine, attr), _k=kind, **kwargs):
+            programs[_k] += 1
+            return _fn(*args, **kwargs)
+        setattr(engine, attr, call)
+
+
+def _stamp_decode(engine, store: dict) -> None:
+    """Keep, per request id, the time and token count at which the
+    pipelined loop finished reading the request's first decode block back:
+    the start of its decode window, after its wait for a slot and after
+    the block's graph capture (a first-use capture runs at dispatch,
+    before the readback)."""
+    process = engine._process_block
+
+    def call(blk, current):
+        process(blk, current)
+        now = time.time()
+        for slot in blk["rows"]:
+            if slot is not None and len(slot.request.output_tokens) > 1:
+                store.setdefault(slot.request.request_id,
+                                 (now, len(slot.request.output_tokens)))
+
+    engine._process_block = call
+
+
+def _decode_rate(req, stamps: dict):
+    """Tokens a second over the request's decode window (``_stamp_decode``:
+    from its first decode block's readback to its last token); None when
+    it finished within that first block."""
+    if req.request_id not in stamps:
+        return None
+    t0, n0 = stamps[req.request_id]
+    n = len(req.output_tokens) - n0
+    return n / (req.t_done - t0) if n > 0 else None
+
+
+def _snapshot_row_kv(torch, engine, prompt: list, n_valid: int,
+                     store: dict) -> None:
+    """When the row holding ``prompt`` is released, keep its first
+    ``n_valid`` positions of every pool (K, V and, int8, their scales),
+    read through the row's block table: the prompt and the decoded
+    tokens' KV, written in full by then."""
+    clear = engine._clear_slot
+
+    def call(i):
+        slot = engine.slots[i]
+        if (slot is not None and "kv" not in store
+                and slot.request.prompt_tokens == prompt):
+            idx = torch.tensor(engine._row_blocks[i], device=engine.device)
+            store["kv"] = {
+                name: engine.cache[name][:, idx].flatten(1, 2)[:, :n_valid]
+                .clone() for name in ("k", "v", "k_scale", "v_scale")
+                if name in engine.cache}
+        clear(i)
+
+    engine._clear_slot = call
+
+
+def phase_disagg(torch, params, adapter_path: str,
+                 quant: bool = False) -> dict:
+    """Disaggregated serving at Llama-3-8B width and depth: a prefill-role
+    server P (lanes), a decode-role server D (paged pool, 64-token blocks
+    x 768, prefix cache, pipelined dispatch replaying the decode block's
+    graph) and a collocated server C with D's flags, every one over the
+    same weights with the smoke's adapter, all at prefill_batch=1 (P and C
+    run the same bucketed prefill program) and a static 8 steps per
+    dispatch (the graph keys do not depend on arrival timing).  ``quant``
+    adds ``--kv-quantize int8`` to all three, and P's handoffs take the
+    int8 wire.
+
+    C serves the traffic first, cold: six prompts of 13-901 tokens (three
+    on the adapter, one streamed, no shared prefix), 32 new greedy tokens,
+    then two of them again and a ``max_tokens: 1`` request.  Then the
+    smoke acts as the gateway and sends the same traffic in two hops:
+    ``/v1/prefill`` on P, the handoff bytes to ``/v1/attach`` on D; then a
+    streamed attach released mid-flight through ``/v1/prefill/release``
+    and the release of an unknown id.  Checks: every two-hop answer's
+    tokens equal C's cold answer for that prompt, bitwise; P launched
+    flash 32 times per hop and no decode kernel; D no flash and no chunk,
+    and its paged kernel 32 times per decode step (replays counted); D's
+    graph keys equal C's; D's prefix reuse climbs by the repeats' full
+    blocks; the KV pools of D's and C's rows for the longest prompt are
+    equal bitwise; KV usage returns to its floor on D and C.
+
+    Printed per request: wire bytes, P's hop wall and TTFT, the serialize,
+    deserialize and attach walls, D's and C's TTFT, and D's and C's decode
+    rate.  A decode rate counts the tokens after the request's first
+    decode block over the time from that block's readback to the last
+    token (``_decode_rate``), so it leaves out the wait for a slot and the
+    first-use graph capture, which the TTFTs carry."""
+    import threading
+    import urllib.request
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+
+    tag = "disagg-int8" if quant else "disagg"
+    kvq = ["--kv-quantize", "int8"] if quant else []
+    pool = ["--paged-kv-block", "64", "--paged-kv-blocks", "768",
+            "--prefix-cache", "--pipeline-decode", "--adaptive-steps", "0",
+            "--decode-steps", "8"] + kvq
+    letters = "the quick brown fox jumps over the lazy dog "
+    max_tokens = 32
+    # prompt characters (+ BOS) as in the serve phase: buckets 16 .. 1024;
+    # a distinct head per prompt, so no two share a prefix block
+    jobs = [(f"[{i}] " + letters * 40)[:n]
+            for i, n in enumerate((12, 50, 120, 400, 700, 900))]
+    adapters = [None, "smoke-r8", None, "smoke-r8", None, "smoke-r8"]
+    streamed = 2
+    repeats = (3, 5)
+    wave2 = [(jobs[i], adapters[i], max_tokens) for i in repeats] + [
+        (jobs[0], None, 1)]
+    wave1 = [(jobs[i], adapters[i], max_tokens) for i in range(len(jobs))]
+    n_layers = cfg.n_layers
+    paged_kernel = ("paged_decode_attention_quant" if quant
+                    else "paged_decode_attention")
+
+    def body(prompt, adapter, max_new, stream=False):
+        b = {"prompt": prompt, "max_tokens": max_new, "temperature": 0.0,
+             "stream": stream}
+        if adapter:
+            b["model"] = adapter
+        return b
+
+    def concurrently(fn, items):
+        out = [None] * len(items)
+
+        def run(i):
+            out[i] = fn(i, *items[i])
+
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(items))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        if any(o is None for o in out):
+            raise AssertionError(f"{tag}: a request did not return")
+        return out
+
+    servers = []
+    try:
+        t0 = time.time()
+        pre = _start_server(["--role", "prefill"] + kvq, params, adapter_path)
+        servers.append(pre)
+        dec = _start_server(["--role", "decode"] + pool, params, adapter_path)
+        servers.append(dec)
+        col = _start_server(["--role", "collocated"] + pool, params,
+                            adapter_path)
+        servers.append(col)
+        init_s = time.time() - t0
+        (_, p_eng, p_url), (_, d_eng, d_url), (_, c_eng, c_url) = servers
+        longest = [256] + list(jobs[-1].encode())
+        n_valid = len(longest) + max_tokens - 1
+        rows = {"C": {}, "D": {}}
+        _snapshot_row_kv(torch, c_eng, longest, n_valid, rows["C"])
+        _snapshot_row_kv(torch, d_eng, longest, n_valid, rows["D"])
+        c_reqs, d_reqs = [], []
+        _record(c_eng, "submit", c_reqs)
+        _record(d_eng, "attach_prefilled", d_reqs)
+        programs = {name: {"prefill": 0, "chunk": 0} for name in "PDC"}
+        for name, eng in (("P", p_eng), ("D", d_eng), ("C", c_eng)):
+            _count_programs(eng, programs[name])
+        stamps = {"D": {}, "C": {}}
+        _stamp_decode(d_eng, stamps["D"])
+        _stamp_decode(c_eng, stamps["C"])
+
+        # -- C: the collocated baseline, cold --
+        def collocated(i, prompt, adapter, max_new):
+            st, text = _post(c_url + "/v1/completions",
+                             body(prompt, adapter, max_new, i == streamed))
+            if st != 200:
+                raise AssertionError(f"{tag} C: {st} {text[:300]}")
+            return text
+
+        c_snap0 = c_eng.metrics_snapshot()
+        reset_launches()
+        concurrently(collocated, wave1)
+        concurrently(lambda i, *job: collocated(len(jobs) + i, *job), wave2)
+        for r in c_reqs:
+            if not r.done.wait(300) or r.error:
+                raise AssertionError(f"{tag} C: {r.error}")
+        wait_blocks_processed(c_eng)
+        torch.cuda.synchronize()
+        c_launches = read_launches()
+        c_snap1 = c_eng.metrics_snapshot()
+        c_steps = int(c_snap1["dispatch_steps_hist"]["sum"]
+                      - c_snap0["dispatch_steps_hist"]["sum"])
+        check_only(c_launches, {
+            "flash_prefill": programs["C"]["prefill"] * n_layers,
+            "chunk_attention": programs["C"]["chunk"] * n_layers,
+            paged_kernel: c_steps * n_layers}, f"{tag} C")
+        cold = {(tuple(r.prompt_tokens), r.adapter, r.max_new_tokens):
+                r for r in reversed(c_reqs)}  # the first of each wins
+
+        # -- the same traffic in two hops, P then D --
+        def two_hop(i, prompt, adapter, max_new, stream=False):
+            t0 = time.time()
+            st, wire, hdr = _http(
+                p_url + "/v1/prefill",
+                json.dumps(body(prompt, adapter, max_new, stream)).encode())
+            t1 = time.time()
+            if st != 200:
+                raise AssertionError(f"{tag} P: {st} {wire[:300]}")
+            st, text, hdr2 = _http(d_url + "/v1/attach", wire,
+                                   "application/octet-stream")
+            t2 = time.time()
+            if st != 200:
+                raise AssertionError(f"{tag} D: {st} {text[:300]}")
+            return dict(
+                request_id=hdr["x-request-id"], wire_bytes=len(wire),
+                prefill_hop_ms=(t1 - t0) * 1e3,
+                prefill_ttft_ms=float(hdr["x-prefill-ttft-ms"]),
+                serialize_ms=float(hdr["x-handoff-serialize-ms"]),
+                deserialize_ms=float(hdr2["x-handoff-deserialize-ms"]),
+                attach_ms=float(hdr2["x-handoff-attach-ms"]),
+                attach_hop_ms=(t2 - t1) * 1e3, stream=stream,
+                text=text.decode())
+
+        d_snap0 = d_eng.metrics_snapshot()
+        reset_launches()
+        hops = concurrently(
+            lambda i, *job: two_hop(i, *job, stream=i == streamed), wave1)
+        hops += concurrently(two_hop, wave2)
+
+        # An attach released while it decodes, then an unknown id.
+        t_rel = time.time()
+        st, wire, hdr = _http(p_url + "/v1/prefill", json.dumps(
+            body(jobs[1], None, 512)).encode())
+        if st != 200:
+            raise AssertionError(f"{tag} P (release): {st}")
+        rid = hdr["x-request-id"]
+        live = {}
+        attach = threading.Thread(target=lambda: live.update(resp=_http(
+            d_url + "/v1/attach", wire, "application/octet-stream")))
+        attach.start()
+        deadline = time.time() + 120
+        while not any(r.request_id == rid and len(r.output_tokens) >= 2
+                      for r in d_reqs):  # decoding on D
+            if time.time() > deadline:
+                raise AssertionError(f"{tag}: the attach never decoded")
+            time.sleep(0.005)
+        st, text, _ = _http(d_url + "/v1/prefill/release",
+                            json.dumps({"request_id": rid}).encode())
+        released = json.loads(text)
+        attach.join(600)
+        st2, text2, _ = _http(d_url + "/v1/prefill/release",
+                              json.dumps({"request_id": "no-such"}).encode())
+        unknown = json.loads(text2)
+        answer = json.loads(live["resp"][1])["choices"][0]
+        if (st, released.get("released"), st2, unknown.get("released"),
+                answer["finish_reason"]) != (200, True, 200, False,
+                                             "cancelled"):
+            raise AssertionError(f"{tag} release: {released} {unknown} "
+                                 f"{answer}")
+        release_s = time.time() - t_rel
+        n_hops = len(hops) + 1
+        for r in d_reqs:
+            if not r.done.wait(300):
+                raise AssertionError(f"{tag} D: a request never finished")
+        wait_blocks_processed(d_eng)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        d_snap1 = d_eng.metrics_snapshot()
+        d_steps = int(d_snap1["dispatch_steps_hist"]["sum"]
+                      - d_snap0["dispatch_steps_hist"]["sum"])
+        if programs["P"] != {"prefill": n_hops, "chunk": 0} or programs[
+                "D"] != {"prefill": 0, "chunk": 0}:
+            raise AssertionError(f"{tag}: programs {programs}")
+        # Flash is P's alone (D ran no prefill program) and the paged
+        # kernel D's alone (P holds lanes); the lane kernels stay at 0.
+        check_only(launches, {"flash_prefill": n_hops * n_layers,
+                              paged_kernel: d_steps * n_layers}, tag)
+
+        # -- checks --
+        by_id = {r.request_id: r for r in d_reqs}
+        per_request = []
+        for hop, (prompt, adapter, max_new) in zip(hops, wave1 + wave2):
+            d = by_id[hop.pop("request_id")]
+            tokens = [256] + list(prompt.encode())
+            c = cold[(tuple(tokens), adapter, max_new)]
+            if d.error or d.output_tokens != c.output_tokens:
+                raise AssertionError(
+                    f"{tag}: {len(tokens)}-token prompt, two hops "
+                    f"{d.output_tokens[:8]}... ({d.error}) != collocated "
+                    f"{c.output_tokens[:8]}...")
+            per_token = (n_layers * cfg.n_kv_heads
+                         * (cfg.resolved_head_dim + 4 if quant
+                            else 2 * cfg.resolved_head_dim) * 2)
+            if hop["wire_bytes"] < len(tokens) * per_token:
+                raise AssertionError(f"{tag}: {hop['wire_bytes']} wire bytes "
+                                     f"for {len(tokens)} tokens")
+            text = hop.pop("text")
+            if not hop["stream"] and json.loads(text)["usage"][
+                    "completion_tokens"] != max_new:
+                raise AssertionError(f"{tag}: {text[:200]}")
+            row = dict(prompt_tokens=len(tokens), adapter=adapter,
+                       max_tokens=max_new, **hop,
+                       d_ttft_ms=d.ttft_s * 1e3,
+                       d_decode_tokens_per_s=_decode_rate(d, stamps["D"]),
+                       c_ttft_ms=c.ttft_s * 1e3,
+                       c_decode_tokens_per_s=_decode_rate(c, stamps["C"]))
+            per_request.append(row)
+            log(tag, "request " + json.dumps(row))
+        c_repeats_equal = [
+            r.output_tokens == cold[(tuple(r.prompt_tokens), r.adapter,
+                                     r.max_new_tokens)].output_tokens
+            for r in c_reqs[len(jobs):]]
+        reused = (d_snap1["prefix_reused_tokens"]
+                  - d_snap0["prefix_reused_tokens"])
+        want_reused = sum((len(jobs[i]) + 1 - 1) // 64 * 64 for i in repeats)
+        if reused != want_reused:
+            raise AssertionError(f"{tag}: D reused {reused} prefix tokens, "
+                                 f"expected {want_reused}")
+        if d_eng._graphs.shapes != c_eng._graphs.shapes:
+            raise AssertionError(f"{tag}: D's graphs {d_eng._graphs.shapes} "
+                                 f"!= C's {c_eng._graphs.shapes}")
+        for name in ("k", "v", "k_scale", "v_scale"):
+            if name not in rows["C"]["kv"]:
+                continue
+            a, b = rows["D"]["kv"][name], rows["C"]["kv"][name]
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{tag}: D's and C's {name} pool rows "
+                                     "differ")
+        floor = {}
+        for name, eng in (("D", d_eng), ("C", c_eng)):
+            deadline = time.time() + 30
+            while (eng.metrics_snapshot()["kv_cache_usage_perc"] > 0
+                   and time.time() < deadline):
+                time.sleep(0.05)
+            snap = eng.metrics_snapshot()
+            floor[name] = (snap["kv_cache_usage_perc"],
+                           snap["kv_parked_tokens"])
+            if floor[name] != (0.0, 0):
+                raise AssertionError(f"{tag}: {name} KV usage/parked "
+                                     f"{floor[name]} after the last request")
+        with urllib.request.urlopen(d_url + "/metrics", timeout=60) as f:
+            metrics_text = f.read().decode()
+        for family in ('tpu:pool_role{role="decode"} 1',
+                       "tpu:handoff_seconds_count", "tpu:prefix_reused_tokens"):
+            if family not in metrics_text:
+                raise AssertionError(f"{tag}: D's /metrics lacks {family}")
+        stats = {
+            "init_s": init_s, "release_s": release_s, "hops": n_hops,
+            "d_decode_steps": d_steps, "c_decode_steps": c_steps,
+            "c_programs": programs["C"], "d_prefix_reused_tokens": reused,
+            "c_repeats_equal_c_cold": c_repeats_equal,
+            "graph_shapes": d_eng._graphs.shapes,
+            "pool_rows_compared": {k: list(v.shape) for k, v in
+                                   rows["D"]["kv"].items()},
+            "launches": launches, "c_launches": c_launches,
+            "per_request": per_request,
+        }
+        log(tag, "llama3-8b P (lanes) -> D (paged 64 x 768, prefix cache, "
+            "pipelined graphs) vs C" + (", --kv-quantize int8" if quant
+                                        else "") + ": "
+            + json.dumps({k: v for k, v in stats.items()
+                          if k != "per_request"}))
+        return stats
+    finally:
+        for httpd, engine, _ in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            engine.stop()
+
+
 KERNEL_SOURCES = {
     "flash_prefill": (
         "llm_instance_gateway_tpu_torch/ops/csrc/flash_prefill.cu",
@@ -1668,9 +2090,9 @@ KERNEL_SOURCES = {
 
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
-    errors over all shapes checked, and launches summed over the four serve
-    phases (``launches_by_path`` splits them: lane, paged, int8 lane, int8
-    paged)."""
+    errors over all shapes checked, and launches summed over the serving
+    paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
+    paged, dispatch, disagg, int8 disagg)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -1743,10 +2165,14 @@ def main() -> int:
     graph_columns({"lane": stats, "paged": paged_stats, "lane_int8": q_stats,
                    "paged_int8": qp_stats})
     dispatch = phase_dispatch(torch, params)
+    disagg = phase_disagg(torch, params, adapter_path)
+    disagg_q = phase_disagg(torch, params, adapter_path, quant=True)
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
-               "dispatch": dispatch["launches"]}
+               "dispatch": dispatch["launches"],
+               "disagg": disagg["launches"],
+               "disagg_int8": disagg_q["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

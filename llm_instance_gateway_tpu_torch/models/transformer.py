@@ -56,6 +56,7 @@ from llm_instance_gateway_tpu_torch.ops.chunk_attention import chunk_attention
 from llm_instance_gateway_tpu_torch.ops.decode_attention import decode_attention
 from llm_instance_gateway_tpu_torch.ops.flash_attention import flash_attention
 from llm_instance_gateway_tpu_torch.ops.layers import apply_rope, rms_norm, swiglu
+from llm_instance_gateway_tpu_torch.ops.quant import int8_max
 from llm_instance_gateway_tpu_torch.ops.quant import matmul as q_matmul
 
 Params = dict[str, Any]
@@ -151,9 +152,14 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., hd] -> (int8 [..., hd], f32 scale [...]): symmetric per-vector
     max-abs quantization (one scale per position per KV head).
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    ``torch.round`` rounds half to even, as ``jnp.round`` does.  The scale
+    is a true f32 division (``int8_max``): a product with the reciprocal
+    rounds otherwise than the reference's division in ~5% of cases and
+    would break the round trip the int8 handoff relies on (dequantize,
+    quantize again: the same values).  The int8 wire lane quantizes with
+    this function too, so its bytes are the cache's."""
     xf = x.float()
-    s = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    s = (xf.abs().amax(dim=-1) / int8_max(xf.device)).clamp_min(1e-8)
     q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int8)
     return q, s
 

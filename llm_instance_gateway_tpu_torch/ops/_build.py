@@ -130,7 +130,23 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+# Launches per thread, by library, beside the wrappers' module counters: a
+# CUDA-graph capture keeps as the graph's what ITS thread launched, not what
+# another engine's thread launched meanwhile (server/decode_graphs.py).
+_thread_launches = threading.local()
+
+
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    """Raise on a non-zero ``cudaGetLastError()`` returned by the launch of
+    library ``what``; else tally the launch for the calling thread."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+    counts = getattr(_thread_launches, "counts", None)
+    if counts is None:
+        counts = _thread_launches.counts = {}
+    counts[what] = counts.get(what, 0) + 1
+
+
+def thread_launches() -> dict[str, int]:
+    """The calling thread's launches so far, by library."""
+    return dict(getattr(_thread_launches, "counts", {}))

@@ -26,10 +26,32 @@ import torch
 QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+# 127 as a 0-dim f32 tensor, one per device: the int8 quantizers' divisor.
+_INT8_MAX: dict[torch.device, torch.Tensor] = {}
+
+
+def int8_max(device: torch.device) -> torch.Tensor:
+    """The int8 quantizers' divisor on ``device``, made on first use.  It
+    is an f32 tensor, not a Python scalar: on the card ``t / 127.0``
+    becomes ``t * fl(1 / 127)``, which rounds otherwise than the
+    reference's division.  It must not be first made under a CUDA-graph
+    capture (its fill would only be recorded); the decode graphs' eager
+    warm-up and the prefills that precede any capture make it."""
+    t = _INT8_MAX.get(device)
+    if t is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("int8_max first made under graph capture")
+        t = _INT8_MAX.setdefault(
+            device, torch.full((), 127.0, dtype=torch.float32, device=device))
+    return t
+
+
 def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
-    """Symmetric per-output-channel int8 quantization (last axis = out)."""
+    """Symmetric per-output-channel int8 quantization (last axis = out),
+    dividing by ``int8_max``."""
     wf = w.float()
-    scale = (wf.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-8)
+    scale = (wf.abs().amax(dim=-2, keepdim=True) / int8_max(wf.device)
+             ).clamp_min(1e-8)
     q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
     return {"q": q, "s": scale.squeeze(-2)}
 

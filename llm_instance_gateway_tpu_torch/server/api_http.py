@@ -6,6 +6,13 @@ runs on the card).
                                     token ids), JSON or SSE ``stream: true``;
                                     ``max_tokens``, ``temperature``,
                                     ``top_k``, ``top_p``, ``seed``, ``stop``
+- ``POST /v1/prefill``              disaggregation hop 1: prefill only; the
+                                    answer is the serialized
+                                    ``PrefillHandoff`` (octet-stream)
+- ``POST /v1/attach``               hop 2: a handoff in, decode to the end;
+                                    JSON or SSE, as ``/v1/completions``
+- ``POST /v1/prefill/release``      ``{"request_id"}``: release abandoned
+                                    hop-2 work
 - ``GET  /v1/models``               base model + resident adapters
 - ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz)
 - ``POST /v1/unload_lora_adapter``  ``{"lora_name"}``
@@ -20,6 +27,10 @@ being ignored.
 
     python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \
         --max-seq-len 8192 --paged-kv-block 64 --prefix-cache --stream-lanes 2
+
+A disaggregated pair is a ``--role prefill`` server and a ``--role decode``
+server (paged pool, prefix cache) behind the gateway's two-hop relay; a
+role is advisory, and every server keeps the whole API.
 
 ``--quantize int8`` serves int8 weights (``ops/quant.py``) and
 ``--kv-quantize int8`` an int8 KV cache, on lanes or on the paged pool.
@@ -51,6 +62,7 @@ from llm_instance_gateway_tpu_torch.server.engine import (
     SamplingParams,
     check_served,
 )
+from llm_instance_gateway_tpu_torch.server.kv_transfer import PrefillHandoff
 from llm_instance_gateway_tpu_torch.server.lora_manager import (
     AdapterBusyError,
     AdapterError,
@@ -121,14 +133,21 @@ class ModelServer:
                 out.append(tuple(int(t) for t in ids))
         return tuple(out)
 
-    def _make_request(self, body: dict, prompt_tokens: list[int], adapter,
-                      stops: list[str]) -> Request:
+    @staticmethod
+    def _check_body(body: dict) -> None:
+        """Refuse the body parameters the port does not serve yet."""
+        if isinstance(body.get("messages"), list):
+            raise ValueError("chat is not served by the torch port yet")
         for name in _UNSERVED_PARAMS:
             if body.get(name) not in (None, False, 0, 0.0, {}):
                 raise ValueError(f"{name} is not served by the torch port yet")
         if int(body.get("n", 1)) != 1 or int(body.get("best_of", 1)) != 1:
             raise ValueError("n / best_of > 1 is not served by the torch "
                              "port yet")
+
+    def _make_request(self, body: dict, prompt_tokens: list[int], adapter,
+                      stops: list[str]) -> Request:
+        self._check_body(body)
         seed = body.get("seed")
         return Request(
             prompt_tokens=prompt_tokens,
@@ -143,10 +162,13 @@ class ModelServer:
         )
 
     def _wait_with_stops(self, req: Request, stops: list[str],
-                         timeout_s: float = 600.0) -> Request:
+                         timeout_s: float = 600.0,
+                         submit: bool = True) -> Request:
         """generate(), cancelling the moment a stop string appears in the
-        decoded text (the exact cut happens in ``_truncate_at_stop``)."""
-        self.engine.submit(req)
+        decoded text (the exact cut happens in ``_truncate_at_stop``);
+        ``submit=False`` waits on a request admitted already (an attach)."""
+        if submit:
+            self.engine.submit(req)
         deadline = time.monotonic() + timeout_s
         max_stop = max((len(s) for s in stops), default=0)
         text, consumed = "", 0
@@ -215,12 +237,16 @@ class ModelServer:
         except (EngineDraining, ValueError, queue_mod.Full,
                 AdapterError) as e:
             raise self._submit_error(e) from e
+        return 200, self._completion(req, model, stops)
+
+    def _completion(self, req: Request, model: str, stops: list[str]) -> dict:
+        """The JSON envelope of a finished request."""
         if req.error:
             raise HTTPError(500, req.error)
         text = (self._truncate_at_stop(req, stops) if stops
                 else self.tokenizer.decode(req.output_tokens))
         n_out = len(req.output_tokens)
-        return 200, {
+        return {
             "id": f"cmpl-{req.request_id}",
             "object": "text_completion",
             "created": int(time.time()),
@@ -232,6 +258,92 @@ class ModelServer:
                       "total_tokens": len(req.prompt_tokens) + n_out},
             "ttft_ms": round(req.ttft_s * 1000, 2),
         }
+
+    # -- disaggregation hops (server/kv_transfer.py) -------------------------
+    def prefill(self, body: dict):
+        """Hop 1: prefill only; answers the serialized ``PrefillHandoff``.
+        Shapes a handoff cannot carry (candidate fan-out, echo) and prompts
+        beyond the largest bucket answer 422, bodies the port refuses
+        anywhere 400: the gateway serves any non-200 single-hop."""
+        adapter = self._resolve_model(body.get("model", self.model_name))
+        try:
+            fan_out = (int(body.get("n", 1)) > 1
+                       or int(body.get("best_of", 1)) > 1)
+            if fan_out or body.get("echo"):
+                raise HTTPError(422, "prefill hop supports single-candidate, "
+                                     "non-echo requests")
+            stops = self._parse_stops(body)
+            req = self._make_request(body, self._encode_prompt(body), adapter,
+                                     stops)
+        except (ValueError, TypeError) as e:
+            raise HTTPError(400, str(e)) from e
+        try:
+            handoff = self.engine.prefill_only(req)
+        except ValueError as e:  # e.g. beyond the largest bucket
+            raise HTTPError(422, str(e)) from e
+        except (EngineDraining, queue_mod.Full, AdapterError) as e:
+            raise self._submit_error(e) from e
+        except RuntimeError as e:
+            raise HTTPError(500, str(e)) from e
+        handoff.body = body  # envelope parameters ride to the decode hop
+        t0 = time.perf_counter()
+        wire = handoff.to_bytes()
+        ser_s = time.perf_counter() - t0
+        self.engine.observe_handoff(ser_s)
+        return 200, wire, {"x-request-id": req.request_id,
+                           "x-prefill-ttft-ms": f"{req.ttft_s * 1000:.2f}",
+                           "x-handoff-serialize-ms": f"{ser_s * 1e3:.3f}"}
+
+    def attach(self, raw: bytearray):
+        """Hop 2: admit a handoff into decode and answer in the
+        completions envelope (SSE included), as collocated serving
+        would."""
+        t0 = time.perf_counter()
+        try:
+            handoff = PrefillHandoff.from_bytes(raw)
+        except Exception as e:
+            raise HTTPError(400, f"malformed handoff: {e}") from e
+        t1 = time.perf_counter()
+        body = handoff.body or {}
+        try:
+            self._check_body(body)
+            stops = self._parse_stops(body)
+        except (ValueError, TypeError) as e:
+            raise HTTPError(400, str(e)) from e
+        try:
+            req = self.engine.attach_prefilled(handoff)
+        except ValueError as e:
+            raise HTTPError(422, str(e)) from e
+        except (EngineDraining, queue_mod.Full, AdapterError) as e:
+            raise self._submit_error(e) from e
+        t2 = time.perf_counter()
+        self.engine.observe_handoff(t2 - t0)
+        headers = {"x-request-id": req.request_id,
+                   "x-handoff-deserialize-ms": f"{(t1 - t0) * 1e3:.3f}",
+                   "x-handoff-attach-ms": f"{(t2 - t1) * 1e3:.3f}"}
+        model = body.get("model", self.model_name)
+        if body.get("stream"):
+            req.streaming = True
+            return 200, self._sse(req, model, stops), headers
+        if stops:
+            self._wait_with_stops(req, stops, submit=False)
+        elif not req.done.wait(600.0):
+            req.error = "generation timed out"
+            req.cancelled.set()
+        return 200, self._completion(req, model, stops), headers
+
+    def release(self, body: dict):
+        """Best-effort release of abandoned hop-2 work: the gateway posts
+        ``{"request_id"}`` when a decode hop failed after the handoff was
+        delivered.  Unknown or finished ids answer ``released: false``
+        (never admitted, done, or swept by ``--handoff-ttl-s``)."""
+        if "request_id" not in body:
+            raise HTTPError(400, "body must be JSON with request_id")
+        request_id = body["request_id"]
+        released = bool(self.engine.release_request(str(request_id)))
+        if released:
+            logger.info("released abandoned request %s", request_id)
+        return 200, {"request_id": request_id, "released": released}
 
     @staticmethod
     def _submit_error(e: Exception) -> HTTPError:
@@ -326,7 +438,8 @@ class ModelServer:
             data += [{"id": name, "object": "model", "root": self.model_name,
                       "parent": self.model_name}
                      for name in self.lora.running_adapters()]
-        return 200, {"object": "list", "data": data}
+        return 200, {"object": "list", "data": data,
+                     "role": self.engine.cfg.role}
 
     def load_adapter(self, body: dict):
         if self.lora is None:
@@ -384,19 +497,35 @@ def make_handler(server: ModelServer):
         def log_message(self, fmt, *args):  # route through logging
             logger.debug("%s " + fmt, self.address_string(), *args)
 
-        def _send(self, status: int, body: bytes, ctype: str) -> None:
+        def _send(self, status: int, body: bytes, ctype: str,
+                  headers: dict | None = None) -> None:
             self.send_response(status)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(body)
 
-        def _json(self, status: int, payload) -> None:
-            self._send(status, json.dumps(payload).encode(), "application/json")
+        def _json(self, status: int, payload, headers=None) -> None:
+            self._send(status, json.dumps(payload).encode(),
+                       "application/json", headers)
 
         def _error(self, status: int, message: str) -> None:
             self._json(status, {"error": {"message": message,
                                           "type": "invalid_request_error"}})
+
+        def _raw(self) -> bytearray:
+            """The request body as a writable buffer (a handoff's arrays
+            alias it instead of being copied)."""
+            buf = bytearray(int(self.headers.get("Content-Length") or 0))
+            view, got = memoryview(buf), 0
+            while got < len(buf):
+                n = self.rfile.readinto(view[got:])
+                if not n:
+                    break
+                got += n
+            return buf if got == len(buf) else buf[:got]
 
         def _body(self) -> dict:
             n = int(self.headers.get("Content-Length") or 0)
@@ -431,6 +560,9 @@ def make_handler(server: ModelServer):
         def do_POST(self):  # noqa: N802 - http.server's naming
             path = self.path.split("?", 1)[0]
             routes = {"/v1/completions": server.completions,
+                      "/v1/prefill": server.prefill,
+                      "/v1/attach": server.attach,
+                      "/v1/prefill/release": server.release,
                       "/v1/load_lora_adapter": server.load_adapter,
                       "/v1/unload_lora_adapter": server.unload_adapter}
             fn = routes.get(path)
@@ -438,19 +570,31 @@ def make_handler(server: ModelServer):
                 self._error(404, f"no route {path}")
                 return
             try:
-                result = fn(self._body())
+                # A handoff is binary; every other route takes JSON.
+                result = fn(self._raw() if fn == server.attach
+                            else self._body())
             except HTTPError as e:
                 self._error(e.status, str(e))
                 return
-            if isinstance(result, tuple):
-                self._json(*result)
-                return
-            self._stream(result)
+            # (status, payload[, headers]) or a bare SSE generator; the
+            # payload is JSON (dict), a handoff (bytes) or SSE.
+            status, payload, *rest = (result if isinstance(result, tuple)
+                                      else (200, result))
+            headers = rest[0] if rest else None
+            if isinstance(payload, dict):
+                self._json(status, payload, headers)
+            elif isinstance(payload, bytes):
+                self._send(status, payload, "application/octet-stream",
+                           headers)
+            else:
+                self._stream(payload, headers)
 
-        def _stream(self, chunks) -> None:
+        def _stream(self, chunks, headers=None) -> None:
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             try:
                 for payload in chunks:
@@ -523,9 +667,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "included)")
     p.add_argument("--role", choices=("collocated", "prefill", "decode"),
                    default="collocated",
-                   help="the reference's choices; the port serves only "
-                        "collocated and refuses the two-hop roles at startup "
-                        "(no /v1/prefill or /v1/attach yet)")
+                   help="disaggregation role: 'prefill' replicas serve "
+                        "/v1/prefill handoffs, 'decode' replicas admit them "
+                        "via /v1/attach, 'collocated' (default) serves whole "
+                        "requests; the role is advisory — every server keeps "
+                        "the full API")
+    p.add_argument("--handoff-ttl-s", type=float, default=60.0,
+                   help="abandoned-handoff backstop: an attach-imported "
+                        "request still parked in decode_wait this many "
+                        "seconds after admission is presumed abandoned (its "
+                        "gateway rerouted) and is released; 0 disables. The "
+                        "gateway's POST /v1/prefill/release is the fast "
+                        "path, this TTL the safety net.")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
@@ -573,6 +726,7 @@ def make_server(argv=None, params=None):
         kv_cache_quant=(None if args.kv_quantize == "none"
                         else args.kv_quantize),
         role=args.role,
+        handoff_ttl_s=args.handoff_ttl_s,
     )
     check_served(engine_cfg)  # before any weight is drawn
     cfg = dataclasses.replace(CONFIGS[args.model], max_lora_slots=args.max_loras)

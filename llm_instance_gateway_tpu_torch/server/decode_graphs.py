@@ -24,8 +24,9 @@ the LoRA buffers (slots written in place).  Rules on the card:
 
 Launch accounting: the kernel wrappers count a launch where they launch,
 which under capture records a launch that has not run.  A capture takes
-back what its wrappers counted and keeps it as the graph's launches; each
-replay adds them.
+back what its own thread's wrappers counted (``_build.thread_launches``:
+another engine in the process may launch meanwhile) and keeps it as the
+graph's launches; each replay adds them.
 """
 
 from __future__ import annotations
@@ -36,27 +37,35 @@ import time
 import torch
 
 from llm_instance_gateway_tpu_torch.ops import (
+    _build,
     chunk_attention,
     decode_attention,
     flash_attention,
     paged_decode_attention,
 )
 
-_COUNTERS = ((flash_attention, "launches"), (decode_attention, "launches"),
-             (decode_attention, "quant_launches"),
-             (chunk_attention, "launches"),
-             (paged_decode_attention, "launches"),
-             (paged_decode_attention, "quant_launches"))
+# Kernel library (the name its launches are tallied under per thread,
+# ``_build.thread_launches``) -> its wrapper's counter (module, attribute).
+_COUNTERS = {
+    "flash_prefill": (flash_attention, "launches"),
+    "decode_attention": (decode_attention, "launches"),
+    "decode_attention_quant": (decode_attention, "quant_launches"),
+    "chunk_attention": (chunk_attention, "launches"),
+    "paged_decode_attention": (paged_decode_attention, "launches"),
+    "paged_decode_attention_quant": (paged_decode_attention,
+                                     "quant_launches"),
+}
 
 
-def launch_counts() -> tuple[int, ...]:
-    """Every kernel wrapper's launch counter, in ``_COUNTERS`` order."""
-    return tuple(getattr(mod, attr) for mod, attr in _COUNTERS)
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch counter, by library."""
+    return {lib: getattr(mod, attr) for lib, (mod, attr) in _COUNTERS.items()}
 
 
-def add_launches(delta) -> None:
-    for (mod, attr), d in zip(_COUNTERS, delta):
+def add_launches(delta: dict[str, int]) -> None:
+    for lib, d in delta.items():
         if d:
+            mod, attr = _COUNTERS[lib]
             setattr(mod, attr, getattr(mod, attr) + d)
 
 
@@ -113,7 +122,7 @@ class DecodeGraphs:
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._gen)
-        before = launch_counts()
+        before = _build.thread_launches()
         # No garbage collection mid-capture: what it frees (device or
         # pinned host memory) is bookkept with CUDA calls the capture's
         # thread may not make.
@@ -129,7 +138,9 @@ class DecodeGraphs:
         finally:
             if gc_was_enabled:
                 gc.enable()
-            after = launch_counts()
-            add_launches(tuple(b - a for b, a in zip(before, after)))
+            after = _build.thread_launches()
+            mine = {lib: after.get(lib, 0) - before.get(lib, 0)
+                    for lib in _COUNTERS}
+            add_launches({lib: -n for lib, n in mine.items()})
             self.capture_s += time.perf_counter() - t0
-        return graph, out, tuple(a - b for a, b in zip(after, before))
+        return graph, out, mine

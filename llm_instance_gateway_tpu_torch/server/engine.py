@@ -38,11 +38,17 @@ synchronous loop and the pipelined one).
 - **int8 KV** (``kv_cache_quant="int8"``): lanes or pool store K/V int8
   with one f32 scale per (position, KV head); prompt KV is quantized where
   it lands, and decode runs the int8 kernels.
+- **Disaggregation** (``server/kv_transfer.py``): ``prefill_only`` runs a
+  prompt's prefill with no slot and no cache write and returns its KV as a
+  ``PrefillHandoff``; ``attach_prefilled`` parks a handoff's KV in
+  ``decode_wait`` (first token emitted at once), from where the drain
+  inserts it like a prefill-ahead, mapping cached prefix blocks first.
+  Handoff imports parked past ``handoff_ttl_s`` are swept.
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.  Config the port does not
 serve yet raises at construction instead of being ignored: speculative
-decoding and disaggregation.
+decoding.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ import torch
 from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.server import kv_transfer
 from llm_instance_gateway_tpu_torch.server.decode_graphs import DecodeGraphs
 from llm_instance_gateway_tpu_torch.server.kv_ledger import KvLedger
 from llm_instance_gateway_tpu_torch.server.profiler import StepProfiler
@@ -121,13 +128,9 @@ class EngineConfig:
 
 
 # Fields the reference serves and the port does not yet: (field, value the
-# port accepts, title of the ROADMAP Queue 1 item that ports it).  A role
-# other than "collocated" would advertise two-hop endpoints
-# (/v1/prefill, /v1/attach) the port does not serve.
+# port accepts, title of the ROADMAP Queue 1 item that ports it).
 _UNSERVED = (
     ("speculative_k", 0, "speculative decoding"),
-    ("role", "collocated", "disaggregation"),
-    ("handoff_ttl_s", 0.0, "disaggregation"),
 )
 
 
@@ -177,6 +180,9 @@ class Request:
     streaming: bool = False
     request_id: str = field(default_factory=lambda: uuid.uuid4().hex[:16])
     logprobs: int | None = None
+    # prefill_only() deposits the request's PrefillHandoff here
+    # (finish_reason "handoff").
+    handoff: object = None
     output_tokens: list[int] = field(default_factory=list)
     output_logprobs: list[float] = field(default_factory=list)
     output_top_logprobs: list[dict[int, float]] = field(default_factory=list)
@@ -278,6 +284,13 @@ class _WaitingPrefill:
     lora_slot: int
     first_token_host: int | None = None  # sync mode: the emitted token
     lp_info: object = None  # first token's (lp, top_v, top_i)
+    # Attach: the first token already reached the request at admission, so
+    # the pipelined insert must not materialize it again.
+    first_emitted: bool = False
+    # Imported by attach_prefilled: the insert maps cached prefix blocks
+    # instead of writing them, and the TTL sweep may release it.
+    from_handoff: bool = False
+    t_parked: float = 0.0  # wall clock at park time (handoff imports)
 
 
 @dataclass
@@ -776,6 +789,70 @@ class Engine:
             self._work.notify()
         return True
 
+    # -- disaggregation (server/kv_transfer.py) --
+
+    def prefill_only(self, request: Request, timeout_s: float = 600.0,
+                     quantize: str | None = None):
+        """Run ONLY the prefill and return a ``PrefillHandoff`` (hop 1 of
+        disaggregated serving).  No decode slot, no cache lane, no pool
+        block is touched: a prefill-role replica serves these whatever its
+        decode occupancy.  The wire lane defaults to int8 on an int8-KV
+        engine (the decode side re-quantizes to the identical values) and
+        to the raw compute dtype otherwise.  Prompts beyond the largest
+        bucket are refused: the chunk stream writes into THIS engine's
+        cache, which is what a handoff exists to avoid."""
+        n = len(request.prompt_tokens)
+        if self._max_bucket() <= 0 or n > self._max_bucket():
+            raise ValueError(
+                f"prefill_only supports prompts within the largest bucket "
+                f"({self._max_bucket()}); got {n} tokens")
+        request._handoff_only = True
+        request._handoff_quantize = (
+            quantize if quantize is not None else self.cfg.kv_cache_quant)
+        self.submit(request)
+        if not request.done.wait(timeout_s):
+            request.error = "prefill timed out"
+            request.cancelled.set()
+        if request.error:
+            raise RuntimeError(request.error)
+        return request.handoff
+
+    def attach_prefilled(self, handoff) -> Request:
+        """Admit a ``PrefillHandoff`` into decode (hop 2): its KV imports
+        into this engine's cache and the request decodes from its carried
+        first token, with no prefill.  Returns the live ``Request`` (already
+        submitted); callers wait on ``done`` / ``stream_event`` as after
+        ``submit``.  A handoff that does not fit this engine fails here,
+        visible to the caller, not inside the engine loop."""
+        request = kv_transfer.make_request(handoff)
+        if handoff.n != len(request.prompt_tokens) or handoff.n <= 0:
+            raise ValueError("handoff length/prompt mismatch")
+        cfg = self.model_cfg
+        expect = (cfg.n_layers, handoff.n, cfg.n_kv_heads,
+                  cfg.resolved_head_dim)
+        if (tuple(handoff.k.shape) != expect
+                or tuple(handoff.v.shape) != expect):
+            raise ValueError(
+                f"handoff KV shape {tuple(handoff.k.shape)} does not match "
+                f"this engine's cache layout {expect}")
+        if handoff.kv_format == "int8":
+            for s in (handoff.k_scale, handoff.v_scale):
+                if s is None or tuple(s.shape) != expect[:-1]:
+                    raise ValueError("int8 handoff lacks scales of shape "
+                                     f"{expect[:-1]}")
+        elif handoff.kv_format != "raw":
+            raise ValueError(f"unknown handoff kv_format "
+                             f"{handoff.kv_format!r}")
+        request._attach_handoff = handoff
+        return self.submit(request)  # draining, validation, adapter pin
+
+    def observe_handoff(self, seconds: float) -> None:
+        """Record one handoff-plane operation (serialize on the prefill
+        side; deserialize + attach admission on the decode side) into
+        ``tpu:handoff_seconds``.  Called from the HTTP layer."""
+        with self._lock:
+            self.phase_hist["handoff"].observe(max(0.0, seconds))
+
     # ------------------------------------------------------------------
     # metrics snapshot (the scrape contract)
     # ------------------------------------------------------------------
@@ -1154,6 +1231,32 @@ class Engine:
                 self._finish(req, "cancelled")
                 did = True
                 continue
+            if getattr(req, "_handoff_only", False):
+                # Hop 1: prefill with no slot and no cache write (the KV
+                # leaves as a handoff), so it admits with every slot busy.
+                self._pending = None
+                self._admitting += 1
+                try:
+                    self._do_prefill_handoff(req)
+                finally:
+                    self._admitting -= 1
+                did = True
+                continue
+            if getattr(req, "_attach_handoff", None) is not None:
+                # Hop 2: the KV is computed already; it parks in
+                # decode_wait, under the cap that bounds prefill-ahead KV,
+                # and the drain admits it into a slot.
+                if len(self.decode_wait) >= cap:
+                    break
+                self._pending = None
+                self._admitting += 1
+                try:
+                    self._do_attach(req)
+                finally:
+                    self._admitting -= 1
+                self._drain_decode_wait(pipelined)
+                did = True
+                continue
             n_req = len(req.prompt_tokens)
             if self._free_slot_index() is not None:
                 if self.decode_wait:
@@ -1212,14 +1315,29 @@ class Engine:
 
     def _sweep_decode_wait(self) -> bool:
         """Drop cancelled entries ANYWHERE in decode_wait, freeing their
-        parked KV even while older work blocks the front."""
+        parked KV even while older work blocks the front, and handoff
+        imports parked longer than ``handoff_ttl_s``: abandoned work whose
+        gateway rerouted (its release message is the fast path, this the
+        backstop).  A parked prefill-ahead is never swept by age: its
+        caller still waits on it."""
+        now = time.time()
+        ttl = self.cfg.handoff_ttl_s
         keep = collections.deque()
         swept = False
         for w in self.decode_wait:
-            if w.request.cancelled.is_set():
+            cancelled = w.request.cancelled.is_set()
+            expired = (ttl > 0 and w.from_handoff and w.t_parked
+                       and now - w.t_parked > ttl)
+            if cancelled or expired:
                 self._parked_kv_tokens -= w.k.shape[2]
                 if self.kv_ledger is not None:
-                    self.kv_ledger.note_sweep(int(w.k.shape[2]), "cancelled")
+                    self.kv_ledger.note_sweep(
+                        int(w.k.shape[2]),
+                        "cancelled" if cancelled else "ttl")
+                if not cancelled:
+                    logger.warning(
+                        "handoff %s parked %.1fs > ttl %.1fs; releasing",
+                        w.request.request_id, now - w.t_parked, ttl)
                 self._finish(w.request, "cancelled")
                 swept = True
             else:
@@ -1280,7 +1398,9 @@ class Engine:
     def _collect_followers(self, first_req, limit: int) -> list:
         """Pull same-bucket followers of ``first_req`` for one grouped
         prefill, up to ``limit`` in all.  The first pull that does not fit
-        parks as ``_pending``, so FIFO order holds."""
+        parks as ``_pending``, so FIFO order holds.  A hop request (a
+        handoff-only prefill or an attach) never joins a group: it parks
+        too, and admission's own branch serves it next cycle."""
         group = [first_req]
         bucket = self._bucket(len(first_req.prompt_tokens))
         while len(group) < limit and self._pending is None:
@@ -1292,7 +1412,10 @@ class Engine:
                 self._finish(nxt, "cancelled")
                 continue
             n = len(nxt.prompt_tokens)
-            if n <= self._max_bucket() and self._bucket(n) == bucket:
+            if (getattr(nxt, "_handoff_only", False)
+                    or getattr(nxt, "_attach_handoff", None) is not None):
+                self._pending = nxt
+            elif n <= self._max_bucket() and self._bucket(n) == bucket:
                 group.append(nxt)
             else:
                 self._pending = nxt  # another bucket or a stream: next cycle
@@ -1519,8 +1642,12 @@ class Engine:
             raise
         return slot_idx, first_token, n, lora_slot, lp_info
 
-    def _insert_prompt_kv(self, k, v, slot_idx: int, n: int) -> None:
-        """Write a bucketed prefill's KV into the cache (lane or pool)."""
+    def _insert_prompt_kv(self, k, v, slot_idx: int, n: int,
+                          skip_leading_blocks: int = 0) -> None:
+        """Write a bucketed prefill's KV into the cache (lane or pool).
+        ``skip_leading_blocks`` (pool only) routes that many leading
+        blocks' positions to the trash block: an attach's prefix blocks,
+        mapped from the cache, are never re-scattered."""
         if not self.paged:
             self.cache = transformer.insert_prefill(self.cache, k, v,
                                                     slot_idx, n)
@@ -1534,6 +1661,9 @@ class Engine:
         row_bl = self._row_blocks[slot_idx]
         # Wholly-padding bucket blocks write the trash block.
         phys = row_bl + [paged_lib.TRASH_BLOCK] * (nb_bucket - len(row_bl))
+        if skip_leading_blocks:
+            phys = ([paged_lib.TRASH_BLOCK] * skip_leading_blocks
+                    + phys[skip_leading_blocks:])
         self._sync_tables()
         self.cache = paged_lib.insert_prefill_paged(
             self.cache, k, v, slot_idx, phys, self._tables_host[slot_idx], n)
@@ -1587,6 +1717,88 @@ class Engine:
             req.error = str(e)
             self._finish(req, "error")
 
+    def _do_prefill_handoff(self, req: Request) -> None:
+        """Prefill with no slot and no cache write: the prompt KV leaves
+        the engine as a ``PrefillHandoff``.  TTFT here is the prefill alone;
+        the decode engine emits the token."""
+        if req.cancelled.is_set():
+            self._finish(req, "cancelled")
+            return
+        try:
+            self._stamp_prefill_start(req)
+            n = len(req.prompt_tokens)
+            lora_slot = (self.lora.slot_for(req.adapter)
+                         if self.lora is not None else -1)
+            first_token, k, v, lp_info = self._bucket_prefill(req, n,
+                                                              lora_slot)
+            req.handoff = kv_transfer.export_handoff(
+                req, k, v, n, int(first_token),
+                lp_info=tuple(_host(a) for a in lp_info),
+                quantize=getattr(req, "_handoff_quantize", None))
+            req.t_first_token = time.time()
+            self._record_ttft(req)
+            self._finish(req, "handoff")
+        except Exception as e:  # engine must survive a poison request
+            logger.exception("handoff prefill failed for %s", req.request_id)
+            req.error = str(e)
+            self._finish(req, "error")
+
+    def _handoff_device_kv(self, handoff):
+        """A handoff's KV as device tensors shaped like a bucketed
+        prefill's output (``[L, 1, pad_to, Kh, hd]``), so the insert seams
+        (lane slice, pool scatter, quantizing on an int8 cache) take it
+        unchanged.  An int8 wire stays f32 here: the insert re-quantizes
+        it to the identical values, where a cast to the compute dtype
+        first would not round-trip."""
+        k, v = handoff.kv_arrays(self.device)
+        n = handoff.n
+        if n <= self._max_bucket():
+            pad_to = self._bucket(n)
+        else:
+            step = max(self._max_bucket(), 1)
+            pad_to = min(-(-n // step) * step, self.cfg.max_seq_len)
+        lyr, _, kh, hd = k.shape
+        out = []
+        for x in (k, v):
+            p = torch.zeros((lyr, 1, pad_to, kh, hd), dtype=x.dtype,
+                            device=self.device)
+            p[:, 0, :n].copy_(x)
+            out.append(p)
+        return tuple(out)
+
+    def _do_attach(self, req: Request) -> None:
+        """Import a handoff's KV and park it in ``decode_wait``; the drain
+        inserts it into a freed slot (mapping cached prefix blocks,
+        registering the rest) and decode starts at the carried position.
+        The first token is emitted HERE, as a sync prefill-ahead park does:
+        TTFT on this engine is attach latency, and a one-token request
+        finishes without taking a slot."""
+        handoff = req._attach_handoff
+        if req.cancelled.is_set():
+            self._finish(req, "cancelled")
+            return
+        try:
+            lora_slot = (self.lora.slot_for(req.adapter)
+                         if self.lora is not None else -1)
+            k, v = self._handoff_device_kv(handoff)
+            if self._emit_first_token(req, handoff.first_token,
+                                      handoff.first_lp_info()):
+                return  # finished at attach; never needed a slot
+            w = _WaitingPrefill(
+                request=req, first_token=handoff.first_token, k=k, v=v,
+                n=handoff.n, lora_slot=lora_slot,
+                first_token_host=handoff.first_token, first_emitted=True,
+                from_handoff=True, t_parked=time.time())
+            self.decode_wait.append(w)
+            self._parked_kv_tokens += k.shape[2]
+            if self.kv_ledger is not None:
+                self.kv_ledger.note_park(int(k.shape[2]), "handoff")
+            self._usage_sync_kv()
+        except Exception as e:  # engine must survive a poison handoff
+            logger.exception("attach failed for %s", req.request_id)
+            req.error = str(e)
+            self._finish(req, "error")
+
     def _activate_slot_pipelined(self, slot_idx: int, req: Request,
                                  lora_slot: int, n: int, first_token,
                                  lp_info) -> None:
@@ -1614,12 +1826,29 @@ class Engine:
                         pipelined: bool) -> None:
         req = w.request
         try:
-            self._insert_prompt_kv(w.k, w.v, slot_idx, w.n)
-            self._prefix_register_row(slot_idx, req.prompt_tokens,
-                                      req.adapter)
+            skip_blocks = 0
+            if w.from_handoff and self._prefix_enabled:
+                # Whole blocks this engine caches for the prompt's prefix
+                # MAP into the row (refcounted, no writes): a repeated
+                # attach writes only its suffix, and a shared live block
+                # another row may be reading is never re-scattered.
+                reused = self._prefix_match_and_map(
+                    slot_idx, req.prompt_tokens, req.adapter,
+                    hashes=self._prefix_hashes_for(req))
+                skip_blocks = reused // self._block
+            self._insert_prompt_kv(w.k, w.v, slot_idx, w.n,
+                                   skip_leading_blocks=skip_blocks)
+            self._prefix_register_row(
+                slot_idx, req.prompt_tokens, req.adapter,
+                hashes=(self._prefix_hashes_for(req)
+                        if self._prefix_enabled else None))
             if pipelined:
                 self._activate_slot_pipelined(slot_idx, req, w.lora_slot,
                                               w.n, w.first_token, w.lp_info)
+                if w.first_emitted:
+                    # Attach: the token reached the request at admission;
+                    # the carry scatter above still decodes from it.
+                    self.slots[slot_idx].pending_first = None
             else:
                 self._register_slot(slot_idx, _Slot(
                     request=req, lora_slot=w.lora_slot, position=w.n))

@@ -771,7 +771,7 @@ def test_launch_counts_exact_under_replay(narrow):
     eng.start()  # the warm-up step runs here, before the window
     try:
         counters = decode_graphs._COUNTERS
-        for mod, attr in counters:
+        for mod, attr in counters.values():
             setattr(mod, attr, 0)
         _serve_running(eng, jobs)
         counts = decode_graphs.launch_counts()
@@ -779,10 +779,10 @@ def test_launch_counts_exact_under_replay(narrow):
         eng.stop()
     steps = int(eng.metrics_snapshot()["dispatch_steps_hist"]["sum"]
                 - snap0["dispatch_steps_hist"]["sum"])
-    want = dict.fromkeys(range(len(counters)), 0)
-    want[0] = len(jobs) * cfg.n_layers  # flash, one program per request
-    want[1] = steps * cfg.n_layers      # lane decode
-    assert dict(enumerate(counts)) == want
+    want = dict.fromkeys(counters, 0)
+    want["flash_prefill"] = len(jobs) * cfg.n_layers  # one program each
+    want["decode_attention"] = steps * cfg.n_layers   # lane decode
+    assert counts == want
     assert len(eng._graphs.shapes) > 1 and eng._graphs.replays > 0
 
 
@@ -804,3 +804,65 @@ def test_capture_failure_raises(dev):
     with pytest.raises(RuntimeError):
         graphs.run(block, 2, False)
     assert decode_graphs.launch_counts() == before
+
+
+def test_capture_keeps_only_its_threads_launches(dev):
+    """Another engine's thread launching while a graph is captured (a
+    prefill replica beside a decode replica in one process) keeps its
+    launch counted once and out of the graph's launches."""
+    import threading
+
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = randn(gen, 1, 16, 4, 64, dtype=torch.bfloat16)
+    k = randn(gen, 1, 16, 1, 64, dtype=torch.bfloat16)
+    mid_capture, resume = threading.Event(), threading.Event()
+
+    def block(n_steps, seeded):
+        mid_capture.set()
+        assert resume.wait(60)
+        return q * n_steps
+
+    graphs = decode_graphs.DecodeGraphs(gen, dev)
+    graphs.warm_up(lambda n_steps, seeded: q * n_steps)
+    fl.flash_attention(q, k, k)  # the library loads outside the window
+    before = decode_graphs.launch_counts()
+    capture = threading.Thread(target=graphs.run, args=(block, 2, False))
+    capture.start()
+    assert mid_capture.wait(60)
+    fl.flash_attention(q, k, k)  # this thread, while the other captures
+    resume.set()
+    capture.join(60)
+    torch.cuda.synchronize()
+    after = decode_graphs.launch_counts()
+    assert after == {**before, "flash_prefill": before["flash_prefill"] + 1}
+    assert graphs._graphs[(2, False)][2] == dict.fromkeys(after, 0)
+    graphs.run(block, 2, False)  # a replay adds the graph's none
+    assert decode_graphs.launch_counts() == after
+
+
+def test_int8_quantizers_divide_as_the_reference(dev):
+    """On the card the int8 quantizers' scales equal a true f32 division
+    (numpy's, as the reference divides) bitwise, and the KV round trip the
+    int8 handoff relies on (dequantize, quantize again) gives the same
+    values — a Python-scalar divisor would multiply by its reciprocal
+    instead."""
+    import numpy as np
+
+    from llm_instance_gateway_tpu_torch.models.transformer import _kv_quantize
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_weight
+
+    x = np.random.default_rng(3).standard_normal((8192, 128)).astype(
+        np.float32)
+    want = np.maximum(np.abs(x).max(-1) / np.float32(127.0),
+                      np.float32(1e-8))
+    xt = torch.from_numpy(x).to(dev)
+    q, s = _kv_quantize(xt)
+    np.testing.assert_array_equal(s.cpu().numpy(), want)
+    q2, s2 = _kv_quantize(q.float() * s[:, None])
+    assert torch.equal(q2, q) and torch.equal(s2, s)
+    w = quantize_weight(xt)
+    np.testing.assert_array_equal(
+        w["s"].cpu().numpy(),
+        np.maximum(np.abs(x).max(-2) / np.float32(127.0), np.float32(1e-8)))

@@ -561,9 +561,9 @@ def test_server_flags_build_a_grouped_pipelined_engine():
 
 def test_construction_serves_grouped_pipelined_config():
     """``prefill_batch`` and ``pipeline_decode`` left ``_UNSERVED``: an
-    engine takes them (the other three fields still raise)."""
+    engine takes them (disaggregation's fields left it too; only
+    speculative decoding still raises)."""
     cfg = teng.EngineConfig(prefill_batch=4, pipeline_decode=True)
     engine = teng.Engine(TINY_TEST, {}, cfg, device="cpu")
     assert engine.cfg.prefill_batch == 4
-    assert [f for f, _, _ in teng._UNSERVED] == [
-        "speculative_k", "role", "handoff_ttl_s"]
+    assert [f for f, _, _ in teng._UNSERVED] == ["speculative_k"]

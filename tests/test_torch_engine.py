@@ -298,13 +298,32 @@ def test_int8_kv_constructs(extra):
 
 
 class TestUnservedConfigRaises:
-    @pytest.mark.parametrize("field,value", [
-        ("speculative_k", 2), ("role", "prefill"), ("role", "decode"),
-        ("handoff_ttl_s", 5.0)])
+    @pytest.mark.parametrize("field,value", [("speculative_k", 2)])
     def test_construction_raises(self, field, value):
         cfg = teng.EngineConfig(**{field: value})
         with pytest.raises(NotImplementedError, match=field):
             teng.Engine(TINY_TEST, {}, cfg, device="cpu")
+
+    @pytest.mark.parametrize("field,value", [
+        ("role", "prefill"), ("role", "decode"), ("handoff_ttl_s", 5.0)])
+    def test_disaggregation_fields_construct_and_serve(self, field, value):
+        """Disaggregation is served: an engine with a two-hop role or a
+        handoff TTL constructs, reports its role, and answers a request."""
+        te = teng.Engine(
+            TINY_TEST,
+            params_from_numpy(jax.tree.map(np.asarray, jtf.init_params(
+                JAX_TINY, jax.random.PRNGKey(2), jnp.float32)), "cpu"),
+            teng.EngineConfig(**dict(ENGINE_CFG, **{field: value})),
+            eos_id=None, dtype=torch.float32, device="cpu")
+        assert getattr(te.cfg, field) == value
+        assert te.metrics_snapshot()["pool_role"] == te.cfg.role
+        te.start()
+        try:
+            r = te.generate(teng.Request(prompt_tokens=[256, 4],
+                                         max_new_tokens=3), timeout_s=60)
+            assert r.error is None and len(r.output_tokens) == 3
+        finally:
+            te.stop()
 
     def test_penalties_raise(self, engines):
         _, te = engines

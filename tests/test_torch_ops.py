@@ -230,16 +230,20 @@ def _port_files():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "llm_instance_gateway_tpu")
+    # ml_dtypes comes with JAX; the card's host has none (bf16 handoffs
+    # cross the wire as raw 16-bit words instead).
+    return top in ("jax", "jaxlib", "llm_instance_gateway_tpu", "ml_dtypes")
 
 
 def test_port_imports_nothing_of_jax():
-    """No module of the port (nor chip_smoke.py) imports jax, jaxlib or the
-    JAX package — not even a module of it that is framework-free."""
+    """No module of the port (nor chip_smoke.py) imports jax, jaxlib, the
+    JAX package — not even a module of it that is framework-free — or
+    ml_dtypes."""
     files = _port_files()
     assert len(files) > 15
     rel = {os.path.relpath(p, REPO) for p in files}
     for module in ("models/paged.py", "server/kv_ledger.py",
+                   "server/kv_transfer.py",
                    "ops/chunk_attention.py", "ops/paged_decode_attention.py"):
         # the walk covers every subpackage, the newest modules included
         assert f"llm_instance_gateway_tpu_torch/{module}" in rel

@@ -183,13 +183,29 @@ def test_cli_defaults_mirror_the_reference():
     args = api_http.build_parser().parse_args([])
     assert (args.device, args.decode_slots, args.max_seq_len,
             args.adaptive_steps, args.max_loras) == ("cuda", 8, 1024, 8, 4)
+    assert (args.role, args.handoff_ttl_s) == ("collocated", 60.0)
 
 
 @pytest.mark.parametrize("role", ["prefill", "decode"])
-def test_two_hop_roles_are_refused_at_startup(role):
-    """The port serves no /v1/prefill or /v1/attach, so a pod started as a
-    prefill or decode replica fails before it draws weights, instead of
-    advertising a role it cannot serve."""
-    with pytest.raises(NotImplementedError, match="role"):
-        api_http.make_server(["--device", "cpu", "--dtype", "float32",
-                              "--port", "0", "--role", role])
+def test_two_hop_roles_start_and_advertise(role):
+    """A pod started as a prefill or decode replica serves, and shows its
+    role in ``tpu:pool_role`` (the gateway's two-stage routing reads it)
+    and in /v1/models; the handoff TTL reaches the engine."""
+    httpd, engine, _ = api_http.make_server([
+        "--device", "cpu", "--dtype", "float32", "--host", "127.0.0.1",
+        "--port", "0", "--max-seq-len", "128", "--role", role,
+        "--handoff-ttl-s", "7.5"])
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    try:
+        assert (engine.cfg.role, engine.cfg.handoff_ttl_s) == (role, 7.5)
+        _, text = get(url + "/metrics")
+        assert f'tpu:pool_role{{role="{role}"}} 1' in text
+        assert json.loads(get(url + "/v1/models")[1])["role"] == role
+        status, _ = post(url + "/v1/completions",
+                         {"prompt": "hi", "max_tokens": 2})
+        assert status == 200
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
