@@ -15,10 +15,12 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    holds it against its plain PyTorch version (each output vector's error
    within 2^-6 of its largest value, SCALED_TOL, and every error within
    2e-2, ABS_TOL; the plain version with a
-   skipped K/V tile or a misread pool block must fail that check), and
-   times kernel, plain version and one PyTorch library call (a yardstick
-   only): flash prefill (B=1; B=4 at bucket 128, a grouped prefill), lane
-   decode, chunk attention (C=1024 at start
+   skipped K/V tile, a dropped split or a misread pool block must fail
+   that check), and times kernel, plain version and one PyTorch library
+   call (a yardstick only): flash prefill (B=1; B=4 at bucket 128, a
+   grouped prefill), lane decode (B=8 over S_max 1024, the target's
+   lanes, and over S_max 8192, the draft's lanes of the paged spec
+   server), chunk attention (C=1024 at start
    0/2048/5120 of an 8192-position lane, C=64 at start 640), paged
    decode (B=8, 64-token blocks, 128-block tables, shuffled, lengths
    0 .. 8192), and the int8 lane and paged decode kernels at the same
@@ -45,7 +47,12 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    each also with an int8 KV cache, and on a lane engine with int8
    weights; then a pipelined lane engine with prefill_batch=4 and a
    pipelined paged engine (prefix cache, stream lanes) — graph replays of
-   the decode block — against the CPU's sync engine;
+   the decode block — against the CPU's sync engine; then speculative
+   engines (K=3, lanes and paged, sync and pipelined — spec block graph
+   replays — with a seeded one-layer draft and with the perfect draft)
+   against the same engines on the CPU and the card's plain engine
+   (tokens, spec_cycles and spec_emitted exact), and penalized and
+   biased rows beside plain ones, sync and pipelined, card against CPU;
 5. serve   — starts the port's HTTP server at Llama-3-8B width and depth
    (random weights), loads a seeded LoRA adapter from .npz, answers six
    concurrent greedy completions (base and adapter rows, one streamed)
@@ -93,11 +100,33 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    mid-stream, KV back at its floor; wire bytes, hop walls, serialize /
    deserialize / attach ms and TTFTs per request; then all of it again
    with ``--kv-quantize int8`` (the int8 wire and pools);
+11. spec — speculative decoding and penalties at 8B (``phase_spec``): a
+   lane server and a paged pipelined server with ``--speculative 4`` and
+   the perfect draft (the target's own params), then a plain lane server
+   with penalized and biased rows; exact launch counts (flash 32 per
+   target prefill and per draft admission, the lane kernel 32 x (K-1) per
+   spec cycle), the spec families on /metrics, graph keys, prefix reuse,
+   KV at its floor, a penalty refused by the speculative server; prints
+   tokens per cycle (base and adapter rows), agreement with the serve
+   phase's plain answers, one replayed spec cycle's device ms and the
+   engine's eager block split by its profiler ranges into the draft's
+   and the verify's device ms, the paged verify at 8 long rows, decode
+   tokens/s spec against plain, and capture seconds per graph key;
 
 then prints one JSON line with every kernel's numbers (launches over the
-serve phases, the dispatch phase's B runs and the disagg phase's hops),
+serve phases, the dispatch phase's B runs, the disagg phase's hops and
+the spec phase's servers),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
+
+    python3 chip_smoke.py --ab DIR
+
+compares another checkout of the repo (DIR, e.g. the parent commit
+unpacked with ``git archive``) with this one on the same card: the lane
+serve phase (its decode step's eager and replayed profile) and the
+dispatch phase of each tree, every run a process of its own, in the
+order DIR, this, this, DIR; one ``[ab]`` JSON line per run, then the
+runs side by side.
 """
 
 from __future__ import annotations
@@ -316,7 +345,6 @@ def check_tensor_cores(name: str, path: str) -> None:
 
 def phase_kernels(torch) -> dict:
     """Each kernel against its plain version at the serving path's shapes."""
-    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
     from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
     import torch.nn.functional as F
 
@@ -358,19 +386,58 @@ def phase_kernels(torch) -> dict:
         log("kernels", "flash_prefill " + json.dumps(row))
     results["flash_prefill"] = flash_rows
 
-    # -- lane decode: B=8, S_max=1024, ragged lengths incl. 0, 1, 777, 1024 --
-    B, S_MAX = 8, 1024
-    lengths = torch.tensor([0, 1, 777, 1024, 5, 300, 512, 1000],
-                           dtype=torch.int32, device=dev)
+    # -- lane decode: the target's lanes (S_max=1024) and the draft's
+    # lanes of the paged spec server (S_max=8192, 16 splits of 512) --
+    results["decode_attention"] = [
+        _decode_row(torch, gen, 1024, [0, 1, 777, 1024, 5, 300, 512, 1000],
+                    (64, 128, 256, 512, 1024)),
+        _decode_row(torch, gen, 8192, [0, 1, 650, 8192, 5, 700, 1000, 6000],
+                    (128, 256, 512, 1024, 2048))]
+    results["chunk_attention"] = _chunk_rows(torch, gen)
+    results["paged_decode_attention"] = _paged_rows(torch, gen)
+    results["decode_attention_quant"] = _decode_quant_rows(torch, gen)
+    results["paged_decode_attention_quant"] = _paged_quant_rows(torch, gen)
+    return results
+
+
+def _decode_row(torch, gen, s_max: int, lens: list, sweep: tuple) -> dict:
+    """Lane decode at B=8 over an ``s_max`` lane with ragged ``lens``
+    (0 and 1 among them), against its plain version.  Yardstick: masked
+    SDPA."""
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    import torch.nn.functional as F
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    H, K, HD, B = 32, 8, 128, len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     q = torch.randn(B, H, HD, device=dev, generator=gen).to(bf16)
-    kc = torch.randn(B, S_MAX, K, HD, device=dev, generator=gen).to(bf16)
-    vc = torch.randn(B, S_MAX, K, HD, device=dev, generator=gen).to(bf16)
+    kc = torch.randn(B, s_max, K, HD, device=dev, generator=gen).to(bf16)
+    vc = torch.randn(B, s_max, K, HD, device=dev, generator=gen).to(bf16)
     got = dec.decode_attention(q, kc, vc, lengths)
     want = dec.decode_attention_reference(q, kc, vc, lengths)
     torch.cuda.synchronize()
-    errs = check_kernel("decode", got, want)
+    errs = check_kernel(f"decode S_max={s_max}", got, want)
     if got[0].abs().max().item() != 0.0:
         raise AssertionError("decode: a length-0 row must give zeros")
+    split_len, n_split = dec.split_plan(B, K, s_max,
+                                        dec.tile_positions(HD, bf16),
+                                        dec.sm_count(dev))
+    if n_split > 1:
+        # The check's reach: the plain version with the longest row's
+        # second split left out (a kernel that dropped it) must fail it.
+        i, cut = lens.index(max(lens)), slice(split_len, 2 * split_len)
+        keep = torch.ones(s_max, dtype=torch.bool, device=dev)
+        keep[cut] = False
+        short = lengths.clone()
+        short[i] -= split_len
+        dropped = dec.decode_attention_reference(
+            q, kc[:, keep], vc[:, keep], short)
+        errs["dropped_split_scaled_err"] = scaled_err(dropped[i], want[i])
+        if errs["dropped_split_scaled_err"] <= SCALED_TOL:
+            raise AssertionError(f"decode S_max={s_max}: a dropped split "
+                                 f"passes the check: {errs}")
+        del dropped
+    del want
     total_len = int(lengths.sum().item())
     kv_bytes = 2 * total_len * K * HD * 2
     nbytes = kv_bytes + 2 * q.numel() * 2 + B * 4
@@ -378,34 +445,25 @@ def phase_kernels(torch) -> dict:
             for _ in range(copies_for(kc.numel() * 4))]
     ms = time_ms(torch, dec.decode_attention, sets)
     plain_ms = time_ms(torch, dec.decode_attention_reference, sets)
-    mask = (torch.arange(S_MAX, device=dev)[None] < lengths[:, None])
+    mask = (torch.arange(s_max, device=dev)[None] < lengths[:, None])
     bsets = [(a[:, :, None], b.transpose(1, 2).contiguous(),
               c.transpose(1, 2).contiguous(), mask[:, None, None])
              for a, b, c, _ in sets]
     lib_ms = time_ms(torch, lambda a, b, c, m: F.scaled_dot_product_attention(
         a, b, c, attn_mask=m, enable_gqa=True), bsets)
-    split_len, n_split = dec.split_plan(B, K, S_MAX,
-                                        dec.tile_positions(HD, bf16),
-                                        dec.sm_count(dev))
-    row = dict(shape=f"B={B} S_max={S_MAX} H={H} K={K} hd={HD} bf16 "
-               f"lengths={lengths.tolist()}",
+    del bsets
+    row = dict(shape=f"B={B} S_max={s_max} H={H} K={K} hd={HD} bf16 "
+               f"lengths={lens}",
                **errs, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                **_bound(nbytes, 2 * 2 * total_len * H * HD),
                **host_us_pair(torch, "decode_attention", dec.decode_attention,
                               sets[0]),
                split_len=split_len, n_split=n_split,
                **device_ms(torch, dec.decode_attention, sets),
-               **split_sweep(
-                   torch, dec.decode_attention_split, sets,
-                   (64, 128, 256, 512, 1024)))
+               **split_sweep(torch, dec.decode_attention_split, sets, sweep))
     row.update(_split_fracs(row))
     log("kernels", "decode_attention " + json.dumps(row))
-    results["decode_attention"] = [row]
-    results["chunk_attention"] = _chunk_rows(torch, gen)
-    results["paged_decode_attention"] = _paged_rows(torch, gen)
-    results["decode_attention_quant"] = _decode_quant_rows(torch, gen)
-    results["paged_decode_attention_quant"] = _paged_quant_rows(torch, gen)
-    return results
+    return row
 
 
 def _int8_kv(torch, gen, shape):
@@ -809,6 +867,14 @@ def phase_reference(torch) -> None:
     _pipelined_reference(torch, cfg, cpu_params, gpu_params)
     for kv_quant in (None, "int8"):
         _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant)
+    draft_cfg = dataclasses.replace(cfg, name="narrow-draft", d_model=256,
+                                    n_layers=1, n_heads=4, n_kv_heads=1,
+                                    head_dim=64, d_ff=512)
+    cpu_draft = transformer.init_params(draft_cfg, seed=9,
+                                        dtype=torch.float32, device="cpu")
+    _spec_reference(torch, cfg, (cpu_params, gpu_params), draft_cfg,
+                    (cpu_draft, to_card(cpu_draft)))
+    _penalty_reference(torch, cfg, cpu_params, gpu_params)
 
 
 def _run_engine(eng, prompts, max_new: int = 12) -> list:
@@ -933,6 +999,123 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
             f"{eng._graphs.replays} graph replays")
 
 
+def _serve_all(eng, reqs) -> list:
+    """Submit every request, then start ``eng`` (one admission for all, so
+    two engines dispatch alike); returns the streams."""
+    for r in reqs:
+        eng.submit(r)
+    eng.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(300) or r.error:
+                raise AssertionError(f"engine on {eng.device}: {r.error}")
+        return [list(r.output_tokens) for r in reqs]
+    finally:
+        eng.stop()
+
+
+def _spec_reference(torch, cfg, params, draft_cfg, draft_params) -> None:
+    """Speculative engines (K=3, a static 4 steps a dispatch, greedy) on
+    the card against the same engines on the CPU and against the card's
+    plain engine: identical tokens, and spec_cycles / spec_emitted equal
+    the CPU's — on lanes and on a paged engine with prefix cache and two
+    stream lanes (a shared-prefix pair, two prompts beyond the largest
+    bucket, which do not speculate), sync and pipelined (the spec block's
+    graph replays), with a seeded one-layer draft and with the perfect
+    draft (the target's own params)."""
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request)
+
+    lanes = dict(max_seq_len=256, prefill_buckets=(16, 64, 128),
+                 adaptive_steps=0, decode_steps_per_sync=4)
+    paged = dict(lanes, decode_slots=4, max_seq_len=512, paged_kv_block=16,
+                 prefix_cache=True, stream_lanes=2)
+    prefix = [256] + [65 + (7 * i) % 50 for i in range(80)]
+    prompts = {
+        "lanes": [[256] + list(range(65, 65 + n)) for n in (5, 9, 40, 100)],
+        "paged": [prefix + [90, 91, 92], prefix + [100, 101],
+                  [256] + [70 + (3 * i) % 40 for i in range(299)],
+                  [256] + [66 + (5 * i) % 45 for i in range(199)],
+                  [256] + list(range(80, 92))]}
+    for layout, base in (("lanes", lanes), ("paged", paged)):
+        for pipelined in (False, True):
+            ecfg = dict(base, pipeline_decode=pipelined)
+            plain = _serve_all(
+                Engine(cfg, params[1], EngineConfig(**ecfg), eos_id=257,
+                       dtype=torch.float32, device="cuda"),
+                [Request(prompt_tokens=p, max_new_tokens=12)
+                 for p in prompts[layout]])
+            for draft in ("small", "perfect"):
+                got = {}
+                for i, dev in enumerate(("cpu", "cuda")):
+                    dp, dc = ((params[i], cfg) if draft == "perfect"
+                              else (draft_params[i], draft_cfg))
+                    eng = Engine(cfg, params[i], EngineConfig(
+                        speculative_k=3, **ecfg), eos_id=257,
+                        dtype=torch.float32, device=dev, draft_params=dp,
+                        draft_cfg=dc)
+                    toks = _serve_all(eng, [
+                        Request(prompt_tokens=p, max_new_tokens=12)
+                        for p in prompts[layout]])
+                    got[dev] = (toks, eng.spec_cycles, eng.spec_emitted)
+                    if dev == "cuda":
+                        keys = eng._graphs.spec_shapes
+                what = (f"spec reference ({layout}, "
+                        f"{'pipelined' if pipelined else 'sync'}, {draft} "
+                        f"draft)")
+                if got["cuda"] != got["cpu"] or got["cuda"][0] != plain:
+                    raise AssertionError(f"{what}: card {got['cuda']} cpu "
+                                         f"{got['cpu']} plain {plain}")
+                if got["cuda"][1] <= 0 or not keys:
+                    raise AssertionError(f"{what}: no spec cycle ({keys})")
+                log("reference", f"{what}: tokens equal on cuda, cpu and the "
+                    f"card's plain engine ({sum(map(len, plain))} tokens); "
+                    f"spec_cycles {got['cuda'][1]}, spec_emitted "
+                    f"{got['cuda'][2]} equal the cpu's; spec graph keys "
+                    f"{keys}")
+
+
+def _penalty_reference(torch, cfg, cpu_params, gpu_params) -> None:
+    """Presence 1.5 and frequency 0.7, one forced (+100) and one banned
+    (-100) logit_bias token, beside unpenalized rows, sync and pipelined
+    (the penalized decode block's graph): the card's tokens equal the
+    CPU's."""
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request, SamplingParams)
+
+    sps = [SamplingParams(presence_penalty=1.5, frequency_penalty=0.7),
+           SamplingParams(),
+           SamplingParams(logit_bias={77: 100.0, 66: -100.0}),
+           SamplingParams(presence_penalty=1.5, frequency_penalty=0.7,
+                          logit_bias={66: -100.0}),
+           SamplingParams()]
+    prompts = [[256] + list(range(65, 65 + n)) for n in (5, 9, 12, 40, 100)]
+    for pipelined in (False, True):
+        got = {}
+        for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            eng = Engine(cfg, params, EngineConfig(
+                max_seq_len=256, prefill_buckets=(16, 64, 128),
+                adaptive_steps=0, decode_steps_per_sync=4,
+                pipeline_decode=pipelined), eos_id=257, dtype=torch.float32,
+                device=dev)
+            got[dev] = _serve_all(eng, [
+                Request(prompt_tokens=p, max_new_tokens=16, sampling=sp)
+                for p, sp in zip(prompts, sps)])
+            if dev == "cuda":
+                keys = eng._graphs.shapes
+        what = f"penalty reference ({'pipelined' if pipelined else 'sync'})"
+        if got["cuda"] != got["cpu"]:
+            raise AssertionError(f"{what}: card {got['cuda']} cpu "
+                                 f"{got['cpu']}")
+        if set(got["cuda"][2]) != {77} or 66 in got["cuda"][3]:
+            raise AssertionError(f"{what}: logit_bias not applied: "
+                                 f"{got['cuda']}")
+        if not any(penalized for _, _, penalized in keys):
+            raise AssertionError(f"{what}: no penalized graph key: {keys}")
+        log("reference", f"{what}: tokens equal on cuda and cpu (f32), the "
+            f"forced token at every step, graph keys {keys}")
+
+
 def _post(url: str, body: dict, timeout: float = 600.0):
     import urllib.error
     import urllib.request
@@ -974,6 +1157,21 @@ def check_only(launches: dict, expected: dict, what: str) -> None:
 
 
 INT8_FLAGS = ["--quantize", "int8", "--kv-quantize", "int8"]
+# The lane serve's traffic: (prompt characters, adapter, streamed); with the
+# BOS, buckets 16, 64, 128, 512, 1024, 1024 — the longest leaves room for
+# max_tokens under --max-seq-len 1024.
+SERVE_JOBS = [(12, None, False), (50, "smoke-r8", False), (120, None, True),
+              (400, "smoke-r8", False), (700, None, False),
+              (900, "smoke-r8", False)]
+SERVE_TEXT = "the quick brown fox jumps over the lazy dog " * 40
+
+
+def _serve_body(n_chars: int, model, stream: bool, max_tokens: int) -> dict:
+    body = {"prompt": SERVE_TEXT[:n_chars], "max_tokens": max_tokens,
+            "temperature": 0.0, "stream": stream}
+    if model:
+        body["model"] = model
+    return body
 
 
 def phase_serve(torch, params=None, adapter_path=None, quant=False):
@@ -1028,24 +1226,18 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         if status != 200:
             raise AssertionError(f"adapter load: {status} {text}")
 
-        # prompt characters (+ BOS) -> buckets 16, 64, 128, 512, 1024, 1024;
-        # the longest leaves room for max_tokens under --max-seq-len
-        jobs = [(12, None, False), (50, "smoke-r8", False),
-                (120, None, True), (400, "smoke-r8", False),
-                (700, None, False), (900, "smoke-r8", False)]
+        jobs = SERVE_JOBS
         max_tokens = 32
-        letters = "the quick brown fox jumps over the lazy dog "
+        submitted: list = []
+        _record(engine, "submit", submitted)
         snap0 = engine.metrics_snapshot()
         reset_launches()
         results = [None] * len(jobs)
 
         def run(i, n_chars, model, stream):
-            body = {"prompt": (letters * 40)[:n_chars], "max_tokens": max_tokens,
-                    "temperature": 0.0, "stream": stream}
-            if model:
-                body["model"] = model
             t = time.time()
-            results[i] = _post(url + "/v1/completions", body) + (time.time() - t,)
+            results[i] = _post(url + "/v1/completions", _serve_body(
+                n_chars, model, stream, max_tokens)) + (time.time() - t,)
 
         t_serve = time.time()
         threads = [threading.Thread(target=run, args=(i, *job))
@@ -1116,6 +1308,10 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         log(tag, "llama3-8b (32 layers, random bf16 weights"
             + (", --quantize int8 --kv-quantize int8" if quant else "")
             + "): " + json.dumps(stats))
+        # The greedy token ids per (prompt, adapter): the spec phase's
+        # plain reference (the byte tokenizer drops ids >= 256 from text).
+        stats["answers"] = {(tuple(r.prompt_tokens), r.adapter):
+                            list(r.output_tokens) for r in submitted}
         # After the counted window: these launches are not the serve's.
         stats["profile"] = phase_profile(torch, engine, prefill=not quant)
         return stats, params, adapter_path
@@ -1664,9 +1860,10 @@ def _http(url: str, data: bytes, ctype: str = "application/json",
         return e.code, e.read(), e.headers
 
 
-def _start_server(argv, params, adapter_path: str):
-    """An 8B server over ``params`` with the smoke's adapter loaded, its
-    HTTP loop on a thread; returns (httpd, engine, url)."""
+def _start_server(argv, params, adapter_path: str, draft_params=None):
+    """An 8B server over ``params`` (and ``draft_params`` for its draft)
+    with the smoke's adapter loaded, its HTTP loop on a thread; returns
+    (httpd, engine, url)."""
     import threading
 
     from llm_instance_gateway_tpu_torch.server import api_http
@@ -1674,7 +1871,7 @@ def _start_server(argv, params, adapter_path: str):
     httpd, engine, _ = api_http.make_server(
         ["--model", "llama3-8b", "--max-seq-len", "1024", "--decode-slots",
          "8", "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
-        + argv, params=params)
+        + argv, params=params, draft_params=draft_params)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
     status, text = _post(url + "/v1/load_lora_adapter",
@@ -2088,11 +2285,467 @@ KERNEL_SOURCES = {
 }
 
 
+SPEC_K = 4
+SPEC_FLAGS = ["--speculative", str(SPEC_K), "--draft-model", "llama3-8b"]
+
+
+def _wave(url: str, bodies: list) -> list:
+    """POST every body to /v1/completions at once; returns (status, text,
+    seconds) per body."""
+    import threading
+
+    results = [None] * len(bodies)
+
+    def run(i):
+        t = time.time()
+        results[i] = _post(url + "/v1/completions", bodies[i]) + (
+            time.time() - t,)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(900)
+    for i, res in enumerate(results):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"request {i}: {res and res[:2]}")
+    return results
+
+
+def _count_spec_programs(engine) -> dict:
+    """Count bucketed prefills and chunk programs (``_count_programs``) and
+    the draft's admissions that prefilled it (flash launches follow each),
+    keeping every admitted row's speculation flag."""
+    programs = {"prefill": 0, "chunk": 0, "draft_admit": 0, "rows": []}
+    _count_programs(engine, programs)
+    admit = engine._draft_admit
+
+    def call(slot_idx, prompt):
+        admit(slot_idx, prompt)
+        ok = bool(engine._slot_spec_ok[slot_idx])
+        programs["draft_admit"] += ok
+        programs["rows"].append((len(prompt), ok))
+
+    engine._draft_admit = call
+    return programs
+
+
+def _check_admits(tag: str, programs: dict, n_short: int) -> None:
+    """Every greedy prompt within the largest bucket was mirrored into the
+    draft's lanes: a failed draft admission downgrades its row silently
+    (the reference's behaviour) and would shrink the expected flash count
+    with it."""
+    short = [ok for length, ok in programs["rows"] if length <= 1024]
+    if len(short) != n_short or not all(short):
+        raise AssertionError(f"{tag}: draft admissions {programs['rows']}, "
+                             f"want {n_short} speculating rows")
+
+
+def _spec_row_tokens(engine, store: dict) -> None:
+    """Per spec block (sync loop), the tokens each row emitted per cycle it
+    took part in, summed by base and adapter rows."""
+    run = engine._run_spec_block
+    k1 = engine.cfg.speculative_k + 1
+
+    def call(n_cycles):
+        out = run(n_cycles)
+        valid = out[:, :, 1].reshape(n_cycles, k1, -1).sum(1).cpu()
+        for i, slot in enumerate(engine.slots):
+            if slot is not None:
+                row = valid[:, i]
+                acc = store["adapter" if slot.request.adapter else "base"]
+                acc[0] += int(row.sum())
+                acc[1] += int((row > 0).sum())
+        return out
+
+    engine._run_spec_block = call
+
+
+def _wait_processed(eng) -> None:
+    """Pipelined: wait until every replayed block (spec or plain) is
+    processed, so the steps histogram and the spec counters are final."""
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        done = sum(eng.profiler.dispatches.get(p, 0)
+                   for p in ("spec", "decode"))
+        if done == eng._graphs.replays:
+            return
+        time.sleep(0.01)
+    raise AssertionError("a dispatched block was never processed")
+
+
+def _kv_floor(tag: str, engine) -> None:
+    deadline = time.time() + 30
+    while (engine.metrics_snapshot()["kv_cache_usage_perc"] > 0
+           and time.time() < deadline):
+        time.sleep(0.05)
+    snap = engine.metrics_snapshot()
+    if snap["kv_cache_usage_perc"] != 0.0 or (
+            "kv_ledger" in snap
+            and snap["kv_ledger"]["states"]["active"] != 0):
+        raise AssertionError(f"{tag}: KV not back at its floor: "
+                             f"{snap['kv_cache_usage_perc']}")
+
+
+def _block_rate(snap0: dict, snap1: dict, n_requests: int) -> float:
+    """Decode tokens per second of decode-block wall between two
+    snapshots: tokens emitted by decode and spec blocks (every request's
+    first token comes from its prefill) over the blocks' walls."""
+    tokens = snap1["total_generated"] - snap0["total_generated"] - n_requests
+    wall = sum(snap1["block_s"].get(p, 0.0) - snap0["block_s"].get(p, 0.0)
+               for p in ("spec", "decode"))
+    return tokens / wall if wall > 0 else float("nan")
+
+
+def _rate_snap(eng) -> dict:
+    return {"total_generated": eng.total_generated,
+            "block_s": dict(eng.profiler.dispatch_seconds)}
+
+
+def _first_difference(a: list, b: list):
+    """The first position where two token lists differ, None if equal."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _spec_checks(tag: str, engine, launches: dict, programs: dict,
+                 snap0: dict, snap1: dict, url: str, paged: bool) -> dict:
+    """Exact launch counts of a speculative server's window: flash 32 per
+    bucketed prefill and per draft admission, the lane kernel 32 x (K-1)
+    per spec cycle (the draft's decode steps) and the target's decode
+    kernel 32 per plain step, chunk 32 per chunk program; and the
+    /metrics families."""
+    import urllib.request
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+
+    n = cfg.n_layers
+    cycles = snap1["spec_cycles"] - snap0["spec_cycles"]
+    plain = int(snap1["dispatch_steps_hist"]["sum"]
+                - snap0["dispatch_steps_hist"]["sum"])
+    if cycles <= 0:
+        raise AssertionError(f"{tag}: no spec cycle")
+    target_kernel = "paged_decode_attention" if paged else "decode_attention"
+    want = {"flash_prefill": n * (programs["prefill"]
+                                  + programs["draft_admit"]),
+            "decode_attention": n * (SPEC_K - 1) * cycles}
+    if plain:
+        want[target_kernel] = want.get(target_kernel, 0) + n * plain
+    if programs["chunk"]:
+        want["chunk_attention"] = n * programs["chunk"]
+    check_only(launches, want, tag)
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
+        text = f.read().decode()
+    spec_lines = [ln for ln in text.splitlines()
+                  if ln.startswith(("tpu:spec_cycles ",
+                                    "tpu:spec_tokens_per_cycle "))]
+    if len(spec_lines) != 2:
+        raise AssertionError(f"{tag}: /metrics spec families {spec_lines}")
+    return {"spec_cycles": cycles, "plain_steps": plain,
+            "programs": {k: v for k, v in programs.items() if k != "rows"},
+            "metrics": spec_lines, "launches": launches,
+            "spec_graph_keys": engine._graphs.spec_shapes,
+            "decode_graph_keys": engine._graphs.shapes,
+            "capture_s_by_key": {
+                f"{key[0]}{tuple(key[1:])}": round(v, 3)
+                for key, v in engine._graphs.capture_s_by_key.items()}}
+
+
+def _spec_cycle_profile(torch, engine) -> dict:
+    """One spec cycle at 8 rows of 100-800 tokens (mixed adapters): the
+    engine's graph replay (device ms, idle share), and the engine's eager
+    block under torch.profiler split by its own ranges into the draft's
+    part (catch-up and K-1 decode steps) and the target's verify, the
+    rest being acceptance, sampling and logprobs.  The server is idle; the
+    rows are set up here."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d, b = engine._dev, engine.cfg.decode_slots
+    dev = torch.device("cuda")
+    lengths = torch.tensor([100 * (i + 1) for i in range(b)], device=dev)
+    d["tokens"].copy_(torch.arange(b, device=dev) + 65)
+    d["positions"].copy_(lengths)
+    d["remaining"].fill_(10 ** 6)
+    d["has_extra"].fill_(False)
+    d["spec_ok"].fill_(True)
+    d["temp"].fill_(0.0)
+    d["lora"].copy_(torch.tensor([-1, 0] * (b // 2), device=dev))
+    graphs = engine._graphs
+    cycle = _profile(torch, "spec cycle (the engine's graph replay)",
+                     lambda: graphs.run(engine._spec_block, 1, SPEC_K, False,
+                                        kind="spec"), 3)
+    reps = 3
+    engine._spec_block(1, SPEC_K, False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            engine._spec_block(1, SPEC_K, False)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    parts = {"spec_draft": 0.0, "spec_verify": 0.0}
+    total_us = 0.0
+    for ev in prof.events():
+        if ev.device_type == cpu and ev.name in parts:
+            parts[ev.name] += ev.device_time_total / reps / 1e3
+        elif ev.device_type != cpu and not getattr(ev, "is_user_annotation",
+                                                   False):
+            total_us += ev.device_time_total
+    eager_ms = total_us / reps / 1e3
+    split = {"eager_device_ms": eager_ms or "not measured",
+             "draft_ms": parts["spec_draft"] or "not measured",
+             "verify_ms": parts["spec_verify"] or "not measured",
+             "rest_ms": (eager_ms - sum(parts.values())) if eager_ms
+             else "not measured"}
+    log("profile", "spec cycle, eager block split by its ranges: "
+        + json.dumps(split))
+    return {"cycle": cycle, "split": split}
+
+
+def _paged_verify_profile(torch, engine) -> dict:
+    """The paged verify (``extend_step_paged``, K+1 tokens) over 8 rows of
+    4000-5750 tokens: the gathered full view of every row, per layer."""
+    from llm_instance_gateway_tpu_torch.models import paged
+
+    dev = torch.device("cuda")
+    b, block = engine.cfg.decode_slots, engine._block
+    m = engine.cache["tables"].shape[1]
+    lengths = [4000 + 250 * i for i in range(b)]
+    tables = torch.zeros(b, m, dtype=torch.int32)
+    nxt = 1
+    for i, n in enumerate(lengths):
+        need = -(-(n + SPEC_K + 1) // block)
+        tables[i, :need] = torch.arange(nxt, nxt + need)
+        nxt += need
+    cache = dict(engine.cache, tables=tables.to(dev))
+    pos = torch.tensor(lengths, device=dev)
+    vpos = pos[:, None] + torch.arange(SPEC_K + 1, device=dev)[None]
+    vtokens = (vpos % 200 + 65).long()
+    slots = torch.tensor([-1, 0] * (b // 2), device=dev)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+
+    def verify():
+        lg, _ = paged.extend_step_paged(
+            engine.model_cfg, engine.params, cache, vtokens, vpos,
+            lora_bufs=engine.lora.buffers, slot_ids=slots, active=active)
+        return lg.argmax(-1)
+
+    return _graph_profile(torch, "paged verify over 8 rows of 4000-5750",
+                          verify, 2)
+
+
+def phase_spec(torch, params, adapter_path: str, plain_answers: dict) -> dict:
+    """Speculative decoding and penalties at Llama-3-8B width and depth
+    (bf16, the serve phase's weights and adapter), one server at a time:
+
+    (a) the lane server with ``--speculative 4`` and the perfect draft (the
+    target's own params): the serve phase's six prompts (three on the
+    adapter, one streamed), 32 greedy tokens, twice (the second wave with
+    every graph captured, timed); exact launches, the spec families on
+    /metrics, the graph keys, KV at its floor, a penalty answered 400 in
+    the reference's words; printed: tokens per cycle for base and adapter
+    rows (the draft has no LoRA), each answer's first difference from the
+    serve phase's plain answer (bf16: the verify's einsum and the decode
+    kernel round otherwise, so near-ties may split), one replayed cycle's
+    device ms with its draft and verify parts;
+    (b) paged and pipelined (64-token blocks x 768, prefix cache,
+    ``--max-seq-len 8192``, a static 4 steps a dispatch) with the perfect
+    draft: the paged serve's five shared-prefix prompts and one ~3000-token
+    prompt that streams in chunks and never speculates; the checks of (a)
+    and prefix reuse; the paged verify's device ms at 8 long rows;
+    (c) the lane server without speculation: the six prompts twice (the
+    plain decode rate beside (a)'s), then presence 2.0 and frequency 2.0
+    rows and a row with a +100 logit_bias beside plain rows: the biased
+    row emits its token at every step, the penalized graph key appears,
+    the launches are the serve phase's."""
+    import gc
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+
+    n = cfg.n_layers
+    out = {}
+    bodies = [_serve_body(c, m, st, 32) for c, m, st in SERVE_JOBS]
+    by_path = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            by_path[k] = by_path.get(k, 0) + v
+
+    def stop(httpd, engine):
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- (a) lanes, sync loop, perfect draft --
+    tag = "spec-lanes"
+    t0 = time.time()
+    httpd, eng, url = _start_server(SPEC_FLAGS, params, adapter_path,
+                                    draft_params=params)
+    try:
+        reqs: list = []
+        _record(eng, "submit", reqs)
+        programs = _count_spec_programs(eng)
+        per_row = {"base": [0, 0], "adapter": [0, 0]}
+        _spec_row_tokens(eng, per_row)
+        snap0 = eng.metrics_snapshot()
+        reset_launches()
+        _wave(url, bodies)
+        launches = read_launches()
+        snap1 = eng.metrics_snapshot()
+        _check_admits(tag, programs, len(bodies))
+        stats = _spec_checks(tag, eng, launches, programs, snap0, snap1, url,
+                             paged=False)
+        add(launches)
+        for r in reqs:
+            if not (len(r.output_tokens) == 32 or r.finish_reason == "stop"):
+                raise AssertionError(f"{tag}: {r.finish_reason} after "
+                                     f"{len(r.output_tokens)} tokens")
+        _kv_floor(tag, eng)
+        stats["agreement_first_difference"] = [
+            _first_difference(r.output_tokens, plain_answers[
+                (tuple(r.prompt_tokens), r.adapter)]) for r in reqs]
+        stats["tokens_per_cycle"] = {
+            k: (v[0] / v[1] if v[1] else None) for k, v in per_row.items()}
+        # The second wave: every graph captured; the decode rate.
+        r0 = _rate_snap(eng)
+        t_wave = time.time()
+        _wave(url, bodies)
+        stats["wave2_s"] = time.time() - t_wave
+        stats["decode_tokens_per_s"] = _block_rate(r0, _rate_snap(eng),
+                                                   len(bodies))
+        status, text = _post(url + "/v1/completions", {
+            "prompt": "penalized", "max_tokens": 4, "presence_penalty": 1.0})
+        refusal = ("presence/frequency penalties and logit_bias are not "
+                   "supported on a speculative engine")
+        if status != 400 or refusal not in text:
+            raise AssertionError(f"{tag}: a penalty answered {status} {text}")
+        stats["phase_s"] = time.time() - t0
+        log(tag, json.dumps({k: v for k, v in stats.items()
+                             if k != "launches"}))
+        stats["profile"] = _spec_cycle_profile(torch, eng)
+        out["lanes"] = stats
+    finally:
+        stop(httpd, eng)
+
+    # -- (b) paged pool, pipelined loop, perfect draft --
+    tag = "spec-paged"
+    t0 = time.time()
+    httpd, eng, url = _start_server(
+        ["--max-seq-len", "8192", "--paged-kv-block", "64",
+         "--paged-kv-blocks", "768", "--prefix-cache", "--pipeline-decode",
+         "--adaptive-steps", "0", "--decode-steps", "4"] + SPEC_FLAGS,
+        params, adapter_path, draft_params=params)
+    try:
+        programs = _count_spec_programs(eng)
+        system = ("You are a careful assistant for a travel company. "
+                  * 12)[:600]
+        questions = ["Where can I fly?", "What does a refund cost me now?",
+                     "Which hotels near the old harbour allow pets inside?",
+                     "Can I move my booking from May to June without fees??",
+                     "Is breakfast included?"]
+        pbodies = [{"prompt": system + q, "max_tokens": 32,
+                    "temperature": 0.0, **({"model": "smoke-r8"} if i % 2
+                                           else {})}
+                   for i, q in enumerate(questions)]
+        long_prompt = ("A long report: " + SERVE_TEXT * 2)[:3000]
+        pbodies.append({"prompt": long_prompt, "max_tokens": 32,
+                        "temperature": 0.0})
+        snap0 = eng.metrics_snapshot()
+        reset_launches()
+        _wave(url, pbodies)
+        _wait_processed(eng)
+        launches = read_launches()
+        snap1 = eng.metrics_snapshot()
+        _check_admits(tag, programs, len(questions))
+        stats = _spec_checks(tag, eng, launches, programs, snap0, snap1, url,
+                             paged=True)
+        add(launches)
+        long_rows = [ok for length, ok in programs["rows"] if length > 1024]
+        if long_rows != [False] or programs["chunk"] < 3:
+            raise AssertionError(f"{tag}: the long prompt's rows "
+                                 f"{long_rows}, chunks {programs['chunk']}")
+        reused = snap1["prefix_reused_tokens"] - snap0["prefix_reused_tokens"]
+        if reused <= 0:
+            raise AssertionError(f"{tag}: no prefix reuse")
+        _kv_floor(tag, eng)
+        stats["prefix_reused_tokens"] = reused
+        stats["phase_s"] = time.time() - t0
+        log(tag, json.dumps({k: v for k, v in stats.items()
+                             if k != "launches"}))
+        stats["profile"] = _paged_verify_profile(torch, eng)
+        out["paged"] = stats
+    finally:
+        stop(httpd, eng)
+
+    # -- (c) lanes without speculation: the plain rate, then penalties --
+    tag = "penalties"
+    t0 = time.time()
+    httpd, eng, url = _start_server([], params, adapter_path)
+    try:
+        _wave(url, bodies)  # captures the plain graphs
+        r0 = _rate_snap(eng)
+        _wave(url, bodies)
+        plain_rate = _block_rate(r0, _rate_snap(eng), len(bodies))
+        reqs = []
+        _record(eng, "submit", reqs)
+        forced = 4242
+        pen = [{"presence_penalty": 2.0, "frequency_penalty": 2.0},
+               {"presence_penalty": 2.0, "frequency_penalty": 2.0,
+                "model": "smoke-r8"},
+               {"logit_bias": {str(forced): 100}}, {}, {}]
+        snap0 = eng.metrics_snapshot()
+        reset_launches()
+        _wave(url, [dict(_serve_body(c, m, False, 32), **extra)
+                    for (c, m, _), extra in zip(SERVE_JOBS, pen)])
+        launches = read_launches()
+        snap1 = eng.metrics_snapshot()
+        add(launches)
+        steps = int(snap1["dispatch_steps_hist"]["sum"]
+                    - snap0["dispatch_steps_hist"]["sum"])
+        check_only(launches, {"flash_prefill": len(pen) * n,
+                              "decode_attention": steps * n}, tag)
+        biased = [r for r in reqs if r.sampling.logit_bias]
+        if len(biased) != 1 or set(biased[0].output_tokens) != {forced}:
+            raise AssertionError(f"{tag}: biased row "
+                                 f"{[r.output_tokens for r in biased]}")
+        keys = eng._graphs.shapes
+        if not any(p for _, _, p in keys):
+            raise AssertionError(f"{tag}: no penalized graph key: {keys}")
+        _kv_floor(tag, eng)
+        penalized = [r for r in reqs if r.sampling.presence_penalty]
+        stats = {"plain_decode_tokens_per_s": plain_rate,
+                 "spec_decode_tokens_per_s":
+                 out["lanes"]["decode_tokens_per_s"],
+                 "graph_keys": keys, "steps": steps, "launches": launches,
+                 "penalized_first_difference": [
+                     _first_difference(r.output_tokens, plain_answers[
+                         (tuple(r.prompt_tokens), r.adapter)])
+                     for r in penalized],
+                 "penalized_distinct_tokens": [len(set(r.output_tokens))
+                                               for r in penalized],
+                 "capture_s_by_key": {
+                     f"{key[0]}{tuple(key[1:])}": round(v, 3)
+                     for key, v in eng._graphs.capture_s_by_key.items()},
+                 "phase_s": time.time() - t0}
+        log(tag, json.dumps({k: v for k, v in stats.items()
+                             if k != "launches"}))
+        out["penalties"] = stats
+    finally:
+        stop(httpd, eng)
+    out["launches"] = by_path
+    return out
+
+
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
-    paged, dispatch, disagg, int8 disagg)."""
+    paged, dispatch, disagg, int8 disagg, spec)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -2167,12 +2820,15 @@ def main() -> int:
     dispatch = phase_dispatch(torch, params)
     disagg = phase_disagg(torch, params, adapter_path)
     disagg_q = phase_disagg(torch, params, adapter_path, quant=True)
+    spec = phase_spec(torch, params, adapter_path, stats["answers"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
                "dispatch": dispatch["launches"],
                "disagg": disagg["launches"],
-               "disagg_int8": disagg_q["launches"]}
+               "disagg_int8": disagg_q["launches"],
+               "spec": {name: spec["launches"].get(name, 0)
+                        for name in stats["launches"]}}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2181,5 +2837,56 @@ def main() -> int:
     return 0
 
 
+# One --ab run: the tree's own smoke module, its serve and dispatch phases.
+_AB_RUN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as s
+s.phase_device(torch)
+s.phase_build()
+stats, params, _ = s.phase_serve(torch)
+dispatch = s.phase_dispatch(torch, params)
+keys = ("wall_ms", "device_ms", "device_idle_share")
+step = stats["profile"]["decode_step"]
+graph = step.get("graph_replay")
+print("[ab] " + json.dumps({
+    "tree": sys.argv[2], "serve_decode_step_ms_mean":
+    stats["decode_step_ms_mean"],
+    "lane_step_eager": {k: step[k] for k in keys},
+    "lane_step_graph": ({k: graph[k] for k in keys}
+                        if isinstance(graph, dict) else graph),
+    "dispatch_A": dispatch["A"], "dispatch_B": dispatch["B"]}), flush=True)
+"""
+
+
+def ab_main(other: str) -> int:
+    """``--ab DIR``: DIR's and this tree's serve and dispatch phases,
+    alternately (DIR, this, this, DIR), each run in a process of its own
+    from its tree's root."""
+    import torch
+
+    phase_device(torch)
+    runs = []
+    for label, tree in (("other", other), ("this", REPO), ("this", REPO),
+                        ("other", other)):
+        tree = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, "-c", _AB_RUN, tree, label],
+                              cwd=tree, stdout=subprocess.PIPE, text=True)
+        sys.stdout.write(proc.stdout)
+        if proc.returncode != 0:
+            raise SystemExit(f"--ab: the run of {tree} failed "
+                             f"({proc.returncode})")
+        runs.append(json.loads(next(
+            ln for ln in proc.stdout.splitlines()
+            if ln.startswith("[ab] "))[5:]))
+    for key in ("lane_step_eager", "lane_step_graph", "dispatch_A",
+                "dispatch_B"):
+        log("ab", f"{key} (other, this, this, other): " + json.dumps(
+            [r[key] for r in runs]))
+    print(nvidia_smi_line())
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_main(sys.argv[2]) if sys.argv[1:2] == ["--ab"] else main())

@@ -28,8 +28,8 @@ block, K]`` beside the int8 data, indexed by the same physical block, so a
 prefix-cache hit — a table repoint — carries the scales with no copy.
 Values are quantized at the write seam (``_pool_update``), dequantized at
 the chunk path's read seam (``_pool_rows``), and the decode step hands the
-scale pools to the int8 kernel.  ``extend_step_paged`` waits for ROADMAP
-Queue 1, speculative decoding.
+scale pools to the int8 kernel.  ``extend_step_paged`` (the speculative
+verify) reads the gathered view as the chunk path does.
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from llm_instance_gateway_tpu_torch.models.transformer import (
     check_supported,
     chunk_forward,
     decode_forward,
+    extend_forward,
     to_device,
 )
 from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
@@ -153,6 +154,46 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
     cache["length"].copy_(lengths)
+    return logits, cache
+
+
+def extend_step_paged(cfg: ModelConfig, params: Params, cache: Params,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      lora_bufs: Params | None = None,
+                      slot_ids: torch.Tensor | None = None,
+                      active: torch.Tensor | None = None):
+    """C new tokens per row over the paged pool (parity with
+    ``transformer.extend_step``): each row's tokens write through its
+    block table and attend the row's gathered lane view (``_pool_rows``,
+    the reference's read), causal within the new tokens and over the
+    row's history.  Positions past the table span, and every position of
+    a row with ``active`` False, write the trash block.  Returns (logits
+    [B, C, V] f32, cache)."""
+    check_supported(cfg)
+    b, c = tokens.shape
+    dev = tokens.device
+    block = cache["k"].shape[2]
+    tables = cache["tables"]
+    max_blocks = tables.shape[1]
+    pos = positions.long()
+    writable = pos < max_blocks * block
+    if active is not None:
+        writable = writable & active.to(dev)[:, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    logical = (pos // block).clamp(0, max_blocks - 1)
+    phys = torch.where(writable, tables[rows, logical].long(),
+                       TRASH_BLOCK).reshape(-1)
+    offset = (pos % block).reshape(-1)
+
+    def write_and_view(i, k, v):
+        kh, hd = k.shape[2], k.shape[3]
+        pools = _pool_update(_layer_pools(cache, i), k.reshape(-1, kh, hd),
+                             v.reshape(-1, kh, hd), phys, offset)
+        return _pool_rows(pools, tables, k.dtype)
+
+    logits = extend_forward(cfg, params, tokens, positions, lora_bufs,
+                            slot_ids, write_and_view)
+    cache["length"].copy_((positions[:, -1] + 1).to(torch.int32))
     return logits, cache
 
 

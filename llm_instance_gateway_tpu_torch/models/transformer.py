@@ -377,6 +377,124 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
 
 
 # ---------------------------------------------------------------------------
+# Multi-token cached step (the speculative verify and the draft's catch-up)
+# ---------------------------------------------------------------------------
+
+
+def extend_attend(q: torch.Tensor, k_read: torch.Tensor,
+                  v_read: torch.Tensor, positions: torch.Tensor):
+    """C queries per row against the row's whole lane view: q [B, C, H,
+    hd], k/v [B, S, K, hd], query i of row b attending lane positions <=
+    ``positions[b, i]``.  The reference's XLA einsums, not a kernel: f32
+    scores divided by sqrt(hd) (a tensor divisor, so the card divides as
+    the reference does), masked to -1e30, f32 softmax cast to q's dtype
+    for the value product.  Returns [B, C, H*hd]."""
+    b, c, n_heads, hd = q.shape
+    s, n_kv = k_read.shape[1], k_read.shape[2]
+    qg = q.reshape(b, c, n_kv, n_heads // n_kv, hd)
+    scores = torch.einsum("bikgh,bjkh->bkgij", qg.float(), k_read.float())
+    scores = scores / torch.full((), hd, dtype=torch.float32,
+                                 device=q.device).sqrt()
+    mask = (torch.arange(s, device=q.device)[None, None, :]
+            <= positions[:, :, None])
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkgij,bjkh->bikgh", probs,
+                        v_read.to(q.dtype)).reshape(b, c, -1)
+
+
+def extend_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   positions: torch.Tensor, lora_bufs: Params | None,
+                   slot_ids: torch.Tensor | None, write_and_view):
+    """The layer loop both extend steps share (lanes here, the paged pool
+    in ``models/paged.py``): row b's C tokens at ``positions[b]`` write
+    their K/V and attend the row's lane view through
+    ``write_and_view(layer, k [B, C, K, hd], v) -> (k_read [B, S, K, hd],
+    v_read)``.  Returns the logits [B, C, V] (f32)."""
+    b, c = tokens.shape
+    if slot_ids is None:
+        slot_ids = _no_slots(b, tokens.device)
+    hd = cfg.resolved_head_dim
+    h = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        layer_lora = (None if lora_bufs is None
+                      else lora_lib.layer_slice(lora_bufs, i))
+        hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
+                      plus_one=cfg.norm_plus_one)
+        q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+            b, c, cfg.n_heads, hd)
+        k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+            b, c, cfg.n_kv_heads, hd)
+        v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+            b, c, cfg.n_kv_heads, hd)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+        k_read, v_read = write_and_view(i, k, v)
+        attn = extend_attend(q, k_read, v_read, positions)
+        h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
+        hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
+                       plus_one=cfg.norm_plus_one)
+        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
+    return _logits(cfg, params, h)
+
+
+def extend_step(cfg: ModelConfig, params: Params, cache: Params,
+                tokens: torch.Tensor, positions: torch.Tensor,
+                lora_bufs: Params | None = None,
+                slot_ids: torch.Tensor | None = None,
+                active: torch.Tensor | None = None):
+    """C new tokens per row in one forward (port of ``extend_step``):
+    ``tokens`` [B, C] write their K/V into row b's lane at ``positions``
+    [B, C] and attend every lane position <= their own, causal within the
+    new tokens and over the lane's history.  ``active`` [B] bool gates the
+    WRITES as in ``decode_step``: an inactive row's cells are rewritten
+    with their own old values (the reference's out-of-range address,
+    whose update XLA drops), so a frozen row's lane, which may belong to
+    a streaming prompt, stays unchanged.  On an int8 cache the new K/V are
+    quantized where they land (``_kv_quantize``) and the read is the lane
+    dequantized (``_kv_dequantize``).  The cache is updated in place.
+    Returns (logits [B, C, V] f32, cache): logits[:, i] is the next-token
+    distribution after tokens[:, i]."""
+    check_supported(cfg)
+    b = tokens.shape[0]
+    dev = tokens.device
+    s_max = cache["k"].shape[2]
+    pos = positions.long()
+    writes = pos < s_max
+    if active is not None:
+        writes = writes & active.to(dev)[:, None]
+    write_pos = pos.clamp(max=s_max - 1)
+    rows = torch.arange(b, device=dev)[:, None]
+    quant = "k_scale" in cache
+
+    def write(dst, new):
+        keep = writes.view(*writes.shape, *([1] * (new.dim() - 2)))
+        dst[rows, write_pos] = torch.where(keep, new.to(dst.dtype),
+                                           dst[rows, write_pos])
+
+    def write_and_view(i, k, v):
+        views = []
+        for name, new in (("k", k), ("v", v)):
+            lane = cache[name][i]
+            if not quant:
+                write(lane, new)
+                views.append(lane)
+                continue
+            scales = cache[f"{name}_scale"][i]
+            new, scale = _kv_quantize(new)
+            write(scales, scale)
+            write(lane, new)
+            views.append(_kv_dequantize(lane, scales, k.dtype))
+        return tuple(views)
+
+    logits = extend_forward(cfg, params, tokens, positions, lora_bufs,
+                            slot_ids, write_and_view)
+    cache["length"].copy_((positions[:, -1] + 1).to(torch.int32))
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
 # Chunked prefill (prompts beyond the largest bucket, prefix-hit suffixes)
 # ---------------------------------------------------------------------------
 

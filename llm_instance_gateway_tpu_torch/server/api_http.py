@@ -5,7 +5,9 @@ runs on the card).
 - ``POST /v1/completions``          OpenAI completions (prompt string or
                                     token ids), JSON or SSE ``stream: true``;
                                     ``max_tokens``, ``temperature``,
-                                    ``top_k``, ``top_p``, ``seed``, ``stop``
+                                    ``top_k``, ``top_p``, ``seed``, ``stop``,
+                                    ``presence_penalty``,
+                                    ``frequency_penalty``, ``logit_bias``
 - ``POST /v1/prefill``              disaggregation hop 1: prefill only; the
                                     answer is the serialized
                                     ``PrefillHandoff`` (octet-stream)
@@ -22,8 +24,7 @@ runs on the card).
 - ``GET  /health``                  200, or 503 while draining
 
 Parameters the port does not serve yet (chat, ``logprobs``, ``n`` /
-``best_of``, penalties, ``logit_bias``, ``echo``) answer 400 instead of
-being ignored.
+``best_of``, ``echo``) answer 400 instead of being ignored.
 
     python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \
         --max-seq-len 8192 --paged-kv-block 64 --prefix-cache --stream-lanes 2
@@ -34,6 +35,9 @@ role is advisory, and every server keeps the whole API.
 
 ``--quantize int8`` serves int8 weights (``ops/quant.py``) and
 ``--kv-quantize int8`` an int8 KV cache, on lanes or on the paged pool.
+``--speculative K --draft-model NAME`` decodes speculatively with a draft
+of that preset (random weights from seed 1; quantized too under
+``--quantize int8``); such a server refuses penalties and ``logit_bias``.
 """
 
 from __future__ import annotations
@@ -58,9 +62,9 @@ from llm_instance_gateway_tpu_torch.server.engine import (
     Engine,
     EngineConfig,
     EngineDraining,
+    MAX_LOGIT_BIAS,
     Request,
     SamplingParams,
-    check_served,
 )
 from llm_instance_gateway_tpu_torch.server.kv_transfer import PrefillHandoff
 from llm_instance_gateway_tpu_torch.server.lora_manager import (
@@ -72,8 +76,7 @@ from llm_instance_gateway_tpu_torch.server.tokenizer import load_tokenizer
 
 logger = logging.getLogger(__name__)
 
-_UNSERVED_PARAMS = ("logprobs", "echo", "presence_penalty",
-                    "frequency_penalty", "logit_bias")
+_UNSERVED_PARAMS = ("logprobs", "echo")
 
 
 class HTTPError(Exception):
@@ -135,7 +138,8 @@ class ModelServer:
 
     @staticmethod
     def _check_body(body: dict) -> None:
-        """Refuse the body parameters the port does not serve yet."""
+        """Refuse the body parameters the port does not serve yet, and
+        check the penalties and ``logit_bias`` as the reference does."""
         if isinstance(body.get("messages"), list):
             raise ValueError("chat is not served by the torch port yet")
         for name in _UNSERVED_PARAMS:
@@ -144,11 +148,28 @@ class ModelServer:
         if int(body.get("n", 1)) != 1 or int(body.get("best_of", 1)) != 1:
             raise ValueError("n / best_of > 1 is not served by the torch "
                              "port yet")
+        for name in ("presence_penalty", "frequency_penalty"):
+            val = float(body.get(name) or 0.0)  # null == unset
+            if not -2.0 <= val <= 2.0:
+                raise ValueError(f"{name} must be in [-2, 2]")
+        bias = body.get("logit_bias")
+        if bias is not None:
+            if not isinstance(bias, dict):
+                raise ValueError("logit_bias must be an object")
+            if len(bias) > MAX_LOGIT_BIAS:
+                raise ValueError("logit_bias supports at most "
+                                 f"{MAX_LOGIT_BIAS} entries")
+            for k, v in bias.items():
+                if not -100.0 <= float(v) <= 100.0:
+                    raise ValueError("logit_bias values must be in "
+                                     "[-100, 100]")
+                int(k)  # token ids must be integral (ValueError otherwise)
 
     def _make_request(self, body: dict, prompt_tokens: list[int], adapter,
                       stops: list[str]) -> Request:
         self._check_body(body)
         seed = body.get("seed")
+        raw_bias = body.get("logit_bias") or None
         return Request(
             prompt_tokens=prompt_tokens,
             max_new_tokens=int(body.get("max_tokens", 64)),
@@ -156,7 +177,12 @@ class ModelServer:
                 temperature=float(body.get("temperature", 0.0)),
                 top_k=int(body.get("top_k", 0)),
                 top_p=float(body.get("top_p", 1.0)),
-                seed=None if seed is None else int(seed)),
+                seed=None if seed is None else int(seed),
+                presence_penalty=float(body.get("presence_penalty") or 0.0),
+                frequency_penalty=float(body.get("frequency_penalty")
+                                        or 0.0),
+                logit_bias=({int(k): float(v) for k, v in raw_bias.items()}
+                            if raw_bias else None)),
             adapter=adapter,
             stop_sequences=self._encode_stops(stops),
         )
@@ -679,18 +705,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "gateway rerouted) and is released; 0 disables. The "
                         "gateway's POST /v1/prefill/release is the fast "
                         "path, this TTL the safety net.")
+    p.add_argument("--speculative", type=int, default=0, metavar="K",
+                   help="speculative decoding: a draft model proposes K "
+                        "tokens per cycle, the target verifies them in one "
+                        "multi-token forward; greedy requests keep exact "
+                        "parity.  Requires --draft-model")
+    p.add_argument("--draft-model", default=None, choices=sorted(CONFIGS),
+                   help="model preset of the speculative draft (it must "
+                        "share the target's vocabulary); random weights from "
+                        "seed 1")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
 
-def make_server(argv=None, params=None):
+def make_server(argv=None, params=None, draft_params=None):
     """Build the engine and the HTTP server from CLI arguments; returns
     ``(httpd, engine, args)`` with the engine loop started.  The caller runs
     ``httpd.serve_forever()``.  ``params`` reuses weights already on the
-    device (same model, dtype and device) instead of drawing them; with
-    ``--quantize int8`` the engine gets a new quantized tree and the
-    caller's stays as it was."""
+    device (same model, dtype and device) instead of drawing them, and
+    ``draft_params`` the draft's under ``--speculative``; with
+    ``--quantize int8`` the engine gets new quantized trees and the
+    caller's stay as they were."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
@@ -700,6 +736,8 @@ def make_server(argv=None, params=None):
         parser.error("--paged-kv-blocks requires --paged-kv-block")
     if args.prefix_cache and args.paged_kv_block is None:
         parser.error("--prefix-cache requires --paged-kv-block")
+    if args.speculative > 0 and args.draft_model is None:
+        parser.error("--speculative requires --draft-model")
     if (args.device == "cuda" and args.paged_kv_block is not None
             and args.paged_kv_block % 16):
         parser.error("--paged-kv-block must be a multiple of 16 on the card "
@@ -727,8 +765,8 @@ def make_server(argv=None, params=None):
                         else args.kv_quantize),
         role=args.role,
         handoff_ttl_s=args.handoff_ttl_s,
+        speculative_k=args.speculative,
     )
-    check_served(engine_cfg)  # before any weight is drawn
     cfg = dataclasses.replace(CONFIGS[args.model], max_lora_slots=args.max_loras)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     tokenizer = load_tokenizer(None)
@@ -739,12 +777,26 @@ def make_server(argv=None, params=None):
         logger.warning("serving RANDOM weights (seed %d)", args.seed)
         params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
                                          device=args.device)
+    draft_cfg = None
+    if args.speculative > 0:
+        draft_cfg = CONFIGS[args.draft_model]
+        if draft_params is None:
+            logger.warning("draft %s: RANDOM weights (seed 1)",
+                           args.draft_model)
+            draft_params = transformer.init_params(
+                draft_cfg, seed=1, dtype=dtype, device=args.device)
     if args.quantize == "int8":
+        target = params
         params = quantize_params(params)
+        if draft_params is not None:
+            # A draft sharing the target's tree shares its quantized one.
+            draft_params = (params if draft_params is target
+                            else quantize_params(draft_params))
         logger.info("weights quantized to int8 (per output channel)")
     lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device)
     engine = Engine(cfg, params, engine_cfg, lora_manager=lora_manager,
-                    eos_id=tokenizer.eos_id, dtype=dtype, device=args.device)
+                    eos_id=tokenizer.eos_id, dtype=dtype, device=args.device,
+                    draft_params=draft_params, draft_cfg=draft_cfg)
     engine.start()
     server = ModelServer(engine, tokenizer, args.model, lora_manager)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))

@@ -44,11 +44,23 @@ synchronous loop and the pipelined one).
   ``decode_wait`` (first token emitted at once), from where the drain
   inserts it like a prefill-ahead, mapping cached prefix blocks first.
   Handoff imports parked past ``handoff_ttl_s`` are swept.
+- **Penalties** (OpenAI presence / frequency over generated tokens): a
+  [B, V_padded] int32 count buffer, allocated at the first penalized
+  request, is one more fixed-address buffer of the decode block, whose
+  penalized variant subtracts before the argmax, the draw and the logprobs
+  and counts what it emits.  Penalty-free serving never allocates it.
+- **Speculative decoding** (``speculative_k`` K with ``draft_params`` /
+  ``draft_cfg``): a draft model with lanes of its own proposes K greedy
+  tokens per cycle and the target scores [cur, d_1..d_K] in one
+  ``extend_step`` (``extend_step_paged`` on the pool); greedy rows accept
+  the longest matching prefix plus the target's own next token, exact
+  greedy parity.  ``_spec_block`` fuses the cycles of a dispatch, in both
+  loops; on the card it is a CUDA graph per ``(n_cycles, k, seeded)``.
+  Sampled rows, stop-sequence rows and chunk-streamed rows do not
+  speculate; penalties and ``logit_bias`` are refused on such an engine.
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
-and ``metrics_snapshot()`` keys as the reference.  Config the port does not
-serve yet raises at construction instead of being ignored: speculative
-decoding.
+and ``metrics_snapshot()`` keys as the reference.
 """
 
 from __future__ import annotations
@@ -64,6 +76,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
@@ -90,10 +103,17 @@ logger = logging.getLogger(__name__)
 MAX_LOGIT_BIAS = 32  # per-request logit_bias entries (static lanes)
 STEP_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 # The decode block's device buffers, each mirroring ``Engine._slot_<name>``:
-# the carry the block advances, and the per-row parameters it reads.
+# the carry the block advances, and the per-row parameters it reads (the
+# penalty coefficients only when a row carries one).
 _CARRY = ("tokens", "positions", "remaining", "stop_hist")
 _SLOT_PARAMS = ("lora", "temp", "topk", "topp", "seed", "bias_ids",
                 "bias_vals", "stop_ids", "stop_lens")
+_PENALTY_PARAMS = ("presence", "frequency")
+# The spec block's own: the draft's catch-up triple (the token and position
+# the draft has not ingested after a fully accepted cycle), carried like
+# the tokens, and the rows that may speculate.
+_SPEC_CARRY = ("extra_tok", "extra_pos", "has_extra")
+_SPEC_PARAMS = ("spec_ok",)
 
 
 class EngineDraining(RuntimeError):
@@ -127,23 +147,6 @@ class EngineConfig:
     prefix_cache: bool = False
 
 
-# Fields the reference serves and the port does not yet: (field, value the
-# port accepts, title of the ROADMAP Queue 1 item that ports it).
-_UNSERVED = (
-    ("speculative_k", 0, "speculative decoding"),
-)
-
-
-def check_served(cfg: EngineConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first field of ``cfg`` that
-    the port does not serve yet."""
-    for name, ok, item in _UNSERVED:
-        if getattr(cfg, name) != ok:
-            raise NotImplementedError(
-                f"EngineConfig.{name}={getattr(cfg, name)!r} is not served "
-                f"by the torch port yet (ROADMAP Queue 1, {item})")
-
-
 @dataclass
 class SamplingParams:
     temperature: float = 0.0
@@ -167,6 +170,23 @@ def _bias_arrays(sp: SamplingParams):
 
 def _seed_i32(seed: int | None) -> int:
     return -1 if seed is None else (int(seed) & 0x7FFFFFFF)
+
+
+def _pack(tok, valid, lp, top_v, top_i) -> torch.Tensor:
+    """One step's output rows [B, 3 + 2*LOGPROB_TOPK]: token, valid,
+    logprob, top-K logprobs, top-K ids (f64 holds every id exactly)."""
+    return torch.cat([tok[:, None].double(), valid[:, None].double(),
+                      lp[:, None].double(), top_v.double(), top_i.double()],
+                     dim=1)
+
+
+def _greedy_pick(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Argmax over the real vocabulary (the padded columns masked)."""
+    v = logits.shape[-1]
+    if vocab < v:
+        logits = torch.where(torch.arange(v, device=logits.device) < vocab,
+                             logits, float("-inf"))
+    return logits.argmax(dim=-1)
 
 
 @dataclass
@@ -308,10 +328,22 @@ class _ChunkStream:
 class Engine:
     def __init__(self, model_cfg: ModelConfig, params, engine_cfg=None,
                  lora_manager=None, eos_id: int | None = None,
-                 dtype=torch.bfloat16, seed: int = 0, device="cuda"):
+                 dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                 draft_params=None, draft_cfg: ModelConfig | None = None):
         self.model_cfg = model_cfg
         self.cfg = engine_cfg or EngineConfig()
-        check_served(self.cfg)
+        self._spec = self.cfg.speculative_k > 0
+        if self._spec:
+            if draft_params is None or draft_cfg is None:
+                raise ValueError(
+                    "speculative_k > 0 requires draft_params and draft_cfg")
+            if draft_cfg.vocab_size != model_cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share the token space "
+                    f"({draft_cfg.vocab_size} != {model_cfg.vocab_size})")
+            transformer.check_supported(draft_cfg)
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
         if self.cfg.kv_cache_quant not in (None, "int8"):
             raise ValueError(
                 f"kv_cache_quant={self.cfg.kv_cache_quant!r}: only 'int8' "
@@ -371,6 +403,8 @@ class Engine:
         self._slot_topk = np.zeros((b,), np.int64)
         self._slot_topp = np.ones((b,), np.float32)
         self._slot_seed = np.full((b,), -1, np.int64)
+        self._slot_presence = np.zeros((b,), np.float32)
+        self._slot_frequency = np.zeros((b,), np.float32)
         self._slot_bias_ids = np.full((b, MAX_LOGIT_BIAS), -1, np.int64)
         self._slot_bias_vals = np.zeros((b, MAX_LOGIT_BIAS), np.float32)
         self._slot_remaining = np.zeros((b,), np.int64)
@@ -378,14 +412,30 @@ class Engine:
         self._slot_stop_lens = np.zeros((b, STOP_SEQS), np.int64)
         self._slot_stop_hist = np.full((b, STOP_LEN), -1, np.int64)
         self._stops_active = 0
-        # The decode block's device buffers, at fixed addresses for its
-        # CUDA graph: the sync loop copies the host carry in before each
+        names = _CARRY + _SLOT_PARAMS + _PENALTY_PARAMS
+        if self._spec:
+            # The draft's own lanes (never int8), written by its prefill at
+            # admission and by the spec block; the host mirrors of its
+            # catch-up triple serve the sync loop.
+            self.draft_cache = transformer.init_decode_cache(
+                draft_cfg, b, self.cfg.max_seq_len, dtype=dtype,
+                device=self.device)
+            self._slot_spec_ok = np.zeros((b,), bool)
+            self._slot_extra_tok = np.zeros((b,), np.int64)
+            self._slot_extra_pos = np.zeros((b,), np.int64)
+            self._slot_has_extra = np.zeros((b,), bool)
+            self.spec_cycles = 0
+            self.spec_emitted = 0
+            names += _SPEC_CARRY + _SPEC_PARAMS
+        # The blocks' device buffers, at fixed addresses for their CUDA
+        # graphs: the sync loop copies the host carry in before each
         # block, the pipelined loop keeps the carry on the device (rows
         # scattered in at activation); the per-row parameters are copied
-        # in before every block.
+        # in before every block.  ``counts`` joins them at the first
+        # penalized request (``_counts``).
         self._dev = {name: torch.from_numpy(
             getattr(self, f"_slot_{name}").copy()).to(self.device)
-            for name in _CARRY + _SLOT_PARAMS}
+            for name in names}
         # Pipelined loop: rows whose device budget must be zeroed before
         # the next dispatch (freed for host-side reasons), and the steps of
         # the block in flight (the host record lags it).
@@ -516,12 +566,16 @@ class Engine:
         return (_Row(hb, 0, 0, dev=first_token),
                 tuple(_Row(hb, a, 0) for a in (1, 2, 3)))
 
-    def _decode_block(self, n_steps: int, seeded: bool) -> torch.Tensor:
+    def _decode_block(self, n_steps: int, seeded: bool,
+                      penalized: bool = False) -> torch.Tensor:
         """``n_steps`` fused decode+sample steps with the device-side freeze,
         on the block's device buffers (``self._dev``): it reads the carry
         and the per-row parameters there and writes the advanced carry
         back in place, so a CUDA graph of it replays on whatever the
-        buffers hold.  ``seeded`` adds the per-row seeded noise.
+        buffers hold.  ``seeded`` adds the per-row seeded noise;
+        ``penalized`` subtracts the presence and frequency penalties from
+        the logits (before the argmax, the draw and the logprobs) and
+        counts every emitted token into ``counts``, in place.
 
         Each row carries a ``remaining`` budget; a row is frozen once it
         reaches 0 (budget spent, EOS, or a completed stop suffix): frozen
@@ -536,6 +590,7 @@ class Engine:
         seeds = d["seed"] if seeded else None
         eos = -1 if self.eos_id is None else self.eos_id
         lora_bufs = self._lora_buffers()
+        counts = d["counts"] if penalized else None
         steps = []
         for _ in range(n_steps):
             active = remaining > 0
@@ -543,6 +598,9 @@ class Engine:
             logits, self.cache = self._step_fn(
                 cfg, self.params, self.cache, tokens, safe_pos,
                 lora_bufs=lora_bufs, slot_ids=d["lora"], active=active)
+            if penalized:
+                logits = logits - (d["presence"][:, None] * (counts > 0)
+                                   + d["frequency"][:, None] * counts)
             sampled = sample(logits, self._gen, d["temp"], d["topk"],
                              d["topp"], valid_vocab=cfg.vocab_size,
                              seeds=seeds, positions=safe_pos,
@@ -558,9 +616,10 @@ class Engine:
             remaining = torch.where(hit_eos | hit_stop, 0, remaining)
             tokens = torch.where(active, sampled, tokens)
             positions = positions + active.long()
-            steps.append(torch.cat(
-                [sampled[:, None].double(), valid[:, None].double(),
-                 lp[:, None].double(), top_v.double(), top_i.double()], dim=1))
+            if penalized:
+                counts.scatter_add_(1, sampled[:, None],
+                                    valid[:, None].to(counts.dtype))
+            steps.append(_pack(sampled, valid, lp, top_v, top_i))
         for name, value in zip(_CARRY, (tokens, positions, remaining, hist)):
             d[name].copy_(value)
         return torch.stack(steps)
@@ -568,12 +627,246 @@ class Engine:
     def _run_block(self, n_steps: int) -> torch.Tensor:
         """Copy the per-row parameters in and run one block: a graph
         replay on the card (its output valid until the next replay), the
-        eager block on the CPU."""
+        eager block on the CPU.  The penalized variant runs while some
+        row carries a penalty."""
         seeded = bool((self._slot_seed >= 0).any())
-        self._push(_SLOT_PARAMS)
+        penalized = bool(self._slot_presence.any()
+                         or self._slot_frequency.any())
+        self._push(_SLOT_PARAMS + (_PENALTY_PARAMS if penalized else ()))
+        if penalized:
+            self._counts()
         if self._graphs is not None:
-            return self._graphs.run(self._decode_block, n_steps, seeded)
-        return self._decode_block(n_steps, seeded)
+            return self._graphs.run(self._decode_block, n_steps, seeded,
+                                    penalized)
+        return self._decode_block(n_steps, seeded, penalized)
+
+    def _counts(self) -> torch.Tensor:
+        """[B, V_padded] int32 generated-token counts, made on first need
+        (penalty-free serving never holds them) and kept at one address."""
+        if "counts" not in self._dev:
+            if self.model_cfg.tie_embeddings:
+                v = self.params["embed"].shape[0]
+            else:
+                head = self.params["lm_head"]
+                if isinstance(head, dict):  # an int8 {"q", "s"} leaf
+                    head = head["q"]
+                v = head.shape[-1]
+            self._dev["counts"] = torch.zeros(
+                (self.cfg.decode_slots, int(v)), dtype=torch.int32,
+                device=self.device)
+        return self._dev["counts"]
+
+    def _count_first_token(self, slot_idx: int, tok) -> None:
+        """A penalized row counts its prefill-sampled first token too
+        (penalties apply from the first decode step).  ``tok`` is a host
+        int or a device scalar (never read back here)."""
+        if not (self._slot_presence[slot_idx]
+                or self._slot_frequency[slot_idx]):
+            return
+        row = self._counts()[slot_idx]
+        if isinstance(tok, torch.Tensor):
+            row.index_add_(0, tok.reshape(1).long(),
+                           torch.ones(1, dtype=row.dtype, device=row.device))
+        else:
+            row[int(tok)] += 1
+
+    # -- speculative decoding (the draft proposes, the target verifies) --
+
+    def _spec_block(self, n_cycles: int, k_steps: int,
+                    seeded: bool) -> torch.Tensor:
+        """``n_cycles`` fused speculative cycles on the device buffers
+        (``self._dev``, the draft's catch-up triple included), both caches
+        updated in place, the carry written back: a CUDA graph of it
+        replays like the decode block's.
+
+        Each cycle: the draft ingests the <= 2 context tokens it has not
+        seen (``extend_step``), proposes ``k_steps`` greedy tokens (the
+        first from that step, the rest by ``decode_step``), and the target
+        scores [cur, d_1..d_K] in one ``extend_step`` (``extend_step_paged``
+        on the pool), writing only for active rows.  Greedy rows accept the
+        longest matching prefix plus the target's next token; sampled and
+        non-speculating rows emit one token drawn from the first position's
+        logits.  Budget and EOS truncation are mask arithmetic.  The draft
+        runs without LoRA.  The draft's and the verify's ops run inside
+        profiler ranges (``spec_draft``, ``spec_verify``), so a trace of the
+        eager block splits a cycle's device time between them.
+
+        Stale KV: a cycle writes positions p..p+K, past the accepted
+        prefix too; the next cycle's writes start at the corrected position
+        and cover that range, for the draft's lanes, the target's lanes
+        and the pool alike (the engine allocates the whole span a dispatch
+        can write first, ``_spec_row_steps``).
+
+        Returns the output pack [n_cycles * (K+1), B, 3 + 2*LOGPROB_TOPK],
+        cycle-major, the decode block's layout."""
+        cfg, dcfg = self.model_cfg, self.draft_cfg
+        d = self._dev
+        s_max = self._max_len
+        target_extend = (paged_lib.extend_step_paged if self.paged
+                         else transformer.extend_step)
+        kp1 = k_steps + 1
+        tokens, positions = d["tokens"], d["positions"]
+        remaining = d["remaining"]
+        extra_tok, extra_pos = d["extra_tok"], d["extra_pos"]
+        has_extra = d["has_extra"]
+        temp = d["temp"]
+        seeds = d["seed"] if seeded else None
+        eos = -1 if self.eos_id is None else self.eos_id
+        lora_bufs = self._lora_buffers()
+        b = tokens.shape[0]
+        rows = torch.arange(b, device=tokens.device)
+        ahead = torch.arange(kp1, device=tokens.device)[None]
+        greedy_row = d["spec_ok"] & (temp <= 0.0)
+        cycles = []
+        for _ in range(n_cycles):
+            active = remaining > 0
+            safe_pos = positions.clamp(max=s_max - 1)
+            # -- the draft catches up and proposes --
+            with record_function("spec_draft"):
+                ctx_tokens = torch.stack(
+                    [torch.where(has_extra, extra_tok, tokens), tokens], dim=1)
+                ctx_positions = torch.stack(
+                    [torch.where(has_extra, extra_pos.clamp(max=s_max - 1),
+                                 safe_pos),
+                     torch.where(has_extra, safe_pos,
+                                 (positions + 1).clamp(max=s_max - 1))],
+                    dim=1)
+                last_idx = has_extra.long()  # the last real context column
+                logits2, _ = transformer.extend_step(
+                    dcfg, self.draft_params, self.draft_cache, ctx_tokens,
+                    ctx_positions)
+                tok = _greedy_pick(logits2[rows, last_idx], dcfg.vocab_size)
+                pos = (ctx_positions[rows, last_idx] + 1).clamp(max=s_max - 1)
+                proposals = [tok]
+                for _ in range(k_steps - 1):
+                    lg, _ = transformer.decode_step(
+                        dcfg, self.draft_params, self.draft_cache, tok, pos)
+                    tok = _greedy_pick(lg, dcfg.vocab_size)
+                    proposals.append(tok)
+                    pos = (pos + 1).clamp(max=s_max - 1)
+                draft = torch.stack(proposals, dim=1)  # [B, K]
+            # -- the target verifies [cur, d_1..d_K] in one forward --
+            with record_function("spec_verify"):
+                vtokens = torch.cat([tokens[:, None], draft], dim=1)
+                vpos = (positions[:, None] + ahead).clamp(max=s_max - 1)
+                logits, self.cache = target_extend(
+                    cfg, self.params, self.cache, vtokens, vpos,
+                    lora_bufs=lora_bufs, slot_ids=d["lora"], active=active)
+            greedy = _greedy_pick(logits, cfg.vocab_size)  # [B, K+1]
+            first_sampled = sample(
+                logits[:, 0], self._gen, temp, d["topk"], d["topp"],
+                valid_vocab=cfg.vocab_size, seeds=seeds,
+                positions=safe_pos).long()
+            e0 = torch.where(greedy_row, greedy[:, 0], first_sampled)
+            match = (draft == greedy[:, :-1]) & greedy_row[:, None]
+            m = torch.cumprod(match.long(), dim=1).sum(dim=1)
+            count = torch.where(greedy_row, m + 1, 1)
+            emitted = torch.cat([e0[:, None], greedy[:, 1:]], dim=1)
+            lp, top_v, top_i = logprob_info(logits, emitted, cfg.vocab_size)
+            # -- truncation: frozen rows, budget, EOS --
+            count = torch.where(active, torch.minimum(count, remaining), 0)
+            iseos = (emitted == eos).long()
+            before_eos = torch.cumsum(iseos, dim=1) - iseos
+            valid = (ahead < count[:, None]) & (before_eos == 0)
+            eff = valid.sum(dim=1)
+            hit_eos = (valid & (iseos > 0)).any(dim=1)
+            # -- the carry --
+            new_tok = torch.where(
+                eff > 0, emitted[rows, (eff - 1).clamp(min=0)], tokens)
+            # A fully accepted cycle leaves d_K's KV out of the draft's
+            # lane: the next cycle's catch-up ingests it.
+            full = greedy_row & active & (eff == kp1) & ~hit_eos
+            extra_tok = torch.where(full, draft[:, k_steps - 1], extra_tok)
+            extra_pos = torch.where(full, positions + k_steps, extra_pos)
+            has_extra = full
+            remaining = torch.where(hit_eos, 0, remaining - eff)
+            positions = positions + eff
+            tokens = new_tok
+            cycles.append(torch.stack(
+                [_pack(emitted[:, j], valid[:, j], lp[:, j], top_v[:, j],
+                       top_i[:, j]) for j in range(kp1)]))
+        for name, value in zip(
+                ("tokens", "positions", "remaining") + _SPEC_CARRY,
+                (tokens, positions, remaining, extra_tok, extra_pos,
+                 has_extra)):
+            d[name].copy_(value)
+        return torch.cat(cycles)
+
+    def _run_spec_block(self, n_cycles: int) -> torch.Tensor:
+        """``_run_block`` for the spec block: parameters in, then a graph
+        replay on the card or the eager block on the CPU."""
+        k = self.cfg.speculative_k
+        seeded = bool((self._slot_seed >= 0).any())
+        self._push(_SLOT_PARAMS + _SPEC_PARAMS)
+        if self._graphs is not None:
+            return self._graphs.run(self._spec_block, n_cycles, k, seeded,
+                                    kind="spec")
+        return self._spec_block(n_cycles, k, seeded)
+
+    def _spec_dispatch_ok(self) -> bool:
+        """A spec block serves the batch when no row runs the stop automata
+        (only plain blocks evaluate them) and some row may accept
+        proposals; otherwise speculation would only add the draft and the
+        verify to every token."""
+        return self._spec and not self._stops_active and any(
+            s is not None and self._slot_spec_ok[i]
+            and self._slot_temp[i] <= 0.0
+            for i, s in enumerate(self.slots))
+
+    def _draft_admit(self, slot_idx: int, prompt_tokens: list[int]) -> None:
+        """Mirror a freshly admitted prompt into the draft's lane so the
+        row can speculate.  Sampled rows, stop-sequence rows and prompts
+        beyond the largest bucket (chunk-streamed) do not."""
+        if not self._spec:
+            return
+        n = len(prompt_tokens)
+        slot = self.slots[slot_idx]
+        if (n > self._max_bucket() or self._slot_temp[slot_idx] > 0.0
+                or (slot is not None and slot.request.stop_sequences)):
+            self._slot_spec_ok[slot_idx] = False
+            return
+        try:
+            bucket = self._bucket(n)
+            tokens = np.zeros((1, bucket), np.int64)
+            tokens[0, :n] = prompt_tokens
+            positions = np.zeros((1, bucket), np.int64)
+            positions[0, :n] = np.arange(n)
+            _, k, v = transformer.prefill(
+                self.draft_cfg, self.draft_params, self._tensor(tokens),
+                self._tensor(positions))
+            transformer.insert_prefill(self.draft_cache, k, v, slot_idx, n)
+            self._slot_spec_ok[slot_idx] = True
+            self._slot_has_extra[slot_idx] = False
+            if self.cfg.pipeline_decode:
+                self._dev["has_extra"][slot_idx] = False
+        except Exception:
+            logger.exception("draft admit failed; slot %d decodes "
+                             "non-speculatively", slot_idx)
+            self._slot_spec_ok[slot_idx] = False
+
+    def _spec_cycles_per_sync(self) -> int:
+        """Cycles per spec dispatch: ceil(steps / (K+1)) when every row
+        speculates (the token cadence of ``steps`` plain steps), ``steps``
+        when some row emits one token a cycle (sampled or not
+        speculating), so it keeps its cadence while greedy rows run ahead
+        (budgets cap them).  ``steps`` is the planner's choice."""
+        steps = self._plan_steps()
+        mixed = any(
+            s is not None
+            and not (self._slot_spec_ok[i] and self._slot_temp[i] <= 0.0)
+            for i, s in enumerate(self.slots))
+        if mixed:
+            return steps
+        return max(1, -(-steps // (self.cfg.speculative_k + 1)))
+
+    def _spec_row_steps(self, n_cycles: int, k: int) -> list[int]:
+        """Per-row pool write frontier of one spec block: K+1 a cycle for
+        a speculating row; one a cycle for the others, whose verify still
+        writes a K-token tail."""
+        return [n_cycles * (k + 1)
+                if self._slot_spec_ok[i] and self._slot_temp[i] <= 0.0
+                else n_cycles + k + 1
+                for i in range(self.cfg.decode_slots)]
 
     def _decode_impl(self, n_steps: int) -> np.ndarray:
         """The sync loop's block: the host carry in, one block, the output
@@ -589,8 +882,9 @@ class Engine:
     def start(self) -> None:
         """Start the engine thread: the pipelined loop with
         ``pipeline_decode``, else the sync one.  On the card the thread
-        first warms the decode block up (every row inactive), and this
-        returns once it has, or raises what it raised."""
+        first warms the decode block up (and the spec block, on a
+        speculative engine) with every row inactive, and this returns once
+        it has, or raises what it raised."""
         self._running = True
         target = (self._loop_pipelined if self.cfg.pipeline_decode
                   else self._loop)
@@ -602,6 +896,10 @@ class Engine:
                 try:
                     if self._graphs is not None:
                         self._graphs.warm_up(self._decode_block)
+                        if self._spec:
+                            self._graphs.warm_up(
+                                self._spec_block, 1,
+                                self.cfg.speculative_k, True)
                 except BaseException as e:
                     failed.append(e)
                     return
@@ -711,10 +1009,13 @@ class Engine:
 
     def _validate(self, request: Request) -> None:
         sp = request.sampling
-        if sp.presence_penalty or sp.frequency_penalty:
-            raise ValueError("presence/frequency penalties are not served by "
-                             "the torch port yet (ROADMAP Queue 1, "
-                             "speculative decoding, penalties, logit_bias)")
+        if self._spec and (sp.presence_penalty or sp.frequency_penalty
+                           or sp.logit_bias):
+            raise ValueError(
+                "presence/frequency penalties and logit_bias are not "
+                "supported on a speculative engine (the verify block's "
+                "greedy pick bypasses the sampling seam); disable "
+                "speculative_k or the parameter")
         if sp.logit_bias:
             if len(sp.logit_bias) > MAX_LOGIT_BIAS:
                 raise ValueError(
@@ -937,6 +1238,14 @@ class Engine:
                if self.kv_ledger is not None else {}),
             **({"prefix_reused_tokens": self.prefix_reused_tokens}
                if self._prefix_enabled else {}),
+            **({
+                "spec_cycles": self.spec_cycles,
+                # Accepted tokens per verify cycle against the K+1
+                # ceiling: the draft's quality.
+                "spec_tokens_per_cycle": round(
+                    self.spec_emitted / self.spec_cycles, 3)
+                if self.spec_cycles else 0.0,
+            } if self._spec else {}),
         }
 
     def _kv_ledger_synced_snapshot(self) -> dict:
@@ -958,6 +1267,9 @@ class Engine:
     def _clear_slot(self, i: int) -> None:
         """Release a decode row (and, when paged, its pool blocks)."""
         self.slots[i] = None
+        if self._spec:
+            self._slot_spec_ok[i] = False
+            self._slot_has_extra[i] = False
         self._slot_lora[i] = -1
         self._slot_remaining[i] = 0
         if self._slot_stop_lens[i].any():
@@ -967,6 +1279,8 @@ class Engine:
             self._stops_active = int(
                 (self._slot_stop_lens.sum(axis=1) > 0).sum())
         self._slot_seed[i] = -1
+        self._slot_presence[i] = 0.0
+        self._slot_frequency[i] = 0.0
         self._slot_bias_ids[i] = -1
         self._slot_bias_vals[i] = 0.0
         if self.paged:
@@ -1196,7 +1510,10 @@ class Engine:
                 did_work = True
             if any(s is not None for s in self.slots):
                 try:
-                    self._do_decode_step()
+                    if self._spec_dispatch_ok():
+                        self._do_spec_step()
+                    else:
+                        self._do_decode_step()
                 except Exception as e:  # engine must survive; fail batch
                     logger.exception("decode step failed")
                     self._fail_all_slots(e)
@@ -1534,6 +1851,8 @@ class Engine:
                     request=req, lora_slot=lora_slots[i], position=ns[i]))
                 self._slot_tokens[slot_idx] = tok_rows[i]
                 self._slot_positions[slot_idx] = ns[i]
+                self._count_first_token(slot_idx, tok_rows[i])
+                self._draft_admit(slot_idx, req.prompt_tokens)
             except Exception as e:
                 logger.exception("grouped admission failed for %s",
                                  req.request_id)
@@ -1686,6 +2005,8 @@ class Engine:
             registered = True
             self._slot_tokens[slot_idx] = tok
             self._slot_positions[slot_idx] = n
+            self._count_first_token(slot_idx, tok)
+            self._draft_admit(slot_idx, req.prompt_tokens)
         except Exception as e:  # engine must survive a poison request
             logger.exception("prefill failed for %s", req.request_id)
             req.error = str(e)
@@ -1821,6 +2142,12 @@ class Engine:
         if self._slot_stop_lens[slot_idx].any():
             d["stop_hist"][slot_idx] = -1
             d["stop_hist"][slot_idx, STOP_LEN - 1] = tok_dev
+        self._count_first_token(slot_idx, tok_dev)
+        if self._spec:
+            # _register_slot set the sampling parameters _draft_admit reads;
+            # the new occupant starts with no catch-up token.
+            d["has_extra"][slot_idx] = False
+            self._draft_admit(slot_idx, req.prompt_tokens)
 
     def _insert_waiting(self, slot_idx: int, w: _WaitingPrefill,
                         pipelined: bool) -> None:
@@ -1854,6 +2181,8 @@ class Engine:
                     request=req, lora_slot=w.lora_slot, position=w.n))
                 self._slot_tokens[slot_idx] = w.first_token_host
                 self._slot_positions[slot_idx] = w.n
+                self._count_first_token(slot_idx, w.first_token_host)
+                self._draft_admit(slot_idx, req.prompt_tokens)
         except Exception as e:
             logger.exception("decode-wait insert failed for %s", req.request_id)
             req.error = str(e)
@@ -1994,6 +2323,7 @@ class Engine:
                 request=req, lora_slot=st.lora_slot, position=n))
             self._slot_tokens[slot_idx] = tok
             self._slot_positions[slot_idx] = n
+            self._count_first_token(slot_idx, tok)
         except Exception as e:
             logger.exception("stream activation failed for %s", req.request_id)
             req.error = str(e)
@@ -2009,8 +2339,14 @@ class Engine:
         self._slot_topk[slot_idx] = sp.top_k
         self._slot_topp[slot_idx] = sp.top_p
         self._slot_seed[slot_idx] = _seed_i32(sp.seed)
+        self._slot_presence[slot_idx] = sp.presence_penalty
+        self._slot_frequency[slot_idx] = sp.frequency_penalty
         (self._slot_bias_ids[slot_idx],
          self._slot_bias_vals[slot_idx]) = _bias_arrays(sp)
+        if sp.presence_penalty or sp.frequency_penalty:
+            # Fresh counts for the row; the first token follows through
+            # _count_first_token once it is known.
+            self._counts()[slot_idx].zero_()
         # The prefill already produced token 1.
         self._slot_remaining[slot_idx] = max(0, slot.request.max_new_tokens - 1)
         self._program_stop_lanes(slot_idx, slot.request)
@@ -2019,14 +2355,21 @@ class Engine:
     def _program_stop_lanes(self, slot_idx: int, req: Request) -> None:
         """Stop suffixes (and single-token stop ids as length-1 sequences)
         into the row's device automaton; anything that does not fit leaves
-        the lanes empty — the host oracle stays authoritative either way."""
+        the lanes empty — the host oracle stays authoritative either way.
+        A speculative engine keeps single-token stop ids on the host (an
+        automaton row would stop speculation for no freeze the spec block
+        needs: it trims on the host); stop sequences still program, and
+        exclude speculation."""
         self._slot_stop_ids[slot_idx] = -1
         self._slot_stop_lens[slot_idx] = 0
         self._slot_stop_hist[slot_idx] = -1
-        if self.cfg.device_stops and (req.stop_sequences or req.stop_token_ids):
+        fold_ids = not self._spec
+        if self.cfg.device_stops and (req.stop_sequences
+                                      or (fold_ids and req.stop_token_ids)):
             enc = encode_stop_rows(
                 [tuple(s) for s in req.stop_sequences]
-                + [(int(t),) for t in req.stop_token_ids])
+                + ([(int(t),) for t in req.stop_token_ids]
+                   if fold_ids else []))
             if enc is not None:
                 self._slot_stop_ids[slot_idx] = enc[0]
                 self._slot_stop_lens[slot_idx] = enc[1]
@@ -2112,13 +2455,16 @@ class Engine:
             return True
         return False
 
-    def _paged_ensure_decode(self, n_steps: int,
-                             pipelined: bool = False) -> None:
+    def _paged_ensure_decode(self, n_steps: int, pipelined: bool = False,
+                             per_row_steps: list[int] | None = None) -> None:
         """Pre-dispatch block growth for every active row; a row the
         exhausted pool cannot grow fails with "kv pool exhausted" without
         touching the batch.  Pipelined, the host's positions lag the device
         by the block in flight, so the reservation adds that block's steps
-        (over-reservation returns at free)."""
+        (a spec block's writes, rejected tails included, so a plain block
+        after a larger spec block still covers it; over-reservation returns
+        at free).  ``per_row_steps`` narrows a spec block's reservation per
+        row (``_spec_row_steps``)."""
         prev = self._prev_dispatch_steps if pipelined else 0
         if pipelined:
             # Recorded on lanes too: _plan_steps subtracts it.
@@ -2128,7 +2474,9 @@ class Engine:
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
-            target = min(slot.position + n_steps + prev + 1,
+            row_steps = (per_row_steps[i] if per_row_steps is not None
+                         else n_steps)
+            target = min(slot.position + row_steps + prev + 1,
                          self.cfg.max_seq_len)
             try:
                 self._paged_ensure(i, target)
@@ -2148,10 +2496,52 @@ class Engine:
         t0 = time.perf_counter()
         out = self._decode_impl(n_steps)  # [n_steps, B, 3 + 2K], host
         step_s = time.perf_counter() - t0
+        n_tokens, owners, tok_by_owner, _ = self._walk_sync(out)
+        self._account("decode", t0, step_s, owners, tok_by_owner, n_tokens,
+                      step_s / n_steps, n_steps)
+
+    def _do_spec_step(self) -> None:
+        """The sync loop's speculative dispatch: the host carry and the
+        draft's catch-up triple in, one spec block, the output pack and
+        the triple back in one transfer, walked as a plain block."""
+        k = self.cfg.speculative_k
+        n_cycles = self._spec_cycles_per_sync()
+        # Every position a cycle can write, accepted or not, needs a block.
+        self._paged_ensure_decode(
+            n_cycles * (k + 1),
+            per_row_steps=self._spec_row_steps(n_cycles, k))
+        t0 = time.perf_counter()
+        self._push(("tokens", "positions", "remaining") + _SPEC_CARRY)
+        d = self._dev
+        out, etok, epos, ehas = _HostBatch(
+            self._run_spec_block(n_cycles), *(d[n] for n in _SPEC_CARRY)
+        ).host()
+        step_s = time.perf_counter() - t0
+        self.spec_cycles += n_cycles
+        n_tokens, owners, tok_by_owner, live = self._walk_sync(out)
+        for i in live:
+            # The draft's catch-up state from the device carry (a row
+            # cleared in the walk resets at its next admission).
+            self._slot_extra_tok[i] = etok[i]
+            self._slot_extra_pos[i] = epos[i]
+            self._slot_has_extra[i] = bool(ehas[i])
+        self.spec_emitted += n_tokens
+        # Per cycle (each emits >= 1 token a row).
+        self._account("spec", t0, step_s, owners, tok_by_owner, n_tokens,
+                      step_s / max(1, n_cycles))
+
+    def _walk_sync(self, out: np.ndarray):
+        """Walk one block's output pack [T, B, 3 + 2K] (a plain block's
+        steps, or a spec block's cycles x (K+1)) into the requests: every
+        valid entry is a token, a row ends at its stop condition (later
+        tokens are trimmed) and its slot is cleared.  Returns (tokens,
+        the owners resident for the block, tokens by owner, the rows still
+        live)."""
         k = LOGPROB_TOPK
         n_tokens = 0
         owners = [s.request.adapter for s in self.slots if s is not None]
         tok_by_owner: dict[str, int] = {}
+        live = []
         for i, slot in enumerate(self.slots):
             if slot is None:
                 continue
@@ -2162,10 +2552,9 @@ class Engine:
                 continue
             finished = False
             slot_tokens = 0
-            for step in range(n_steps):
-                row = out[step, i]
+            for row in out[:, i]:
                 if not row[1]:
-                    continue  # device froze this row (budget/EOS/stop)
+                    continue  # frozen (budget/EOS/stop), rejected, past EOS
                 tok = int(row[0])
                 req.output_tokens.append(tok)
                 self._store_logprobs(req, row[2], row[3:3 + k],
@@ -2189,18 +2578,29 @@ class Engine:
             req.stream_event.set()
             if not finished:
                 self._slot_positions[i] = slot.position
+                live.append(i)
+        return n_tokens, owners, tok_by_owner, live
+
+    def _account(self, phase: str, t0: float, step_s: float, owners,
+                 tok_by_owner: dict, n_tokens: int, per_step_s: float,
+                 planned: int | None = None) -> None:
+        """A processed block's books: usage, the profiler's ``phase``
+        ("decode" or "spec"), tokens, the decode-rate EMA, the per-step
+        wall, and ``planned`` steps (the planner's choice; None for a spec
+        block, whose token rows are not one)."""
         if self.usage is not None:
             self.usage.charge_decode(step_s, owners, tok_by_owner)
             self._usage_sync_kv()
         if self.profiler is not None:
-            self.profiler.note_dispatch("decode", t0, step_s)
+            self.profiler.note_dispatch(phase, t0, step_s)
         with self._lock:
             self.total_generated += n_tokens
             inst = n_tokens / step_s if step_s > 0 else 0.0
             a = self.cfg.tps_ema_alpha
             self.decode_tps_ema = (1 - a) * self.decode_tps_ema + a * inst
-            self.phase_hist["decode_step"].observe(step_s / n_steps)
-            self.dispatch_steps_hist.observe(n_steps)
+            self.phase_hist["decode_step"].observe(per_step_s)
+            if planned is not None:
+                self.dispatch_steps_hist.observe(planned)
 
     # ------------------------------------------------------------------
     # pipelined decode: overlap the readback with the next device block
@@ -2275,16 +2675,31 @@ class Engine:
 
     def _dispatch_block(self) -> dict:
         """Queue one block on the device carry and its readback; returns
-        the block's record for ``_process_block``."""
-        n_steps = self._plan_steps()
-        self._paged_ensure_decode(n_steps, pipelined=True)
+        the block's record for ``_process_block``.  A spec block when
+        ``_spec_dispatch_ok`` (its outputs have the plain block's layout,
+        so processing is shared)."""
+        spec = self._spec_dispatch_ok()
+        if spec:
+            k = self.cfg.speculative_k
+            n_cycles = self._spec_cycles_per_sync()
+            n_steps = n_cycles * (k + 1)
+            self._paged_ensure_decode(
+                n_steps, pipelined=True,
+                per_row_steps=self._spec_row_steps(n_cycles, k))
+        else:
+            n_steps = self._plan_steps()
+            self._paged_ensure_decode(n_steps, pipelined=True)
         remaining = self._dev["remaining"]
         for i in self._pending_budget_zero:
             remaining[i] = 0
         self._pending_budget_zero.clear()
-        out = _HostBatch(self._run_block(n_steps))
+        if spec:
+            self.spec_cycles += n_cycles
+            out = _HostBatch(self._run_spec_block(n_cycles))
+        else:
+            out = _HostBatch(self._run_block(n_steps))
         return {"out": out, "rows": list(self.slots), "n_steps": n_steps,
-                "t0": time.perf_counter()}
+                "t0": time.perf_counter(), "spec": spec}
 
     def _process_block(self, blk: dict, current: dict | None) -> None:
         """Read block ``blk`` back (it overlaps ``current`` on the device)
@@ -2294,6 +2709,7 @@ class Engine:
         out = blk["out"].host()[0]  # [n_steps, B, 3 + 2K]
         k = LOGPROB_TOPK
         n_tokens = 0
+        n_pending = 0  # prefill first tokens materialized here
         owners = [s.request.adapter for s in blk["rows"] if s is not None]
         tok_by_owner: dict[str, int] = {}
 
@@ -2325,6 +2741,7 @@ class Engine:
                 if lp0 is not None:
                     self._store_logprobs(req, *(np.asarray(x) for x in lp0))
                 n_tokens += 1
+                n_pending += 1
                 self._record_ttft(req)
                 finished = self._is_finished(req, tok0)
             if not finished:
@@ -2356,19 +2773,12 @@ class Engine:
         # The block's wall runs from its dispatch to its processing: blocks
         # overlap, so this is the per-step cadence the gateway compares.
         step_s = time.perf_counter() - blk["t0"]
-        if self.usage is not None:
-            self.usage.charge_decode(step_s, owners, tok_by_owner)
-            self._usage_sync_kv()
-        if self.profiler is not None:
-            self.profiler.note_dispatch("decode", blk["t0"], step_s)
-        with self._lock:
-            self.total_generated += n_tokens
-            inst = n_tokens / step_s if step_s > 0 else 0.0
-            a = self.cfg.tps_ema_alpha
-            self.decode_tps_ema = (1 - a) * self.decode_tps_ema + a * inst
-            self.phase_hist["decode_step"].observe(
-                step_s / max(1, blk["n_steps"]))
-            self.dispatch_steps_hist.observe(blk["n_steps"])
+        if blk["spec"]:
+            self.spec_emitted += n_tokens - n_pending  # first tokens: prefill
+        self._account("spec" if blk["spec"] else "decode", blk["t0"], step_s,
+                      owners, tok_by_owner, n_tokens,
+                      step_s / max(1, blk["n_steps"]),
+                      None if blk["spec"] else blk["n_steps"])
 
     def _fail_all_slots(self, e: Exception) -> None:
         for i, slot in enumerate(self.slots):

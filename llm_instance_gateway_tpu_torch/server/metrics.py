@@ -3,8 +3,7 @@
 The port's own copy of the reference's ``server/metrics.py``: the same
 ``tpu:*`` family names and label sets, so the unchanged gateway
 (``gateway/metrics_client.py``) scrapes a torch pod exactly like a JAX
-pod.  Only the families the port's engine produces are rendered (no
-speculation yet).
+pod.  Only the families the port's engine produces are rendered.
 """
 
 from __future__ import annotations
@@ -99,6 +98,13 @@ def render(snapshot: dict, extra: dict | None = None) -> str:
         lines += [
             "# TYPE tpu:prefix_reused_tokens counter",
             f"tpu:prefix_reused_tokens {snapshot['prefix_reused_tokens']}",
+        ]
+    if "spec_cycles" in snapshot:
+        lines += [
+            "# TYPE tpu:spec_cycles counter",
+            f"tpu:spec_cycles {snapshot['spec_cycles']}",
+            "# TYPE tpu:spec_tokens_per_cycle gauge",
+            f"tpu:spec_tokens_per_cycle {snapshot['spec_tokens_per_cycle']}",
         ]
     if "stream_lanes" in snapshot:
         lines += [

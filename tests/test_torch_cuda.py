@@ -577,7 +577,22 @@ def narrow():
             for dtype in (torch.bfloat16, torch.float32)}
 
 
-def _engine(narrow, graphs=True, dtype=torch.bfloat16, lora=None, **cfg):
+def _draft_cfg():
+    """A one-layer draft with the narrow model's vocabulary, at head dims
+    the kernels take (hd 64, 4 query heads per KV head)."""
+    import dataclasses
+
+    return dataclasses.replace(_narrow_cfg(), name="narrow-draft",
+                               d_model=256, n_layers=1, n_heads=4,
+                               n_kv_heads=1, head_dim=64, d_ff=512)
+
+
+def _engine(narrow, graphs=True, dtype=torch.bfloat16, lora=None,
+            draft=None, **cfg):
+    """An engine over the narrow model; with ``speculative_k``, ``draft``
+    "small" (a seeded one-layer draft) or "perfect" (the target's own
+    params)."""
+    from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.server.engine import (
         Engine,
         EngineConfig,
@@ -587,8 +602,15 @@ def _engine(narrow, graphs=True, dtype=torch.bfloat16, lora=None, **cfg):
     base = dict(decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64),
                 decode_steps_per_sync=4)
     base.update(cfg)
+    kw = {}
+    if draft == "perfect":
+        kw = dict(draft_params=params, draft_cfg=model_cfg)
+    elif draft == "small":
+        kw = dict(draft_params=transformer.init_params(
+            _draft_cfg(), seed=9, dtype=dtype, device="cuda"),
+            draft_cfg=_draft_cfg())
     eng = Engine(model_cfg, params, EngineConfig(**base), lora_manager=lora,
-                 eos_id=None, dtype=dtype, device="cuda")
+                 eos_id=None, dtype=dtype, device="cuda", **kw)
     if not graphs:
         eng._graphs = None  # the eager block on the card
     return eng
@@ -635,7 +657,8 @@ def test_graph_replay_matches_eager_block(narrow, paged, kv, seeded):
     replayed = _serve(eng, jobs)
     assert replayed == eager
     assert eng._graphs.replays > 0
-    assert all(seeded_key == seeded for _, seeded_key in eng._graphs.shapes)
+    assert all(seeded_key == seeded and not penalized
+               for _, seeded_key, penalized in eng._graphs.shapes)
 
 
 def test_pipelined_grouped_graph_engine_matches_eager(narrow):
@@ -715,7 +738,7 @@ def test_table_grown_between_replays_is_read(narrow):
     eager = _serve(_engine(narrow, graphs=False, **extra), jobs)
     eng = _engine(narrow, **extra)
     assert _serve(eng, jobs) == eager
-    assert eng._graphs.shapes == [(4, False)]
+    assert eng._graphs.shapes == [(4, False, False)]
     assert len(eager[0]) == 120
 
 
@@ -806,6 +829,111 @@ def test_capture_failure_raises(dev):
     assert decode_graphs.launch_counts() == before
 
 
+# ---------------------------------------------------------------------------
+# The speculative block and the penalized decode block as CUDA graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("draft", ["small", "perfect"])
+@pytest.mark.parametrize("loop", ["sync", "pipelined", "paged-pipelined"])
+def test_spec_graph_replay_matches_eager_spec_block(narrow, loop, draft):
+    """f32: the spec block's graph replays give the eager spec block's
+    tokens and cycle counts, and the plain engine's greedy tokens; five
+    requests over four slots, a graph per (n_cycles, k, seeded)."""
+    extra = dict(speculative_k=3, adaptive_steps=0, decode_steps_per_sync=4,
+                 draft=draft)
+    if loop != "sync":
+        extra["pipeline_decode"] = True
+    if loop.startswith("paged"):
+        extra["paged_kv_block"] = 16
+    jobs = _jobs()
+    eager_eng = _engine(narrow, graphs=False, dtype=torch.float32, **extra)
+    eager = _serve(eager_eng, jobs)
+    eng = _engine(narrow, dtype=torch.float32, **extra)
+    replayed = _serve(eng, jobs)
+    plain = _serve(_engine(narrow, graphs=False, dtype=torch.float32,
+                           adaptive_steps=0, decode_steps_per_sync=4), jobs)
+    assert replayed == eager == plain
+    assert ((eng.spec_cycles, eng.spec_emitted)
+            == (eager_eng.spec_cycles, eager_eng.spec_emitted))
+    assert eng._graphs.spec_shapes and all(
+        k == 3 and not seeded for _, k, seeded in eng._graphs.spec_shapes)
+    if draft == "perfect":
+        assert eng.spec_emitted > 2 * eng.spec_cycles
+
+
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["sync", "pipelined"])
+def test_penalized_graph_matches_eager_block(narrow, pipelined):
+    """Penalized, biased and plain rows together: the penalized graph's
+    tokens are the eager block's, under its own key."""
+    from llm_instance_gateway_tpu_torch.server.engine import SamplingParams
+
+    sps = [SamplingParams(presence_penalty=1.5, frequency_penalty=0.7),
+           SamplingParams(),
+           SamplingParams(frequency_penalty=2.0,
+                          logit_bias={70: 100.0, 71: -100.0}),
+           SamplingParams(presence_penalty=-0.5, temperature=0.9, seed=3)]
+    jobs = [(p, m, sp) for (p, m, _), sp in zip(_jobs(), sps)]
+    extra = dict(pipeline_decode=pipelined, adaptive_steps=0,
+                 decode_steps_per_sync=4)
+    eager = _serve(_engine(narrow, graphs=False, dtype=torch.float32,
+                           **extra), jobs)
+    eng = _engine(narrow, dtype=torch.float32, **extra)
+    assert _serve(eng, jobs) == eager
+    assert (4, True, True) in eng._graphs.shapes
+    assert set(eager[2][:3]) == {70}
+    assert "counts" in eng._dev
+
+
+def test_spec_launch_counts_exact_under_replay(narrow):
+    """Captures count nothing, each spec replay adds its graph's launches
+    (the draft's lane decode at n_layers x (K-1) per cycle), flash counts
+    the target's prefill and the draft's admission per request."""
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    cfg, dcfg, k = narrow[torch.bfloat16][0], _draft_cfg(), 3
+    eng = _engine(narrow, draft="small", speculative_k=k, adaptive_steps=0,
+                  decode_steps_per_sync=4)
+    jobs = _jobs()
+    eng.start()
+    try:
+        for mod, attr in decode_graphs._COUNTERS.values():
+            setattr(mod, attr, 0)
+        cycles0 = eng.spec_cycles
+        _serve_running(eng, jobs)
+        counts = decode_graphs.launch_counts()
+        cycles = eng.spec_cycles - cycles0
+        plain = int(eng.metrics_snapshot()["dispatch_steps_hist"]["sum"])
+    finally:
+        eng.stop()
+    want = dict.fromkeys(decode_graphs._COUNTERS, 0)
+    want["flash_prefill"] = len(jobs) * (cfg.n_layers + dcfg.n_layers)
+    want["decode_attention"] = (cycles * dcfg.n_layers * (k - 1)
+                                + plain * cfg.n_layers)
+    assert counts == want
+    assert cycles > 0 and eng._graphs.spec_shapes
+
+
+def test_spec_capture_failure_raises(dev):
+    """A spec block that reads a device value back cannot be captured:
+    the capture raises under the spec kind, nothing is kept, and the
+    decode kind's key of the same numbers is another graph."""
+    from llm_instance_gateway_tpu_torch.server import decode_graphs
+
+    x = torch.ones(4, device=dev)
+
+    def block(n_cycles, k, seeded):
+        return x * float((x * n_cycles).sum())  # a host sync
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    graphs = decode_graphs.DecodeGraphs(gen, dev)
+    graphs.warm_up(block, 1, 1, True)
+    with pytest.raises(RuntimeError):
+        graphs.run(block, 2, 1, False, kind="spec")
+    assert graphs.spec_shapes == [] and graphs.replays == 0
+
+
 def test_capture_keeps_only_its_threads_launches(dev):
     """Another engine's thread launching while a graph is captured (a
     prefill replica beside a decode replica in one process) keeps its
@@ -837,7 +965,8 @@ def test_capture_keeps_only_its_threads_launches(dev):
     torch.cuda.synchronize()
     after = decode_graphs.launch_counts()
     assert after == {**before, "flash_prefill": before["flash_prefill"] + 1}
-    assert graphs._graphs[(2, False)][2] == dict.fromkeys(after, 0)
+    assert graphs._graphs[("decode", 2, False)][2] == dict.fromkeys(after,
+                                                                     0)
     graphs.run(block, 2, False)  # a replay adds the graph's none
     assert decode_graphs.launch_counts() == after
 

@@ -443,8 +443,9 @@ class TestAttachSemantics:
         with pytest.raises(ValueError, match="outside the vocabulary"):
             dec.attach_prefilled(handoff(
                 PROMPT, 17, logit_bias={CFG.vocab_size + 7: 1.0}))
-        with pytest.raises(ValueError, match="penalties"):
-            dec.attach_prefilled(handoff(PROMPT, 17, presence_penalty=0.5))
+        served = dec.attach_prefilled(handoff(PROMPT, 17,
+                                              presence_penalty=0.5))
+        assert served.done.wait(60) and served.error is None  # penalties
         wrong = handoff(PROMPT, 17)
         wrong.k = wrong.k[1:]  # another model's layer count
         with pytest.raises(ValueError, match="cache layout"):
@@ -730,7 +731,7 @@ class TestHTTP:
     @pytest.mark.parametrize("body,status", [
         ({"n": 2}, 422), ({"echo": True}, 422),
         ({"prompt": "x" * 200}, 422),  # beyond the largest bucket (128)
-        ({"logprobs": 1}, 400), ({"presence_penalty": 0.5}, 400),
+        ({"logprobs": 1}, 400), ({"presence_penalty": 2.5}, 400),
         ({"messages": [{"role": "user", "content": "hi"}]}, 400),
         ({"model": "no-such-model"}, 404)],
         ids=["n", "echo", "beyond-bucket", "logprobs", "penalty", "chat",

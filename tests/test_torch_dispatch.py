@@ -560,10 +560,13 @@ def test_server_flags_build_a_grouped_pipelined_engine():
 
 
 def test_construction_serves_grouped_pipelined_config():
-    """``prefill_batch`` and ``pipeline_decode`` left ``_UNSERVED``: an
-    engine takes them (disaggregation's fields left it too; only
-    speculative decoding still raises)."""
-    cfg = teng.EngineConfig(prefill_batch=4, pipeline_decode=True)
-    engine = teng.Engine(TINY_TEST, {}, cfg, device="cpu")
-    assert engine.cfg.prefill_batch == 4
-    assert [f for f, _, _ in teng._UNSERVED] == ["speculative_k"]
+    """``prefill_batch`` and ``pipeline_decode`` are served, speculative
+    decoding too (with a draft), so the list of unserved fields and its
+    check are gone."""
+    cfg = teng.EngineConfig(prefill_batch=4, pipeline_decode=True,
+                            speculative_k=3)
+    engine = teng.Engine(TINY_TEST, {}, cfg, device="cpu", draft_params={},
+                         draft_cfg=TINY_TEST)
+    assert engine.cfg.prefill_batch == 4 and engine._spec
+    assert not hasattr(teng, "_UNSERVED")
+    assert not hasattr(teng, "check_served")

@@ -300,9 +300,17 @@ def test_int8_kv_constructs(extra):
 class TestUnservedConfigRaises:
     @pytest.mark.parametrize("field,value", [("speculative_k", 2)])
     def test_construction_raises(self, field, value):
+        """Speculative decoding is served: without a draft the engine
+        raises the reference's error, with one it constructs (the draft's
+        own lanes beside the target's) and reports the spec keys."""
         cfg = teng.EngineConfig(**{field: value})
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(ValueError, match="requires draft_params"):
             teng.Engine(TINY_TEST, {}, cfg, device="cpu")
+        eng = teng.Engine(TINY_TEST, {}, cfg, device="cpu",
+                          draft_params={}, draft_cfg=TINY_TEST)
+        assert eng.draft_cache["k"].shape == eng.cache["k"].shape
+        snap = eng.metrics_snapshot()
+        assert (snap["spec_cycles"], snap["spec_tokens_per_cycle"]) == (0, 0.0)
 
     @pytest.mark.parametrize("field,value", [
         ("role", "prefill"), ("role", "decode"), ("handoff_ttl_s", 5.0)])
@@ -326,10 +334,26 @@ class TestUnservedConfigRaises:
             te.stop()
 
     def test_penalties_raise(self, engines):
-        _, te = engines
+        """Penalties are served (the JAX engine's tokens) and raise only on
+        a speculative engine, in the reference's words."""
+        je, te = engines
+        out = []
+        for mod, eng in ((jeng, je), (teng, te)):
+            r = eng.generate(mod.Request(
+                prompt_tokens=[1, 2], max_new_tokens=10,
+                sampling=mod.SamplingParams(presence_penalty=0.5,
+                                            frequency_penalty=0.5)),
+                timeout_s=120)
+            assert r.error is None, r.error
+            out.append(r.output_tokens)
+        assert out[1] == out[0]
+        spec = teng.Engine(TINY_TEST, te.params,
+                           teng.EngineConfig(speculative_k=2), device="cpu",
+                           draft_params=te.params, draft_cfg=TINY_TEST)
         sp = teng.SamplingParams(presence_penalty=0.5)
-        with pytest.raises(ValueError, match="penalties"):
-            te.submit(teng.Request(prompt_tokens=[1, 2], sampling=sp))
+        with pytest.raises(ValueError, match="penalties and logit_bias are "
+                                             "not supported on a speculative"):
+            spec.submit(teng.Request(prompt_tokens=[1, 2], sampling=sp))
 
     def test_unknown_adapter_fails_fast(self, engines):
         from llm_instance_gateway_tpu_torch.server.lora_manager import AdapterError

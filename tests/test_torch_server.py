@@ -115,14 +115,27 @@ def test_stop_string_truncates(server):
 
 
 @pytest.mark.parametrize("extra", [
-    {"logprobs": 1}, {"n": 2}, {"echo": True}, {"presence_penalty": 0.5},
-    {"logit_bias": {"5": 1.0}}, {"stop": 3}])
+    {"logprobs": 1}, {"n": 2}, {"echo": True}, {"presence_penalty": 2.5},
+    {"logit_bias": {"5": 101.0}}, {"stop": 3}])
 def test_unserved_parameters_are_400(server, extra):
+    """Unserved parameters, and penalties or biases out of the reference's
+    ranges (in range they are served: ``test_penalties_are_served``)."""
     url, _ = server
     status, text = post(url + "/v1/completions",
                         {"prompt": "hi", "max_tokens": 2, **extra})
     assert status == 400
     assert "error" in json.loads(text)
+
+
+def test_penalties_are_served(server):
+    """Presence / frequency penalties and ``logit_bias`` answer 200; a
+    +100 bias forces its token at every step."""
+    url, _ = server
+    status, text = post(url + "/v1/completions", {
+        "prompt": "hi", "max_tokens": 6, "presence_penalty": 0.5,
+        "frequency_penalty": 1.0, "logit_bias": {"65": 100}})
+    assert status == 200, text
+    assert json.loads(text)["choices"][0]["text"] == "A" * 6
 
 
 def test_errors(server):
