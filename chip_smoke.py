@@ -53,6 +53,10 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    against the same engines on the CPU and the card's plain engine
    (tokens, spec_cycles and spec_emitted exact), and penalized and
    biased rows beside plain ones, sync and pipelined, card against CPU;
+   the lane (f32, int8 KV, int8 weights), paged, pipelined and spec
+   engines record top-5 logprobs, held to the CPU's within 5e-3 (LP_TOL:
+   the 2e-3 on logits plus the log-sum-exp), top-5 ids equal wherever
+   ranks lie apart;
 5. serve   — starts the port's HTTP server at Llama-3-8B width and depth
    (random weights), loads a seeded LoRA adapter from .npz, answers six
    concurrent greedy completions (base and adapter rows, one streamed)
@@ -97,7 +101,9 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    the prefill server only, the paged kernel 32 per decode step on the
    decode server only), the same graph keys, prefix reuse on repeated
    prompts, the longest prompt's pool rows equal bitwise, a release
-   mid-stream, KV back at its floor; wire bytes, hop walls, serialize /
+   mid-stream, KV back at its floor, one chat request with ``logprobs:
+   true, top_logprobs: 3`` over the hops equal to C's answer bitwise
+   (envelope, tokens, logprob records); wire bytes, hop walls, serialize /
    deserialize / attach ms and TTFTs per request; then all of it again
    with ``--kv-quantize int8`` (the int8 wire and pools);
 11. spec — speculative decoding and penalties at 8B (``phase_spec``): a
@@ -112,10 +118,20 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    engine's eager block split by its profiler ranges into the draft's
    and the verify's device ms, the paged verify at 8 long rows, decode
    tokens/s spec against plain, and capture seconds per graph key;
+12. surface — the rest of the OpenAI surface, tracing, the flight
+   recorder and the LoRA residency ladder at 8B (``phase_surface``): a
+   lane server with ``--prefill-batch 4 --pipeline-decode``; chat against
+   the same transcript on completions, ``logprobs: 5``, ``n: 3`` seeded
+   (one grouped prefill, exact launches, each choice equal to a single
+   request with seed s+i), ``best_of: 4, n: 2``, echo, a traced request,
+   demote / promote / evict / prefetch with the adapter row's tokens
+   bitwise the serve phase's, drain in the flight recorder; prints the
+   profiler's shares (pipelined beside the serve phase's sync loop),
+   promotion against disk load ms and the phase's wall;
 
 then prints one JSON line with every kernel's numbers (launches over the
-serve phases, the dispatch phase's B runs, the disagg phase's hops and
-the spec phase's servers),
+serve phases, the dispatch phase's B runs, the disagg phase's hops, the
+spec phase's servers and the surface phase's),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
 
@@ -787,6 +803,48 @@ def _paged_rows(torch, gen) -> list:
     return [row]
 
 
+# Card-vs-CPU logprob tolerance: the reference phase's 2e-3 on logits plus
+# the log-sum-exp over the vocabulary.
+LP_TOL = 5e-3
+LP_ERRS: dict = {}  # engine -> max logprob error, card against CPU
+
+
+def _check_logprobs(what: str, want: list, got: list) -> float:
+    """Requests recorded with ``logprobs=5``, the card's (``got``) against
+    the CPU's (``want``): every sampled logprob and every top-5 value
+    within LP_TOL (tops compared rank by rank), the top-5 ids equal at
+    every rank whose neighbours in the CPU's list lie more than LP_TOL away
+    (the last rank's lower neighbour is not recorded, so it is held by
+    value only).  Returns the largest error and keeps it in LP_ERRS."""
+    err = 0.0
+    for w, g in zip(want, got, strict=True):
+        n = len(g.output_tokens)
+        if not (len(w.output_logprobs) == len(g.output_logprobs) == n
+                == len(w.output_top_logprobs) == len(g.output_top_logprobs)):
+            raise AssertionError(f"{what}: logprob records misaligned")
+        for lw, lg, tw, tg in zip(w.output_logprobs, g.output_logprobs,
+                                  w.output_top_logprobs,
+                                  g.output_top_logprobs):
+            err = max(err, abs(lw - lg))
+            rw = sorted(tw.items(), key=lambda kv: -kv[1])
+            rg = sorted(tg.items(), key=lambda kv: -kv[1])
+            if len(rw) != len(rg) or len(rw) != 5:
+                raise AssertionError(f"{what}: top lists {rw} / {rg}")
+            vals = [v for _, v in rw]
+            for j, ((iw, vw), (ig, vg)) in enumerate(zip(rw, rg)):
+                err = max(err, abs(vw - vg))
+                apart = ((j == 0 or vals[j - 1] - vals[j] > LP_TOL)
+                         and j + 1 < len(vals)
+                         and vals[j] - vals[j + 1] > LP_TOL)
+                if apart and iw != ig:
+                    raise AssertionError(f"{what}: top-5 rank {j}: card "
+                                         f"{rg} cpu {rw}")
+    if not math.isfinite(err) or err > LP_TOL:
+        raise AssertionError(f"{what}: logprob error {err} > {LP_TOL}")
+    LP_ERRS[what] = err
+    return err
+
+
 def phase_reference(torch) -> None:
     """The card's path (kernels, f32) against the CPU path (plain versions)
     on one small model with Llama-3-8B's head layout: prefill logits within
@@ -835,7 +893,7 @@ def phase_reference(torch) -> None:
              "launches"),
             ("int8 KV", (cpu_params, gpu_params), "int8", "quant_launches"),
             ("int8 weights", (cpu_q, gpu_q), None, "launches")):
-        streams, launches = {}, {}
+        streams, launches, by_dev = {}, {}, {}
         for dev, params in zip(("cpu", "cuda"), params_by_dev):
             dec.launches = dec.quant_launches = 0
             eng = Engine(cfg, params, EngineConfig(
@@ -843,7 +901,8 @@ def phase_reference(torch) -> None:
                 adaptive_steps=8, kv_cache_quant=kv_quant),
                 eos_id=257, dtype=torch.float32, device=dev)
             eng.start()
-            reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
+            reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12,
+                                       logprobs=5))
                     for p in prompts]
             for r in reqs:
                 if not r.done.wait(300) or r.error:
@@ -852,9 +911,11 @@ def phase_reference(torch) -> None:
             eng.stop()
             streams[dev] = [r.output_tokens for r in reqs]
             launches[dev] = getattr(dec, counter)
+            by_dev[dev] = reqs
         if streams["cpu"] != streams["cuda"]:
             raise AssertionError(f"reference ({name}): greedy streams "
                                  f"differ: {streams}")
+        _check_logprobs(f"lane, {name}", by_dev["cpu"], by_dev["cuda"])
         if launches["cpu"] != 0 or launches["cuda"] <= 0:
             raise AssertionError(f"reference ({name}): lane decode "
                                  f"launches {launches}")
@@ -875,23 +936,30 @@ def phase_reference(torch) -> None:
     _spec_reference(torch, cfg, (cpu_params, gpu_params), draft_cfg,
                     (cpu_draft, to_card(cpu_draft)))
     _penalty_reference(torch, cfg, cpu_params, gpu_params)
+    log("reference", f"logprobs (top-5) card against cpu, max error per "
+        f"engine (limit {LP_TOL}): {json.dumps(LP_ERRS)}")
 
 
 def _run_engine(eng, prompts, max_new: int = 12) -> list:
-    """Start ``eng``, submit ``prompts`` at once (greedy), return the
-    streams."""
+    """Start ``eng``, submit ``prompts`` at once (greedy, top-5 logprobs
+    recorded), return the finished requests."""
     from llm_instance_gateway_tpu_torch.server.engine import Request
 
     eng.start()
     try:
-        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=max_new))
+        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=max_new,
+                                   logprobs=5))
                 for p in prompts]
         for r in reqs:
             if not r.done.wait(300) or r.error:
                 raise AssertionError(f"engine on {eng.device}: {r.error}")
-        return [r.output_tokens for r in reqs]
+        return reqs
     finally:
         eng.stop()
+
+
+def _streams(reqs) -> list:
+    return [r.output_tokens for r in reqs]
 
 
 def _pipelined_reference(torch, cfg, cpu_params, gpu_params) -> None:
@@ -907,9 +975,10 @@ def _pipelined_reference(torch, cfg, cpu_params, gpu_params) -> None:
                for n in (5, 9, 12, 40, 50, 100)]
     base = dict(max_seq_len=256, prefill_buckets=(16, 64, 128),
                 adaptive_steps=8)
-    want = _run_engine(Engine(cfg, cpu_params, EngineConfig(**base),
-                              eos_id=257, dtype=torch.float32, device="cpu"),
-                       prompts)
+    want_reqs = _run_engine(Engine(cfg, cpu_params, EngineConfig(**base),
+                                   eos_id=257, dtype=torch.float32,
+                                   device="cpu"), prompts)
+    want = _streams(want_reqs)
     eng = Engine(cfg, gpu_params, EngineConfig(
         pipeline_decode=True, prefill_batch=4, **base), eos_id=257,
         dtype=torch.float32, device="cuda")
@@ -921,10 +990,12 @@ def _pipelined_reference(torch, cfg, cpu_params, gpu_params) -> None:
         return many(*args, **kwargs)
 
     eng._prefill_many_impl = counted
-    got = _run_engine(eng, prompts)
+    got_reqs = _run_engine(eng, prompts)
+    got = _streams(got_reqs)
     if got != want:
         raise AssertionError(f"pipelined reference: greedy streams differ: "
                              f"cuda {got} cpu {want}")
+    _check_logprobs("pipelined lane (graph replays)", want_reqs, got_reqs)
     if not grouped or eng._graphs.replays <= 0:
         raise AssertionError(f"pipelined reference: grouped prefills "
                              f"{grouped}, replays {eng._graphs.replays}")
@@ -951,7 +1022,7 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
     prompts = [prefix + [90, 91, 92], prefix + [100, 101],
                [256] + [70 + (3 * i) % 40 for i in range(299)],
                [256] + [66 + (5 * i) % 45 for i in range(199)]]
-    streams, reused, launches = {}, {}, {}
+    streams, reused, launches, by_dev = {}, {}, {}, {}
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         ch.launches = pd.launches = pd.quant_launches = 0
         eng = Engine(cfg, params, EngineConfig(
@@ -960,13 +1031,15 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
             stream_lanes=2, kv_cache_quant=kv_quant), eos_id=257,
             dtype=torch.float32, device=dev)
         eng.start()
-        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12))
+        reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12,
+                                   logprobs=5))
                 for p in prompts]
         for r in reqs:
             if not r.done.wait(300) or r.error:
                 raise AssertionError(f"paged reference on {dev}: {r.error}")
         eng.stop()
         streams[dev] = [r.output_tokens for r in reqs]
+        by_dev[dev] = reqs
         reused[dev] = eng.prefix_reused_tokens
         launches[dev] = (ch.launches, getattr(pd, counter))
     if streams["cpu"] != streams["cuda"]:
@@ -976,6 +1049,8 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
         raise AssertionError(f"paged reference: prefix reuse {reused}")
     if launches["cpu"] != (0, 0) or min(launches["cuda"]) <= 0:
         raise AssertionError(f"paged reference: launches {launches}")
+    _check_logprobs(f"paged, prefix cache, stream lanes, KV "
+                    f"{kv_quant or 'f32'}", by_dev["cpu"], by_dev["cuda"])
     log("reference", f"paged engine (16-token blocks, prefix cache, 2 stream "
         f"lanes, f32, KV {kv_quant or 'f32'}): greedy streams identical on "
         f"cuda and cpu ({sum(map(len, streams['cuda']))} tokens), "
@@ -989,11 +1064,14 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
             adaptive_steps=8, paged_kv_block=16, prefix_cache=True,
             stream_lanes=2, pipeline_decode=True, prefill_batch=4),
             eos_id=257, dtype=torch.float32, device="cuda")
-        got = _run_engine(eng, prompts)
+        got_reqs = _run_engine(eng, prompts)
+        got = _streams(got_reqs)
         if got != streams["cpu"] or eng.prefix_reused_tokens != reused["cpu"]:
             raise AssertionError(f"pipelined paged reference: {got} "
                                  f"{eng.prefix_reused_tokens} against "
                                  f"{streams['cpu']} {reused['cpu']}")
+        _check_logprobs("pipelined paged (graph replays)", by_dev["cpu"],
+                        got_reqs)
         log("reference", f"pipelined paged engine (prefix cache, 2 stream "
             f"lanes, f32): greedy streams identical on cuda and cpu, "
             f"{eng._graphs.replays} graph replays")
@@ -1046,7 +1124,7 @@ def _spec_reference(torch, cfg, params, draft_cfg, draft_params) -> None:
                 [Request(prompt_tokens=p, max_new_tokens=12)
                  for p in prompts[layout]])
             for draft in ("small", "perfect"):
-                got = {}
+                got, recorded = {}, {}
                 for i, dev in enumerate(("cpu", "cuda")):
                     dp, dc = ((params[i], cfg) if draft == "perfect"
                               else (draft_params[i], draft_cfg))
@@ -1054,9 +1132,10 @@ def _spec_reference(torch, cfg, params, draft_cfg, draft_params) -> None:
                         speculative_k=3, **ecfg), eos_id=257,
                         dtype=torch.float32, device=dev, draft_params=dp,
                         draft_cfg=dc)
-                    toks = _serve_all(eng, [
-                        Request(prompt_tokens=p, max_new_tokens=12)
-                        for p in prompts[layout]])
+                    recorded[dev] = [
+                        Request(prompt_tokens=p, max_new_tokens=12,
+                                logprobs=5) for p in prompts[layout]]
+                    toks = _serve_all(eng, recorded[dev])
                     got[dev] = (toks, eng.spec_cycles, eng.spec_emitted)
                     if dev == "cuda":
                         keys = eng._graphs.spec_shapes
@@ -1068,6 +1147,7 @@ def _spec_reference(torch, cfg, params, draft_cfg, draft_params) -> None:
                                          f"{got['cpu']} plain {plain}")
                 if got["cuda"][1] <= 0 or not keys:
                     raise AssertionError(f"{what}: no spec cycle ({keys})")
+                _check_logprobs(what, recorded["cpu"], recorded["cuda"])
                 log("reference", f"{what}: tokens equal on cuda, cpu and the "
                     f"card's plain engine ({sum(map(len, plain))} tokens); "
                     f"spec_cycles {got['cuda'][1]}, spec_emitted "
@@ -1291,6 +1371,9 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         stats = {
             "init_s": init_s, "serve_s": serve_s,
             "decode_steps": decode_steps,
+            # The sync loop's step-profiler attribution over the window,
+            # beside the pipelined server's in the surface phase.
+            "profile_shares": engine.profiler.attribution()["shares"],
             "decode_step_ms_mean": 1e3 * (
                 (ph["decode_step"]["sum"] - snap0["phase_hist"]["decode_step"]["sum"])
                 / max(1, ph["decode_step"]["count"]
@@ -1860,6 +1943,12 @@ def _http(url: str, data: bytes, ctype: str = "application/json",
         return e.code, e.read(), e.headers
 
 
+# The servers the smoke starts after the serve phase: Llama-3-8B on the card.
+SERVER_ARGV = ["--model", "llama3-8b", "--max-seq-len", "1024",
+               "--decode-slots", "8", "--device", "cuda", "--host",
+               "127.0.0.1", "--port", "0"]
+
+
 def _start_server(argv, params, adapter_path: str, draft_params=None):
     """An 8B server over ``params`` (and ``draft_params`` for its draft)
     with the smoke's adapter loaded, its HTTP loop on a thread; returns
@@ -1869,9 +1958,7 @@ def _start_server(argv, params, adapter_path: str, draft_params=None):
     from llm_instance_gateway_tpu_torch.server import api_http
 
     httpd, engine, _ = api_http.make_server(
-        ["--model", "llama3-8b", "--max-seq-len", "1024", "--decode-slots",
-         "8", "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
-        + argv, params=params, draft_params=draft_params)
+        SERVER_ARGV + argv, params=params, draft_params=draft_params)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
     status, text = _post(url + "/v1/load_lora_adapter",
@@ -1953,6 +2040,45 @@ def _snapshot_row_kv(torch, engine, prompt: list, n_valid: int,
         clear(i)
 
     engine._clear_slot = call
+
+
+def _chat_over_hops(tag: str, content: str, max_tokens: int, urls,
+                    c_reqs: list, d_reqs: list) -> dict:
+    """One chat request with ``logprobs: true, top_logprobs: 3``: on C
+    collocated, then over P's ``/v1/prefill`` and D's ``/v1/attach``.
+    Each server runs it alone (its decode batch holds that row only), and
+    the two answers — envelope, text, logprobs — and the requests' tokens
+    and logprob records must be equal bitwise."""
+    p_url, d_url, c_url = urls
+    chat = {"messages": [{"role": "system", "content": "answer briefly"},
+                         {"role": "user", "content": content}],
+            "max_tokens": max_tokens, "temperature": 0.0, "logprobs": True,
+            "top_logprobs": 3}
+    st_c, c_text = _post(c_url + "/v1/chat/completions", chat)
+    st_p, wire, _ = _http(p_url + "/v1/prefill", json.dumps(chat).encode())
+    st_d, d_text, _ = _http(d_url + "/v1/attach", wire,
+                            "application/octet-stream")
+    if (st_c, st_p, st_d) != (200, 200, 200):
+        raise AssertionError(f"{tag} chat over the hops: {st_c} {st_p} "
+                             f"{st_d} {c_text[:200]} {d_text[:200]}")
+    c_ans, d_ans = json.loads(c_text), json.loads(d_text)
+    c_req, d_req = c_reqs[-1], d_reqs[-1]
+
+    def records(r):
+        return (r.output_tokens, r.output_logprobs, r.output_top_logprobs)
+
+    if (d_ans["object"] != "chat.completion"
+            or d_ans["choices"] != c_ans["choices"]
+            or d_ans["usage"] != c_ans["usage"]
+            or records(d_req) != records(c_req)
+            or len(d_req.output_top_logprobs) != max_tokens):
+        raise AssertionError(f"{tag} chat over the hops differs from C: "
+                             f"{records(d_req)} {records(c_req)}")
+    entries = d_ans["choices"][0]["logprobs"]["content"]
+    return {"tokens": len(d_req.output_tokens), "entries": len(entries),
+            "top_logprobs": max((len(e["top_logprobs"]) for e in entries),
+                                default=0),
+            "equal_bitwise": True}
 
 
 def phase_disagg(torch, params, adapter_path: str,
@@ -2232,6 +2358,9 @@ def phase_disagg(torch, params, adapter_path: str,
             if floor[name] != (0.0, 0):
                 raise AssertionError(f"{tag}: {name} KV usage/parked "
                                      f"{floor[name]} after the last request")
+        chat = _chat_over_hops(tag, jobs[2], max_tokens, (p_url, d_url,
+                                                          c_url),
+                               c_reqs, d_reqs)
         with urllib.request.urlopen(d_url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
         for family in ('tpu:pool_role{role="decode"} 1',
@@ -2247,7 +2376,7 @@ def phase_disagg(torch, params, adapter_path: str,
             "pool_rows_compared": {k: list(v.shape) for k, v in
                                    rows["D"]["kv"].items()},
             "launches": launches, "c_launches": c_launches,
-            "per_request": per_request,
+            "chat_over_hops": chat, "per_request": per_request,
         }
         log(tag, "llama3-8b P (lanes) -> D (paged 64 x 768, prefix cache, "
             "pipelined graphs) vs C" + (", --kv-quantize int8" if quant
@@ -2741,11 +2870,373 @@ def phase_spec(torch, params, adapter_path: str, plain_answers: dict) -> dict:
     return out
 
 
+SURFACE_FLAGS = ["--prefill-batch", "4", "--pipeline-decode"]
+ADAPTER = "smoke-r8"
+
+
+def _get(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as f:
+        return f.read().decode()
+
+
+def _sse_chunks(text: str) -> list:
+    lines = [ln[6:] for ln in text.splitlines() if ln.startswith("data: ")]
+    if not lines or lines[-1] != "[DONE]":
+        raise AssertionError(f"stream did not end with [DONE]: {text[-200:]}")
+    return [json.loads(ln) for ln in lines[:-1]]
+
+
+def phase_surface(torch, params, adapter_path: str, plain_answers: dict,
+                  sync_shares: dict) -> dict:
+    """The rest of the OpenAI surface, tracing, the flight recorder and the
+    residency ladder at Llama-3-8B width and depth, on the serve phase's
+    weights and adapter: one lane server with ``--prefill-batch 4
+    --pipeline-decode``, one request (or fan-out) at a time.
+
+    - chat, JSON and streamed: the tokens equal a /v1/completions of the
+      same role transcript, bitwise;
+    - a greedy completion with ``logprobs: 5``: each sampled logprob equals
+      its top-1 value, the top lists are sorted, Σ exp over the top-5 is
+      at most 1 + 1e-5, and the tokens equal the serve phase's answer;
+    - ``n: 3`` seeded at temperature 0.8: three distinct choices, admitted
+      in one grouped prefill (exact launches: flash 32 per prefill
+      program, the lane kernel 32 per decode step, replays counted), each
+      bitwise equal to a single request with seed ``s+i`` (the three
+      singles submitted at once, so they share a grouped prefill of the
+      same shape: bf16 rows of a [3, bucket] program may round otherwise
+      than a [1, bucket] one's);
+    - ``best_of: 4, n: 2``: the candidates equal ``n: 4``'s with the same
+      seed, and the answer keeps the two best by mean logprob;
+    - ``echo``, JSON and streamed (the prompt leads, as its own chunk);
+    - a traced request: the id is echoed, the spans lie inside the
+      request's wall time, the ``engine.prefill`` span lies within 5 ms of
+      the reported TTFT;
+    - the ladder on the loaded adapter: demote refused (409) while a
+      request pins it, demote, promote from the host tier, demote, evict,
+      prefetch, promote; the adapter row's greedy tokens equal the serve
+      phase's adapter answer bitwise at the start and after each
+      promotion;
+    - drain: ``/debug/events`` holds ``role_change`` and
+      ``tpu:events_total`` counts it.
+
+    Prints the step profiler's attribution shares (pipelined, beside the
+    serve phase's sync loop), host-tier promotion ms against disk load ms,
+    and the phase's wall time."""
+    import threading
+    import urllib.request
+
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Request, SamplingParams)
+    from llm_instance_gateway_tpu_torch.server.tokenizer import ByteTokenizer
+
+    tag = "surface"
+    t_phase = time.time()
+    httpd, engine, url = _start_server(SURFACE_FLAGS, params, adapter_path)
+    n_layers = engine.model_cfg.n_layers
+    subs: list = []
+    _record(engine, "submit", subs)
+    programs = {"prefill": 0, "chunk": 0}
+    _count_programs(engine, programs)
+    grouped: list = []
+    many = engine._prefill_many_impl
+
+    def counted(*args, **kwargs):
+        grouped.append(len(args[0]))
+        return many(*args, **kwargs)
+
+    engine._prefill_many_impl = counted
+    total = {name: 0 for name in _counters()}
+    out: dict = {}
+
+    def window() -> dict:
+        """The launches since the last window, added to the phase's."""
+        w = read_launches()
+        reset_launches()
+        for k, v in w.items():
+            total[k] += v
+        return w
+
+    def call(path: str, body: dict, headers=None):
+        req = urllib.request.Request(url + path,
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type":
+                                              "application/json",
+                                              **(headers or {})})
+        with urllib.request.urlopen(req, timeout=600) as f:
+            text, hdr = f.read().decode(), f.headers
+        return (_sse_chunks(text) if body.get("stream")
+                else json.loads(text)), hdr
+
+    def tokens(n: int) -> list:
+        return [list(r.output_tokens) for r in subs[-n:]]
+
+    try:
+        reset_launches()
+        # -- chat against the same transcript on /v1/completions --
+        content = SERVE_TEXT[:120]
+        chat = {"messages": [{"role": "user", "content": content}],
+                "max_tokens": 24, "temperature": 0.0}
+        answer, _ = call("/v1/chat/completions", chat)
+        chunks, _ = call("/v1/chat/completions", dict(chat, stream=True))
+        plain, _ = call("/v1/completions", {
+            "prompt": f"user: {content}\nassistant:", "max_tokens": 24,
+            "temperature": 0.0})
+        a, b, c = subs[-3:]
+        if not (a.prompt_tokens == b.prompt_tokens == c.prompt_tokens
+                and a.output_tokens == b.output_tokens == c.output_tokens):
+            raise AssertionError(f"{tag} chat: {tokens(3)}")
+        if (answer["object"], chunks[0]["object"]) != (
+                "chat.completion", "chat.completion.chunk") or \
+                chunks[-1]["usage"] != answer["usage"] or \
+                answer["choices"][0]["message"]["content"] != \
+                plain["choices"][0]["text"]:
+            raise AssertionError(f"{tag} chat envelope: {answer} "
+                                 f"{chunks[-1]}")
+        out["chat"] = {"prompt_tokens": len(a.prompt_tokens),
+                       "tokens": len(a.output_tokens), "chunks": len(chunks)}
+
+        # -- logprobs: 5 on a greedy completion --
+        answer, _ = call("/v1/completions", {
+            "prompt": SERVE_TEXT[:120], "max_tokens": 32,
+            "temperature": 0.0, "logprobs": 5})
+        r = subs[-1]
+        if r.output_tokens != plain_answers[(tuple(r.prompt_tokens), None)]:
+            raise AssertionError(f"{tag} logprobs: tokens differ from the "
+                                 f"serve phase's answer")
+        mass = 0.0
+        for lp, top in zip(r.output_logprobs, r.output_top_logprobs,
+                           strict=True):
+            vals = list(top.values())
+            mass = max(mass, sum(math.exp(v) for v in vals))
+            if (len(vals) != 5 or lp != vals[0]
+                    or vals != sorted(vals, reverse=True)
+                    or mass > 1 + 1e-5):
+                raise AssertionError(f"{tag} logprobs: {lp} {top}")
+        lp_json = answer["choices"][0]["logprobs"]
+        if any(lp != max(t.values()) for lp, t in zip(
+                lp_json["token_logprobs"], lp_json["top_logprobs"])):
+            raise AssertionError(f"{tag} logprobs envelope: {lp_json}")
+        out["logprobs"] = {"tokens": len(r.output_tokens),
+                           "max_top5_mass": mass}
+
+        # -- n: 3, seeded, in one grouped prefill --
+        seeded = {"prompt": SERVE_TEXT[:200], "max_tokens": 16,
+                  "temperature": 0.8, "seed": 1234}
+        # The block the pipelined loop held past the last request is
+        # processed (and in the steps histogram) before the window opens.
+        wait_blocks_processed(engine)
+        torch.cuda.synchronize()
+        window()
+        grouped.clear()
+        progs0 = dict(programs)
+        snap0 = engine.metrics_snapshot()
+        answer, _ = call("/v1/completions", dict(seeded, n=3))
+        wait_blocks_processed(engine)
+        torch.cuda.synchronize()
+        launches = window()
+        steps = int(engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
+                    - snap0["dispatch_steps_hist"]["sum"])
+        if grouped != [3] or programs != progs0:
+            raise AssertionError(f"{tag} n=3: grouped prefills {grouped}, "
+                                 f"programs {programs} (was {progs0})")
+        check_only(launches, {"flash_prefill": n_layers,
+                              "decode_attention": steps * n_layers},
+                   f"{tag} n=3")
+        fan = tokens(3)
+        if len({tuple(t) for t in fan}) != 3:
+            raise AssertionError(f"{tag} n=3: choices not distinct {fan}")
+        singles = [Request(prompt_tokens=list(subs[-1].prompt_tokens),
+                           max_new_tokens=16, sampling=SamplingParams(
+                               temperature=0.8, seed=1234 + i))
+                   for i in range(3)]
+        with engine._work:  # one admission pass sees all three
+            for q in singles:
+                engine.submit(q)
+        for q in singles:
+            if not q.done.wait(300) or q.error:
+                raise AssertionError(f"{tag} single: {q.error}")
+        if grouped != [3, 3] or [q.output_tokens for q in singles] != fan:
+            raise AssertionError(f"{tag} n=3 vs seeds s+i: {grouped} "
+                                 f"{[q.output_tokens for q in singles]} "
+                                 f"{fan}")
+        out["n3"] = {"decode_steps": steps, "launches": launches,
+                     "usage": answer["usage"]}
+
+        # -- best_of: 4, n: 2 against n: 4 with the same seed --
+        # (ranked in process: at 8B most ids are not bytes, so the
+        # envelope's text and its logprob walk are mostly empty)
+        four, _ = call("/v1/completions", dict(seeded, n=4, logprobs=0))
+        fours = subs[-4:]
+        best, _ = call("/v1/completions", dict(seeded, n=2, best_of=4))
+        if [(r.output_tokens, r.output_logprobs) for r in subs[-4:]] != [
+                (r.output_tokens, r.output_logprobs) for r in fours]:
+            raise AssertionError(f"{tag} best_of: candidates differ from "
+                                 f"n=4's")
+        ranked = sorted(fours, key=lambda r: -sum(r.output_logprobs)
+                        / len(r.output_logprobs))
+        decode = ByteTokenizer().decode
+        if ([ch["text"] for ch in best["choices"]]
+                != [decode(r.output_tokens) for r in ranked[:2]]
+                or best["usage"] != four["usage"]):
+            raise AssertionError(f"{tag} best_of: {best} against {four}")
+        out["best_of"] = {"usage": best["usage"], "grouped": grouped[-2:]}
+
+        # -- echo, JSON and streamed --
+        echo = {"prompt": "echo this prompt", "max_tokens": 8,
+                "temperature": 0.0, "echo": True}
+        answer, _ = call("/v1/completions", echo)
+        chunks, _ = call("/v1/completions", dict(echo, stream=True))
+        streamed = "".join(ch["choices"][0]["text"] for ch in chunks)
+        if (chunks[0]["choices"][0]["text"] != echo["prompt"]
+                or not answer["choices"][0]["text"].startswith(echo["prompt"])
+                or streamed != answer["choices"][0]["text"]
+                or subs[-1].output_tokens != subs[-2].output_tokens):
+            raise AssertionError(f"{tag} echo: {answer} {streamed!r}")
+
+        # -- a traced request, on an engine with no block in flight (else
+        # its admission waits for that block: queue time, not TTFT's) --
+        wait_blocks_processed(engine)
+        tid = "5eed00000000abcd"
+        t0 = time.time()
+        answer, hdr = call("/v1/completions", {
+            "prompt": SERVE_TEXT[:60], "max_tokens": 16,
+            "temperature": 0.0}, {"x-lig-trace-id": tid})
+        t1 = time.time()
+        spans = json.loads(hdr["x-lig-spans"])
+        ttft = answer["ttft_ms"] / 1e3
+        named = {sp[0]: sp for sp in spans}
+        prefill, queue = named["engine.prefill"], named["engine.queue_wait"]
+        if hdr["x-lig-trace-id"] != tid or not all(
+                t0 - 1e-3 <= s0 <= s1 <= t1 + 1e-3 for _, s0, s1 in spans) \
+                or abs((prefill[2] - queue[1]) - ttft) > 1e-3 \
+                or abs((prefill[2] - prefill[1]) - ttft) > 5e-3:
+            raise AssertionError(f"{tag} trace: {spans} ttft {ttft} "
+                                 f"[{t0}, {t1}]")
+        trace = json.loads(_get(url + f"/debug/traces?trace_id={tid}"))
+        if [sp["name"] for sp in trace["traces"][0]["spans"]] != [
+                sp[0] for sp in spans]:
+            raise AssertionError(f"{tag} /debug/traces: {trace}")
+        out["trace"] = {"spans": [sp[0] for sp in spans],
+                        "ttft_ms": ttft * 1e3,
+                        "prefill_span_ms": (prefill[2] - prefill[1]) * 1e3,
+                        "wall_ms": (t1 - t0) * 1e3}
+
+        # -- the residency ladder on the loaded adapter --
+        ad_body = {"prompt": SERVE_TEXT[:50], "max_tokens": 32,
+                   "temperature": 0.0, "model": ADAPTER}
+        load = {"lora_name": ADAPTER, "lora_path": adapter_path}
+
+        def adapter_tokens(step: str) -> None:
+            call("/v1/completions", ad_body)
+            r = subs[-1]
+            if r.output_tokens != plain_answers[(tuple(r.prompt_tokens),
+                                                 ADAPTER)]:
+                raise AssertionError(f"{tag} ladder, {step}: the adapter "
+                                     f"row's tokens differ")
+
+        def admin(path: str, body: dict, want: int):
+            st, text = _post(url + path, body)
+            if st != want:
+                raise AssertionError(f"{tag} {path}: {st} {text[:300]}")
+            return json.loads(text)
+
+        adapter_tokens("slot-resident")
+        pinned = {}
+        pin = threading.Thread(target=lambda: pinned.update(res=_post(
+            url + "/v1/completions", dict(ad_body, max_tokens=200,
+                                          stream=True))))
+        n_subs = len(subs)
+        pin.start()
+        deadline = time.time() + 120
+        while not (len(subs) > n_subs
+                   and len(subs[-1].output_tokens) >= 2):
+            if time.time() > deadline:
+                raise AssertionError(f"{tag}: the pinning request never "
+                                     f"decoded")
+            time.sleep(0.005)
+        busy = admin("/v1/demote_lora_adapter", {"lora_name": ADAPTER}, 409)
+        pin.join(600)
+        if not pinned or pinned["res"][0] != 200:
+            raise AssertionError(f"{tag}: pinning request {pinned}")
+        ladder, call_ms = [], []
+        for step, path, body in (
+                ("demote", "/v1/demote_lora_adapter", {"lora_name": ADAPTER}),
+                ("promote", "/v1/load_lora_adapter", load),
+                ("demote", "/v1/demote_lora_adapter", {"lora_name": ADAPTER}),
+                ("evict", "/v1/evict_lora_adapter", {"lora_name": ADAPTER}),
+                ("prefetch", "/v1/prefetch_lora_adapter", load),
+                ("promote", "/v1/load_lora_adapter", load)):
+            t = time.perf_counter()
+            admin(path, body, 200)
+            torch.cuda.synchronize()  # the slot writes are queued
+            call_ms.append((step, (time.perf_counter() - t) * 1e3))
+            ladder.append((step, engine.lora.adapter_tiers().get(ADAPTER,
+                                                                 "disk")))
+            if step == "promote":
+                adapter_tokens(f"promotion {len(ladder)}")
+        if ladder != [("demote", "host"), ("promote", "slot"),
+                      ("demote", "host"), ("evict", "disk"),
+                      ("prefetch", "host"), ("promote", "slot")]:
+            raise AssertionError(f"{tag} ladder: {ladder}")
+        transitions, load_s = engine.lora.residency_counters()
+        if load_s["host"][1] != 2 or load_s["disk"][1] != 2:
+            raise AssertionError(f"{tag} ladder loads: {load_s}")
+        metrics = _get(url + "/metrics")
+        for family in ('tpu:adapter_load_seconds_total{tier="host"}',
+                       'tpu:adapter_loads_total{tier="host"} 2',
+                       'tpu:adapter_tier_transitions_total{from="slot",'
+                       'to="host"} 2'):
+            if family not in metrics:
+                raise AssertionError(f"{tag}: /metrics lacks {family}")
+        usage = json.loads(_get(url + "/debug/usage"))
+        if usage["residency"] != {"slot": [ADAPTER], "host": []}:
+            raise AssertionError(f"{tag} /debug/usage: {usage['residency']}")
+        out["ladder"] = {
+            "busy_demote": busy["error"]["message"],
+            "host_promotion_ms": 1e3 * load_s["host"][0] / load_s["host"][1],
+            # the first disk load is this server's start-up load
+            "disk_load_ms": 1e3 * load_s["disk"][0] / load_s["disk"][1],
+            # each admin call's wall, HTTP round trip and device sync
+            "call_ms": call_ms,
+            "transitions": {f"{a}->{b}": n
+                            for (a, b), n in sorted(transitions.items())}}
+
+        window()
+        profile = json.loads(_get(url + "/debug/profile"))
+        shares = profile["attribution"]["shares"]
+        if abs(sum(shares.values()) - 1.0) > 1e-6:
+            raise AssertionError(f"{tag} profile: {profile['attribution']}")
+        out["profile_shares"] = {"pipelined": shares,
+                                 "sync (serve phase)": sync_shares}
+
+        # -- drain: the flight recorder and tpu:events_total --
+        if not engine.drain(timeout_s=60):
+            raise AssertionError(f"{tag}: drain timed out")
+        events = json.loads(_get(url + "/debug/events?kind=role_change"))
+        if [e["attrs"] for e in events["events"]] != [
+                {"role": "collocated", "draining": True}] or \
+                'tpu:events_total{kind="role_change"} 1' not in _get(
+                    url + "/metrics"):
+            raise AssertionError(f"{tag} drain events: {events}")
+        out["launches"] = total
+        out["graph_shapes"] = getattr(engine._graphs, "shapes", None)
+        out["wall_s"] = time.time() - t_phase
+        log(tag, "llama3-8b lane server, --prefill-batch 4 "
+            "--pipeline-decode: " + json.dumps(out))
+        return out
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+
+
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
-    paged, dispatch, disagg, int8 disagg, spec)."""
+    paged, dispatch, disagg, int8 disagg, spec, surface)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -2821,6 +3312,8 @@ def main() -> int:
     disagg = phase_disagg(torch, params, adapter_path)
     disagg_q = phase_disagg(torch, params, adapter_path, quant=True)
     spec = phase_spec(torch, params, adapter_path, stats["answers"])
+    surface = phase_surface(torch, params, adapter_path, stats["answers"],
+                            stats["profile_shares"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
@@ -2828,7 +3321,8 @@ def main() -> int:
                "disagg": disagg["launches"],
                "disagg_int8": disagg_q["launches"],
                "spec": {name: spec["launches"].get(name, 0)
-                        for name in stats["launches"]}}
+                        for name in stats["launches"]},
+               "surface": surface["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

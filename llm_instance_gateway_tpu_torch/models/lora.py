@@ -57,13 +57,22 @@ def init_lora_buffers(cfg, dtype=torch.bfloat16,
     return bufs
 
 
+def _f32(x) -> torch.Tensor:
+    """An f32 CPU (or device) tensor of ``x`` (numpy or torch)."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
 def write_adapter(bufs: dict[str, Any], cfg, slot: int,
                   adapter: dict[str, Any], alpha: float, rank: int) -> None:
     """Write an adapter into ``slot`` of ``bufs`` in place.
 
     ``adapter`` maps target -> {"a": [n_layers, d_in, r], "b": [n_layers,
     r, d_out]} (numpy or torch) with r <= max_lora_rank; missing targets
-    stay zero.  alpha/r lands in the per-slot scale vector."""
+    stay zero.  alpha/r lands in the per-slot scale vector.  The weights
+    go to the device as f32 (asynchronously from pinned host tensors, the
+    host tier's form) and round to the buffers' dtype there."""
     if not 0 <= slot < cfg.max_lora_slots:
         raise ValueError(f"slot {slot} out of range [0, {cfg.max_lora_slots})")
     if rank > cfg.max_lora_rank:
@@ -71,24 +80,25 @@ def write_adapter(bufs: dict[str, Any], cfg, slot: int,
     dims = target_dims(cfg)
     staged = {}
     for t in TARGETS:  # check every target before the first write
+        if t not in adapter:
+            continue
         d_in, d_out = dims[t]
-        a_buf = np.zeros((cfg.n_layers, d_in, cfg.max_lora_rank), np.float32)
-        b_buf = np.zeros((cfg.n_layers, cfg.max_lora_rank, d_out), np.float32)
-        if t in adapter:
-            a = np.asarray(adapter[t]["a"], np.float32)
-            b = np.asarray(adapter[t]["b"], np.float32)
-            if a.shape != (cfg.n_layers, d_in, rank):
-                raise ValueError(
-                    f"{t}.a shape {a.shape} != {(cfg.n_layers, d_in, rank)}")
-            if b.shape != (cfg.n_layers, rank, d_out):
-                raise ValueError(
-                    f"{t}.b shape {b.shape} != {(cfg.n_layers, rank, d_out)}")
-            a_buf[:, :, :rank] = a
-            b_buf[:, :rank, :] = b
-        staged[f"{t}_a"], staged[f"{t}_b"] = a_buf, b_buf
-    for key, host in staged.items():
-        bufs[key][:, slot] = torch.from_numpy(host).to(bufs[key].device,
-                                                       bufs[key].dtype)
+        a, b = _f32(adapter[t]["a"]), _f32(adapter[t]["b"])
+        if tuple(a.shape) != (cfg.n_layers, d_in, rank):
+            raise ValueError(
+                f"{t}.a shape {tuple(a.shape)} != {(cfg.n_layers, d_in, rank)}")
+        if tuple(b.shape) != (cfg.n_layers, rank, d_out):
+            raise ValueError(
+                f"{t}.b shape {tuple(b.shape)} != {(cfg.n_layers, rank, d_out)}")
+        staged[t] = (a, b)
+    for t in TARGETS:
+        a_buf, b_buf = bufs[f"{t}_a"], bufs[f"{t}_b"]
+        a_buf[:, slot] = 0.0
+        b_buf[:, slot] = 0.0
+        if t in staged:
+            a, b = staged[t]
+            a_buf[:, slot, :, :rank] = a.to(a_buf.device, non_blocking=True)
+            b_buf[:, slot, :rank, :] = b.to(b_buf.device, non_blocking=True)
     bufs["scale"][slot] = alpha / rank
 
 

@@ -6,27 +6,49 @@ runs on the card).
                                     token ids), JSON or SSE ``stream: true``;
                                     ``max_tokens``, ``temperature``,
                                     ``top_k``, ``top_p``, ``seed``, ``stop``,
-                                    ``presence_penalty``,
+                                    ``logprobs``, ``n`` / ``best_of``,
+                                    ``echo``, ``presence_penalty``,
                                     ``frequency_penalty``, ``logit_bias``
+- ``POST /v1/chat/completions``     chat (the role-prefix transcript: the
+                                    byte tokenizer has no chat template),
+                                    ``logprobs`` / ``top_logprobs``, ``n``,
+                                    SSE ``chat.completion.chunk``
 - ``POST /v1/prefill``              disaggregation hop 1: prefill only; the
                                     answer is the serialized
                                     ``PrefillHandoff`` (octet-stream)
 - ``POST /v1/attach``               hop 2: a handoff in, decode to the end;
-                                    JSON or SSE, as ``/v1/completions``
+                                    JSON or SSE, the completions or chat
+                                    envelope the handoff's body asked for
 - ``POST /v1/prefill/release``      ``{"request_id"}``: release abandoned
                                     hop-2 work
 - ``GET  /v1/models``               base model + resident adapters
-- ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz)
+- ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz;
+                                    promotes a host-tier copy)
 - ``POST /v1/unload_lora_adapter``  ``{"lora_name"}``
-- ``GET  /metrics``                 the ``tpu:*`` exposition the gateway scrapes
+- ``POST /v1/demote_lora_adapter``  slot -> host RAM (409 while in use)
+- ``POST /v1/prefetch_lora_adapter`` disk -> host RAM, no slot taken
+- ``POST /v1/evict_lora_adapter``   host RAM -> disk
+- ``GET  /metrics``                 the ``tpu:*`` exposition the gateway
+                                    scrapes, ``tpu:events_total`` included
+- ``GET  /debug/traces``            recent request traces (``?trace_id=``,
+                                    ``?since=``, ``?limit=``)
+- ``GET  /debug/events``            the flight recorder (``?since=``,
+                                    ``?kind=``, ``?limit=``)
+- ``GET  /debug/usage``             per-adapter capacity attribution and
+                                    the residency tiers
+- ``GET  /debug/profile``           the step profiler's attribution and
+                                    dispatch records (404 when off)
 - ``GET  /debug/kv``                the KV ledger's payload (paged pool; 404
                                     on lanes)
 - ``GET  /health``                  200, or 503 while draining
 
-Parameters the port does not serve yet (chat, ``logprobs``, ``n`` /
-``best_of``, ``echo``) answer 400 instead of being ignored.
+Tracing: every inference request adopts the ``x-lig-trace-id`` header (or
+mints one), records its engine spans (queue wait, prefill, decode, handoff
+serialize / deserialize / attach) on ``time.time()`` stamps, echoes the
+id on every answer (error bodies included) and returns its spans in
+``x-lig-spans`` for the gateway to merge.
 
-    python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \
+    python -m llm_instance_gateway_tpu_torch.server.api_http --model llama3-8b \\
         --max-seq-len 8192 --paged-kv-block 64 --prefix-cache --stream-lanes 2
 
 A disaggregated pair is a ``--role prefill`` server and a ``--role decode``
@@ -50,10 +72,13 @@ import queue as queue_mod
 import signal
 import threading
 import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
+from llm_instance_gateway_tpu_torch import events as events_mod
+from llm_instance_gateway_tpu_torch import tracing
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
 from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
@@ -76,26 +101,107 @@ from llm_instance_gateway_tpu_torch.server.tokenizer import load_tokenizer
 
 logger = logging.getLogger(__name__)
 
-_UNSERVED_PARAMS = ("logprobs", "echo")
+MAX_N = 8          # n / best_of cap (each candidate takes engine capacity)
+MAX_LOGPROBS = 5   # sampling.LOGPROB_TOPK, the OpenAI completions maximum
+# OpenAI chat accepts top_logprobs up to 20; the engine records a top-5, so
+# more is accepted, truncated, and the cap noted in the answer.
+OPENAI_MAX_TOP_LOGPROBS = 20
+
+_FFFD = "�"
+# A partial UTF-8 character pending completion is at most 3 bytes, which
+# decode to at most that many replacement chars; a longer trailing run is
+# genuine model output.
+_MAX_PARTIAL_FFFD = 3
+
+# Inference routes: each adopts or mints a trace id (``/v1/attach`` takes
+# it from the header or else from the handoff).
+_TRACED = ("/v1/completions", "/v1/chat/completions", "/v1/prefill",
+           "/v1/prefill/release")
 
 
 class HTTPError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str,
+                 trace_id: str | None = None):
         super().__init__(message)
         self.status = status
+        self.trace_id = trace_id
+
+
+def _text_delta(delta: str, fin) -> dict:
+    return {"index": 0, "text": delta, "finish_reason": fin}
+
+
+def _chat_delta(delta: str, fin) -> dict:
+    return {"index": 0, "delta": ({"content": delta} if delta else {}),
+            "finish_reason": fin}
+
+
+def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
+    return {"prompt_tokens": prompt_tokens,
+            "completion_tokens": completion_tokens,
+            "total_tokens": prompt_tokens + completion_tokens}
 
 
 class ModelServer:
     """Request handling, independent of the transport below."""
 
-    def __init__(self, engine: Engine, tokenizer, model_name: str,
+    def __init__(self, engine: Engine | None, tokenizer, model_name: str,
                  lora_manager: LoRAManager | None = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
         self.lora = lora_manager
+        # Per-process span ring served by /debug/traces.
+        self.tracer = tracing.Tracer()
+        # Flight recorder: admission rejections here, drain and KV
+        # releases / evictions from the engine through its sink.
+        self.events = events_mod.EventJournal()
+        if engine is not None:
+            engine.event_sink = self.events.emit
 
-    # -- helpers -----------------------------------------------------------
+    # -- tracing -------------------------------------------------------------
+    @staticmethod
+    def _engine_spans(req: Request, decode_start: float | None = None,
+                      with_decode: bool = True) -> list:
+        """Span triples from a finished request's wall-clock stamps: queue
+        wait (submit -> prefill start), prefill (-> first token), decode
+        (first token -> done; ``decode_start`` overrides its start on the
+        attach hop, where the first token predates this engine)."""
+        spans = []
+        if req.t_submit and req.t_prefill_start:
+            spans.append(("engine.queue_wait", req.t_submit,
+                          max(req.t_submit, req.t_prefill_start)))
+        if req.t_prefill_start and req.t_first_token:
+            spans.append(("engine.prefill", req.t_prefill_start,
+                          max(req.t_prefill_start, req.t_first_token)))
+        if with_decode:
+            start = decode_start or req.t_first_token
+            end = req.t_done or time.time()
+            if start and end >= start:
+                spans.append(("engine.decode", start, end))
+        return spans
+
+    def _record_spans(self, trace_id: str, spans, status: str = "ok") -> dict:
+        """Record spans locally; returns the headers that echo the trace id
+        and carry the spans back to the gateway."""
+        for name, s, e in spans:
+            self.tracer.record(trace_id, name, s, e)
+        self.tracer.annotate(trace_id, model=self.model_name, status=status)
+        headers = {tracing.TRACE_HEADER: trace_id}
+        if spans and self.tracer.sampled(trace_id):
+            headers[tracing.SPANS_HEADER] = tracing.wire_spans(spans)
+        return headers
+
+    def _reject(self, status: int, message: str, trace_id: str,
+                reason: str) -> HTTPError:
+        """A capacity or lifecycle refusal, journaled so the flight
+        recorder correlates it with the gateway's pick by trace id (plain
+        400s are request defects, not system events)."""
+        self.events.emit(events_mod.ADMISSION_REJECT, trace_id or "",
+                         status=status, reason=reason)
+        return HTTPError(status, message)
+
+    # -- helpers -------------------------------------------------------------
     def _resolve_model(self, requested) -> str | None:
         if requested in ("", None, self.model_name):
             return None
@@ -111,20 +217,13 @@ class ModelServer:
             prompt = " ".join(str(p) for p in prompt)
         return self.tokenizer.encode(str(prompt))
 
-    @staticmethod
-    def _parse_stops(body: dict) -> list[str]:
-        stop = body.get("stop")
-        if stop is None:
-            stops: list[str] = []
-        elif isinstance(stop, str):
-            stops = [stop]
-        elif isinstance(stop, list) and all(isinstance(s, str) for s in stop):
-            stops = list(stop)
-        else:
-            raise ValueError("stop must be a string or a list of strings")
-        if len(stops) > 4:
-            raise ValueError("at most 4 stop sequences are supported")
-        return [s for s in stops if s]
+    def _echo_text(self, body: dict, prompt_tokens: list[int]) -> str:
+        """The client's own prompt string round-trips exactly; token-id
+        prompts are decoded."""
+        prompt = body.get("prompt", "")
+        if isinstance(prompt, str):
+            return prompt
+        return self.tokenizer.decode(prompt_tokens)
 
     def _encode_stops(self, stops: list[str]) -> tuple[tuple[int, ...], ...]:
         """Tokenized stops for the engine's device automata — an early
@@ -137,17 +236,32 @@ class ModelServer:
         return tuple(out)
 
     @staticmethod
-    def _check_body(body: dict) -> None:
-        """Refuse the body parameters the port does not serve yet, and
-        check the penalties and ``logit_bias`` as the reference does."""
-        if isinstance(body.get("messages"), list):
-            raise ValueError("chat is not served by the torch port yet")
-        for name in _UNSERVED_PARAMS:
-            if body.get(name) not in (None, False, 0, 0.0, {}):
-                raise ValueError(f"{name} is not served by the torch port yet")
-        if int(body.get("n", 1)) != 1 or int(body.get("best_of", 1)) != 1:
-            raise ValueError("n / best_of > 1 is not served by the torch "
-                             "port yet")
+    def _parse_choice_params(body: dict) -> tuple[int, int, int | None,
+                                                   list[str]]:
+        """(n, best_of, logprobs, stops) with OpenAI validation rules, and
+        the penalties and ``logit_bias`` checked against their ranges."""
+        n = int(body.get("n", 1))
+        best_of = int(body.get("best_of", max(n, 1)))
+        if not 1 <= n <= MAX_N:
+            raise ValueError(f"n must be in [1, {MAX_N}]")
+        if not n <= best_of <= MAX_N:
+            raise ValueError(f"best_of must be in [n, {MAX_N}]")
+        logprobs = body.get("logprobs")
+        if logprobs is not None:
+            logprobs = int(logprobs)
+            if not 0 <= logprobs <= MAX_LOGPROBS:
+                raise ValueError(f"logprobs must be in [0, {MAX_LOGPROBS}]")
+        stop = body.get("stop")
+        if stop is None:
+            stops: list[str] = []
+        elif isinstance(stop, str):
+            stops = [stop]
+        elif isinstance(stop, list) and all(isinstance(s, str) for s in stop):
+            stops = list(stop)
+        else:
+            raise ValueError("stop must be a string or a list of strings")
+        if len(stops) > 4:
+            raise ValueError("at most 4 stop sequences are supported")
         for name in ("presence_penalty", "frequency_penalty"):
             val = float(body.get(name) or 0.0)  # null == unset
             if not -2.0 <= val <= 2.0:
@@ -164,35 +278,78 @@ class ModelServer:
                     raise ValueError("logit_bias values must be in "
                                      "[-100, 100]")
                 int(k)  # token ids must be integral (ValueError otherwise)
+        return n, best_of, logprobs, [s for s in stops if s]
+
+    def _choice_params(self, body: dict):
+        try:
+            return self._parse_choice_params(body)
+        except (ValueError, TypeError) as e:
+            raise HTTPError(400, str(e)) from e
 
     def _make_request(self, body: dict, prompt_tokens: list[int], adapter,
-                      stops: list[str]) -> Request:
-        self._check_body(body)
-        seed = body.get("seed")
-        raw_bias = body.get("logit_bias") or None
-        return Request(
-            prompt_tokens=prompt_tokens,
-            max_new_tokens=int(body.get("max_tokens", 64)),
-            sampling=SamplingParams(
-                temperature=float(body.get("temperature", 0.0)),
-                top_k=int(body.get("top_k", 0)),
-                top_p=float(body.get("top_p", 1.0)),
-                seed=None if seed is None else int(seed),
-                presence_penalty=float(body.get("presence_penalty") or 0.0),
-                frequency_penalty=float(body.get("frequency_penalty")
-                                        or 0.0),
-                logit_bias=({int(k): float(v) for k, v in raw_bias.items()}
-                            if raw_bias else None)),
-            adapter=adapter,
-            stop_sequences=self._encode_stops(stops),
-        )
+                      stops: list[str], logprobs: int | None = None,
+                      candidate: int = 0) -> Request:
+        """One engine request; candidate ``i`` of a fan-out draws with
+        ``seed + i``, so the choices differ yet the answer reproduces."""
+        try:
+            seed = body.get("seed")
+            raw_bias = body.get("logit_bias") or None
+            return Request(
+                prompt_tokens=prompt_tokens,
+                max_new_tokens=int(body.get("max_tokens", 64)),
+                sampling=SamplingParams(
+                    temperature=float(body.get("temperature", 0.0)),
+                    top_k=int(body.get("top_k", 0)),
+                    top_p=float(body.get("top_p", 1.0)),
+                    seed=None if seed is None else int(seed) + candidate,
+                    presence_penalty=float(body.get("presence_penalty")
+                                           or 0.0),
+                    frequency_penalty=float(body.get("frequency_penalty")
+                                            or 0.0),
+                    logit_bias=({int(k): float(v) for k, v in raw_bias.items()}
+                                if raw_bias else None)),
+                adapter=adapter,
+                stop_sequences=self._encode_stops(stops),
+                logprobs=logprobs,
+            )
+        except (ValueError, TypeError) as e:
+            raise HTTPError(400, str(e)) from e
+
+    def _chat_prompt(self, messages) -> tuple[str, bool]:
+        """Chat messages -> (prompt text, add_bos): the role-prefix
+        transcript, the reference's form for a tokenizer without a chat
+        template (the byte tokenizer has none)."""
+        if not isinstance(messages, list) or not all(
+                isinstance(m, dict) for m in messages):
+            raise ValueError("messages must be a list of objects")
+        return "\n".join(
+            f"{m.get('role', 'user')}: {m.get('content', '')}"
+            for m in messages
+        ) + "\nassistant:", True
+
+    @staticmethod
+    def _parse_chat_logprobs(body: dict) -> tuple[bool, int, int]:
+        """(logprobs flag, effective top-N, requested top-N): OpenAI's
+        range [0, 20] is accepted, the effective N capped at the engine's
+        top-5 (the answer notes the cap when it bit)."""
+        lp_flag = bool(body.get("logprobs"))
+        top_n = body.get("top_logprobs")
+        if top_n is None:
+            return lp_flag, 0, 0
+        if not lp_flag:
+            raise ValueError("top_logprobs requires logprobs: true")
+        top_n = int(top_n)
+        if not 0 <= top_n <= OPENAI_MAX_TOP_LOGPROBS:
+            raise ValueError(
+                f"top_logprobs must be in [0, {OPENAI_MAX_TOP_LOGPROBS}]")
+        return lp_flag, min(top_n, MAX_LOGPROBS), top_n
 
     def _wait_with_stops(self, req: Request, stops: list[str],
                          timeout_s: float = 600.0,
                          submit: bool = True) -> Request:
         """generate(), cancelling the moment a stop string appears in the
         decoded text (the exact cut happens in ``_truncate_at_stop``);
-        ``submit=False`` waits on a request admitted already (an attach)."""
+        ``submit=False`` waits on a request admitted already."""
         if submit:
             self.engine.submit(req)
         deadline = time.monotonic() + timeout_s
@@ -205,7 +362,7 @@ class ModelServer:
             n = len(req.output_tokens)
             if stops and n > consumed:
                 piece = self.tokenizer.decode(req.output_tokens[consumed:n])
-                if not (piece.endswith("�") and not done):
+                if not (piece.endswith(_FFFD) and not done):
                     window_start = max(0, len(text) - max_stop + 1)
                     text += piece
                     consumed = n
@@ -220,13 +377,17 @@ class ModelServer:
                 req.cancelled.set()
                 return req
 
-    def _truncate_at_stop(self, req: Request, stops: list[str]) -> str:
-        """Cut text AND tokens at the earliest stop match."""
+    def _truncate_at_stop(self, req: Request,
+                          stops: list[str]) -> tuple[str, bool]:
+        """Cut text AND the per-token records (tokens, logprobs, top
+        logprobs) at the earliest stop match; returns (text, hit)."""
         full = self.tokenizer.decode(req.output_tokens)
         hits = [(full.index(s), s) for s in stops if s in full]
         if not hits:
-            return full
+            return full, False
         idx, _ = min(hits)
+        # Smallest token count whose decode contains a stop (monotone in
+        # the prefix length): everything from there on is dropped.
         lo, hi = 1, len(req.output_tokens)
         while lo < hi:
             mid = (lo + hi) // 2
@@ -236,129 +397,400 @@ class ModelServer:
             else:
                 lo = mid + 1
         del req.output_tokens[lo:]
+        del req.output_logprobs[lo:]
+        del req.output_top_logprobs[lo:]
         req.finish_reason = "stop"
-        return full[:idx]
+        return full[:idx], True
 
-    # -- endpoints ---------------------------------------------------------
-    def completions(self, body: dict):
-        """Returns (status, payload) for JSON, or a generator of SSE chunks
-        (dicts, then None for ``[DONE]``) for ``stream: true``."""
+    @staticmethod
+    def _held_back(cur: str, full: str) -> int:
+        """How many trailing replacement chars of ``cur`` (a prefix decode)
+        are partial-multi-byte artifacts rather than genuine U+FFFD: hold
+        back the smallest trailing-U+FFFD suffix whose removal makes
+        ``cur`` agree with the full decode, at most one UTF-8 char's
+        pending bytes."""
+        run = len(cur) - len(cur.rstrip(_FFFD))
+        cap = min(run, _MAX_PARTIAL_FFFD)
+        for hold in range(cap + 1):
+            keep = len(cur) - hold
+            if full[:keep] == cur[:keep]:
+                return hold
+        return cap
+
+    def _per_token_records(self, req: Request, k: int,
+                           text_limit: int | None = None):
+        """Per-generated-token ``(piece, logprob, deduped_tops)`` rows, the
+        one walk both logprobs envelopes build from.  A UTF-8 character
+        split across byte tokens is attributed whole to its completing
+        token (predecessors emit ""); a token that genuinely decodes to
+        U+FFFD keeps its char.  The pieces concatenate to the full decode;
+        ``text_limit`` clips the walk to the returned text (a stop cut is
+        character-granular).  ``deduped_tops`` keeps the most probable id
+        per surface string."""
+        rows = []
+        committed = ""
+        n = len(req.output_tokens)
+        full = None  # the full decode, made on the first U+FFFD tail
+        for i in range(n):
+            if text_limit is not None and len(committed) >= text_limit:
+                break
+            cur = self.tokenizer.decode(req.output_tokens[: i + 1])
+            if i + 1 < n and cur.endswith(_FFFD):
+                if full is None:
+                    full = self.tokenizer.decode(req.output_tokens)
+                hold = self._held_back(cur, full)
+                if hold:
+                    cur = cur[:-hold]
+            piece = cur[len(committed):]
+            if text_limit is not None:
+                piece = piece[: max(0, text_limit - len(committed))]
+            committed += piece
+            lp = (req.output_logprobs[i]
+                  if i < len(req.output_logprobs) else None)
+            tops: dict[str, float] = {}
+            if k > 0 and i < len(req.output_top_logprobs):
+                for tok, v in req.output_top_logprobs[i].items():
+                    key = self.tokenizer.decode([tok])
+                    v = max(v, -1e9)
+                    if key not in tops or v > tops[key]:
+                        tops[key] = v
+            rows.append((piece, None if lp is None else max(lp, -1e9), tops))
+        return rows
+
+    def _logprobs_json(self, req: Request, k: int,
+                       text_limit: int | None = None) -> dict:
+        """The completions ``logprobs`` object (tokens / token_logprobs /
+        top_logprobs / text_offset)."""
+        tokens, token_lps, tops, offsets = [], [], [], []
+        offset = 0
+        for piece, lp, top in self._per_token_records(req, k, text_limit):
+            offsets.append(offset)
+            offset += len(piece)
+            tokens.append(piece)
+            token_lps.append(lp)
+            if k > 0:
+                tops.append(top)
+        return {"tokens": tokens, "token_logprobs": token_lps,
+                "top_logprobs": tops if k > 0 else None,
+                "text_offset": offsets}
+
+    def _chat_logprobs_json(self, req: Request, top_n: int,
+                            text_limit: int | None = None) -> dict:
+        """The chat ``logprobs`` object: ``content[]`` entries with token /
+        logprob / bytes (the piece's UTF-8) / top_logprobs."""
+        content = []
+        for piece, lp, top in self._per_token_records(req, top_n, text_limit):
+            content.append({
+                "token": piece,
+                "logprob": lp,
+                "bytes": list(piece.encode("utf-8", "surrogatepass")),
+                "top_logprobs": [
+                    {"token": k, "logprob": v,
+                     "bytes": list(k.encode("utf-8", "surrogatepass"))}
+                    for k, v in sorted(top.items(), key=lambda kv: -kv[1])
+                ][:top_n],
+            })
+        return {"content": content}
+
+    # -- submission ----------------------------------------------------------
+    def _submit_error(self, e: Exception, trace_id: str,
+                      full_message: str = "prefill queue is full") -> HTTPError:
+        if isinstance(e, EngineDraining):
+            return self._reject(503, str(e), trace_id, "draining")
+        if isinstance(e, queue_mod.Full):
+            return self._reject(429, full_message, trace_id, "queue_full")
+        if isinstance(e, AdapterError):
+            return HTTPError(404, str(e))
+        return HTTPError(400, str(e))
+
+    def _submit_all(self, reqs: list[Request], trace_id: str) -> None:
+        """Submit every candidate before waiting on any, so the engine
+        batches them (one grouped prefill under ``--prefill-batch``); if
+        one submit fails, the ones already in are cancelled — decoding for
+        nobody would amplify load just when capacity is short.  The
+        engine loop waits on its ``_work`` condition while idle; holding
+        that lock keeps it asleep until the last candidate is queued."""
+        with self.engine._work:
+            for r in reqs:
+                try:
+                    self.engine.submit(r)
+                except (EngineDraining, ValueError, queue_mod.Full,
+                        AdapterError) as e:
+                    for other in reqs:
+                        other.cancelled.set()
+                    raise self._submit_error(e, trace_id) from e
+
+    def _run_many(self, reqs: list[Request], stops: list[str],
+                  trace_id: str, timeout_s: float = 600.0) -> None:
+        self._submit_all(reqs, trace_id)
+        for r in reqs:
+            if stops:
+                self._wait_with_stops(r, stops, timeout_s, submit=False)
+            elif not r.done.wait(timeout_s):
+                r.error = "generation timed out"
+                r.cancelled.set()
+        for r in reqs:
+            if r.error:
+                raise HTTPError(500, r.error)
+
+    # -- endpoints -----------------------------------------------------------
+    def completions(self, body: dict, trace_id: str):
+        """(status, payload, headers) for JSON, or (200, SSE generator,
+        headers) for ``stream: true``."""
         adapter = self._resolve_model(body.get("model", self.model_name))
-        try:
-            stops = self._parse_stops(body)
-            req = self._make_request(body, self._encode_prompt(body), adapter,
-                                     stops)
-        except (ValueError, TypeError) as e:
-            raise HTTPError(400, str(e)) from e
+        n, best_of, logprobs, stops = self._choice_params(body)
+        prompt_tokens = self._encode_prompt(body)
+        echo = bool(body.get("echo"))
+        if echo and logprobs is not None:
+            # OpenAI echo + logprobs returns prompt logprobs, which the
+            # engine does not record.
+            raise HTTPError(400, "echo is not supported together with "
+                                 "logprobs")
         model = body.get("model", self.model_name)
         if body.get("stream"):
-            req.streaming = True
-            self._submit(req)
-            return self._sse(req, model, stops)
-        try:
-            if stops:
-                self._wait_with_stops(req, stops)
-            else:
-                self.engine.generate(req)
-        except (EngineDraining, ValueError, queue_mod.Full,
-                AdapterError) as e:
-            raise self._submit_error(e) from e
-        return 200, self._completion(req, model, stops)
+            if n > 1 or best_of > 1:
+                raise HTTPError(400, "streaming supports n=1 / best_of=1")
+            if logprobs is not None:
+                raise HTTPError(400, "logprobs is not supported with "
+                                     "streaming")
+            req = self._make_request(body, prompt_tokens, adapter, stops)
+            return self._stream(
+                req, model, "text_completion", _text_delta, stops, trace_id,
+                echo_prefix=self._echo_text(body, prompt_tokens)
+                if echo else None)
+        # Ranking best_of candidates needs their logprobs: record at least
+        # the sampled tokens' when the client asked for none.
+        record = logprobs if logprobs is not None else (
+            0 if best_of > n else None)
+        reqs = [self._make_request(body, list(prompt_tokens), adapter, stops,
+                                   logprobs=record, candidate=i)
+                for i in range(best_of)]
+        self._run_many(reqs, stops, trace_id)
+        texts = {id(r): self._truncate_at_stop(r, stops)[0] for r in reqs}
+        # OpenAI usage: completion_tokens counts every candidate.
+        completion_tokens = sum(len(r.output_tokens) for r in reqs)
+        if best_of > n:
+            # Keep the n candidates with the highest mean token logprob.
+            def mean_lp(r: Request) -> float:
+                return (sum(r.output_logprobs) / len(r.output_logprobs)
+                        if r.output_logprobs else float("-inf"))
 
-    def _completion(self, req: Request, model: str, stops: list[str]) -> dict:
-        """The JSON envelope of a finished request."""
-        if req.error:
-            raise HTTPError(500, req.error)
-        text = (self._truncate_at_stop(req, stops) if stops
-                else self.tokenizer.decode(req.output_tokens))
-        n_out = len(req.output_tokens)
-        return {
-            "id": f"cmpl-{req.request_id}",
+            reqs = sorted(reqs, key=mean_lp, reverse=True)[:n]
+        prefix = self._echo_text(body, prompt_tokens) if echo else ""
+        choices = []
+        for i, r in enumerate(reqs):
+            choice = {"index": i, "text": prefix + texts[id(r)],
+                      "finish_reason": r.finish_reason}
+            if logprobs is not None:
+                choice["logprobs"] = self._logprobs_json(
+                    r, logprobs, text_limit=len(texts[id(r)]))
+            choices.append(choice)
+        headers = self._record_spans(trace_id, self._engine_spans(reqs[0]),
+                                     status=reqs[0].finish_reason or "ok")
+        return 200, {
+            "id": f"cmpl-{reqs[0].request_id}",
             "object": "text_completion",
             "created": int(time.time()),
             "model": model,
-            "choices": [{"index": 0, "text": text,
-                         "finish_reason": req.finish_reason}],
-            "usage": {"prompt_tokens": len(req.prompt_tokens),
-                      "completion_tokens": n_out,
-                      "total_tokens": len(req.prompt_tokens) + n_out},
-            "ttft_ms": round(req.ttft_s * 1000, 2),
-        }
+            "choices": choices,
+            "usage": _usage(len(prompt_tokens), completion_tokens),
+            "ttft_ms": round(reqs[0].ttft_s * 1000, 2),
+        }, headers
 
-    # -- disaggregation hops (server/kv_transfer.py) -------------------------
-    def prefill(self, body: dict):
-        """Hop 1: prefill only; answers the serialized ``PrefillHandoff``.
-        Shapes a handoff cannot carry (candidate fan-out, echo) and prompts
-        beyond the largest bucket answer 422, bodies the port refuses
-        anywhere 400: the gateway serves any non-200 single-hop."""
+    def chat(self, body: dict, trace_id: str):
+        """``/v1/chat/completions``: as ``completions``, in the chat
+        envelope."""
         adapter = self._resolve_model(body.get("model", self.model_name))
         try:
-            fan_out = (int(body.get("n", 1)) > 1
-                       or int(body.get("best_of", 1)) > 1)
-            if fan_out or body.get("echo"):
-                raise HTTPError(422, "prefill hop supports single-candidate, "
-                                     "non-echo requests")
-            stops = self._parse_stops(body)
-            req = self._make_request(body, self._encode_prompt(body), adapter,
-                                     stops)
+            prompt, add_bos = self._chat_prompt(body.get("messages", []))
+            n, best_of, _, stops = self._parse_choice_params(body)
+            lp_flag, top_n, top_req = self._parse_chat_logprobs(body)
         except (ValueError, TypeError) as e:
             raise HTTPError(400, str(e)) from e
+        prompt_tokens = self.tokenizer.encode(prompt, add_bos=add_bos)
+        record = top_n if lp_flag else None
+        model = body.get("model", self.model_name)
+        if body.get("stream"):
+            if n > 1 or best_of > 1:
+                raise HTTPError(400, "streaming supports n=1 / best_of=1")
+            if record is not None:
+                raise HTTPError(400, "logprobs are not supported with "
+                                     "streaming chat completions")
+            req = self._make_request(body, prompt_tokens, adapter, stops)
+            return self._stream(req, model, "chat.completion.chunk",
+                                _chat_delta, stops, trace_id)
+        reqs = [self._make_request(body, list(prompt_tokens), adapter, stops,
+                                   logprobs=record, candidate=i)
+                for i in range(n)]
+        self._run_many(reqs, stops, trace_id)
+        choices = [self._chat_choice(i, r, stops, record, top_req)
+                   for i, r in enumerate(reqs)]
+        headers = self._record_spans(trace_id, self._engine_spans(reqs[0]),
+                                     status=reqs[0].finish_reason or "ok")
+        return 200, {
+            "id": f"chatcmpl-{reqs[0].request_id}",
+            "object": "chat.completion",
+            "created": int(time.time()),
+            "model": model,
+            "choices": choices,
+            "usage": _usage(len(prompt_tokens),
+                            sum(len(r.output_tokens) for r in reqs)),
+        }, headers
+
+    def _chat_choice(self, index: int, req: Request, stops: list[str],
+                     top_n: int | None, top_req: int) -> dict:
+        text, _ = self._truncate_at_stop(req, stops)
+        choice = {"index": index,
+                  "message": {"role": "assistant", "content": text},
+                  "finish_reason": req.finish_reason}
+        if top_n is not None:
+            choice["logprobs"] = self._chat_logprobs_json(
+                req, top_n, text_limit=len(text))
+            if top_req > top_n:
+                # The client asked for more than the engine's top-5.
+                choice["logprobs"]["top_logprobs_truncated_to"] = top_n
+        return choice
+
+    # -- disaggregation hops (server/kv_transfer.py) -------------------------
+    def prefill(self, body: dict, trace_id: str):
+        """Hop 1: prefill only; answers the serialized ``PrefillHandoff``.
+        Takes a completions or a chat body.  Shapes a handoff cannot carry
+        (candidate fan-out, echo) and prompts beyond the largest bucket
+        answer 422: the gateway serves any non-200 single-hop."""
+        adapter = self._resolve_model(body.get("model", self.model_name))
+        try:
+            n, best_of, logprobs, stops = self._parse_choice_params(body)
+            if isinstance(body.get("messages"), list):
+                prompt, add_bos = self._chat_prompt(body["messages"])
+                prompt_tokens = self.tokenizer.encode(prompt, add_bos=add_bos)
+                lp_flag, top_n, _ = self._parse_chat_logprobs(body)
+                logprobs = top_n if lp_flag else None
+            else:
+                prompt_tokens = self._encode_prompt(body)
+        except (ValueError, TypeError) as e:
+            raise HTTPError(400, str(e)) from e
+        if n > 1 or best_of > 1 or body.get("echo"):
+            raise self._reject(422, "prefill hop supports single-candidate, "
+                                    "non-echo requests", trace_id,
+                               "prefill_unsupported")
+        req = self._make_request(body, prompt_tokens, adapter, stops,
+                                 logprobs=logprobs)
         try:
             handoff = self.engine.prefill_only(req)
-        except ValueError as e:  # e.g. beyond the largest bucket
-            raise HTTPError(422, str(e)) from e
         except (EngineDraining, queue_mod.Full, AdapterError) as e:
-            raise self._submit_error(e) from e
+            raise self._submit_error(e, trace_id) from e
+        except ValueError as e:  # e.g. beyond the largest bucket
+            raise self._reject(422, str(e), trace_id,
+                               "prefill_refused") from e
         except RuntimeError as e:
             raise HTTPError(500, str(e)) from e
         handoff.body = body  # envelope parameters ride to the decode hop
-        t0 = time.perf_counter()
+        handoff.trace_id = trace_id  # one id across both hops
+        t_ser0, p0 = time.time(), time.perf_counter()
         wire = handoff.to_bytes()
-        ser_s = time.perf_counter() - t0
+        t_ser1, ser_s = time.time(), time.perf_counter() - p0
         self.engine.observe_handoff(ser_s)
-        return 200, wire, {"x-request-id": req.request_id,
-                           "x-prefill-ttft-ms": f"{req.ttft_s * 1000:.2f}",
-                           "x-handoff-serialize-ms": f"{ser_s * 1e3:.3f}"}
+        headers = self._record_spans(
+            trace_id, self._engine_spans(req, with_decode=False)
+            + [("handoff.serialize", t_ser0, t_ser1)], status="handoff")
+        headers.update({"x-request-id": req.request_id,
+                        "x-prefill-ttft-ms": f"{req.ttft_s * 1000:.2f}",
+                        "x-handoff-serialize-ms": f"{ser_s * 1e3:.3f}"})
+        return 200, wire, headers
 
-    def attach(self, raw: bytearray):
-        """Hop 2: admit a handoff into decode and answer in the
-        completions envelope (SSE included), as collocated serving
-        would."""
-        t0 = time.perf_counter()
+    def attach(self, raw: bytearray, header_trace_id: str | None):
+        """Hop 2: admit a handoff into decode and answer in the envelope
+        its body asked for (completions or chat, SSE included), as
+        collocated serving would.  The trace id comes from the header, or
+        else from the handoff."""
+        t_des0, p0 = time.time(), time.perf_counter()
         try:
             handoff = PrefillHandoff.from_bytes(raw)
         except Exception as e:
-            raise HTTPError(400, f"malformed handoff: {e}") from e
-        t1 = time.perf_counter()
-        body = handoff.body or {}
+            raise HTTPError(400, f"malformed handoff: {e}",
+                            header_trace_id or tracing.new_trace_id()) from e
+        t_des1, p1 = time.time(), time.perf_counter()
+        trace_id = (header_trace_id or handoff.trace_id
+                    or tracing.new_trace_id())
         try:
-            self._check_body(body)
-            stops = self._parse_stops(body)
-        except (ValueError, TypeError) as e:
-            raise HTTPError(400, str(e)) from e
+            return self._attach(handoff, trace_id, (t_des0, t_des1, p0, p1))
+        except HTTPError as e:
+            e.trace_id = e.trace_id or trace_id
+            raise
+
+    def _attach(self, handoff: PrefillHandoff, trace_id: str, stamps):
+        t_des0, t_des1, p0, p1 = stamps
+        body = handoff.body or {}
+        chat = isinstance(body.get("messages"), list)
+        _, _, _, stops = self._choice_params(body)
         try:
             req = self.engine.attach_prefilled(handoff)
-        except ValueError as e:
-            raise HTTPError(422, str(e)) from e
         except (EngineDraining, queue_mod.Full, AdapterError) as e:
-            raise self._submit_error(e) from e
-        t2 = time.perf_counter()
-        self.engine.observe_handoff(t2 - t0)
-        headers = {"x-request-id": req.request_id,
-                   "x-handoff-deserialize-ms": f"{(t1 - t0) * 1e3:.3f}",
-                   "x-handoff-attach-ms": f"{(t2 - t1) * 1e3:.3f}"}
+            raise self._submit_error(
+                e, trace_id, "attach admission queue is full") from e
+        except ValueError as e:
+            raise self._reject(422, str(e), trace_id, "attach_refused") from e
+        t_att, p2 = time.time(), time.perf_counter()
+        self.engine.observe_handoff(p2 - p0)
+        headers = {tracing.TRACE_HEADER: trace_id,
+                   "x-request-id": req.request_id,
+                   "x-handoff-deserialize-ms": f"{(p1 - p0) * 1e3:.3f}",
+                   "x-handoff-attach-ms": f"{(p2 - p1) * 1e3:.3f}"}
+        attach_spans = [("handoff.deserialize", t_des0, t_des1),
+                        ("handoff.attach", t_des1, t_att)]
         model = body.get("model", self.model_name)
         if body.get("stream"):
-            req.streaming = True
-            return 200, self._sse(req, model, stops), headers
+            for name, s, e in attach_spans:
+                self.tracer.record(trace_id, name, s, e)
+            status, stream, _ = self._stream(
+                req, model, "chat.completion.chunk" if chat
+                else "text_completion", _chat_delta if chat else _text_delta,
+                stops, trace_id, decode_start=t_att, submitted=True)
+            return status, stream, headers
         if stops:
             self._wait_with_stops(req, stops, submit=False)
         elif not req.done.wait(600.0):
             req.error = "generation timed out"
             req.cancelled.set()
-        return 200, self._completion(req, model, stops), headers
+        if req.error:
+            raise HTTPError(500, req.error)
+        headers.update(self._record_spans(
+            trace_id, attach_spans + [("engine.decode", t_att,
+                                       req.t_done or time.time())],
+            status=req.finish_reason or "ok"))
+        if chat:
+            try:
+                top_req = int(body.get("top_logprobs") or 0)
+            except (TypeError, ValueError):
+                top_req = 0
+            # The prefill hop already capped the recorded top-k.
+            return 200, {
+                "id": f"chatcmpl-{req.request_id}",
+                "object": "chat.completion",
+                "created": int(time.time()),
+                "model": model,
+                "choices": [self._chat_choice(0, req, stops, req.logprobs,
+                                              top_req)],
+                "usage": _usage(len(req.prompt_tokens),
+                                len(req.output_tokens)),
+            }, headers
+        text, _ = self._truncate_at_stop(req, stops)
+        choice = {"index": 0, "text": text,
+                  "finish_reason": req.finish_reason}
+        if req.logprobs is not None:
+            choice["logprobs"] = self._logprobs_json(
+                req, req.logprobs, text_limit=len(text))
+        return 200, {
+            "id": f"cmpl-{req.request_id}",
+            "object": "text_completion",
+            "created": int(time.time()),
+            "model": model,
+            "choices": [choice],
+            "usage": _usage(len(req.prompt_tokens), len(req.output_tokens)),
+            "ttft_ms": round(req.ttft_s * 1000, 2),
+        }, headers
 
-    def release(self, body: dict):
+    def release(self, body: dict, trace_id: str):
         """Best-effort release of abandoned hop-2 work: the gateway posts
         ``{"request_id"}`` when a decode hop failed after the handoff was
         delivered.  Unknown or finished ids answer ``released: false``
@@ -369,47 +801,50 @@ class ModelServer:
         released = bool(self.engine.release_request(str(request_id)))
         if released:
             logger.info("released abandoned request %s", request_id)
-        return 200, {"request_id": request_id, "released": released}
+        return 200, {"request_id": request_id, "released": released}, {
+            tracing.TRACE_HEADER: trace_id}
 
-    @staticmethod
-    def _submit_error(e: Exception) -> HTTPError:
-        if isinstance(e, EngineDraining):
-            return HTTPError(503, str(e))
-        if isinstance(e, queue_mod.Full):
-            return HTTPError(429, "prefill queue is full")
-        if isinstance(e, AdapterError):
-            return HTTPError(404, str(e))
-        return HTTPError(400, str(e))
+    # -- streaming -----------------------------------------------------------
+    def _stream(self, req: Request, model: str, object_name: str, make_delta,
+                stops: list[str], trace_id: str, echo_prefix: str | None = None,
+                decode_start: float | None = None, submitted: bool = False):
+        """Submit (so saturation answers a real 429 before any header),
+        then (200, the SSE generator, the trace header)."""
+        req.streaming = True
+        if not submitted:
+            try:
+                self.engine.submit(req)
+            except (EngineDraining, ValueError, queue_mod.Full,
+                    AdapterError) as e:
+                raise self._submit_error(e, trace_id) from e
+        return 200, self._sse(req, model, object_name, make_delta, stops,
+                              trace_id, echo_prefix, decode_start), {
+            tracing.TRACE_HEADER: trace_id}
 
-    def _submit(self, req: Request) -> None:
-        try:
-            self.engine.submit(req)
-        except (EngineDraining, ValueError, queue_mod.Full,
-                AdapterError) as e:
-            raise self._submit_error(e) from e
-
-    def _sse(self, req: Request, model: str, stops: list[str],
-             timeout_s: float = 600.0):
+    def _sse(self, req: Request, model: str, object_name: str, make_delta,
+             stops: list[str], trace_id: str, echo_prefix: str | None,
+             decode_start: float | None, timeout_s: float = 600.0):
         """Per-token SSE chunks (text deltas from prefix-diffed decodes; a
         trailing U+FFFD is held back).  With stops, emitted text lags by the
-        longest stop minus one so no stop prefix leaks before the match."""
+        longest stop minus one so no stop prefix leaks before the match.
+        ``echo_prefix`` leads the stream as its own chunk.  A finished
+        stream records its spans here (a stream cannot carry
+        ``x-lig-spans``): they live on this server's /debug/traces."""
         def chunk(delta, fin, usage=False):
             payload = {"id": f"cmpl-{req.request_id}",
-                       "object": "text_completion", "model": model,
-                       "choices": [{"index": 0, "text": delta,
-                                    "finish_reason": fin}]}
+                       "object": object_name, "model": model,
+                       "choices": [make_delta(delta, fin)]}
             if usage:
-                n_out = len(req.output_tokens)
-                payload["usage"] = {
-                    "prompt_tokens": len(req.prompt_tokens),
-                    "completion_tokens": n_out,
-                    "total_tokens": len(req.prompt_tokens) + n_out}
+                payload["usage"] = _usage(len(req.prompt_tokens),
+                                          len(req.output_tokens))
             return payload
 
         deadline = time.monotonic() + timeout_s
         holdback = max((len(s) for s in stops), default=1) - 1
         text, emitted, consumed = "", 0, 0
         try:
+            if echo_prefix:
+                yield chunk(echo_prefix, None)
             while True:
                 req.stream_event.wait(0.25)
                 req.stream_event.clear()
@@ -418,7 +853,7 @@ class ModelServer:
                 while consumed < n:
                     # Per-token growth of the decoded text.
                     cur = self.tokenizer.decode(req.output_tokens[:consumed + 1])
-                    if cur.endswith("�") and consumed + 1 == n and not done:
+                    if cur.endswith(_FFFD) and consumed + 1 == n and not done:
                         break
                     consumed += 1
                     text = cur
@@ -456,7 +891,13 @@ class ModelServer:
         finally:
             if not req.done.is_set():
                 req.cancelled.set()  # client gone: free the slot
+            else:
+                self._record_spans(
+                    trace_id, self._engine_spans(req,
+                                                 decode_start=decode_start),
+                    status=req.finish_reason or "ok")
 
+    # -- admin ---------------------------------------------------------------
     def models(self):
         data = [{"id": self.model_name, "object": "model",
                  "root": self.model_name}]
@@ -464,18 +905,24 @@ class ModelServer:
             data += [{"id": name, "object": "model", "root": self.model_name,
                       "parent": self.model_name}
                      for name in self.lora.running_adapters()]
-        return 200, {"object": "list", "data": data,
-                     "role": self.engine.cfg.role}
+        return 200, {"object": "list", "data": data}
 
-    def load_adapter(self, body: dict):
+    def _lora_name(self, body: dict, with_path: bool = False):
         if self.lora is None:
             raise HTTPError(400, "LoRA serving is not enabled")
         name, path = body.get("lora_name"), body.get("lora_path")
-        if not name or not path:
-            raise HTTPError(400, "lora_name and lora_path are required")
-        if name == self.model_name:
-            raise HTTPError(409, f"adapter name {name!r} collides with the "
-                                 "base model's served names")
+        if with_path:
+            if not name or not path:
+                raise HTTPError(400, "lora_name and lora_path are required")
+            if name == self.model_name:
+                raise HTTPError(409, f"adapter name {name!r} collides with "
+                                     "the base model's served names")
+        elif not name:
+            raise HTTPError(400, "lora_name is required")
+        return name, path
+
+    def load_adapter(self, body: dict):
+        name, path = self._lora_name(body, with_path=True)
         try:
             self.lora.load(name, checkpoint_path=path)
         except AdapterError as e:
@@ -486,11 +933,7 @@ class ModelServer:
         return 200, {"status": "ok", "loaded": name}
 
     def unload_adapter(self, body: dict):
-        if self.lora is None:
-            raise HTTPError(400, "LoRA serving is not enabled")
-        name = body.get("lora_name")
-        if not name:
-            raise HTTPError(400, "lora_name is required")
+        name, _ = self._lora_name(body)
         try:
             removed = self.lora.unload(name)
         except AdapterBusyError as e:
@@ -499,23 +942,108 @@ class ModelServer:
             raise HTTPError(404, f"adapter {name!r} not loaded")
         return 200, {"status": "ok", "unloaded": name}
 
-    def debug_kv(self):
-        ledger = self.engine.kv_ledger
-        if ledger is None:
-            raise HTTPError(404, "kv ledger is disabled (non-paged cache or "
-                                 "EngineConfig.kv_ledger=False)")
-        self.engine._kv_ledger_sync()
-        return 200, {"model": self.model_name, "role": self.engine.cfg.role,
-                     **ledger.snapshot()}
+    def demote_adapter(self, body: dict):
+        """Slot -> host RAM (409 while requests pin the slot: the planner
+        retries on its next pass)."""
+        name, _ = self._lora_name(body)
+        try:
+            demoted = self.lora.demote(name)
+        except AdapterError as e:  # AdapterBusyError included
+            raise HTTPError(409, str(e)) from e
+        if not demoted:
+            raise HTTPError(404, f"adapter {name!r} not slot-resident")
+        return 200, {"status": "ok", "demoted": name, "tier": "host"}
+
+    def prefetch_adapter(self, body: dict):
+        """Disk -> host RAM without taking a slot; idempotent for names
+        already in RAM."""
+        name, path = self._lora_name(body, with_path=True)
+        try:
+            fetched = self.lora.prefetch(name, path)
+        except AdapterError as e:
+            raise HTTPError(409, str(e)) from e
+        except Exception as e:
+            logger.exception("adapter prefetch failed")
+            raise HTTPError(500, f"failed to prefetch adapter: {e}") from e
+        return 200, {"status": "ok", "prefetched": name,
+                     "already_resident": not fetched}
+
+    def evict_adapter(self, body: dict):
+        """Host RAM -> disk (a slot-resident adapter is untouched: demote
+        it first)."""
+        name, _ = self._lora_name(body)
+        if not self.lora.evict_host(name):
+            raise HTTPError(404, f"adapter {name!r} not host-resident")
+        return 200, {"status": "ok", "evicted": name}
 
     def metrics_text(self) -> str:
         snap = self.engine.metrics_snapshot()
         snap.setdefault("model_name", self.model_name)
-        return metrics_mod.render(snap)
+        return (metrics_mod.render(snap)
+                + "\n".join(self.events.render_prom("tpu:events_total"))
+                + "\n")
+
+    def debug_traces(self, query: dict | None = None):
+        """This replica's recent traces (streams' decode spans live only
+        here; the gateway's /debug/traces shows the merged view)."""
+        return 200, tracing.debug_traces_payload(self.tracer, query or {})
+
+    def debug_events(self, query: dict | None = None):
+        return 200, events_mod.debug_events_payload(self.events, query or {})
+
+    def debug_usage(self, query: dict | None = None):
+        """Per-{adapter, phase} attribution (tuple keys flattened to
+        ``"adapter|phase"``) beside the residency tiers."""
+        snap = self.engine.metrics_snapshot()
+        usage = snap.get("usage") or {}
+        flat = dict(usage)
+        for key in ("step_seconds", "tokens"):
+            flat[key] = {f"{a}|{p}": v
+                         for (a, p), v in (usage.get(key) or {}).items()}
+        return 200, {
+            "model": self.model_name,
+            "role": snap.get("pool_role", "collocated"),
+            "running_lora_adapters": snap.get("running_lora_adapters", []),
+            "waiting_lora_adapters": snap.get("waiting_lora_adapters", []),
+            "residency": snap.get("residency", {}),
+            "usage": flat,
+        }
+
+    def debug_profile(self, query: dict | None = None):
+        profiler = self.engine.profiler
+        if profiler is None:
+            raise HTTPError(404, "step profiler is disabled "
+                                 "(EngineConfig.step_profile=False)")
+        return 200, {"model": self.model_name, "role": self.engine.cfg.role,
+                     **profiler.snapshot()}
+
+    def debug_kv(self, query: dict | None = None):
+        ledger = self.engine.kv_ledger
+        if ledger is None:
+            raise HTTPError(404, "kv ledger is disabled (EngineConfig."
+                                 "kv_ledger=False or non-paged cache)")
+        self.engine._kv_ledger_sync()
+        return 200, {"model": self.model_name, "role": self.engine.cfg.role,
+                     **ledger.snapshot()}
 
 
 def make_handler(server: ModelServer):
     """The ``BaseHTTPRequestHandler`` class bound to ``server``."""
+    get_routes = {"/v1/models": lambda _q: server.models(),
+                  "/debug/traces": server.debug_traces,
+                  "/debug/events": server.debug_events,
+                  "/debug/usage": server.debug_usage,
+                  "/debug/profile": server.debug_profile,
+                  "/debug/kv": server.debug_kv}
+    post_routes = {"/v1/completions": server.completions,
+                   "/v1/chat/completions": server.chat,
+                   "/v1/prefill": server.prefill,
+                   "/v1/prefill/release": server.release,
+                   "/v1/load_lora_adapter": server.load_adapter,
+                   "/v1/unload_lora_adapter": server.unload_adapter,
+                   "/v1/demote_lora_adapter": server.demote_adapter,
+                   "/v1/prefetch_lora_adapter": server.prefetch_adapter,
+                   "/v1/evict_lora_adapter": server.evict_adapter}
 
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.0"  # SSE streams end when the socket closes
@@ -537,9 +1065,15 @@ def make_handler(server: ModelServer):
             self._send(status, json.dumps(payload).encode(),
                        "application/json", headers)
 
-        def _error(self, status: int, message: str) -> None:
-            self._json(status, {"error": {"message": message,
-                                          "type": "invalid_request_error"}})
+        def _error(self, status: int, message: str,
+                   trace_id: str | None = None) -> None:
+            """The error envelope; a known trace id rides the body and the
+            header, so failed requests stay correlatable."""
+            error = {"message": message, "type": "invalid_request_error"}
+            if trace_id:
+                error["trace_id"] = trace_id
+            self._json(status, {"error": error},
+                       {tracing.TRACE_HEADER: trace_id} if trace_id else None)
 
         def _raw(self) -> bytearray:
             """The request body as a writable buffer (a handoff's arrays
@@ -564,48 +1098,51 @@ def make_handler(server: ModelServer):
             return body
 
         def do_GET(self):  # noqa: N802 - http.server's naming
-            path = self.path.split("?", 1)[0]
+            path, _, query = self.path.partition("?")
             if path == "/health":
                 if server.engine.draining:
                     self._send(503, b"draining", "text/plain")
                 else:
                     self._send(200, b"ok", "text/plain")
-            elif path == "/metrics":
+                return
+            if path == "/metrics":
                 self._send(200, server.metrics_text().encode(),
                            "text/plain; version=0.0.4")
-            elif path == "/v1/models":
-                self._json(*server.models())
-            elif path == "/debug/kv":
-                try:
-                    self._json(*server.debug_kv())
-                except HTTPError as e:
-                    self._error(e.status, str(e))
-            else:
-                self._error(404, f"no route {path}")
-
-        def do_POST(self):  # noqa: N802 - http.server's naming
-            path = self.path.split("?", 1)[0]
-            routes = {"/v1/completions": server.completions,
-                      "/v1/prefill": server.prefill,
-                      "/v1/attach": server.attach,
-                      "/v1/prefill/release": server.release,
-                      "/v1/load_lora_adapter": server.load_adapter,
-                      "/v1/unload_lora_adapter": server.unload_adapter}
-            fn = routes.get(path)
+                return
+            fn = get_routes.get(path)
             if fn is None:
                 self._error(404, f"no route {path}")
                 return
+            params = {k: v[0] for k, v in urllib.parse.parse_qs(
+                query, keep_blank_values=True).items()}
             try:
-                # A handoff is binary; every other route takes JSON.
-                result = fn(self._raw() if fn == server.attach
-                            else self._body())
+                self._json(*fn(params))
             except HTTPError as e:
                 self._error(e.status, str(e))
+
+        def do_POST(self):  # noqa: N802 - http.server's naming
+            path = self.path.split("?", 1)[0]
+            trace_id = None
+            if path in _TRACED:
+                trace_id = (tracing.header_trace_id(self.headers)
+                            or tracing.new_trace_id())
+            try:
+                if path == "/v1/attach":  # a handoff is binary
+                    result = server.attach(
+                        self._raw(), tracing.header_trace_id(self.headers))
+                elif path in post_routes:
+                    body = self._body()
+                    fn = post_routes[path]
+                    result = fn(body, trace_id) if trace_id else fn(body)
+                else:
+                    self._error(404, f"no route {path}")
+                    return
+            except HTTPError as e:
+                self._error(e.status, str(e), e.trace_id or trace_id)
                 return
-            # (status, payload[, headers]) or a bare SSE generator; the
-            # payload is JSON (dict), a handoff (bytes) or SSE.
-            status, payload, *rest = (result if isinstance(result, tuple)
-                                      else (200, result))
+            # (status, payload[, headers]); the payload is JSON (dict), a
+            # handoff (bytes) or an SSE generator.
+            status, payload, *rest = result
             headers = rest[0] if rest else None
             if isinstance(payload, dict):
                 self._json(status, payload, headers)
@@ -648,6 +1185,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decode-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=1024)
     p.add_argument("--max-loras", type=int, default=4)
+    p.add_argument("--host-cache-slots", type=int, default=8,
+                   help="host-RAM adapter cache size (the middle tier of the "
+                        "slot -> host -> disk residency ladder): demoted and "
+                        "prefetched adapters park here, so promotion is one "
+                        "host-to-device write instead of a file read; 0 "
+                        "disables the tier")
     p.add_argument("--prefill-buckets", type=int, nargs="+", default=None,
                    metavar="N",
                    help="prefill bucket sizes; default powers of two from 16 "
@@ -793,7 +1336,8 @@ def make_server(argv=None, params=None, draft_params=None):
             draft_params = (params if draft_params is target
                             else quantize_params(draft_params))
         logger.info("weights quantized to int8 (per output channel)")
-    lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device)
+    lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device,
+                               host_cache_slots=args.host_cache_slots)
     engine = Engine(cfg, params, engine_cfg, lora_manager=lora_manager,
                     eos_id=tokenizer.eos_id, dtype=dtype, device=args.device,
                     draft_params=draft_params, draft_cfg=draft_cfg)

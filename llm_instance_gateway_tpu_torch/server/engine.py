@@ -456,6 +456,9 @@ class Engine:
         self._work = threading.Condition()
         self._running = False
         self._draining = False
+        # Flight-recorder seam (events.py): the HTTP layer installs
+        # ``EventJournal.emit`` here, signature ``(kind, **attrs)``.
+        self.event_sink = None
         self._admitting = 0
         self._live: dict[str, Request] = {}
         self._thread: threading.Thread | None = None
@@ -480,6 +483,8 @@ class Engine:
         self.kv_ledger: KvLedger | None = (
             KvLedger(self._n_blocks, self._block)
             if self.paged and self.cfg.kv_ledger else None)
+        # LRU evictions since the last KV sync (journaled as one kv_evict).
+        self._kv_evicts_pending = 0
 
     # ------------------------------------------------------------------
     # device compute
@@ -994,6 +999,13 @@ class Engine:
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Stop admitting; wait until every request reached a terminal state."""
         self._draining = True
+        if self.event_sink is not None:
+            try:
+                # The replica is leaving the routable set.
+                self.event_sink("role_change", role=self.cfg.role,
+                                draining=True)
+            except Exception:
+                logger.exception("event sink failed on drain")
         deadline = time.monotonic() + timeout_s
         while time.monotonic() < deadline:
             snap = self.metrics_snapshot()
@@ -1086,6 +1098,8 @@ class Engine:
         if req is None or req.done.is_set():
             return False
         req.cancelled.set()
+        if self.event_sink is not None:
+            self.event_sink("kv_release", request_id=request_id)
         with self._work:
             self._work.notify()
         return True
@@ -1329,6 +1343,7 @@ class Engine:
             if self.kv_ledger is not None:
                 self.kv_ledger.note_evict(h.hex()[:16])
                 self.kv_ledger.note_alloc()
+                self._kv_evicts_pending += 1
             return blk
         raise PagedPoolExhausted(
             f"kv pool exhausted: {self._n_blocks} blocks of {self._block} "
@@ -1655,6 +1670,10 @@ class Engine:
                     logger.warning(
                         "handoff %s parked %.1fs > ttl %.1fs; releasing",
                         w.request.request_id, now - w.t_parked, ttl)
+                    if self.event_sink is not None:
+                        self.event_sink("kv_release",
+                                        request_id=w.request.request_id,
+                                        reason="ttl")
                 self._finish(w.request, "cancelled")
                 swept = True
             else:
@@ -2386,7 +2405,10 @@ class Engine:
                 "prefill", wall, [req.adapter],
                 tokens={owner_key(req.adapter): len(req.prompt_tokens)})
         if self.profiler is not None:
-            self.profiler.note_dispatch("prefill", None, wall)
+            self.profiler.note_dispatch(
+                "prefill", None, wall, active=1,
+                total_slots=self.cfg.decode_slots,
+                n_steps=len(req.prompt_tokens))
 
     def _note_padding(self, pad_tokens: int) -> None:
         if self.usage is not None:
@@ -2407,6 +2429,12 @@ class Engine:
         self.kv_ledger.sync_states(self._free_blocks, len(distinct),
                                    len(self._evictable),
                                    self._parked_kv_tokens)
+        if self._kv_evicts_pending:
+            # One aggregated event per sync: an eviction storm must not
+            # flood the flight recorder's bounded ring.
+            n, self._kv_evicts_pending = self._kv_evicts_pending, 0
+            if self.event_sink is not None:
+                self.event_sink("kv_evict", n=n)
 
     def _usage_sync_kv(self) -> None:
         """Refresh the KV-holdings integral (active rows at their position,
@@ -2498,7 +2526,7 @@ class Engine:
         step_s = time.perf_counter() - t0
         n_tokens, owners, tok_by_owner, _ = self._walk_sync(out)
         self._account("decode", t0, step_s, owners, tok_by_owner, n_tokens,
-                      step_s / n_steps, n_steps)
+                      step_s / n_steps, n_steps, n_steps)
 
     def _do_spec_step(self) -> None:
         """The sync loop's speculative dispatch: the host carry and the
@@ -2528,7 +2556,7 @@ class Engine:
         self.spec_emitted += n_tokens
         # Per cycle (each emits >= 1 token a row).
         self._account("spec", t0, step_s, owners, tok_by_owner, n_tokens,
-                      step_s / max(1, n_cycles))
+                      step_s / max(1, n_cycles), out.shape[0])
 
     def _walk_sync(self, out: np.ndarray):
         """Walk one block's output pack [T, B, 3 + 2K] (a plain block's
@@ -2583,16 +2611,19 @@ class Engine:
 
     def _account(self, phase: str, t0: float, step_s: float, owners,
                  tok_by_owner: dict, n_tokens: int, per_step_s: float,
-                 planned: int | None = None) -> None:
+                 n_steps: int, planned: int | None = None) -> None:
         """A processed block's books: usage, the profiler's ``phase``
-        ("decode" or "spec"), tokens, the decode-rate EMA, the per-step
-        wall, and ``planned`` steps (the planner's choice; None for a spec
-        block, whose token rows are not one)."""
+        ("decode" or "spec") over ``n_steps`` token rows, tokens, the
+        decode-rate EMA, the per-step wall, and ``planned`` steps (the
+        planner's choice; None for a spec block, whose token rows are not
+        one)."""
         if self.usage is not None:
             self.usage.charge_decode(step_s, owners, tok_by_owner)
             self._usage_sync_kv()
         if self.profiler is not None:
-            self.profiler.note_dispatch(phase, t0, step_s)
+            self.profiler.note_dispatch(
+                phase, t0, step_s, active=len(owners),
+                total_slots=self.cfg.decode_slots, n_steps=n_steps)
         with self._lock:
             self.total_generated += n_tokens
             inst = n_tokens / step_s if step_s > 0 else 0.0
@@ -2777,7 +2808,7 @@ class Engine:
             self.spec_emitted += n_tokens - n_pending  # first tokens: prefill
         self._account("spec" if blk["spec"] else "decode", blk["t0"], step_s,
                       owners, tok_by_owner, n_tokens,
-                      step_s / max(1, blk["n_steps"]),
+                      step_s / max(1, blk["n_steps"]), blk["n_steps"],
                       None if blk["spec"] else blk["n_steps"])
 
     def _fail_all_slots(self, e: Exception) -> None:

@@ -731,15 +731,52 @@ class TestHTTP:
     @pytest.mark.parametrize("body,status", [
         ({"n": 2}, 422), ({"echo": True}, 422),
         ({"prompt": "x" * 200}, 422),  # beyond the largest bucket (128)
-        ({"logprobs": 1}, 400), ({"presence_penalty": 2.5}, 400),
-        ({"messages": [{"role": "user", "content": "hi"}]}, 400),
+        ({"logprobs": 3}, 200), ({"presence_penalty": 2.5}, 400),
+        ({"messages": [{"role": "user", "content": "hi"}], "logprobs": True,
+          "top_logprobs": 2}, 200),
         ({"model": "no-such-model"}, 404)],
         ids=["n", "echo", "beyond-bucket", "logprobs", "penalty", "chat",
              "unknown-model"])
-    def test_prefill_refusals(self, pair, body, status):
-        """The gateway serves any non-200 single-hop."""
-        got, text, _ = _post(pair[0] + "/v1/prefill", dict(BODY, **body))
-        assert got == status, text
+    def test_prefill_statuses(self, pair, body, status):
+        """Refusals the gateway serves single-hop (any non-200); a body
+        with logprobs and a chat body hand off, and the decode hop answers
+        their envelope as collocated serving on the prefill pod does."""
+        pre, dec = pair
+        body = dict(BODY, **body)
+        got, wire, _ = _post(pre + "/v1/prefill", body)
+        assert got == status, wire
+        if status != 200:
+            return
+        chat = "messages" in body
+        _, coll, _ = _post(
+            pre + ("/v1/chat/completions" if chat else "/v1/completions"),
+            body)
+        got, out, _ = _post(dec + "/v1/attach", None, raw=wire)
+        assert got == 200, out
+        coll, out = json.loads(coll), json.loads(out)
+        assert (out["object"], out["usage"]) == (coll["object"],
+                                                 coll["usage"])
+        a, b = out["choices"][0], coll["choices"][0]
+        assert a.keys() == b.keys() and "logprobs" in a
+        if chat:
+            assert a["message"] == b["message"]
+            rows = list(zip(a["logprobs"]["content"],
+                            b["logprobs"]["content"]))
+            assert len(rows) == 8
+            for x, y in rows:
+                assert x["token"] == y["token"]
+                assert x["logprob"] == pytest.approx(y["logprob"], abs=1e-4)
+                assert [t["token"] for t in x["top_logprobs"]] == [
+                    t["token"] for t in y["top_logprobs"]]
+        else:
+            assert a["text"] == b["text"]
+            la, lb = a["logprobs"], b["logprobs"]
+            assert la["tokens"] == lb["tokens"]
+            assert la["text_offset"] == lb["text_offset"]
+            np.testing.assert_allclose(la["token_logprobs"],
+                                       lb["token_logprobs"], atol=1e-4)
+            assert [d.keys() for d in la["top_logprobs"]] == [
+                d.keys() for d in lb["top_logprobs"]]
 
     def test_attach_refusals(self, pair):
         pre, dec = pair

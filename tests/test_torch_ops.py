@@ -243,7 +243,7 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 15
     rel = {os.path.relpath(p, REPO) for p in files}
     for module in ("models/paged.py", "server/kv_ledger.py",
-                   "server/kv_transfer.py",
+                   "server/kv_transfer.py", "events.py", "tracing.py",
                    "ops/chunk_attention.py", "ops/paged_decode_attention.py"):
         # the walk covers every subpackage, the newest modules included
         assert f"llm_instance_gateway_tpu_torch/{module}" in rel

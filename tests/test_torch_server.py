@@ -3,7 +3,8 @@
 One in-process server at ``llama3-tiny`` (f32, random weights, ``--device
 cpu``): completions as JSON and SSE, stop strings, the admin adapter
 endpoints with an ``.npz`` adapter, /v1/models, /metrics, /health, and the
-400s for parameters the port does not serve yet.
+400s for parameters out of the reference's ranges or combinations it
+refuses.
 """
 
 import json
@@ -115,11 +116,13 @@ def test_stop_string_truncates(server):
 
 
 @pytest.mark.parametrize("extra", [
-    {"logprobs": 1}, {"n": 2}, {"echo": True}, {"presence_penalty": 2.5},
-    {"logit_bias": {"5": 101.0}}, {"stop": 3}])
+    {"logprobs": 6}, {"n": 9}, {"echo": True, "logprobs": 1},
+    {"presence_penalty": 2.5}, {"logit_bias": {"5": 101.0}}, {"stop": 3}])
 def test_unserved_parameters_are_400(server, extra):
-    """Unserved parameters, and penalties or biases out of the reference's
-    ranges (in range they are served: ``test_penalties_are_served``)."""
+    """Parameters out of the reference's ranges (``logprobs`` > 5, ``n`` >
+    8, penalties, biases), and ``echo`` together with ``logprobs``; in
+    range they are served (``test_penalties_are_served``,
+    ``tests/test_torch_surface.py``)."""
     url, _ = server
     status, text = post(url + "/v1/completions",
                         {"prompt": "hi", "max_tokens": 2, **extra})
@@ -202,8 +205,9 @@ def test_cli_defaults_mirror_the_reference():
 @pytest.mark.parametrize("role", ["prefill", "decode"])
 def test_two_hop_roles_start_and_advertise(role):
     """A pod started as a prefill or decode replica serves, and shows its
-    role in ``tpu:pool_role`` (the gateway's two-stage routing reads it)
-    and in /v1/models; the handoff TTL reaches the engine."""
+    role in ``tpu:pool_role`` (the gateway's two-stage routing reads it);
+    /v1/models answers the reference's payload, without a role; the
+    handoff TTL reaches the engine."""
     httpd, engine, _ = api_http.make_server([
         "--device", "cpu", "--dtype", "float32", "--host", "127.0.0.1",
         "--port", "0", "--max-seq-len", "128", "--role", role,
@@ -214,7 +218,10 @@ def test_two_hop_roles_start_and_advertise(role):
         assert (engine.cfg.role, engine.cfg.handoff_ttl_s) == (role, 7.5)
         _, text = get(url + "/metrics")
         assert f'tpu:pool_role{{role="{role}"}} 1' in text
-        assert json.loads(get(url + "/v1/models")[1])["role"] == role
+        assert json.loads(get(url + "/v1/models")[1]) == {
+            "object": "list", "data": [{"id": "llama3-tiny",
+                                        "object": "model",
+                                        "root": "llama3-tiny"}]}
         status, _ = post(url + "/v1/completions",
                          {"prompt": "hi", "max_tokens": 2})
         assert status == 200
