@@ -128,10 +128,33 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    bitwise the serve phase's, drain in the flight recorder; prints the
    profiler's shares (pipelined beside the serve phase's sync loop),
    promotion against disk load ms and the phase's wall;
+13. families — the other model families (``phase_families``), the 8B
+   tree freed first: each family's head layout at narrow width, f32, card
+   against CPU (prefill logits, greedy streams and top-5 logprobs on a
+   lane engine and on a paged engine with prefix cache and stream lanes):
+   Qwen 28:4 at hd 128 with seeded non-zero q/k/v biases, Gemma-2B 8:1 at
+   hd 256 (the Gemma flags, tied embeddings), Gemma-7B 16:16 at hd 256,
+   Mixtral 32:8 at hd 128 with 8 experts, top-2 (also int8 weights, and a
+   16-slot pipelined engine whose replayed decode block runs the grouped
+   dispatch, then again with a zero router so every block overflows onto
+   the dense result); flash (B=1, S 16 and 1024) and the lane kernel
+   (int8 for Mixtral; the server's slots, 1024-token lanes) in bf16 at
+   each full-width server's layout against their plain versions, with
+   phase 3's limits; then ``--model qwen2.5-7b`` (seeded biases passed
+   in as params), ``--model gemma-2b``, ``--model gemma-7b`` and
+   ``--model mixtral-8x7b --quantize int8 --kv-quantize int8
+   --decode-slots 16 --pipeline-decode`` (its int8 tree built a layer at
+   a time) at full width and depth, one at a time, through the serve
+   phase's own window (``phase_serve``): an adapter loaded, six
+   completions with exact launch counts, KV back at its floor, one
+   decode step and one 1024-token prefill profiled; for Mixtral a
+   gate/up/down-only adapter answering as the base model and the
+   replayed step in drop mode; prints init seconds, decode tokens/s,
+   TTFT and peak memory per server;
 
 then prints one JSON line with every kernel's numbers (launches over the
 serve phases, the dispatch phase's B runs, the disagg phase's hops, the
-spec phase's servers and the surface phase's),
+spec phase's servers, the surface phase's and the families'),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
 
@@ -845,6 +868,34 @@ def _check_logprobs(what: str, want: list, got: list) -> float:
     return err
 
 
+# Card-vs-CPU logit tolerance of the small f32 models (TF32 off:
+# summation order only).
+REF_TOL = 2e-3
+
+
+def _to_card(tree):
+    """A params tree (int8 {"q", "s"} leaves included) on the card."""
+    return {k: _to_card(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
+
+
+def _prefill_err(torch, what: str, cfg, cpu_p, gpu_p) -> float:
+    """One 64-token prefill's logits, card against CPU, within REF_TOL;
+    returns the largest error."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+
+    tokens = torch.randint(0, 256, (1, 64), generator=torch.Generator()
+                           .manual_seed(3))
+    positions = torch.arange(64)[None]
+    want, _, _ = transformer.prefill(cfg, cpu_p, tokens, positions)
+    got, _, _ = transformer.prefill(cfg, gpu_p, tokens.cuda(),
+                                    positions.cuda())
+    err = (got.cpu() - want).abs().max().item()
+    if not math.isfinite(err) or err > REF_TOL:
+        raise AssertionError(f"{what}: prefill logits err {err} > {REF_TOL}")
+    return err
+
+
 def phase_reference(torch) -> None:
     """The card's path (kernels, f32) against the CPU path (plain versions)
     on one small model with Llama-3-8B's head layout: prefill logits within
@@ -855,76 +906,28 @@ def phase_reference(torch) -> None:
 
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
-    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
     from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
-    from llm_instance_gateway_tpu_torch.server.engine import (
-        Engine, EngineConfig, Request)
 
-    ref_tol = 2e-3  # f32 with TF32 off: summation order only
     cfg = dataclasses.replace(LLAMA3_8B, name="llama3-8b-narrow", d_model=512,
                               n_layers=2, n_heads=8, n_kv_heads=2,
                               head_dim=128, d_ff=1024, vocab_size=320)
     cpu_params = transformer.init_params(cfg, seed=7, dtype=torch.float32,
                                          device="cpu")
     cpu_q = quantize_params(cpu_params)  # what --quantize int8 runs
+    gpu_params, gpu_q = _to_card(cpu_params), _to_card(cpu_q)
+    errs = {name: _prefill_err(torch, f"reference ({name})", cfg, cpu_p,
+                               gpu_p)
+            for name, cpu_p, gpu_p in (("f32", cpu_params, gpu_params),
+                                       ("int8 weights", cpu_q, gpu_q))}
 
-    def to_card(tree):
-        return {k: to_card(v) if isinstance(v, dict) else v.cuda()
-                for k, v in tree.items()}
-
-    gpu_params, gpu_q = to_card(cpu_params), to_card(cpu_q)
-    tokens = torch.randint(0, 256, (1, 64), generator=torch.Generator()
-                           .manual_seed(3))
-    positions = torch.arange(64)[None]
-    errs = {}
-    for name, cpu_p, gpu_p in (("f32", cpu_params, gpu_params),
-                               ("int8 weights", cpu_q, gpu_q)):
-        want, _, _ = transformer.prefill(cfg, cpu_p, tokens, positions)
-        got, _, _ = transformer.prefill(cfg, gpu_p, tokens.cuda(),
-                                        positions.cuda())
-        errs[name] = (got.cpu() - want).abs().max().item()
-        if not math.isfinite(errs[name]) or errs[name] > ref_tol:
-            raise AssertionError(f"reference ({name}): prefill logits err "
-                                 f"{errs[name]} > {ref_tol}")
-
-    prompts = [[256] + list(range(65, 65 + n)) for n in (5, 40, 100)]
-    for name, params_by_dev, kv_quant, counter in (
-            ("f32 weights and KV", (cpu_params, gpu_params), None,
-             "launches"),
-            ("int8 KV", (cpu_params, gpu_params), "int8", "quant_launches"),
-            ("int8 weights", (cpu_q, gpu_q), None, "launches")):
-        streams, launches, by_dev = {}, {}, {}
-        for dev, params in zip(("cpu", "cuda"), params_by_dev):
-            dec.launches = dec.quant_launches = 0
-            eng = Engine(cfg, params, EngineConfig(
-                max_seq_len=256, prefill_buckets=(16, 64, 128),
-                adaptive_steps=8, kv_cache_quant=kv_quant),
-                eos_id=257, dtype=torch.float32, device=dev)
-            eng.start()
-            reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=12,
-                                       logprobs=5))
-                    for p in prompts]
-            for r in reqs:
-                if not r.done.wait(300) or r.error:
-                    raise AssertionError(f"reference engine ({name}) on "
-                                         f"{dev}: {r.error}")
-            eng.stop()
-            streams[dev] = [r.output_tokens for r in reqs]
-            launches[dev] = getattr(dec, counter)
-            by_dev[dev] = reqs
-        if streams["cpu"] != streams["cuda"]:
-            raise AssertionError(f"reference ({name}): greedy streams "
-                                 f"differ: {streams}")
-        _check_logprobs(f"lane, {name}", by_dev["cpu"], by_dev["cuda"])
-        if launches["cpu"] != 0 or launches["cuda"] <= 0:
-            raise AssertionError(f"reference ({name}): lane decode "
-                                 f"launches {launches}")
-        log("reference", f"narrow Llama-3 layout (d=512, H=8, K=2, hd=128, "
-            f"f32), {name}: greedy streams identical on cuda and cpu "
-            f"({sum(map(len, streams['cuda']))} tokens, "
-            f"{launches['cuda']} lane decode launches on the card)")
+    for name, params_by_dev, kv_quant in (
+            ("f32 weights and KV", (cpu_params, gpu_params), None),
+            ("int8 KV", (cpu_params, gpu_params), "int8"),
+            ("int8 weights", (cpu_q, gpu_q), None)):
+        _lane_reference(torch, "reference", f"lane, {name}", cfg,
+                        params_by_dev, kv_quant)
     log("reference", f"prefill logits max_abs_err {json.dumps(errs)} <= "
-        f"{ref_tol}")
+        f"{REF_TOL}")
     _pipelined_reference(torch, cfg, cpu_params, gpu_params)
     for kv_quant in (None, "int8"):
         _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant)
@@ -934,7 +937,7 @@ def phase_reference(torch) -> None:
     cpu_draft = transformer.init_params(draft_cfg, seed=9,
                                         dtype=torch.float32, device="cpu")
     _spec_reference(torch, cfg, (cpu_params, gpu_params), draft_cfg,
-                    (cpu_draft, to_card(cpu_draft)))
+                    (cpu_draft, _to_card(cpu_draft)))
     _penalty_reference(torch, cfg, cpu_params, gpu_params)
     log("reference", f"logprobs (top-5) card against cpu, max error per "
         f"engine (limit {LP_TOL}): {json.dumps(LP_ERRS)}")
@@ -1005,13 +1008,16 @@ def _pipelined_reference(torch, cfg, cpu_params, gpu_params) -> None:
         f"replays of shapes {eng._graphs.shapes}")
 
 
-def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
+def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant,
+                     tag: str = "") -> None:
     """The same model on a paged engine with prefix cache and two stream
     lanes: a shared-prefix pair (the second maps the first's blocks and
     prefills only its suffix through the chunk kernel) and two prompts
     beyond the largest bucket (streamed in 128-token chunks) must give
     identical greedy streams on the card and on the CPU; ``kv_quant``
-    int8 runs the int8 pool (the int8 paged kernel on the card)."""
+    int8 runs the int8 pool (the int8 paged kernel on the card).  ``tag``
+    prefixes what the checks and logs call the engines (a family's
+    layout in phase 13)."""
     from llm_instance_gateway_tpu_torch.ops import chunk_attention as ch
     from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
     from llm_instance_gateway_tpu_torch.server.engine import (
@@ -1049,9 +1055,9 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
         raise AssertionError(f"paged reference: prefix reuse {reused}")
     if launches["cpu"] != (0, 0) or min(launches["cuda"]) <= 0:
         raise AssertionError(f"paged reference: launches {launches}")
-    _check_logprobs(f"paged, prefix cache, stream lanes, KV "
+    _check_logprobs(f"{tag}paged, prefix cache, stream lanes, KV "
                     f"{kv_quant or 'f32'}", by_dev["cpu"], by_dev["cuda"])
-    log("reference", f"paged engine (16-token blocks, prefix cache, 2 stream "
+    log("reference", f"{tag}paged engine (16-token blocks, prefix cache, 2 stream "
         f"lanes, f32, KV {kv_quant or 'f32'}): greedy streams identical on "
         f"cuda and cpu ({sum(map(len, streams['cuda']))} tokens), "
         f"{reused['cuda']} prefix tokens reused, chunk/paged launches on the "
@@ -1070,9 +1076,9 @@ def _paged_reference(torch, cfg, cpu_params, gpu_params, kv_quant) -> None:
             raise AssertionError(f"pipelined paged reference: {got} "
                                  f"{eng.prefix_reused_tokens} against "
                                  f"{streams['cpu']} {reused['cpu']}")
-        _check_logprobs("pipelined paged (graph replays)", by_dev["cpu"],
-                        got_reqs)
-        log("reference", f"pipelined paged engine (prefix cache, 2 stream "
+        _check_logprobs(f"{tag}pipelined paged (graph replays)",
+                        by_dev["cpu"], got_reqs)
+        log("reference", f"{tag}pipelined paged engine (prefix cache, 2 stream "
             f"lanes, f32): greedy streams identical on cuda and cpu, "
             f"{eng._graphs.replays} graph replays")
 
@@ -1254,30 +1260,55 @@ def _serve_body(n_chars: int, model, stream: bool, max_tokens: int) -> dict:
     return body
 
 
-def phase_serve(torch, params=None, adapter_path=None, quant=False):
-    """The port's server at Llama-3-8B width, six concurrent greedy
-    completions (base and adapter rows, one streamed) through the flash and
-    lane decode kernels — with ``quant``, behind ``--quantize int8
-    --kv-quantize int8`` and through the int8 lane kernel.  Returns (stats,
-    the bf16 params, adapter path) so later phases serve the same
-    weights."""
-    import threading
-    import urllib.request
-
+def _save_adapter(cfg, path: str, targets, seed: int) -> None:
+    """A seeded rank-8 adapter on ``targets``, saved as .npz."""
     import numpy as np
 
     from llm_instance_gateway_tpu_torch.models import lora
-    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
-    from llm_instance_gateway_tpu_torch.server import api_http
     from llm_instance_gateway_tpu_torch.server.lora_manager import save_adapter
 
-    tag = "serve-int8" if quant else "serve"
+    rng = np.random.default_rng(seed)
+    rank = 8
+    weights = {
+        t: {"a": (rng.standard_normal((cfg.n_layers, d_in, rank))
+                  / math.sqrt(d_in)).astype(np.float32),
+            "b": (rng.standard_normal((cfg.n_layers, rank, d_out))
+                  * 0.05).astype(np.float32)}
+        for t, (d_in, d_out) in lora.target_dims(cfg).items()
+        if t in targets}
+    save_adapter(path, weights, alpha=16.0, rank=rank)
+
+
+def phase_serve(torch, params=None, adapter_path=None, quant=False,
+                model: str = "llama3-8b", flags=(), tag=None, after=None):
+    """A server at full width and depth (Llama-3-8B, or the preset
+    ``model``), six concurrent greedy completions (base and adapter rows,
+    one streamed) through the flash and lane decode kernels, with exact
+    launch counts over the window and KV back at its floor after it; then
+    one decode step and one 1024-token prefill profiled.  ``quant`` adds
+    ``--quantize int8 --kv-quantize int8`` (the lane kernel is then the
+    int8 one, and the prefill goes unprofiled) and ``flags`` more of the
+    server's flags; ``params`` is served as given (quantized under int8
+    flags), else the server draws random seeded weights; ``after(engine,
+    url, stats)`` runs last, on the live server.  Returns (stats, the params
+    served, or the caller's under ``quant``; the adapter path) so later
+    phases serve the same weights."""
+    import threading
+    import urllib.request
+
+    from llm_instance_gateway_tpu_torch.models import lora
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+    from llm_instance_gateway_tpu_torch.server import api_http
+
+    cfg = CONFIGS[model]
+    argv = (["--model", model, "--max-seq-len", "1024", "--decode-slots",
+             "8", "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
+            + (INT8_FLAGS if quant else []) + list(flags))
+    tag = tag or ("serve-int8" if quant else "serve")
     torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.time()
-    httpd, engine, _ = api_http.make_server([
-        "--model", "llama3-8b", "--max-seq-len", "1024", "--decode-slots", "8",
-        "--device", "cuda", "--host", "127.0.0.1", "--port", "0"]
-        + (INT8_FLAGS if quant else []), params=params)
+    httpd, engine, _ = api_http.make_server(argv, params=params)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     params = params if quant else engine.params
@@ -1288,18 +1319,10 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         if adapter_path is None:
             # Seeded rank-8 adapter on every target, saved as .npz and
             # loaded through the admin endpoint.
-            rng = np.random.default_rng(11)
-            rank = 8
-            weights = {
-                t: {"a": (rng.standard_normal((cfg.n_layers, d_in, rank))
-                          / math.sqrt(d_in)).astype(np.float32),
-                    "b": (rng.standard_normal((cfg.n_layers, rank, d_out))
-                          * 0.05).astype(np.float32)}
-                for t, (d_in, d_out) in lora.target_dims(cfg).items()}
             os.makedirs(os.path.join(REPO, "build", "smoke"), exist_ok=True)
             adapter_path = os.path.join(REPO, "build", "smoke",
-                                        "adapter-r8.npz")
-            save_adapter(adapter_path, weights, alpha=16.0, rank=rank)
+                                        f"{model}-r8.npz")
+            _save_adapter(cfg, adapter_path, lora.target_dims(cfg), 11)
         status, text = _post(url + "/v1/load_lora_adapter",
                              {"lora_name": "smoke-r8",
                               "lora_path": adapter_path})
@@ -1311,13 +1334,14 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         submitted: list = []
         _record(engine, "submit", submitted)
         snap0 = engine.metrics_snapshot()
+        rate0 = _rate_snap(engine)
         reset_launches()
         results = [None] * len(jobs)
 
-        def run(i, n_chars, model, stream):
+        def run(i, n_chars, adapter, stream):
             t = time.time()
             results[i] = _post(url + "/v1/completions", _serve_body(
-                n_chars, model, stream, max_tokens)) + (time.time() - t,)
+                n_chars, adapter, stream, max_tokens)) + (time.time() - t,)
 
         t_serve = time.time()
         threads = [threading.Thread(target=run, args=(i, *job))
@@ -1327,16 +1351,18 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         for th in threads:
             th.join(900)
         serve_s = time.time() - t_serve
+        wait_blocks_processed(engine)
         launches = read_launches()
         snap1 = engine.metrics_snapshot()
 
         n_layers = cfg.n_layers
         for i, ((n_chars, adapter, stream), res) in enumerate(zip(jobs, results)):
             if res is None:
-                raise AssertionError(f"request {i} did not return")
+                raise AssertionError(f"{tag}: request {i} did not return")
             status, text, secs = res
             if status != 200:
-                raise AssertionError(f"request {i}: {status} {text[:300]}")
+                raise AssertionError(f"{tag}: request {i}: {status} "
+                                     f"{text[:300]}")
             if stream:
                 chunks = [json.loads(line[6:]) for line in text.splitlines()
                           if line.startswith("data: {")]
@@ -1346,8 +1372,8 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
             else:
                 usage = json.loads(text)["usage"]
             if usage["completion_tokens"] != max_tokens:
-                raise AssertionError(f"request {i}: {usage} != {max_tokens} "
-                                     "tokens")
+                raise AssertionError(f"{tag}: request {i}: {usage} != "
+                                     f"{max_tokens} tokens")
             log(tag, f"request {i}: {n_chars + 1} prompt tokens, "
                 f"adapter={adapter}, stream={stream}, "
                 f"{usage['completion_tokens']} tokens in {secs:.2f} s")
@@ -1356,10 +1382,13 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
         if decode_steps <= 0:
             raise AssertionError(f"{tag}: no decode steps")
         # One bucketed prefill program per request (no prefix cache here),
-        # one lane decode launch per layer and decode step, nothing else.
-        lane_kernel = "decode_attention_quant" if quant else "decode_attention"
+        # one lane decode launch per layer and decode step (replays
+        # counted), nothing else.
+        lane_kernel = ("decode_attention_quant" if "--kv-quantize" in argv
+                       else "decode_attention")
         check_only(launches, {"flash_prefill": len(jobs) * n_layers,
                               lane_kernel: decode_steps * n_layers}, tag)
+        _kv_floor(tag, engine)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
         for family in ("tpu:num_requests_running", "tpu:num_requests_waiting",
@@ -1368,9 +1397,14 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
             if family not in metrics_text:
                 raise AssertionError(f"/metrics lacks {family}")
         ph = snap1["phase_hist"]
+        ttft = sorted(r.ttft_s * 1e3 for r in submitted)
         stats = {
-            "init_s": init_s, "serve_s": serve_s,
+            "model": model, "flags": argv[argv.index("--port") + 2:],
+            "n_layers": n_layers, "init_s": init_s, "serve_s": serve_s,
             "decode_steps": decode_steps,
+            "decode_tokens_per_s": _block_rate(rate0, _rate_snap(engine),
+                                               len(jobs)),
+            "ttft_ms_p50": ttft[len(ttft) // 2], "ttft_ms_max": ttft[-1],
             # The sync loop's step-profiler attribution over the window,
             # beside the pipelined server's in the surface phase.
             "profile_shares": engine.profiler.attribution()["shares"],
@@ -1383,20 +1417,25 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False):
                 / max(1, ph["prefill"]["count"]
                       - snap0["phase_hist"]["prefill"]["count"])),
             "tokens": len(jobs) * max_tokens,
+            "allocated_gb_after_serve": (torch.cuda.memory_allocated()
+                                         - mem0) / 1e9,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "graph_shapes": engine._graphs.shapes,
             "graph_capture_s": engine._graphs.capture_s,
             "launches": launches,
         }
-        log(tag, "llama3-8b (32 layers, random bf16 weights"
-            + (", --quantize int8 --kv-quantize int8" if quant else "")
-            + "): " + json.dumps(stats))
+        log(tag, f"{model} ({n_layers} layers, random weights, flags "
+            f"{stats['flags']}): " + json.dumps(stats))
         # The greedy token ids per (prompt, adapter): the spec phase's
         # plain reference (the byte tokenizer drops ids >= 256 from text).
         stats["answers"] = {(tuple(r.prompt_tokens), r.adapter):
                             list(r.output_tokens) for r in submitted}
         # After the counted window: these launches are not the serve's.
         stats["profile"] = phase_profile(torch, engine, prefill=not quant)
+        if after is not None:
+            after(engine, url, stats)
+        stats["peak_mem_gb_with_profile"] = (
+            torch.cuda.max_memory_allocated() / 1e9)
         return stats, params, adapter_path
     finally:
         httpd.shutdown()
@@ -1644,13 +1683,12 @@ def _graph_profile(torch, name: str, fn, reps: int):
     return _profile(torch, f"{name} (graph replay)", graph.replay, reps)
 
 
-def _with_graph(torch, name: str, fn, reps: int, capturable: bool = True):
-    """Eager profile of ``fn`` and, beside it, its graph replays — or why
-    there is none."""
+def _with_graph(torch, name: str, fn, reps: int, why_not: str | None = None):
+    """Eager profile of ``fn`` and, beside it, its graph replays — or
+    ``why_not``, the reason there is none."""
     out = _profile(torch, name, fn, reps)
-    if not capturable:
-        out["graph_replay"] = ("not captured: the chunk program copies host "
-                               "positions to the card per call")
+    if why_not:
+        out["graph_replay"] = f"not captured: {why_not}"
         return out
     try:
         out["graph_replay"] = _graph_profile(torch, name, fn, reps)
@@ -1706,25 +1744,33 @@ def phase_paged_profile(torch, engine) -> dict:
 
     return {"paged_decode_step": _with_graph(torch, "paged_decode_step",
                                              decode, 3),
-            "chunk_1024_at_5120": _with_graph(torch, "chunk_1024_at_5120",
-                                              chunk, 2, capturable=False)}
+            "chunk_1024_at_5120": _with_graph(
+                torch, "chunk_1024_at_5120", chunk, 2,
+                why_not="the chunk program copies host positions to the "
+                        "card per call")}
 
 
-def phase_profile(torch, engine, prefill: bool = True) -> dict:
+def phase_profile(torch, engine, prefill: bool = True, cfg=None) -> dict:
     """Where one 8B decode step (8 rows, mixed adapters, ragged lengths)
     and one 1024-token prefill spend their time: host wall per call, device
     kernel time, device idle share, top kernels (torch.profiler).  On the
     int8 engine the decode step alone (``prefill`` False): int8 weights
-    widened per call, int8 KV."""
+    widened per call, int8 KV.  Rows past the eighth repeat the first
+    eight's positions (a 16-slot engine's lanes hold 1024); an MoE
+    prefill is profiled eager only (it reads the exact fallback's
+    overflow flag on the host, once a layer).  ``cfg`` overrides the
+    engine's config (an MoE model in drop mode, the exact fallback's
+    cost)."""
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.server.sampling import sample
 
-    cfg, params = engine.model_cfg, engine.params
+    cfg, params = cfg or engine.model_cfg, engine.params
     dev = torch.device("cuda")
     lora_bufs = engine.lora.buffers
     b = engine.cfg.decode_slots
     tokens = torch.arange(b, device=dev) + 65
-    positions = torch.tensor([100 * (i + 1) for i in range(b)], device=dev)
+    positions = torch.tensor([100 * (i % 8 + 1) for i in range(b)],
+                             device=dev)
     slots = torch.tensor([-1, 0] * (b // 2), device=dev)
     active = torch.ones(b, dtype=torch.bool, device=dev)
     ones = torch.ones(b, device=dev)
@@ -1746,8 +1792,10 @@ def phase_profile(torch, engine, prefill: bool = True) -> dict:
 
     out = {"decode_step": _with_graph(torch, "decode_step", decode, 3)}
     if prefill:
-        out["prefill_1024"] = _with_graph(torch, "prefill_1024", run_prefill,
-                                          2)
+        out["prefill_1024"] = _with_graph(
+            torch, "prefill_1024", run_prefill, 2,
+            why_not=("the MoE prefill reads its overflow flag on the host"
+                     if cfg.n_experts else None))
     return out
 
 
@@ -3232,11 +3280,337 @@ def phase_surface(torch, params, adapter_path: str, plain_answers: dict,
         engine.stop()
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the other model families
+# ---------------------------------------------------------------------------
+
+# Each family's head layout at the reference phase's narrow width (d 512,
+# 2 layers, d_ff 1024, f32): (preset, query heads, KV heads, head_dim).
+FAMILY_LAYOUTS = {
+    "qwen (28:4, hd 128, q/k/v biases)": ("qwen2.5-7b", 28, 4, 128),
+    "gemma-2b (8:1, hd 256, tied)": ("gemma-2b", 8, 1, 256),
+    "gemma-7b (16:16, hd 256)": ("gemma-7b", 16, 16, 256),
+    "mixtral (32:8, hd 128, 8 experts, top-2)": ("mixtral-8x7b", 32, 8, 128),
+}
+# The full-width servers: (--model, extra flags).
+FAMILY_SERVERS = [
+    ("qwen2.5-7b", []),
+    ("gemma-2b", []),
+    ("gemma-7b", []),
+    ("mixtral-8x7b", INT8_FLAGS + ["--decode-slots", "16",
+                                   "--pipeline-decode"]),
+]
+
+
+def _seed_biases(torch, params, seed: int, scale: float) -> None:
+    """Non-zero seeded q/k/v biases in place (zero ones would test
+    nothing)."""
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    for name in ("wq_b", "wk_b", "wv_b"):
+        leaf = params["layers"][name]
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device)
+                   * scale)
+
+
+def _lane_reference(torch, phase: str, tag: str, cfg, params_by_dev,
+                    kv_quant=None, decode_slots: int = 8,
+                    pipelined: bool = False, prompts=None) -> list:
+    """A lane engine on the CPU (sync) and on the card (sync, or
+    ``pipelined`` with graph replays): identical greedy streams, top-5
+    logprobs within LP_TOL, the lane kernel (int8 with ``kv_quant``)
+    launched on the card only; logged under ``phase``.  Returns the CPU's
+    requests."""
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig)
+
+    prompts = prompts or [[256] + list(range(65, 65 + n)) for n in (5, 40, 100)]
+    counter = "quant_launches" if kv_quant else "launches"
+    base = dict(decode_slots=decode_slots, max_seq_len=256,
+                prefill_buckets=(16, 64, 128), adaptive_steps=8,
+                kv_cache_quant=kv_quant)
+    by_dev, launches, engines = {}, {}, {}
+    for dev, params in zip(("cpu", "cuda"), params_by_dev):
+        dec.launches = dec.quant_launches = 0
+        eng = Engine(cfg, params, EngineConfig(
+            pipeline_decode=pipelined and dev == "cuda", **base),
+            eos_id=257, dtype=torch.float32, device=dev)
+        by_dev[dev] = _run_engine(eng, prompts)
+        launches[dev] = getattr(dec, counter)
+        engines[dev] = eng
+    want, got = _streams(by_dev["cpu"]), _streams(by_dev["cuda"])
+    if want != got:
+        raise AssertionError(f"{tag}: greedy streams differ: cuda {got} "
+                             f"cpu {want}")
+    err = _check_logprobs(tag, by_dev["cpu"], by_dev["cuda"])
+    if launches["cpu"] != 0 or launches["cuda"] <= 0:
+        raise AssertionError(f"{tag}: lane decode launches {launches}")
+    replays = engines["cuda"]._graphs.replays
+    if pipelined and replays <= 0:
+        raise AssertionError(f"{tag}: no graph replays")
+    log(phase, f"{tag}: greedy streams identical on cuda and cpu "
+        f"({sum(map(len, got))} tokens), logprob err {err:.3g}, "
+        f"{launches['cuda']} lane kernel launches, {replays} graph replays")
+    return by_dev["cpu"]
+
+
+def _moe_replay_reference(torch, tag: str, cfg, cpu_params, gpu_params):
+    """A 16-slot pipelined lane engine on the card — its decode block, a
+    replayed graph, runs the grouped dispatch (t=16, cap 8) with the exact
+    fallback selected on the device — against the CPU's sync engine; then
+    again with a zero router, so every token's logits tie and every token
+    picks experts 0 and 1 (the lower indices): each replayed block
+    overflows, must give the dense result and the CPU's tokens, and a
+    drop-mode CPU engine (overflow dropped) must answer otherwise."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig)
+
+    prompts = [[256] + list(range(65 + i, 65 + i + n))
+               for i, n in enumerate((5, 9, 12, 40, 50, 100))]
+    real = transformer._moe_grouped
+    for router in ("seeded", "zero"):
+        cpu_p, gpu_p = cpu_params, gpu_params
+        if router == "zero":
+            cpu_p = dict(cpu_p, layers=dict(
+                cpu_p["layers"],
+                router=torch.zeros_like(cpu_p["layers"]["router"])))
+            gpu_p = dict(gpu_p, layers=dict(
+                gpu_p["layers"],
+                router=torch.zeros_like(gpu_p["layers"]["router"])))
+        calls = []
+
+        def counted(cfg_, lp, x, host_flag=False):
+            if x.is_cuda:
+                calls.append((math.prod(x.shape[:-1]), host_flag))
+            return real(cfg_, lp, x, host_flag)
+
+        transformer._moe_grouped = counted
+        try:
+            want = _lane_reference(
+                torch, "families", f"{tag}, 16-slot pipelined, {router} "
+                "router", cfg,
+                (cpu_p, gpu_p), decode_slots=16, pipelined=True,
+                prompts=prompts)
+        finally:
+            transformer._moe_grouped = real
+        if (16, False) not in calls:
+            raise AssertionError(f"{tag}: the replayed block did not run "
+                                 f"the grouped dispatch: {calls[:8]}")
+        if router == "zero":
+            drop_cfg = dataclasses.replace(cfg, moe_exact_fallback=False)
+            drop = _run_engine(Engine(drop_cfg, cpu_p, EngineConfig(
+                decode_slots=16, max_seq_len=256,
+                prefill_buckets=(16, 64, 128), adaptive_steps=8),
+                eos_id=257, dtype=torch.float32, device="cpu"), prompts)
+            lp_gap = max(abs(a - b) for w, d in zip(want, drop)
+                         for a, b in zip(w.output_logprobs,
+                                         d.output_logprobs))
+            if _streams(drop) == _streams(want) and lp_gap <= LP_TOL:
+                raise AssertionError(f"{tag}: drop mode answers as the "
+                                     "exact fallback: no overflow seen")
+            log("families", f"{tag}, zero router: every replayed block "
+                f"overflowed to the dense result (the CPU's tokens); drop "
+                f"mode departs by {lp_gap:.3g} in logprob")
+
+
+def _family_reference(torch) -> None:
+    """Each family's head layout, narrow and f32, card path against CPU
+    path: prefill logits within REF_TOL, greedy streams and top-5 logprobs
+    on a lane engine and on a paged engine with prefix cache and stream
+    lanes (then pipelined); Mixtral also with int8 weights and through
+    ``_moe_replay_reference``."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
+
+    for tag, (preset, h, k, hd) in FAMILY_LAYOUTS.items():
+        cfg = dataclasses.replace(
+            CONFIGS[preset], name=f"{preset}-narrow", d_model=512,
+            n_layers=2, n_heads=h, n_kv_heads=k, head_dim=hd, d_ff=1024,
+            vocab_size=320)
+        cpu_params = transformer.init_params(cfg, seed=7, dtype=torch.float32,
+                                             device="cpu")
+        if cfg.attention_bias:
+            _seed_biases(torch, cpu_params, 8, 0.5)
+        gpu_params = _to_card(cpu_params)
+        trees = [("f32", cpu_params, gpu_params)]
+        if cfg.n_experts:
+            cpu_q = quantize_params(cpu_params)
+            trees.append(("int8 weights", cpu_q, _to_card(cpu_q)))
+        for name, cpu_p, gpu_p in trees:
+            err = _prefill_err(torch, f"{tag} ({name})", cfg, cpu_p, gpu_p)
+            log("families", f"{tag} ({name}): prefill logits max_abs_err "
+                f"{err:.3g} <= {REF_TOL}")
+            _lane_reference(torch, "families", f"{tag}, lane, {name}", cfg,
+                            (cpu_p, gpu_p))
+        _paged_reference(torch, cfg, cpu_params, gpu_params, None,
+                         tag=f"{tag}: ")
+        if cfg.n_experts:
+            _moe_replay_reference(torch, tag, cfg, cpu_params, gpu_params)
+
+
+def _moe_extras(torch, tag: str, cfg):
+    """``phase_serve``'s ``after`` for an MoE server: an adapter on
+    gate/up/down only beside a base row and the full adapter on one prompt
+    (the same tokens as base: LoRA skips the expert weights), KV back at
+    its floor; then the replayed decode step profiled in drop mode, the
+    exact fallback's cost inside a graph."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    def after(engine, url, stats):
+        path = os.path.join(REPO, "build", "smoke", f"{cfg.name}-mlp.npz")
+        _save_adapter(cfg, path, ("gate", "up", "down"), 12)
+        status, text = _post(url + "/v1/load_lora_adapter",
+                             {"lora_name": "smoke-mlp", "lora_path": path})
+        if status != 200:
+            raise AssertionError(f"{tag}: adapter load: {status} {text}")
+        prompt = [256] + [65 + i % 26 for i in range(40)]
+        trio = [Request(prompt_tokens=list(prompt), max_new_tokens=16,
+                        adapter=a) for a in (None, "smoke-mlp", "smoke-r8")]
+        with engine._work:  # admitted in one pass: rows of one batch
+            for r in trio:
+                engine.submit(r)
+        for r in trio:
+            if not r.done.wait(300) or r.error:
+                raise AssertionError(f"{tag}: adapter trio: {r.error}")
+        base, mlp, full = (list(r.output_tokens) for r in trio)
+        if mlp != base:
+            raise AssertionError(f"{tag}: a gate/up/down adapter changed "
+                                 f"the tokens: {mlp} vs {base}")
+        stats["mlp_adapter_equals_base"] = True
+        stats["attention_adapter_changes_tokens"] = full != base
+        _kv_floor(tag, engine)
+        drop = phase_profile(torch, engine, prefill=False,
+                             cfg=dataclasses.replace(
+                                 cfg, moe_exact_fallback=False))
+        exact_ms = stats["profile"]["decode_step"]["graph_replay"][
+            "device_ms"]
+        drop_ms = drop["decode_step"]["graph_replay"]["device_ms"]
+        stats["exact_fallback_ms_per_step"] = exact_ms - drop_ms
+        log(tag, f"replayed decode step: exact {exact_ms:.2f} device ms, "
+            f"drop mode {drop_ms:.2f}: the exact fallback costs "
+            f"{exact_ms - drop_ms:.2f} ms a step")
+
+    return after
+
+
+def _family_kernel_rows(torch) -> dict:
+    """Flash and the lane kernel (int8 under ``--kv-quantize int8``), in
+    bf16, at each full-width server's layout and shapes, against their
+    plain versions (``check_kernel``'s limits): flash at B=1 over the
+    buckets 16 and 1024, lane decode over the server's slots with ragged
+    lengths in 1024-token lanes.  Rows of the kernels line (errors
+    only)."""
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+    from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+
+    dev, bf16, s_max = torch.device("cuda"), torch.bfloat16, 1024
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    lens = [0, 1, 777, 1024, 5, 300, 512, 1000,
+            2, 64, 1023, 256, 900, 33, 700, 129]
+    rows: dict = {}
+    for model, flags in FAMILY_SERVERS:
+        cfg = CONFIGS[model]
+        h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        layout = f"{model}: H={h} K={k} hd={hd} bf16"
+        for s in (16, 1024):
+            q, kk, v = (torch.randn(1, s, n, hd, device=dev,
+                                    generator=gen).to(bf16)
+                        for n in (h, k, k))
+            row = dict(shape=f"{layout}, B=1 S={s}", **check_kernel(
+                f"flash {layout} S={s}", fl.flash_attention(q, kk, v),
+                fl.flash_attention_reference(q, kk, v)))
+            rows.setdefault("flash_prefill", []).append(row)
+            log("families", "flash_prefill " + json.dumps(row))
+        slots = (int(flags[flags.index("--decode-slots") + 1])
+                 if "--decode-slots" in flags else 8)
+        lengths = torch.tensor(lens[:slots], dtype=torch.int32, device=dev)
+        q = torch.randn(slots, h, hd, device=dev, generator=gen).to(bf16)
+        shape = (slots, s_max, k, hd)
+        if "--kv-quantize" in flags:
+            name = "decode_attention_quant"
+            kq, ks = _int8_kv(torch, gen, shape)
+            vq, vs = _int8_kv(torch, gen, shape)
+            got = dec.decode_attention(q, kq, vq, lengths, ks, vs)
+            want = dec.decode_attention_quant_reference(q, kq, vq, ks, vs,
+                                                        lengths)
+        else:
+            name = "decode_attention"
+            kc, vc = (torch.randn(*shape, device=dev, generator=gen).to(bf16)
+                      for _ in range(2))
+            got = dec.decode_attention(q, kc, vc, lengths)
+            want = dec.decode_attention_reference(q, kc, vc, lengths)
+        row = dict(shape=f"{layout}, B={slots} S_max={s_max} lengths="
+                   f"{lens[:slots]}" + (", k/v int8" if "quant" in name
+                                        else ""),
+                   **check_kernel(f"{name} {layout}", got, want))
+        if got[0].abs().max().item() != 0.0:
+            raise AssertionError(f"{name} {layout}: a length-0 row must "
+                                 "give zeros")
+        rows.setdefault(name, []).append(row)
+        log("families", f"{name} " + json.dumps(row))
+    return rows
+
+
+def phase_families(torch) -> dict:
+    """Phase 13: every family's head layout card against CPU; flash and
+    the lane kernels in bf16 at each full-width server's layout against
+    their plain versions; then the Qwen2.5-7B (seeded q/k/v biases),
+    Gemma-2B, Gemma-7B and Mixtral-8x7B (int8 weights and KV, 16 slots,
+    pipelined) servers through ``phase_serve``, at full width and depth,
+    one at a time, each freed before the next is built.  Returns the
+    servers' launches summed, their stats and the kernel rows."""
+    import gc
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+
+    t0 = time.time()
+    _family_reference(torch)
+    ref_s = time.time() - t0
+    kernel_rows = _family_kernel_rows(torch)
+    servers, launches = {}, {}
+    for model, flags in FAMILY_SERVERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("families", f"before {model}: {torch.cuda.memory_allocated() / 1e9:.2f} "
+            f"GB allocated")
+        cfg = CONFIGS[model]
+        tag = f"families {model}"
+        params = None
+        if cfg.attention_bias:
+            params = transformer.init_params(cfg, seed=0,
+                                             dtype=torch.bfloat16,
+                                             device="cuda")
+            _seed_biases(torch, params, 13, 0.5)
+        servers[model] = phase_serve(
+            torch, params, model=model, flags=flags, tag=tag,
+            after=_moe_extras(torch, tag, cfg) if cfg.n_experts else None)[0]
+        del params
+        servers[model].pop("answers")
+        for name, n in servers[model]["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"reference_s": ref_s, "wall_s": time.time() - t0,
+           "launches": launches, "servers": servers,
+           "kernel_rows": kernel_rows}
+    log("families", "phase wall " + json.dumps(
+        {"reference_s": ref_s, "wall_s": out["wall_s"]}))
+    return out
+
+
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
-    paged, dispatch, disagg, int8 disagg, spec, surface)."""
+    paged, dispatch, disagg, int8 disagg, spec, surface, families)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -3314,6 +3688,11 @@ def main() -> int:
     spec = phase_spec(torch, params, adapter_path, stats["answers"])
     surface = phase_surface(torch, params, adapter_path, stats["answers"],
                             stats["profile_shares"])
+    # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes.
+    del params
+    families = phase_families(torch)
+    for name, rows in families["kernel_rows"].items():
+        kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
@@ -3322,7 +3701,8 @@ def main() -> int:
                "disagg_int8": disagg_q["launches"],
                "spec": {name: spec["launches"].get(name, 0)
                         for name in stats["launches"]},
-               "surface": surface["launches"]}
+               "surface": surface["launches"],
+               "families": families["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3345,8 +3725,8 @@ keys = ("wall_ms", "device_ms", "device_idle_share")
 step = stats["profile"]["decode_step"]
 graph = step.get("graph_replay")
 print("[ab] " + json.dumps({
-    "tree": sys.argv[2], "serve_decode_step_ms_mean":
-    stats["decode_step_ms_mean"],
+    "tree": sys.argv[2], "serve_s": stats["serve_s"],
+    "serve_decode_step_ms_mean": stats["decode_step_ms_mean"],
     "lane_step_eager": {k: step[k] for k in keys},
     "lane_step_graph": ({k: graph[k] for k in keys}
                         if isinstance(graph, dict) else graph),
@@ -3374,8 +3754,8 @@ def ab_main(other: str) -> int:
         runs.append(json.loads(next(
             ln for ln in proc.stdout.splitlines()
             if ln.startswith("[ab] "))[5:]))
-    for key in ("lane_step_eager", "lane_step_graph", "dispatch_A",
-                "dispatch_B"):
+    for key in ("serve_s", "serve_decode_step_ms_mean", "lane_step_eager",
+                "lane_step_graph", "dispatch_A", "dispatch_B"):
         log("ab", f"{key} (other, this, this, other): " + json.dumps(
             [r[key] for r in runs]))
     print(nvidia_smi_line())

@@ -2,8 +2,8 @@
 
 Same dataclass, same presets and the same ``tiny()`` shrink as
 ``llm_instance_gateway_tpu/models/configs.py``, so a config names the same
-architecture in both packages.  The port serves the dense Llama path;
-``models/transformer.py`` raises on MoE and attention-bias configs.
+architecture in both packages, and ``CONFIGS`` offers the reference's
+``--model`` presets: Llama, Gemma, Mixtral (MoE) and Qwen2 (q/k/v biases).
 """
 
 from __future__ import annotations
@@ -38,9 +38,10 @@ class ModelConfig:
     embedding_scale: bool = False
     norm_plus_one: bool = False
     gelu_mlp: bool = False
-    # Qwen2-family q/k/v biases (not served by the port yet).
+    # Qwen2-family learned q/k/v biases (attention only).
     attention_bias: bool = False
-    # MoE (not served by the port yet): 0 experts = dense.
+    # MoE (Mixtral): 0 experts = dense.  Expert capacity, the dense/grouped
+    # gate and the exact fallback: ``models/transformer._moe_mlp``.
     n_experts: int = 0
     n_experts_per_token: int = 2
     moe_capacity_factor: float = 1.25
@@ -119,12 +120,85 @@ LLAMA3_8B = ModelConfig(
     max_seq_len=8192,
 )
 
-TINY_TEST = LLAMA3_8B.tiny()
+GEMMA_2B = ModelConfig(
+    name="gemma-2b",
+    vocab_size=256_128,
+    d_model=2048,
+    n_layers=18,
+    n_heads=8,
+    n_kv_heads=1,
+    d_ff=16_384,
+    head_dim=256,
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    embedding_scale=True,
+    norm_plus_one=True,
+    gelu_mlp=True,
+    max_seq_len=8192,
+)
 
-# The server's --model presets (the reference's llama.CONFIGS).
+GEMMA_7B = ModelConfig(
+    name="gemma-7b",
+    vocab_size=256_128,
+    d_model=3072,
+    n_layers=28,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=256,
+    d_ff=24_576,
+    rope_theta=10_000.0,
+    tie_embeddings=True,
+    embedding_scale=True,
+    norm_plus_one=True,
+    gelu_mlp=True,
+    max_seq_len=8192,
+)
+
+MIXTRAL_8X7B = ModelConfig(
+    name="mixtral-8x7b",
+    vocab_size=32_000,
+    d_model=4096,
+    n_layers=32,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14_336,
+    rope_theta=1_000_000.0,
+    n_experts=8,
+    n_experts_per_token=2,
+    max_seq_len=32_768,
+)
+
+QWEN2_5_7B = ModelConfig(
+    name="qwen2.5-7b",
+    vocab_size=152_064,
+    d_model=3584,
+    n_layers=28,
+    n_heads=28,
+    n_kv_heads=4,
+    d_ff=18_944,
+    head_dim=128,
+    rope_theta=1_000_000.0,
+    norm_eps=1e-6,
+    attention_bias=True,
+    max_seq_len=32_768,
+)
+
+TINY_TEST = LLAMA3_8B.tiny()
+TINY_MOE_TEST = MIXTRAL_8X7B.tiny()
+TINY_QWEN_TEST = QWEN2_5_7B.tiny()
+
+# The server's --model presets: the reference's llama, gemma, mixtral and
+# qwen ``CONFIGS``, merged as its api_http merges them.
 CONFIGS = {
     "llama2-7b": LLAMA2_7B,
     "llama2-tiny": LLAMA2_7B.tiny(),
     "llama3-8b": LLAMA3_8B,
     "llama3-tiny": TINY_TEST,
+    "gemma-2b": GEMMA_2B,
+    "gemma-7b": GEMMA_7B,
+    "gemma-tiny": GEMMA_2B.tiny(),
+    "mixtral-8x7b": MIXTRAL_8X7B,
+    "mixtral-tiny": TINY_MOE_TEST,
+    "qwen2.5-7b": QWEN2_5_7B,
+    "qwen-tiny": TINY_QWEN_TEST,
 }

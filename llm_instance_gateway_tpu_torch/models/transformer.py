@@ -1,4 +1,9 @@
-"""Decoder-only transformer (port of ``models/transformer.py``, dense path).
+"""Decoder-only transformer (port of ``models/transformer.py``).
+
+Every family of the reference through ``ModelConfig`` flags: Llama, Gemma
+(tied embeddings, sqrt(d) embedding scale, (1+w) RMSNorm, GeLU gate),
+Qwen2 (q/k/v biases, ``_attn_proj``) and Mixtral (the top-k MoE MLP,
+``_moe_mlp``).
 
 Same parameter tree as the reference — layer-stacked leaves
 (``params["layers"]["wq"]`` is ``[n_layers, d, H*hd]``), ``x @ w`` with
@@ -13,7 +18,7 @@ int8 kernel) for the cached step and ``chunk_attention`` for chunked prefill
 ``models/paged.py``), which launch the Hopper kernels on CUDA tensors and
 take their plain versions on CPU tensors.  Every projection goes through
 ``ops/quant.matmul`` (dense or int8 ``{"q","s"}`` leaves) and adds the
-per-row LoRA delta.
+per-row LoRA delta (expert weights take none, as in the reference).
 
 int8 KV caches (``quantized=True``) store K/V int8 with one f32 scale per
 (position, KV head) (``_kv_quantize``; prompt KV is computed in the
@@ -37,9 +42,13 @@ Differences from the JAX functions, by design:
 - ``cache["length"]`` (like every cache tensor) keeps its address: the
   engine's CUDA graph of the decode block writes it in place, and host
   arrays reach the card through ``to_device`` (pinned memory, no wait
-  for the work already queued, such as a decode block in flight).
-Only the dense Llama path is ported: MoE and q/k/v biases raise
-``NotImplementedError``.
+  for the work already queued, such as a decode block in flight);
+- the MoE top-k breaks ties toward the lower expert index, as
+  ``jax.lax.top_k`` does (``_top_k``; ``torch.topk`` promises no order),
+  and the grouped dispatch's exact fallback, the reference's
+  ``lax.cond``, is a device-side select in the forwards the engine
+  captures as CUDA graphs (decode, extend) and a host read of the
+  overflow flag in the eager ones (prefill, chunk): ``_moe_grouped``.
 """
 
 from __future__ import annotations
@@ -56,21 +65,20 @@ from llm_instance_gateway_tpu_torch.ops.chunk_attention import chunk_attention
 from llm_instance_gateway_tpu_torch.ops.decode_attention import decode_attention
 from llm_instance_gateway_tpu_torch.ops.flash_attention import flash_attention
 from llm_instance_gateway_tpu_torch.ops.layers import apply_rope, rms_norm, swiglu
-from llm_instance_gateway_tpu_torch.ops.quant import int8_max
+from llm_instance_gateway_tpu_torch.ops.quant import (
+    QUANT_TARGETS,
+    expert_matmul,
+    expert_mix,
+    expert_mix_down,
+    int8_max,
+    quantize_weight,
+)
 from llm_instance_gateway_tpu_torch.ops.quant import matmul as q_matmul
 
 Params = dict[str, Any]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE models (n_experts > 0) are not ported yet: ROADMAP Queue 1, "
-            "model families")
-    if cfg.attention_bias:
-        raise NotImplementedError(
-            "q/k/v attention biases (Qwen2) are not ported yet: ROADMAP "
-            "Queue 1, model families")
     if not (cfg.use_flash_attention and cfg.use_pallas_decode):
         raise NotImplementedError(
             "the port's attention always runs through its kernel wrappers "
@@ -84,46 +92,82 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
-                device="cuda") -> Params:
+                device="cuda", quantize: bool = False) -> Params:
     """Random weights with the reference's distributions (normal /
-    sqrt(fan_in), embeddings normal * 0.02, norms one), drawn on ``device``
-    from a seeded ``torch.Generator`` one layer at a time, so a Llama-3-8B
-    init never holds more than one layer's f32 draw."""
+    sqrt(fan_in), embeddings normal * 0.02, norms one, q/k/v biases zero),
+    drawn on ``device`` from a seeded ``torch.Generator`` one layer at a
+    time (expert stacks too), so a Llama-3-8B init never holds more than
+    one layer's f32 draw.
+
+    ``quantize`` returns ``quantize_params``' int8 tree without ever
+    holding the dense one: each layer of a projection is drawn in
+    ``dtype`` and quantized before the next is drawn, so Mixtral-8x7B
+    (~93 GB in bf16) builds its ~47 GB int8 tree on an 80 GB card.  The
+    draws and the arithmetic are the dense path's, so the tree is
+    bit-identical to ``quantize_params(init_params(...))``."""
     check_supported(cfg)
     hd = cfg.resolved_head_dim
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     n_l = cfg.n_layers
     gen = torch.Generator(device=device).manual_seed(seed)
 
-    def draw(shape, mult):
-        out = torch.empty(shape, dtype=dtype, device=device)
-        parts = out if len(shape) == 3 else out[None]
-        for part in parts:
-            part.copy_(torch.randn(part.shape, generator=gen, device=device,
-                                   dtype=torch.float32) * mult)
+    def randn(shape, mult):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * mult).to(dtype)
+
+    def draw(shape, mult, quant=False):
+        if len(shape) == 2:  # embed, lm_head: one draw
+            w = randn(shape, mult)
+            return quantize_weight(w) if quant else w
+        if quant:
+            out = {"q": torch.empty(shape, dtype=torch.int8, device=device),
+                   "s": torch.empty(shape[:-2] + shape[-1:],
+                                    dtype=torch.float32, device=device)}
+        else:
+            out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            part = randn(shape[1:], mult)
+            if quant:
+                qs = quantize_weight(part)
+                out["q"][i], out["s"][i] = qs["q"], qs["s"]
+            else:
+                out[i] = part
         return out
 
-    def dense(shape, fan_in):
-        return draw(shape, 1.0 / math.sqrt(fan_in))
+    def dense(shape, fan_in, name=None):
+        return draw(shape, 1.0 / math.sqrt(fan_in),
+                    quantize and name in (*QUANT_TARGETS, "lm_head"))
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
     layers: Params = {
         "attn_norm": torch.ones((n_l, d), dtype=dtype, device=device),
         "mlp_norm": torch.ones((n_l, d), dtype=dtype, device=device),
-        "wq": dense((n_l, d, cfg.n_heads * hd), d),
-        "wk": dense((n_l, d, cfg.n_kv_heads * hd), d),
-        "wv": dense((n_l, d, cfg.n_kv_heads * hd), d),
-        "wo": dense((n_l, cfg.n_heads * hd, d), cfg.n_heads * hd),
-        "w_gate": dense((n_l, d, f), d),
-        "w_up": dense((n_l, d, f), d),
-        "w_down": dense((n_l, f, d), f),
     }
+    for name, d_in, d_out in (("wq", d, cfg.n_heads * hd),
+                              ("wk", d, cfg.n_kv_heads * hd),
+                              ("wv", d, cfg.n_kv_heads * hd),
+                              ("wo", cfg.n_heads * hd, d)):
+        layers[name] = dense((n_l, d_in, d_out), d_in, name)
+    if cfg.attention_bias:
+        # Qwen2-family q/k/v biases (zero, as the reference inits them).
+        layers["wq_b"] = zeros(n_l, cfg.n_heads * hd)
+        layers["wk_b"] = zeros(n_l, cfg.n_kv_heads * hd)
+        layers["wv_b"] = zeros(n_l, cfg.n_kv_heads * hd)
+    experts = (cfg.n_experts,) if cfg.n_experts else ()
+    if experts:
+        layers["router"] = dense((n_l, d, cfg.n_experts), d)
+    for name, d_in, d_out in (("w_gate", d, f), ("w_up", d, f),
+                              ("w_down", f, d)):
+        layers[name] = dense((n_l, *experts, d_in, d_out), d_in, name)
     params: Params = {
         "embed": draw((v, d), 0.02),
         "layers": layers,
         "final_norm": torch.ones((d,), dtype=dtype, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, v), d)
+        params["lm_head"] = dense((d, v), d, "lm_head")
     return params
 
 
@@ -186,11 +230,134 @@ def _project(x, w, layer_lora, target, slot_ids):
     return out
 
 
-def _mlp(cfg: ModelConfig, lp: Params, x, layer_lora, slot_ids):
+def _attn_proj(lp: Params, target: str, x, layer_lora, slot_ids):
+    """The q/k/v projection plus its LoRA delta, then the Qwen2-family
+    bias where the config declares one (the bias keys exist in the layer
+    params iff ``attention_bias``), in the reference's order."""
+    out = _project(x, lp[f"w{target}"], layer_lora, target, slot_ids)
+    bias = lp.get(f"w{target}_b")
+    return out if bias is None else out + bias
+
+
+def _mlp(cfg: ModelConfig, lp: Params, x, layer_lora, slot_ids,
+         host_flag: bool = False):
+    """The gated MLP, or with ``cfg.n_experts`` the MoE MLP
+    (``host_flag``: see ``_moe_grouped``)."""
+    if cfg.n_experts:
+        return _moe_mlp(cfg, lp, x, host_flag)
     gate = _project(x, lp["w_gate"], layer_lora, "gate", slot_ids)
     up = _project(x, lp["w_up"], layer_lora, "up", slot_ids)
     return _project(swiglu(gate, up, cfg.gelu_mlp), lp["w_down"], layer_lora,
                     "down", slot_ids)
+
+
+def _moe_mlp(cfg: ModelConfig, lp: Params, x, host_flag: bool = False):
+    """Top-k mixture-of-experts MLP (Mixtral), the reference's gate: the
+    dense all-experts mix when the capacity tile would not beat it (cap >=
+    t) or, in exact mode, when the tile is under 8 rows (routine routing
+    collisions overflow it, and an exact-mode overflow pays grouped plus
+    dense); the grouped capacity dispatch otherwise.  The choice depends on
+    the token count only, so a captured block takes one path for good.
+    No LoRA on expert weights, as in the reference."""
+    t = math.prod(x.shape[:-1])
+    cap = _moe_capacity(cfg, t)
+    if cap >= t or (cfg.moe_exact_fallback and cap < 8):
+        return _moe_dense(cfg, lp, x)
+    return _moe_grouped(cfg, lp, x, host_flag)
+
+
+def _moe_capacity(cfg: ModelConfig, t: int) -> int:
+    """Per-expert capacity tile for ``t`` tokens: ceil(t*k/E * factor),
+    the factor at least 2.0 in exact mode (its overflow pays grouped plus
+    dense, so it must stay rare at every size); a tile of 16 or more
+    rounds up to a multiple of 8; never more than ``t``."""
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    f = cfg.moe_capacity_factor
+    if cfg.moe_exact_fallback:
+        f = max(f, 2.0)
+    cap = int(-(-t * k * f // e))
+    if cap >= 16:
+        cap = (cap + 7) // 8 * 8
+    return min(t, cap)
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest values and
+    their indices, a tie going to the lower index.  A stable descending
+    sort keeps tied entries in index order (``torch.topk`` promises no
+    order for ties)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(cfg: ModelConfig, lp: Params, x):
+    """Router logits (a product in x's dtype, then f32), top-k, and the
+    gates: an f32 softmax over the chosen k.  Returns (topi, gates)."""
+    logits = (x @ lp["router"]).float()
+    topv, topi = _top_k(logits, cfg.n_experts_per_token)
+    return topi, torch.softmax(topv, dim=-1)
+
+
+def _moe_dense(cfg: ModelConfig, lp: Params, x):
+    """Every expert over every token, mixed by the top-k gates scattered
+    to a dense [..., E] vector."""
+    topi, gates = _route(cfg, lp, x)
+    experts = torch.arange(cfg.n_experts, device=x.device)
+    dense_gates = ((topi[..., None] == experts).float()
+                   * gates[..., None]).sum(-2)
+    hidden = expert_mix(x, lp["w_gate"])
+    up = expert_mix(x, lp["w_up"])
+    per_expert = expert_mix_down(swiglu(hidden, up, cfg.gelu_mlp),
+                                 lp["w_down"])
+    return torch.einsum("...ed,...e->...d", per_expert,
+                        dense_gates.to(x.dtype))
+
+
+def _moe_grouped(cfg: ModelConfig, lp: Params, x, host_flag: bool = False):
+    """Grouped capacity dispatch: each token's k assignments land in
+    per-expert tiles [E, cap, d], three batched products run each expert
+    over its tile, and a gather plus a gate-weighted sum combines them.
+
+    An assignment's row in its expert's tile is its rank among that
+    expert's assignments; one past the tile overflows and clips onto the
+    tile's last row with its contribution zeroed, so ``index_add_`` (CUDA
+    atomics) gives each kept cell exactly one non-zero add and the result
+    stays deterministic.  With ``moe_exact_fallback`` an overflow anywhere
+    makes the whole batch the dense result (the reference's ``lax.cond``):
+    ``host_flag`` reads the flag on the host and computes the dense mix
+    only when it is set (the eager prefill and chunk forwards: one sync a
+    layer); otherwise both are computed and ``torch.where`` selects on the
+    device, which a CUDA graph can hold (the decode and extend forwards)."""
+    shape = x.shape
+    d = shape[-1]
+    xf = x.reshape(-1, d)
+    t = xf.shape[0]
+    e, k = cfg.n_experts, cfg.n_experts_per_token
+    topi, gates = _route(cfg, lp, xf)  # [T, k]
+    cap = _moe_capacity(cfg, t)
+    flat_expert = topi.reshape(-1)  # [T*k], token-major
+    assign = (flat_expert[:, None]
+              == torch.arange(e, device=x.device)).to(torch.int32)
+    pos = ((torch.cumsum(assign, dim=0) - 1) * assign).sum(-1)
+    kept = pos < cap
+    flat_idx = flat_expert * cap + pos.clamp(0, cap - 1)
+    keep_col = kept[:, None].to(xf.dtype)
+    xk = xf[:, None].expand(t, k, d).reshape(t * k, d)
+    x_e = torch.zeros((e * cap, d), dtype=xf.dtype, device=xf.device)
+    x_e.index_add_(0, flat_idx, xk * keep_col)
+    x_e = x_e.reshape(e, cap, d)
+    hidden = expert_matmul(x_e, lp["w_gate"])
+    up = expert_matmul(x_e, lp["w_up"])
+    out_e = expert_matmul(swiglu(hidden, up, cfg.gelu_mlp), lp["w_down"])
+    gathered = out_e.reshape(e * cap, d)[flat_idx] * keep_col
+    y = (gathered.reshape(t, k, d) * gates.to(xf.dtype)[..., None]).sum(1)
+    if cfg.moe_exact_fallback:
+        overflow = (~kept).any()
+        if not host_flag:
+            y = torch.where(overflow, _moe_dense(cfg, lp, xf), y)
+        elif bool(overflow):
+            y = _moe_dense(cfg, lp, xf)
+    return y.reshape(shape)
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
@@ -243,11 +410,11 @@ def prefill_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
         slot_ids = _no_slots(b, h.device)
     hd = cfg.resolved_head_dim
     hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+    q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
         b, s, cfg.n_heads, hd)
-    k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+    k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
         b, s, cfg.n_kv_heads, hd)
-    v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+    v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
         b, s, cfg.n_kv_heads, hd).contiguous()
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
@@ -257,7 +424,7 @@ def prefill_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
     h = h + _project(attn.reshape(b, s, -1), lp["wo"], layer_lora, "o",
                      slot_ids)
     hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
+    h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids, host_flag=True)
     return h, (k, v)
 
 
@@ -308,11 +475,11 @@ def decode_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                       else lora_lib.layer_slice(lora_bufs, i))
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
                       plus_one=cfg.norm_plus_one)
-        q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
             b, cfg.n_heads, hd)
-        k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
             b, cfg.n_kv_heads, hd)
-        v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
             b, cfg.n_kv_heads, hd)
         q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta,
                        cfg.rope_scaling)[:, 0].contiguous()
@@ -422,11 +589,11 @@ def extend_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                       else lora_lib.layer_slice(lora_bufs, i))
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
                       plus_one=cfg.norm_plus_one)
-        q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
             b, c, cfg.n_heads, hd)
-        k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
             b, c, cfg.n_kv_heads, hd)
-        v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
             b, c, cfg.n_kv_heads, hd)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
@@ -532,11 +699,11 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
                       else lora_lib.layer_slice(lora_bufs, i))
         hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
                       plus_one=cfg.norm_plus_one)
-        q = _project(hn, lp["wq"], layer_lora, "q", slot_ids).reshape(
+        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
             1, c, cfg.n_heads, hd)
-        k = _project(hn, lp["wk"], layer_lora, "k", slot_ids).reshape(
+        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
             1, c, cfg.n_kv_heads, hd)
-        v = _project(hn, lp["wv"], layer_lora, "v", slot_ids).reshape(
+        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
             1, c, cfg.n_kv_heads, hd)
         q = apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_scaling)
         k = apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_scaling)
@@ -545,7 +712,7 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
         h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
         hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
                        plus_one=cfg.norm_plus_one)
-        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
+        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids, host_flag=True)
     last = int(last_index)
     return _logits(cfg, params, h[0, last:last + 1])[0]
 

@@ -4,13 +4,15 @@ Quantized leaves are dicts ``{"q": int8 [..., in, out], "s": f32 [..., out]}``
 in place of the dense tensor: symmetric per-output-channel scales over the
 ``in`` axis.  ``models.transformer`` routes every projection and the
 ``lm_head`` through ``matmul``, so dense and quantized trees share one
-forward.  Scope, as in the reference: the seven per-layer projections and
-``lm_head``; embeddings, norms and LoRA buffers stay dense.  The MoE
-``expert_*`` contractions wait for the MoE port.
+forward.  Scope, as in the reference: the seven per-layer projections
+(dense ``[L, in, out]`` and MoE expert stacks ``[L, E, in, out]``, whose
+scales are per (expert, out)) and ``lm_head``; embeddings, norms, the MoE
+router and LoRA buffers stay dense.
 
 ``matmul`` is ``(x @ q.to(x.dtype)) * s.to(x.dtype)``, the reference's
-arithmetic.  These are plain matrix products outside any Pallas kernel in
-the JAX package, so they stay ``torch.matmul`` here.  Where XLA fuses the
+arithmetic, and the ``expert_*`` contractions apply their scales after
+the contraction the same way.  These are plain matrix products outside
+any Pallas kernel in the JAX package, so they stay ``torch.matmul`` here.  Where XLA fuses the
 int8 -> bf16 widening into the MXU feed, eager PyTorch writes and re-reads
 a widened copy of each weight per call, so on the card int8 weights halve
 the bytes at rest but not the bytes a decode step moves; a fused int8-weight
@@ -67,11 +69,57 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     return x @ w
 
 
+def _expert_einsum(product, scale_expand: int | None, x: torch.Tensor,
+                   w: Any) -> torch.Tensor:
+    """One expert-weight contraction, dense or int8: the per-(expert, out)
+    scale applies after the contraction (exact: the scaled axis is never
+    contracted), expanded at ``scale_expand`` where the output carries a
+    capacity axis between the expert and channel axes."""
+    if not is_quantized(w):
+        return product(x, w)
+    y = product(x, w["q"].to(x.dtype))
+    s = w["s"].to(x.dtype)
+    return y * (s if scale_expand is None else s.unsqueeze(scale_expand))
+
+
+def _mix(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``...d,edf->...ef`` as one batched product over the weights as
+    stored (``torch.einsum`` would permute the [E, d, f] stack into a
+    copy)."""
+    y = torch.matmul(x.reshape(-1, x.shape[-1]), w)  # [E, N, f]
+    return y.transpose(0, 1).reshape(*x.shape[:-1], *y.shape[::2])
+
+
+def _mix_down(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``...ef,efd->...ed``, likewise."""
+    y = torch.bmm(x.reshape(-1, *x.shape[-2:]).transpose(0, 1), w)
+    return y.transpose(0, 1).reshape(*x.shape[:-2], *y.shape[::2])
+
+
+def expert_matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """Per-expert tile product ``ecd,edf->ecf``: [E, C, din] x [E, din,
+    dout] -> [E, C, dout] (the grouped dispatch's three products)."""
+    return _expert_einsum(torch.bmm, -2, x, w)
+
+
+def expert_mix(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """Dense all-experts up-projection ``...d,edf->...ef``: [..., din] x
+    [E, din, f] -> [..., E, f]."""
+    return _expert_einsum(_mix, None, x, w)
+
+
+def expert_mix_down(x: torch.Tensor, w: Any) -> torch.Tensor:
+    """Dense all-experts down-projection ``...ef,efd->...ed``: [..., E, f]
+    x [E, f, d] -> [..., E, d] (the e axes align)."""
+    return _expert_einsum(_mix_down, None, x, w)
+
+
 def _quantize_stacked(w: torch.Tensor) -> dict[str, torch.Tensor]:
-    """``quantize_weight`` of a layer-stacked [L, in, out] leaf, one layer
-    at a time: the scale reduces over ``in`` only, so the result is
-    bit-identical to the stacked call, and an 8B ``w_gate`` never holds a
-    whole-stack f32 copy (7.5 GB) — one layer's (235 MB) at most."""
+    """``quantize_weight`` of a layer-stacked [L, in, out] or [L, E, in,
+    out] leaf, one layer at a time: the scale reduces over ``in`` only, so
+    the result is bit-identical to the stacked call, and an 8B ``w_gate``
+    never holds a whole-stack f32 copy (7.5 GB) — one layer's (235 MB) at
+    most."""
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     s = torch.empty(w.shape[:-2] + w.shape[-1:], dtype=torch.float32,
                     device=w.device)

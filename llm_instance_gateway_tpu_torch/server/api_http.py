@@ -55,11 +55,19 @@ A disaggregated pair is a ``--role prefill`` server and a ``--role decode``
 server (paged pool, prefix cache) behind the gateway's two-hop relay; a
 role is advisory, and every server keeps the whole API.
 
-``--quantize int8`` serves int8 weights (``ops/quant.py``) and
+``--model`` takes every preset of the reference's server: Llama, Gemma,
+Mixtral (MoE) and Qwen2.  ``--quantize int8`` serves int8 weights
+(``ops/quant.py``; random ones are built int8 a layer at a time, so
+Mixtral-8x7B's fit the card) and
 ``--kv-quantize int8`` an int8 KV cache, on lanes or on the paged pool.
 ``--speculative K --draft-model NAME`` decodes speculatively with a draft
 of that preset (random weights from seed 1; quantized too under
 ``--quantize int8``); such a server refuses penalties and ``logit_bias``.
+
+A non-streamed request whose client hangs up is cancelled: while it waits
+on the engine, the handler's thread polls the connection, and a socket
+that is readable with nothing to read (end of file) cancels every
+candidate of the request (the reference's ``asyncio.CancelledError``).
 """
 
 from __future__ import annotations
@@ -69,7 +77,9 @@ import dataclasses
 import json
 import logging
 import queue as queue_mod
+import select
 import signal
+import socket
 import threading
 import time
 import urllib.parse
@@ -142,6 +152,10 @@ def _usage(prompt_tokens: int, completion_tokens: int) -> dict:
             "total_tokens": prompt_tokens + completion_tokens}
 
 
+class ClientGone(Exception):
+    """The client of a request hung up while it waited on the engine."""
+
+
 class ModelServer:
     """Request handling, independent of the transport below."""
 
@@ -158,6 +172,25 @@ class ModelServer:
         self.events = events_mod.EventJournal()
         if engine is not None:
             engine.event_sink = self.events.emit
+        # The handler thread's client socket (``client_gone``).
+        self.client = threading.local()
+
+    def client_gone(self) -> bool:
+        """Whether this thread's client has hung up: its socket is
+        readable and a peek reads end of file (an HTTP/1.0 client sends
+        nothing after its body).  False without a socket (in-process
+        callers)."""
+        sock = getattr(self.client, "sock", None)
+        if sock is None:
+            return False
+        poller = select.poll()  # no fd ceiling, unlike select.select
+        poller.register(sock, select.POLLIN)
+        try:
+            if not poller.poll(0):
+                return False
+            return sock.recv(1, socket.MSG_PEEK) == b""
+        except OSError:  # reset by the peer
+            return True
 
     # -- tracing -------------------------------------------------------------
     @staticmethod
@@ -345,22 +378,39 @@ class ModelServer:
         return lp_flag, min(top_n, MAX_LOGPROBS), top_n
 
     def _wait_with_stops(self, req: Request, stops: list[str],
-                         timeout_s: float = 600.0,
-                         submit: bool = True) -> Request:
+                         timeout_s: float = 600.0, submit: bool = True,
+                         candidates: list[Request] | None = None) -> Request:
         """generate(), cancelling the moment a stop string appears in the
         decoded text (the exact cut happens in ``_truncate_at_stop``);
-        ``submit=False`` waits on a request admitted already."""
+        ``submit=False`` waits on a request admitted already.  Every
+        0.25 s it looks at the client: one that hung up cancels every
+        candidate of its request (``candidates``, default ``[req]``) and
+        raises ``ClientGone`` (``_hang_up``).  Without stops it wakes only
+        for that look and at the end, not for every token."""
         if submit:
             self.engine.submit(req)
         deadline = time.monotonic() + timeout_s
-        max_stop = max((len(s) for s in stops), default=0)
+        if not stops:
+            while not req.done.wait(0.25):
+                if self.client_gone():
+                    self._hang_up(candidates or [req])
+                if time.monotonic() > deadline:
+                    req.error = "generation timed out"
+                    req.cancelled.set()
+                    return req
+            return req
+        max_stop = max(len(s) for s in stops)
         text, consumed = "", 0
         while True:
             req.stream_event.wait(0.25)
             req.stream_event.clear()
+            # ``Engine._finish`` sets ``done`` before ``stream_event``: the
+            # last wake-up reads it set.
             done = req.done.is_set()
+            if not done and self.client_gone():
+                self._hang_up(candidates or [req])
             n = len(req.output_tokens)
-            if stops and n > consumed:
+            if n > consumed:
                 piece = self.tokenizer.decode(req.output_tokens[consumed:n])
                 if not (piece.endswith(_FFFD) and not done):
                     window_start = max(0, len(text) - max_stop + 1)
@@ -376,6 +426,16 @@ class ModelServer:
                 req.error = "generation timed out"
                 req.cancelled.set()
                 return req
+
+    @staticmethod
+    def _hang_up(reqs: list[Request]) -> None:
+        """Cancel ``reqs``, whose client hung up, wait for the engine to
+        finish them (freeing their slots) and raise ``ClientGone``."""
+        for r in reqs:
+            r.cancelled.set()
+        for r in reqs:
+            r.done.wait(30)
+        raise ClientGone()
 
     def _truncate_at_stop(self, req: Request,
                           stops: list[str]) -> tuple[str, bool]:
@@ -524,11 +584,8 @@ class ModelServer:
                   trace_id: str, timeout_s: float = 600.0) -> None:
         self._submit_all(reqs, trace_id)
         for r in reqs:
-            if stops:
-                self._wait_with_stops(r, stops, timeout_s, submit=False)
-            elif not r.done.wait(timeout_s):
-                r.error = "generation timed out"
-                r.cancelled.set()
+            self._wait_with_stops(r, stops, timeout_s, submit=False,
+                                  candidates=reqs)
         for r in reqs:
             if r.error:
                 raise HTTPError(500, r.error)
@@ -747,11 +804,7 @@ class ModelServer:
                 else "text_completion", _chat_delta if chat else _text_delta,
                 stops, trace_id, decode_start=t_att, submitted=True)
             return status, stream, headers
-        if stops:
-            self._wait_with_stops(req, stops, submit=False)
-        elif not req.done.wait(600.0):
-            req.error = "generation timed out"
-            req.cancelled.set()
+        self._wait_with_stops(req, stops, submit=False)
         if req.error:
             raise HTTPError(500, req.error)
         headers.update(self._record_spans(
@@ -1126,6 +1179,7 @@ def make_handler(server: ModelServer):
             if path in _TRACED:
                 trace_id = (tracing.header_trace_id(self.headers)
                             or tracing.new_trace_id())
+            server.client.sock = self.connection
             try:
                 if path == "/v1/attach":  # a handoff is binary
                     result = server.attach(
@@ -1140,6 +1194,11 @@ def make_handler(server: ModelServer):
             except HTTPError as e:
                 self._error(e.status, str(e), e.trace_id or trace_id)
                 return
+            except ClientGone:
+                logger.info("%s: client hung up; request cancelled", path)
+                return
+            finally:
+                server.client.sock = None
             # (status, payload[, headers]); the payload is JSON (dict), a
             # handoff (bytes) or an SSE generator.
             status, payload, *rest = result
@@ -1203,6 +1262,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--decode-steps")
     p.add_argument("--no-device-stops", action="store_true",
                    help="disable the device-side stop-string automata")
+    p.add_argument("--no-kv-ledger", action="store_true",
+                   help="disable the KV block-lifecycle ledger "
+                        "(tpu:kv_* families + /debug/kv; the A/B "
+                        "for the kv_ledger_ratio bench)")
     p.add_argument("--prefill-batch", type=int, default=1,
                    help="group up to P same-bucket queued prompts into "
                         "one prefill program (contiguous-lane cache)")
@@ -1269,7 +1332,9 @@ def make_server(argv=None, params=None, draft_params=None):
     device (same model, dtype and device) instead of drawing them, and
     ``draft_params`` the draft's under ``--speculative``; with
     ``--quantize int8`` the engine gets new quantized trees and the
-    caller's stay as they were."""
+    caller's stay as they were, and random weights are drawn int8 a layer
+    at a time (``init_params(quantize=True)``: the same tree as
+    quantizing the dense one, which need never fit the card)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
@@ -1304,6 +1369,7 @@ def make_server(argv=None, params=None, draft_params=None):
         paged_kv_block=args.paged_kv_block,
         paged_kv_blocks=args.paged_kv_blocks,
         prefix_cache=args.prefix_cache,
+        kv_ledger=not args.no_kv_ledger,
         kv_cache_quant=(None if args.kv_quantize == "none"
                         else args.kv_quantize),
         role=args.role,
@@ -1316,10 +1382,11 @@ def make_server(argv=None, params=None, draft_params=None):
     if tokenizer.vocab_size > cfg.vocab_size:
         raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
                          f"model vocab {cfg.vocab_size}")
+    quant = args.quantize == "int8"
     if params is None:
         logger.warning("serving RANDOM weights (seed %d)", args.seed)
         params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
-                                         device=args.device)
+                                         device=args.device, quantize=quant)
     draft_cfg = None
     if args.speculative > 0:
         draft_cfg = CONFIGS[args.draft_model]
@@ -1327,10 +1394,11 @@ def make_server(argv=None, params=None, draft_params=None):
             logger.warning("draft %s: RANDOM weights (seed 1)",
                            args.draft_model)
             draft_params = transformer.init_params(
-                draft_cfg, seed=1, dtype=dtype, device=args.device)
-    if args.quantize == "int8":
+                draft_cfg, seed=1, dtype=dtype, device=args.device,
+                quantize=quant)
+    if quant:
         target = params
-        params = quantize_params(params)
+        params = quantize_params(params)  # a no-op on an int8 tree
         if draft_params is not None:
             # A draft sharing the target's tree shares its quantized one.
             draft_params = (params if draft_params is target

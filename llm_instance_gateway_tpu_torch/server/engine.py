@@ -2842,5 +2842,5 @@ class Engine:
             self._live.pop(req.request_id, None)
         if req.adapter is not None and self.lora is not None:
             self.lora.release(req.adapter)
+        req.done.set()  # before the wake-up, so a waiter woken reads it
         req.stream_event.set()
-        req.done.set()

@@ -995,3 +995,170 @@ def test_int8_quantizers_divide_as_the_reference(dev):
     np.testing.assert_array_equal(
         w["s"].cpu().numpy(),
         np.maximum(np.abs(x).max(-2) / np.float32(127.0), np.float32(1e-8)))
+
+
+# ---------------------------------------------------------------------------
+# The other families: their head layouts in every kernel, and the MoE MLP
+# ---------------------------------------------------------------------------
+
+# Qwen2.5-7B's 28:4 (a group of 7) at hd 128 and Gemma-7B's 16:16 (MHA)
+# at hd 256; Gemma-2B's 8:1 at hd 256 and Mixtral's 32:8 are above.
+FAMILY_LAYOUTS = [(28, 4, 128), (16, 16, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_flash_and_chunk(dev, dtype, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(h + hd)
+    for s in (1, 129, 300):
+        q = randn(gen, 2, s, h, hd, dtype=dtype)
+        kk = randn(gen, 2, s, k, hd, dtype=dtype)
+        v = randn(gen, 2, s, k, hd, dtype=dtype)
+        assert_close(fl.flash_attention(q, kk, v),
+                     fl.flash_attention_reference(q, kk, v), dtype)
+    for c, s_max, start in ((200, 1000, 77), (64, 96, 80), (1, 300, 0)):
+        q = randn(gen, 1, c, h, hd, dtype=dtype)
+        kc = randn(gen, 1, s_max, k, hd, dtype=dtype)
+        vc = randn(gen, 1, s_max, k, hd, dtype=dtype)
+        assert_close(ch.chunk_attention(q, kc, vc, start),
+                     ch.chunk_attention_reference(q, kc, vc, start), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_lane_decode(dev, dtype, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(h + hd + 1)
+    b, s_max = 6, 1100
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kc = randn(gen, b, s_max, k, hd, dtype=torch.float32)
+    vc = randn(gen, b, s_max, k, hd, dtype=torch.float32)
+    lengths = torch.tensor([0, 1, 63, 511, 1024, 1100], dtype=torch.int32,
+                           device=dev)
+    got = dec.decode_attention(q, kc.to(dtype), vc.to(dtype), lengths)
+    assert_close(got, dec.decode_attention_reference(
+        q, kc.to(dtype), vc.to(dtype), lengths), dtype)
+    (kq, ks), (vq, vs) = quantize(kc), quantize(vc)
+    got = dec.decode_attention(q, kq, vq, lengths, ks, vs)
+    assert_close(got, dec.decode_attention_quant_reference(
+        q, kq, vq, ks, vs, lengths), dtype)
+    assert not got[0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_paged_decode(dev, dtype, h, k, hd):
+    gen = torch.Generator(device=dev).manual_seed(h + hd + 2)
+    page, b, m = 64, 6, 8
+    n_blocks = b * m
+    q = randn(gen, b, h, hd, dtype=dtype)
+    kp = randn(gen, n_blocks + 1, page, k, hd, dtype=torch.float32)
+    vp = randn(gen, n_blocks + 1, page, k, hd, dtype=torch.float32)
+    perm = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(2))
+    tables = (perm + 1).reshape(b, m).to(torch.int32)
+    tables[1, 1:] = 0
+    tables = tables.to(dev)
+    lengths = torch.tensor([0, 1, 96, 3 * page, m * page - 1, m * page],
+                           dtype=torch.int32, device=dev)
+    got = pd.paged_decode_attention(q, kp.to(dtype), vp.to(dtype), tables,
+                                    lengths)
+    assert_close(got, pd.paged_decode_attention_reference(
+        q, kp.to(dtype), vp.to(dtype), tables, lengths), dtype)
+    (kq, ks), (vq, vs) = quantize(kp), quantize(vp)
+    got = pd.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
+    assert_close(got, pd.paged_decode_attention_quant_reference(
+        q, kq, vq, tables, lengths, ks, vs), dtype)
+
+
+@pytest.fixture(scope="module")
+def mixtral_layer():
+    """One layer of Mixtral-8x7B's MoE MLP at full width (d 4096, d_ff
+    14336, 8 experts, top-2), f32, on the card and on the CPU, dense and
+    int8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernels compile for sm_90a)")
+    from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_weight
+
+    cfg = MIXTRAL_8X7B
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    lp = {"router": randn(gen, d, e, dtype=torch.float32) / d ** 0.5,
+          "w_gate": randn(gen, e, d, f, dtype=torch.float32) / d ** 0.5,
+          "w_up": randn(gen, e, d, f, dtype=torch.float32) / d ** 0.5,
+          "w_down": randn(gen, e, f, d, dtype=torch.float32) / f ** 0.5}
+    qlp = {k: (v if k == "router" else quantize_weight(v))
+           for k, v in lp.items()}
+
+    def cpu(tree):
+        return {k: ({p: t.cpu() for p, t in v.items()}
+                    if isinstance(v, dict) else v.cpu())
+                for k, v in tree.items()}
+
+    return cfg, {"dense": (lp, cpu(lp)), "int8": (qlp, cpu(qlp))}
+
+
+def _skewed(lp):
+    """Every token routed to experts 0 and 1: capacity overflows."""
+    router = torch.zeros_like(lp["router"])
+    router[:, 0], router[:, 1] = 0.5, 0.4
+    return dict(lp, router=router)
+
+
+@pytest.mark.parametrize("weights", ["dense", "int8"])
+@pytest.mark.parametrize("t,skew", [(8, False), (16, False), (64, False),
+                                    (64, True)])
+def test_moe_mlp_card_against_cpu(mixtral_layer, weights, t, skew):
+    """The MoE MLP at Mixtral's layout (dense at t=8, grouped with the
+    device-side exact fallback at 16 and 64, a forced overflow) on the
+    card against the same function on the CPU, f32."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+
+    cfg, trees = mixtral_layer
+    gpu, cpu = trees[weights]
+    if skew:
+        gpu, cpu = _skewed(gpu), _skewed(cpu)
+    x = torch.randn(t, cfg.d_model, generator=torch.Generator().manual_seed(t))
+    got = transformer._moe_mlp(cfg, gpu, x.cuda()).cpu()
+    want = transformer._moe_mlp(cfg, cpu, x)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    if skew:
+        dense = transformer._moe_dense(cfg, gpu, x.cuda()).cpu()
+        assert torch.equal(got, dense)
+
+
+def test_moe_overflow_inside_a_replayed_graph_is_dense(mixtral_layer):
+    """The grouped dispatch captured as a CUDA graph (as the decode block
+    holds it), replayed on balanced inputs and then on a forced overflow
+    written into the same buffers: the first replay equals the eager
+    result, the overflow's equals the dense mix (within f32 summation
+    order: the GEMMs a capture records need not be the eager call's) and
+    lies far from the dropping result the grouped tiles alone give."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+
+    cfg, trees = mixtral_layer
+    lp = dict(trees["dense"][0])
+    router = lp["router"].clone()
+    lp["router"] = router
+    x = torch.randn(16, cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    eager = transformer._moe_grouped(cfg, lp, x)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        with torch.cuda.graph(graph):
+            out = transformer._moe_grouped(cfg, lp, x)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    assert torch.equal(out, eager)
+    router.copy_(_skewed(lp)["router"])
+    graph.replay()
+    dense = transformer._moe_dense(cfg, lp, x)
+    scale = dense.abs().max().item()
+    assert (out - dense).abs().max().item() <= 1e-5 * scale
+    dropped = transformer._moe_grouped(
+        dataclasses.replace(cfg, moe_exact_fallback=False), lp, x)
+    assert (dropped - dense).abs().max().item() > 1e-2 * scale

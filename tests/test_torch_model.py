@@ -18,7 +18,9 @@ from llm_instance_gateway_tpu.models import lora as jlora
 from llm_instance_gateway_tpu.models import transformer as jtf
 from llm_instance_gateway_tpu.models.configs import (
     GEMMA_2B,
+    LLAMA2_7B,
     TINY_MOE_TEST,
+    TINY_QWEN_TEST,
     TINY_TEST as JAX_TINY,
 )
 
@@ -169,9 +171,20 @@ def test_gemma_style_flags_prefill_parity():
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
 
 
-def test_init_params_tree_matches_reference():
-    jparams = jtf.init_params(JAX_TINY, jax.random.PRNGKey(0), jnp.bfloat16)
-    tparams = ttf.init_params(TINY_TEST, seed=0, dtype=torch.bfloat16,
+FAMILIES = {"llama3-tiny": JAX_TINY, "llama2-tiny": LLAMA2_7B.tiny(),
+            "gemma-tiny": GEMMA_2B.tiny(), "mixtral-tiny": TINY_MOE_TEST,
+            "qwen-tiny": TINY_QWEN_TEST}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_init_params_tree_matches_reference(family):
+    """The tree's keys, shapes and dtypes equal the reference's for every
+    family: Qwen's ``wq_b``/``wk_b``/``wv_b``, Mixtral's ``router`` and 4-D
+    expert stacks, Gemma's tied embeddings (no ``lm_head``)."""
+    jcfg = FAMILIES[family]
+    jparams = jtf.init_params(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    tcfg = port_cfg(jcfg)
+    tparams = ttf.init_params(tcfg, seed=0, dtype=torch.bfloat16,
                               device="cpu")
     jflat = {jax.tree_util.keystr(p): v for p, v in
              jax.tree_util.tree_leaves_with_path(jparams)}
@@ -184,7 +197,13 @@ def test_init_params_tree_matches_reference():
     # Same distributions: unit norms, ~N(0, 1/fan_in) projections.
     assert torch.all(tparams["layers"]["attn_norm"] == 1)
     wq = tparams["layers"]["wq"].float()
-    assert abs(wq.std().item() - 1 / np.sqrt(TINY_TEST.d_model)) < 0.02
+    assert abs(wq.std().item() - 1 / np.sqrt(tcfg.d_model)) < 0.02
+    if tcfg.attention_bias:
+        assert not tparams["layers"]["wq_b"].any()  # zero, as the reference
+    if tcfg.n_experts:
+        assert tparams["layers"]["w_down"].dim() == 4
+        w_down = tparams["layers"]["w_down"].float()
+        assert abs(w_down.std().item() - 1 / np.sqrt(tcfg.d_ff)) < 0.02
 
 
 def test_init_params_is_seeded():
@@ -202,11 +221,6 @@ def test_bf16_leaves_cross_bit_exact():
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.view(torch.int16).numpy(),
                                   arr.view(np.int16))
-
-
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="model families"):
-        ttf.init_params(port_cfg(TINY_MOE_TEST), device="cpu")
 
 
 def test_int8_decode_cache_has_the_reference_layout():
