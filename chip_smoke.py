@@ -151,10 +151,28 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    gate/up/down-only adapter answering as the base model and the
    replayed step in drop mode; prints init seconds, decode tokens/s,
    TTFT and peak memory per server;
+14. checkpoint — trained-weight loading at Llama-3-8B width and depth
+   (``phase_checkpoint``, run after phase 12 while the serve phase's bf16
+   tree exists, everything it loads freed before phase 13): the tree
+   written by ``save_hf_checkpoint`` as an HF directory (four <= 5 GB
+   shards and an index, in a temporary directory removed at the end;
+   refused, saying what is free, on a disk too small), then a lane
+   server started with ``--checkpoint DIR`` and no params (the loaded
+   tree equal to the written one leaf for leaf on the card, LLAMA3_8B's
+   architecture, the serve phase's window with its .npz adapter giving
+   the serve phase's answers token for token, exact launches), then
+   ``--speculative 4 --draft-model llama3-8b --checkpoint DIR
+   --draft-checkpoint DIR`` (the perfect draft from disk) on phase 11's
+   lane wave: its answers and per-row tokens per cycle equal phase 11's
+   in-memory perfect draft's, exact launches; prints the write's GB,
+   seconds and GB/s (returned and synced), and each load's seconds, GB/s
+   and peak device memory;
 
-then prints one JSON line with every kernel's numbers (launches over the
+each phase's end is logged as seconds since start (``[walls]``); then
+prints one JSON line with every kernel's numbers (launches over the
 serve phases, the dispatch phase's B runs, the disagg phase's hops, the
-spec phase's servers, the surface phase's and the families'),
+spec phase's servers, the surface phase's, the checkpoint phase's and
+the families'),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
 
@@ -1280,7 +1298,8 @@ def _save_adapter(cfg, path: str, targets, seed: int) -> None:
 
 
 def phase_serve(torch, params=None, adapter_path=None, quant=False,
-                model: str = "llama3-8b", flags=(), tag=None, after=None):
+                model: str = "llama3-8b", flags=(), tag=None, after=None,
+                profile: bool = True):
     """A server at full width and depth (Llama-3-8B, or the preset
     ``model``), six concurrent greedy completions (base and adapter rows,
     one streamed) through the flash and lane decode kernels, with exact
@@ -1290,9 +1309,10 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     int8 one, and the prefill goes unprofiled) and ``flags`` more of the
     server's flags; ``params`` is served as given (quantized under int8
     flags), else the server draws random seeded weights; ``after(engine,
-    url, stats)`` runs last, on the live server.  Returns (stats, the params
-    served, or the caller's under ``quant``; the adapter path) so later
-    phases serve the same weights."""
+    url, stats)`` runs last, on the live server, and ``profile=False``
+    skips the profiles.  Returns (stats, the params served, or the
+    caller's under ``quant``; the adapter path) so later phases serve the
+    same weights."""
     import threading
     import urllib.request
 
@@ -1424,14 +1444,17 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
             "graph_capture_s": engine._graphs.capture_s,
             "launches": launches,
         }
-        log(tag, f"{model} ({n_layers} layers, random weights, flags "
+        source = ("checkpoint" if "--checkpoint" in argv else "random")
+        log(tag, f"{model} ({n_layers} layers, {source} weights, flags "
             f"{stats['flags']}): " + json.dumps(stats))
         # The greedy token ids per (prompt, adapter): the spec phase's
         # plain reference (the byte tokenizer drops ids >= 256 from text).
         stats["answers"] = {(tuple(r.prompt_tokens), r.adapter):
                             list(r.output_tokens) for r in submitted}
         # After the counted window: these launches are not the serve's.
-        stats["profile"] = phase_profile(torch, engine, prefill=not quant)
+        if profile:
+            stats["profile"] = phase_profile(torch, engine,
+                                             prefill=not quant)
         if after is not None:
             after(engine, url, stats)
         stats["peak_mem_gb_with_profile"] = (
@@ -2786,6 +2809,9 @@ def phase_spec(torch, params, adapter_path: str, plain_answers: dict) -> dict:
         stats["agreement_first_difference"] = [
             _first_difference(r.output_tokens, plain_answers[
                 (tuple(r.prompt_tokens), r.adapter)]) for r in reqs]
+        # The checkpoint phase's spec server is held to these.
+        stats["answers"] = {(tuple(r.prompt_tokens), r.adapter):
+                            list(r.output_tokens) for r in reqs}
         stats["tokens_per_cycle"] = {
             k: (v[0] / v[1] if v[1] else None) for k, v in per_row.items()}
         # The second wave: every graph captured; the decode rate.
@@ -2803,7 +2829,7 @@ def phase_spec(torch, params, adapter_path: str, plain_answers: dict) -> dict:
             raise AssertionError(f"{tag}: a penalty answered {status} {text}")
         stats["phase_s"] = time.time() - t0
         log(tag, json.dumps({k: v for k, v in stats.items()
-                             if k != "launches"}))
+                             if k not in ("launches", "answers")}))
         stats["profile"] = _spec_cycle_profile(torch, eng)
         out["lanes"] = stats
     finally:
@@ -3286,6 +3312,218 @@ def phase_surface(torch, params, adapter_path: str, plain_answers: dict,
 
 # Each family's head layout at the reference phase's narrow width (d 512,
 # 2 layers, d_ff 1024, f32): (preset, query heads, KV heads, head_dim).
+CKPT_SHARD_BYTES = 5 * 10**9  # Meta ships Llama-3-8B as four such shards
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _check_same_tree(tag: str, got, want, prefix=()) -> None:
+    """Every leaf of ``got`` equals ``want``'s bit for bit (on the card)."""
+    import torch
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            raise AssertionError(f"{tag}: keys {sorted(got)} at {prefix}, "
+                                 f"want {sorted(want)}")
+        for k in want:
+            _check_same_tree(tag, got[k], want[k], prefix + (k,))
+        return
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{tag}: leaf {prefix} differs from the tree "
+                             "that was written")
+
+
+def phase_checkpoint(torch, params, adapter_path: str, serve_stats: dict,
+                     spec_lanes: dict) -> dict:
+    """14. checkpoint — trained-weight loading at Llama-3-8B width and
+    depth, from the serve phase's bf16 ``params``:
+
+    (1) write them with ``save_hf_checkpoint`` as four <= 5 GB shards and
+    an index into a temporary directory (refused, saying what is free,
+    when the disk cannot hold them);
+    (2) ``--checkpoint DIR`` with no ``params=``: the loaded tree equals
+    the written one leaf for leaf on the card, the cfg is LLAMA3_8B's
+    architecture, and the serve phase's window (its adapter loaded from
+    the .npz) gives the serve phase's answers token for token;
+    (3) ``--speculative 4 --draft-model llama3-8b --checkpoint DIR
+    --draft-checkpoint DIR``: the perfect draft from disk, phase 11's
+    lane wave, whose answers and per-row tokens per cycle equal phase
+    11's in-memory perfect draft's; exact launches as phase 11 counts
+    them.
+    Prints the write's and each load's GB, seconds and GB/s and the
+    load's peak device memory; frees all it loaded and removes the
+    directory."""
+    import dataclasses
+    import gc
+    import shutil
+    import tempfile
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+    from llm_instance_gateway_tpu_torch.models.convert import (
+        save_hf_checkpoint,
+    )
+    from llm_instance_gateway_tpu_torch.server import api_http
+
+    t_phase = time.time()
+    out: dict = {"launches": {}}
+    root = tempfile.mkdtemp(prefix="smoke-checkpoint-")
+    load = api_http.load_serving_checkpoint
+    loads: list = []
+
+    def timed_load(*args, **kwargs):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got_cfg, tree = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        gb = _tree_bytes(tree) / 1e9
+        loads.append({"s": secs, "gb": gb, "gb_per_s": gb / secs,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_above_start_gb": (torch.cuda.max_memory_allocated()
+                                              - mem0) / 1e9})
+        log("checkpoint", "load " + json.dumps(loads[-1]))
+        return got_cfg, tree
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    api_http.load_serving_checkpoint = timed_load
+    try:
+        # -- (1) write --
+        need = _tree_bytes(params) + 10**9
+        free = shutil.disk_usage(root).free
+        if free < need:
+            raise AssertionError(
+                f"checkpoint: {free / 1e9:.1f} GB free in {root}, the 8B "
+                f"checkpoint needs {need / 1e9:.1f} GB")
+        path = os.path.join(root, "llama3-8b-hf")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        nbytes = save_hf_checkpoint(cfg, params, path,
+                                    shard_bytes=CKPT_SHARD_BYTES)
+        write_s = time.time() - t0
+        os.sync()
+        synced_s = time.time() - t0
+        shards = sorted(f for f in os.listdir(path)
+                        if f.endswith(".safetensors"))
+        if len(shards) != 4 or "model.safetensors.index.json" not in \
+                os.listdir(path):
+            raise AssertionError(f"checkpoint: files {os.listdir(path)}")
+        out["write"] = {
+            "gb": nbytes / 1e9, "s": write_s, "gb_per_s": nbytes / 1e9 / write_s,
+            "s_with_sync": synced_s,
+            "gb_per_s_with_sync": nbytes / 1e9 / synced_s,
+            "shards_gb": [os.path.getsize(os.path.join(path, f)) / 1e9
+                          for f in shards], "free_gb": free / 1e9}
+        log("checkpoint", "write " + json.dumps(out["write"]))
+
+        # -- (2) the lane serve from disk --
+        def check_loaded(engine, url, stats):
+            _check_same_tree("ckpt-serve", engine.params, params)
+            # config.json states head_dim, which the preset leaves at 0.
+            served = dataclasses.replace(engine.model_cfg, name=cfg.name)
+            if served != dataclasses.replace(
+                    cfg, head_dim=cfg.resolved_head_dim):
+                raise AssertionError(f"ckpt-serve: cfg {engine.model_cfg}")
+
+        stats, _, _ = phase_serve(torch, None, adapter_path,
+                                  flags=["--checkpoint", path],
+                                  tag="ckpt-serve", after=check_loaded,
+                                  profile=False)
+        add(stats["launches"])
+        if stats["answers"] != serve_stats["answers"]:
+            raise AssertionError("ckpt-serve: answers differ from the "
+                                 "serve phase's: " + json.dumps([
+                                     _first_difference(v, serve_stats[
+                                         "answers"].get(k, []))
+                                     for k, v in stats["answers"].items()]))
+        out["serve"] = {k: stats[k] for k in (
+            "init_s", "serve_s", "decode_steps", "decode_tokens_per_s",
+            "ttft_ms_p50", "peak_mem_gb")}
+        out["serve"]["load"] = loads[-1]
+        del stats
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (3) the perfect draft from disk --
+        def spec_from_disk() -> dict:
+            """(3), in a function of its own: the spec server's engine and
+            trees are unreferenced when it returns."""
+            tag = "ckpt-spec"
+            bodies = [_serve_body(c, m, st, 32) for c, m, st in SERVE_JOBS]
+            httpd, eng, url = _start_server(
+                SPEC_FLAGS + ["--checkpoint", path,
+                              "--draft-checkpoint", path],
+                None, adapter_path)
+            try:
+                _check_same_tree(tag, eng.params, params)
+                _check_same_tree(tag, eng.draft_params, params)
+                reqs: list = []
+                _record(eng, "submit", reqs)
+                programs = _count_spec_programs(eng)
+                per_row = {"base": [0, 0], "adapter": [0, 0]}
+                _spec_row_tokens(eng, per_row)
+                snap0 = eng.metrics_snapshot()
+                reset_launches()
+                _wave(url, bodies)
+                launches = read_launches()
+                snap1 = eng.metrics_snapshot()
+                _check_admits(tag, programs, len(bodies))
+                stats = _spec_checks(tag, eng, launches, programs, snap0,
+                                     snap1, url, paged=False)
+                add(launches)
+                _kv_floor(tag, eng)
+                answers = {(tuple(r.prompt_tokens), r.adapter):
+                           list(r.output_tokens) for r in reqs}
+                if answers != spec_lanes["answers"]:
+                    raise AssertionError(f"{tag}: answers differ from phase "
+                                         "11's: " + json.dumps([
+                                             _first_difference(v, spec_lanes[
+                                                 "answers"].get(k, []))
+                                             for k, v in answers.items()]))
+                per_cycle = {k: (v[0] / v[1] if v[1] else None)
+                             for k, v in per_row.items()}
+                if per_cycle != spec_lanes["tokens_per_cycle"]:
+                    raise AssertionError(
+                        f"{tag}: tokens per cycle {per_cycle}, phase 11's "
+                        f"{spec_lanes['tokens_per_cycle']}")
+                result = {
+                    "tokens_per_cycle": per_cycle,
+                    "metrics": stats["metrics"],
+                    "phase11_metrics": spec_lanes["metrics"],
+                    "spec_cycles": stats["spec_cycles"],
+                    "phase11_spec_cycles": spec_lanes["spec_cycles"],
+                    "plain_first_difference": [
+                        _first_difference(v, serve_stats["answers"][k])
+                        for k, v in answers.items()],
+                    "loads": loads[-2:]}
+                log(tag, json.dumps(result))
+                return result
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                eng.stop()
+
+        out["spec"] = spec_from_disk()
+    finally:
+        api_http.load_serving_checkpoint = load
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t_phase
+    log("checkpoint", "phase wall " + json.dumps(
+        {"wall_s": out["wall_s"],
+         "allocated_gb_after": torch.cuda.memory_allocated() / 1e9}))
+    return out
+
+
 FAMILY_LAYOUTS = {
     "qwen (28:4, hd 128, q/k/v biases)": ("qwen2.5-7b", 28, 4, 128),
     "gemma-2b (8:1, hd 256, tied)": ("gemma-2b", 8, 1, 256),
@@ -3610,7 +3848,8 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
-    paged, dispatch, disagg, int8 disagg, spec, surface, families)."""
+    paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
+    families)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -3666,31 +3905,58 @@ def compare_profiles(bf16: dict, int8: dict) -> None:
 
 
 def main() -> int:
+    import gc
+
     import torch
+
+    t_start = time.time()
+    walls: dict = {}
+
+    def done(phase: str) -> None:
+        """The seconds since start at each phase's end (the phase walls)."""
+        walls[phase] = round(time.time() - t_start, 1)
+        log("walls", json.dumps(walls))
 
     smi = phase_device(torch)
     sys.path.insert(0, REPO)
     phase_build()
+    done("build")
     kernel_rows = phase_kernels(torch)
+    done("kernels")
     phase_reference(torch)
+    done("reference")
     stats, params, adapter_path = phase_serve(torch)
+    done("serve")
     paged_stats = phase_paged_serve(torch, params, adapter_path)
+    done("paged")
     # The int8 serves quantize the same bf16 weights into trees of their own.
     q_stats = phase_serve(torch, params, adapter_path, quant=True)[0]
     qp_stats = phase_paged_serve(torch, params, adapter_path, quant=True)
+    done("int8")
     compare_profiles({"lane": stats, "paged": paged_stats},
                      {"lane": q_stats, "paged": qp_stats})
     graph_columns({"lane": stats, "paged": paged_stats, "lane_int8": q_stats,
                    "paged_int8": qp_stats})
     dispatch = phase_dispatch(torch, params)
+    done("dispatch")
     disagg = phase_disagg(torch, params, adapter_path)
     disagg_q = phase_disagg(torch, params, adapter_path, quant=True)
+    done("disagg")
     spec = phase_spec(torch, params, adapter_path, stats["answers"])
+    done("spec")
     surface = phase_surface(torch, params, adapter_path, stats["answers"],
                             stats["profile_shares"])
-    # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes.
+    done("surface")
+    checkpoint = phase_checkpoint(torch, params, adapter_path, stats,
+                                  spec["lanes"])
+    done("checkpoint")
+    # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes,
+    # with all phase 14 loaded.
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
     families = phase_families(torch)
+    done("families")
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
@@ -3702,6 +3968,8 @@ def main() -> int:
                "spec": {name: spec["launches"].get(name, 0)
                         for name in stats["launches"]},
                "surface": surface["launches"],
+               "checkpoint": {name: checkpoint["launches"].get(name, 0)
+                              for name in stats["launches"]},
                "families": families["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)

@@ -9,8 +9,8 @@ runs on the card).
                                     ``logprobs``, ``n`` / ``best_of``,
                                     ``echo``, ``presence_penalty``,
                                     ``frequency_penalty``, ``logit_bias``
-- ``POST /v1/chat/completions``     chat (the role-prefix transcript: the
-                                    byte tokenizer has no chat template),
+- ``POST /v1/chat/completions``     chat (the tokenizer's chat template,
+                                    else the role-prefix transcript),
                                     ``logprobs`` / ``top_logprobs``, ``n``,
                                     SSE ``chat.completion.chunk``
 - ``POST /v1/prefill``              disaggregation hop 1: prefill only; the
@@ -22,8 +22,9 @@ runs on the card).
 - ``POST /v1/prefill/release``      ``{"request_id"}``: release abandoned
                                     hop-2 work
 - ``GET  /v1/models``               base model + resident adapters
-- ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz;
-                                    promotes a host-tier copy)
+- ``POST /v1/load_lora_adapter``    ``{"lora_name", "lora_path"}`` (.npz
+                                    or an Orbax directory; promotes a
+                                    host-tier copy)
 - ``POST /v1/unload_lora_adapter``  ``{"lora_name"}``
 - ``POST /v1/demote_lora_adapter``  slot -> host RAM (409 while in use)
 - ``POST /v1/prefetch_lora_adapter`` disk -> host RAM, no slot taken
@@ -64,6 +65,15 @@ Mixtral-8x7B's fit the card) and
 of that preset (random weights from seed 1; quantized too under
 ``--quantize int8``); such a server refuses penalties and ``logit_bias``.
 
+Trained weights: ``--checkpoint DIR`` (and ``--draft-checkpoint DIR`` for
+the draft) reads an HF directory (``config.json`` plus safetensors, the
+route that runs on the card) or the JAX package's Orbax checkpoint (needs
+``tensorstore``), through ``models/convert.load_serving_checkpoint``; a
+checkpoint's architecture replaces the preset's, and the server answers
+to both names.  ``--tokenizer DIR`` serves a local HF tokenizer and its
+chat template (needs ``transformers``).  Without ``--checkpoint`` the
+weights are random (seed ``--seed``).
+
 A non-streamed request whose client hangs up is cancelled: while it waits
 on the engine, the handler's thread polls the connection, and a socket
 that is readable with nothing to read (end of file) cancels every
@@ -91,6 +101,7 @@ from llm_instance_gateway_tpu_torch import events as events_mod
 from llm_instance_gateway_tpu_torch import tracing
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+from llm_instance_gateway_tpu_torch.models.convert import load_serving_checkpoint
 from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
 from llm_instance_gateway_tpu_torch.server import metrics as metrics_mod
 from llm_instance_gateway_tpu_torch.server.engine import (
@@ -160,10 +171,15 @@ class ModelServer:
     """Request handling, independent of the transport below."""
 
     def __init__(self, engine: Engine | None, tokenizer, model_name: str,
-                 lora_manager: LoRAManager | None = None):
+                 lora_manager: LoRAManager | None = None,
+                 aliases: set[str] | None = None):
         self.engine = engine
         self.tokenizer = tokenizer
         self.model_name = model_name
+        # Further names of the base model (the --model preset when a
+        # checkpoint brought its own name), so clients keep working across
+        # a checkpoint swap.
+        self.aliases = {model_name} | (aliases or set())
         self.lora = lora_manager
         # Per-process span ring served by /debug/traces.
         self.tracer = tracing.Tracer()
@@ -236,7 +252,7 @@ class ModelServer:
 
     # -- helpers -------------------------------------------------------------
     def _resolve_model(self, requested) -> str | None:
-        if requested in ("", None, self.model_name):
+        if requested in ("", None) or requested in self.aliases:
             return None
         if self.lora is not None and requested in self.lora.running_adapters():
             return requested
@@ -349,12 +365,26 @@ class ModelServer:
             raise HTTPError(400, str(e)) from e
 
     def _chat_prompt(self, messages) -> tuple[str, bool]:
-        """Chat messages -> (prompt text, add_bos): the role-prefix
-        transcript, the reference's form for a tokenizer without a chat
-        template (the byte tokenizer has none)."""
+        """Chat messages -> (prompt text, add_bos).  The tokenizer's own
+        chat template wins (the format the model was trained on), encoded
+        with add_bos=False: templates render the BOS themselves.  A template
+        that fails on the messages raises ValueError (400: the request is
+        valid OpenAI but not for this model's template).  A tokenizer
+        without a template (the byte tokenizer) gets the role-prefix
+        transcript."""
         if not isinstance(messages, list) or not all(
                 isinstance(m, dict) for m in messages):
             raise ValueError("messages must be a list of objects")
+        apply = getattr(self.tokenizer, "apply_chat_template", None)
+        if apply is not None:
+            try:
+                templated = apply(messages)
+            except Exception as e:  # jinja TemplateError, TypeError, ...
+                raise ValueError(
+                    f"messages are not renderable by this model's chat "
+                    f"template: {e}") from e
+            if templated is not None:
+                return templated, False
         return "\n".join(
             f"{m.get('role', 'user')}: {m.get('content', '')}"
             for m in messages
@@ -967,7 +997,8 @@ class ModelServer:
         if with_path:
             if not name or not path:
                 raise HTTPError(400, "lora_name and lora_path are required")
-            if name == self.model_name:
+            if name in self.aliases:
+                # An alias would shadow the adapter in _resolve_model.
                 raise HTTPError(409, f"adapter name {name!r} collides with "
                                      "the base model's served names")
         elif not name:
@@ -1239,8 +1270,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights (no checkpoint loading "
-                        "in the port yet)")
+                   help="seed of the random weights served without "
+                        "--checkpoint")
+    p.add_argument("--checkpoint", default=None, metavar="DIR",
+                   help="serving checkpoint: an HF directory (config.json "
+                        "plus model.safetensors, or shards with "
+                        "model.safetensors.index.json) or the JAX "
+                        "package's Orbax params dir (params/ plus "
+                        "model_config.json, or a bare tree; needs "
+                        "tensorstore); its architecture replaces --model's")
+    p.add_argument("--tokenizer", default=None, metavar="DIR",
+                   help="local HF tokenizer dir, chat template included "
+                        "(needs transformers); the byte tokenizer otherwise")
     p.add_argument("--decode-slots", type=int, default=8)
     p.add_argument("--max-seq-len", type=int, default=1024)
     p.add_argument("--max-loras", type=int, default=4)
@@ -1319,7 +1360,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--draft-model", default=None, choices=sorted(CONFIGS),
                    help="model preset of the speculative draft (it must "
                         "share the target's vocabulary); random weights from "
-                        "seed 1")
+                        "seed 1 without --draft-checkpoint")
+    p.add_argument("--draft-checkpoint", default=None, metavar="DIR",
+                   help="the draft's checkpoint, either form --checkpoint "
+                        "takes; an HF or model_config.json architecture "
+                        "replaces --draft-model's")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
@@ -1328,13 +1373,24 @@ def build_parser() -> argparse.ArgumentParser:
 def make_server(argv=None, params=None, draft_params=None):
     """Build the engine and the HTTP server from CLI arguments; returns
     ``(httpd, engine, args)`` with the engine loop started.  The caller runs
-    ``httpd.serve_forever()``.  ``params`` reuses weights already on the
-    device (same model, dtype and device) instead of drawing them, and
-    ``draft_params`` the draft's under ``--speculative``; with
+    ``httpd.serve_forever()``.
+
+    The steps follow the reference's ``main``: the tokenizer; the
+    ``--checkpoint`` (whose architecture, if it brings one, replaces the
+    preset's but keeps its LoRA slots and rank, and whose name is served
+    beside the preset's); the vocabulary check, against the architecture
+    served; int8; the draft (``--draft-checkpoint``'s architecture
+    replaces ``--draft-model``'s); the engine, stopping on the tokenizer's
+    EOS.  A checkpoint that cannot be read raises: nothing is served in
+    its place.
+
+    ``params`` reuses weights already on the device (same model, dtype and
+    device) instead of drawing them, and ``draft_params`` the draft's
+    under ``--speculative``; neither goes with its checkpoint flag.  With
     ``--quantize int8`` the engine gets new quantized trees and the
-    caller's stay as they were, and random weights are drawn int8 a layer
-    at a time (``init_params(quantize=True)``: the same tree as
-    quantizing the dense one, which need never fit the card)."""
+    caller's stay as they were; random weights are drawn, and checkpoints
+    loaded, int8 a layer at a time (the same tree as quantizing the dense
+    one, which need never fit the card)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
@@ -1346,6 +1402,13 @@ def make_server(argv=None, params=None, draft_params=None):
         parser.error("--prefix-cache requires --paged-kv-block")
     if args.speculative > 0 and args.draft_model is None:
         parser.error("--speculative requires --draft-model")
+    if args.draft_checkpoint and args.speculative <= 0:
+        parser.error("--draft-checkpoint requires --speculative")
+    if params is not None and args.checkpoint:
+        raise ValueError("params= and --checkpoint both give the weights")
+    if draft_params is not None and args.draft_checkpoint:
+        raise ValueError("draft_params= and --draft-checkpoint both give "
+                         "the draft's weights")
     if (args.device == "cuda" and args.paged_kv_block is not None
             and args.paged_kv_block % 16):
         parser.error("--paged-kv-block must be a multiple of 16 on the card "
@@ -1378,19 +1441,44 @@ def make_server(argv=None, params=None, draft_params=None):
     )
     cfg = dataclasses.replace(CONFIGS[args.model], max_lora_slots=args.max_loras)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    tokenizer = load_tokenizer(None)
+    try:
+        tokenizer = load_tokenizer(args.tokenizer)
+    except ImportError as e:
+        raise SystemExit(f"--tokenizer: {e}") from e
+    quant = args.quantize == "int8"
+    served_name = args.model
+    if args.checkpoint:
+        ckpt_cfg, params = load_serving_checkpoint(
+            args.checkpoint, dtype=dtype, device=args.device, quantize=quant)
+        if ckpt_cfg is not None:
+            # The checkpoint's architecture; the preset keeps the serving
+            # knobs (LoRA slots and rank).
+            cfg = dataclasses.replace(ckpt_cfg, max_lora_slots=args.max_loras,
+                                      max_lora_rank=cfg.max_lora_rank)
+            served_name = cfg.name
+            logger.info("model config restored from checkpoint: %s", cfg.name)
+        logger.info("restored params from %s", args.checkpoint)
+    # After the checkpoint may have replaced the architecture.
     if tokenizer.vocab_size > cfg.vocab_size:
         raise SystemExit(f"tokenizer vocab {tokenizer.vocab_size} exceeds "
                          f"model vocab {cfg.vocab_size}")
-    quant = args.quantize == "int8"
     if params is None:
-        logger.warning("serving RANDOM weights (seed %d)", args.seed)
+        logger.warning("no --checkpoint: serving RANDOM weights (seed %d)",
+                       args.seed)
         params = transformer.init_params(cfg, seed=args.seed, dtype=dtype,
                                          device=args.device, quantize=quant)
     draft_cfg = None
     if args.speculative > 0:
         draft_cfg = CONFIGS[args.draft_model]
-        if draft_params is None:
+        if args.draft_checkpoint:
+            dc, draft_params = load_serving_checkpoint(
+                args.draft_checkpoint, dtype=dtype, device=args.device,
+                quantize=quant)
+            if dc is not None:
+                draft_cfg = dc
+            logger.info("restored draft params from %s",
+                        args.draft_checkpoint)
+        elif draft_params is None:
             logger.warning("draft %s: RANDOM weights (seed 1)",
                            args.draft_model)
             draft_params = transformer.init_params(
@@ -1410,7 +1498,8 @@ def make_server(argv=None, params=None, draft_params=None):
                     eos_id=tokenizer.eos_id, dtype=dtype, device=args.device,
                     draft_params=draft_params, draft_cfg=draft_cfg)
     engine.start()
-    server = ModelServer(engine, tokenizer, args.model, lora_manager)
+    server = ModelServer(engine, tokenizer, served_name, lora_manager,
+                         aliases={args.model})
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(server))
     httpd.daemon_threads = True
     return httpd, engine, args

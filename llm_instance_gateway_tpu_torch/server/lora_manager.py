@@ -1,14 +1,18 @@
 """LoRA adapter registry and residency ladder bound to the engine's slot
 buffers (port of ``server/lora_manager.py``).
 
-Adapters on disk are ``.npz`` files (Orbax is a JAX library) holding the
-reference checkpoint's tree flattened: ``alpha``, ``rank`` and one
-``<target>.a`` / ``<target>.b`` array per target (``save_adapter``).
+Adapters on disk take two forms, and ``load_adapter_checkpoint`` reads
+both: the port's ``.npz`` file, holding the reference checkpoint's tree
+flattened (``alpha``, ``rank`` and one ``<target>.a`` / ``<target>.b``
+array per target; ``save_adapter`` writes it), and the JAX package's
+Orbax directory (``{"meta": {alpha, rank}, "weights": {target: {a, b}}}``,
+read through ``models/orbax_tree.py``, which needs ``tensorstore``), so
+the body the fleet's sidecar posts to a JAX pod loads on a torch pod too.
 
 Residency ladder: ``slot`` = the device buffers, decodable now; ``host`` =
 the weights held in host RAM as CPU tensors (pinned when the buffers live
 on the card), so promotion is one host-to-device write and no file read;
-``disk`` = the ``.npz`` only.  An adapter is in exactly one tier at a
+``disk`` = the file only.  An adapter is in exactly one tier at a
 time.  ``demote`` moves slot -> host, ``prefetch`` disk -> host without a
 slot, ``evict_host`` host -> disk, and ``load`` promotes a host copy
 before it reads a file; the host tier holds ``host_cache_slots`` adapters
@@ -27,6 +31,7 @@ any decode block in flight.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from collections import OrderedDict
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
+from llm_instance_gateway_tpu_torch.models import orbax_tree
 
 logger = logging.getLogger(__name__)
 
@@ -78,6 +84,14 @@ def save_adapter(path: str, weights: dict, alpha: float, rank: int) -> None:
 
 
 def load_adapter_checkpoint(path: str) -> tuple[dict, float, int]:
+    """(weights ``{target: {"a", "b"}}`` as f32 arrays, alpha, rank) from
+    an ``.npz`` file or an Orbax adapter directory."""
+    if os.path.isdir(path):
+        tree = orbax_tree.read_tree(path)
+        weights = {t: {k: v.float().numpy() for k, v in tv.items()}
+                   for t, tv in tree["weights"].items()}
+        meta = tree["meta"]
+        return weights, float(meta["alpha"]), int(meta["rank"])
     with np.load(path) as data:
         weights: dict = {}
         for key in data.files:

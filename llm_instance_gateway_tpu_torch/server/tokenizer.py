@@ -1,8 +1,12 @@
-"""Byte-level tokenizer (the port's own copy of the reference's).
+"""Tokenizers for the model server (port of ``server/tokenizer.py``).
 
-Self-contained UTF-8 bytes + specials, so the server runs hermetically.
-The reference's ``HFTokenizer`` is not ported yet: ``transformers`` is not
-installed where the port runs on the card.
+The default is a self-contained byte-level tokenizer (UTF-8 bytes +
+specials), so the server runs hermetically.  ``HFTokenizer`` wraps a
+local ``transformers`` tokenizer directory (``--tokenizer``) with its chat
+template.  ``transformers`` is imported when one is built, never at
+module level: where it is not installed (the host that serves the port
+on the card has none), building one raises, naming it, and nothing falls
+back to the byte tokenizer.
 """
 
 from __future__ import annotations
@@ -30,9 +34,47 @@ class ByteTokenizer:
         return data.decode("utf-8", errors="replace")
 
 
+class HFTokenizer:
+    """Local HuggingFace tokenizer wrapper (no network access)."""
+
+    def __init__(self, path: str):
+        try:
+            from transformers import AutoTokenizer  # local files only
+        except ImportError as e:
+            raise ImportError(
+                f"tokenizer {path}: an HF tokenizer needs the transformers "
+                "package, which is not installed here") from e
+
+        self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        self.vocab_size = self._tok.vocab_size
+        # Explicit None checks: `or 0` would turn a missing special token
+        # into id 0, which the engine would then stop on (eos) or prepend
+        # to every prompt (bos).  The engine takes eos_id=None.
+        self.bos_id = self._tok.bos_token_id  # may be None: no BOS prepended
+        self.eos_id = self._tok.eos_token_id  # may be None: length-capped only
+        self.pad_id = (
+            self._tok.pad_token_id if self._tok.pad_token_id is not None
+            else (self.eos_id if self.eos_id is not None else 0)
+        )
+
+    def encode(self, text: str, add_bos: bool = True) -> list[int]:
+        ids = self._tok.encode(text, add_special_tokens=False)
+        if add_bos and self.bos_id is not None:
+            return [self.bos_id] + ids
+        return ids
+
+    def decode(self, ids: list[int]) -> str:
+        return self._tok.decode(ids, skip_special_tokens=True)
+
+    def apply_chat_template(self, messages: list[dict]) -> str | None:
+        """The model's own chat template over OpenAI-shaped messages (with
+        the generation prompt appended), or None when the tokenizer ships
+        no template: the server then uses the role-prefix transcript."""
+        if not getattr(self._tok, "chat_template", None):
+            return None
+        return self._tok.apply_chat_template(
+            messages, tokenize=False, add_generation_prompt=True)
+
+
 def load_tokenizer(path: str | None = None):
-    if path:
-        raise NotImplementedError(
-            "local HF tokenizers are not ported yet (ROADMAP Queue 1, model "
-            "families); the port serves the byte tokenizer")
-    return ByteTokenizer()
+    return HFTokenizer(path) if path else ByteTokenizer()

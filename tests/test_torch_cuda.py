@@ -1162,3 +1162,40 @@ def test_moe_overflow_inside_a_replayed_graph_is_dense(mixtral_layer):
     dropped = transformer._moe_grouped(
         dataclasses.replace(cfg, moe_exact_fallback=False), lp, x)
     assert (dropped - dense).abs().max().item() > 1e-2 * scale
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("name", ["llama3-tiny", "mixtral-tiny", "qwen-tiny",
+                                  "gemma-tiny"])
+def test_checkpoint_load_on_the_card_equals_the_cpu_load(dev, tmp_path, name,
+                                                         quantize):
+    """An HF directory (sharded) loaded onto the card, dense or int8 a
+    layer at a time, is the CPU's load bit for bit."""
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+    from llm_instance_gateway_tpu_torch.models.convert import (
+        load_serving_checkpoint,
+        save_hf_checkpoint,
+    )
+    from llm_instance_gateway_tpu_torch.models.transformer import init_params
+
+    cfg = CONFIGS[name]
+    params = init_params(cfg, seed=5, dtype=torch.float32, device="cpu")
+    path = str(tmp_path / name)
+    save_hf_checkpoint(cfg, params, path, shard_bytes=200_000)
+    _, cpu = load_serving_checkpoint(path, torch.bfloat16, "cpu", quantize)
+    _, gpu = load_serving_checkpoint(path, torch.bfloat16, dev, quantize)
+    want = dict(_leaves(cpu))
+    got = dict(_leaves(gpu))
+    assert set(got) == set(want)
+    for key, leaf in want.items():
+        assert got[key].device.type == "cuda", key
+        assert got[key].dtype == leaf.dtype, key
+        assert torch.equal(got[key].cpu(), leaf), key

@@ -231,20 +231,68 @@ def _port_files():
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     # ml_dtypes comes with JAX; the card's host has none (bf16 handoffs
-    # cross the wire as raw 16-bit words instead).
-    return top in ("jax", "jaxlib", "llm_instance_gateway_tpu", "ml_dtypes")
+    # cross the wire as raw 16-bit words instead).  Orbax, Flax and Optax
+    # are JAX libraries, and the safetensors package is not on the card's
+    # host either: the port reads both checkpoint forms itself.
+    return top in ("jax", "jaxlib", "llm_instance_gateway_tpu", "ml_dtypes",
+                   "orbax", "flax", "optax", "safetensors")
+
+
+def _imported_names(node) -> list:
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module or ""]
+    return []
+
+
+def _module_level_imports(tree) -> list:
+    """Names imported when the module is imported: every import outside a
+    function body (class bodies and ``if``/``try`` blocks run too)."""
+    found, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        found += _imported_names(node)
+        todo += list(ast.iter_child_nodes(node))
+    return found
+
+
+def test_optional_packages_are_imported_inside_functions_only():
+    """transformers (``HFTokenizer``) and tensorstore (the Orbax reader)
+    are not on the card's host: the port imports them where they are
+    used, so importing any module of the port never needs them."""
+    users = set()
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        rel = os.path.relpath(path, REPO)
+        top = {n.split(".")[0] for n in _module_level_imports(tree)}
+        assert not top & {"transformers", "tensorstore"}, rel
+        every = {n.split(".")[0] for node in ast.walk(tree)
+                 for n in _imported_names(node)}
+        users |= {(rel, n) for n in every & {"transformers", "tensorstore"}}
+    assert users == {
+        ("llm_instance_gateway_tpu_torch/server/tokenizer.py",
+         "transformers"),
+        ("llm_instance_gateway_tpu_torch/models/orbax_tree.py",
+         "tensorstore")}
 
 
 def test_port_imports_nothing_of_jax():
     """No module of the port (nor chip_smoke.py) imports jax, jaxlib, the
-    JAX package — not even a module of it that is framework-free — or
-    ml_dtypes."""
+    JAX package — not even a module of it that is framework-free —,
+    ml_dtypes, orbax, flax, optax or safetensors."""
     files = _port_files()
     assert len(files) > 15
     rel = {os.path.relpath(p, REPO) for p in files}
     for module in ("models/paged.py", "server/kv_ledger.py",
                    "server/kv_transfer.py", "events.py", "tracing.py",
-                   "ops/chunk_attention.py", "ops/paged_decode_attention.py"):
+                   "ops/chunk_attention.py", "ops/paged_decode_attention.py",
+                   "models/convert.py", "models/safetensors.py",
+                   "models/orbax_tree.py"):
         # the walk covers every subpackage, the newest modules included
         assert f"llm_instance_gateway_tpu_torch/{module}" in rel
     offenders = []
