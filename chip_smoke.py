@@ -168,11 +168,33 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    seconds and GB/s (returned and synced), and each load's seconds, GB/s
    and peak device memory;
 
+15. train — training at Llama-3-8B width and depth (``phase_train``, run
+   after phase 14 while the serve phase's bf16 tree exists, before phase
+   13): the flash backward kernel (``csrc/flash_backward.cu``) against
+   its plain version (``check_grad``: phase 3's scaled rule, floored for
+   gradients that cancel) at the training shape B=2 S=1023 H=32 K=8
+   hd=128 in bf16 and f32, at Gemma's layouts (8:1, 16:16 at hd 256) and
+   at S 1, 16, 127, 129, two runs bitwise equal, timed beside its plain
+   version, its bound and the SDPA backward (a yardstick); at S = 1023
+   the plain gradients with one 64-row tile zeroed (dq's query tile 5,
+   dk's ragged last key tile, dv's key tile 1) must fail the check; a
+   narrow f32 model's loss, every gradient leaf and two AdamW steps,
+   full and LoRA,
+   card against CPU (wq/wk/wv and their LoRA leaves non-zero); ten LoRA
+   steps on the frozen 8B tree (slot 0 at rank 8, a seeded, b zero: the
+   first step moves b only; two seeded 1024-token rows) with the loss
+   falling and exact launches (flash and backward 32 a step, nothing
+   else), step walls, the profiled step's device ms, idle share and the
+   backward kernels' share, peak memory; then the trained slot saved as
+   .npz, loaded over ``/v1/load_lora_adapter`` on a lane server, whose
+   greedy answers equal an in-process engine's holding the trained
+   buffers and differ from the base model's;
+
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
 serve phases, the dispatch phase's B runs, the disagg phase's hops, the
-spec phase's servers, the surface phase's, the checkpoint phase's and
-the families'),
+spec phase's servers, the surface phase's, the checkpoint phase's, the
+families' and the train phase's),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
 
@@ -1677,7 +1699,8 @@ def _profile(torch, name: str, fn, reps: int) -> dict:
         # split and combine).
         "port_kernels": [{"name": k, "ms": ms, "calls": n}
                          for ms, n, k in rows
-                         if "decode_tile" in k or "flash_tile" in k],
+                         if "decode_tile" in k or "flash_tile" in k
+                         or "flash_backward" in k],
     }
     log("profile", f"{name}: " + json.dumps(out))
     return out
@@ -2482,6 +2505,11 @@ KERNEL_SOURCES = {
         "llm_instance_gateway_tpu_torch/ops/csrc/"
         "paged_decode_attention_quant.cu",
         "llm_instance_gateway_tpu/ops/pallas_decode_attention.py:227"),
+    # No pallas_call: the gradient of flash_attention (the entry whose
+    # gradient JAX takes through XLA's prefill_attention).
+    "flash_backward": (
+        "llm_instance_gateway_tpu_torch/ops/csrc/flash_backward.cu",
+        "llm_instance_gateway_tpu/ops/pallas_attention.py:306"),
 }
 
 
@@ -3844,17 +3872,484 @@ def phase_families(torch) -> dict:
     return out
 
 
+# -- phase 15: training ------------------------------------------------------
+
+# Card-vs-CPU tolerances of the small f32 model's training (TF32 off, so
+# summation order only: its gradients agree to ~3e-6 of each leaf's
+# largest |value|): the loss, each gradient leaf over its largest |value|,
+# and AdamW's update over lr where the CPU's |grad| cleared 1e-3 of its
+# leaf's largest at every step (Adam turns a gradient at rounding noise
+# into a step of about +-lr whatever its size; there only the bound
+# |update| <= 2 lr holds).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_UPDATE_TOL = 1e-3
+TRAIN_NOISE_FLOOR = 1e-3
+TRAIN_LR = 1e-3
+# The 8B LoRA run: one fixed batch of two seeded 1024-token rows, slot 0 at
+# rank 8 (a seeded, b zero), AdamW at this lr.
+TRAIN_STEPS = 10
+TRAIN_8B_LR = 1e-3
+
+
+def check_grad(name: str, got, want) -> dict:
+    """``check_kernel``'s scaled rule for a gradient: each vector's error
+    over the larger of its own largest |value| and 1/16 of the tensor's
+    (or of 1, the inputs' scale) — a vector that cancels to ~0 in exact
+    arithmetic (dq of query 0, whose one probability is 1; all of dq at
+    S = 1) comes out at rounding size on both sides — within SCALED_TOL,
+    and the flat ABS_TOL scaled by the tensor's largest |value| (gradients
+    are not bounded by max |v| as attention outputs are)."""
+    g, w = got.float(), want.float()
+    num = (g - w).abs().amax(-1)
+    top = max(w.abs().max().item(), 1.0)
+    scaled = (num / w.abs().amax(-1).clamp_min(top / 16)).max().item()
+    err = num.max().item()
+    if not (math.isfinite(err) and math.isfinite(scaled)) \
+            or scaled > SCALED_TOL or err > ABS_TOL * top:
+        raise GradCheckError(f"{name}: scaled error {scaled} (limit "
+                             f"{SCALED_TOL}), max_abs_err {err} (limit "
+                             f"{ABS_TOL * top})", scaled)
+    return dict(max_abs_err=err, scaled_err=scaled)
+
+
+class GradCheckError(AssertionError):
+    def __init__(self, msg: str, scaled: float):
+        super().__init__(msg)
+        self.scaled = scaled
+
+
+def _grad_check_reach(want, s: int) -> dict:
+    """``check_grad``'s reach: the plain gradients with one tile of 64
+    zeroed (a pass that skipped it) must fail; returns each one's scaled
+    error."""
+    out = {}
+    for name, i, sl in (("dq, query tile 5", 0, slice(320, 384)),
+                        ("dk, the ragged last key tile", 1,
+                         slice((s - 1) // 64 * 64, None)),
+                        ("dv, key tile 1", 2, slice(64, 128))):
+        bad = want[i].clone()
+        bad[:, sl] = 0
+        try:
+            check_grad(name, bad, want[i])
+        except GradCheckError as e:
+            out[name] = e.scaled
+        else:
+            raise AssertionError(f"check_grad passes a skipped tile: {name}")
+    return out
+
+
+def _bwd_row(torch, gen, b: int, s: int, h: int, k: int, hd: int,
+             dtype) -> dict:
+    """The backward kernel against its plain version on one shape (long
+    rows: with the check's reach, ``_grad_check_reach``), two runs bitwise
+    equal, and its ms beside the plain version's, the bound and, as a
+    yardstick only, the backward of one causal GQA SDPA call."""
+    import torch.nn.functional as F
+
+    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+
+    def draw(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    q, kk, v, dout = draw(b, s, h, hd), draw(b, s, k, hd), draw(b, s, k, hd), \
+        draw(b, s, h, hd)
+    with torch.no_grad():
+        out = fl.flash_attention(q, kk, v)
+    args = (q, kk, v, out, dout)
+    got = fl.flash_attention_backward(*args)
+    want = fl.flash_attention_backward_reference(*args)
+    torch.cuda.synchronize()
+    shape = (f"B={b} S={s} H={h} K={k} hd={hd} "
+             f"{str(dtype).replace('torch.', '')}")
+    errs = [check_grad(f"flash_backward {shape} d{n}", g, w)
+            for n, g, w in zip("qkv", got, want)]
+    row = dict(shape=shape,
+               max_abs_err=max(e["max_abs_err"] for e in errs),
+               scaled_err=max(e["scaled_err"] for e in errs))
+    if s >= 512:
+        row["check_reach_scaled_err"] = _grad_check_reach(want, s)
+    again = fl.flash_attention_backward(*args)
+    row["bitwise_reproducible"] = all(torch.equal(x, y)
+                                      for x, y in zip(got, again))
+    if not row["bitwise_reproducible"]:
+        raise AssertionError(f"flash_backward {shape}: two runs differ")
+    elt = q.element_size()
+    # q, out, dout, dq and k, v, dk, dv: each read or written once
+    nbytes = elt * (4 * q.numel() + 4 * kk.numel())
+    ops = 5 * 2 * b * h * s * (s + 1) // 2 * hd
+    sets = [tuple(t.clone() for t in args)
+            for _ in range(copies_for(nbytes))]
+    ms = time_ms(torch, fl.flash_attention_backward, sets)
+    plain_ms = time_ms(torch, fl.flash_attention_backward_reference,
+                       sets[:2], iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, kk, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    dot = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), [()])
+    row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **_bound(nbytes, ops))
+    row.update(_rate(ops, row))
+    return row
+
+
+def _train_flat(tree, prefix: str = "") -> dict:
+    out = {}
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_train_flat(v, f"{prefix}{key}/"))
+        elif v.is_floating_point():
+            out[f"{prefix}{key}"] = v
+    return out
+
+
+def _train_grads(torch, fn, tree) -> tuple:
+    """(loss, path -> gradient on the CPU) of ``fn(tree)``; the leaves'
+    ``requires_grad`` is restored after."""
+    leaves = _train_flat(tree)
+    was = {p: t.requires_grad for p, t in leaves.items()}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = fn(tree)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    for p, t in leaves.items():
+        t.requires_grad_(was[p])
+    return loss.item(), {p: g.cpu() for p, g in zip(leaves, grads)}
+
+
+def _train_reference(torch) -> dict:
+    """Phase 15 (b): a small f32 model with Llama-3-8B's head layout (phase
+    4's), card against CPU: the loss and every gradient leaf, then the
+    parameters after each of two AdamW steps (each from the CPU's state),
+    for the full step and for the LoRA step (slots 1 and 2 beside a base
+    row, seeded a and b).  The attention leaves (wq/wk/wv, q/k/v LoRA)
+    must be non-zero on the card: a graph cut at attention would leave
+    them zero."""
+    import copy
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import lora, transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+    from llm_instance_gateway_tpu_torch.training import train
+
+    cfg = dataclasses.replace(LLAMA3_8B, name="llama3-8b-narrow", d_model=512,
+                              n_layers=2, n_heads=8, n_kv_heads=2,
+                              head_dim=128, d_ff=1024, vocab_size=320)
+    cpu_params = transformer.init_params(cfg, seed=7, dtype=torch.float32,
+                                         device="cpu")
+    gen = torch.Generator().manual_seed(15)
+    # S = 129 after the shift: a ragged last tile; row 1 padded after 77.
+    tokens = torch.randint(1, cfg.vocab_size, (3, 130), generator=gen)
+    positions = torch.arange(130).repeat(3, 1)
+    tokens[1, 77:], positions[1, 77:] = 0, 0
+    slots = torch.tensor([1, -1, 2])
+    bufs_cpu = lora.init_lora_buffers(cfg, torch.float32, "cpu")
+    for t in lora.TARGETS:
+        for ab in ("a", "b"):
+            bufs_cpu[f"{t}_{ab}"][:, 1:3, ...] = torch.randn(
+                bufs_cpu[f"{t}_{ab}"][:, 1:3].shape, generator=gen) * 0.05
+    bufs_cpu["scale"][1:3] = 2.0
+    out = {}
+    for kind in ("full", "lora"):
+        trees, steps, opts, sure = {}, {}, {}, {}
+        for dev in ("cpu", "cuda"):
+            params = (_to_card(cpu_params) if dev == "cuda" else
+                      {k: ({n: t.clone() for n, t in v.items()}
+                           if isinstance(v, dict) else v.clone())
+                       for k, v in cpu_params.items()})
+            bufs = {k: v.clone().to(dev) for k, v in bufs_cpu.items()}
+            tree = params if kind == "full" else bufs
+            opts[dev] = train.make_optimizer(tree, lr=TRAIN_LR,
+                                             weight_decay=0.01)
+            make = (train.make_full_train_step if kind == "full"
+                    else train.make_lora_train_step)
+            steps[dev] = make(cfg, opts[dev])
+            trees[dev] = (params, bufs)
+        errs = {"loss": 0.0, "grad": 0.0, "update": 0.0}
+        for i in range(2):
+            # Each step starts from the CPU's state: Adam turns gradients at
+            # rounding noise into +-lr steps, so two runs left alone drift
+            # apart there and the next step would measure the drift.
+            pick = 0 if kind == "full" else 1
+            src = _train_flat(trees["cpu"][pick])
+            with torch.no_grad():
+                for p, t in _train_flat(trees["cuda"][pick]).items():
+                    t.copy_(src[p])
+            opts["cuda"].load_state_dict(
+                copy.deepcopy(opts["cpu"].state_dict()))
+            grads, before = {}, {}
+            for dev in ("cpu", "cuda"):
+                params, bufs = trees[dev]
+                args = (tokens.to(dev), positions.to(dev))
+                if kind == "full":
+                    fn = (lambda p, a=args: train.causal_lm_loss(cfg, p, *a))
+                    tree = params
+                else:
+                    fn = (lambda b, p=params, a=args, d=dev:
+                          train.causal_lm_loss(cfg, p, *a, lora_bufs=b,
+                                               slot_ids=slots.to(d)))
+                    tree = bufs
+                f0, b0 = fl.launches, fl.backward_launches
+                grads[dev] = _train_grads(torch, fn, tree)
+                if dev == "cuda" and (fl.launches - f0, fl.backward_launches
+                                      - b0) != (cfg.n_layers, cfg.n_layers):
+                    raise AssertionError(f"train reference ({kind}): "
+                                         "attention did not run both kernels")
+                before[dev] = {p: t.detach().cpu().clone()
+                               for p, t in _train_flat(tree).items()}
+            (want_loss, want), (got_loss, got) = grads["cpu"], grads["cuda"]
+            errs["loss"] = max(errs["loss"], abs(got_loss - want_loss))
+            if errs["loss"] > TRAIN_LOSS_TOL:
+                raise AssertionError(f"train reference ({kind}) step {i}: "
+                                     f"loss {got_loss} vs {want_loss}")
+            for p, w in want.items():
+                err = ((got[p] - w).abs().max()
+                       / w.abs().max().clamp_min(1e-6)).item()
+                errs["grad"] = max(errs["grad"], err)
+                if err > TRAIN_GRAD_TOL:
+                    raise AssertionError(f"train reference ({kind}) step "
+                                         f"{i}: {p} gradient error {err}")
+                g = w.abs()
+                sure[p] = sure.get(p, True) & (
+                    g > TRAIN_NOISE_FLOOR * g.max().clamp_min(1e-30))
+            attn = (("layers/wq", "layers/wk", "layers/wv") if kind == "full"
+                    else ("q_a", "q_b", "k_a", "k_b", "v_a", "v_b"))
+            for p in attn:
+                if not got[p].abs().max() > 0:
+                    raise AssertionError(f"train reference ({kind}): {p} "
+                                         "has no gradient on the card")
+            for dev in ("cpu", "cuda"):
+                params, bufs = trees[dev]
+                args = (tokens.to(dev), positions.to(dev))
+                if kind == "full":
+                    steps[dev](params, opts[dev].state, *args)
+                else:
+                    steps[dev](params, bufs, opts[dev].state, *args,
+                               slots.to(dev))
+            after = {dev: {p: t.detach().cpu() for p, t in _train_flat(
+                trees[dev][0] if kind == "full" else trees[dev][1]).items()}
+                for dev in ("cpu", "cuda")}
+            for p in want:
+                du = {dev: (after[dev][p].double() - before[dev][p].double())
+                      / TRAIN_LR for dev in ("cpu", "cuda")}
+                diff = (du["cuda"] - du["cpu"]).abs()[sure[p]]
+                err = diff.max().item() if diff.numel() else 0.0
+                errs["update"] = max(errs["update"], err)
+                if err > TRAIN_UPDATE_TOL or du["cuda"].abs().max() > 2.0:
+                    raise AssertionError(f"train reference ({kind}) step "
+                                         f"{i}: {p} update error {err}")
+        out[kind] = errs
+    log("train", "reference (card against cpu, f32, two AdamW steps, "
+        f"limits loss {TRAIN_LOSS_TOL} grad {TRAIN_GRAD_TOL} update/lr "
+        f"{TRAIN_UPDATE_TOL}): " + json.dumps(out))
+    return out
+
+
+def phase_train(torch, params) -> dict:
+    """Phase 15 (``phase_train``): training on the card.  (a) the flash
+    backward kernel against its plain version (``check_grad``) at the
+    training shape in bf16 and f32, at Gemma's layouts and at short S;
+    (b) ``_train_reference``; (c) LoRA steps on ``params`` (the serve
+    phase's Llama-3-8B tree, frozen) with exact launch counts, the loss
+    falling, profiled; (d) the trained slot saved as .npz, loaded over
+    ``/v1/load_lora_adapter`` on a lane server, whose greedy answers equal
+    an in-process engine's holding the trained buffers."""
+    import shutil
+    import tempfile
+    import threading
+
+    from llm_instance_gateway_tpu_torch.models import lora
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.server import api_http
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+    from llm_instance_gateway_tpu_torch.training import train
+
+    t_phase = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    bf16 = torch.bfloat16
+    rows = [_bwd_row(torch, gen, 2, s, 32, 8, 128, bf16)
+            for s in (1, 16, 127, 129)]
+    rows += [_bwd_row(torch, gen, 1, 1023, h, k, 256, bf16)
+             for h, k in ((8, 1), (16, 16))]  # Gemma-2B, Gemma-7B
+    rows.append(_bwd_row(torch, gen, 2, 1023, 32, 8, 128, torch.float32))
+    rows.append(_bwd_row(torch, gen, 2, 1023, 32, 8, 128, bf16))
+    for row in rows:
+        log("train", "flash_backward " + json.dumps(row))
+    walls = {"kernels_s": time.time() - t_phase}
+    reference = _train_reference(torch)
+    walls["reference_s"] = time.time() - t_phase
+
+    # -- (c) LoRA steps at Llama-3-8B's full width and depth --
+    cfg = LLAMA3_8B
+    rank, alpha = 8, 16.0
+    bufs = lora.init_lora_buffers(cfg, bf16, "cuda")
+    for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+        bufs[f"{t}_a"][:, 0, :, :rank] = (torch.randn(
+            (cfg.n_layers, d_in, rank), device="cuda", generator=gen)
+            / math.sqrt(d_in)).to(bf16)
+    bufs["scale"][0] = alpha / rank
+    opt = train.make_optimizer(bufs, lr=TRAIN_8B_LR, weight_decay=0.0)
+    step = train.make_lora_train_step(cfg, opt)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device="cuda",
+                           generator=gen)
+    positions = torch.arange(1024, device="cuda").repeat(2, 1)
+    slot_ids = torch.zeros(2, dtype=torch.int32, device="cuda")
+    b0 = {t: bufs[f"{t}_b"][:, 0].clone() for t in lora.TARGETS}
+    a0 = {t: bufs[f"{t}_a"][:, 0].clone() for t in lora.TARGETS}
+
+    def one_step():
+        return step(params, bufs, opt.state, tokens, positions, slot_ids)[2]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches()
+    losses, walls_ms = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(one_step())
+        torch.cuda.synchronize()
+        walls_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:  # b zero: the first step moves b only
+            if not all(torch.equal(bufs[f"{t}_a"][:, 0], a0[t])
+                       and not torch.equal(bufs[f"{t}_b"][:, 0], b0[t])
+                       for t in lora.TARGETS):
+                raise AssertionError("train 8B: the first step must move "
+                                     "every b and no a")
+    launches = read_launches()
+    check_only(launches, {"flash_prefill": TRAIN_STEPS * cfg.n_layers,
+                          "flash_backward": TRAIN_STEPS * cfg.n_layers},
+               "train 8B")
+    losses = [x.item() for x in losses]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train 8B: the loss did not fall: {losses}")
+    for t in lora.TARGETS:
+        pad = bufs[f"{t}_a"][:, 0, :, rank:], bufs[f"{t}_b"][:, 0, rank:]
+        if any(x.any() for x in pad) or bufs[f"{t}_a"][:, 1:].any():
+            raise AssertionError(f"train 8B: {t}'s padded rank lanes or "
+                                 "unused slots moved")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _profile(torch, "train 8B LoRA step (B=2, S=1024, rank 8)",
+                    one_step, reps=2)
+    bwd_ms = sum(r["ms"] for r in prof["port_kernels"]
+                 if "flash_backward" in r["name"])
+    fwd_ms = sum(r["ms"] for r in prof["port_kernels"]
+                 if "flash_tile" in r["name"])
+    stats = {
+        "steps": TRAIN_STEPS, "lr": TRAIN_8B_LR, "losses": losses,
+        "step_wall_ms": walls_ms,
+        "step_wall_ms_mean_after_first": sum(walls_ms[1:]) / (TRAIN_STEPS - 1),
+        "profile_wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "flash_backward_device_ms": bwd_ms,
+        "flash_backward_share": (bwd_ms / prof["device_ms"]
+                                 if isinstance(prof["device_ms"], float)
+                                 else "not measured"),
+        "flash_forward_device_ms": fwd_ms,
+        "peak_mem_gb": peak_gb,
+        "peak_mem_gb_above_start": peak_gb - mem0 / 1e9,
+        "launches_per_step": {k: v // TRAIN_STEPS for k, v in
+                              launches.items() if v},
+    }
+    log("train", "Llama-3-8B LoRA steps (bf16 tree frozen, slot 0 rank 8, "
+        "two 1024-token rows): " + json.dumps(stats))
+    walls["steps_s"] = time.time() - t_phase
+
+    # -- (d) the trained adapter served over HTTP --
+    root = tempfile.mkdtemp(prefix="smoke-train-")
+    path = os.path.join(root, "trained-r8.npz")
+    train.save_trained_adapter(path, cfg, bufs, 0, rank, alpha)
+    prompts = [SERVE_TEXT[:n] for n in (12, 50, 120, 400)]
+    max_tokens = 16
+    answers = {}
+    try:
+        httpd, engine, _ = api_http.make_server(SERVER_ARGV, params=params)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = "http://127.0.0.1:%d" % httpd.server_address[1]
+        try:
+            status, text = _post(url + "/v1/load_lora_adapter",
+                                 {"lora_name": "trained", "lora_path": path})
+            if status != 200:
+                raise AssertionError(f"train: adapter load {status} {text}")
+            served: list = []
+            _record(engine, "submit", served)
+            for prompt in prompts:
+                status, text = _post(url + "/v1/completions", {
+                    "prompt": prompt, "model": "trained",
+                    "max_tokens": max_tokens, "temperature": 0.0})
+                if status != 200:
+                    raise AssertionError(f"train: completion {status} "
+                                         f"{text[:300]}")
+            answers["http"] = [list(r.output_tokens) for r in served]
+            prompt_tokens = [list(r.prompt_tokens) for r in served]
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            engine.stop()
+        del engine, httpd
+        httpd, engine, _ = api_http.make_server(SERVER_ARGV, params=params)
+        httpd.server_close()  # the engine alone, in process
+        try:
+            info = engine.lora.load("trained", weights=train.extract_adapter(
+                cfg, bufs, 0, rank), alpha=alpha, rank=rank)
+            held = engine.lora.buffers
+            if not all(torch.equal(held[f"{t}_{ab}"][:, info.slot],
+                                   bufs[f"{t}_{ab}"][:, 0])
+                       for t in lora.TARGETS for ab in ("a", "b")):
+                raise AssertionError("train: the engine's slot is not the "
+                                     "trained buffers")
+            for key, adapter in (("engine", "trained"), ("base", None)):
+                reqs = []
+                for toks in prompt_tokens:  # one at a time, as over HTTP
+                    req = engine.submit(Request(prompt_tokens=toks,
+                                                max_new_tokens=max_tokens,
+                                                adapter=adapter))
+                    if not req.done.wait(300) or req.error:
+                        raise AssertionError(f"train: {key} request "
+                                             f"failed: {req.error}")
+                    reqs.append(list(req.output_tokens))
+                answers[key] = reqs
+        finally:
+            engine.stop()
+        del engine, httpd
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if answers["http"] != answers["engine"]:
+        raise AssertionError("train: the served adapter's answers differ "
+                             f"from the in-process engine's: {answers}")
+    if answers["engine"] == answers["base"]:
+        raise AssertionError("train: the trained adapter answers as the "
+                             "base model does")
+    stats["served_answers_equal_engine"] = True
+    stats["answers_differing_from_base"] = sum(
+        a != b for a, b in zip(answers["engine"], answers["base"]))
+    walls["phase_s"] = time.time() - t_phase
+    stats["walls"] = walls
+    log("train", "trained adapter over /v1/load_lora_adapter: greedy "
+        f"answers equal the in-process engine's on {len(prompts)} prompts, "
+        f"{stats['answers_differing_from_base']} differ from the base "
+        f"model's; phase walls {json.dumps(walls)}")
+    del bufs, opt, step
+    return {"kernel_rows": {"flash_backward": rows}, "launches": launches,
+            "reference": reference, "stats": stats}
+
+
 def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     """One entry per kernel: numbers at its largest main-path shape, the
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
-    families)."""
+    families, train)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
         source, replaces = KERNEL_SOURCES[name]
-        counts = {path: launches[name] for path, launches in by_path.items()}
+        counts = {path: launches.get(name, 0)
+                  for path, launches in by_path.items()}
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(counts.values()),
@@ -3950,6 +4445,8 @@ def main() -> int:
     checkpoint = phase_checkpoint(torch, params, adapter_path, stats,
                                   spec["lanes"])
     done("checkpoint")
+    trained = phase_train(torch, params)
+    done("train")
     # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes,
     # with all phase 14 loaded.
     del params
@@ -3959,6 +4456,7 @@ def main() -> int:
     done("families")
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
+    kernel_rows.update(trained["kernel_rows"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
@@ -3970,7 +4468,8 @@ def main() -> int:
                "surface": surface["launches"],
                "checkpoint": {name: checkpoint["launches"].get(name, 0)
                               for name in stats["launches"]},
-               "families": families["launches"]}
+               "families": families["launches"],
+               "train": trained["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

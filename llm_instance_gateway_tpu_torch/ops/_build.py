@@ -37,7 +37,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 KERNELS = ("flash_prefill", "decode_attention", "chunk_attention",
            "paged_decode_attention", "decode_attention_quant",
-           "paged_decode_attention_quant")
+           "paged_decode_attention_quant", "flash_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -51,6 +51,8 @@ SIGNATURES = {
     "decode_attention_quant": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "paged_decode_attention_quant": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
+    # inputs q, k, v, out, dout; outputs dq, dk, dv; scratch lse, delta
+    "flash_backward": [_P] * 10 + [_I] * 6 + [_F, _P],
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,20 @@ tests), a CUDA tensor launches the kernel or raises — there is no fallback
 to the plain version or to a library kernel on the card.  ``launches``
 counts kernel launches, so a run can show the serving path went through
 the kernel.
+
+Gradient: with grad mode on and an input that requires grad,
+``flash_attention`` goes through ``FlashAttention`` (a
+``torch.autograd.Function``), whose backward is
+``flash_attention_backward``: on a CUDA tensor the hand-written backward
+kernel ``csrc/flash_backward.cu`` (lse and delta, then dK/dV and dQ, no
+atomics; bf16 at hd 64/128 on the tensor cores, rounding P and dS to bf16
+as the forward rounds P; f32 and hd 256 on CUDA-core FMAs), on a CPU
+tensor ``flash_attention_backward_reference``.  The
+kernel's output has no ``grad_fn``, so the raw forward launch
+(``flash_prefill_kernel``) refuses grad-requiring inputs under grad mode
+rather than cut the graph silently.  Without grad the call takes the
+serving path unchanged.  ``backward_launches`` counts the backward
+kernel's launches (one per call: its three kernels from one C entry).
 """
 
 from __future__ import annotations
@@ -38,6 +52,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the count was last reset (plain int, host side).
 launches = 0
+backward_launches = 0
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -83,15 +98,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              "on one device")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal prefill attention in the model layout (right-padded batches).
-
-    CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
-    ``ValueError`` for a shape it does not take."""
+def flash_prefill_kernel(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """The raw forward launch on CUDA tensors.  Its output has no
+    ``grad_fn``, so it raises on an input that requires grad while grad
+    mode is on: such a call goes through ``FlashAttention``."""
     global launches
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_prefill_kernel: an input requires grad "
+                           "under grad mode; the raw launch would cut the "
+                           "autograd graph (call flash_attention)")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -104,3 +120,95 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     _build.check(rc, "flash_prefill")
     launches += 1
     return out
+
+
+def _forward(q, k, v):
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v)
+    return flash_prefill_kernel(q, k, v)
+
+
+def flash_attention_backward_reference(q, k, v, out, dout):
+    """The backward kernel's function in plain PyTorch, explicit f32
+    arithmetic: P from the masked f32 logits, dP = dout . v^T,
+    delta = rowsum(dout * out), dS = P (dP - delta), dq = scale dS k,
+    dk = scale dS^T q and dv = P^T dout summed over each KV head's group;
+    each cast to its input's dtype.  Returns (dq, dk, dv)."""
+    b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    g = h // n_kv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(b, s, n_kv, g, hd)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(b, s, n_kv, g, hd)
+    logits = torch.einsum("bikgh,bjkh->bkgij", qf * scale, kf)
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    p = torch.softmax(torch.where(causal, logits, NEG_INF), dim=-1)
+    dp = torch.einsum("bikgh,bjkh->bkgij", dof, vf)
+    delta = (dof * out.float().reshape(b, s, n_kv, g, hd)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgij,bjkh->bikgh", ds, kf) * scale
+    dk = torch.einsum("bkgij,bikgh->bjkh", ds, qf) * scale
+    dv = torch.einsum("bkgij,bikgh->bjkh", p, dof)
+    return (dq.reshape(b, s, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_backward(q, k, v, out, dout):
+    """(dq, dk, dv) of causal GQA attention given its output and the
+    output's gradient (all contiguous, q's layout for out and dout).
+
+    CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
+    ``ValueError`` for a shape it does not take."""
+    global backward_launches
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v)
+    for t in (out, dout):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError("flash_attention_backward: out and dout must "
+                             "be contiguous, of q's shape, dtype and device")
+    b, s, h, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_backward").flash_backward_launch
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, k.shape[2],
+            hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_backward")
+    backward_launches += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward kernel (or plain
+    version) forward, ``flash_attention_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out = _forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return flash_attention_backward(q, k, v, out, dout.contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal prefill attention in the model layout (right-padded batches).
+
+    CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
+    ``ValueError`` for a shape it does not take.  Under grad mode with an
+    input that requires grad, through ``FlashAttention`` (differentiable,
+    the backward kernel on the card)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v)
+    return _forward(q, k, v)

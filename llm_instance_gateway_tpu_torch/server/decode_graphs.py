@@ -59,6 +59,7 @@ _COUNTERS = {
     "paged_decode_attention": (paged_decode_attention, "launches"),
     "paged_decode_attention_quant": (paged_decode_attention,
                                      "quant_launches"),
+    "flash_backward": (flash_attention, "backward_launches"),
 }
 
 

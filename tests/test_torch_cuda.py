@@ -1199,3 +1199,159 @@ def test_checkpoint_load_on_the_card_equals_the_cpu_load(dev, tmp_path, name,
         assert got[key].device.type == "cuda", key
         assert got[key].dtype == leaf.dtype, key
         assert torch.equal(got[key].cpu(), leaf), key
+
+
+# -- the flash backward kernel (training) ------------------------------------
+
+def assert_grad_close(got, want, dtype):
+    """``assert_close`` for a gradient: each vector's error over the larger
+    of its own largest |value| and 1/16 of the tensor's, or of 1 (the
+    inputs' scale) if that is larger — a vector that cancels to ~0 in
+    exact arithmetic comes out at rounding size on both sides: dq of query
+    0, whose one probability is 1, and all of dq at S = 1 — and the flat
+    ceiling scaled by the tensor's largest |value| (gradients are not
+    bounded by max |v| as attention outputs are)."""
+    g, w = got.float(), want.float()
+    num = (g - w).abs().amax(-1)
+    top = w.abs().max().clamp_min(1.0)
+    den = torch.maximum(w.abs().amax(-1), top / 16)
+    assert (num / den).max().item() < SCALED_TOL[dtype]
+    assert num.max().item() < ABS_TOL[dtype] * max(1.0, top.item())
+
+
+BWD_CASES = [(g, hd, s) for g in (1, 4, 8) for hd in (64, 128, 256)
+             for s in (1, 17, 127, 128, 129)]
+
+
+def _bwd_inputs(dev, dtype, b, s, h, kv, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = randn(gen, b, s, h, hd, dtype=dtype)
+    k = randn(gen, b, s, kv, hd, dtype=dtype)
+    v = randn(gen, b, s, kv, hd, dtype=dtype)
+    dout = randn(gen, b, s, h, hd, dtype=dtype)
+    with torch.no_grad():
+        out = fl.flash_attention(q, k, v)
+    return q, k, v, out, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,hd,s", BWD_CASES)
+def test_flash_backward_matches_plain_version(dev, dtype, g, hd, s):
+    args = _bwd_inputs(dev, dtype, 2, s, 8, 8 // g, hd, seed=s * 7 + hd + g)
+    before = fl.backward_launches
+    got = fl.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    assert fl.backward_launches == before + 1
+    want = fl.flash_attention_backward_reference(*args)
+    for gt, w in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == w.shape
+        assert_grad_close(gt, w, dtype)
+
+
+def test_flash_backward_is_bitwise_reproducible(dev):
+    """No atomics: two runs give the same bits (Llama-3-8B's grouping,
+    ragged tiles)."""
+    args = _bwd_inputs(dev, torch.bfloat16, 2, 300, 32, 8, 128, seed=3)
+    first = fl.flash_attention_backward(*args)
+    second = fl.flash_attention_backward(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_runs_the_backward_kernel(dev):
+    """``flash_attention`` under grad: one forward and one backward launch,
+    the gradients the backward wrapper's on the same inputs."""
+    q, k, v, _, dout = _bwd_inputs(dev, torch.bfloat16, 1, 130, 8, 2, 128, 9)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = fl.launches, fl.backward_launches
+    out = fl.flash_attention(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fl.launches - f0, fl.backward_launches - b0) == (1, 1)
+    want = fl.flash_attention_backward(q, k, v, out.detach(), dout)
+    for t, w in zip(leaves, want):
+        assert torch.equal(t.grad, w)
+
+
+def test_raw_flash_launch_refuses_grad_inputs(dev):
+    q, k, v, _, _ = _bwd_inputs(dev, torch.bfloat16, 1, 16, 8, 2, 128, 1)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fl.flash_prefill_kernel(q.requires_grad_(True), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        fl.flash_attention_backward(*_bwd_inputs(
+            dev, torch.float32, 1, 16, 4, 2, 32, 1))
+
+
+def _flat_grads(fn, tree):
+    """(loss, path -> gradient) over the tree's floating leaves."""
+    leaves = {}
+
+    def walk(t, prefix):
+        for key, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{key}/")
+            elif v.is_floating_point():
+                leaves[f"{prefix}{key}"] = v.requires_grad_(True)
+
+    walk(tree, "")
+    loss = fn(tree)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), {p: g.cpu() for p, g in zip(leaves, grads)}
+
+
+@pytest.mark.parametrize("kind", ["full", "lora"])
+def test_train_gradients_card_against_cpu(dev, kind):
+    """The regression test for a cut graph: a narrow f32 model's loss and
+    every gradient leaf on the card (forward and backward kernels) equal
+    the CPU's (plain versions) within 1e-4 of each leaf's largest |value|
+    (summation order, TF32 off) — wq/wk/wv and their LoRA leaves, which a
+    cut at attention would leave at zero, among them."""
+    from llm_instance_gateway_tpu_torch.models import lora, transformer
+    from llm_instance_gateway_tpu_torch.training import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _narrow_cfg()
+    cpu_params = transformer.init_params(cfg, seed=5, dtype=torch.float32,
+                                         device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 130), generator=gen)
+    positions = torch.arange(130).repeat(2, 1)
+    tokens[1, 77:], positions[1, 77:] = 0, 0
+    results = {}
+    for device in ("cpu", "cuda"):
+        params = {k: ({n: t.detach().to(device) for n, t in v.items()}
+                      if isinstance(v, dict) else v.detach().to(device))
+                  for k, v in cpu_params.items()}
+        args = (tokens.to(device), positions.to(device))
+        if kind == "full":
+            fn = (lambda p, a=args: train.causal_lm_loss(cfg, p, *a))
+            tree = params
+        else:
+            bufs = lora.init_lora_buffers(cfg, torch.float32, device)
+            bgen = torch.Generator().manual_seed(9)  # the same on both
+            for t in lora.TARGETS:
+                for ab in ("a", "b"):
+                    bufs[f"{t}_{ab}"].copy_(torch.randn(
+                        bufs[f"{t}_{ab}"].shape, generator=bgen) * 0.05)
+            bufs["scale"].fill_(2.0)
+            slots = torch.tensor([0, 1], device=device)
+            fn = (lambda b, p=params, a=args, s=slots: train.causal_lm_loss(
+                cfg, p, *a, lora_bufs=b, slot_ids=s))
+            tree = bufs
+        f0, b0 = fl.launches, fl.backward_launches
+        results[device] = _flat_grads(fn, tree)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert fl.launches - f0 == cfg.n_layers
+            assert fl.backward_launches - b0 == cfg.n_layers
+    (want_loss, want), (got_loss, got) = results["cpu"], results["cuda"]
+    assert abs(got_loss - want_loss) < 1e-5
+    assert set(got) == set(want)
+    for path, w in want.items():
+        err = (got[path] - w).abs().max().item()
+        assert err <= 1e-4 * max(w.abs().max().item(), 1e-6), (path, err)
+    attn = (("layers/wq", "layers/wk", "layers/wv") if kind == "full" else
+            ("q_a", "q_b", "k_a", "k_b", "v_a", "v_b"))
+    for path in attn:
+        assert got[path].abs().max() > 0, path
