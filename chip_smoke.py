@@ -9,8 +9,9 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    (nvidia-smi) and the TF32 switches;
 2. build   — builds every kernel in llm_instance_gateway_tpu_torch/ops/csrc
    with nvcc for sm_90a (one process per source, all at once), and reads
-   the flash and chunk libraries' SASS (cuobjdump): their bf16 kernels
-   must run HGMMA (wgmma on the tensor cores), their f32 kernels none;
+   the flash, chunk and flash backward libraries' SASS (cuobjdump): their
+   bf16 kernels must run HGMMA (wgmma on the tensor cores), their f32
+   kernels none, and the backward's none HMMA (mma.sync);
 3. kernels — calls each kernel's wrapper at the serving paths' shapes,
    holds it against its plain PyTorch version (each output vector's error
    within 2^-6 of its largest value, SCALED_TOL, and every error within
@@ -174,8 +175,12 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    its plain version (``check_grad``: phase 3's scaled rule, floored for
    gradients that cancel) at the training shape B=2 S=1023 H=32 K=8
    hd=128 in bf16 and f32, at Gemma's layouts (8:1, 16:16 at hd 256) and
-   at S 1, 16, 127, 129, two runs bitwise equal, timed beside its plain
-   version, its bound and the SDPA backward (a yardstick); at S = 1023
+   at S 1, 16, 127, 129, two runs bitwise equal, bf16 as training runs it
+   (the training forward's lse handed over; the call without it must give
+   the same bits), its route and group split recorded, timed beside its
+   plain version, its bound and the SDPA backward (a yardstick), at
+   S = 1023 also at every split the group allows and with the training
+   forward beside the serving one; at S = 1023
    the plain gradients with one 64-row tile zeroed (dq's query tile 5,
    dk's ragged last key tile, dv's key tile 1) must fail the check; a
    narrow f32 model's loss, every gradient leaf and two AdamW steps,
@@ -393,6 +398,19 @@ def phase_build() -> None:
     log("build", f"built {sorted(paths)} in {secs:.2f} s")
     for name in ("flash_prefill", "chunk_attention"):
         check_tensor_cores(name, paths[name])
+    check_backward_sass(paths["flash_backward"])
+
+
+def sass_kernels(path: str) -> list:
+    """(mangled name, SASS) of each kernel in the library (cuobjdump)."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass,
+                      re.S)
 
 
 def check_tensor_cores(name: str, path: str) -> None:
@@ -400,15 +418,9 @@ def check_tensor_cores(name: str, path: str) -> None:
     kernel of flash_tile_sm90.cuh must contain HGMMA, each f32 (FMA)
     kernel of flash_tile.cuh none."""
     import re
-    import shutil
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
-    kernels = re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", sass,
-                         re.S)
     counts = {"bf16": {}, "f32": {}}
-    for fn, body in kernels:
+    for fn, body in sass_kernels(path):
         kind = "bf16" if "flash_tile_sm90" in fn else "f32"
         hd = int(re.search(r"flash_kernelILi(\d+)E", fn).group(1))
         counts[kind][hd] = n = body.count("HGMMA")
@@ -420,6 +432,35 @@ def check_tensor_cores(name: str, path: str) -> None:
                              f"64/128/256, found {counts}")
     log("build", f"{name} SASS: HGMMA instructions per kernel by head dim "
         f"{json.dumps(counts)}")
+
+
+def check_backward_sass(path: str) -> None:
+    """The flash backward library's SASS: its bf16 kernels (the training
+    forward, dK/dV, dQ) at each head dim must run HGMMA (wgmma), its f32
+    kernels (stats, dK/dV, dQ) none, and no kernel HMMA (mma.sync): no
+    mma.sync or FMA route is left for bf16."""
+    import re
+
+    counts: dict = {}
+    for fn, body in sass_kernels(path):
+        kind = next((k for k in ("flash_kernel", "dkdv_kernel", "dq_kernel",
+                                 "stats_kernel", "dkdv_f32_kernel",
+                                 "dq_f32_kernel", "delta_kernel",
+                                 "reduce_kernel") if k in fn), fn)
+        hd = re.search(r"kernelILi(\d+)E", fn)
+        n, mma = body.count("HGMMA"), body.count("HMMA")
+        counts.setdefault(kind, {})[hd.group(1) if hd else "-"] = n
+        wgmma = kind in ("flash_kernel", "dkdv_kernel", "dq_kernel")
+        if mma or (n > 0) != wgmma:
+            raise AssertionError(f"flash_backward: {fn} has {n} HGMMA and "
+                                 f"{mma} HMMA instructions")
+    for kind in ("flash_kernel", "dkdv_kernel", "dq_kernel", "stats_kernel",
+                 "dkdv_f32_kernel", "dq_f32_kernel", "delta_kernel"):
+        if sorted(counts.get(kind, {})) != ["128", "256", "64"]:
+            raise AssertionError(f"flash_backward: expected {kind} at hd "
+                                 f"64/128/256, found {counts}")
+    log("build", "flash_backward SASS: HGMMA instructions per kernel by "
+        f"head dim (no HMMA anywhere) {json.dumps(counts)}")
 
 
 def phase_kernels(torch) -> dict:
@@ -3944,7 +3985,13 @@ def _bwd_row(torch, gen, b: int, s: int, h: int, k: int, hd: int,
     """The backward kernel against its plain version on one shape (long
     rows: with the check's reach, ``_grad_check_reach``), two runs bitwise
     equal, and its ms beside the plain version's, the bound and, as a
-    yardstick only, the backward of one causal GQA SDPA call."""
+    yardstick only, the backward of one causal GQA SDPA call.  bf16 runs as
+    training does: the training forward's lse handed to the backward
+    (whose launches, delta, dK/dV, the split's reduction and dQ, are
+    timed; the no-lse call must give the same bits), its route and group
+    split recorded, and at S >= 512 every split the group allows timed
+    beside the plan's (``split_sweep_ms``) and the training forward beside
+    the serving one."""
     import torch.nn.functional as F
 
     from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
@@ -3954,35 +4001,58 @@ def _bwd_row(torch, gen, b: int, s: int, h: int, k: int, hd: int,
 
     q, kk, v, dout = draw(b, s, h, hd), draw(b, s, k, hd), draw(b, s, k, hd), \
         draw(b, s, h, hd)
+    bf16 = dtype == torch.bfloat16
     with torch.no_grad():
-        out = fl.flash_attention(q, kk, v)
+        out, lse = (fl.flash_forward_lse(q, kk, v) if bf16 else
+                    (fl.flash_attention(q, kk, v), None))
     args = (q, kk, v, out, dout)
-    got = fl.flash_attention_backward(*args)
+    got = fl.flash_attention_backward(*args, lse=lse)
     want = fl.flash_attention_backward_reference(*args)
     torch.cuda.synchronize()
     shape = (f"B={b} S={s} H={h} K={k} hd={hd} "
              f"{str(dtype).replace('torch.', '')}")
     errs = [check_grad(f"flash_backward {shape} d{n}", g, w)
             for n, g, w in zip("qkv", got, want)]
-    row = dict(shape=shape,
+    splits = (fl.split_plan(b, s, h, k, hd, fl._sm_count(q.device))
+              if bf16 else 1)
+    row = dict(shape=shape, route="wgmma (TMA ring)" if bf16 else
+               "CUDA-core FMA", splits=splits,
                max_abs_err=max(e["max_abs_err"] for e in errs),
                scaled_err=max(e["scaled_err"] for e in errs))
     if s >= 512:
         row["check_reach_scaled_err"] = _grad_check_reach(want, s)
-    again = fl.flash_attention_backward(*args)
+    again = fl.flash_attention_backward(*args, lse=lse)
     row["bitwise_reproducible"] = all(torch.equal(x, y)
                                       for x, y in zip(got, again))
     if not row["bitwise_reproducible"]:
         raise AssertionError(f"flash_backward {shape}: two runs differ")
+    if bf16:
+        own = fl.flash_attention_backward(*args)
+        if not all(torch.equal(x, y) for x, y in zip(got, own)):
+            raise AssertionError(f"flash_backward {shape}: the call without "
+                                 "the forward's lse differs")
     elt = q.element_size()
     # q, out, dout, dq and k, v, dk, dv: each read or written once
     nbytes = elt * (4 * q.numel() + 4 * kk.numel())
     ops = 5 * 2 * b * h * s * (s + 1) // 2 * hd
-    sets = [tuple(t.clone() for t in args)
+    sets = [tuple(t.clone() for t in args) + (lse,)
             for _ in range(copies_for(nbytes))]
-    ms = time_ms(torch, fl.flash_attention_backward, sets)
+
+    def bwd(*a, splits=None):
+        return fl.flash_attention_backward(*a[:5], lse=a[5], splits=splits)
+
+    ms = time_ms(torch, bwd, sets)
     plain_ms = time_ms(torch, fl.flash_attention_backward_reference,
-                       sets[:2], iters=3, warmup=1)
+                       [t[:5] for t in sets[:2]], iters=3, warmup=1)
+    if bf16 and s >= 512:
+        row["split_sweep_ms"] = {
+            str(d): time_ms(torch, lambda *a, d=d: bwd(*a, splits=d), sets)
+            for d in range(1, h // k + 1) if (h // k) % d == 0}
+        row.update(device_ms(torch, bwd, sets))  # each launch's share
+        fwd_sets = [t[:3] for t in sets]
+        row["forward_ms"] = time_ms(torch, fl.flash_prefill_kernel, fwd_sets)
+        row["forward_lse_ms"] = time_ms(torch, fl.flash_forward_lse,
+                                        fwd_sets)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, kk, v))
     o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,

@@ -12,8 +12,9 @@ launch function returns ``cudaGetLastError()`` so a refused launch raises
 in the wrapper instead of passing silently.
 
 ``load`` sets each launch function's ``restype``/``argtypes`` once, from
-``SIGNATURES``, so a wrapper's call converts its arguments without
-rebuilding the converters every time.
+``SIGNATURES`` (and ``EXTRA_ENTRIES`` for a library's further C entries),
+so a wrapper's call converts its arguments without rebuilding the
+converters every time.
 
 Builds run at first use (``python3 chip_smoke.py`` alone builds
 everything); ``build_all`` starts one ``nvcc`` per source at once.  The
@@ -51,8 +52,16 @@ SIGNATURES = {
     "decode_attention_quant": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     "paged_decode_attention": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "paged_decode_attention_quant": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
-    # inputs q, k, v, out, dout; outputs dq, dk, dv; scratch lse, delta
-    "flash_backward": [_P] * 10 + [_I] * 6 + [_F, _P],
+    # inputs q, k, v, out, dout; outputs dq, dk, dv; lse (given or
+    # scratch), scratch delta and partials; then splits, lse_given
+    "flash_backward": [_P] * 11 + [_I] * 8 + [_F, _P],
+}
+# Further C entries of a library: function name -> argument types.
+EXTRA_ENTRIES = {
+    "flash_backward": {
+        # q, k, v, out, lse; batch, seq, heads, kv heads, hd; scale, stream
+        "flash_forward_lse_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -118,16 +127,20 @@ build_all.last_log = {}
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for kernel ``name``, built on first use, its
-    ``<name>_launch`` typed from ``SIGNATURES``."""
+    ``<name>_launch`` typed from ``SIGNATURES`` and its further entries
+    from ``EXTRA_ENTRIES``."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(build_all((name,))[name])
-            fn = getattr(lib, f"{name}_launch")
-            fn.restype = ctypes.c_int
-            fn.argtypes = SIGNATURES[name]
+            entries = {f"{name}_launch": SIGNATURES[name],
+                       **EXTRA_ENTRIES.get(name, {})}
+            for entry, argtypes in entries.items():
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _libs[name] = lib
         return _libs[name]
 

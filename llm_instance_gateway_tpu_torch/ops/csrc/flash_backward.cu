@@ -9,74 +9,103 @@
 //
 // Computes the gradient of what flash_prefill computes: causal GQA
 // attention, logits (q * scale) . k in f32 with scale 1/sqrt(hd), keys
-// above the diagonal masked, f32 softmax.  Layout: q, out, dout, dq
-// [B, S, H, hd]; k, v, dk, dv [B, S, K, hd]; query head h reads KV head
-// h / (H/K).  Any S: the ragged last tile is masked in every pass.
+// above the diagonal masked (-1e30), f32 softmax.  Layout: q, out, dout,
+// dq [B, S, H, hd]; k, v, dk, dv [B, S, K, hd]; query head h reads KV head
+// h / (H/K).  Any S: the ragged last tile is masked.
 //
-// Three kernels from one C entry, no atomics (so the gradients are bitwise
-// the same from run to run):
-//   (a) stats_kernel, one block per (query tile, head, row): the row
-//       log-sum-exp lse [B, H, S] (f32, natural log), recomputed from q
-//       and k by an online max/sum over the key tiles up to the diagonal
-//       (the serving forward stays as it is and writes no statistics),
-//       and delta = rowsum(dout * out) [B, H, S];
-//   (c) dkdv_kernel, one block per (key tile, KV head, row): holds its K
-//       and V tiles and the dK, dV accumulators on chip and loops over the
-//       G query heads of its group and the query tiles at or below the
-//       diagonal, recomputing P = exp(s - lse), dP = dout . v^T,
-//       dS = P (dP - delta); dV += P^T dout, dK += dS^T (q * scale);
-//   (d) dq_kernel, one block per (query tile, head, row): loops over the
-//       key tiles up to the diagonal, dQ += dS k, times scale.
-// Two routes through the same three passes:
-// - bf16 at hd 64 and 128 (every model the port trains but Gemma) on the
-//   tensor cores: mma.sync m16n8k16 with f32 accumulation, 64-row tiles,
-//   four warps of 16 rows each; scores and dP stay in registers, P and dS
-//   are rounded to bf16 there (a relative 2^-9, as the forward rounds P)
-//   and feed the next product as its A operand without touching shared
-//   memory;
-// - f32 (the card's f32 parity checks, no TF32) and hd 256 on CUDA-core
-//   FMAs in f32 from shared memory (bf16 widened where it lands, outputs
-//   rounded once at the end), 256 threads as a 16 x 16 grid, each owning
-//   a (tile/16) x (tile/16) score tile and a (tile/16) x (hd/16)
-//   accumulator tile; tiles of 64 rows (32 at hd 256, to stay within
-//   shared memory).
+// Bound on an H100: five causal products (QK^T, dP = dout V^T, dV, dK,
+// dQ), each 2 * B * H * S(S+1)/2 * hd flops, at 989 TFLOP/s (bf16), or the
+// bytes of q, k, v, out, dout, dq, dk and dv at 3.35 TB/s, whichever is
+// larger.
 //
-// Bound on an H100: five causal products (QK^T, dP, dV, dK, dQ), each
-// 2 * B * H * S(S+1)/2 * hd flops, at 989 TFLOP/s (bf16), or the bytes of
-// q, k, v, out, dout, dq, dk and dv at 3.35 TB/s, whichever is larger.
-// What this simple design leaves on the table: it recomputes QK^T three
-// times and dP twice (eight products for five); the tensor-core route
-// uses mma.sync rather than wgmma (at most ~2/3 of the tensor cores' rate
-// on Hopper), loads tiles synchronously without a TMA ring or cp.async
-// double buffering, and holds four warps a block; with one KV head
-// (Gemma-2B) the dK/dV pass has one block per key tile, too few to fill
-// the card.
+// bf16 (hd 64, 128, 256): FlashAttention-3's backward on wgmma fed by TMA,
+// simplified.  Launches, all from flash_backward_launch, none atomic (so
+// the gradients are bitwise the same from run to run):
+//   (0) only when the caller has no lse: the training forward
+//       (flash_tile_sm90.cuh's flash_kernel<HD, true>, also exported as
+//       flash_forward_lse_launch) run for its lse alone, its output into
+//       dq's buffer, which (4) overwrites.  FlashAttention's forward saves
+//       that lse, so training never recomputes QK^T for it;
+//   (1) delta_kernel: delta = rowsum(dout * out), f32 [B, H, S], 16 bytes
+//       a thread (memory-bound, ~33 MB at Llama-3-8B's train shape);
+//   (2) dkdv_kernel, one block per (key tile, KV head x group split, row):
+//       three warpgroups.  A producer warp (its warpgroup lowered to 24
+//       registers by setmaxnreg) loads the block's K and V once by TMA,
+//       then streams the 64-row Q and dout tiles of each of its heads at or
+//       below the diagonal through a two-stage ring guarded by full/empty
+//       mbarriers, with their lse and delta slices (copied by the warp's
+//       lanes, which also arrive on the full barrier).  Each consumer
+//       warpgroup (240 registers) computes, per tile,
+//         S^T = K Q^T, dP^T = V dout^T   SS wgmma m64n64k16, f32;
+//         P^T = exp2(S^T * scale * log2 e - lse2), dS^T = P^T (dP^T - delta)
+//                                        in registers; masked (P = 0) only
+//                                        on the tile that straddles the
+//                                        diagonal or the ragged end;
+//         dV += P^T dout, dK += dS^T q   RS wgmma, P^T and dS^T rounded to
+//                                        bf16 in registers as the A operand,
+//                                        dout and q the MN-major B operand
+//                                        (the forward's PV);
+//       then releases the stage; dK is scaled once in the epilogue.  At hd
+//       64 and 128 a block owns 128 keys, 64 per consumer, and each keeps
+//       dK and dV for all hd columns (2 x 64 f32 registers at hd 128).  At
+//       hd 256 that would be 256 registers a thread, so the two consumers
+//       share 64 keys and split dK/dV's columns, 128 each; each computes
+//       S^T and dP^T for the 64 keys itself (P^T and dS^T stay in
+//       registers: no exchange through shared memory and no barrier
+//       between the consumers, for two products more).  Shared memory at
+//       hd 256: K and V 64 KB, the two-stage Q/dout ring 128 KB, lse/delta
+//       1 KB, ~194 KB of 227 KB (hd 128: ~130 KB; tiles: 128 keys x 64
+//       queries);
+//   (3) the group split: with few blocks (one KV head, as Gemma-2B's 8:1,
+//       or a short S) the wrapper splits each group's heads over `splits`
+//       blocks (flash_attention.split_plan), each writing f32 partial
+//       dK/dV to scratch [2, splits, B, S, K, hd]; reduce_kernel sums the
+//       partials in split order, scales dK and casts;
+//   (4) dq_kernel, one block per (query tile, head, row), longest tiles
+//       first: Q, dout (TMA, once), lse and delta stay resident; 64-key K
+//       and V tiles stream through the TMA ring; per tile S = Q K^T,
+//       dP = dout V^T (SS), P and dS, dQ += dS K (RS, K the MN-major B
+//       operand); scaled once at the end.  128 queries a block (64 per
+//       consumer) at hd 64/128, 64 with the hd columns split at 256.
+// lse2 is the forward's base-2 log-sum-exp of the scaled logits
+// (lse / ln 2), so P is one FMA and one exp2 per score.
+//
+// What it leaves on the table: seven products for five (S and dP are
+// computed in both passes; eleven at hd 256), no ping-pong of the softmax
+// against the other consumer's wgmma, S^T/dP^T waited on before the
+// softmax rather than pipelined, and no persistent scheduler (the causal
+// blocks differ in length; both grids launch the longest tiles first).
+// Tried on an H100 and slower: at hd 256, consumer 0 computing S^T (S)
+// and consumer 1 dP^T (dP) and the two swapping them through shared
+// memory between named barriers (seven products, as at hd 128, but the
+// consumers in lockstep); separate commit groups so that P^T is computed
+// while dP^T runs; and no faster: a third ring stage at hd <= 128 and
+// 128-key dQ tiles (wgmma n128 for S and dP).
+//
+// f32 (the card's f32 parity checks, no TF32): CUDA-core FMAs in f32 from
+// shared memory, 256 threads as a 16 x 16 grid, each owning a
+// (tile/16) x (tile/16) score tile and a (tile/16) x (hd/16) accumulator
+// tile; tiles of 64 rows (32 at hd 256, to stay within shared memory);
+// three kernels: stats (lse, natural log, recomputed from q and k, and
+// delta), dK/dV per key tile looping over the group, dQ.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_tile_sm90.cuh"
 
 // Named, so a profile's kernel names say whose they are.
 namespace flash_backward {
 namespace {
 
+namespace sm90 = flash_tile_sm90;
+
+// ---------------------------------------------------------------------------
+// f32 on CUDA-core FMAs.
+
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 struct Cfg {
@@ -96,14 +125,14 @@ struct Cfg {
 
 // Rows [row0, row0 + B) of a [S, *, hd] operand (position stride
 // `stride`) into a f32 tile, times `mul`; rows at or past `n` load zeros.
-template <typename T, int HD, int B>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int HD, int B>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           size_t stride, int row0, int n,
                                           float mul) {
   for (int i = threadIdx.x; i < B * HD; i += kThreads) {
     const int r = i / HD, d = i % HD;
     float x = 0.f;
-    if (row0 + r < n) x = to_f(src[(size_t)(row0 + r) * stride + d]) * mul;
+    if (row0 + r < n) x = src[(size_t)(row0 + r) * stride + d] * mul;
     dst[r * (HD + 1) + d] = x;
   }
 }
@@ -145,11 +174,11 @@ __device__ __forceinline__ void scores(const float* a, const float* b,
   }
 }
 
-// (a) lse and delta for one (query tile, head, row).
-template <typename T, int HD>
+// f32: lse (natural log) and delta for one (query tile, head, row).
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) stats_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ out, const T* __restrict__ dout,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ out, const float* __restrict__ dout,
     float* __restrict__ lse, float* __restrict__ delta, int seq,
     int n_heads, int n_kv, float scale) {
   using C_ = Cfg<HD>;
@@ -168,11 +197,11 @@ __global__ void __launch_bounds__(kThreads, 1) stats_kernel(
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t q_pos = (size_t)n_heads * HD, kv_pos = (size_t)n_kv * HD;
   const size_t q_off = (size_t)b * seq * q_pos + (size_t)h * HD;
-  const T* kb = k + (size_t)b * seq * kv_pos + (size_t)kh * HD;
+  const float* kb = k + (size_t)b * seq * kv_pos + (size_t)kh * HD;
   float* lse_b = lse + ((size_t)b * n_heads + h) * seq;
   float* delta_b = delta + ((size_t)b * n_heads + h) * seq;
 
-  load_tile<T, HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
+  load_tile<HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
   // delta = rowsum(dout * out): LPR neighbouring lanes per row.
   {
     const int r = tid / LPR, part = tid % LPR;
@@ -180,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 1) stats_kernel(
     if (q0 + r < seq) {
       const size_t row = q_off + (size_t)(q0 + r) * q_pos;
       for (int d = part; d < HD; d += LPR)
-        acc += to_f(dout[row + d]) * to_f(out[row + d]);
+        acc += dout[row + d] * out[row + d];
     }
 #pragma unroll
     for (int o = 1; o < LPR; o <<= 1)
@@ -196,7 +225,7 @@ __global__ void __launch_bounds__(kThreads, 1) stats_kernel(
   for (int kt = 0; kt <= last / B; ++kt) {
     const int k0 = kt * B;
     __syncthreads();  // q_s loaded / the previous tile's s_s consumed
-    load_tile<T, HD, B>(k_s, kb, kv_pos, k0, seq, 1.f);
+    load_tile<HD, B>(k_s, kb, kv_pos, k0, seq, 1.f);
     __syncthreads();
     float s[R][R], unused[R][R];
     scores<HD, false>(q_s, k_s, nullptr, nullptr, s, unused);
@@ -256,13 +285,13 @@ __device__ __forceinline__ void probs_and_ds(
     }
 }
 
-// (c) dK and dV for one (key tile, KV head, row), summed over the group.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+// f32: dK and dV for one (key tile, KV head, row), summed over the group.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) dkdv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int seq, int n_heads, int n_kv,
+    float* __restrict__ dk, float* __restrict__ dv, int seq, int n_heads, int n_kv,
     float scale) {
   using C_ = Cfg<HD>;
   constexpr int B = C_::B, R = C_::R, DJ = C_::DJ, LD = C_::LD, SS = C_::SS;
@@ -282,8 +311,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const size_t q_pos = (size_t)n_heads * HD, kv_pos = (size_t)n_kv * HD;
   const size_t kv_off = (size_t)b * seq * kv_pos + (size_t)kh * HD;
-  load_tile<T, HD, B>(k_s, k + kv_off, kv_pos, k0, seq, 1.f);
-  load_tile<T, HD, B>(v_s, v + kv_off, kv_pos, k0, seq, 1.f);
+  load_tile<HD, B>(k_s, k + kv_off, kv_pos, k0, seq, 1.f);
+  load_tile<HD, B>(v_s, v + kv_off, kv_pos, k0, seq, 1.f);
 
   float acc_k[R][DJ], acc_v[R][DJ];
 #pragma unroll
@@ -299,8 +328,8 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(
     for (int qt = kt; qt < n_qt; ++qt) {
       const int q0 = qt * B;
       __syncthreads();  // the previous pair's tiles consumed
-      load_tile<T, HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
-      load_tile<T, HD, B>(do_s, dout + q_off, q_pos, q0, seq, 1.f);
+      load_tile<HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
+      load_tile<HD, B>(do_s, dout + q_off, q_pos, q0, seq, 1.f);
       if (tid < B) {
         const bool ok = q0 + tid < seq;
         lse_s[tid] = ok ? lse[st_off + q0 + tid] : 0.f;
@@ -333,28 +362,28 @@ __global__ void __launch_bounds__(kThreads, 1) dkdv_kernel(
     }
   }
 
-  T* dkb = dk + kv_off;
-  T* dvb = dv + kv_off;
+  float* dkb = dk + kv_off;
+  float* dvb = dv + kv_off;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int c = ty * R + i;
     if (k0 + c < seq) {
 #pragma unroll
       for (int j = 0; j < DJ; ++j) {
-        dkb[(size_t)(k0 + c) * kv_pos + tx + 16 * j] = from_f<T>(acc_k[i][j]);
-        dvb[(size_t)(k0 + c) * kv_pos + tx + 16 * j] = from_f<T>(acc_v[i][j]);
+        dkb[(size_t)(k0 + c) * kv_pos + tx + 16 * j] = acc_k[i][j];
+        dvb[(size_t)(k0 + c) * kv_pos + tx + 16 * j] = acc_v[i][j];
       }
     }
   }
 }
 
-// (d) dQ for one (query tile, head, row); the longest tiles launch first.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
+// f32: dQ for one (query tile, head, row); the longest tiles launch first.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1) dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int seq, int n_heads, int n_kv, float scale) {
+    float* __restrict__ dq, int seq, int n_heads, int n_kv, float scale) {
   using C_ = Cfg<HD>;
   constexpr int B = C_::B, R = C_::R, DJ = C_::DJ, LD = C_::LD, SS = C_::SS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -374,8 +403,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
   const size_t q_off = (size_t)b * seq * q_pos + (size_t)h * HD;
   const size_t kv_off = (size_t)b * seq * kv_pos + (size_t)kh * HD;
   const size_t st_off = ((size_t)b * n_heads + h) * seq;
-  load_tile<T, HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
-  load_tile<T, HD, B>(do_s, dout + q_off, q_pos, q0, seq, 1.f);
+  load_tile<HD, B>(q_s, q + q_off, q_pos, q0, seq, scale);
+  load_tile<HD, B>(do_s, dout + q_off, q_pos, q0, seq, 1.f);
   if (tid < B) {
     const bool ok = q0 + tid < seq;
     lse_s[tid] = ok ? lse[st_off + q0 + tid] : 0.f;
@@ -391,8 +420,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * B;
     __syncthreads();  // the previous tile's dS consumed
-    load_tile<T, HD, B>(k_s, k + kv_off, kv_pos, k0, seq, 1.f);
-    load_tile<T, HD, B>(v_s, v + kv_off, kv_pos, k0, seq, 1.f);
+    load_tile<HD, B>(k_s, k + kv_off, kv_pos, k0, seq, 1.f);
+    load_tile<HD, B>(v_s, v + kv_off, kv_pos, k0, seq, 1.f);
     __syncthreads();
     probs_and_ds<HD>(q_s, do_s, k_s, v_s, lse_s, delta_s, nullptr, ds_s, q0,
                      k0, seq);
@@ -412,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
     }
   }
 
-  T* dqb = dq + q_off;
+  float* dqb = dq + q_off;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = ty * R + i;
@@ -420,382 +449,498 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         dqb[(size_t)(q0 + r) * q_pos + tx + 16 * j] =
-            from_f<T>(acc[i][j] * scale);
+            acc[i][j] * scale;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at hd 64 and 128: the same three passes on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, f32 accumulation).  128 threads, four
-// warps each owning 16 rows of a 64-row tile; tiles stay bf16 in shared
-// memory (rows padded by 8 values: conflict-free fragment loads).  Scores
-// and dP stay in registers; P and dS are rounded to bf16 there and fed
-// straight back as the A operand of the next product (the accumulator
-// layout of two n-tiles is the A layout of one k-step), so only the
-// operand tiles touch shared memory.
+// bf16 on wgmma fed by TMA.
 
-constexpr int kTcThreads = 128;
-constexpr int kBT = 64;  // query and key tile rows
+constexpr int kTcThreads = 384;  // producer + two consumer warpgroups
+constexpr int kStages = 2;       // ring depth
+constexpr int kBT = 64;          // rows of a streamed tile (Q/dout or K/V)
+constexpr int kSlab = kBT * 128; // bytes of one 64-column slab of it
 
 template <int HD>
 struct Tc {
-  static constexpr int LD = HD + 8;   // bf16 row stride of a tile
-  static constexpr int NT = kBT / 8;  // n-tiles across a tile's rows
-  static constexpr int DT = HD / 8;   // n-tiles across hd
-  static constexpr size_t tile_bytes = (size_t)kBT * LD * 2;
-  static constexpr size_t stats_bytes = 2 * tile_bytes;
-  static constexpr size_t grad_bytes = 4 * tile_bytes + 2 * kBT * 4;
+  static constexpr bool SPLIT = HD == 256;     // consumers split hd columns
+  static constexpr int DN = SPLIT ? 128 : HD;  // output columns a consumer owns
+  static constexpr int ROWS = SPLIT ? 64 : 128;  // keys (dK/dV), queries (dQ)
+  static constexpr int OWN = ROWS * HD * 2;    // bytes of a resident tile
+  static constexpr int OWN_SLAB = ROWS * 128;  // ... of one of its slabs
+  static constexpr int TILE = kBT * HD * 2;    // bytes of a streamed tile
+  static constexpr int BARS = 8 * (1 + 2 * kStages);
+  // dkdv: K | V | Q ring | dout ring | (lse, delta) ring | barriers
+  static constexpr int KV_Q = 2 * OWN;
+  static constexpr int KV_DO = KV_Q + kStages * TILE;
+  static constexpr int KV_STATS = KV_DO + kStages * TILE;
+  static constexpr int KV_BAR = KV_STATS + kStages * 2 * kBT * 4;
+  static constexpr int KV_SMEM = KV_BAR + BARS + 1024;  // + base alignment
+  // dq: Q | dout | K ring | V ring | barriers
+  static constexpr int Q_K = 2 * OWN;
+  static constexpr int Q_V = Q_K + kStages * TILE;
+  static constexpr int Q_BAR = Q_V + kStages * TILE;
+  static constexpr int Q_SMEM = Q_BAR + BARS + 1024;
 };
 
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// K-major descriptor of k-step kk (16 columns) of a tile whose 64-column
+// slabs are `slab` bytes apart, from row offset `row_bytes`.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int slab, int kk,
+                                           int row_bytes) {
+  return sm90::smem_desc(tile + (kk / 4) * slab + row_bytes + (kk % 4) * 32,
+                         16);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// MN-major (B operand) descriptor of k-step kk (16 rows) of a streamed
+// 64-row tile, from column `col` (a multiple of 64).
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk, int col) {
+  return sm90::smem_desc(tile + (col / 64) * kSlab + kk * 16 * 128, kSlab);
 }
 
-// Rows [row0, row0 + 64) of a bf16 [S, *, hd] operand into a tile, 16
-// bytes a copy; rows at or past n load zeros.
+// Accumulator layout (m64nN): this thread holds rows r_lo and r_lo + 8 of
+// the warpgroup's 64 (r_lo = 16 warp + lane / 4) and, for j < N / 8,
+// columns 8j + 2 (lane % 4) + {0, 1}: d[4j + e] is row r_lo + 8 (e >> 1),
+// column 8j + 2 (lane % 4) + (e & 1).  Two such column groups are the
+// wgmma A fragment of one k-step (the forward's P).
+__device__ __forceinline__ void to_frag(uint32_t (&f)[4][4], int j,
+                                        const float (&x)[4]) {
+  f[j / 2][2 * (j % 2)] = sm90::pack_bf16(x[0], x[1]);
+  f[j / 2][2 * (j % 2) + 1] = sm90::pack_bf16(x[2], x[3]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// (1) delta = rowsum(dout * out) for every (row, position, head), into
+// [B, H, S]; HD / 8 neighbouring lanes a row, 8 bf16 each.
 template <int HD>
-__device__ __forceinline__ void load_tile_tc(uint16_t* dst,
-                                             const __nv_bfloat16* src,
-                                             size_t stride, int row0, int n) {
-  constexpr int VPR = HD / 8;
-  for (int i = threadIdx.x; i < kBT * VPR; i += kTcThreads) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Tc<HD>::LD + c) = x;
-  }
-}
-
-// acc[j] += A[a0 + 16 rows][hd] . B[8j + 8 rows][hd]^T for j < NT: a warp's
-// 16 x 64 score block over hd, both operands k-contiguous in their tiles.
-template <int HD>
-__device__ __forceinline__ void mma_abt(float (&acc)[Tc<HD>::NT][4],
-                                        const uint16_t* a, int a0,
-                                        const uint16_t* b) {
-  constexpr int LD = Tc<HD>::LD;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < HD / 16; ++ks) {
-    const int k0 = ks * 16 + 2 * t;
-    const uint32_t af[4] = {ld32(a + (a0 + g) * LD + k0),
-                            ld32(a + (a0 + g + 8) * LD + k0),
-                            ld32(a + (a0 + g) * LD + k0 + 8),
-                            ld32(a + (a0 + g + 8) * LD + k0 + 8)};
-#pragma unroll
-    for (int j = 0; j < Tc<HD>::NT; ++j) {
-      const uint16_t* bp = b + (8 * j + g) * LD + k0;
-      mma16816(acc[j], af, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-// acc[j] += A . M[:, 8j .. 8j + 8] for j < DT, A a warp's 16 x 64 block
-// as bf16 fragments (af[kk]: its columns 16kk .. 16kk + 16), M a 64 x hd
-// tile (k = its rows).
-template <int HD>
-__device__ __forceinline__ void mma_am(float (&acc)[Tc<HD>::DT][4],
-                                       const uint32_t (&af)[kBT / 16][4],
-                                       const uint16_t* m) {
-  constexpr int LD = Tc<HD>::LD;
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kBT / 16; ++kk) {
-    const uint16_t* r = m + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int j = 0; j < Tc<HD>::DT; ++j) {
-      const uint16_t* c = r + 8 * j;
-      mma16816(acc[j], af[kk], pack2(c[0], c[LD]),
-               pack2(c[8 * LD], c[9 * LD]));
-    }
-  }
-}
-
-// The accumulator of a 16 x 64 block as the A fragments of its product
-// with a 64-row tile.
-template <int NT>
-__device__ __forceinline__ void to_frags(const float (&c)[NT][4],
-                                         uint32_t (&af)[NT / 2][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    af[kk][0] = pack_f(c[2 * kk][0], c[2 * kk][1]);
-    af[kk][1] = pack_f(c[2 * kk][2], c[2 * kk][3]);
-    af[kk][2] = pack_f(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    af[kk][3] = pack_f(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&c)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-}
-
-// (a) on the tensor cores: lse and delta for one (query tile, head, row).
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads) stats_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+__global__ void __launch_bounds__(256) delta_kernel(
     const __nv_bfloat16* __restrict__ out,
-    const __nv_bfloat16* __restrict__ dout, float* __restrict__ lse,
-    float* __restrict__ delta, int seq, int n_heads, int n_kv, float scale) {
-  using C_ = Tc<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* k_s = q_s + kBT * C_::LD;
-
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (n_heads / n_kv);
-  const int q0 = qt * kBT;
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t q_pos = (size_t)n_heads * HD, kv_pos = (size_t)n_kv * HD;
-  const size_t q_off = (size_t)b * seq * q_pos + (size_t)h * HD;
-  const size_t st_off = ((size_t)b * n_heads + h) * seq;
-  load_tile_tc<HD>(q_s, q + q_off, q_pos, q0, seq);
-  {  // delta = rowsum(dout * out): two lanes a row
-    const int r = tid / 2, part = tid % 2;
-    float acc = 0.f;
-    if (q0 + r < seq) {
-      const size_t row = q_off + (size_t)(q0 + r) * q_pos;
-      for (int d = part; d < HD; d += 2)
-        acc += __bfloat162float(dout[row + d]) * __bfloat162float(out[row + d]);
+    const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+    int rows, int seq, int n_heads) {
+  constexpr int TPR = HD / 8;
+  const int r = (blockIdx.x * 256 + threadIdx.x) / TPR;
+  const int part = threadIdx.x % TPR;
+  float acc = 0.f;
+  if (r < rows) {
+    const size_t off = static_cast<size_t>(r) * HD + part * 8;
+    const uint4 a = *reinterpret_cast<const uint4*>(out + off);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + off);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&av[i]));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&dv[i]));
+      acc += x.x * y.x;
+      acc += x.y * y.y;
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (part == 0 && q0 + r < seq) delta[st_off + q0 + r] = acc;
   }
-  // This thread's rows: g and g + 8 of the warp's 16.
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row0 = q0 + 16 * w + g;
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kBT;
-    __syncthreads();
-    load_tile_tc<HD>(k_s, k + (size_t)b * seq * kv_pos + (size_t)kh * HD,
-                     kv_pos, k0, seq);
-    __syncthreads();
-    float s[C_::NT][4];
-    zero(s);
-    mma_abt<HD>(s, q_s, 16 * w, k_s);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int qi = row0 + 8 * half;
-      float mx = kNegInf;
+  for (int o = 1; o < TPR; o <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (part == 0 && r < rows) {
+    const int h = r % n_heads, pos = (r / n_heads) % seq,
+              b = r / n_heads / seq;
+    delta[(static_cast<size_t>(b) * n_heads + h) * seq + pos] = acc;
+  }
+}
+
+// (2) dK and dV for one (key tile, KV head x split, row): blockIdx.x =
+// kh * splits + split, the split's heads group / splits consecutive ones.
+// splits == 1 writes bf16 dk/dv; else f32 partials to part [2, splits, B,
+// S, K, hd] (dK unscaled).
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1) dkdv_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // boxes of kBT rows
+    const __grid_constant__ CUtensorMap do_map,  // boxes of kBT rows
+    const __grid_constant__ CUtensorMap k_map,   // boxes of ROWS rows
+    const __grid_constant__ CUtensorMap v_map,   // boxes of ROWS rows
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+    float* __restrict__ part, int seq, int n_heads, int n_kv, int splits,
+    float scale, float scale_log2) {
+  using C = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  float* stats = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                          C::KV_STATS);
+  const uint32_t k_s = base, v_s = base + C::OWN;
+  const uint32_t kv_full = base + C::KV_BAR;
+  auto q_st = [&](int st) { return base + C::KV_Q + st * C::TILE; };
+  auto do_st = [&](int st) { return base + C::KV_DO + st * C::TILE; };
+  auto full = [&](int st) { return kv_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return kv_full + 8 * (1 + kStages + st); };
+
+  const int kh = blockIdx.x / splits, sp = blockIdx.x % splits;
+  const int b = blockIdx.y, k0 = blockIdx.z * C::ROWS;  // longest first
+  const int per = n_heads / n_kv / splits;  // heads of this block
+  const int h0 = kh * (n_heads / n_kv) + sp * per;
+  const int qt0 = k0 / kBT, per_head = (seq + kBT - 1) / kBT - qt0;
+  const int n_iter = per * per_head;
+  const int n_cons = C::SPLIT || k0 + 64 < seq ? 2 : 1;  // with keys
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(full(st), 1 + 32);  // TMA bytes + the warp's stats
+      sm90::mbar_init(empty(st), 4 * n_cons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  if (wg == 0) {
+    // ---- producer warp ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid < 32) {
+      if (lane == 0) {
+        sm90::mbar_expect_tx(kv_full, 2 * C::OWN);
 #pragma unroll
-      for (int j = 0; j < C_::NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kj = k0 + 8 * j + 2 * t + e;
-          float& x = s[j][2 * half + e];
-          x = kj <= qi ? x * scale : kNegInf;
-          mx = fmaxf(mx, x);
+        for (int s = 0; s < HD / 64; ++s) {
+          sm90::tma_load(k_s + s * C::OWN_SLAB, &k_map, kv_full, 64 * s, kh,
+                         k0, b);
+          sm90::tma_load(v_s + s * C::OWN_SLAB, &v_map, kv_full, 64 * s, kh,
+                         k0, b);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[half], mx);
-      float sum = 0.f;
+      }
+      for (int t = 0; t < n_iter; ++t) {
+        const int st = t % kStages;
+        const int h = h0 + t / per_head, q0 = (qt0 + t % per_head) * kBT;
+        if (t >= kStages) sm90::mbar_wait(empty(st), (t / kStages - 1) & 1);
+        if (lane == 0) {
+          sm90::mbar_expect_tx(full(st), 2 * C::TILE);
 #pragma unroll
-      for (int j = 0; j < C_::NT; ++j)
-        sum += expf(s[j][2 * half] - m_new) + expf(s[j][2 * half + 1] - m_new);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[half] = l[half] * expf(m[half] - m_new) + sum;
-      m[half] = m_new;
+          for (int s = 0; s < HD / 64; ++s) {
+            sm90::tma_load(q_st(st) + s * kSlab, &q_map, full(st), 64 * s, h,
+                           q0, b);
+            sm90::tma_load(do_st(st) + s * kSlab, &do_map, full(st), 64 * s,
+                           h, q0, b);
+          }
+        }
+        const float* lrow = lse + (static_cast<size_t>(b) * n_heads + h) * seq;
+        const float* drow =
+            delta + (static_cast<size_t>(b) * n_heads + h) * seq;
+        float* ls = stats + st * 2 * kBT;
+#pragma unroll
+        for (int i = lane; i < kBT; i += 32) {
+          const bool ok = q0 + i < seq;
+          ls[i] = ok ? lrow[q0 + i] : 0.f;
+          ls[kBT + i] = ok ? drow[q0 + i] : 0.f;
+        }
+        sm90::mbar_arrive(full(st));
+      }
     }
-  }
-  if (t == 0) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      if (row0 + 8 * half < seq)
-        lse[st_off + row0 + 8 * half] = m[half] + logf(l[half]);
-  }
-}
-
-// P and dS of a warp's 16 x 64 block in place of its scores s and dP dp;
-// rows are queries when `rows_are_queries`, else keys (the transposed
-// products of the dK/dV kernel).  lse_s / delta_s are per query.
-template <int NT, bool ROWS_ARE_QUERIES>
-__device__ __forceinline__ void p_and_ds(float (&s)[NT][4], float (&dp)[NT][4],
-                                         const float* lse_s,
-                                         const float* delta_s, int row_loc,
-                                         int q0, int k0, int seq, float scale) {
-  const int t = threadIdx.x % 4;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = row_loc + (e >= 2 ? 8 : 0), c = 8 * j + 2 * t + (e & 1);
-      const int qi_loc = ROWS_ARE_QUERIES ? r : c;
-      const int qi = q0 + qi_loc, kj = k0 + (ROWS_ARE_QUERIES ? c : r);
-      const bool live = kj <= qi && qi < seq;
-      const float p = live ? expf(s[j][e] * scale - lse_s[qi_loc]) : 0.f;
-      dp[j][e] = p * (dp[j][e] - delta_s[qi_loc]);
-      s[j][e] = p;
-    }
-}
-
-template <int HD>
-__device__ __forceinline__ void load_stats_tc(float* lse_s, float* delta_s,
-                                              const float* lse,
-                                              const float* delta,
-                                              size_t st_off, int q0, int seq) {
-  const int tid = threadIdx.x;
-  if (tid < kBT) {
-    const bool ok = q0 + tid < seq;
-    lse_s[tid] = ok ? lse[st_off + q0 + tid] : 0.f;
-    delta_s[tid] = ok ? delta[st_off + q0 + tid] : 0.f;
-  }
-}
-
-// Rows of a warp's 16 x hd accumulator, times `mul`, to bf16 rows
-// [row0 + 16 w ...) of a [S, *, hd] output (rows at or past seq skipped).
-template <int HD>
-__device__ __forceinline__ void store_rows_tc(__nv_bfloat16* dst,
-                                              const float (&acc)[Tc<HD>::DT][4],
-                                              size_t stride, int row, int seq,
-                                              float mul) {
-  const int t = threadIdx.x % 4;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    if (row + 8 * half >= seq) continue;
-    __nv_bfloat16* p = dst + (size_t)(row + 8 * half) * stride + 2 * t;
-#pragma unroll
-    for (int j = 0; j < Tc<HD>::DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) = __floats2bfloat162_rn(
-          acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
-  }
-}
-
-// (c) on the tensor cores: dK and dV for one (key tile, KV head, row);
-// each warp owns 16 keys and computes the transposed products S^T = K Q^T
-// and dP^T = V dout^T, then dV += P^T dout and dK += dS^T q.
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads) dkdv_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int seq, int n_heads, int n_kv,
-    float scale) {
-  using C_ = Tc<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* v_s = k_s + kBT * C_::LD;
-  uint16_t* q_s = v_s + kBT * C_::LD;
-  uint16_t* do_s = q_s + kBT * C_::LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + kBT * C_::LD);
-  float* delta_s = lse_s + kBT;
-
-  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int group = n_heads / n_kv;
-  const int k0 = kt * kBT;
-  const int w = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-  const size_t q_pos = (size_t)n_heads * HD, kv_pos = (size_t)n_kv * HD;
-  const size_t kv_off = (size_t)b * seq * kv_pos + (size_t)kh * HD;
-  load_tile_tc<HD>(k_s, k + kv_off, kv_pos, k0, seq);
-  load_tile_tc<HD>(v_s, v + kv_off, kv_pos, k0, seq);
-
-  float acc_k[C_::DT][4], acc_v[C_::DT][4];
-  zero(acc_k);
-  zero(acc_v);
-  const int n_qt = (seq + kBT - 1) / kBT;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = kh * group + gi;
-    const size_t q_off = (size_t)b * seq * q_pos + (size_t)h * HD;
-    const size_t st_off = ((size_t)b * n_heads + h) * seq;
-    for (int qt = kt; qt < n_qt; ++qt) {
-      const int q0 = qt * kBT;
-      __syncthreads();
-      load_tile_tc<HD>(q_s, q + q_off, q_pos, q0, seq);
-      load_tile_tc<HD>(do_s, dout + q_off, q_pos, q0, seq);
-      load_stats_tc<HD>(lse_s, delta_s, lse, delta, st_off, q0, seq);
-      __syncthreads();
-      float s[C_::NT][4], dp[C_::NT][4];
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int w = wg - 1;
+    const int my_k0 = C::SPLIT ? k0 : k0 + 64 * w;  // this consumer's keys
+    const int col0 = C::SPLIT ? 128 * w : 0;        // ... and dK/dV columns
+    if (my_k0 < seq) {
+      const int r_lo = 16 * (tid / 32) + lane / 4;
+      const int krow = (my_k0 - k0) * 128;  // its keys' offset in K and V
+      float acc_v[C::DN / 2], acc_k[C::DN / 2], s[32], dp[32];
+      zero(acc_v);
+      zero(acc_k);
       zero(s);
       zero(dp);
-      mma_abt<HD>(s, k_s, 16 * w, q_s);
-      mma_abt<HD>(dp, v_s, 16 * w, do_s);
-      p_and_ds<C_::NT, false>(s, dp, lse_s, delta_s, 16 * w + g, q0, k0, seq,
-                              scale);
-      uint32_t af[kBT / 16][4];
-      to_frags(s, af);
-      mma_am<HD>(acc_v, af, do_s);
-      to_frags(dp, af);
-      mma_am<HD>(acc_k, af, q_s);
+      sm90::mbar_wait(kv_full, 0);
+      for (int t = 0; t < n_iter; ++t) {
+        const int st = t % kStages;
+        const int q0 = (qt0 + t % per_head) * kBT;
+        sm90::mbar_wait(full(st), (t / kStages) & 1);
+        if (q0 + kBT - 1 < my_k0) {  // above the diagonal: release only
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(empty(st));
+          continue;
+        }
+        // S^T = K Q^T and dP^T = V dout^T (hd / 16 k-steps each).
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          sm90::wgmma_ss<64>(s, kmajor(k_s, C::OWN_SLAB, kk, krow),
+                             kmajor(q_st(st), kSlab, kk, 0), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          sm90::wgmma_ss<64>(dp, kmajor(v_s, C::OWN_SLAB, kk, krow),
+                             kmajor(do_st(st), kSlab, kk, 0), kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+
+        // P^T and dS^T; rows are keys, columns queries.
+        const bool masked = my_k0 + 63 > q0 || q0 + kBT > seq;
+        const float* ls = stats + st * 2 * kBT;
+        uint32_t pf[4][4], df[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+          const float2 d2 = *reinterpret_cast<const float2*>(ls + kBT + c);
+          float p[4], d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float le = e & 1 ? l2.y : l2.x, de = e & 1 ? d2.y : d2.x;
+            p[e] = exp2f(s[4 * j + e] * scale_log2 - le);
+            d[e] = p[e] * (dp[4 * j + e] - de);
+            if (masked) {
+              const int key = my_k0 + r_lo + 8 * (e >> 1);
+              const int qi = q0 + c + (e & 1);
+              if (key > qi || qi >= seq) p[e] = d[e] = 0.f;
+            }
+          }
+          to_frag(pf, j, p);
+          to_frag(df, j, d);
+        }
+
+        // dV += P^T dout, dK += dS^T q (kBT / 16 k-steps over the queries).
+        sm90::fence_regs(acc_v);
+        sm90::fence_regs(acc_k);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBT / 16; ++kk) {
+          sm90::wgmma_rs<C::DN>(acc_v, pf[kk], mnmajor(do_st(st), kk, col0));
+          sm90::wgmma_rs<C::DN>(acc_k, df[kk], mnmajor(q_st(st), kk, col0));
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(acc_v);
+        sm90::fence_regs(acc_k);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(empty(st));
+      }
+
+      // Epilogue: keys >= seq are not stored.
+      const size_t plane = static_cast<size_t>(splits) * gridDim.y * seq *
+                           n_kv * HD;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = my_k0 + r_lo + 8 * r;
+        if (key >= seq) continue;
+        const int col = col0 + 2 * (lane % 4);
+        if (splits == 1) {
+          const size_t o =
+              ((static_cast<size_t>(b) * seq + key) * n_kv + kh) * HD + col;
+#pragma unroll
+          for (int j = 0; j < C::DN / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(dk + o + 8 * j) = sm90::pack_bf16(
+                acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+            *reinterpret_cast<uint32_t*>(dv + o + 8 * j) = sm90::pack_bf16(
+                acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+          }
+        } else {
+          const size_t o =
+              (((static_cast<size_t>(sp) * gridDim.y + b) * seq + key) * n_kv +
+               kh) * HD + col;
+#pragma unroll
+          for (int j = 0; j < C::DN / 8; ++j) {
+            *reinterpret_cast<float2*>(part + o + 8 * j) =
+                make_float2(acc_k[4 * j + 2 * r], acc_k[4 * j + 2 * r + 1]);
+            *reinterpret_cast<float2*>(part + plane + o + 8 * j) =
+                make_float2(acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+          }
+        }
+      }
     }
   }
-  const int row = k0 + 16 * w + g;
-  store_rows_tc<HD>(dk + kv_off, acc_k, kv_pos, row, seq, scale);
-  store_rows_tc<HD>(dv + kv_off, acc_v, kv_pos, row, seq, 1.f);
 }
 
-// (d) on the tensor cores: dQ for one (query tile, head, row); the longest
-// tiles launch first.
-template <int HD>
-__global__ void __launch_bounds__(kTcThreads) dq_tc_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v,
-    const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int seq,
-    int n_heads, int n_kv, float scale) {
-  using C_ = Tc<HD>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_raw);
-  uint16_t* do_s = q_s + kBT * C_::LD;
-  uint16_t* k_s = do_s + kBT * C_::LD;
-  uint16_t* v_s = k_s + kBT * C_::LD;
-  float* lse_s = reinterpret_cast<float*>(v_s + kBT * C_::LD);
-  float* delta_s = lse_s + kBT;
-
-  const int qt = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (n_heads / n_kv);
-  const int q0 = qt * kBT;
-  const int w = threadIdx.x / 32, g = (threadIdx.x % 32) >> 2;
-  const size_t q_pos = (size_t)n_heads * HD, kv_pos = (size_t)n_kv * HD;
-  const size_t q_off = (size_t)b * seq * q_pos + (size_t)h * HD;
-  const size_t kv_off = (size_t)b * seq * kv_pos + (size_t)kh * HD;
-  load_tile_tc<HD>(q_s, q + q_off, q_pos, q0, seq);
-  load_tile_tc<HD>(do_s, dout + q_off, q_pos, q0, seq);
-  load_stats_tc<HD>(lse_s, delta_s, lse, delta,
-                    ((size_t)b * n_heads + h) * seq, q0, seq);
-
-  float acc[C_::DT][4];
-  zero(acc);
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kBT;
-    __syncthreads();
-    load_tile_tc<HD>(k_s, k + kv_off, kv_pos, k0, seq);
-    load_tile_tc<HD>(v_s, v + kv_off, kv_pos, k0, seq);
-    __syncthreads();
-    float s[C_::NT][4], dp[C_::NT][4];
-    zero(s);
-    zero(dp);
-    mma_abt<HD>(s, q_s, 16 * w, k_s);
-    mma_abt<HD>(dp, do_s, 16 * w, v_s);
-    p_and_ds<C_::NT, true>(s, dp, lse_s, delta_s, 16 * w + g, q0, k0, seq,
-                           scale);
-    uint32_t af[kBT / 16][4];
-    to_frags(dp, af);
-    mma_am<HD>(acc, af, k_s);
+// (3) dk = bf16(scale * sum of the dK partials), dv = bf16(sum of the dV
+// partials), summed in split order; n elements, four a thread.
+__global__ void __launch_bounds__(256) reduce_kernel(
+    const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int n, int splits, float scale) {
+  const int i = 4 * (blockIdx.x * 256 + threadIdx.x);
+  if (i >= n) return;
+  const size_t plane = static_cast<size_t>(splits) * n;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(part + static_cast<size_t>(sp) * n + i);
+    const float4 y = *reinterpret_cast<const float4*>(
+        part + plane + static_cast<size_t>(sp) * n + i);
+    a.x += x.x, a.y += x.y, a.z += x.z, a.w += x.w;
+    c.x += y.x, c.y += y.y, c.z += y.z, c.w += y.w;
   }
-  store_rows_tc<HD>(dq + q_off, acc, q_pos, q0 + 16 * w + g, seq, scale);
+  uint2 ok, ov;
+  ok.x = sm90::pack_bf16(a.x * scale, a.y * scale);
+  ok.y = sm90::pack_bf16(a.z * scale, a.w * scale);
+  ov.x = sm90::pack_bf16(c.x, c.y);
+  ov.y = sm90::pack_bf16(c.z, c.w);
+  *reinterpret_cast<uint2*>(dk + i) = ok;
+  *reinterpret_cast<uint2*>(dv + i) = ov;
+}
+
+// (4) dQ for one (query tile, head, row); the longest tiles launch first.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1) dq_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // boxes of ROWS rows
+    const __grid_constant__ CUtensorMap do_map,  // boxes of ROWS rows
+    const __grid_constant__ CUtensorMap k_map,   // boxes of kBT rows
+    const __grid_constant__ CUtensorMap v_map,   // boxes of kBT rows
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int seq, int n_heads, int n_kv,
+    float scale, float scale_log2) {
+  using C = Tc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + C::OWN;
+  const uint32_t q_full = base + C::Q_BAR;
+  auto k_st = [&](int st) { return base + C::Q_K + st * C::TILE; };
+  auto v_st = [&](int st) { return base + C::Q_V + st * C::TILE; };
+  auto full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto empty = [&](int st) { return q_full + 8 * (1 + kStages + st); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::ROWS;  // longest first
+  const int kh = h / (n_heads / n_kv);
+  const int reach = min(q0 + C::ROWS, seq) - 1;  // the block's last row
+  const int n_tiles = reach / kBT + 1;
+  const int n_cons = C::SPLIT || q0 + 64 < seq ? 2 : 1;  // with rows
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      sm90::mbar_init(full(st), 1);
+      sm90::mbar_init(empty(st), 4 * n_cons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 0) {
+    // ---- producer: one thread starts every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid == 0) {
+      sm90::mbar_expect_tx(q_full, 2 * C::OWN);
+#pragma unroll
+      for (int s = 0; s < HD / 64; ++s) {
+        sm90::tma_load(q_s + s * C::OWN_SLAB, &q_map, q_full, 64 * s, h, q0,
+                       b);
+        sm90::tma_load(do_s + s * C::OWN_SLAB, &do_map, q_full, 64 * s, h,
+                       q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        if (t >= kStages) sm90::mbar_wait(empty(st), (t / kStages - 1) & 1);
+        sm90::mbar_expect_tx(full(st), 2 * C::TILE);
+#pragma unroll
+        for (int s = 0; s < HD / 64; ++s) {
+          sm90::tma_load(k_st(st) + s * kSlab, &k_map, full(st), 64 * s, kh,
+                         t * kBT, b);
+          sm90::tma_load(v_st(st) + s * kSlab, &v_map, full(st), 64 * s, kh,
+                         t * kBT, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int w = wg - 1;
+    const int q0c = C::SPLIT ? q0 : q0 + 64 * w;  // this consumer's rows
+    const int col0 = C::SPLIT ? 128 * w : 0;      // ... and dQ columns
+    if (q0c < seq) {
+      const int lane = tid % 32, r_lo = 16 * (tid / 32) + lane / 4;
+      const int qrow = (q0c - q0) * 128;
+      const int my_reach = min(q0c + 63, seq - 1);
+      float lr[2], dr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0c + r_lo + 8 * r;
+        const size_t o = (static_cast<size_t>(b) * n_heads + h) * seq + row;
+        lr[r] = row < seq ? lse[o] : 0.f;
+        dr[r] = row < seq ? delta[o] : 0.f;
+      }
+      float acc[C::DN / 2], s[32], dp[32];
+      zero(acc);
+      zero(s);
+      zero(dp);
+      sm90::mbar_wait(q_full, 0);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages;
+        const int k0 = t * kBT;
+        sm90::mbar_wait(full(st), (t / kStages) & 1);
+        if (k0 > my_reach) {  // past this consumer's rows: release only
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(empty(st));
+          continue;
+        }
+        // S = Q K^T and dP = dout V^T.
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          sm90::wgmma_ss<64>(s, kmajor(q_s, C::OWN_SLAB, kk, qrow),
+                             kmajor(k_st(st), kSlab, kk, 0), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          sm90::wgmma_ss<64>(dp, kmajor(do_s, C::OWN_SLAB, kk, qrow),
+                             kmajor(v_st(st), kSlab, kk, 0), kk > 0);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+
+        // dS; rows are queries, columns keys.
+        const bool masked = k0 + 63 > q0c;
+        uint32_t df[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = exp2f(s[4 * j + e] * scale_log2 - lr[r]);
+            d[e] = p * (dp[4 * j + e] - dr[r]);
+            if (masked && k0 + 8 * j + 2 * (lane % 4) + (e & 1) >
+                              q0c + r_lo + 8 * r)
+              d[e] = 0.f;
+          }
+          to_frag(df, j, d);
+        }
+
+        // dQ += dS K (kBT / 16 k-steps over the keys).
+        sm90::fence_regs(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBT / 16; ++kk)
+          sm90::wgmma_rs<C::DN>(acc, df[kk], mnmajor(k_st(st), kk, col0));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(empty(st));
+      }
+
+      // Epilogue: rows >= seq are not stored.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0c + r_lo + 8 * r;
+        if (row >= seq) continue;
+        __nv_bfloat16* o = dq +
+                           ((static_cast<size_t>(b) * seq + row) * n_heads +
+                            h) * HD + col0 + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < C::DN / 8; ++j)
+          *reinterpret_cast<uint32_t*>(o + 8 * j) = sm90::pack_bf16(
+              acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
 }
 
 template <typename K>
@@ -805,105 +950,182 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, void* dq, void* dk, void* dv, void* lse,
-           void* delta, int batch, int seq, int n_heads, int n_kv,
-           float scale, cudaStream_t stream) {
-  float* lse_f = static_cast<float*>(lse);
-  float* delta_f = static_cast<float*>(delta);
+// The bf16 launches (0)-(4).  lse: the forward's base-2 lse when
+// lse_given, else scratch that (0) fills; part: f32 scratch of
+// 2 * splits * B * S * K * hd when splits > 1.
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, void* dq, void* dk, void* dv, float* lse,
+              float* delta, float* part, int batch, int seq, int n_heads,
+              int n_kv, int splits, int lse_given, float scale,
+              cudaStream_t stream) {
+  using C = Tc<HD>;
+  using bf16 = __nv_bfloat16;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
+      16)
+    return (int)cudaErrorInvalidValue;  // TMA needs 16-byte aligned bases
+  const int k_tiles = (seq + C::ROWS - 1) / C::ROWS;
+  const size_t n_kvel = static_cast<size_t>(batch) * seq * n_kv * HD;
+  if (k_tiles > 65535 || (splits > 1 && n_kvel > (size_t)INT32_MAX) ||
+      (size_t)batch * seq * n_heads > (size_t)INT32_MAX / 32)
+    return (int)cudaErrorInvalidValue;
   static bool configured = false;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD <= 128) {
-    using C_ = Tc<HD>;
-    if (!configured) {
-      cudaError_t e = allow_smem(stats_tc_kernel<HD>, C_::stats_bytes);
-      if (e == cudaSuccess)
-        e = allow_smem(dkdv_tc_kernel<HD>, C_::grad_bytes);
-      if (e == cudaSuccess) e = allow_smem(dq_tc_kernel<HD>, C_::grad_bytes);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-    const int tiles = (seq + kBT - 1) / kBT;
-    const T* q_p = static_cast<const T*>(q);
-    const T* k_p = static_cast<const T*>(k);
-    const T* v_p = static_cast<const T*>(v);
-    const T* do_p = static_cast<const T*>(dout);
-    stats_tc_kernel<HD><<<dim3(tiles, n_heads, batch), kTcThreads,
-                          C_::stats_bytes, stream>>>(
-        q_p, k_p, static_cast<const T*>(out), do_p, lse_f, delta_f, seq,
-        n_heads, n_kv, scale);
-    dkdv_tc_kernel<HD><<<dim3(tiles, n_kv, batch), kTcThreads,
-                         C_::grad_bytes, stream>>>(
-        q_p, k_p, v_p, do_p, lse_f, delta_f, static_cast<T*>(dk),
-        static_cast<T*>(dv), seq, n_heads, n_kv, scale);
-    dq_tc_kernel<HD><<<dim3(tiles, n_heads, batch), kTcThreads,
-                       C_::grad_bytes, stream>>>(
-        q_p, k_p, v_p, do_p, lse_f, delta_f, static_cast<T*>(dq), seq,
-        n_heads, n_kv, scale);
-  } else {
-    using C_ = Cfg<HD>;
-    if (!configured) {
-      cudaError_t e = allow_smem(stats_kernel<T, HD>, C_::stats_bytes);
-      if (e == cudaSuccess)
-        e = allow_smem(dkdv_kernel<T, HD>, C_::grad_bytes);
-      if (e == cudaSuccess) e = allow_smem(dq_kernel<T, HD>, C_::grad_bytes);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-    const int tiles = (seq + C_::B - 1) / C_::B;
-    const T* q_p = static_cast<const T*>(q);
-    const T* k_p = static_cast<const T*>(k);
-    const T* v_p = static_cast<const T*>(v);
-    const T* do_p = static_cast<const T*>(dout);
-    stats_kernel<T, HD><<<dim3(tiles, n_heads, batch), kThreads,
-                          C_::stats_bytes, stream>>>(
-        q_p, k_p, static_cast<const T*>(out), do_p, lse_f, delta_f, seq,
-        n_heads, n_kv, scale);
-    dkdv_kernel<T, HD><<<dim3(tiles, n_kv, batch), kThreads, C_::grad_bytes,
-                         stream>>>(q_p, k_p, v_p, do_p, lse_f, delta_f,
-                                   static_cast<T*>(dk), static_cast<T*>(dv),
-                                   seq, n_heads, n_kv, scale);
-    dq_kernel<T, HD><<<dim3(tiles, n_heads, batch), kThreads, C_::grad_bytes,
-                       stream>>>(q_p, k_p, v_p, do_p, lse_f, delta_f,
-                                 static_cast<T*>(dq), seq, n_heads, n_kv,
-                                 scale);
+  if (!configured) {
+    cudaError_t e = allow_smem(dkdv_kernel<HD>, C::KV_SMEM);
+    if (e == cudaSuccess) e = allow_smem(dq_kernel<HD>, C::Q_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
   }
+  int rc = 0;
+  if (!lse_given) {
+    rc = sm90::launch<HD, true>(q, k, v, dq, batch, seq, seq, 0, n_heads,
+                                n_kv, scale, stream, lse);
+    if (rc != 0) return rc;
+  }
+  const int rows = batch * seq * n_heads;
+  delta_kernel<HD><<<(rows * (HD / 8) + 255) / 256, 256, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), delta,
+      rows, seq, n_heads);
+  const float scale_log2 = scale * sm90::kLog2e;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  rc = sm90::make_map(&q_map, q, HD, n_heads, seq, batch, kBT);
+  if (rc == 0) rc = sm90::make_map(&do_map, dout, HD, n_heads, seq, batch, kBT);
+  if (rc == 0) rc = sm90::make_map(&k_map, k, HD, n_kv, seq, batch, C::ROWS);
+  if (rc == 0) rc = sm90::make_map(&v_map, v, HD, n_kv, seq, batch, C::ROWS);
+  if (rc != 0) return rc;
+  dkdv_kernel<HD><<<dim3(n_kv * splits, batch, k_tiles), kTcThreads,
+                    C::KV_SMEM, stream>>>(
+      q_map, do_map, k_map, v_map, lse, delta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), part, seq, n_heads, n_kv, splits, scale,
+      scale_log2);
+  if (splits > 1) {
+    const int n = static_cast<int>(n_kvel);
+    reduce_kernel<<<(n / 4 + 255) / 256, 256, 0, stream>>>(
+        part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n, splits,
+        scale);
+  }
+  rc = sm90::make_map(&q_map, q, HD, n_heads, seq, batch, C::ROWS);
+  if (rc == 0)
+    rc = sm90::make_map(&do_map, dout, HD, n_heads, seq, batch, C::ROWS);
+  if (rc == 0) rc = sm90::make_map(&k_map, k, HD, n_kv, seq, batch, kBT);
+  if (rc == 0) rc = sm90::make_map(&v_map, v, HD, n_kv, seq, batch, kBT);
+  if (rc != 0) return rc;
+  dq_kernel<HD><<<dim3(n_heads, batch, k_tiles), kTcThreads, C::Q_SMEM,
+                  stream>>>(q_map, do_map, k_map, v_map, lse, delta,
+                            static_cast<bf16*>(dq), seq, n_heads, n_kv, scale,
+                            scale_log2);
+  return 0;
+}
+
+// The f32 launches: stats (lse, delta), dK/dV, dQ.
+template <int HD>
+int launch_f32(const float* q, const float* k, const float* v,
+               const float* out, const float* dout, float* dq, float* dk,
+               float* dv, float* lse, float* delta, int batch, int seq,
+               int n_heads, int n_kv, float scale, cudaStream_t stream) {
+  using C_ = Cfg<HD>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = allow_smem(stats_kernel<HD>, C_::stats_bytes);
+    if (e == cudaSuccess) e = allow_smem(dkdv_f32_kernel<HD>, C_::grad_bytes);
+    if (e == cudaSuccess) e = allow_smem(dq_f32_kernel<HD>, C_::grad_bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int tiles = (seq + C_::B - 1) / C_::B;
+  stats_kernel<HD><<<dim3(tiles, n_heads, batch), kThreads, C_::stats_bytes,
+                     stream>>>(q, k, out, dout, lse, delta, seq, n_heads,
+                               n_kv, scale);
+  dkdv_f32_kernel<HD><<<dim3(tiles, n_kv, batch), kThreads, C_::grad_bytes,
+                        stream>>>(q, k, v, dout, lse, delta, dk, dv, seq,
+                                  n_heads, n_kv, scale);
+  dq_f32_kernel<HD><<<dim3(tiles, n_heads, batch), kThreads, C_::grad_bytes,
+                      stream>>>(q, k, v, dout, lse, delta, dq, seq, n_heads,
+                                n_kv, scale);
   return 0;
 }
 
 }  // namespace
 }  // namespace flash_backward
 
-// dtype: 0 = float32, 1 = bfloat16.  lse and delta are f32 scratch of
-// [B, H, S] each, allocated by the caller.  Returns cudaGetLastError()
-// after the three launches, or a CUDA error code for a shape the kernels
-// do not take.
+// dtype: 0 = float32, 1 = bfloat16.  lse and delta are f32 [B, H, S] each,
+// allocated by the caller: for bf16, lse is the training forward's base-2
+// lse when lse_given, else scratch filled here; for f32 both are scratch
+// (its stats kernel).  part: f32 scratch of 2 * splits * B * S * K * hd
+// for bf16 with splits > 1 (splits divides H/K), else unused; f32 takes
+// splits 1 and lse_given 0.  Returns cudaGetLastError() after the
+// launches, or a CUDA error code for a shape the kernels do not take.
 extern "C" int flash_backward_launch(const void* q, const void* k,
                                      const void* v, const void* out,
                                      const void* dout, void* dq, void* dk,
                                      void* dv, void* lse, void* delta,
-                                     int batch, int seq, int n_heads,
-                                     int n_kv, int hd, int dtype,
-                                     float scale, void* stream) {
+                                     void* part, int batch, int seq,
+                                     int n_heads, int n_kv, int hd, int dtype,
+                                     int splits, int lse_given, float scale,
+                                     void* stream) {
+  if (n_kv <= 0 || n_heads % n_kv != 0 || seq <= 0 || batch <= 0 ||
+      batch > 65535 || n_heads > 65535 || splits <= 0 ||
+      (n_heads / n_kv) % splits != 0 || n_kv * splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
+  float* delta_f = static_cast<float*>(delta);
+  int rc = (int)cudaErrorInvalidValue;
+  if (dtype == 0 && splits == 1 && !lse_given) {
+    const float* q_f = static_cast<const float*>(q);
+    const float* k_f = static_cast<const float*>(k);
+    const float* v_f = static_cast<const float*>(v);
+    const float* o_f = static_cast<const float*>(out);
+    const float* do_f = static_cast<const float*>(dout);
+    float* dq_f = static_cast<float*>(dq);
+    float* dk_f = static_cast<float*>(dk);
+    float* dv_f = static_cast<float*>(dv);
+#define FLASH_BWD_F32(HDV)                                                    \
+  rc = flash_backward::launch_f32<HDV>(q_f, k_f, v_f, o_f, do_f, dq_f, dk_f, \
+                                       dv_f, lse_f, delta_f, batch, seq,     \
+                                       n_heads, n_kv, scale, st)
+    if (hd == 64) FLASH_BWD_F32(64);
+    else if (hd == 128) FLASH_BWD_F32(128);
+    else if (hd == 256) FLASH_BWD_F32(256);
+#undef FLASH_BWD_F32
+  } else if (dtype == 1) {
+    float* part_f = static_cast<float*>(part);
+#define FLASH_BWD_TC(HDV)                                                   \
+  rc = flash_backward::launch_tc<HDV>(q, k, v, out, dout, dq, dk, dv, lse_f, \
+                                      delta_f, part_f, batch, seq, n_heads, \
+                                      n_kv, splits, lse_given, scale, st)
+    if (hd == 64) FLASH_BWD_TC(64);
+    else if (hd == 128) FLASH_BWD_TC(128);
+    else if (hd == 256) FLASH_BWD_TC(256);
+#undef FLASH_BWD_TC
+  }
+  if (rc != 0) return rc;
+  return (int)cudaGetLastError();
+}
+
+// The training forward: flash prefill in bf16 (flash_tile_sm90.cuh, the
+// serving kernel's code) that also writes each row's base-2 lse, f32
+// [B, H, S], for the backward.  Returns cudaGetLastError() after the
+// launch, or a CUDA error code for a shape it does not take.
+extern "C" int flash_forward_lse_launch(const void* q, const void* k,
+                                        const void* v, void* out, void* lse,
+                                        int batch, int seq, int n_heads,
+                                        int n_kv, int hd, float scale,
+                                        void* stream) {
   if (n_kv <= 0 || n_heads % n_kv != 0 || seq <= 0 || batch <= 0 ||
       batch > 65535 || n_heads > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   int rc = (int)cudaErrorInvalidValue;
-#define FLASH_BWD_CASE(T, HDV)                                          \
-  rc = flash_backward::launch<T, HDV>(q, k, v, out, dout, dq, dk, dv, lse, \
-                                      delta, batch, seq, n_heads, n_kv,   \
-                                      scale, st)
-  if (dtype == 0) {
-    if (hd == 64) FLASH_BWD_CASE(float, 64);
-    else if (hd == 128) FLASH_BWD_CASE(float, 128);
-    else if (hd == 256) FLASH_BWD_CASE(float, 256);
-  } else if (dtype == 1) {
-    if (hd == 64) FLASH_BWD_CASE(__nv_bfloat16, 64);
-    else if (hd == 128) FLASH_BWD_CASE(__nv_bfloat16, 128);
-    else if (hd == 256) FLASH_BWD_CASE(__nv_bfloat16, 256);
-  }
-#undef FLASH_BWD_CASE
+#define FLASH_FWD_LSE(HDV)                                                  \
+  rc = flash_tile_sm90::launch<HDV, true>(q, k, v, out, batch, seq, seq, 0, \
+                                          n_heads, n_kv, scale, st, lse_f)
+  if (hd == 64) FLASH_FWD_LSE(64);
+  else if (hd == 128) FLASH_FWD_LSE(128);
+  else if (hd == 256) FLASH_FWD_LSE(256);
+#undef FLASH_FWD_LSE
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

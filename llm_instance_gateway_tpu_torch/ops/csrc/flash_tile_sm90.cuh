@@ -280,12 +280,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n128(d, a, b);
 }
 
-template <int HD>
+// kLse (the training forward, flash_backward.cu) also stores each stored
+// row's log-sum-exp of its scaled logits in base 2, m + log2(l) (the
+// kernel's own log2 domain: lse2 = lse / ln 2), f32 [B, H, n_q]; the
+// serving instantiation (kLse false) never touches `lse`.
+template <int HD, bool kLse = false>
 __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-    int n_q, int s_kv, int start, int n_heads, int n_kv, float scale_log2) {
+    int n_q, int s_kv, int start, int n_heads, int n_kv, float scale_log2,
+    float* __restrict__ lse) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -460,6 +465,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_kernel(
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         den[r] = fmaxf(l[r], 1e-30f);
       }
+      if constexpr (kLse) {
+        if (lane % 4 == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = q0c + r_lo + 8 * r;
+            if (row < n_q)
+              lse[(static_cast<size_t>(b) * n_heads + h) * n_q + row] =
+                  m[r] + log2f(l[r]);
+          }
+        }
+      }
       const size_t row_stride = static_cast<size_t>(n_heads) * HD;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -531,11 +547,12 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
 // Launches the bf16 kernel (q/out [B, n_q, H, HD], k/v [B, s_kv, K, HD]).
 // The three tensor maps are encoded on the host for every call (the base
 // pointers change every call) and travel as __grid_constant__ parameters.
+// With kLse, `lse` ([B, H, n_q] f32) receives the rows' base-2 lse.
 // Returns 0 or a CUDA error code; the caller reads cudaGetLastError().
-template <int HD>
+template <int HD, bool kLse = false>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int n_q, int s_kv, int start, int n_heads, int n_kv, float scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, float* lse = nullptr) {
   using C = Cfg<HD>;
   // TMA needs 16-byte aligned bases.
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -546,7 +563,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
@@ -557,9 +574,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   if (rc == 0) rc = make_map(&v_map, v, HD, n_kv, s_kv, batch, C::BK);
   if (rc != 0) return rc;
   const dim3 grid(n_heads, batch, n_tiles);
-  flash_kernel<HD><<<grid, kThreads, C::SMEM, stream>>>(
+  flash_kernel<HD, kLse><<<grid, kThreads, C::SMEM, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), n_q, s_kv, start,
-      n_heads, n_kv, scale * kLog2e);
+      n_heads, n_kv, scale * kLog2e, lse);
   return 0;
 }
 

@@ -25,17 +25,21 @@ the kernel.
 
 Gradient: with grad mode on and an input that requires grad,
 ``flash_attention`` goes through ``FlashAttention`` (a
-``torch.autograd.Function``), whose backward is
+``torch.autograd.Function``).  Its forward on a bf16 CUDA tensor is the
+training forward ``flash_forward_lse``: the same kernel, which also writes
+each row's base-2 log-sum-exp (``csrc/flash_backward.cu``'s second C
+entry); it saves that lse beside q, k, v and out.  Its backward is
 ``flash_attention_backward``: on a CUDA tensor the hand-written backward
-kernel ``csrc/flash_backward.cu`` (lse and delta, then dK/dV and dQ, no
-atomics; bf16 at hd 64/128 on the tensor cores, rounding P and dS to bf16
-as the forward rounds P; f32 and hd 256 on CUDA-core FMAs), on a CPU
-tensor ``flash_attention_backward_reference``.  The
-kernel's output has no ``grad_fn``, so the raw forward launch
-(``flash_prefill_kernel``) refuses grad-requiring inputs under grad mode
-rather than cut the graph silently.  Without grad the call takes the
-serving path unchanged.  ``backward_launches`` counts the backward
-kernel's launches (one per call: its three kernels from one C entry).
+``csrc/flash_backward.cu`` — bf16 at hd 64/128/256 on ``wgmma`` fed by TMA
+(delta, dK/dV per key tile with the group split ``split_plan`` chooses for
+few blocks, dQ; P and dS rounded to bf16 as the forward rounds P), f32 on
+CUDA-core FMAs with its own lse pass; no atomics — on a CPU tensor
+``flash_attention_backward_reference``.  The kernel's output has no
+``grad_fn``, so the raw forward launch (``flash_prefill_kernel``) refuses
+grad-requiring inputs under grad mode rather than cut the graph silently.
+Without grad the call takes the serving path unchanged.
+``backward_launches`` counts the backward's launches (one per call: its
+kernels from one C entry); the training forward counts in ``launches``.
 """
 
 from __future__ import annotations
@@ -128,6 +132,58 @@ def _forward(q, k, v):
     return flash_prefill_kernel(q, k, v)
 
 
+def flash_forward_lse(q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward on bf16 CUDA tensors: ``(out, lse)``, out
+    bitwise ``flash_prefill_kernel``'s and lse [B, H, S] f32 each row's
+    log-sum-exp of its masked scaled logits in base 2 (lse / ln 2), for
+    ``flash_attention_backward``.  Counts in ``launches``."""
+    global launches
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        raise ValueError("flash_forward_lse: bf16 CUDA tensors only "
+                         f"(got {q.dtype} on {q.device})")
+    _check(q, k, v)
+    b, s, h, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    fn = _build.load("flash_backward").flash_forward_lse_launch
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, s, h, k.shape[2], hd, 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_prefill")
+    launches += 1
+    return out, lse
+
+
+def split_plan(b: int, s: int, h: int, n_kv: int, hd: int, sms: int) -> int:
+    """How many blocks share each KV head's group in the bf16 dK/dV pass.
+
+    That pass has one block per (key tile, KV head, row): 128 keys (64 at
+    hd 256), so one KV head (Gemma-2B's 8:1) or a short S leaves SMs idle.
+    Below two blocks per SM the group's heads are split over the fewest
+    blocks (a divisor of H/K) that give every SM one, or over all H/K when
+    none does; each split writes f32 partials that a reduction sums in
+    split order.  From shapes and the SM count only, never from data."""
+    rows = 64 if hd == 256 else 128
+    blocks = -(-s // rows) * n_kv * b
+    g = h // n_kv
+    if blocks >= 2 * sms:
+        return 1
+    return next((d for d in range(1, g + 1)
+                 if g % d == 0 and blocks * d >= sms), g)
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
+
+
 def flash_attention_backward_reference(q, k, v, out, dout):
     """The backward kernel's function in plain PyTorch, explicit f32
     arithmetic: P from the masked f32 logits, dP = dout . v^T,
@@ -154,12 +210,18 @@ def flash_attention_backward_reference(q, k, v, out, dout):
             dv.to(v.dtype))
 
 
-def flash_attention_backward(q, k, v, out, dout):
+def flash_attention_backward(q, k, v, out, dout, lse=None, splits=None):
     """(dq, dk, dv) of causal GQA attention given its output and the
     output's gradient (all contiguous, q's layout for out and dout).
 
-    CPU tensors: the plain version.  CUDA tensors: the Hopper kernel, or
-    ``ValueError`` for a shape it does not take."""
+    ``lse``: on bf16 CUDA tensors, the training forward's base-2 lse
+    [B, H, S] (``flash_forward_lse``), which saves the backward a QK^T
+    pass; without it the backward computes it first.  f32 computes its
+    own and takes none; the CPU's plain version needs none.  ``splits``
+    overrides ``split_plan`` (bf16; a divisor of H/K).
+
+    CPU tensors: the plain version.  CUDA tensors: the Hopper kernels, or
+    ``ValueError`` for a shape they do not take."""
     global backward_launches
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, dout)
@@ -172,13 +234,33 @@ def flash_attention_backward(q, k, v, out, dout):
             raise ValueError("flash_attention_backward: out and dout must "
                              "be contiguous, of q's shape, dtype and device")
     b, s, h, hd = q.shape
+    n_kv = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if lse is not None and (not bf16 or lse.shape != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_backward: lse is the bf16 "
+                         "training forward's, f32 [B, H, S] on q's device")
+    if splits is None:
+        splits = split_plan(b, s, h, n_kv, hd, _sm_count(q.device)) \
+            if bf16 else 1
+    if splits < 1 or (h // n_kv) % splits or (splits > 1 and not bf16):
+        raise ValueError(f"flash_attention_backward: {splits} splits of "
+                         f"{h // n_kv} heads")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
+    lse_buf = lse if lse is not None else torch.empty(
+        (b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, splits) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     fn = _build.load("flash_backward").flash_backward_launch
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            stats[0].data_ptr(), stats[1].data_ptr(), b, s, h, k.shape[2],
-            hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
+            lse_buf.data_ptr(), delta.data_ptr(),
+            part.data_ptr() if part is not None else None, b, s, h, n_kv,
+            hd, _DTYPES[q.dtype], splits, int(lse is not None),
+            1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_backward")
     backward_launches += 1
@@ -186,19 +268,24 @@ def flash_attention_backward(q, k, v, out, dout):
 
 
 class FlashAttention(torch.autograd.Function):
-    """``flash_attention`` with a gradient: the forward kernel (or plain
-    version) forward, ``flash_attention_backward`` backward."""
+    """``flash_attention`` with a gradient: forward the training forward
+    on bf16 CUDA tensors (saving its lse), else the kernel or plain
+    version; backward ``flash_attention_backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out = _forward(q, k, v)
-        ctx.save_for_backward(q, k, v, out)
+        if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+            out, lse = flash_forward_lse(q, k, v)
+        else:
+            out, lse = _forward(q, k, v), None
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        return flash_attention_backward(q, k, v, out, dout.contiguous())
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_backward(q, k, v, out, dout.contiguous(),
+                                        lse=lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

@@ -1220,7 +1220,7 @@ def assert_grad_close(got, want, dtype):
 
 
 BWD_CASES = [(g, hd, s) for g in (1, 4, 8) for hd in (64, 128, 256)
-             for s in (1, 17, 127, 128, 129)]
+             for s in (1, 17, 127, 128, 129)] + [(8, 128, 1023)]
 
 
 def _bwd_inputs(dev, dtype, b, s, h, kv, hd, seed):
@@ -1272,6 +1272,79 @@ def test_flash_autograd_runs_the_backward_kernel(dev):
     want = fl.flash_attention_backward(q, k, v, out.detach(), dout)
     for t, w in zip(leaves, want):
         assert torch.equal(t.grad, w)
+
+
+@pytest.mark.parametrize("s,h,k,hd", [(300, 32, 8, 128), (129, 8, 2, 64),
+                                      (1023, 8, 1, 256)])
+def test_training_forward_writes_out_and_lse(dev, s, h, k, hd):
+    """``flash_forward_lse``: out bitwise the serving kernel's, lse each
+    row's base-2 log-sum-exp of its masked scaled f32 logits within 1e-5
+    of torch.logsumexp's (relative, with a floor of 1: row 0's lse is its
+    one logit, which may lie near 0), one launch counted in ``launches``."""
+    q, kk, v, _, _ = _bwd_inputs(dev, torch.bfloat16, 2, s, h, k, hd, seed=s)
+    f0 = fl.launches
+    out, lse = fl.flash_forward_lse(q, kk, v)
+    torch.cuda.synchronize()
+    assert fl.launches == f0 + 1
+    assert torch.equal(out, fl.flash_prefill_kernel(q, kk, v))
+    qg = q.float().reshape(2, s, k, h // k, hd) / math.sqrt(hd)
+    logits = torch.einsum("bikgh,bjkh->bkgij", qg, kk.float())
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=dev))
+    want = torch.logsumexp(torch.where(causal, logits, fl.NEG_INF),
+                           -1).reshape(2, h, s)
+    assert lse.shape == (2, h, s) and lse.dtype == torch.float32
+    err = (lse * math.log(2) - want).abs() / want.abs().clamp_min(1.0)
+    assert err.max().item() < 1e-5
+
+
+@pytest.mark.parametrize("g,hd", [(4, 128), (8, 256), (1, 64)])
+def test_flash_backward_with_the_forwards_lse(dev, g, hd):
+    """The backward with the training forward's lse equals the same call
+    without it, which computes the lse first (bitwise: the same kernel)."""
+    q, kk, v, _, dout = _bwd_inputs(dev, torch.bfloat16, 2, 257, 8, 8 // g,
+                                    hd, seed=g + hd)
+    out, lse = fl.flash_forward_lse(q, kk, v)
+    b0 = fl.backward_launches
+    got = fl.flash_attention_backward(q, kk, v, out, dout, lse=lse)
+    want = fl.flash_attention_backward(q, kk, v, out, dout)
+    torch.cuda.synchronize()
+    assert fl.backward_launches == b0 + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_group_split_at_gemma_2b_layout(dev):
+    """Gemma-2B's layout (B=1, S=1023, 8:1, hd 256): the plan splits the one
+    KV head's group; the result is within the check of the plain version
+    with and without the split, and two runs give the same bits."""
+    args = _bwd_inputs(dev, torch.bfloat16, 1, 1023, 8, 1, 256, seed=21)
+    splits = fl.split_plan(1, 1023, 8, 1, 256, fl._sm_count(args[0].device))
+    assert splits > 1
+    want = fl.flash_attention_backward_reference(*args)
+    first = fl.flash_attention_backward(*args)
+    second = fl.flash_attention_backward(*args)
+    unsplit = fl.flash_attention_backward(*args, splits=1)
+    torch.cuda.synchronize()
+    for a, b, c, w in zip(first, second, unsplit, want):
+        assert torch.equal(a, b)
+        assert_grad_close(a, w, torch.bfloat16)
+        assert_grad_close(c, w, torch.bfloat16)
+
+
+def test_flash_backward_refuses_bad_lse_and_splits(dev):
+    q, kk, v, out, dout = _bwd_inputs(dev, torch.bfloat16, 1, 64, 8, 2,
+                                      128, 1)
+    lse = torch.zeros(1, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        fl.flash_attention_backward(q, kk, v, out, dout, lse=lse[:, :4])
+    for splits in (3, 0):
+        with pytest.raises(ValueError, match="splits"):
+            fl.flash_attention_backward(q, kk, v, out, dout, splits=splits)
+    f32 = _bwd_inputs(dev, torch.float32, 1, 64, 8, 2, 128, 1)
+    with pytest.raises(ValueError, match="lse"):
+        fl.flash_attention_backward(*f32, lse=lse)
+    with pytest.raises(ValueError, match="bf16"):
+        fl.flash_forward_lse(*f32[:3])
 
 
 def test_raw_flash_launch_refuses_grad_inputs(dev):
