@@ -1362,7 +1362,7 @@ def _save_adapter(cfg, path: str, targets, seed: int) -> None:
 
 def phase_serve(torch, params=None, adapter_path=None, quant=False,
                 model: str = "llama3-8b", flags=(), tag=None, after=None,
-                profile: bool = True):
+                profile: bool = True, mesh_devices=None):
     """A server at full width and depth (Llama-3-8B, or the preset
     ``model``), six concurrent greedy completions (base and adapter rows,
     one streamed) through the flash and lane decode kernels, with exact
@@ -1373,9 +1373,11 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     server's flags; ``params`` is served as given (quantized under int8
     flags), else the server draws random seeded weights; ``after(engine,
     url, stats)`` runs last, on the live server, and ``profile=False``
-    skips the profiles.  Returns (stats, the params served, or the
-    caller's under ``quant``; the adapter path) so later phases serve the
-    same weights."""
+    skips the profiles.  ``flags`` with ``--mesh tensor=N`` serves the
+    model sharded over ``mesh_devices``; every kernel then launches once
+    per shard.  Returns (stats, the params served, or the caller's under
+    ``quant`` or a mesh; the adapter path) so later phases serve the same
+    weights."""
     import threading
     import urllib.request
 
@@ -1391,10 +1393,12 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.time()
-    httpd, engine, _ = api_http.make_server(argv, params=params)
+    httpd, engine, _ = api_http.make_server(argv, params=params,
+                                            mesh_devices=mesh_devices)
     torch.cuda.synchronize()
     init_s = time.time() - t0
-    params = params if quant else engine.params
+    params = params if quant or engine.tp is not None else engine.params
+    shards = engine.tp.t if engine.tp is not None else 1
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
@@ -1466,11 +1470,12 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
             raise AssertionError(f"{tag}: no decode steps")
         # One bucketed prefill program per request (no prefix cache here),
         # one lane decode launch per layer and decode step (replays
-        # counted), nothing else.
+        # counted), each once per tensor shard, nothing else.
         lane_kernel = ("decode_attention_quant" if "--kv-quantize" in argv
                        else "decode_attention")
-        check_only(launches, {"flash_prefill": len(jobs) * n_layers,
-                              lane_kernel: decode_steps * n_layers}, tag)
+        check_only(launches, {
+            "flash_prefill": len(jobs) * n_layers * shards,
+            lane_kernel: decode_steps * n_layers * shards}, tag)
         _kv_floor(tag, engine)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
@@ -1483,6 +1488,7 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
         ttft = sorted(r.ttft_s * 1e3 for r in submitted)
         stats = {
             "model": model, "flags": argv[argv.index("--port") + 2:],
+            "shards": shards,
             "n_layers": n_layers, "init_s": init_s, "serve_s": serve_s,
             "decode_steps": decode_steps,
             "decode_tokens_per_s": _block_rate(rate0, _rate_snap(engine),
@@ -1938,14 +1944,14 @@ def phase_dispatch(torch, bf16_params) -> dict:
     prompts = [list(rng.randint(1, 250, size=100)) for _ in range(48)]
     base = dict(decode_slots=16, max_seq_len=512, prefill_buckets=(128, 256),
                 decode_steps_per_sync=32)
-    engines = {
+    engines = {  # A runs the eager block, B replays its graphs
         "A": Engine(cfg, params, EngineConfig(**base), lora_manager=lora,
-                    eos_id=None, dtype=torch.bfloat16, device="cuda"),
+                    eos_id=None, dtype=torch.bfloat16, device="cuda",
+                    cuda_graphs=False),
         "B": Engine(cfg, params, EngineConfig(
             pipeline_decode=True, prefill_batch=4, **base), lora_manager=lora,
             eos_id=None, dtype=torch.bfloat16, device="cuda"),
     }
-    engines["A"]._graphs = None  # the eager block: the A side only
     programs = {}
     for name, eng in engines.items():
         programs[name] = {"prefill": 0, "prefill_many": 0}
@@ -3811,23 +3817,37 @@ def _moe_extras(torch, tag: str, cfg):
 def _family_kernel_rows(torch) -> dict:
     """Flash and the lane kernel (int8 under ``--kv-quantize int8``), in
     bf16, at each full-width server's layout and shapes, against their
-    plain versions (``check_kernel``'s limits): flash at B=1 over the
-    buckets 16 and 1024, lane decode over the server's slots with ragged
-    lengths in 1024-token lanes.  Rows of the kernels line (errors
-    only)."""
+    plain versions (``_kernel_rows_at``).  Rows of the kernels line
+    (errors only)."""
     from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+
+    layouts = []
+    for model, flags in FAMILY_SERVERS:
+        cfg = CONFIGS[model]
+        slots = (int(flags[flags.index("--decode-slots") + 1])
+                 if "--decode-slots" in flags else 8)
+        layouts.append((model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, slots,
+                        "--kv-quantize" in flags))
+    return _kernel_rows_at(torch, layouts, "families", 4321)
+
+
+def _kernel_rows_at(torch, layouts, tag: str, seed: int) -> dict:
+    """Flash and the lane kernel in bf16 at each ``(label, H, K, hd,
+    slots, int8 KV)`` layout against their plain versions
+    (``check_kernel``'s limits): flash at B=1 over the buckets 16 and
+    1024, lane decode over ``slots`` rows with ragged lengths in
+    1024-token lanes.  Rows of the kernels line (errors only)."""
     from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
     from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
 
     dev, bf16, s_max = torch.device("cuda"), torch.bfloat16, 1024
-    gen = torch.Generator(device=dev).manual_seed(4321)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     lens = [0, 1, 777, 1024, 5, 300, 512, 1000,
             2, 64, 1023, 256, 900, 33, 700, 129]
     rows: dict = {}
-    for model, flags in FAMILY_SERVERS:
-        cfg = CONFIGS[model]
-        h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        layout = f"{model}: H={h} K={k} hd={hd} bf16"
+    for label, h, k, hd, slots, quant in layouts:
+        layout = f"{label}: H={h} K={k} hd={hd} bf16"
         for s in (16, 1024):
             q, kk, v = (torch.randn(1, s, n, hd, device=dev,
                                     generator=gen).to(bf16)
@@ -3836,13 +3856,11 @@ def _family_kernel_rows(torch) -> dict:
                 f"flash {layout} S={s}", fl.flash_attention(q, kk, v),
                 fl.flash_attention_reference(q, kk, v)))
             rows.setdefault("flash_prefill", []).append(row)
-            log("families", "flash_prefill " + json.dumps(row))
-        slots = (int(flags[flags.index("--decode-slots") + 1])
-                 if "--decode-slots" in flags else 8)
+            log(tag, "flash_prefill " + json.dumps(row))
         lengths = torch.tensor(lens[:slots], dtype=torch.int32, device=dev)
         q = torch.randn(slots, h, hd, device=dev, generator=gen).to(bf16)
         shape = (slots, s_max, k, hd)
-        if "--kv-quantize" in flags:
+        if quant:
             name = "decode_attention_quant"
             kq, ks = _int8_kv(torch, gen, shape)
             vq, vs = _int8_kv(torch, gen, shape)
@@ -3863,7 +3881,7 @@ def _family_kernel_rows(torch) -> dict:
             raise AssertionError(f"{name} {layout}: a length-0 row must "
                                  "give zeros")
         rows.setdefault(name, []).append(row)
-        log("families", f"{name} " + json.dumps(row))
+        log(tag, f"{name} " + json.dumps(row))
     return rows
 
 
@@ -4413,7 +4431,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
-    families, train)."""
+    families, train, mesh)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -4469,6 +4487,357 @@ def compare_profiles(bf16: dict, int8: dict) -> None:
             "int8_top_kernels": q["top_kernels"][:5]}))
 
 
+# -- phase 16: tensor parallelism on one card --------------------------------
+
+# The mesh phase's two shards share cuda:0 (the smoke needs one card; the
+# cross-card reduction, single-process NCCL, is not run here).
+MESH_DEVICES = ["cuda:0", "cuda:0"]
+MESH_FLAGS = ["--mesh", "tensor=2"]
+# bf16 logits at tensor=2 against tensor=1 on the same weights and input:
+# the largest |difference| within this share of the largest |logit|.  The
+# shards' row-parallel partials are summed in bf16 (one rounding more per
+# reduction than the unsharded product's single rounding of an f32
+# accumulation: 64 reductions a step over 32 layers), so the two
+# forwards part at bf16's 8 bits and the difference compounds with depth.
+# Measured (H100 80GB HBM3, 700 W): 2.1% at the first decode step, 2.2%
+# at the prefill's last position.  The check's reach is measured in every
+# run (``MESH_FAULTS``): a split gone wrong in one layer of 32 must fail
+# it; the weaker planted fault measured 18.7%, and the limit sits between
+# the two, about 3x from each.
+MESH_LOGIT_TOL = 1.0 / 16
+# Faults planted in the sharded 8B tree, in its middle layer, each of
+# which the logits check must fail: shard 1's ``wo`` rows zeroed (its
+# heads' output dropped), and the two shards' ``wo`` rows swapped (each
+# shard's heads projected through the other's rows: misordered heads).
+MESH_FAULTS = ("wo_zeroed", "wo_swapped")
+# The narrow f32 model served at tensor=1 and tensor=2 on the card: at f32
+# the reduction order parts the forwards by ~1e-6, so greedy tokens must
+# be identical.
+MESH_NARROW = dict(name="llama3-8b-narrow", d_model=512, n_layers=4,
+                   n_heads=8, n_kv_heads=2, head_dim=128, d_ff=1024,
+                   vocab_size=320, max_lora_slots=2, max_lora_rank=8)
+
+
+def _mesh_kernel_rows(torch) -> dict:
+    """Flash and the lane kernel at the mesh phase's local layouts: one
+    shard of Llama-3-8B at tensor=2 (16:4 at hd 128) and of Gemma-2B
+    (4:1 at hd 256, its one KV head replicated)."""
+    return _kernel_rows_at(torch, [
+        ("llama3-8b tensor=2 shard", 16, 4, 128, 8, False),
+        ("gemma-2b tensor=2 shard", 4, 1, 256, 8, False)], "mesh", 2468)
+
+
+def _mesh_logits(torch, params) -> dict:
+    """One 8B prefill (700 seeded tokens) and the decode step after it,
+    at tensor=1 and at tensor=2 on one card (the same weights, sharded as
+    views), eager: the logits of both against each other."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cfg, dev, n = LLAMA3_8B, torch.device("cuda"), 700
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(tensor=2), MESH_DEVICES))
+    gen = torch.Generator(device=dev).manual_seed(77)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                           generator=gen)
+    positions = torch.arange(n, device=dev)[None]
+
+    def lane(c, d):
+        return transformer.init_decode_cache(c, 1, 1024, device=d)
+
+    sharded = sharding.shard_params(params, tp)
+    mid = cfg.n_layers // 2
+
+    def planted(fault: str):
+        """``sharded`` with ``fault`` in layer ``mid`` (new ``wo`` leaves;
+        the weights served stay as they are)."""
+        wo = [tree["layers"]["wo"] for tree in sharded]
+        new = [w.clone() for w in wo]
+        if fault == "wo_zeroed":
+            new[1][mid].zero_()
+        else:
+            new[0][mid], new[1][mid] = wo[1][mid], wo[0][mid]
+        return sharding.Shards(
+            [dict(tree, layers=dict(tree["layers"], wo=w))
+             for tree, w in zip(sharded, new)], tp)
+
+    out, nxt = {}, None
+    runs = [(1, params), (2, sharded)] + [(f, None) for f in MESH_FAULTS]
+    with torch.no_grad():
+        for t, p in runs:
+            p = planted(t) if p is None else p
+            cache = lane(cfg, dev) if t == 1 else sharding.shard_cache(
+                lane, tp)
+            logits, k, v = transformer.prefill(cfg, p, tokens, positions)
+            last = logits[0, -1]
+            if nxt is None:
+                nxt = last[:cfg.vocab_size].argmax().reshape(1)
+            transformer.insert_prefill(cache, k, v, 0, n)
+            step, _ = transformer.decode_step(
+                cfg, p, cache, nxt, torch.tensor([n], device=dev))
+            out[t] = (last.float(), step[0].float(), k.float())
+            del cache, k, v, p
+
+    def compare(t) -> dict:
+        res = {}
+        for name, i in (("prefill_last", 0), ("decode_step", 1)):
+            a, b = out[t][i][:cfg.vocab_size], out[1][i][:cfg.vocab_size]
+            err = (a - b).abs().max().item()
+            top = b.abs().max().item()
+            res[name] = {"max_abs_err": err, "max_abs_logit": top,
+                         "share": err / top,
+                         "argmax_equal": bool(a.argmax() == b.argmax())}
+        return res
+
+    res = compare(2)
+    for name, r in res.items():
+        if not math.isfinite(r["share"]) or r["share"] > MESH_LOGIT_TOL:
+            raise AssertionError(
+                f"mesh logits {name}: max |tensor=2 - tensor=1| "
+                f"{r['max_abs_err']} over {MESH_LOGIT_TOL} of the largest "
+                f"|logit| {r['max_abs_logit']}")
+    kv_err = (out[2][2] - out[1][2]).abs().max().item()
+    res["prefill_kv_max_abs_err"] = kv_err
+    res["prefill_kv_max_abs"] = out[1][2].abs().max().item()
+    # The reach: each planted fault must fail the check it would face.
+    res["planted_faults"] = {}
+    for fault in MESH_FAULTS:
+        r = res["planted_faults"][fault] = compare(fault)
+        for name, x in r.items():
+            if not x["share"] > MESH_LOGIT_TOL:
+                raise AssertionError(
+                    f"mesh logits {name}: the planted fault {fault} in layer "
+                    f"{mid} moves them by {x['share']} of the largest "
+                    f"|logit|, within the tolerance {MESH_LOGIT_TOL}: the "
+                    "check cannot see such a fault")
+    log("mesh", "logits tensor=2 vs tensor=1 (bf16, tolerance "
+        f"{MESH_LOGIT_TOL} of the largest |logit|; planted faults in layer "
+        f"{mid}): " + json.dumps(res))
+    return res
+
+
+def _mesh_narrow_f32(torch) -> dict:
+    """The narrow f32 model on the card at tensor=1 and tensor=2 (lanes,
+    graphs): identical greedy tokens."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request)
+
+    cfg = dataclasses.replace(LLAMA3_8B, **MESH_NARROW)
+    params = transformer.init_params(cfg, seed=5, dtype=torch.float32,
+                                     device="cuda")
+    prompts = [[256] + [65 + (7 * i + j) % 200 for j in range(n)]
+               for i, n in enumerate((5, 40, 12, 60, 3, 100))]
+    streams = {}
+    for t in (1, 2):
+        eng = Engine(cfg, params, EngineConfig(
+            decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64, 128),
+            decode_steps_per_sync=4), eos_id=None, dtype=torch.float32,
+            device="cuda", mesh=(mesh.make_mesh(mesh.MeshConfig(tensor=2),
+                                                MESH_DEVICES)
+                                 if t == 2 else None))
+        streams[t] = _serve_all(eng, [Request(prompt_tokens=p,
+                                              max_new_tokens=24)
+                                      for p in prompts])
+    if streams[2] != streams[1]:
+        raise AssertionError(f"mesh f32: tensor=2 tokens {streams[2]} != "
+                             f"tensor=1 {streams[1]}")
+    out = {"requests": len(prompts), "tokens": sum(map(len, streams[1])),
+           "identical": True}
+    log("mesh", "narrow f32 tensor=2 vs tensor=1: " + json.dumps(out))
+    return out
+
+
+# The brownout window's delay, and the share of it a brownout request
+# must take beyond the same request's slowest fault-free time (a request
+# whose delay was not applied is that much faster).
+BROWNOUT_S = 1.0
+BROWNOUT_SHARE = 0.75
+
+
+def _mesh_faults(torch, engine, url0: str, tag: str) -> dict:
+    """``LIG_FAULTS`` armed on a second in-process server window over the
+    live engine: an ``error`` window (503) and then a ``brownout`` window
+    (``BROWNOUT_S``): the statuses, the delay against the same request
+    timed twice on the fault-free server at ``url0`` (after one untimed
+    run: a first request may capture a graph), and the journal's
+    ``fault_inject`` rows."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from llm_instance_gateway_tpu_torch.server import api_http
+    from llm_instance_gateway_tpu_torch.server.tokenizer import ByteTokenizer
+
+    path = os.path.join(REPO, "build", "smoke", "faults.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    window = 2.0
+    with open(path, "w") as f:
+        json.dump({"faults": [
+            {"kind": "error", "duration_s": window,
+             "params": {"status": 503}},
+            {"kind": "brownout", "start_s": window,
+             "params": {"delay_s": BROWNOUT_S}}]}, f)
+    body = _serve_body(12, None, False, 4)
+    clean = []
+    for _ in range(3):
+        t0 = time.time()
+        status, text = _post(url0 + "/v1/completions", body)
+        clean.append(time.time() - t0)
+        if status != 200:
+            raise AssertionError(f"{tag}: fault-free request: {status} "
+                                 f"{text}")
+    clean = clean[1:]
+    sink = engine.event_sink
+    os.environ["LIG_FAULTS"] = path
+    try:
+        server = api_http.ModelServer(engine, ByteTokenizer(), "llama3-8b")
+        t_arm = time.time()
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                    api_http.make_handler(server))
+    finally:
+        del os.environ["LIG_FAULTS"]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = "http://127.0.0.1:%d" % httpd.server_address[1]
+    try:
+        status, text = _post(url + "/v1/completions", body)
+        if (status, text) != (503, "injected fault"):
+            raise AssertionError(f"{tag}: error window: {status} {text}")
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
+            if f.status != 200:
+                raise AssertionError(f"{tag}: /metrics {f.status}")
+        time.sleep(max(0.0, t_arm + window + 0.05 - time.time()))
+        t0 = time.time()
+        status, text = _post(url + "/v1/completions", body)
+        delay = time.time() - t0
+        if status != 200 or (delay - max(clean)
+                             < BROWNOUT_SHARE * BROWNOUT_S):
+            raise AssertionError(
+                f"{tag}: brownout window: {status} after {delay:.3f} s, "
+                f"fault-free {clean} s, delay {BROWNOUT_S} s")
+        with urllib.request.urlopen(
+                url + "/debug/events?kind=fault_inject", timeout=60) as f:
+            rows = [(e["kind"], e["attrs"])
+                    for e in json.loads(f.read())["events"]]
+        want = [("fault_inject", {"fault": kind, "path": "/v1/completions",
+                                  "pod": ""})
+                for kind in ("error", "brownout")]
+        if rows != want:
+            raise AssertionError(f"{tag}: journal {rows} != {want}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.event_sink = sink
+    out = {"error_status": 503, "brownout_request_s": delay,
+           "fault_free_request_s": clean, "brownout_delay_s": BROWNOUT_S,
+           "journal_rows": 2}
+    log(tag, "LIG_FAULTS window: " + json.dumps(out))
+    return out
+
+
+def _mesh_calibrate(torch, params, mesh=None) -> dict:
+    """The capacity twin's fit (``sim/calibrate.py``) timed on an 8B lane
+    engine (8 slots, 1024-token lanes, 8 steps a dispatch), at tensor=1 or
+    over ``mesh``; the artifact goes under ``build/smoke/``."""
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig)
+    from llm_instance_gateway_tpu_torch.sim import calibrate
+
+    eng = Engine(LLAMA3_8B, params, EngineConfig(
+        decode_slots=8, max_seq_len=1024,
+        prefill_buckets=(64, 128, 256, 384, 1024), decode_steps_per_sync=8),
+        eos_id=None, dtype=torch.bfloat16, device="cuda", mesh=mesh)
+    t0 = time.time()
+    model = calibrate.calibrate_from_engine(eng)
+    wall = time.time() - t0
+    name = "llama3-8b" + ("" if mesh is None else "-tensor2")
+    art = calibrate.calibration_artifact(
+        model, {"windows": 0, "note": "engine-timed fit, no residuals"},
+        f"engine:{name}")
+    out_dir = os.path.join(REPO, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"calibration-{name}.json")
+    calibrate.write_calibration(path, art)
+    log("mesh", f"calibration {name} ({wall:.1f} s, {path}): "
+        + json.dumps(art["model"]))
+    del eng
+    return {"model": art["model"], "wall_s": wall}
+
+
+def phase_mesh(torch, params, adapter_path: str, serve_stats: dict) -> dict:
+    """Phase 16: tensor parallelism (``--mesh tensor=2``), both shards on
+    cuda:0.  Llama-3-8B at full width and depth served through
+    ``phase_serve`` (the lane serve's window: exact launches, flash and
+    lane decode once per shard; its greedy tokens counted against the
+    serve phase's tensor=1 tokens; the replayed decode step profiled;
+    ``LIG_FAULTS`` armed on a second window over the live engine); the
+    first decode step's logits against tensor=1; the narrow f32 model's
+    identical tokens; Gemma-2B at tensor=2 (its one KV head replicated);
+    the calibration fit at tensor=1 and tensor=2; the kernels at the
+    local layouts."""
+    import gc
+
+    from llm_instance_gateway_tpu_torch.parallel import mesh
+
+    t0 = time.time()
+    kernel_rows = _mesh_kernel_rows(torch)
+    faults = {}
+    stats = phase_serve(
+        torch, params, adapter_path, flags=MESH_FLAGS, tag="mesh",
+        mesh_devices=MESH_DEVICES,
+        after=lambda eng, url, st: faults.update(
+            _mesh_faults(torch, eng, url, "mesh")))[0]
+    answers = stats.pop("answers")
+    want = serve_stats["answers"]
+    differ = sum(int(a != b) for key, toks in answers.items()
+                 for a, b in zip(toks, want[key]))
+    log("mesh", f"greedy tokens differing from tensor=1: {differ} of "
+        f"{sum(map(len, answers.values()))} (bf16; reported, not gated)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits = _mesh_logits(torch, params)
+    narrow = _mesh_narrow_f32(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gemma = phase_serve(torch, None, model="gemma-2b", flags=MESH_FLAGS,
+                        tag="mesh gemma-2b", mesh_devices=MESH_DEVICES,
+                        profile=False)[0]
+    gemma.pop("answers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    calib = {"tensor1": _mesh_calibrate(torch, params),
+             "tensor2": _mesh_calibrate(torch, params, mesh.make_mesh(
+                 mesh.MeshConfig(tensor=2), MESH_DEVICES))}
+    launches = dict(stats["launches"])
+    for name, n in gemma["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    step1 = serve_stats.get("profile", {}).get("decode_step", {})
+    step2 = stats.get("profile", {}).get("decode_step", {})
+    per_step = {}
+    for label, step in (("tensor1", step1), ("tensor2", step2)):
+        graph = step.get("graph_replay")
+        per_step[label] = {k: (graph or {}).get(k) if isinstance(graph, dict)
+                           else graph
+                           for k in ("wall_ms", "device_ms",
+                                     "device_idle_share")}
+    out = {"wall_s": time.time() - t0, "launches": launches,
+           "tokens_differing": differ, "logits": logits, "narrow": narrow,
+           "faults": faults, "calibration": calib, "per_step": per_step,
+           "peak_mem_gb": {"tensor1": serve_stats["peak_mem_gb"],
+                           "tensor2": stats["peak_mem_gb"],
+                           "gemma-2b tensor2": gemma["peak_mem_gb"]},
+           "kernel_rows": kernel_rows}
+    log("mesh", "phase " + json.dumps({k: v for k, v in out.items()
+                                       if k != "kernel_rows"}))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -4517,6 +4886,8 @@ def main() -> int:
     done("checkpoint")
     trained = phase_train(torch, params)
     done("train")
+    meshed = phase_mesh(torch, params, adapter_path, stats)
+    done("mesh")
     # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes,
     # with all phase 14 loaded.
     del params
@@ -4526,6 +4897,8 @@ def main() -> int:
     done("families")
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
+    for name, rows in meshed["kernel_rows"].items():
+        kernel_rows[name] = rows + kernel_rows[name]
     kernel_rows.update(trained["kernel_rows"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
@@ -4539,7 +4912,8 @@ def main() -> int:
                "checkpoint": {name: checkpoint["launches"].get(name, 0)
                               for name in stats["launches"]},
                "families": families["launches"],
-               "train": trained["launches"]}
+               "train": trained["launches"],
+               "mesh": meshed["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ from llm_instance_gateway_tpu_torch.ops.attention import gather_pool_rows
 from llm_instance_gateway_tpu_torch.ops.paged_decode_attention import (
     paged_decode_attention,
 )
+from llm_instance_gateway_tpu_torch.parallel import sharding
 
 Params = dict[str, Any]
 
@@ -131,13 +132,15 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     through its table; rows with ``active`` False write the trash block
     (a reserved row's table may already hold a streaming prompt's real
     blocks).  Positions must lie below the table span (the engine clamps).
-    An int8 pool hands its scale pools to the int8 kernel.  Returns
-    (logits [B, V] f32, cache)."""
+    An int8 pool hands its scale pools to the int8 kernel.  A sharded
+    pool (``Shards``) holds each shard's KV heads under the one table.
+    Returns (logits [B, V] f32, cache)."""
     check_supported(cfg)
     b = tokens.shape[0]
     dev = tokens.device
-    block = cache["k"].shape[2]
-    tables = cache["tables"]
+    caches = sharding.parts(cache)
+    block = caches[0]["k"].shape[2]
+    tables = caches[0]["tables"]
     positions = positions.to(dev)
     pos = positions.long()
     lengths = (positions + 1).to(torch.int32)
@@ -145,15 +148,20 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     if active is not None:
         phys = torch.where(active.to(dev), phys, TRASH_BLOCK)
     offset = pos % block
+    idx = [tuple(x.to(c["k"].device) for x in (phys, offset, lengths))
+           for c in caches]
 
-    def write_and_attend(i, q, k, v):
-        pools = _pool_update(_layer_pools(cache, i), k, v, phys, offset)
-        return paged_decode_attention(q, pools[0], pools[1], tables, lengths,
+    def write_and_attend(i, s, q, k, v):
+        phys, offset, lengths = idx[s]
+        pools = _pool_update(_layer_pools(caches[s], i), k, v, phys, offset)
+        return paged_decode_attention(q, pools[0], pools[1],
+                                      caches[s]["tables"], lengths,
                                       *pools[2:])
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
-    cache["length"].copy_(lengths)
+    for c, (*_, lengths) in zip(caches, idx):
+        c["length"].copy_(lengths)
     return logits, cache
 
 
@@ -172,8 +180,9 @@ def extend_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     check_supported(cfg)
     b, c = tokens.shape
     dev = tokens.device
-    block = cache["k"].shape[2]
-    tables = cache["tables"]
+    caches = sharding.parts(cache)
+    block = caches[0]["k"].shape[2]
+    tables = caches[0]["tables"]
     max_blocks = tables.shape[1]
     pos = positions.long()
     writable = pos < max_blocks * block
@@ -184,16 +193,21 @@ def extend_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     phys = torch.where(writable, tables[rows, logical].long(),
                        TRASH_BLOCK).reshape(-1)
     offset = (pos % block).reshape(-1)
+    idx = [tuple(x.to(cc["k"].device) for x in (phys, offset))
+           for cc in caches]
 
-    def write_and_view(i, k, v):
+    def write_and_view(i, s, k, v):
         kh, hd = k.shape[2], k.shape[3]
-        pools = _pool_update(_layer_pools(cache, i), k.reshape(-1, kh, hd),
-                             v.reshape(-1, kh, hd), phys, offset)
-        return _pool_rows(pools, tables, k.dtype)
+        pools = _pool_update(_layer_pools(caches[s], i),
+                             k.reshape(-1, kh, hd), v.reshape(-1, kh, hd),
+                             *idx[s])
+        return _pool_rows(pools, caches[s]["tables"], k.dtype)
 
     logits = extend_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_view)
-    cache["length"].copy_((positions[:, -1] + 1).to(torch.int32))
+    lengths = (positions[:, -1] + 1).to(torch.int32)
+    for cc in caches:
+        cc["length"].copy_(lengths.to(cc["length"].device))
     return logits, cache
 
 
@@ -206,23 +220,28 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
     to ``table_row`` (the FULL new row: allocated blocks + trash tail).
     The trailing partial block carries bucket padding into a real block,
     masked by ``length``.  An int8 pool gets the prompt quantized, its
-    scales written to the same blocks of the scale pools."""
-    lyr, _, s, kh, hd = k_prompt.shape
-    block = cache["k"].shape[2]
-    dev = cache["k"].device
-    phys = to_device(np.asarray(phys_blocks, np.int64), dev)
-    n_b = phys.shape[0]
-    pad = n_b * block - s
-    for name, prompt in (("k", k_prompt), ("v", v_prompt)):
-        new = torch.nn.functional.pad(prompt[:, 0], (0, 0, 0, 0, 0, pad))
-        if f"{name}_scale" in cache:
-            new, scales = _kv_quantize(new)
-            cache[f"{name}_scale"][:, phys] = scales.reshape(lyr, n_b, block,
-                                                             kh)
-        cache[name][:, phys] = new.to(cache[name].dtype).reshape(
-            lyr, n_b, block, kh, hd)
-    cache["tables"][int(row)] = to_device(np.array(table_row, np.int32), dev)
-    cache["length"][int(row)] = int(length)
+    scales written to the same blocks of the scale pools.  A sharded pool
+    takes each shard's KV heads."""
+    lyr, _, s, _, hd = k_prompt.shape
+    for cache_s, heads in sharding.kv_parts(cache):
+        block = cache_s["k"].shape[2]
+        kh = cache_s["k"].shape[3]
+        dev = cache_s["k"].device
+        phys = to_device(np.asarray(phys_blocks, np.int64), dev)
+        n_b = phys.shape[0]
+        pad = n_b * block - s
+        for name, prompt in (("k", k_prompt), ("v", v_prompt)):
+            new = torch.nn.functional.pad(
+                prompt[:, 0, :, heads].to(dev), (0, 0, 0, 0, 0, pad))
+            if f"{name}_scale" in cache_s:
+                new, scales = _kv_quantize(new)
+                cache_s[f"{name}_scale"][:, phys] = scales.reshape(
+                    lyr, n_b, block, kh)
+            cache_s[name][:, phys] = new.to(cache_s[name].dtype).reshape(
+                lyr, n_b, block, kh, hd)
+        cache_s["tables"][int(row)] = to_device(
+            np.array(table_row, np.int32), dev)
+        cache_s["length"][int(row)] = int(length)
     return cache
 
 
@@ -239,22 +258,26 @@ def prefill_with_cache_paged(cfg: ModelConfig, params: Params, cache: Params,
     array.  Returns (last_logits [V] f32, cache)."""
     check_supported(cfg)
     pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
-    block = cache["k"].shape[2]
-    dev = cache["k"].device
-    tables = cache["tables"]
-    max_blocks = tables.shape[1]
-    table_row = tables[int(row)]
-    inside = to_device(pos < max_blocks * block, dev)
-    logical = to_device(np.clip(pos // block, 0, max_blocks - 1), dev)
-    phys = torch.where(inside, table_row[logical].long(), TRASH_BLOCK)
-    offset = to_device(pos % block, dev)
+    caches = sharding.parts(cache)
+    block = caches[0]["k"].shape[2]
+    max_blocks = caches[0]["tables"].shape[1]
+    idx = []
+    for c in caches:
+        dev = c["k"].device
+        table_row = c["tables"][int(row)]
+        inside = to_device(pos < max_blocks * block, dev)
+        logical = to_device(np.clip(pos // block, 0, max_blocks - 1), dev)
+        phys = torch.where(inside, table_row[logical].long(), TRASH_BLOCK)
+        idx.append((table_row, phys, to_device(pos % block, dev)))
 
-    def write_and_view(i, k, v):
-        pools = _pool_update(_layer_pools(cache, i), k, v, phys, offset)
+    def write_and_view(i, s, k, v):
+        table_row, phys, offset = idx[s]
+        pools = _pool_update(_layer_pools(caches[s], i), k, v, phys, offset)
         return tuple(r[0] for r in _pool_rows(pools, table_row[None],
                                               k.dtype))
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)
-    cache["length"][int(row)] = int(lane_end)
+    for c in caches:
+        c["length"][int(row)] = int(lane_end)
     return last_logits, cache

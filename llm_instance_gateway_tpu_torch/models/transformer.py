@@ -28,6 +28,16 @@ the chunk kernel over the slot's lane dequantized to the activation dtype
 to XLA instead, for fusion the card's eager path does not have — the same
 function either way.
 
+Tensor parallelism (``parallel/sharding.py``): every forward takes a
+``Shards`` params tree as well as a plain one.  Each layer then runs its
+attention and its MLP once per shard, on the shard's heads and ffn
+columns (the kernel wrappers called once per shard), and sums the
+shards' ``wo`` and ``w_down`` partials onto the residual: two reductions
+a layer (``_attn_block``, ``_mlp_block``); norms and residuals are
+replicated.  A plain tree is the one-shard case, the same arithmetic.
+Caches are then ``Shards`` too, each shard's holding its KV heads, and
+the prefill's KV comes back whole.
+
 Differences from the JAX functions, by design:
 - ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
   cache tensors IN PLACE (the reference donates the cache to XLA for the
@@ -53,6 +63,7 @@ Differences from the JAX functions, by design:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -74,6 +85,7 @@ from llm_instance_gateway_tpu_torch.ops.quant import (
     quantize_weight,
 )
 from llm_instance_gateway_tpu_torch.ops.quant import matmul as q_matmul
+from llm_instance_gateway_tpu_torch.parallel import sharding
 
 Params = dict[str, Any]
 
@@ -397,58 +409,161 @@ def _no_slots(b: int, device) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The layer blocks, over every tensor shard
+# ---------------------------------------------------------------------------
+
+
+class _Shards:
+    """The shards a forward iterates: the trees of a ``Shards`` params
+    tree (``parallel/sharding.py``) with their local config, or the one
+    tree of a plain one.  The residual stream is a list with one entry
+    per shard (one tensor, repeated, when the shards share a device)."""
+
+    def __init__(self, cfg: ModelConfig, params, lora_bufs):
+        self.trees = sharding.parts(params)
+        self.tp = params.tp if isinstance(params, sharding.Shards) else None
+        self.cfg = cfg if self.tp is None else self.tp.cfg
+        self.n = len(self.trees)
+        self.loras = (sharding.parts(lora_bufs) if lora_bufs is not None
+                      else [None] * self.n)
+
+    def layer(self, i: int) -> list:
+        """Layer ``i``'s params and LoRA slice, per shard."""
+        return [(_layer(tree, i),
+                 None if lora is None else lora_lib.layer_slice(lora, i))
+                for tree, lora in zip(self.trees, self.loras)]
+
+    def on(self, x) -> list:
+        """``x`` on every shard's device."""
+        if self.tp is None:
+            return [x]
+        return [self.tp.on(s, x) for s in range(self.n)]
+
+    def residual(self, hs: list, parts: list) -> list:
+        if self.tp is None:
+            return [hs[0] + parts[0]]
+        return self.tp.residual(hs, parts)
+
+    def embed(self, cfg: ModelConfig, tokens: torch.Tensor) -> list:
+        if self.tp is None or self.tp.one_device:
+            return [_embed(cfg, self.trees[0], tokens)] * self.n
+        return [_embed(cfg, tree, tok)
+                for tree, tok in zip(self.trees, self.on(tokens))]
+
+    def logits(self, cfg: ModelConfig, hs: list):
+        return _logits(cfg, self.trees[0], hs[0])
+
+    def current(self, s: int):
+        """Shard ``s``'s card made the current device, where the shards
+        span cards: a kernel wrapper launches on the current device, into
+        the stream of its tensors' device (a launch from another card
+        would run unordered with the work that made its inputs)."""
+        if self.tp is None or self.tp.one_device:
+            return contextlib.nullcontext()
+        dev = self.tp.devices[s]
+        return (torch.cuda.device(dev) if dev.type == "cuda"
+                else contextlib.nullcontext())
+
+
+def _attn_block(sh: _Shards, layer: list, hs: list, sids: list,
+                lead: tuple, rope, attend) -> list:
+    """A layer's attention over every shard (``layer``: ``_Shards.layer``'s
+    params and LoRA slice per shard): the norm, the q/k/v
+    projections of the shard's heads, ``rope(s, q, k)``, ``attend(s, q,
+    k, v)`` (the kernel wrapper over the shard's heads, returning
+    ``[*lead, ...]``) and the row-parallel ``wo`` partial; the partials
+    reduced onto the residual."""
+    c = sh.cfg
+    hd = c.resolved_head_dim
+    parts = []
+    for s, (lp, ll) in enumerate(layer):
+        hn = rms_norm(hs[s], lp["attn_norm"], c.norm_eps,
+                      plus_one=c.norm_plus_one)
+        q = _attn_proj(lp, "q", hn, ll, sids[s]).reshape(*lead, c.n_heads, hd)
+        k = _attn_proj(lp, "k", hn, ll, sids[s]).reshape(
+            *lead, c.n_kv_heads, hd)
+        v = _attn_proj(lp, "v", hn, ll, sids[s]).reshape(
+            *lead, c.n_kv_heads, hd)
+        q, k = rope(s, q, k)
+        with sh.current(s):
+            attn = attend(s, q, k, v)
+        parts.append(_project(attn.reshape(*lead, -1), lp["wo"], ll, "o",
+                              sids[s]))
+    return sh.residual(hs, parts)
+
+
+def _mlp_block(sh: _Shards, layer: list, hs: list, sids: list,
+               host_flag: bool = False) -> list:
+    """A layer's MLP over every shard (its ffn columns, or its experts'
+    ffn columns), the row-parallel partials reduced onto the residual."""
+    c = sh.cfg
+    parts = []
+    for s, (lp, ll) in enumerate(layer):
+        hn = rms_norm(hs[s], lp["mlp_norm"], c.norm_eps,
+                      plus_one=c.norm_plus_one)
+        parts.append(_mlp(c, lp, hn, ll, sids[s], host_flag))
+    return sh.residual(hs, parts)
+
+
+def _rope_seq(cfg: ModelConfig, positions: list):
+    """RoPE over [..., S, heads, hd] at each shard's positions."""
+    def rope(s, q, k):
+        return (apply_rope(q, positions[s], cfg.rope_theta, cfg.rope_scaling),
+                apply_rope(k, positions[s], cfg.rope_theta,
+                           cfg.rope_scaling))
+    return rope
+
+
+# ---------------------------------------------------------------------------
 # Prefill
 # ---------------------------------------------------------------------------
 
 
-def prefill_layer(cfg: ModelConfig, lp: Params, h: torch.Tensor,
-                  positions: torch.Tensor, layer_lora: Params | None = None,
-                  slot_ids: torch.Tensor | None = None):
-    """One decoder block over a full sequence.  Returns (h, (k, v))."""
-    b, s, _ = h.shape
-    if slot_ids is None:
-        slot_ids = _no_slots(b, h.device)
-    hd = cfg.resolved_head_dim
-    hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
-        b, s, cfg.n_heads, hd)
-    k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
-        b, s, cfg.n_kv_heads, hd)
-    v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
-        b, s, cfg.n_kv_heads, hd).contiguous()
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    # Right-padded batches: causal tiling alone keeps real positions exact
-    # (the kernel ignores positions, like the TPU kernel).
-    attn = flash_attention(q, k, v)
-    h = h + _project(attn.reshape(b, s, -1), lp["wo"], layer_lora, "o",
-                     slot_ids)
-    hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps, plus_one=cfg.norm_plus_one)
-    h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids, host_flag=True)
-    return h, (k, v)
+def prefill_layer(sh: _Shards, i: int, hs: list, positions: list,
+                  sids: list, k_all: torch.Tensor, v_all: torch.Tensor):
+    """Decoder block ``i`` over a full sequence on every shard: each
+    shard's q/k/v heads through the flash kernel, its K/V written into
+    its heads of ``k_all`` / ``v_all`` ``[L, B, S, K, hd]``.  Returns the
+    residual per shard."""
+    b, s_len = hs[0].shape[:2]
+    tp = sh.tp
+
+    def attend(s, q, k, v):
+        # Right-padded batches: causal tiling alone keeps real positions
+        # exact (the kernel ignores positions, like the TPU kernel).
+        if tp is None or s == 0 or tp.kv_split:
+            heads = slice(None) if tp is None else tp.kv_heads(s)
+            k_all[i, :, :, heads] = k
+            v_all[i, :, :, heads] = v
+        return flash_attention(q, k, v.contiguous())
+
+    layer = sh.layer(i)
+    hs = _attn_block(sh, layer, hs, sids, (b, s_len),
+                     _rope_seq(sh.cfg, positions), attend)
+    return _mlp_block(sh, layer, hs, sids, host_flag=True)
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             positions: torch.Tensor, lora_bufs: Params | None = None,
             slot_ids: torch.Tensor | None = None):
-    """Full-prompt forward.  Returns (logits [B,S,V] f32, k [L,B,S,K,hd], v)."""
+    """Full-prompt forward.  Returns (logits [B,S,V] f32, k [L,B,S,K,hd], v).
+
+    ``params`` may be a ``Shards`` tree (tensor parallelism): the KV comes
+    back whole, every shard's heads in order on the first shard's device."""
     check_supported(cfg)
     b, s = tokens.shape
     if slot_ids is None:
         slot_ids = _no_slots(b, tokens.device)
-    h = _embed(cfg, params, tokens)
+    sh = _Shards(cfg, params, lora_bufs)
+    hs = sh.embed(cfg, tokens)
     hd = cfg.resolved_head_dim
     kv_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, hd)
-    k_all = torch.empty(kv_shape, dtype=h.dtype, device=h.device)
-    v_all = torch.empty(kv_shape, dtype=h.dtype, device=h.device)
+    k_all = torch.empty(kv_shape, dtype=hs[0].dtype, device=hs[0].device)
+    v_all = torch.empty(kv_shape, dtype=hs[0].dtype, device=hs[0].device)
+    pos, sids = sh.on(positions), sh.on(slot_ids)
     for i in range(cfg.n_layers):
-        layer_lora = (None if lora_bufs is None
-                      else lora_lib.layer_slice(lora_bufs, i))
-        h, (k, v) = prefill_layer(cfg, _layer(params, i), h, positions,
-                                  layer_lora=layer_lora, slot_ids=slot_ids)
-        k_all[i] = k
-        v_all[i] = v
-    return _logits(cfg, params, h), k_all, v_all
+        hs = prefill_layer(sh, i, hs, pos, sids, k_all, v_all)
+    return sh.logits(cfg, hs), k_all, v_all
 
 
 # ---------------------------------------------------------------------------
@@ -462,36 +577,33 @@ def decode_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """The layer loop both decode steps share (lanes here, the paged pool
     in ``models/paged.py``): each row's token at ``positions[b]`` writes
     its K/V and attends its cache through ``write_and_attend(layer,
-    q [B, H, hd], k [B, K, hd], v) -> attn [B, H, hd]``.  Returns the
-    logits [B, V] (f32)."""
+    shard, q [B, H, hd], k [B, K, hd], v) -> attn [B, H, hd]`` (the
+    shard's heads).  Returns the logits [B, V] (f32)."""
     b = tokens.shape[0]
     if slot_ids is None:
         slot_ids = _no_slots(b, tokens.device)
-    hd = cfg.resolved_head_dim
-    h = _embed(cfg, params, tokens)
+    sh = _Shards(cfg, params, lora_bufs)
+    pos, sids = sh.on(positions[:, None]), sh.on(slot_ids)
+    theta, scaling = cfg.rope_theta, cfg.rope_scaling
+
+    def rope(s, q, k):
+        return (apply_rope(q[:, None], pos[s], theta, scaling)[:, 0]
+                .contiguous(),
+                apply_rope(k[:, None], pos[s], theta, scaling)[:, 0])
+
+    hs = sh.embed(cfg, tokens)
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        layer_lora = (None if lora_bufs is None
-                      else lora_lib.layer_slice(lora_bufs, i))
-        hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
-                      plus_one=cfg.norm_plus_one)
-        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
-            b, cfg.n_heads, hd)
-        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
-            b, cfg.n_kv_heads, hd)
-        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
-            b, cfg.n_kv_heads, hd)
-        q = apply_rope(q[:, None], positions[:, None], cfg.rope_theta,
-                       cfg.rope_scaling)[:, 0].contiguous()
-        k = apply_rope(k[:, None], positions[:, None], cfg.rope_theta,
-                       cfg.rope_scaling)[:, 0]
-        attn = write_and_attend(i, q, k, v)
-        h = h + _project(attn.reshape(b, -1), lp["wo"], layer_lora, "o",
-                         slot_ids)
-        hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
-                       plus_one=cfg.norm_plus_one)
-        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
-    return _logits(cfg, params, h)
+        layer = sh.layer(i)
+        hs = _attn_block(sh, layer, hs, sids, (b,), rope,
+                         lambda s, q, k, v, i=i: write_and_attend(i, s, q, k,
+                                                                  v))
+        hs = _mlp_block(sh, layer, hs, sids)
+    return sh.logits(cfg, hs)
+
+
+def _on_caches(caches: list, *xs) -> list:
+    """``xs`` on each shard cache's device (themselves where they lie)."""
+    return [tuple(x.to(c["k"].device) for x in xs) for c in caches]
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -506,12 +618,14 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     host sync (positions at or past ``S_max`` never write either).  On an
     int8 cache the row's int8 cells and scales alike keep their old values,
     and attention runs the int8 kernel.  The cache tensors are updated in
-    place.
+    place.  ``params`` and ``cache`` may be sharded (``Shards``): each
+    shard writes and attends its own KV heads.
     """
     check_supported(cfg)
     b = tokens.shape[0]
     dev = tokens.device
-    s_max = cache["k"].shape[2]
+    caches = sharding.parts(cache)
+    s_max = caches[0]["k"].shape[2]
     positions = positions.to(dev)
     lengths = (positions + 1).to(torch.int32)
     pos = positions.long()
@@ -520,26 +634,29 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
         writes = writes & active.to(dev)
     write_pos = pos.clamp(max=s_max - 1)
     rows = torch.arange(b, device=dev)
-    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache \
+    names = ("k", "v", "k_scale", "v_scale") if "k_scale" in caches[0] \
         else ("k", "v")
+    idx = _on_caches(caches, rows, write_pos, writes, lengths)
 
-    def write(dst, new):
+    def write(dst, new, rows, write_pos, writes):
         keep = writes.view(-1, *([1] * (new.dim() - 1)))
         dst[rows, write_pos] = torch.where(keep, new.to(dst.dtype),
                                            dst[rows, write_pos])
 
-    def write_and_attend(i, q, k, v):
-        lanes = [cache[n][i] for n in names]
+    def write_and_attend(i, s, q, k, v):
+        lanes = [caches[s][n][i] for n in names]
+        rows, write_pos, writes, lengths = idx[s]
         for j, new in enumerate((k, v)):
             if len(lanes) == 4:  # int8: values and their scales
                 new, scale = _kv_quantize(new)
-                write(lanes[j + 2], scale)
-            write(lanes[j], new)
+                write(lanes[j + 2], scale, rows, write_pos, writes)
+            write(lanes[j], new, rows, write_pos, writes)
         return decode_attention(q, lanes[0], lanes[1], lengths, *lanes[2:])
 
     logits = decode_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_attend)
-    cache["length"].copy_(lengths)
+    for c, (*_, lengths) in zip(caches, idx):
+        c["length"].copy_(lengths)
     return logits, cache
 
 
@@ -576,34 +693,26 @@ def extend_forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """The layer loop both extend steps share (lanes here, the paged pool
     in ``models/paged.py``): row b's C tokens at ``positions[b]`` write
     their K/V and attend the row's lane view through
-    ``write_and_view(layer, k [B, C, K, hd], v) -> (k_read [B, S, K, hd],
-    v_read)``.  Returns the logits [B, C, V] (f32)."""
+    ``write_and_view(layer, shard, k [B, C, K, hd], v) -> (k_read [B, S,
+    K, hd], v_read)`` (the shard's heads).  Returns the logits [B, C, V]
+    (f32)."""
     b, c = tokens.shape
     if slot_ids is None:
         slot_ids = _no_slots(b, tokens.device)
-    hd = cfg.resolved_head_dim
-    h = _embed(cfg, params, tokens)
+    sh = _Shards(cfg, params, lora_bufs)
+    pos, sids = sh.on(positions), sh.on(slot_ids)
+
+    def attend(i, s, q, k, v):
+        k_read, v_read = write_and_view(i, s, k, v)
+        return extend_attend(q, k_read, v_read, pos[s])
+
+    hs = sh.embed(cfg, tokens)
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        layer_lora = (None if lora_bufs is None
-                      else lora_lib.layer_slice(lora_bufs, i))
-        hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
-                      plus_one=cfg.norm_plus_one)
-        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
-            b, c, cfg.n_heads, hd)
-        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
-            b, c, cfg.n_kv_heads, hd)
-        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
-            b, c, cfg.n_kv_heads, hd)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        k_read, v_read = write_and_view(i, k, v)
-        attn = extend_attend(q, k_read, v_read, positions)
-        h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
-        hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
-                       plus_one=cfg.norm_plus_one)
-        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids)
-    return _logits(cfg, params, h)
+        layer = sh.layer(i)
+        hs = _attn_block(sh, layer, hs, sids, (b, c), _rope_seq(sh.cfg, pos),
+                         lambda s, q, k, v, i=i: attend(i, s, q, k, v))
+        hs = _mlp_block(sh, layer, hs, sids)
+    return sh.logits(cfg, hs)
 
 
 def extend_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -626,38 +735,42 @@ def extend_step(cfg: ModelConfig, params: Params, cache: Params,
     check_supported(cfg)
     b = tokens.shape[0]
     dev = tokens.device
-    s_max = cache["k"].shape[2]
+    caches = sharding.parts(cache)
+    s_max = caches[0]["k"].shape[2]
     pos = positions.long()
     writes = pos < s_max
     if active is not None:
         writes = writes & active.to(dev)[:, None]
     write_pos = pos.clamp(max=s_max - 1)
     rows = torch.arange(b, device=dev)[:, None]
-    quant = "k_scale" in cache
+    quant = "k_scale" in caches[0]
+    idx = _on_caches(caches, rows, write_pos, writes)
 
-    def write(dst, new):
+    def write(dst, new, rows, write_pos, writes):
         keep = writes.view(*writes.shape, *([1] * (new.dim() - 2)))
         dst[rows, write_pos] = torch.where(keep, new.to(dst.dtype),
                                            dst[rows, write_pos])
 
-    def write_and_view(i, k, v):
+    def write_and_view(i, s, k, v):
         views = []
         for name, new in (("k", k), ("v", v)):
-            lane = cache[name][i]
+            lane = caches[s][name][i]
             if not quant:
-                write(lane, new)
+                write(lane, new, *idx[s])
                 views.append(lane)
                 continue
-            scales = cache[f"{name}_scale"][i]
+            scales = caches[s][f"{name}_scale"][i]
             new, scale = _kv_quantize(new)
-            write(scales, scale)
-            write(lane, new)
+            write(scales, scale, *idx[s])
+            write(lane, new, *idx[s])
             views.append(_kv_dequantize(lane, scales, k.dtype))
         return tuple(views)
 
     logits = extend_forward(cfg, params, tokens, positions, lora_bufs,
                             slot_ids, write_and_view)
-    cache["length"].copy_((positions[:, -1] + 1).to(torch.int32))
+    lengths = (positions[:, -1] + 1).to(torch.int32)
+    for c in caches:
+        c["length"].copy_(lengths.to(c["length"].device))
     return logits, cache
 
 
@@ -681,40 +794,31 @@ def chunk_forward(cfg: ModelConfig, params: Params, tokens, pos: np.ndarray,
                   write_and_view):
     """The layer loop both chunk paths share: chunk token i at global
     position ``pos[i]`` writes its K/V and attends the lane view through
-    ``write_and_view(layer, k [C, K, hd], v) -> (lane_k, lane_v)`` (lane
-    views in the activation dtype, dequantized from an int8 cache).
-    Returns the last real token's logits [V] (f32).  ``pos`` is a host
-    int64 array: where the chunk starts and which cells it writes are
-    decided on the host, so no device value steers them."""
-    dev = params["embed"].device
+    ``write_and_view(layer, shard, k [C, K, hd], v) -> (lane_k, lane_v)``
+    (the shard's heads; lane views in the activation dtype, dequantized
+    from an int8 cache).  Returns the last real token's logits [V] (f32).
+    ``pos`` is a host int64 array: where the chunk starts and which cells
+    it writes are decided on the host, so no device value steers them."""
+    sh = _Shards(cfg, params, lora_bufs)
+    dev = sh.trees[0]["embed"].device
     c = pos.shape[0]
-    hd = cfg.resolved_head_dim
     slot_ids = torch.full((1,), int(lora_slot), dtype=torch.int32, device=dev)
-    h = _embed(cfg, params, to_device(tokens, dev))[None]
-    pos2d = to_device(pos, dev)[None]
+    hs = [h[None] for h in sh.embed(cfg, to_device(tokens, dev))]
+    pos2d, sids = sh.on(to_device(pos, dev)[None]), sh.on(slot_ids)
     start = int(pos[0])
+
+    def attend(i, s, q, k, v):
+        lane_k, lane_v = write_and_view(i, s, k[0], v[0])
+        return _chunk_attend(q, lane_k, lane_v, start)
+
     for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        layer_lora = (None if lora_bufs is None
-                      else lora_lib.layer_slice(lora_bufs, i))
-        hn = rms_norm(h, lp["attn_norm"], cfg.norm_eps,
-                      plus_one=cfg.norm_plus_one)
-        q = _attn_proj(lp, "q", hn, layer_lora, slot_ids).reshape(
-            1, c, cfg.n_heads, hd)
-        k = _attn_proj(lp, "k", hn, layer_lora, slot_ids).reshape(
-            1, c, cfg.n_kv_heads, hd)
-        v = _attn_proj(lp, "v", hn, layer_lora, slot_ids).reshape(
-            1, c, cfg.n_kv_heads, hd)
-        q = apply_rope(q, pos2d, cfg.rope_theta, cfg.rope_scaling)
-        k = apply_rope(k, pos2d, cfg.rope_theta, cfg.rope_scaling)
-        lane_k, lane_v = write_and_view(i, k[0], v[0])
-        attn = _chunk_attend(q, lane_k, lane_v, start)
-        h = h + _project(attn, lp["wo"], layer_lora, "o", slot_ids)
-        hn2 = rms_norm(h, lp["mlp_norm"], cfg.norm_eps,
-                       plus_one=cfg.norm_plus_one)
-        h = h + _mlp(cfg, lp, hn2, layer_lora, slot_ids, host_flag=True)
+        layer = sh.layer(i)
+        hs = _attn_block(sh, layer, hs, sids, (1, c),
+                         _rope_seq(sh.cfg, pos2d),
+                         lambda s, q, k, v, i=i: attend(i, s, q, k, v))
+        hs = _mlp_block(sh, layer, hs, sids, host_flag=True)
     last = int(last_index)
-    return _logits(cfg, params, h[0, last:last + 1])[0]
+    return sh.logits(cfg, [hs[0][0, last:last + 1]])[0]
 
 
 def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
@@ -735,31 +839,33 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
     Returns (last_logits [V] f32, cache)."""
     check_supported(cfg)
     pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
-    s_max = cache["k"].shape[2]
-    dev = cache["k"].device
+    caches = sharding.parts(cache)
+    s_max = caches[0]["k"].shape[2]
     inside = np.nonzero(pos < s_max)[0]
-    rows = to_device(inside, dev)
-    cells = to_device(pos[inside], dev)
+    idx = [(to_device(inside, c["k"].device),
+            to_device(pos[inside], c["k"].device)) for c in caches]
     slot = int(slot)
-    quant = "k_scale" in cache
+    quant = "k_scale" in caches[0]
 
-    def write_and_view(i, k, v):
-        k_lane = cache["k"][i][slot]  # [S_max, K, hd], a view
-        v_lane = cache["v"][i][slot]
+    def write_and_view(i, s, k, v):
+        rows, cells = idx[s]
+        k_lane = caches[s]["k"][i][slot]  # [S_max, K, hd], a view
+        v_lane = caches[s]["v"][i][slot]
         if not quant:
             k_lane[cells] = k.index_select(0, rows).to(k_lane.dtype)
             v_lane[cells] = v.index_select(0, rows).to(v_lane.dtype)
             return k_lane, v_lane
         views = []
-        for lane, scales, new in ((k_lane, cache["k_scale"][i][slot], k),
-                                  (v_lane, cache["v_scale"][i][slot], v)):
+        for name, lane, new in (("k", k_lane, k), ("v", v_lane, v)):
+            scales = caches[s][f"{name}_scale"][i][slot]
             lane[cells], scales[cells] = _kv_quantize(new.index_select(0, rows))
             views.append(_kv_dequantize(lane, scales, new.dtype))
         return tuple(views)
 
     last_logits = chunk_forward(cfg, params, tokens, pos, lora_bufs,
                                 lora_slot, last_index, write_and_view)
-    cache["length"][slot] = int(lane_end)
+    for c in caches:
+        c["length"][slot] = int(lane_end)
     return last_logits, cache
 
 
@@ -768,12 +874,13 @@ def insert_prefill(cache: Params, k_prompt: torch.Tensor,
     """Insert a prefilled sequence's KV ``[L, 1, S, K, hd]`` into decode
     slot ``slot`` (in place), quantized on an int8 cache.  ``length`` is the
     true prompt length; the padded tail is garbage, masked by
-    ``cache['length']``."""
-    s = min(k_prompt.shape[2], cache["k"].shape[2])
-    for name, prompt in (("k", k_prompt), ("v", v_prompt)):
-        new = prompt[:, 0, :s]
-        if f"{name}_scale" in cache:
-            new, cache[f"{name}_scale"][:, slot, :s] = _kv_quantize(new)
-        cache[name][:, slot, :s] = new.to(cache[name].dtype)
-    cache["length"][slot] = length
+    ``cache['length']``.  A sharded cache takes each shard's KV heads."""
+    for c, heads in sharding.kv_parts(cache):
+        s = min(k_prompt.shape[2], c["k"].shape[2])
+        for name, prompt in (("k", k_prompt), ("v", v_prompt)):
+            new = prompt[:, 0, :s, heads].to(c[name].device)
+            if f"{name}_scale" in c:
+                new, c[f"{name}_scale"][:, slot, :s] = _kv_quantize(new)
+            c[name][:, slot, :s] = new.to(c[name].dtype)
+        c["length"][slot] = length
     return cache

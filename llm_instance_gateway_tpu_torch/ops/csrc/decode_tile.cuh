@@ -527,14 +527,18 @@ int launch_split(const void* q, const void* k, const void* v,
     using S = typename std::conditional<QUANT, int8_t, T>::type;              \
     using G = Split<T, HDV>;                                                  \
     if (split_len % G::TS) return (int)cudaErrorInvalidValue;                 \
-    static bool configured = false;                                           \
-    if (!configured) {                                                        \
+    /* a function's attributes are per device: set once on each */         \
+    static unsigned long long configured = 0; /* a bit per device */          \
+    int device = 0;                                                           \
+    if (cudaGetDevice(&device) != cudaSuccess || device >= 64)                \
+      return (int)cudaErrorInvalidDevice;                                     \
+    if (!(configured >> device & 1)) {                                        \
       const cudaError_t e = cudaFuncSetAttribute(                             \
           split_kernel<T, S, HDV, PAGED>,                                     \
           cudaFuncAttributeMaxDynamicSharedMemorySize,                        \
           (int)(G::kFixed + kMaxSplitPages * sizeof(int)));                   \
       if (e != cudaSuccess) return (int)e;                                    \
-      configured = true;                                                      \
+      configured |= 1ull << device;                                           \
     }                                                                         \
     const size_t smem =                                                       \
         G::kFixed + (PAGED ? (size_t)(split_len / page) * sizeof(int) : 0);   \

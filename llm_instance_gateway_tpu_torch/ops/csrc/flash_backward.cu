@@ -970,12 +970,16 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
   if (k_tiles > 65535 || (splits > 1 && n_kvel > (size_t)INT32_MAX) ||
       (size_t)batch * seq * n_heads > (size_t)INT32_MAX / 32)
     return (int)cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
+  // A function's attributes are per device: set them once on each.
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 64)
+    return (int)cudaErrorInvalidDevice;
+  if (!(configured >> device & 1)) {
     cudaError_t e = allow_smem(dkdv_kernel<HD>, C::KV_SMEM);
     if (e == cudaSuccess) e = allow_smem(dq_kernel<HD>, C::Q_SMEM);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured |= 1ull << device;
   }
   int rc = 0;
   if (!lse_given) {
@@ -1025,13 +1029,17 @@ int launch_f32(const float* q, const float* k, const float* v,
                float* dv, float* lse, float* delta, int batch, int seq,
                int n_heads, int n_kv, float scale, cudaStream_t stream) {
   using C_ = Cfg<HD>;
-  static bool configured = false;
-  if (!configured) {
+  // A function's attributes are per device: set them once on each.
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 64)
+    return (int)cudaErrorInvalidDevice;
+  if (!(configured >> device & 1)) {
     cudaError_t e = allow_smem(stats_kernel<HD>, C_::stats_bytes);
     if (e == cudaSuccess) e = allow_smem(dkdv_f32_kernel<HD>, C_::grad_bytes);
     if (e == cudaSuccess) e = allow_smem(dq_f32_kernel<HD>, C_::grad_bytes);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured |= 1ull << device;
   }
   const int tiles = (seq + C_::B - 1) / C_::B;
   stats_kernel<HD><<<dim3(tiles, n_heads, batch), kThreads, C_::stats_bytes,

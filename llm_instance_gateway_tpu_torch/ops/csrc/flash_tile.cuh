@@ -208,13 +208,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int n_q, int s_kv, int start, int n_heads, int n_kv, float scale,
            cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
-  static bool configured = false;
-  if (!configured) {
+  // A function's attributes are per device: set them once on each.
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 64)
+    return (int)cudaErrorInvalidDevice;
+  if (!(configured >> device & 1)) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured |= 1ull << device;
   }
   dim3 grid((n_q + kBQ - 1) / kBQ, n_heads, batch);
   flash_kernel<HD><<<grid, kThreads, smem, stream>>>(

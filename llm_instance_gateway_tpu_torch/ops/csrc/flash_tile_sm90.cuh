@@ -560,13 +560,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (n_q + kBQ - 1) / kBQ;
   if (n_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  static bool configured = false;
-  if (!configured) {
+  // A function's attributes are per device: set them once on each.
+  static unsigned long long configured = 0;  // a bit per device
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= 64)
+    return (int)cudaErrorInvalidDevice;
+  if (!(configured >> device & 1)) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_kernel<HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+    configured |= 1ull << device;
   }
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, HD, n_heads, n_q, batch, kBQ);

@@ -86,6 +86,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import queue as queue_mod
 import select
 import signal
@@ -98,11 +99,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import torch
 
 from llm_instance_gateway_tpu_torch import events as events_mod
-from llm_instance_gateway_tpu_torch import tracing
+from llm_instance_gateway_tpu_torch import faultinject, tracing
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
 from llm_instance_gateway_tpu_torch.models.convert import load_serving_checkpoint
 from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
+from llm_instance_gateway_tpu_torch.parallel.mesh import make_mesh, parse_axes
 from llm_instance_gateway_tpu_torch.server import metrics as metrics_mod
 from llm_instance_gateway_tpu_torch.server.engine import (
     Engine,
@@ -1112,7 +1114,19 @@ class ModelServer:
 
 
 def make_handler(server: ModelServer):
-    """The ``BaseHTTPRequestHandler`` class bound to ``server``."""
+    """The ``BaseHTTPRequestHandler`` class bound to ``server``.
+
+    Deterministic fault injection (``faultinject.py``): when the
+    ``LIG_FAULTS`` env var names a JSON schedule, it is read and armed
+    here, once, and every request consults it before routing, so the
+    fleet's chaos stack exercises the real server binary."""
+    faults = None
+    faults_path = os.environ.get("LIG_FAULTS")
+    if faults_path:
+        faults = faultinject.FaultSchedule.from_file(faults_path)
+        faults.arm()
+        logger.warning("fault injection armed from %s: %s", faults_path,
+                       faults.describe())
     get_routes = {"/v1/models": lambda _q: server.models(),
                   "/debug/traces": server.debug_traces,
                   "/debug/events": server.debug_events,
@@ -1181,8 +1195,30 @@ def make_handler(server: ModelServer):
                 raise HTTPError(400, "JSON body must be an object")
             return body
 
+        def _faulted(self, path: str, has_body: bool) -> bool:
+            """Apply the armed schedule's fault to this request: True when
+            the fault answered it (or cut it) and the route must not run."""
+            if faults is None:
+                return False
+            try:
+                faultinject.apply(faults, path, self.connection,
+                                  server.events)
+            except faultinject.Injected as e:
+                if has_body:  # unread bytes would reset the connection
+                    self._raw()
+                if e.status is None:
+                    self.close_connection = True
+                    faultinject.cut(self.connection)
+                else:
+                    self._send(e.status, e.text.encode(),
+                               "text/plain; charset=utf-8")
+                return True
+            return False
+
         def do_GET(self):  # noqa: N802 - http.server's naming
             path, _, query = self.path.partition("?")
+            if self._faulted(path, has_body=False):
+                return
             if path == "/health":
                 if server.engine.draining:
                     self._send(503, b"draining", "text/plain")
@@ -1206,6 +1242,8 @@ def make_handler(server: ModelServer):
 
         def do_POST(self):  # noqa: N802 - http.server's naming
             path = self.path.split("?", 1)[0]
+            if self._faulted(path, has_body=True):
+                return
             trace_id = None
             if path in _TRACED:
                 trace_id = (tracing.header_trace_id(self.headers)
@@ -1365,12 +1403,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the draft's checkpoint, either form --checkpoint "
                         "takes; an HF or model_config.json architecture "
                         "replaces --draft-model's")
+    p.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
+                   help="serve sharded over a device mesh, e.g. 'tensor=2' "
+                        "(axes: data,fsdp,pipe,tensor,expert,sequence; "
+                        "parallel/mesh.py; the port serves tensor). On the "
+                        "card it takes that many CUDA devices; with "
+                        "--device cpu every shard sits on the CPU. Default: "
+                        "single device.")
+    p.add_argument("--no-cuda-graphs", action="store_true",
+                   help="run the decode and spec blocks eagerly instead of "
+                        "replaying CUDA graphs of them; a mesh whose shards "
+                        "sit on distinct cards needs it")
     p.add_argument("--drain-grace", type=float, default=30.0, metavar="S")
     p.add_argument("-v", "--verbose", action="count", default=0)
     return p
 
 
-def make_server(argv=None, params=None, draft_params=None):
+def make_server(argv=None, params=None, draft_params=None,
+                mesh_devices=None):
     """Build the engine and the HTTP server from CLI arguments; returns
     ``(httpd, engine, args)`` with the engine loop started.  The caller runs
     ``httpd.serve_forever()``.
@@ -1390,7 +1440,13 @@ def make_server(argv=None, params=None, draft_params=None):
     ``--quantize int8`` the engine gets new quantized trees and the
     caller's stay as they were; random weights are drawn, and checkpoints
     loaded, int8 a layer at a time (the same tree as quantizing the dense
-    one, which need never fit the card)."""
+    one, which need never fit the card).
+
+    ``--mesh`` serves the model tensor-parallel (``parallel/``): the
+    engine splits the weights, caches and adapter slots per shard.
+    ``mesh_devices`` places the shards explicitly (``["cuda:0",
+    "cuda:0"]`` holds a tensor=2 mesh on one card); by default they take
+    the host's CUDA devices, or the CPU with ``--device cpu``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:
@@ -1492,11 +1548,20 @@ def make_server(argv=None, params=None, draft_params=None):
             draft_params = (params if draft_params is target
                             else quantize_params(draft_params))
         logger.info("weights quantized to int8 (per output channel)")
+    mesh = None
+    if args.mesh:
+        mesh_cfg = parse_axes(args.mesh)
+        if mesh_devices is None and args.device == "cpu":
+            mesh_devices = ["cpu"] * mesh_cfg.total
+        mesh = make_mesh(mesh_cfg, mesh_devices)
+        logger.info("serving sharded over mesh %s on %s", mesh.shape,
+                    [str(d) for d in mesh.devices])
     lora_manager = LoRAManager(cfg, dtype=dtype, device=args.device,
                                host_cache_slots=args.host_cache_slots)
     engine = Engine(cfg, params, engine_cfg, lora_manager=lora_manager,
                     eos_id=tokenizer.eos_id, dtype=dtype, device=args.device,
-                    draft_params=draft_params, draft_cfg=draft_cfg)
+                    draft_params=draft_params, draft_cfg=draft_cfg,
+                    mesh=mesh, cuda_graphs=not args.no_cuda_graphs)
     engine.start()
     server = ModelServer(engine, tokenizer, served_name, lora_manager,
                          aliases={args.model})

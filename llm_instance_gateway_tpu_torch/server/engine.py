@@ -28,7 +28,7 @@ synchronous loop and the pipelined one).
   parameters — and returns one output pack.  On the card it is a CUDA
   graph captured once per ``(n_steps, seeded)`` and replayed
   (``decode_graphs.py``, the counterpart of the reference's ``jit``); on
-  the CPU it runs eagerly.
+  the CPU, or on the card with ``cuda_graphs=False``, it runs eagerly.
 - **Pipelined dispatch** (``pipeline_decode``): block N+1 is dispatched
   from the device-resident carry before block N's tokens are read back,
   so the readback and the host's bookkeeping overlap the device; first
@@ -59,6 +59,19 @@ synchronous loop and the pipelined one).
   Sampled rows, stop-sequence rows and chunk-streamed rows do not
   speculate; penalties and ``logit_bias`` are refused on such an engine.
 
+- **Tensor parallelism** (``mesh=``, ``parallel/``): the params, the
+  cache (lanes or pool, int8 scales included) and the LoRA slots become
+  per-shard trees over the mesh's ``tensor`` axis, and every forward runs
+  its layers once per shard with two reductions a layer.  One engine
+  thread drives every shard (a single controller, as the reference's
+  GSPMD engine): admission, the allocator, the prefix cache, graphs,
+  speculation (the draft unsharded on the first shard's device) and hops
+  (a prefill's KV comes back whole, so the wire is unchanged) stay one
+  copy.  Shards on one card share one CUDA graph per block; shards on
+  distinct cards (their partials summed by single-process NCCL) are
+  served eagerly, ``cuda_graphs=False``, as graphs across cards are
+  queued.
+
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.
 """
@@ -81,6 +94,7 @@ from torch.profiler import record_function
 from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.parallel import sharding
 from llm_instance_gateway_tpu_torch.server import kv_transfer
 from llm_instance_gateway_tpu_torch.server.decode_graphs import DecodeGraphs
 from llm_instance_gateway_tpu_torch.server.kv_ledger import KvLedger
@@ -329,7 +343,8 @@ class Engine:
     def __init__(self, model_cfg: ModelConfig, params, engine_cfg=None,
                  lora_manager=None, eos_id: int | None = None,
                  dtype=torch.bfloat16, seed: int = 0, device="cuda",
-                 draft_params=None, draft_cfg: ModelConfig | None = None):
+                 draft_params=None, draft_cfg: ModelConfig | None = None,
+                 mesh=None, cuda_graphs: bool = True):
         self.model_cfg = model_cfg
         self.cfg = engine_cfg or EngineConfig()
         self._spec = self.cfg.speculative_k > 0
@@ -350,6 +365,17 @@ class Engine:
                 "(or None) is supported")
         kv_quant = self.cfg.kv_cache_quant is not None
         transformer.check_supported(model_cfg)
+        self.paged = self.cfg.paged_kv_block is not None
+        # Tensor parallelism (``parallel/``): params, caches and the LoRA
+        # buffers become per-shard trees; one engine thread drives every
+        # shard, and the host logic below stays one copy.
+        self.mesh = mesh
+        self.tp = self._tensor_parallel(model_cfg, mesh, cuda_graphs)
+        if self.tp is not None:
+            device = self.tp.devices[0]
+            params = sharding.shard_params(params, self.tp)
+            if lora_manager is not None:
+                lora_manager.place(self.tp)
         self.params = params
         self.lora = lora_manager
         self.eos_id = eos_id
@@ -357,7 +383,6 @@ class Engine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
 
         b = self.cfg.decode_slots
-        self.paged = self.cfg.paged_kv_block is not None
         self.prefix_reused_tokens = 0
         if self.paged:
             self._block = self.cfg.paged_kv_block
@@ -365,10 +390,11 @@ class Engine:
             self._n_blocks = (self.cfg.paged_kv_blocks
                               if self.cfg.paged_kv_blocks is not None
                               else b * self._max_blocks_per_seq)
-            self.cache = paged_lib.init_paged_cache(
-                model_cfg, b, self.cfg.max_seq_len, self._n_blocks,
-                self._block, dtype=dtype, device=self.device,
-                quantized=kv_quant)
+            self.cache = self._make_cache(
+                lambda cfg, dev: paged_lib.init_paged_cache(
+                    cfg, b, self.cfg.max_seq_len, self._n_blocks,
+                    self._block, dtype=dtype, device=dev,
+                    quantized=kv_quant))
             self._max_len = self._max_blocks_per_seq * self._block
             # Host-side allocator: physical blocks 1..n are allocatable;
             # block 0 is the trash block (paged_lib.TRASH_BLOCK).
@@ -389,9 +415,10 @@ class Engine:
             self._chunk_fn = paged_lib.prefill_with_cache_paged
         else:
             self._prefix_enabled = False
-            self.cache = transformer.init_decode_cache(
-                model_cfg, b, self.cfg.max_seq_len, dtype=dtype,
-                device=self.device, quantized=kv_quant)
+            self.cache = self._make_cache(
+                lambda cfg, dev: transformer.init_decode_cache(
+                    cfg, b, self.cfg.max_seq_len, dtype=dtype, device=dev,
+                    quantized=kv_quant))
             self._max_len = self.cfg.max_seq_len
             self._step_fn = transformer.decode_step
             self._chunk_fn = transformer.prefill_with_cache
@@ -443,7 +470,7 @@ class Engine:
         self._prev_dispatch_steps = 0
         self._graphs: DecodeGraphs | None = (
             DecodeGraphs(self._gen, self.device)
-            if self.device.type == "cuda" else None)
+            if self.device.type == "cuda" and cuda_graphs else None)
 
         self.prefill_queue: queue_mod.Queue[Request] = queue_mod.Queue(
             maxsize=self.cfg.max_queue)
@@ -485,6 +512,43 @@ class Engine:
             if self.paged and self.cfg.kv_ledger else None)
         # LRU evictions since the last KV sync (journaled as one kv_evict).
         self._kv_evicts_pending = 0
+
+    def _tensor_parallel(self, model_cfg: ModelConfig, mesh,
+                         cuda_graphs: bool):
+        """The engine's ``TensorParallel`` (None without a mesh), with the
+        reference's serving rules for a mesh (``server/engine.py``).
+        Shards on distinct cards are served eagerly only."""
+        if mesh is None:
+            return None
+        shape = mesh.shape
+        if shape.get("pipe", 1) > 1:
+            raise ValueError("serving meshes must have pipe=1; fold those "
+                             "devices into tensor/data instead")
+        if self.paged and shape.get("data", 1) > 1:
+            raise ValueError(
+                "paged KV on a mesh requires data=1 (the pool replicates "
+                "over fsdp/sequence and shards kv-heads over tensor): "
+                "scale data-parallel replicas as separate engine processes "
+                "behind the gateway")
+        for axis, n in shape.items():
+            if n > 1 and axis != "tensor":
+                raise ValueError(f"mesh axis {axis}={n} is not served yet "
+                                 "(queued in ROADMAP.md)")
+        tp = sharding.TensorParallel(model_cfg, mesh)
+        if (cuda_graphs and not tp.one_device
+                and any(d.type == "cuda" for d in tp.devices)):
+            raise ValueError(
+                "tensor shards on distinct cards: CUDA graphs across "
+                "cards (the decode and spec blocks) are queued in "
+                "ROADMAP.md; place every shard on one card, or serve "
+                "eagerly (cuda_graphs=False, --no-cuda-graphs)")
+        return tp
+
+    def _make_cache(self, make):
+        """``make(cfg, device)``'s cache, per shard under a mesh."""
+        if self.tp is None:
+            return make(self.model_cfg, self.device)
+        return sharding.shard_cache(make, self.tp)
 
     # ------------------------------------------------------------------
     # device compute
@@ -631,8 +695,8 @@ class Engine:
 
     def _run_block(self, n_steps: int) -> torch.Tensor:
         """Copy the per-row parameters in and run one block: a graph
-        replay on the card (its output valid until the next replay), the
-        eager block on the CPU.  The penalized variant runs while some
+        replay on the card (its output valid until the next replay), else
+        the eager block.  The penalized variant runs while some
         row carries a penalty."""
         seeded = bool((self._slot_seed >= 0).any())
         penalized = bool(self._slot_presence.any()
@@ -649,10 +713,11 @@ class Engine:
         """[B, V_padded] int32 generated-token counts, made on first need
         (penalty-free serving never holds them) and kept at one address."""
         if "counts" not in self._dev:
+            params = sharding.parts(self.params)[0]  # whole embed, head
             if self.model_cfg.tie_embeddings:
-                v = self.params["embed"].shape[0]
+                v = params["embed"].shape[0]
             else:
-                head = self.params["lm_head"]
+                head = params["lm_head"]
                 if isinstance(head, dict):  # an int8 {"q", "s"} leaf
                     head = head["q"]
                 v = head.shape[-1]
@@ -799,7 +864,7 @@ class Engine:
 
     def _run_spec_block(self, n_cycles: int) -> torch.Tensor:
         """``_run_block`` for the spec block: parameters in, then a graph
-        replay on the card or the eager block on the CPU."""
+        replay on the card or else the eager block."""
         k = self.cfg.speculative_k
         seeded = bool((self._slot_seed >= 0).any())
         self._push(_SLOT_PARAMS + _SPEC_PARAMS)
@@ -1499,7 +1564,10 @@ class Engine:
         the cache's own table writes (``insert_prefill_paged``) must not
         reach the allocator's host table."""
         if self.paged and self._tables_dirty:
-            self._h2d(self.cache["tables"], self._tables_host)
+            # Shards on one device share one tables tensor.
+            for tables in sharding.distinct(
+                    [c["tables"] for c in sharding.parts(self.cache)]):
+                self._h2d(tables, self._tables_host)
             self._tables_dirty = False
 
     def _bucket(self, n: int) -> int:

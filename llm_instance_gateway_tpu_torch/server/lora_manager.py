@@ -42,6 +42,7 @@ import torch
 
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models import orbax_tree
+from llm_instance_gateway_tpu_torch.parallel import sharding
 
 logger = logging.getLogger(__name__)
 
@@ -125,6 +126,13 @@ class LoRAManager:
             t: [0.0, 0] for t in (TIER_HOST, TIER_DISK)}
         self.buffers = lora_lib.init_lora_buffers(cfg, dtype=dtype,
                                                   device=device)
+
+    def place(self, tp) -> None:
+        """Split the slot buffers over a ``TensorParallel``'s shards
+        (``parallel/sharding.shard_lora``); from here on every load,
+        promotion, demotion and eviction writes every shard."""
+        with self._mutate_lock:
+            self.buffers = sharding.shard_lora(self.buffers, tp)
 
     # -- queries -----------------------------------------------------------
     def running_adapters(self) -> list[str]:
@@ -278,7 +286,7 @@ class LoRAManager:
                         raise AdapterError(
                             "either weights or checkpoint_path required")
                     weights = self._host_copy(weights)
-                lora_lib.write_adapter(self.buffers, self.cfg, slot,
+                sharding.write_adapter(self.buffers, self.cfg, slot,
                                        weights, alpha, rank)
             except Exception:
                 with self._lock:
@@ -313,7 +321,7 @@ class LoRAManager:
                         logger.info("unloaded host-cached adapter %s", name)
                         return True
                     return False
-            lora_lib.clear_adapter(self.buffers, self.cfg, info.slot)
+            sharding.clear_adapter(self.buffers, self.cfg, info.slot)
             with self._lock:
                 self._free_slots.append(info.slot)
                 self._note_transition(TIER_SLOT, TIER_DISK)
@@ -345,7 +353,7 @@ class LoRAManager:
                     raise AdapterError(
                         f"adapter {name!r} has no host-side weights to "
                         "demote (reload it from a checkpoint first)")
-            lora_lib.clear_adapter(self.buffers, self.cfg, info.slot)
+            sharding.clear_adapter(self.buffers, self.cfg, info.slot)
             with self._lock:
                 self._free_slots.append(info.slot)
                 self._host_put(name, info.weights, info.alpha, info.rank,

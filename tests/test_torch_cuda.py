@@ -609,11 +609,9 @@ def _engine(narrow, graphs=True, dtype=torch.bfloat16, lora=None,
         kw = dict(draft_params=transformer.init_params(
             _draft_cfg(), seed=9, dtype=dtype, device="cuda"),
             draft_cfg=_draft_cfg())
-    eng = Engine(model_cfg, params, EngineConfig(**base), lora_manager=lora,
-                 eos_id=None, dtype=dtype, device="cuda", **kw)
-    if not graphs:
-        eng._graphs = None  # the eager block on the card
-    return eng
+    return Engine(model_cfg, params, EngineConfig(**base), lora_manager=lora,
+                  eos_id=None, dtype=dtype, device="cuda", cuda_graphs=graphs,
+                  **kw)
 
 
 def _jobs(seeded=False, temperature=0.0):
@@ -1006,10 +1004,8 @@ def test_int8_quantizers_divide_as_the_reference(dev):
 FAMILY_LAYOUTS = [(28, 4, 128), (16, 16, 256)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
-def test_family_layout_flash_and_chunk(dev, dtype, h, k, hd):
-    gen = torch.Generator(device=dev).manual_seed(h + hd)
+def _check_flash_and_chunk(dev, dtype, h, k, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     for s in (1, 129, 300):
         q = randn(gen, 2, s, h, hd, dtype=dtype)
         kk = randn(gen, 2, s, k, hd, dtype=dtype)
@@ -1024,10 +1020,8 @@ def test_family_layout_flash_and_chunk(dev, dtype, h, k, hd):
                      ch.chunk_attention_reference(q, kc, vc, start), dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
-def test_family_layout_lane_decode(dev, dtype, h, k, hd):
-    gen = torch.Generator(device=dev).manual_seed(h + hd + 1)
+def _check_lane_decode(dev, dtype, h, k, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     b, s_max = 6, 1100
     q = randn(gen, b, h, hd, dtype=dtype)
     kc = randn(gen, b, s_max, k, hd, dtype=torch.float32)
@@ -1044,10 +1038,8 @@ def test_family_layout_lane_decode(dev, dtype, h, k, hd):
     assert not got[0].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
-def test_family_layout_paged_decode(dev, dtype, h, k, hd):
-    gen = torch.Generator(device=dev).manual_seed(h + hd + 2)
+def _check_paged_decode(dev, dtype, h, k, hd, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
     page, b, m = 64, 6, 8
     n_blocks = b * m
     q = randn(gen, b, h, hd, dtype=dtype)
@@ -1067,6 +1059,51 @@ def test_family_layout_paged_decode(dev, dtype, h, k, hd):
     got = pd.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
     assert_close(got, pd.paged_decode_attention_quant_reference(
         q, kq, vq, tables, lengths, ks, vs), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_flash_and_chunk(dev, dtype, h, k, hd):
+    _check_flash_and_chunk(dev, dtype, h, k, hd, h + hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_lane_decode(dev, dtype, h, k, hd):
+    _check_lane_decode(dev, dtype, h, k, hd, h + hd + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", FAMILY_LAYOUTS)
+def test_family_layout_paged_decode(dev, dtype, h, k, hd):
+    _check_paged_decode(dev, dtype, h, k, hd, h + hd + 2)
+
+
+# One shard's heads under ``--mesh tensor=N`` (``parallel/sharding``): the
+# kernels run once per shard on these local layouts.  Llama-3-8B / Mixtral
+# 32:8 at t=2 and 4 (16:4, 8:2); Gemma-2B 8:1 at t=2 and 4 (4:1 and 2:1,
+# the KV head replicated); Gemma-7B 16:16 at t=2 (8:8); Qwen2.5-7B 28:4 at
+# t=2 and 4 (14:2, 7:1).
+MESH_LAYOUTS = [(16, 4, 128), (8, 2, 128), (4, 1, 256), (2, 1, 256),
+                (8, 8, 256), (14, 2, 128), (7, 1, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", MESH_LAYOUTS)
+def test_mesh_layout_flash_and_chunk(dev, dtype, h, k, hd):
+    _check_flash_and_chunk(dev, dtype, h, k, hd, 3 * h + hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", MESH_LAYOUTS)
+def test_mesh_layout_lane_decode(dev, dtype, h, k, hd):
+    _check_lane_decode(dev, dtype, h, k, hd, 3 * h + hd + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,k,hd", MESH_LAYOUTS)
+def test_mesh_layout_paged_decode(dev, dtype, h, k, hd):
+    _check_paged_decode(dev, dtype, h, k, hd, 3 * h + hd + 2)
 
 
 @pytest.fixture(scope="module")
@@ -1428,3 +1465,272 @@ def test_train_gradients_card_against_cpu(dev, kind):
             ("q_a", "q_b", "k_a", "k_b", "v_a", "v_b"))
     for path in attn:
         assert got[path].abs().max() > 0, path
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism on one card (--mesh tensor=2, both shards on cuda:0)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_engine(narrow, t, dtype, graphs=True, devices=None, lora=None,
+                 draft=None, params=None, **cfg):
+    """An engine over the narrow model at ``tensor=t``, its shards on
+    ``devices`` (default: all on cuda:0); ``draft`` as ``_engine``'s,
+    ``params`` in place of the narrow tree (int8 weights)."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.parallel.mesh import (
+        MeshConfig,
+        make_mesh,
+    )
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine,
+        EngineConfig,
+    )
+
+    model_cfg, narrow_params = narrow[dtype]
+    base = dict(decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64),
+                decode_steps_per_sync=4)
+    base.update(cfg)
+    mesh = (make_mesh(MeshConfig(tensor=t), devices or ["cuda:0"] * t)
+            if t > 1 else None)
+    kw = {}
+    if draft == "small":
+        kw = dict(draft_params=transformer.init_params(
+            _draft_cfg(), seed=9, dtype=dtype, device="cuda"),
+            draft_cfg=_draft_cfg())
+    return Engine(model_cfg, narrow_params if params is None else params,
+                  EngineConfig(**base), lora_manager=lora, eos_id=None,
+                  dtype=dtype, device="cuda", mesh=mesh, cuda_graphs=graphs,
+                  **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["lanes", "paged"])
+def test_tensor2_on_one_card_matches_tensor1_f32(narrow, paged):
+    """At f32 the shards' reduction order is the only difference: greedy
+    tokens equal tensor=1's, the graphed blocks replaying the shard loop,
+    and each kernel launches once per shard per layer."""
+    kw = dict(paged_kv_block=16, prefix_cache=True) if paged else {}
+    want = _serve(_mesh_engine(narrow, 1, torch.float32, **kw), _jobs())
+    eng = _mesh_engine(narrow, 2, torch.float32, **kw)
+    f0 = fl.launches
+    got = _serve(eng, _jobs())
+    assert got == want
+    assert eng._graphs.replays > 0
+    n_layers = narrow[torch.float32][0].n_layers
+    assert fl.launches - f0 == 2 * n_layers * len(_jobs())
+
+
+def test_tensor2_graph_replay_matches_eager_bf16(narrow):
+    got = _serve(_mesh_engine(narrow, 2, torch.bfloat16), _jobs())
+    want = _serve(_mesh_engine(narrow, 2, torch.bfloat16, graphs=False),
+                  _jobs())
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism across cards (shards on cuda:0 and cuda:1: the
+# partials summed by single-process NCCL, the blocks eager)
+# ---------------------------------------------------------------------------
+
+
+def _cards(n: int) -> list:
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA GPUs (tensor shards on distinct cards)")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def _narrow_moe_cfg():
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
+
+    return dataclasses.replace(MIXTRAL_8X7B, name="mixtral-narrow",
+                               d_model=512, n_layers=2, n_heads=8,
+                               n_kv_heads=2, head_dim=128, d_ff=512,
+                               vocab_size=320, max_lora_slots=2,
+                               max_lora_rank=8)
+
+
+def _lora_weights(cfg, seed):
+    import numpy as np
+
+    from llm_instance_gateway_tpu_torch.models import lora as lora_lib
+
+    rng = np.random.default_rng(seed)
+    return {t: {"a": rng.standard_normal((cfg.n_layers, di, 8)) * 0.3,
+                "b": rng.standard_normal((cfg.n_layers, 8, do)) * 0.3}
+            for t, (di, do) in lora_lib.target_dims(cfg).items()}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("model", ["narrow", "moe"])
+def test_sharded_forward_across_cards_equals_one_card(model, quant):
+    """tensor=2 over two cards against tensor=2 on one card, f32 (int8
+    weights and an int8 KV cache under ``int8``): prefill logits and KV,
+    a lane decode step and a paged decode step, with LoRA slots.  A sum of
+    two partials is the same sum whether NCCL or one device adds it, so
+    the results are bitwise equal."""
+    from llm_instance_gateway_tpu_torch.models import lora as lora_lib
+    from llm_instance_gateway_tpu_torch.models import paged as paged_lib
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cards = _cards(2)
+    cfg = _narrow_moe_cfg() if model == "moe" else _narrow_cfg()
+    f32 = torch.float32
+    params = transformer.init_params(cfg, seed=3, dtype=f32, device="cuda")
+    if quant:
+        params = quantize_params(params)
+    bufs = lora_lib.init_lora_buffers(cfg, dtype=f32, device="cuda")
+    lora_lib.write_adapter(bufs, cfg, 0, _lora_weights(cfg, 1), 16.0, 8)
+    b, s, lens = 3, 40, [40, 17, 29]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=gen)
+    positions = torch.arange(s, device="cuda")[None].expand(b, s)
+    slot_ids = torch.tensor([0, -1, 0], dtype=torch.int32, device="cuda")
+    step_tok = tokens[:, -1].clone()
+    step_pos = torch.tensor(lens, device="cuda")
+    outs = {}
+    for where, devices in (("one card", ["cuda:0"] * 2), ("cards", cards)):
+        tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+            mesh.MeshConfig(tensor=2), devices))
+        sp, sl = sharding.shard_params(params, tp), sharding.shard_lora(
+            bufs, tp)
+        with torch.no_grad():
+            logits, k, v = transformer.prefill(cfg, sp, tokens, positions,
+                                               sl, slot_ids)
+            got = [logits, k, v]
+            for paged in (False, True):
+                def make(c, d, paged=paged):
+                    if paged:
+                        return paged_lib.init_paged_cache(
+                            c, b, 64, 12, 16, dtype=f32, device=d,
+                            quantized=quant)
+                    return transformer.init_decode_cache(
+                        c, b, 64, dtype=f32, device=d, quantized=quant)
+                cache = sharding.shard_cache(make, tp)
+                for row in range(b):
+                    kr, vr = k[:, row:row + 1], v[:, row:row + 1]
+                    if paged:
+                        blocks = [1 + 4 * row, 2 + 4 * row, 3 + 4 * row]
+                        paged_lib.insert_prefill_paged(
+                            cache, kr, vr, row, blocks, blocks + [0],
+                            lens[row])
+                    else:
+                        transformer.insert_prefill(cache, kr, vr, row,
+                                                   lens[row])
+                step = (paged_lib.decode_step_paged if paged
+                        else transformer.decode_step)
+                got.append(step(cfg, sp, cache, step_tok, step_pos, sl,
+                                slot_ids)[0])
+                got.extend(c["k"] for c, _ in sharding.kv_parts(cache))
+        outs[where] = [x.float().cpu() for x in got]
+    for i, (a, w) in enumerate(zip(outs["cards"], outs["one card"])):
+        assert a.shape == w.shape, i
+        assert torch.equal(a, w), (i, (a - w).abs().max().item())
+    assert outs["cards"][0].abs().max() > 0
+
+
+@pytest.mark.parametrize("mode", ["lanes_lora", "paged_prefix", "spec",
+                                  "grouped_pipelined", "int8"])
+def test_tensor2_across_cards_matches_tensor1_f32(narrow, mode):
+    """The engine with its two shards on two cards (eager blocks) serves
+    tensor=1's greedy tokens at f32 in every serving mode, flash
+    launching once per shard per layer."""
+    from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
+    from llm_instance_gateway_tpu_torch.server.lora_manager import LoRAManager
+
+    cards = _cards(2)
+    cfg, f32_params = narrow[torch.float32]
+    kw, jobs, adapter = {}, _jobs(), None
+    if mode == "paged_prefix":
+        kw = dict(paged_kv_block=16, prefix_cache=True, stream_lanes=2,
+                  prefill_buckets=(16, 32))
+        jobs = jobs + [(jobs[3][0] + [7, 8], 9, jobs[0][2])]
+    elif mode == "spec":
+        kw = dict(speculative_k=3, draft="small")
+    elif mode == "grouped_pipelined":
+        kw = dict(prefill_batch=3, pipeline_decode=True)
+    elif mode == "int8":
+        kw = dict(params=quantize_params(f32_params), kv_cache_quant="int8")
+    streams, flash = {}, {}
+    for t, devices in ((1, None), (2, cards)):
+        lora = None
+        if mode == "lanes_lora":
+            lora = LoRAManager(cfg, dtype=torch.float32, device="cuda")
+            lora.load("cards", weights=_lora_weights(cfg, 4), alpha=16.0,
+                      rank=8)
+            adapter = "cards"
+        eng = _mesh_engine(narrow, t, torch.float32, graphs=t == 1,
+                           devices=devices, lora=lora, **kw)
+        if t == 2:
+            assert not eng.tp.one_device and eng._graphs is None
+            parts = list(eng.params)
+            assert [p["layers"]["wo"]["q"].device if mode == "int8" else
+                    p["layers"]["wo"].device for p in parts] == [
+                torch.device(c) for c in cards]
+        f0 = fl.launches
+        streams[t] = _serve(eng, jobs, adapter=adapter)
+        flash[t] = fl.launches - f0
+    assert streams[2] == streams[1]
+    # One flash program per request here; elsewhere grouping, prefix
+    # reuse and the draft's prefills depend on admission timing.
+    if mode in ("lanes_lora", "int8"):
+        assert flash[2] == 2 * flash[1] == 2 * cfg.n_layers * len(jobs)
+
+
+def test_hop_into_tensor2_across_cards_f32(narrow):
+    """A tensor=1 prefill's handoff attached to a paged engine whose two
+    shards sit on two cards: its heads scatter to the cards, and the
+    tokens equal the collocated tensor=1 engine's."""
+    from llm_instance_gateway_tpu_torch.server import kv_transfer
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    cards = _cards(2)
+    prompt, n_new = _jobs()[3][0], 12
+    pre = _mesh_engine(narrow, 1, torch.float32, role="prefill")
+    dec = _mesh_engine(narrow, 2, torch.float32, graphs=False,
+                       devices=cards, paged_kv_block=16, prefix_cache=True)
+    pre.start()
+    dec.start()
+    try:
+        wire = pre.prefill_only(Request(prompt_tokens=prompt,
+                                        max_new_tokens=n_new)).to_bytes()
+        req = dec.attach_prefilled(kv_transfer.PrefillHandoff.from_bytes(wire))
+        assert req.done.wait(300) and req.error is None, req.error
+    finally:
+        pre.stop()
+        dec.stop()
+    want = _serve(_mesh_engine(narrow, 1, torch.float32),
+                  [(prompt, n_new, _jobs()[0][2])])[0]
+    assert req.output_tokens == want
+
+
+def test_server_mesh_over_the_hosts_cards():
+    """``--mesh tensor=N --no-cuda-graphs`` on a host with N cards (its
+    shards on all of them by default) serves Gemma-2B, one KV head
+    replicated on each card; without ``--no-cuda-graphs`` the server
+    refuses by name."""
+    from llm_instance_gateway_tpu_torch.server import api_http
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    _cards(2)
+    n = torch.cuda.device_count()
+    argv = ["--model", "gemma-2b", "--host", "127.0.0.1", "--port", "0",
+            "--max-seq-len", "256", "--decode-slots", "2",
+            "--prefill-buckets", "16", "64", "--mesh", f"tensor={n}"]
+    with pytest.raises(ValueError, match="CUDA graphs across cards"):
+        api_http.make_server(argv)
+    httpd, eng, _ = api_http.make_server(argv + ["--no-cuda-graphs"])
+    try:
+        assert [str(d) for d in eng.mesh.devices] == [
+            f"cuda:{i}" for i in range(n)]
+        assert eng._graphs is None and not eng.tp.kv_split
+        req = eng.generate(Request(prompt_tokens=[2, 9, 17, 33],
+                                   max_new_tokens=6))
+        assert req.error is None and len(req.output_tokens) == 6
+    finally:
+        httpd.server_close()
+        eng.stop()
