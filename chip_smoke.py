@@ -194,6 +194,28 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    .npz, loaded over ``/v1/load_lora_adapter`` on a lane server, whose
    greedy answers equal an in-process engine's holding the trained
    buffers and differ from the base model's;
+16. mesh — tensor parallelism (``phase_mesh``): ``--mesh tensor=2``, both
+   shards on cuda:0, at 8B through the serve phase's window, its logits
+   against tensor=1 with planted faults, the narrow f32 model's tokens,
+   Gemma-2B at tensor=2, the calibration fit;
+17. sequence and expert — the two other mesh axes, every shard a view on
+   cuda:0.  ``phase_sequence`` (after phase 16): ``--mesh sequence=2`` at
+   8B behind the paged serve's window, the 3001- and 6001-token prompts
+   one ring program each (no chunk stream, no flash on the ring, exact
+   launches), again with ``--kv-quantize int8``; one ring prefill of the
+   6001-token prompt profiled beside sequence=1's chunk stream of it; the
+   ring's last-position logits against sequence=1's prefill within the
+   mesh phase's 1/16 rule, with a skipped below-diagonal block and
+   misplaced K/V blocks planted (each must fail it); the narrow f32
+   model at sequence=2 and tensor=2,sequence=2, bf16-width and int8 KV,
+   its tokens equal to sequence=1's.  ``phase_expert`` (inside phase 13,
+   on its Mixtral-8x7B int8 tree): the logits at expert=2 against
+   expert=1 under the same rule, with one shard's experts zeroed and the
+   shards' experts swapped planted; the narrow Mixtral at expert=2
+   replaying a 16-slot grouped decode, a zero router forcing the exact
+   fallback (the dense result, the CPU's tokens); ``--mesh expert=2``
+   served through the serve phase's window, its replayed decode step and
+   peak memory beside expert=1's;
 
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
@@ -1536,21 +1558,28 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
 
 
 def phase_paged_serve(torch, params, adapter_path: str,
-                      quant: bool = False) -> dict:
+                      quant: bool = False, flags=(), tag=None,
+                      mesh_devices=None, profile: bool = True,
+                      after=None) -> dict:
     """The same 8B weights behind the paged pool, prefix cache and two
     stream lanes, at Llama-3-8B's published 8192-token context: five
     requests sharing a ~600-token system prompt, and two concurrent long
     prompts (~3000 and ~6000 tokens) that stream in 1024-token chunks.
     ``quant`` adds ``--quantize int8 --kv-quantize int8`` and doubles the
     pool to 1536 blocks, about the bytes of the bf16 pool's 768 (64 KiB
-    plus 2 KiB of scales per token against 128 KiB)."""
+    plus 2 KiB of scales per token against 128 KiB).  ``flags`` adds
+    server flags: with ``--mesh sequence=N`` (over ``mesh_devices``) the
+    long prompts run one ring program each instead of streaming, counted
+    exactly; ``after(engine, url, stats)`` runs last on the live server,
+    and ``profile=False`` skips the profiles."""
     import threading
     import urllib.request
 
     from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+    from llm_instance_gateway_tpu_torch.parallel import sharding
     from llm_instance_gateway_tpu_torch.server import api_http
 
-    tag = "paged-int8" if quant else "paged"
+    tag = tag or ("paged-int8" if quant else "paged")
     n_pool = 1536 if quant else 768
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -1559,9 +1588,11 @@ def phase_paged_serve(torch, params, adapter_path: str,
         "--paged-kv-block", "64", "--paged-kv-blocks", str(n_pool),
         "--prefix-cache", "--stream-lanes", "2", "--device", "cuda",
         "--host", "127.0.0.1", "--port", "0"]
-        + (INT8_FLAGS if quant else []), params=params)
+        + (INT8_FLAGS if quant else []) + list(flags), params=params,
+        mesh_devices=mesh_devices)
     torch.cuda.synchronize()
     init_s = time.time() - t0
+    shards = engine.tp.t if engine.tp is not None else 1
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
@@ -1585,18 +1616,26 @@ def phase_paged_serve(torch, params, adapter_path: str,
         max_tokens = 32
         # Count the programs each kernel's launches follow: chunk programs
         # (stream chunks, prefix-hit suffixes) and bucketed prefills (the
-        # cold misses).
-        programs = {"chunk": 0, "prefill": 0}
-        chunk_fn, prefill_fn = engine._chunk_fn, engine._prefill_impl
+        # cold misses); and the long prompts' routes, chunk streams or
+        # ring programs.
+        programs = {"chunk": 0, "prefill": 0, "stream": 0, "ring": 0}
+        wrapped = {"chunk": "_chunk_fn", "prefill": "_prefill_impl",
+                   "stream": "_start_stream", "ring": "_ring"}
+        real = {kind: getattr(engine, name) for kind, name in wrapped.items()}
 
         def counted(kind, fn):
             def call(*args, **kwargs):
-                programs[kind] += 1
-                return fn(*args, **kwargs)
+                out = fn(*args, **kwargs)
+                # A stream reparked for backpressure starts again later.
+                programs[kind] += kind != "stream" or bool(out)
+                return out
             return call
 
-        engine._chunk_fn = counted("chunk", chunk_fn)
-        engine._prefill_impl = counted("prefill", prefill_fn)
+        for kind, name in wrapped.items():
+            if real[kind] is not None:
+                setattr(engine, name, counted(kind, real[kind]))
+        submitted: list = []
+        _record(engine, "submit", submitted)
         snap0 = engine.metrics_snapshot()
         reset_launches()
         results = [None] * len(jobs)
@@ -1618,7 +1657,8 @@ def phase_paged_serve(torch, params, adapter_path: str,
             th.join(900)
         serve_s = time.time() - t_serve
         launches = read_launches()
-        engine._chunk_fn, engine._prefill_impl = chunk_fn, prefill_fn
+        for kind, name in wrapped.items():
+            setattr(engine, name, real[kind])
         snap1 = engine.metrics_snapshot()
 
         for i, ((prompt, adapter), res) in enumerate(zip(jobs, results)):
@@ -1641,15 +1681,24 @@ def phase_paged_serve(torch, params, adapter_path: str,
                   - snap0["prefix_reused_tokens"])
         if reused <= 0:
             raise AssertionError(f"{tag}: no prefix tokens reused")
-        if decode_steps <= 0 or min(programs.values()) <= 0:
+        if decode_steps <= 0 or min(programs["chunk"],
+                                    programs["prefill"]) <= 0:
             raise AssertionError(f"{tag}: {decode_steps} decode steps, "
                                  f"programs {programs}")
-        paged_kernel = ("paged_decode_attention_quant" if quant
-                        else "paged_decode_attention")
+        # The two long prompts: two chunk streams, or on a sequence mesh
+        # two ring programs and no stream.
+        routes = ({"ring": 2, "stream": 0} if real["ring"] is not None
+                  else {"ring": 0, "stream": 2})
+        if {k: programs[k] for k in routes} != routes:
+            raise AssertionError(f"{tag}: long prompts took {programs}, "
+                                 f"want {routes}")
+        paged_kernel = ("paged_decode_attention_quant" if "--kv-quantize"
+                        in flags or quant else "paged_decode_attention")
+        # Each kernel once per tensor shard; the ring launches none.
         check_only(launches, {
-            paged_kernel: decode_steps * n_layers,
-            "chunk_attention": programs["chunk"] * n_layers,
-            "flash_prefill": programs["prefill"] * n_layers}, tag)
+            paged_kernel: decode_steps * n_layers * shards,
+            "chunk_attention": programs["chunk"] * n_layers * shards,
+            "flash_prefill": programs["prefill"] * n_layers * shards}, tag)
         # Every request finished: allocated blocks drain back to the floor
         # (zero-ref cached prefix blocks count as free).
         deadline = time.time() + 30
@@ -1674,13 +1723,16 @@ def phase_paged_serve(torch, params, adapter_path: str,
             if f.status != 200:
                 raise AssertionError(f"/debug/kv answered {f.status}")
         ph0, ph1 = snap0["phase_hist"], snap1["phase_hist"]
-        pool_bytes = sum(engine.cache[n].numel() * engine.cache[n].element_size()
-                         for n in ("k", "v", "k_scale", "v_scale")
-                         if n in engine.cache)
+        pool_bytes = sum(c[n].numel() * c[n].element_size()
+                         for c in sharding.distinct(sharding.parts(
+                             engine.cache))
+                         for n in ("k", "v", "k_scale", "v_scale") if n in c)
         stats = {
             "init_s": init_s, "serve_s": serve_s,
             "decode_steps": decode_steps, "chunk_programs": programs["chunk"],
             "prefill_programs": programs["prefill"],
+            "ring_programs": programs["ring"],
+            "chunk_streams": programs["stream"],
             "prefix_reused_tokens": reused,
             "decode_step_ms_mean": 1e3 * (
                 (ph1["decode_step"]["sum"] - ph0["decode_step"]["sum"])
@@ -1701,9 +1753,14 @@ def phase_paged_serve(torch, params, adapter_path: str,
         log(tag, f"llama3-8b paged (64-token blocks x {n_pool}, prefix cache, "
             "2 stream lanes"
             + (", --quantize int8 --kv-quantize int8" if quant else "")
-            + "): " + json.dumps(stats))
+            + "".join(f" {f}" for f in flags) + "): " + json.dumps(stats))
+        stats["answers"] = {(tuple(r.prompt_tokens), r.adapter):
+                            list(r.output_tokens) for r in submitted}
         # After the counted window: these launches are not the serve's.
-        stats["profile"] = phase_paged_profile(torch, engine)
+        if profile:
+            stats["profile"] = phase_paged_profile(torch, engine)
+        if after is not None:
+            after(engine, url, stats)
         return stats
     finally:
         httpd.shutdown()
@@ -3627,13 +3684,16 @@ def _seed_biases(torch, params, seed: int, scale: float) -> None:
 
 def _lane_reference(torch, phase: str, tag: str, cfg, params_by_dev,
                     kv_quant=None, decode_slots: int = 8,
-                    pipelined: bool = False, prompts=None) -> list:
+                    pipelined: bool = False, prompts=None,
+                    mesh_axes=None) -> list:
     """A lane engine on the CPU (sync) and on the card (sync, or
-    ``pipelined`` with graph replays): identical greedy streams, top-5
+    ``pipelined`` with graph replays; over the mesh of ``mesh_axes`` on
+    cuda:0, every shard a view): identical greedy streams, top-5
     logprobs within LP_TOL, the lane kernel (int8 with ``kv_quant``)
     launched on the card only; logged under ``phase``.  Returns the CPU's
     requests."""
     from llm_instance_gateway_tpu_torch.ops import decode_attention as dec
+    from llm_instance_gateway_tpu_torch.parallel import mesh
     from llm_instance_gateway_tpu_torch.server.engine import (
         Engine, EngineConfig)
 
@@ -3645,9 +3705,13 @@ def _lane_reference(torch, phase: str, tag: str, cfg, params_by_dev,
     by_dev, launches, engines = {}, {}, {}
     for dev, params in zip(("cpu", "cuda"), params_by_dev):
         dec.launches = dec.quant_launches = 0
+        grid = None
+        if mesh_axes and dev == "cuda":
+            m = mesh.MeshConfig(**mesh_axes)
+            grid = mesh.make_mesh(m, ["cuda:0"] * m.total)
         eng = Engine(cfg, params, EngineConfig(
             pipeline_decode=pipelined and dev == "cuda", **base),
-            eos_id=257, dtype=torch.float32, device=dev)
+            eos_id=257, dtype=torch.float32, device=dev, mesh=grid)
         by_dev[dev] = _run_engine(eng, prompts)
         launches[dev] = getattr(dec, counter)
         engines[dev] = eng
@@ -3667,14 +3731,17 @@ def _lane_reference(torch, phase: str, tag: str, cfg, params_by_dev,
     return by_dev["cpu"]
 
 
-def _moe_replay_reference(torch, tag: str, cfg, cpu_params, gpu_params):
+def _moe_replay_reference(torch, tag: str, cfg, cpu_params, gpu_params,
+                          mesh_axes=None, phase: str = "families"):
     """A 16-slot pipelined lane engine on the card — its decode block, a
     replayed graph, runs the grouped dispatch (t=16, cap 8) with the exact
     fallback selected on the device — against the CPU's sync engine; then
     again with a zero router, so every token's logits tie and every token
     picks experts 0 and 1 (the lower indices): each replayed block
     overflows, must give the dense result and the CPU's tokens, and a
-    drop-mode CPU engine (overflow dropped) must answer otherwise."""
+    drop-mode CPU engine (overflow dropped) must answer otherwise.  With
+    ``mesh_axes`` the card's engine serves over that mesh on cuda:0 (the
+    expert shards' grouped tiles, the flag from every expert's counts)."""
     import dataclasses
 
     from llm_instance_gateway_tpu_torch.models import transformer
@@ -3703,10 +3770,10 @@ def _moe_replay_reference(torch, tag: str, cfg, cpu_params, gpu_params):
         transformer._moe_grouped = counted
         try:
             want = _lane_reference(
-                torch, "families", f"{tag}, 16-slot pipelined, {router} "
+                torch, phase, f"{tag}, 16-slot pipelined, {router} "
                 "router", cfg,
                 (cpu_p, gpu_p), decode_slots=16, pipelined=True,
-                prompts=prompts)
+                prompts=prompts, mesh_axes=mesh_axes)
         finally:
             transformer._moe_grouped = real
         if (16, False) not in calls:
@@ -3724,7 +3791,7 @@ def _moe_replay_reference(torch, tag: str, cfg, cpu_params, gpu_params):
             if _streams(drop) == _streams(want) and lp_gap <= LP_TOL:
                 raise AssertionError(f"{tag}: drop mode answers as the "
                                      "exact fallback: no overflow seen")
-            log("families", f"{tag}, zero router: every replayed block "
+            log(phase, f"{tag}, zero router: every replayed block "
                 f"overflowed to the dense result (the CPU's tokens); drop "
                 f"mode departs by {lp_gap:.3g} in logprob")
 
@@ -3810,6 +3877,9 @@ def _moe_extras(torch, tag: str, cfg):
         log(tag, f"replayed decode step: exact {exact_ms:.2f} device ms, "
             f"drop mode {drop_ms:.2f}: the exact fallback costs "
             f"{exact_ms - drop_ms:.2f} ms a step")
+        if cfg.name == "mixtral-8x7b":
+            # Phase 17's expert half, over this server's tree.
+            stats["expert"] = phase_expert(torch, engine, stats)
 
     return after
 
@@ -4431,7 +4501,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
-    families, train, mesh)."""
+    families, train, mesh, sequence, expert)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -4838,6 +4908,448 @@ def phase_mesh(torch, params, adapter_path: str, serve_stats: dict) -> dict:
     return out
 
 
+# -- phase 17: the sequence and expert axes on one card ----------------------
+
+# Both halves run every shard as a view on cuda:0, as the mesh phase does.
+SEQ_DEVICES = ["cuda:0", "cuda:0"]
+SEQ_FLAGS = ["--mesh", "sequence=2"]
+EXPERT_FLAGS = ["--mesh", "expert=2"]
+# Faults planted in the ring, each of which the logits check (the mesh
+# phase's MESH_LOGIT_TOL) must fail: block 1 attending without block 0's
+# keys (a below-diagonal block skipped), and every block's K/V attended
+# as the other's (the blocks at the wrong global positions).
+SEQ_FAULTS = ("block_skipped", "kv_misplaced")
+# Faults planted in the expert=2 Mixtral tree: expert shard 1's w_down
+# scales zeroed in the middle layer (its experts' output dropped), and the
+# two shards' expert stacks swapped in every layer (each token's experts
+# computed with the other shard's weights).
+EXPERT_FAULTS = ("experts_zeroed", "experts_swapped")
+
+
+def _share(got, want) -> dict:
+    """The largest |got - want| over the largest |want| (both [V])."""
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    return {"max_abs_err": err, "max_abs_logit": top, "share": err / top,
+            "argmax_equal": bool(got.argmax() == want.argmax())}
+
+
+def _gate(tag: str, sound: dict, faults: dict) -> None:
+    """Every sound share within MESH_LOGIT_TOL, every planted fault's
+    beyond it (the check's reach)."""
+    for name, r in sound.items():
+        if not math.isfinite(r["share"]) or r["share"] > MESH_LOGIT_TOL:
+            raise AssertionError(
+                f"{tag} logits {name}: {r['max_abs_err']} over "
+                f"{MESH_LOGIT_TOL} of the largest |logit| "
+                f"{r['max_abs_logit']}")
+    for fault, rows in faults.items():
+        for name, r in rows.items():
+            if not r["share"] > MESH_LOGIT_TOL:
+                raise AssertionError(
+                    f"{tag} logits {name}: the planted fault {fault} moves "
+                    f"them by {r['share']} of the largest |logit|, within "
+                    f"the tolerance {MESH_LOGIT_TOL}: the check cannot see "
+                    "such a fault")
+
+
+def _ring_attention_fn(fault=None):
+    """``prefill``'s attention seam for the ring, sound or with a planted
+    fault (``SEQ_FAULTS``)."""
+    from llm_instance_gateway_tpu_torch.parallel.ring_attention import (
+        ring_attention_blocks)
+
+    def attend(s, qs, ks, vs):
+        if fault == "kv_misplaced":
+            return ring_attention_blocks(qs, ks[::-1], vs[::-1])
+        outs = ring_attention_blocks(qs, ks, vs)
+        if fault == "block_skipped":
+            # Block 1's diagonal alone: a one-block ring keeps its mask.
+            outs[1] = ring_attention_blocks(qs[1:], ks[1:], vs[1:])[0]
+        return outs
+    return attend
+
+
+def _padded_prompt(torch, prompt: list, pad: int):
+    dev = torch.device("cuda")
+    n = len(prompt)
+    padded = -(-n // pad) * pad
+    tokens = torch.zeros((1, padded), dtype=torch.long, device=dev)
+    tokens[0, :n] = torch.tensor(prompt, device=dev)
+    return tokens, torch.arange(padded, device=dev)[None]
+
+
+def _seq_logits(torch, params, prompt: list) -> dict:
+    """The ring prefill (sequence=2 on one card) of ``prompt``, padded to
+    the serve's ring multiple (1024), against sequence=1's prefill (flash)
+    of the same tokens: the last real position's logits, sound and with
+    ``SEQ_FAULTS`` planted; eager, bf16, each prefill timed."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import (
+        long_context, mesh, sharding)
+
+    cfg, n = LLAMA3_8B, len(prompt)
+    tokens, positions = _padded_prompt(torch, prompt, 1024)
+    m = mesh.make_mesh(mesh.MeshConfig(sequence=2), SEQ_DEVICES)
+    sp = sharding.shard_params(params, sharding.TensorParallel(cfg, m))
+    blocks = long_context.shard_inputs(m, tokens, positions)
+    rows, walls = {}, {}
+    with torch.no_grad():
+        for run in ("sequence=1",) + ("sound",) + SEQ_FAULTS:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if run == "sequence=1":
+                logits = transformer.prefill(cfg, params, tokens,
+                                             positions)[0]
+            else:
+                logits = transformer.prefill(
+                    cfg, sp, *blocks, attention_fn=_ring_attention_fn(
+                        None if run == "sound" else run))[0]
+            rows[run] = logits[0, n - 1, :cfg.vocab_size].float().clone()
+            torch.cuda.synchronize()
+            walls[run] = time.time() - t0
+            del logits
+    want = rows.pop("sequence=1")
+    res = {"prompt_tokens": n, "padded": tokens.shape[1],
+           "prefill_last": _share(rows["sound"], want),
+           "wall_s": walls,
+           "planted_faults": {f: {"prefill_last": _share(rows[f], want)}
+                              for f in SEQ_FAULTS}}
+    _gate("seq", {"prefill_last": res["prefill_last"]}, res["planted_faults"])
+    log("seq", "ring prefill logits vs sequence=1 (bf16, tolerance "
+        f"{MESH_LOGIT_TOL} of the largest |logit|): " + json.dumps(res))
+    return res
+
+
+def _seq_profile(torch, engine, prompt: list) -> dict:
+    """On the idle sequence=2 server: one ring prefill of ``prompt``
+    (``Engine._ring_prefill``: pad, the ring, the first token sampled)
+    beside the chunk stream sequence=1 runs for it (1024-token chunk
+    programs through a row's table, on sequence group 0: sequence=1's
+    tree and pool), each profiled once after a warm-up call."""
+    import numpy as np
+
+    from llm_instance_gateway_tpu_torch.models import paged
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    cfg, n, chunk = engine.model_cfg, len(prompt), 1024
+    params = sharding.parts(engine.params)[0]
+    lora_bufs = sharding.parts(engine.lora.buffers)[0]
+    block = engine._block
+    need = -(-n // chunk) * chunk // block
+    tables = torch.zeros_like(sharding.parts(engine.cache)[0]["tables"])
+    tables[7, :need] = torch.arange(1, need + 1)
+    cache = dict(sharding.parts(engine.cache)[0], tables=tables)
+    req = Request(prompt_tokens=list(prompt), max_new_tokens=1)
+
+    def ring():
+        return engine._ring_prefill(req, n, -1)[0]
+
+    def stream():
+        out = None
+        for start in range(0, n, chunk):
+            c = min(chunk, n - start)
+            toks = np.zeros((chunk,), np.int64)
+            toks[:c] = prompt[start:start + c]
+            out = paged.prefill_with_cache_paged(
+                cfg, params, cache, toks, start + np.arange(chunk), 7,
+                start + c, c - 1, lora_bufs=lora_bufs)[0]
+        return out
+
+    with torch.no_grad():
+        out = {"ring_prefill": _profile(
+            torch, f"ring prefill of {n} tokens (sequence=2, one card)",
+            ring, 1),
+            "chunk_stream": _profile(
+                torch, f"chunk stream of {n} tokens (sequence=1's "
+                f"{-(-n // chunk)} chunk programs)", stream, 1)}
+    return out
+
+
+def _seq_narrow_f32(torch) -> dict:
+    """The narrow f32 model (the mesh phase's) on the card with a 200-token
+    prompt beyond the largest bucket (128): at ``sequence=2`` and at
+    ``tensor=2, sequence=2`` (one ring program, graphs replaying the
+    decode after it) against sequence=1 with a covering bucket, with a
+    bf16-width and an int8 KV cache: identical greedy tokens."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh
+    from llm_instance_gateway_tpu_torch.server.engine import (
+        Engine, EngineConfig, Request)
+
+    cfg = dataclasses.replace(LLAMA3_8B, **MESH_NARROW)
+    params = transformer.init_params(cfg, seed=5, dtype=torch.float32,
+                                     device="cuda")
+    prompts = [[256] + [65 + (7 * i + j) % 200 for j in range(n)]
+               for i, n in enumerate((5, 40, 12, 60, 3, 100, 199))]
+    out = {}
+    for kv in (None, "int8"):
+        streams, rings = {}, {}
+        for name, axes, buckets in (
+                ("sequence=1", None, (16, 64, 128, 256)),
+                ("sequence=2", dict(sequence=2), (16, 64, 128)),
+                ("tensor=2,sequence=2", dict(tensor=2, sequence=2),
+                 (16, 64, 128))):
+            m = None
+            if axes:
+                mc = mesh.MeshConfig(**axes)
+                m = mesh.make_mesh(mc, ["cuda:0"] * mc.total)
+            eng = Engine(cfg, params, EngineConfig(
+                decode_slots=4, max_seq_len=256, prefill_buckets=buckets,
+                decode_steps_per_sync=4, kv_cache_quant=kv), eos_id=None,
+                dtype=torch.float32, device="cuda", mesh=m)
+            calls = []
+            if eng._ring is not None:
+                ring = eng._ring
+                eng._ring = lambda *a, ring=ring, **k: (calls.append(1)
+                                                        or ring(*a, **k))
+            streams[name] = _serve_all(eng, [Request(prompt_tokens=p,
+                                                     max_new_tokens=24)
+                                             for p in prompts])
+            rings[name] = len(calls)
+        for name, got in streams.items():
+            if got != streams["sequence=1"]:
+                raise AssertionError(f"seq f32 (kv {kv}): {name} tokens "
+                                     f"{got} != sequence=1 "
+                                     f"{streams['sequence=1']}")
+        if rings != {"sequence=1": 0, "sequence=2": 1,
+                     "tensor=2,sequence=2": 1}:
+            raise AssertionError(f"seq f32 (kv {kv}): ring programs {rings}")
+        out[kv or "f32"] = {"requests": len(prompts), "identical": True,
+                            "tokens": sum(map(len, streams["sequence=1"])),
+                            "ring_programs": rings}
+    log("seq", "narrow f32 sequence=2 and tensor=2,sequence=2 vs "
+        "sequence=1: " + json.dumps(out))
+    return out
+
+
+def _differing(answers: dict, want: dict) -> dict:
+    """Greedy tokens of ``answers`` that differ from ``want``'s."""
+    return {"differ": sum(int(a != b) for key, toks in answers.items()
+                          for a, b in zip(toks, want[key])),
+            "of": sum(map(len, answers.values()))}
+
+
+def phase_sequence(torch, params, adapter_path: str,
+                   paged_stats: dict) -> dict:
+    """Phase 17, first half: the ``sequence`` axis (``--mesh sequence=2``,
+    both shards on cuda:0).  Llama-3-8B at full width and depth behind the
+    paged serve's window (``phase_paged_serve``: 8192-token context,
+    prefix cache; the 3001- and 6001-token prompts pad to 3072 and 6144
+    and run one ring program each, no chunk stream, exact launches: no
+    flash on the ring, the paged kernel per tensor shard), its greedy
+    tokens counted against the paged serve phase's; one ring prefill and
+    sequence=1's chunk stream of the longest prompt profiled; again with
+    ``--kv-quantize int8``; the ring's last-position logits against
+    sequence=1's prefill with ``SEQ_FAULTS`` planted; the narrow f32
+    model's identical tokens."""
+    import gc
+
+    t0 = time.time()
+    extra: dict = {}
+
+    def after(engine, url, stats):
+        prompt = max((list(p) for p, _ in stats["answers"]), key=len)
+        extra["prompt"] = prompt
+        extra["profile"] = _seq_profile(torch, engine, prompt)
+
+    stats = phase_paged_serve(torch, params, adapter_path, flags=SEQ_FLAGS,
+                              tag="seq", mesh_devices=SEQ_DEVICES,
+                              profile=False, after=after)
+    answers = stats.pop("answers")
+    differ = _differing(answers, paged_stats["answers"])
+    log("seq", f"greedy tokens differing from the paged serve (sequence=1, "
+        f"bf16): {differ['differ']} of {differ['of']} (reported, not gated)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8kv = phase_paged_serve(
+        torch, params, adapter_path, flags=SEQ_FLAGS + ["--kv-quantize",
+                                                        "int8"],
+        tag="seq-int8kv", mesh_devices=SEQ_DEVICES, profile=False)
+    differ_int8 = _differing(int8kv.pop("answers"), answers)
+    log("seq", "greedy tokens with --kv-quantize int8 differing from bf16 "
+        f"KV's: {differ_int8['differ']} of {differ_int8['of']} (reported)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits = _seq_logits(torch, params, extra["prompt"])
+    narrow = _seq_narrow_f32(torch)
+    launches = dict(stats["launches"])
+    for name, k in int8kv["launches"].items():
+        launches[name] = launches.get(name, 0) + k
+    out = {"wall_s": time.time() - t0, "launches": launches,
+           "tokens_differing": differ, "int8kv_tokens_differing": differ_int8,
+           "logits": logits, "narrow": narrow, "profile": extra["profile"],
+           "programs": {k: stats[k] for k in ("ring_programs",
+                                              "chunk_streams",
+                                              "chunk_programs",
+                                              "prefill_programs")},
+           "peak_mem_gb": {"sequence=1 paged": paged_stats["peak_mem_gb"],
+                           "sequence=2 paged": stats["peak_mem_gb"]}}
+    log("seq", "phase " + json.dumps(out))
+    return out
+
+
+def _float_leaves(torch, tree, dtype):
+    """``tree`` with every floating leaf in ``dtype`` (int8 ``{"q", "s"}``
+    leaves kept: ``quant.matmul`` widens them to the activations')."""
+    from llm_instance_gateway_tpu_torch.ops.quant import is_quantized
+
+    if isinstance(tree, dict) and not is_quantized(tree):
+        return {k: _float_leaves(torch, v, dtype) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def _expert_logits(torch, params) -> dict:
+    """Mixtral-8x7B (the served int8 tree) at expert=1 and at expert=2 on
+    one card (the expert shards views of the same stacks), eager: a
+    300-token prefill (the grouped dispatch) and the decode step after it
+    (the dense mix), logits against each other.  With f32 activations
+    (the int8 weights widened to f32) the two must agree within
+    MESH_LOGIT_TOL and each of ``EXPERT_FAULTS`` planted in the sharded
+    tree must fail that check; in bf16, as served, the share is reported
+    beside its floor: expert=1 against itself with the prefill's grouped
+    tiles replaced by the dense mix (the same function, another order of
+    sums), since in bf16 a rounding apart flips near-tied top-2 choices
+    and each flip moves a token's MLP output whole."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
+    from llm_instance_gateway_tpu_torch.ops.quant import is_quantized
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cfg, dev, n = MIXTRAL_8X7B, torch.device("cuda"), 300
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(expert=2), SEQ_DEVICES))
+    gen = torch.Generator(device=dev).manual_seed(78)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                           generator=gen)
+    positions = torch.arange(n, device=dev)[None]
+    mid = cfg.n_layers // 2
+    # The dense mix for the prefill too (cap >= t): the floor's variant.
+    dense_cfg = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+
+    def planted(sharded, fault: str):
+        trees = [dict(t, layers=dict(t["layers"])) for t in sharded]
+        if fault == "experts_zeroed":
+            w = trees[1]["layers"]["w_down"]
+            if is_quantized(w):
+                scale = w["s"].clone()
+                scale[mid] = 0
+                w = {"q": w["q"], "s": scale}
+            else:
+                w = w.clone()
+                w[mid] = 0
+            trees[1]["layers"]["w_down"] = w
+        else:
+            for name in ("w_gate", "w_up", "w_down"):
+                trees[0]["layers"][name] = sharded[1]["layers"][name]
+                trees[1]["layers"][name] = sharded[0]["layers"][name]
+        return sharding.Shards(trees, tp)
+
+    def forward(p, dtype, run_cfg=cfg):
+        """(the prefill's last logits, the next decode step's logits)."""
+        def lane(c, d):
+            return transformer.init_decode_cache(c, 1, 1024, dtype=dtype,
+                                                 device=d)
+        cache = (sharding.shard_cache(lane, tp)
+                 if isinstance(p, sharding.Shards) else lane(cfg, dev))
+        logits, k, v = transformer.prefill(run_cfg, p, tokens, positions)
+        last = logits[0, -1, :cfg.vocab_size].float().clone()
+        del logits
+        transformer.insert_prefill(cache, k, v, 0, n)
+        # Every run decodes the first run's argmax.
+        nxt = state.setdefault("nxt", last.argmax().reshape(1))
+        step, _ = transformer.decode_step(
+            run_cfg, p, cache, nxt, torch.tensor([n], device=dev))
+        return last, step[0, :cfg.vocab_size].float()
+
+    def compare(got, want):
+        return {name: _share(got[i], want[i])
+                for name, i in (("prefill_last", 0), ("decode_step", 1))}
+
+    res, state = {}, {}
+    with torch.no_grad():
+        want = forward(params, torch.bfloat16)
+        res["bf16"] = compare(forward(sharding.shard_params(params, tp),
+                                      torch.bfloat16), want)
+        res["bf16"]["floor"] = compare(
+            forward(params, torch.bfloat16, dense_cfg), want)
+        p32 = _float_leaves(torch, params, torch.float32)
+        sh32 = sharding.shard_params(p32, tp)
+        want = forward(p32, torch.float32)
+        res["f32"] = compare(forward(sh32, torch.float32), want)
+        res["f32"]["planted_faults"] = {
+            f: compare(forward(planted(sh32, f), torch.float32), want)
+            for f in EXPERT_FAULTS}
+        del p32, sh32
+    _gate("expert f32", {k: res["f32"][k] for k in ("prefill_last",
+                                                    "decode_step")},
+          res["f32"]["planted_faults"])
+    log("expert", "logits expert=2 vs expert=1 (int8 weights; gated at f32 "
+        f"activations, tolerance {MESH_LOGIT_TOL}, experts_zeroed in layer "
+        f"{mid}; bf16 reported beside its floor): " + json.dumps(res))
+    return res
+
+
+def phase_expert(torch, engine, stats: dict) -> dict:
+    """Phase 17, second half: the ``expert`` axis, run on phase 13's
+    Mixtral-8x7B int8 server (``_moe_extras``) over its own tree: the
+    logits at expert=2 against expert=1 with ``EXPERT_FAULTS`` planted;
+    the narrow Mixtral at expert=2 on the card, 16 slots replaying the
+    grouped decode, its exact fallback forced by a zero router (the
+    dense result: the CPU's tokens); then ``--mesh expert=2`` served over
+    the same tree through the serve phase's window (exact launches), its
+    replayed decode step and peak memory beside expert=1's."""
+    import dataclasses
+    import gc
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
+
+    t0 = time.time()
+    logits = _expert_logits(torch, engine.params)
+    preset, h, k, hd = FAMILY_LAYOUTS[
+        "mixtral (32:8, hd 128, 8 experts, top-2)"]
+    cfg = dataclasses.replace(
+        CONFIGS[preset], name=f"{preset}-narrow", d_model=512, n_layers=2,
+        n_heads=h, n_kv_heads=k, head_dim=hd, d_ff=1024, vocab_size=320)
+    cpu_params = transformer.init_params(cfg, seed=7, dtype=torch.float32,
+                                         device="cpu")
+    _moe_replay_reference(torch, "mixtral narrow expert=2", cfg, cpu_params,
+                          _to_card(cpu_params), mesh_axes=dict(expert=2),
+                          phase="expert")
+    gc.collect()
+    torch.cuda.empty_cache()
+    flags = dict(FAMILY_SERVERS)["mixtral-8x7b"] + EXPERT_FLAGS
+    served = phase_serve(torch, engine.params, model="mixtral-8x7b",
+                         flags=flags, tag="expert",
+                         mesh_devices=SEQ_DEVICES)[0]
+    differ = _differing(served.pop("answers"), stats["answers"])
+    log("expert", f"greedy tokens differing from expert=1: "
+        f"{differ['differ']} of {differ['of']} (int8; reported, not gated)")
+    steps = {}
+    for label, st in (("expert=1", stats), ("expert=2", served)):
+        graph = st["profile"]["decode_step"]["graph_replay"]
+        steps[label] = {key: graph.get(key) if isinstance(graph, dict)
+                        else graph
+                        for key in ("wall_ms", "device_ms",
+                                    "device_idle_share")}
+        steps[label]["peak_mem_gb"] = st["peak_mem_gb"]
+    out = {"wall_s": time.time() - t0, "launches": served["launches"],
+           "logits": logits, "tokens_differing": differ,
+           "replayed_step": steps}
+    log("expert", "phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -4888,6 +5400,8 @@ def main() -> int:
     done("train")
     meshed = phase_mesh(torch, params, adapter_path, stats)
     done("mesh")
+    sequence = phase_sequence(torch, params, adapter_path, paged_stats)
+    done("sequence")
     # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes,
     # with all phase 14 loaded.
     del params
@@ -4895,6 +5409,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     families = phase_families(torch)
     done("families")
+    expert = families["servers"]["mixtral-8x7b"].pop("expert")
+    log("walls", "phase 17 (sequence and expert): " + json.dumps(
+        {"sequence_s": sequence["wall_s"], "expert_s": expert["wall_s"],
+         "total_s": sequence["wall_s"] + expert["wall_s"]}))
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
     for name, rows in meshed["kernel_rows"].items():
@@ -4913,7 +5431,9 @@ def main() -> int:
                               for name in stats["launches"]},
                "families": families["launches"],
                "train": trained["launches"],
-               "mesh": meshed["launches"]}
+               "mesh": meshed["launches"],
+               "sequence": sequence["launches"],
+               "expert": expert["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

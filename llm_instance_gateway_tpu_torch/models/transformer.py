@@ -28,15 +28,19 @@ the chunk kernel over the slot's lane dequantized to the activation dtype
 to XLA instead, for fusion the card's eager path does not have — the same
 function either way.
 
-Tensor parallelism (``parallel/sharding.py``): every forward takes a
+The shard grid (``parallel/sharding.py``): every forward takes a
 ``Shards`` params tree as well as a plain one.  Each layer then runs its
-attention and its MLP once per shard, on the shard's heads and ffn
-columns (the kernel wrappers called once per shard), and sums the
-shards' ``wo`` and ``w_down`` partials onto the residual: two reductions
-a layer (``_attn_block``, ``_mlp_block``); norms and residuals are
-replicated.  A plain tree is the one-shard case, the same arithmetic.
-Caches are then ``Shards`` too, each shard's holding its KV heads, and
-the prefill's KV comes back whole.
+attention once per tensor shard, on the shard's heads (the kernel
+wrappers called once per shard), and its MLP once per shard, on the
+shard's ffn columns — or its experts' (``expert`` shards: the layer view
+carries the first expert, ``_experts``) — and sums the shards' ``wo``
+and ``w_down`` partials onto the residual: two reductions a layer
+(``_attn_block``, ``_mlp_block``); norms and residuals are replicated.
+A plain tree is the one-shard case, the same arithmetic.  Caches are then
+``Shards`` too, each tensor shard's holding its KV heads, and the
+prefill's KV comes back whole.  ``prefill``'s ``attention_fn`` seam runs
+sequence blocks on the ``sequence`` groups with the ring's attention
+(``parallel/long_context.py``).
 
 Differences from the JAX functions, by design:
 - ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
@@ -270,7 +274,10 @@ def _moe_mlp(cfg: ModelConfig, lp: Params, x, host_flag: bool = False):
     collisions overflow it, and an exact-mode overflow pays grouped plus
     dense); the grouped capacity dispatch otherwise.  The choice depends on
     the token count only, so a captured block takes one path for good.
-    No LoRA on expert weights, as in the reference."""
+    No LoRA on expert weights, as in the reference.  ``lp`` may hold a
+    slice of the experts (an ``expert`` shard's, ``_experts``): the gate,
+    the capacity and the path stay the global ones, and the result is the
+    slice's share of the sum over experts."""
     t = math.prod(x.shape[:-1])
     cap = _moe_capacity(cfg, t)
     if cap >= t or (cfg.moe_exact_fallback and cap < 8):
@@ -310,11 +317,21 @@ def _route(cfg: ModelConfig, lp: Params, x):
     return topi, torch.softmax(topv, dim=-1)
 
 
+def _experts(lp: Params) -> tuple[int, int]:
+    """(first, count) of the experts a layer's stacks hold: all of them,
+    or an ``expert`` shard's slice, whose layer view carries its offset
+    (``_Shards.layer``)."""
+    w = lp["w_gate"]
+    return (lp.get("expert_offset", 0),
+            (w["q"] if isinstance(w, dict) else w).shape[0])
+
+
 def _moe_dense(cfg: ModelConfig, lp: Params, x):
     """Every expert over every token, mixed by the top-k gates scattered
-    to a dense [..., E] vector."""
+    to a dense [..., E] vector (the gates of the experts ``lp`` holds)."""
     topi, gates = _route(cfg, lp, x)
-    experts = torch.arange(cfg.n_experts, device=x.device)
+    e0, n_loc = _experts(lp)
+    experts = torch.arange(e0, e0 + n_loc, device=x.device)
     dense_gates = ((topi[..., None] == experts).float()
                    * gates[..., None]).sum(-2)
     hidden = expert_mix(x, lp["w_gate"])
@@ -339,12 +356,19 @@ def _moe_grouped(cfg: ModelConfig, lp: Params, x, host_flag: bool = False):
     ``host_flag`` reads the flag on the host and computes the dense mix
     only when it is set (the eager prefill and chunk forwards: one sync a
     layer); otherwise both are computed and ``torch.where`` selects on the
-    device, which a CUDA graph can hold (the decode and extend forwards)."""
+    device, which a CUDA graph can hold (the decode and extend forwards).
+
+    An ``expert`` shard (``lp`` holding a slice, ``_experts``) builds the
+    tiles of its own experts only, ``[E_local, cap, d]``, from the global
+    routing: ranks and the overflow flag come from every expert's counts,
+    so every shard takes the same branch, and its result is its experts'
+    share of the sum."""
     shape = x.shape
     d = shape[-1]
     xf = x.reshape(-1, d)
     t = xf.shape[0]
     e, k = cfg.n_experts, cfg.n_experts_per_token
+    e0, n_loc = _experts(lp)
     topi, gates = _route(cfg, lp, xf)  # [T, k]
     cap = _moe_capacity(cfg, t)
     flat_expert = topi.reshape(-1)  # [T*k], token-major
@@ -352,16 +376,18 @@ def _moe_grouped(cfg: ModelConfig, lp: Params, x, host_flag: bool = False):
               == torch.arange(e, device=x.device)).to(torch.int32)
     pos = ((torch.cumsum(assign, dim=0) - 1) * assign).sum(-1)
     kept = pos < cap
-    flat_idx = flat_expert * cap + pos.clamp(0, cap - 1)
-    keep_col = kept[:, None].to(xf.dtype)
+    local = flat_expert - e0
+    mine = kept if n_loc == e else kept & (local >= 0) & (local < n_loc)
+    flat_idx = local.clamp(0, n_loc - 1) * cap + pos.clamp(0, cap - 1)
+    keep_col = mine[:, None].to(xf.dtype)
     xk = xf[:, None].expand(t, k, d).reshape(t * k, d)
-    x_e = torch.zeros((e * cap, d), dtype=xf.dtype, device=xf.device)
+    x_e = torch.zeros((n_loc * cap, d), dtype=xf.dtype, device=xf.device)
     x_e.index_add_(0, flat_idx, xk * keep_col)
-    x_e = x_e.reshape(e, cap, d)
+    x_e = x_e.reshape(n_loc, cap, d)
     hidden = expert_matmul(x_e, lp["w_gate"])
     up = expert_matmul(x_e, lp["w_up"])
     out_e = expert_matmul(swiglu(hidden, up, cfg.gelu_mlp), lp["w_down"])
-    gathered = out_e.reshape(e * cap, d)[flat_idx] * keep_col
+    gathered = out_e.reshape(n_loc * cap, d)[flat_idx] * keep_col
     y = (gathered.reshape(t, k, d) * gates.to(xf.dtype)[..., None]).sum(1)
     if cfg.moe_exact_fallback:
         overflow = (~kept).any()
@@ -414,30 +440,43 @@ def _no_slots(b: int, device) -> torch.Tensor:
 
 
 class _Shards:
-    """The shards a forward iterates: the trees of a ``Shards`` params
-    tree (``parallel/sharding.py``) with their local config, or the one
-    tree of a plain one.  The residual stream is a list with one entry
-    per shard (one tensor, repeated, when the shards share a device)."""
+    """The shards a forward iterates: the trees of sequence group
+    ``group`` of a ``Shards`` params tree (``parallel/sharding.py``) with
+    their local config, or the one tree of a plain one.  The residual
+    stream is a list with one entry per shard (one tensor, repeated, when
+    the shards share a device).  Attention runs on the first ``n_attn``
+    shards (expert 0's tensor shards), the MLP on all of them."""
 
-    def __init__(self, cfg: ModelConfig, params, lora_bufs):
-        self.trees = sharding.parts(params)
-        self.tp = params.tp if isinstance(params, sharding.Shards) else None
+    def __init__(self, cfg: ModelConfig, params, lora_bufs, group: int = 0):
+        sharded = isinstance(params, sharding.Shards)
+        self.tp = params.tp if sharded else None
+        self.group = group
+        self.trees = params.groups[group] if sharded else [params]
         self.cfg = cfg if self.tp is None else self.tp.cfg
         self.n = len(self.trees)
-        self.loras = (sharding.parts(lora_bufs) if lora_bufs is not None
-                      else [None] * self.n)
+        self.n_attn = 1 if self.tp is None else self.tp.t
+        if isinstance(lora_bufs, sharding.Shards):
+            self.loras = lora_bufs.groups[group]
+        else:
+            self.loras = [lora_bufs] * self.n
 
     def layer(self, i: int) -> list:
-        """Layer ``i``'s params and LoRA slice, per shard."""
-        return [(_layer(tree, i),
-                 None if lora is None else lora_lib.layer_slice(lora, i))
-                for tree, lora in zip(self.trees, self.loras)]
+        """Layer ``i``'s params and LoRA slice, per shard; an ``expert``
+        shard's layer view carries its first expert (``_experts``)."""
+        out = []
+        for s, (tree, lora) in enumerate(zip(self.trees, self.loras)):
+            lp = _layer(tree, i)
+            if self.tp is not None and self.tp.moe:
+                lp["expert_offset"] = self.tp.expert_offset(s)
+            out.append((lp, None if lora is None
+                        else lora_lib.layer_slice(lora, i)))
+        return out
 
     def on(self, x) -> list:
         """``x`` on every shard's device."""
         if self.tp is None:
             return [x]
-        return [self.tp.on(s, x) for s in range(self.n)]
+        return [self.tp.on(s, x, self.group) for s in range(self.n)]
 
     def residual(self, hs: list, parts: list) -> list:
         if self.tp is None:
@@ -460,23 +499,21 @@ class _Shards:
         would run unordered with the work that made its inputs)."""
         if self.tp is None or self.tp.one_device:
             return contextlib.nullcontext()
-        dev = self.tp.devices[s]
+        dev = self.tp.device(s, self.group)
         return (torch.cuda.device(dev) if dev.type == "cuda"
                 else contextlib.nullcontext())
 
 
-def _attn_block(sh: _Shards, layer: list, hs: list, sids: list,
-                lead: tuple, rope, attend) -> list:
-    """A layer's attention over every shard (``layer``: ``_Shards.layer``'s
-    params and LoRA slice per shard): the norm, the q/k/v
-    projections of the shard's heads, ``rope(s, q, k)``, ``attend(s, q,
-    k, v)`` (the kernel wrapper over the shard's heads, returning
-    ``[*lead, ...]``) and the row-parallel ``wo`` partial; the partials
-    reduced onto the residual."""
+def _attn_qkv(sh: _Shards, layer: list, hs: list, sids: list, lead: tuple,
+              rope) -> list:
+    """A layer's attention inputs per attention shard (``layer``:
+    ``_Shards.layer``'s params and LoRA slice per shard): the norm, the
+    q/k/v projections of the shard's heads and ``rope(s, q, k)``.
+    Returns ``(q, k, v)`` per shard, each ``[*lead, heads, hd]``."""
     c = sh.cfg
     hd = c.resolved_head_dim
-    parts = []
-    for s, (lp, ll) in enumerate(layer):
+    out = []
+    for s, (lp, ll) in enumerate(layer[:sh.n_attn]):
         hn = rms_norm(hs[s], lp["attn_norm"], c.norm_eps,
                       plus_one=c.norm_plus_one)
         q = _attn_proj(lp, "q", hn, ll, sids[s]).reshape(*lead, c.n_heads, hd)
@@ -484,12 +521,30 @@ def _attn_block(sh: _Shards, layer: list, hs: list, sids: list,
             *lead, c.n_kv_heads, hd)
         v = _attn_proj(lp, "v", hn, ll, sids[s]).reshape(
             *lead, c.n_kv_heads, hd)
-        q, k = rope(s, q, k)
+        out.append((*rope(s, q, k), v))
+    return out
+
+
+def _attn_out(sh: _Shards, layer: list, hs: list, sids: list, lead: tuple,
+              attns: list) -> list:
+    """The row-parallel ``wo`` partial of each attention shard's output
+    (``[*lead, ...]``), reduced onto the residual of every shard."""
+    parts = [_project(attn.reshape(*lead, -1), lp["wo"], ll, "o", sids[s])
+             for s, ((lp, ll), attn) in enumerate(zip(layer, attns))]
+    return sh.residual(hs, parts + [None] * (sh.n - len(parts)))
+
+
+def _attn_block(sh: _Shards, layer: list, hs: list, sids: list,
+                lead: tuple, rope, attend) -> list:
+    """A layer's attention over every attention shard: ``_attn_qkv``,
+    ``attend(s, q, k, v)`` (the kernel wrapper over the shard's heads,
+    returning ``[*lead, ...]``) with the shard's card current, and
+    ``_attn_out``."""
+    attns = []
+    for s, qkv in enumerate(_attn_qkv(sh, layer, hs, sids, lead, rope)):
         with sh.current(s):
-            attn = attend(s, q, k, v)
-        parts.append(_project(attn.reshape(*lead, -1), lp["wo"], ll, "o",
-                              sids[s]))
-    return sh.residual(hs, parts)
+            attns.append(attend(s, *qkv))
+    return _attn_out(sh, layer, hs, sids, lead, attns)
 
 
 def _mlp_block(sh: _Shards, layer: list, hs: list, sids: list,
@@ -519,51 +574,89 @@ def _rope_seq(cfg: ModelConfig, positions: list):
 # ---------------------------------------------------------------------------
 
 
-def prefill_layer(sh: _Shards, i: int, hs: list, positions: list,
-                  sids: list, k_all: torch.Tensor, v_all: torch.Tensor):
-    """Decoder block ``i`` over a full sequence on every shard: each
-    shard's q/k/v heads through the flash kernel, its K/V written into
-    its heads of ``k_all`` / ``v_all`` ``[L, B, S, K, hd]``.  Returns the
-    residual per shard."""
-    b, s_len = hs[0].shape[:2]
-    tp = sh.tp
+def prefill_layer(shs: list, i: int, hs: list, positions: list,
+                  sids: list, k_all: torch.Tensor, v_all: torch.Tensor,
+                  attention_fn=None) -> list:
+    """Decoder block ``i`` over a full sequence, or over its sequence
+    blocks, on every shard: ``shs[j]`` is block j's ``_Shards`` and
+    ``hs[j]`` / ``positions[j]`` / ``sids[j]`` its per-shard residual,
+    positions and slot ids.  Each block's K/V lands at its rows and each
+    shard's heads of ``k_all`` / ``v_all`` ``[L, B, S, K, hd]``.  Attention
+    is the flash kernel per shard (one block), or ``attention_fn(s, qs,
+    ks, vs)`` over tensor shard ``s``'s q/k/v of every block, returning
+    each block's output.  Returns the residual per block and shard."""
+    tp = shs[0].tp
+    layers = [sh.layer(i) for sh in shs]
+    leads = [tuple(h[0].shape[:2]) for h in hs]
+    qkvs = [_attn_qkv(sh, layer, h, sid, lead, _rope_seq(sh.cfg, pos))
+            for sh, layer, h, sid, lead, pos in zip(shs, layers, hs, sids,
+                                                    leads, positions)]
+    start = 0
+    for lead, qkv in zip(leads, qkvs):
+        rows = slice(start, start + lead[1])
+        start += lead[1]
+        for s, (_, k, v) in enumerate(qkv):
+            # A replicated KV head is written once.
+            if tp is None or s == 0 or tp.kv_split:
+                heads = slice(None) if tp is None else tp.kv_heads(s)
+                k_all[i, :, rows, heads] = k.to(k_all.device)
+                v_all[i, :, rows, heads] = v.to(v_all.device)
+    attns = [[None] * shs[0].n_attn for _ in shs]
+    for s in range(shs[0].n_attn):
+        qs, ks, vs = ([qkv[s][x] for qkv in qkvs] for x in range(3))
+        if attention_fn is None:
+            # Right-padded batches: causal tiling alone keeps real
+            # positions exact (the kernel ignores positions, like the TPU
+            # kernel).
+            with shs[0].current(s):
+                attns[0][s] = flash_attention(qs[0], ks[0],
+                                              vs[0].contiguous())
+            continue
+        for j, out in enumerate(attention_fn(s, qs, ks, vs)):
+            attns[j][s] = out
+    hs = [_attn_out(sh, layer, h, sid, lead, attn)
+          for sh, layer, h, sid, lead, attn in zip(shs, layers, hs, sids,
+                                                   leads, attns)]
+    return [_mlp_block(sh, layer, h, sid, host_flag=True)
+            for sh, layer, h, sid in zip(shs, layers, hs, sids)]
 
-    def attend(s, q, k, v):
-        # Right-padded batches: causal tiling alone keeps real positions
-        # exact (the kernel ignores positions, like the TPU kernel).
-        if tp is None or s == 0 or tp.kv_split:
-            heads = slice(None) if tp is None else tp.kv_heads(s)
-            k_all[i, :, :, heads] = k
-            v_all[i, :, :, heads] = v
-        return flash_attention(q, k, v.contiguous())
 
-    layer = sh.layer(i)
-    hs = _attn_block(sh, layer, hs, sids, (b, s_len),
-                     _rope_seq(sh.cfg, positions), attend)
-    return _mlp_block(sh, layer, hs, sids, host_flag=True)
-
-
-def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            positions: torch.Tensor, lora_bufs: Params | None = None,
-            slot_ids: torch.Tensor | None = None):
+def prefill(cfg: ModelConfig, params: Params, tokens, positions,
+            lora_bufs: Params | None = None,
+            slot_ids: torch.Tensor | None = None, attention_fn=None):
     """Full-prompt forward.  Returns (logits [B,S,V] f32, k [L,B,S,K,hd], v).
 
-    ``params`` may be a ``Shards`` tree (tensor parallelism): the KV comes
-    back whole, every shard's heads in order on the first shard's device."""
+    ``params`` may be a ``Shards`` tree (the shard grid): the KV comes
+    back whole, every shard's heads in order on the first shard's device.
+    ``attention_fn`` swaps the attention (the reference's seam, which
+    ``parallel/long_context.py`` uses for the ring): ``tokens`` and
+    ``positions`` are then lists of sequence blocks ``[B, S_j]``, block j
+    run on sequence group j of the params, and ``attention_fn(s, qs, ks,
+    vs)`` maps tensor shard ``s``'s q/k/v of every block to each block's
+    attention output (``prefill_layer``); the logits come back whole on
+    the first shard's device too."""
     check_supported(cfg)
-    b, s = tokens.shape
+    blocks = list(tokens) if attention_fn is not None else [tokens]
+    pos_blocks = list(positions) if attention_fn is not None else [positions]
+    b = blocks[0].shape[0]
     if slot_ids is None:
-        slot_ids = _no_slots(b, tokens.device)
-    sh = _Shards(cfg, params, lora_bufs)
-    hs = sh.embed(cfg, tokens)
+        slot_ids = _no_slots(b, blocks[0].device)
+    shs = [_Shards(cfg, params, lora_bufs, group=j)
+           for j in range(len(blocks))]
+    hs = [sh.embed(cfg, tok) for sh, tok in zip(shs, blocks)]
     hd = cfg.resolved_head_dim
+    s = sum(tok.shape[1] for tok in blocks)
     kv_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, hd)
-    k_all = torch.empty(kv_shape, dtype=hs[0].dtype, device=hs[0].device)
-    v_all = torch.empty(kv_shape, dtype=hs[0].dtype, device=hs[0].device)
-    pos, sids = sh.on(positions), sh.on(slot_ids)
+    dev0 = hs[0][0].device
+    k_all = torch.empty(kv_shape, dtype=hs[0][0].dtype, device=dev0)
+    v_all = torch.empty(kv_shape, dtype=hs[0][0].dtype, device=dev0)
+    pos = [sh.on(p) for sh, p in zip(shs, pos_blocks)]
+    sids = [sh.on(slot_ids) for sh in shs]
     for i in range(cfg.n_layers):
-        hs = prefill_layer(sh, i, hs, pos, sids, k_all, v_all)
-    return sh.logits(cfg, hs), k_all, v_all
+        hs = prefill_layer(shs, i, hs, pos, sids, k_all, v_all, attention_fn)
+    logits = [sh.logits(cfg, h).to(dev0) for sh, h in zip(shs, hs)]
+    return (logits[0] if len(logits) == 1 else torch.cat(logits, dim=1),
+            k_all, v_all)
 
 
 # ---------------------------------------------------------------------------

@@ -6,13 +6,18 @@ and ffn columns inside a layer), ``expert`` (MoE experts) and
 ``sequence`` (ring attention).  A mesh here is a ``MeshConfig`` and the
 torch devices its shards sit on, one per mesh position.
 
-This port serves the ``tensor`` axis (``parallel/sharding.py``): one
-process drives every shard, as the reference's GSPMD engine does.  Any
-other axis larger than 1 is refused by ``make_mesh``; ROADMAP queues
-them.  Without an explicit device list a mesh takes the first
-``total`` CUDA devices and refuses a size the host cannot give; an
-explicit list may repeat a device (``["cuda:0", "cuda:0"]``, ``["cpu",
-"cpu"]``), which is how one card or the CPU hosts a ``tensor=2`` mesh.
+This port serves the ``tensor``, ``expert`` and ``sequence`` axes
+(``parallel/sharding.py``: the shard grid; ``parallel/long_context.py``:
+the ring prefill over ``sequence``): one process drives every shard, as
+the reference's GSPMD engine does.  ``data``, ``fsdp`` and ``pipe``
+larger than 1 are refused by ``make_mesh``, each by name; ROADMAP queues
+them.  Devices sit in the reference's axis order, the last axis fastest:
+the shard at (tensor i, expert e, sequence j) takes device
+``(i * expert + e) * sequence + j``.  Without an explicit device list a
+mesh takes the first ``total`` CUDA devices and refuses a size the host
+cannot give; an explicit list may repeat a device (``["cuda:0",
+"cuda:0"]``, ``["cpu", "cpu"]``), which is how one card or the CPU hosts
+a mesh of two.
 """
 
 from __future__ import annotations
@@ -23,8 +28,8 @@ from dataclasses import dataclass
 import torch
 
 AXES = ("data", "fsdp", "pipe", "tensor", "expert", "sequence")
-# The axes this slice serves; the others are queued in ROADMAP.md.
-SERVED_AXES = ("tensor",)
+# The axes the port serves; the others are queued in ROADMAP.md.
+SERVED_AXES = ("tensor", "expert", "sequence")
 
 
 @dataclass(frozen=True)
@@ -94,8 +99,9 @@ def make_mesh(cfg: MeshConfig, devices=None) -> Mesh:
     for axis, n in zip(AXES, cfg.shape):
         if n > 1 and axis not in SERVED_AXES:
             raise ValueError(
-                f"mesh axis {axis}={n}: the port serves the tensor axis "
-                "only; the other axes are queued in ROADMAP.md")
+                f"mesh axis {axis}={n}: the port serves the "
+                f"{', '.join(SERVED_AXES)} axes; {axis} is queued in "
+                "ROADMAP.md")
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

@@ -1,15 +1,39 @@
-"""Megatron tensor parallelism as per-shard trees (port of
-``parallel/sharding.py``: ``param_specs``, ``cache_specs``,
+"""The shard grid: Megatron tensor parallelism, MoE experts over
+``expert`` and parameter replicas over ``sequence``, as per-shard trees
+(port of ``parallel/sharding.py``: ``param_specs``, ``cache_specs``,
 ``paged_cache_specs``, ``lora_specs`` and ``shard_pytree``).
 
 The reference annotates one tree with ``PartitionSpec``s and lets GSPMD
 place the blocks; here a sharded tree is a ``Shards`` list with one
-ordinary port tree per ``tensor`` shard — the tree of the local config
+ordinary port tree per shard — the tree of the local config
 (``TensorParallel.cfg``: ``n_heads / t`` query heads, ``n_kv_heads / t``
 KV heads or all of them when they are replicated, ``d_ff / t``) — and
 one process drives every shard (``models/transformer.py``'s shard loop).
+``TensorParallel`` is the grid's one home: which shard sits on which
+device, the local config, and the reduction after a row-parallel block.
 
-The splits, the reference's:
+The grid, over a mesh's ``tensor`` (t), ``expert`` (e) and ``sequence``
+(n) axes:
+
+- a *group* is the t shards of one sequence block, times e for an MoE
+  model: shard ``s`` is tensor shard ``s % t`` of expert shard ``s // t``
+  (expert 0's shards first).  Attention runs on the first t (expert 0's,
+  replicated over ``expert``), the MLP on all of them; the one reduction
+  a block sums the group's partials;
+- expert stacks (``w_gate`` / ``w_up`` / ``w_down`` ``[L, E, ...]``, the
+  int8 ``{"q", "s"}`` stacks and their ``[L, E, F]`` scales too) split E
+  over ``expert``, E/e local experts a shard, and keep F over ``tensor``;
+  the router stays whole, so every shard routes the same tokens to the
+  same global experts and takes the share of its own
+  (``TensorParallel.expert_offset``).  A model without experts serves on
+  an ``expert`` mesh as on expert=1: the axis only replicates it, as
+  GSPMD would, and the port computes it once, on expert 0's shards;
+- ``sequence`` replicates everything: group j is group 0's trees on the
+  devices of sequence block j (``Shards.groups``), used by the ring
+  prefill alone (``parallel/long_context.py``); decode, bucketed prefill
+  and chunks run on group 0, whose devices also hold the KV cache.
+
+The splits inside a group, the reference's:
 
 - column-parallel, over the output axis: ``wq`` / ``wk`` / ``wv`` (by
   heads, with the Qwen biases) and ``w_gate`` / ``w_up`` (over F, for
@@ -21,7 +45,8 @@ The splits, the reference's:
   the dense weight, the per-output-channel scale with a column split and
   whole on a row split;
 - KV caches (lanes, the paged pool, the int8 scales) over their KV-head
-  axis, replicated when ``n_kv_heads % t != 0`` (MQA, ``cache_specs``);
+  axis, replicated when ``n_kv_heads % t != 0`` (MQA, ``cache_specs``),
+  one per tensor shard of group 0;
 - LoRA: a column target keeps ``a`` whole and splits ``b`` on d_out
   (``lora_specs``); a row target (``o``, ``down``) splits ``a`` on d_in
   and keeps ``b`` whole — ``(x_s @ a_s) @ b`` is linear, so each shard
@@ -29,16 +54,15 @@ The splits, the reference's:
   reference's ``(x @ a) @ b``;
 - everything else (embeddings, ``lm_head``, norms, the MoE router)
   whole on every shard: sampling, penalties and logprobs see the full
-  ``[B, V]`` logits on the first shard's device, and every shard routes
-  the same tokens to the same experts.
+  ``[B, V]`` logits on the first shard's device.
 
 Shards on one device share their whole leaves (one tensor, not a copy),
-and their split leaves are views of the caller's tree; a replicated KV
-cache is one cache, and the paged tables and lengths are one tensor.
-Shards on distinct cards hold copies, and the reduction is
-``torch.cuda.nccl.all_reduce`` over the per-card partials (single-process
-NCCL): a shard set is either on one device or on as many devices as
-shards.
+their split leaves are views of the caller's tree, and every sequence
+group is group 0 itself; a replicated KV cache is one cache, and the
+paged tables and lengths are one tensor.  Shards on distinct cards hold
+copies, and the reduction is ``torch.cuda.nccl.all_reduce`` over the
+per-card partials (single-process NCCL): a mesh is either on one device
+or on as many devices as shards.
 """
 
 from __future__ import annotations
@@ -57,12 +81,15 @@ from llm_instance_gateway_tpu_torch.ops.sharded_attention import mesh_supports
 _COLUMN = ("wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "w_gate", "w_up")
 _ROW = ("wo", "w_down")
 _KV_LEAVES = ("wk", "wv", "wk_b", "wv_b")
+# MoE expert stacks ``[L, E, ...]``: E (axis 1) over ``expert``.
+_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 _LORA_COLUMN = ("q", "k", "v", "gate", "up")
 _LORA_ROW = ("o", "down")
 
 
 def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
-    """The config of one shard of a ``tensor=t`` split."""
+    """The config of one shard of a ``tensor=t`` split (``n_experts``
+    stays global: routing indexes every expert)."""
     kv_split = cfg.n_kv_heads % t == 0
     return dataclasses.replace(
         cfg, n_heads=cfg.n_heads // t,
@@ -71,13 +98,16 @@ def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
 
 
 class TensorParallel:
-    """How ``cfg`` splits over a mesh's ``tensor`` axis, and the per-layer
-    reduction.  Raises ``ValueError`` for a layout the kernels cannot run
-    shard-local (``mesh_supports``) and for a split that leaves uneven
-    ffn columns."""
+    """The shard grid of ``cfg`` over a mesh's ``tensor``, ``expert`` and
+    ``sequence`` axes (module docstring): where each shard sits, the local
+    config and the reduction after a row-parallel block.  Raises
+    ``ValueError`` for a layout the kernels cannot run shard-local
+    (``mesh_supports``), for a split that leaves uneven ffn columns or
+    experts, and for shards on some but not all distinct devices."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        t = mesh.shape["tensor"]
+        shape = mesh.shape
+        t, e, n = shape["tensor"], shape["expert"], shape["sequence"]
         if not mesh_supports(cfg, mesh):
             raise ValueError(
                 f"tensor={t} does not split {cfg.name}'s "
@@ -88,50 +118,75 @@ class TensorParallel:
                 "XLA-style fallback for such a layout")
         if cfg.d_ff % t:
             raise ValueError(f"tensor={t} does not divide d_ff={cfg.d_ff}")
-        self.t = t
+        self.moe = bool(cfg.n_experts) and e > 1
+        if self.moe and cfg.n_experts % e:
+            raise ValueError(f"expert={e} does not divide {cfg.name}'s "
+                             f"{cfg.n_experts} experts")
+        self.t, self.e, self.n = t, e, n
+        # Shards a group: expert 0's t tensor shards, then the others'.
+        self.g = t * e if self.moe else t
+        self.local_experts = cfg.n_experts // e if self.moe else cfg.n_experts
         self.devices = list(mesh.devices)
         distinct = len(set(self.devices))
-        if distinct not in (1, t):
+        if distinct not in (1, len(self.devices)):
             raise ValueError(
-                f"tensor={t} over {distinct} distinct devices: the shards "
-                "must sit all on one device or each on its own")
+                f"mesh {dict(shape)} over {distinct} distinct devices: the "
+                "shards must sit all on one device or each on its own")
         self.one_device = distinct == 1
         self.kv_split = cfg.n_kv_heads % t == 0
         self.cfg = local_cfg(cfg, t)
 
+    def device(self, s: int, j: int = 0) -> torch.device:
+        """Shard ``s``'s device in sequence group ``j`` (the mesh's axis
+        order, the last axis fastest)."""
+        return self.devices[((s % self.t) * self.e + s // self.t) * self.n
+                            + j]
+
+    def expert_offset(self, s: int) -> int:
+        """The first global expert shard ``s`` holds."""
+        return (s // self.t) * self.local_experts if self.moe else 0
+
     def kv_heads(self, s: int) -> slice:
-        """Shard ``s``'s KV heads in the full layout."""
+        """Tensor shard ``s``'s KV heads in the full layout."""
         if not self.kv_split:
             return slice(None)
         k = self.cfg.n_kv_heads
         return slice(s * k, (s + 1) * k)
 
     def residual(self, hs: list, parts: list) -> list:
-        """The residual stream per shard after a row-parallel block:
-        ``hs[s] + sum(parts)``, summed in shard order on one device, by
-        one NCCL all-reduce across cards."""
-        if self.one_device:
-            total = parts[0]
-            for p in parts[1:]:
+        """The residual stream per shard of a group after a row-parallel
+        block: ``hs[s] + sum(parts)``, where a ``None`` part adds nothing
+        (the attention of expert shards past the first); summed in shard
+        order on one device (or a group of one shard), by one NCCL
+        all-reduce across cards."""
+        if self.one_device or len(parts) == 1:
+            live = [p for p in parts if p is not None]
+            total = live[0]
+            for p in live[1:]:
                 total = total + p
-            return [hs[0] + total] * self.t
+            return [hs[0] + total] * len(hs)
+        parts = [torch.zeros_like(h) if p is None else p
+                 for h, p in zip(hs, parts)]
         torch.cuda.nccl.all_reduce(parts)
         return [h + p for h, p in zip(hs, parts)]
 
-    def on(self, s: int, x):
-        """``x`` on shard ``s``'s device (itself where it lies there)."""
+    def on(self, s: int, x, j: int = 0):
+        """``x`` on shard ``s``'s device of group ``j`` (itself where it
+        lies there)."""
         if x is None or self.one_device:
             return x
-        return x.to(self.devices[s])
+        return x.to(self.device(s, j))
 
 
 class Shards(list):
-    """One tree per ``tensor`` shard, in shard order, with the
-    ``TensorParallel`` that split them."""
+    """One tree per shard of sequence group 0, in shard order, with the
+    ``TensorParallel`` that split them; ``groups[j]`` is group j's trees
+    (``groups[0]`` the list itself)."""
 
-    def __init__(self, trees, tp: TensorParallel):
+    def __init__(self, trees, tp: TensorParallel, groups=None):
         super().__init__(trees)
         self.tp = tp
+        self.groups = [list(self)] + list(groups or [])[1:]
 
 
 def parts(tree) -> list:
@@ -175,15 +230,23 @@ def _on_device(tree, tp: TensorParallel):
     return tree.to(tp.devices[0])
 
 
-def _leaf(x, axis: int | None, s: int, tp: TensorParallel):
-    """Shard ``s`` of a leaf split on ``axis`` (None: whole); an int8
-    leaf's scale follows a column split and stays whole on a row split."""
-    dev = tp.devices[s]
+def _leaf(x, axis: int | None, s: int, dev, tp: TensorParallel,
+          expert: bool = False):
+    """Shard ``s``'s part of a leaf split on ``axis`` over ``tensor``
+    (None: whole) and, for an expert stack, on axis 1 over ``expert``;
+    an int8 leaf's scale follows a column split and stays whole on a row
+    split, and follows the expert split."""
+    ti = s % tp.t
+
+    def cut(y, ax):
+        if expert:
+            y = _split(y, 1, s // tp.t, tp.e)
+        return _place(_split(y, ax, ti, tp.t), dev, tp)
+
     if is_quantized(x):
-        scale_axis = -1 if axis == -1 else None
-        return {"q": _place(_split(x["q"], axis, s, tp.t), dev, tp),
-                "s": _place(_split(x["s"], scale_axis, s, tp.t), dev, tp)}
-    return _place(_split(x, axis, s, tp.t), dev, tp)
+        return {"q": cut(x["q"], axis), "s": cut(x["s"], -1 if axis == -1
+                                                  else None)}
+    return cut(x, axis)
 
 
 def _layer_axis(name: str, tp: TensorParallel) -> int | None:
@@ -196,17 +259,39 @@ def _layer_axis(name: str, tp: TensorParallel) -> int | None:
     return None
 
 
+def _grid(tp: TensorParallel, tree: Callable[[int, int], dict],
+          shares: Callable[[int], int]) -> Shards:
+    """The ``Shards`` of ``tree(s, j)`` over every shard and sequence
+    group; on one device group j is group 0, and shard ``s`` takes shard
+    ``shares(s)``'s tree where the two hold the same leaves."""
+    groups = []
+    for j in range(1 if tp.one_device else tp.n):
+        made: dict = {}
+        group = []
+        for s in range(tp.g):
+            key = shares(s) if tp.one_device else s
+            if key not in made:
+                made[key] = tree(s, j)
+            group.append(made[key])
+        groups.append(group)
+    groups += [groups[0]] * (tp.n - len(groups))
+    return Shards(groups[0], tp, groups)
+
+
 def shard_params(params: dict, tp: TensorParallel) -> Shards:
     """The per-shard trees of a port params tree (dense or int8)."""
     params = _on_device(params, tp)
-    trees = []
-    for s in range(tp.t):
-        tree = {k: _leaf(v, None, s, tp) for k, v in params.items()
-                if k != "layers"}
-        tree["layers"] = {name: _leaf(leaf, _layer_axis(name, tp), s, tp)
-                          for name, leaf in params["layers"].items()}
-        trees.append(tree)
-    return Shards(trees, tp)
+
+    def tree(s, j):
+        dev = tp.device(s, j)
+        out = {k: _leaf(v, None, s, dev, tp) for k, v in params.items()
+               if k != "layers"}
+        out["layers"] = {
+            name: _leaf(leaf, _layer_axis(name, tp), s, dev, tp,
+                        tp.moe and name in _EXPERT_LEAVES)
+            for name, leaf in params["layers"].items()}
+        return out
+    return _grid(tp, tree, lambda s: s)
 
 
 def _lora_axis(key: str, tp: TensorParallel) -> int | None:
@@ -221,14 +306,20 @@ def _lora_axis(key: str, tp: TensorParallel) -> int | None:
 
 
 def shard_lora(bufs: dict, tp: TensorParallel) -> Shards:
-    """The per-shard LoRA slot buffers of a full buffer tree."""
+    """The per-shard LoRA slot buffers of a full buffer tree (an expert
+    shard's are its tensor shard's: expert stacks take no LoRA)."""
     bufs = _on_device(bufs, tp)
-    return Shards([{k: _leaf(v, _lora_axis(k, tp), s, tp)
-                    for k, v in bufs.items()} for s in range(tp.t)], tp)
+
+    def tree(s, j):
+        dev = tp.device(s, j)
+        return {k: _leaf(v, _lora_axis(k, tp), s, dev, tp)
+                for k, v in bufs.items()}
+    return _grid(tp, tree, lambda s: s % tp.t)
 
 
 def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
-    """Shard ``s`` of an adapter's ``{target: {"a", "b"}}`` weights."""
+    """Tensor shard ``s``'s part of an adapter's ``{target: {"a", "b"}}``
+    weights."""
     out = {}
     for t, ab in adapter.items():
         out[t] = {}
@@ -236,6 +327,17 @@ def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
             x = ab[part]
             x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
             out[t][part] = _split(x, _lora_axis(f"{t}_{part}", tp), s, tp.t)
+    return out
+
+
+def _all_trees(bufs: Shards) -> list[tuple[int, dict]]:
+    """(tensor shard, tree) for every distinct tree of every group."""
+    out, seen = [], set()
+    for group in bufs.groups:
+        for s, tree in enumerate(group):
+            if id(tree) not in seen:
+                seen.add(id(tree))
+                out.append((s % bufs.tp.t, tree))
     return out
 
 
@@ -247,7 +349,7 @@ def write_adapter(bufs, cfg: ModelConfig, slot: int, adapter: dict,
         lora_lib.write_adapter(bufs, cfg, slot, adapter, alpha, rank)
         return
     tp = bufs.tp
-    for s, part in enumerate(bufs):
+    for s, part in _all_trees(bufs):
         lora_lib.write_adapter(part, tp.cfg, slot,
                                _adapter_part(adapter, s, tp), alpha, rank)
 
@@ -257,21 +359,22 @@ def clear_adapter(bufs, cfg: ModelConfig, slot: int) -> None:
     if not isinstance(bufs, Shards):
         lora_lib.clear_adapter(bufs, cfg, slot)
         return
-    for part in bufs:
+    for _, part in _all_trees(bufs):
         lora_lib.clear_adapter(part, bufs.tp.cfg, slot)
 
 
 def shard_cache(make: Callable[[ModelConfig, torch.device], dict],
                 tp: TensorParallel) -> Shards:
-    """Per-shard caches, ``make(local cfg, device)`` each: KV heads split
-    over the shards, or (MQA) replicated — one cache on one device.
-    Shards on one device share the paged tables and the lengths."""
+    """Per-shard caches, one per tensor shard of group 0, ``make(local
+    cfg, device)`` each: KV heads split over the shards, or (MQA)
+    replicated — one cache on one device.  Shards on one device share the
+    paged tables and the lengths."""
     trees: list[dict] = []
-    for s, dev in enumerate(tp.devices):
+    for s in range(tp.t):
         if s and tp.one_device and not tp.kv_split:
             trees.append(trees[0])
             continue
-        cache = make(tp.cfg, dev)
+        cache = make(tp.cfg, tp.device(s))
         if s and tp.one_device:
             for name in ("tables", "length"):
                 if name in cache:

@@ -1404,12 +1404,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "takes; an HF or model_config.json architecture "
                         "replaces --draft-model's")
     p.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
-                   help="serve sharded over a device mesh, e.g. 'tensor=2' "
-                        "(axes: data,fsdp,pipe,tensor,expert,sequence; "
-                        "parallel/mesh.py; the port serves tensor). On the "
-                        "card it takes that many CUDA devices; with "
-                        "--device cpu every shard sits on the CPU. Default: "
-                        "single device.")
+                   help="serve sharded over a device mesh, e.g. 'tensor=2', "
+                        "'expert=2' or 'tensor=2,sequence=2' (axes: "
+                        "data,fsdp,pipe,tensor,expert,sequence; "
+                        "parallel/mesh.py; the port serves tensor, expert "
+                        "and sequence: heads and ffn columns, Mixtral's "
+                        "experts, ring-attention prefill of prompts beyond "
+                        "the largest bucket). On the card it takes that "
+                        "many CUDA devices; with --device cpu every shard "
+                        "sits on the CPU. Default: single device.")
     p.add_argument("--no-cuda-graphs", action="store_true",
                    help="run the decode and spec blocks eagerly instead of "
                         "replaying CUDA graphs of them; a mesh whose shards "
@@ -1442,11 +1445,13 @@ def make_server(argv=None, params=None, draft_params=None,
     loaded, int8 a layer at a time (the same tree as quantizing the dense
     one, which need never fit the card).
 
-    ``--mesh`` serves the model tensor-parallel (``parallel/``): the
-    engine splits the weights, caches and adapter slots per shard.
-    ``mesh_devices`` places the shards explicitly (``["cuda:0",
-    "cuda:0"]`` holds a tensor=2 mesh on one card); by default they take
-    the host's CUDA devices, or the CPU with ``--device cpu``."""
+    ``--mesh`` serves the model over a mesh (``parallel/``): the engine
+    splits the weights, caches and adapter slots per shard over
+    ``tensor`` and ``expert``, and runs long prompts over the ring of a
+    ``sequence`` axis.  ``mesh_devices`` places the shards explicitly
+    (``["cuda:0", "cuda:0"]`` holds a mesh of two on one card); by
+    default they take the host's CUDA devices, or the CPU with
+    ``--device cpu``."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.prefill_buckets and max(args.prefill_buckets) > args.max_seq_len:

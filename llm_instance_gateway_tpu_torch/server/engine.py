@@ -59,12 +59,18 @@ synchronous loop and the pipelined one).
   Sampled rows, stop-sequence rows and chunk-streamed rows do not
   speculate; penalties and ``logit_bias`` are refused on such an engine.
 
-- **Tensor parallelism** (``mesh=``, ``parallel/``): the params, the
-  cache (lanes or pool, int8 scales included) and the LoRA slots become
-  per-shard trees over the mesh's ``tensor`` axis, and every forward runs
-  its layers once per shard with two reductions a layer.  One engine
-  thread drives every shard (a single controller, as the reference's
-  GSPMD engine): admission, the allocator, the prefix cache, graphs,
+- **Meshes** (``mesh=``, ``parallel/``): over ``tensor`` and ``expert``
+  the params, the cache (lanes or pool, int8 scales included) and the
+  LoRA slots become per-shard trees (``parallel/sharding.py``'s grid:
+  heads and ffn columns over ``tensor``, Mixtral's experts over
+  ``expert``), and every forward runs its layers once per shard with two
+  reductions a layer.  A ``sequence`` axis replicates them and serves
+  ring-attention prefill (``parallel/long_context.py``): a prompt beyond
+  the largest bucket runs as ONE program over the ring (``_ring_prefill``,
+  padded to ``_ring_pad``) instead of chunk-streaming, while decode,
+  bucketed prefill and chunks run on sequence group 0.  One engine thread
+  drives every shard (a single controller, as the reference's GSPMD
+  engine): admission, the allocator, the prefix cache, graphs,
   speculation (the draft unsharded on the first shard's device) and hops
   (a prefill's KV comes back whole, so the wire is unchanged) stay one
   copy.  Shards on one card share one CUDA graph per block; shards on
@@ -366,7 +372,7 @@ class Engine:
         kv_quant = self.cfg.kv_cache_quant is not None
         transformer.check_supported(model_cfg)
         self.paged = self.cfg.paged_kv_block is not None
-        # Tensor parallelism (``parallel/``): params, caches and the LoRA
+        # The shard grid (``parallel/``): params, caches and the LoRA
         # buffers become per-shard trees; one engine thread drives every
         # shard, and the host logic below stays one copy.
         self.mesh = mesh
@@ -381,6 +387,22 @@ class Engine:
         self.eos_id = eos_id
         self.device = torch.device(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # Ring-attention prefill (``parallel/long_context.py``): with a
+        # sequence axis, prompts beyond the largest bucket run as ONE
+        # program over the ring instead of chunk-streaming, on lanes and
+        # the pool alike (the insert writes the cache of group 0).
+        self._ring = None
+        if mesh is not None and mesh.shape.get("sequence", 1) > 1:
+            from llm_instance_gateway_tpu_torch.parallel import long_context
+
+            self._ring = long_context.make_sharded_prefill(model_cfg, mesh)
+            # Pad ring prompts to this multiple (a bounded set of shapes,
+            # like buckets), aligned to 8 * sequence; rounded up to a
+            # multiple of sequence (the reference's value whenever
+            # sequence divides it, which its ring requires).
+            n_seq = mesh.shape["sequence"]
+            pad = max(8 * n_seq, max(self.cfg.prefill_buckets))
+            self._ring_pad = -(-pad // n_seq) * n_seq
 
         b = self.cfg.decode_slots
         self.prefix_reused_tokens = 0
@@ -515,8 +537,13 @@ class Engine:
 
     def _tensor_parallel(self, model_cfg: ModelConfig, mesh,
                          cuda_graphs: bool):
-        """The engine's ``TensorParallel`` (None without a mesh), with the
-        reference's serving rules for a mesh (``server/engine.py``).
+        """The engine's shard grid, a ``TensorParallel`` (None without a
+        mesh), with the reference's serving rules for a mesh
+        (``server/engine.py``): ``tensor``, ``expert`` and ``sequence``
+        are served, ``pipe`` refused as the reference refuses it, ``data``
+        and ``fsdp`` refused by name (queued in ROADMAP.md).  A model
+        without experts on ``expert > 1`` serves replicated over that
+        axis, as GSPMD would (computed once, on expert 0's shards).
         Shards on distinct cards are served eagerly only."""
         if mesh is None:
             return None
@@ -530,15 +557,15 @@ class Engine:
                 "over fsdp/sequence and shards kv-heads over tensor): "
                 "scale data-parallel replicas as separate engine processes "
                 "behind the gateway")
-        for axis, n in shape.items():
-            if n > 1 and axis != "tensor":
-                raise ValueError(f"mesh axis {axis}={n} is not served yet "
-                                 "(queued in ROADMAP.md)")
+        for axis in ("data", "fsdp"):
+            if shape.get(axis, 1) > 1:
+                raise ValueError(f"mesh axis {axis}={shape[axis]} is not "
+                                 "served yet (queued in ROADMAP.md)")
         tp = sharding.TensorParallel(model_cfg, mesh)
         if (cuda_graphs and not tp.one_device
                 and any(d.type == "cuda" for d in tp.devices)):
             raise ValueError(
-                "tensor shards on distinct cards: CUDA graphs across "
+                "mesh shards on distinct cards: CUDA graphs across "
                 "cards (the decode and spec blocks) are queued in "
                 "ROADMAP.md; place every shard on one card, or serve "
                 "eagerly (cuda_graphs=False, --no-cuda-graphs)")
@@ -1661,12 +1688,18 @@ class Engine:
             if self._free_slot_index() is not None:
                 if self.decode_wait:
                     break  # the parked head waits on blocks: strict FIFO
+                # A prompt the ring takes never maps cached prefix blocks
+                # (the ring computes the whole prompt into FRESH blocks),
+                # so its gate must not count on reuse.
+                takes_ring = (n_req > self._max_bucket()
+                              and self._ring_usable(n_req))
                 if not self._paged_can_admit(
                         n_req, req.prompt_tokens, req.adapter,
                         hashes=(self._prefix_hashes_for(req)
-                                if self._prefix_enabled else None)):
+                                if self._prefix_enabled and not takes_ring
+                                else None)):
                     break  # pool backpressure: wait for block frees
-                if n_req > self._max_bucket():
+                if n_req > self._max_bucket() and not takes_ring:
                     if not self._lane_available(n_req):
                         break  # no lane (count or KV pressure); head waits
                     self._pending = None
@@ -1681,7 +1714,9 @@ class Engine:
                 self._pending = None
                 self._admitting += 1
                 try:
-                    if self.cfg.prefill_batch > 1 and not self._prefix_enabled:
+                    if (self.cfg.prefill_batch > 1
+                            and n_req <= self._max_bucket()
+                            and not self._prefix_enabled):
                         # Prefix-cache engines stay per request: the grouped
                         # program computes full-prompt KV, so a cached-prefix
                         # row would pay the compute reuse exists to skip.
@@ -1983,23 +2018,65 @@ class Engine:
         self._usage_sync_kv()
 
     def _prefill_common(self, req: Request):
-        """Bucketed admission into a free row: a prefix-cache hit prefills
-        only the suffix (``_prefix_bucket_prefill``), anything else runs the
-        bucketed program and inserts its KV.
+        """Admission into a free row: a prefix-cache hit prefills only the
+        suffix (``_prefix_bucket_prefill``), a prompt beyond the largest
+        bucket runs the ring (``_ring_prefill``; it reaches here only when
+        ``_ring_usable``, else admission streams it in chunks), anything
+        else runs the bucketed program; then the KV is inserted.  Ring
+        rows register no prefix blocks, as in the reference.
         Returns (slot_idx, first_token, n, lora_slot, lp_info)."""
         self._stamp_prefill_start(req)
         slot_idx = self._free_slot_index()
         n = len(req.prompt_tokens)
         lora_slot = (self.lora.slot_for(req.adapter)
                      if self.lora is not None else -1)
-        if self._prefix_enabled:
+        bucketed = n <= self._max_bucket()
+        if self._prefix_enabled and bucketed:
             res = self._prefix_bucket_prefill(req, slot_idx, n, lora_slot)
             if res is not None:
                 return res
-        first_token, k, v, lp_info = self._bucket_prefill(req, n, lora_slot)
+        if bucketed:
+            first_token, k, v, lp_info = self._bucket_prefill(req, n,
+                                                              lora_slot)
+        else:
+            first_token, k, v, lp_info = self._ring_prefill(req, n,
+                                                            lora_slot)
         self._insert_prompt_kv(k, v, slot_idx, n)
-        self._prefix_register_row(slot_idx, req.prompt_tokens, req.adapter)
+        if bucketed:
+            self._prefix_register_row(slot_idx, req.prompt_tokens,
+                                      req.adapter)
         return slot_idx, first_token, n, lora_slot, lp_info
+
+    def _ring_usable(self, n: int) -> bool:
+        """True when the ring prefill can take an ``n``-token prompt: a
+        sequence mesh, and the padded length within ``max_seq_len``."""
+        if self._ring is None:
+            return False
+        padded = -(-n // self._ring_pad) * self._ring_pad
+        return padded <= self.cfg.max_seq_len
+
+    def _ring_prefill(self, req: Request, n: int, lora_slot: int):
+        """One sequence-parallel prefill program over the ring: the prompt
+        pads right to a multiple of ``_ring_pad`` at positions
+        ``arange(padded)`` (causal ring attention keeps the real positions
+        exact; the insert trims the tail at ``n``), and the first token is
+        sampled from the last real position.
+        Returns (first_token device scalar, k, v, lp_info)."""
+        from llm_instance_gateway_tpu_torch.parallel import long_context
+
+        padded = -(-n // self._ring_pad) * self._ring_pad
+        self._note_padding(padded - n)
+        tokens = np.zeros((1, padded), np.int64)
+        tokens[0, :n] = req.prompt_tokens
+        positions = np.arange(padded, dtype=np.int64)[None]
+        tok, pos = long_context.shard_inputs(
+            self.mesh, self._tensor(tokens), self._tensor(positions))
+        logits, k, v = self._ring(
+            self.params, tok, pos, lora_bufs=self._lora_buffers(),
+            slot_ids=self._tensor([lora_slot]))
+        first_token, lp_info = self._sample_first(logits[0, n - 1],
+                                                  req.sampling, n - 1)
+        return first_token, k, v, lp_info
 
     def _prefix_bucket_prefill(self, req: Request, slot_idx: int, n: int,
                                lora_slot: int):

@@ -716,6 +716,23 @@ def test_adapter_swap_between_replays_takes_effect(narrow):
     assert a != base and b != a and unloaded == base
 
 
+def _serve_queued(eng, jobs):
+    """``_serve`` with every request submitted BEFORE ``start()`` (the
+    reference's rule in ``parallel/multihost_check.py``): one admission
+    order, so the dispatch sequence does not follow the host's timing."""
+    from llm_instance_gateway_tpu_torch.server.engine import Request
+
+    reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=m,
+                               sampling=sp)) for p, m, sp in jobs]
+    eng.start()
+    try:
+        for r in reqs:
+            assert r.done.wait(300) and r.error is None, r.error
+        return [r.output_tokens for r in reqs]
+    finally:
+        eng.stop()
+
+
 def _serve_running(eng, jobs, adapter=None):
     from llm_instance_gateway_tpu_torch.server.engine import Request
 
@@ -837,7 +854,9 @@ def test_capture_failure_raises(dev):
 def test_spec_graph_replay_matches_eager_spec_block(narrow, loop, draft):
     """f32: the spec block's graph replays give the eager spec block's
     tokens and cycle counts, and the plain engine's greedy tokens; five
-    requests over four slots, a graph per (n_cycles, k, seeded)."""
+    requests over four slots, a graph per (n_cycles, k, seeded).  Every
+    request is queued before ``start()``, so the cycle counts compare
+    one admission order."""
     extra = dict(speculative_k=3, adaptive_steps=0, decode_steps_per_sync=4,
                  draft=draft)
     if loop != "sync":
@@ -846,11 +865,12 @@ def test_spec_graph_replay_matches_eager_spec_block(narrow, loop, draft):
         extra["paged_kv_block"] = 16
     jobs = _jobs()
     eager_eng = _engine(narrow, graphs=False, dtype=torch.float32, **extra)
-    eager = _serve(eager_eng, jobs)
+    eager = _serve_queued(eager_eng, jobs)
     eng = _engine(narrow, dtype=torch.float32, **extra)
-    replayed = _serve(eng, jobs)
-    plain = _serve(_engine(narrow, graphs=False, dtype=torch.float32,
-                           adaptive_steps=0, decode_steps_per_sync=4), jobs)
+    replayed = _serve_queued(eng, jobs)
+    plain = _serve_queued(_engine(narrow, graphs=False, dtype=torch.float32,
+                                  adaptive_steps=0, decode_steps_per_sync=4),
+                          jobs)
     assert replayed == eager == plain
     assert ((eng.spec_cycles, eng.spec_emitted)
             == (eager_eng.spec_cycles, eager_eng.spec_emitted))
@@ -1473,10 +1493,11 @@ def test_train_gradients_card_against_cpu(dev, kind):
 
 
 def _mesh_engine(narrow, t, dtype, graphs=True, devices=None, lora=None,
-                 draft=None, params=None, **cfg):
-    """An engine over the narrow model at ``tensor=t``, its shards on
-    ``devices`` (default: all on cuda:0); ``draft`` as ``_engine``'s,
-    ``params`` in place of the narrow tree (int8 weights)."""
+                 draft=None, params=None, axes=None, model_cfg=None, **cfg):
+    """An engine over the narrow model at ``tensor=t`` (or the mesh of
+    ``axes``), its shards on ``devices`` (default: all on cuda:0);
+    ``draft`` as ``_engine``'s, ``params`` (with ``model_cfg``) in place
+    of the narrow tree."""
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.parallel.mesh import (
         MeshConfig,
@@ -1487,12 +1508,14 @@ def _mesh_engine(narrow, t, dtype, graphs=True, devices=None, lora=None,
         EngineConfig,
     )
 
-    model_cfg, narrow_params = narrow[dtype]
+    narrow_cfg, narrow_params = narrow[dtype]
+    model_cfg = model_cfg or narrow_cfg
     base = dict(decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64),
                 decode_steps_per_sync=4)
     base.update(cfg)
-    mesh = (make_mesh(MeshConfig(tensor=t), devices or ["cuda:0"] * t)
-            if t > 1 else None)
+    mesh_cfg = MeshConfig(**(axes or dict(tensor=t)))
+    mesh = (make_mesh(mesh_cfg, devices or ["cuda:0"] * mesh_cfg.total)
+            if mesh_cfg.total > 1 else None)
     kw = {}
     if draft == "small":
         kw = dict(draft_params=transformer.init_params(
@@ -1535,7 +1558,7 @@ def test_tensor2_graph_replay_matches_eager_bf16(narrow):
 
 def _cards(n: int) -> list:
     if not torch.cuda.is_available() or torch.cuda.device_count() < n:
-        pytest.skip(f"needs {n} CUDA GPUs (tensor shards on distinct cards)")
+        pytest.skip(f"needs {n} CUDA GPUs (mesh shards on distinct cards)")
     return [f"cuda:{i}" for i in range(n)]
 
 
@@ -1734,3 +1757,147 @@ def test_server_mesh_over_the_hosts_cards():
     finally:
         httpd.server_close()
         eng.stop()
+
+
+# ---------------------------------------------------------------------------
+# The sequence and expert axes: one card (views) and across cards
+# ---------------------------------------------------------------------------
+
+_LONG = [256] + [65 + (11 * j) % 200 for j in range(149)]  # beyond 64
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["lanes", "paged"])
+def test_ring_on_one_card_matches_sequence1_f32(narrow, paged):
+    """``sequence=2`` on cuda:0 (views): a 150-token prompt runs one ring
+    program (padded to 192, no flash, no chunk) and the greedy tokens of
+    sequence=1's chunk stream, at f32; the graphed decode after it."""
+    from llm_instance_gateway_tpu_torch.ops import chunk_attention
+
+    kw = dict(paged_kv_block=16, prefix_cache=True) if paged else {}
+    jobs = [(_LONG, 12, _jobs()[0][2])] + _jobs()[:2]
+    want = _serve_queued(_mesh_engine(narrow, 1, torch.float32, **kw), jobs)
+    eng = _mesh_engine(narrow, 1, torch.float32, axes=dict(sequence=2),
+                       **kw)
+    ring, calls = eng._ring, []
+    eng._ring = lambda *a, **k: calls.append(1) or ring(*a, **k)
+    f0, c0 = fl.launches, chunk_attention.launches
+    assert _serve_queued(eng, jobs) == want
+    assert calls == [1] and chunk_attention.launches == c0
+    n_layers = narrow[torch.float32][0].n_layers
+    assert fl.launches - f0 == n_layers * 2  # the two bucketed prompts
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_prefill_across_cards_equals_one_card(narrow, n):
+    """``make_sharded_prefill`` at ``sequence=n`` with block j on card j
+    (the K/V rotated by copies) against the same mesh on one card: the
+    logits and the KV bitwise equal, at f32 with LoRA rows."""
+    from llm_instance_gateway_tpu_torch.models import lora as lora_lib
+    from llm_instance_gateway_tpu_torch.parallel import (
+        long_context,
+        mesh,
+        sharding,
+    )
+
+    cards = _cards(n)
+    cfg, params = narrow[torch.float32]
+    bufs = lora_lib.init_lora_buffers(cfg, dtype=torch.float32,
+                                      device="cuda")
+    lora_lib.write_adapter(bufs, cfg, 0, _lora_weights(cfg, 2), 16.0, 8)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64 * n), device="cuda",
+                           generator=gen)
+    positions = torch.arange(64 * n, device="cuda")[None].expand(2, -1)
+    slots = torch.tensor([0, -1], dtype=torch.int32, device="cuda")
+    outs = {}
+    for where, devices in (("one card", ["cuda:0"] * n), ("cards", cards)):
+        m = mesh.make_mesh(mesh.MeshConfig(sequence=n), devices)
+        grid = sharding.TensorParallel(cfg, m)
+        with torch.no_grad():
+            got = long_context.make_sharded_prefill(cfg, m)(
+                sharding.shard_params(params, grid),
+                *long_context.shard_inputs(m, tokens, positions),
+                lora_bufs=sharding.shard_lora(bufs, grid), slot_ids=slots)
+        outs[where] = [x.cpu() for x in got]
+    for a, w in zip(outs["cards"], outs["one card"]):
+        assert torch.equal(a, w), (a - w).abs().max().item()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_ring_engine_across_cards_matches_sequence1_f32(narrow, n):
+    """An eager engine over ``sequence=n`` cards serves the long prompt
+    through the ring with sequence=1's tokens (paged, prefix cache)."""
+    cards = _cards(n)
+    kw = dict(paged_kv_block=16, prefix_cache=True)
+    jobs = [(_LONG, 12, _jobs()[0][2])] + _jobs()[:2]
+    want = _serve_queued(_mesh_engine(narrow, 1, torch.float32, **kw), jobs)
+    eng = _mesh_engine(narrow, 1, torch.float32, graphs=False,
+                       devices=cards, axes=dict(sequence=n), **kw)
+    assert not eng.tp.one_device and eng._ring_usable(len(_LONG))
+    assert _serve_queued(eng, jobs) == want
+
+
+def _narrow_moe(dtype=torch.float32):
+    from llm_instance_gateway_tpu_torch.models import transformer
+
+    cfg = _narrow_moe_cfg()
+    return cfg, transformer.init_params(cfg, seed=3, dtype=dtype,
+                                        device="cuda")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_forward_across_cards_equals_one_card(n):
+    """The narrow Mixtral at ``expert=n`` over n cards against the same
+    mesh on one card, f32: prefill logits and KV, and a lane decode step.
+    At n=2 the sum of two partials is the same sum on one card or over
+    NCCL (bitwise); at n=4 NCCL may add four partials in another order,
+    so the forward agrees to f32 rounding (1e-5 of the largest |logit|)."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cards = _cards(n)
+    cfg, params = _narrow_moe()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, s = 2, 48
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda",
+                           generator=gen)
+    positions = torch.arange(s, device="cuda")[None].expand(b, s)
+    outs = {}
+    for where, devices in (("one card", ["cuda:0"] * n), ("cards", cards)):
+        grid = sharding.TensorParallel(cfg, mesh.make_mesh(
+            mesh.MeshConfig(expert=n), devices))
+        sp = sharding.shard_params(params, grid)
+        with torch.no_grad():
+            logits, k, v = transformer.prefill(cfg, sp, tokens, positions)
+            cache = sharding.shard_cache(
+                lambda c, d: transformer.init_decode_cache(
+                    c, b, 64, dtype=torch.float32, device=d), grid)
+            for row in range(b):
+                transformer.insert_prefill(cache, k[:, row:row + 1],
+                                           v[:, row:row + 1], row, s)
+            step, _ = transformer.decode_step(
+                cfg, sp, cache, tokens[:, -1].clone(),
+                torch.full((b,), s, device="cuda"))
+        outs[where] = [x.cpu() for x in (logits, k, v, step)]
+    for a, w in zip(outs["cards"], outs["one card"]):
+        if n == 2:
+            assert torch.equal(a, w), (a - w).abs().max().item()
+        else:
+            err = (a - w).abs().max().item()
+            assert err <= 1e-5 * max(1.0, w.abs().max().item()), err
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_expert_engine_across_cards_matches_expert1_f32(narrow, n):
+    """An eager engine over ``expert=n`` cards serves the narrow Mixtral's
+    greedy tokens of expert=1, sixteen slots (the grouped decode with its
+    exact fallback selected on the device)."""
+    cards = _cards(n)
+    cfg, params = _narrow_moe()
+    kw = dict(model_cfg=cfg, params=params, decode_slots=16)
+    jobs = _jobs()
+    want = _serve_queued(_mesh_engine(narrow, 1, torch.float32, **kw), jobs)
+    eng = _mesh_engine(narrow, 1, torch.float32, graphs=False,
+                       devices=cards, axes=dict(expert=n), **kw)
+    assert eng.tp.moe and eng.tp.local_experts == cfg.n_experts // n
+    assert _serve_queued(eng, jobs) == want

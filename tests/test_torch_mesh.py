@@ -2,8 +2,8 @@
 the port's unsharded forward and engine and to the JAX package's, on the
 CPU at f32 with every shard on the CPU.
 
-- Mesh rules: ``--mesh`` parsing, the device-count mismatch, the axes this
-  slice refuses.
+- Mesh rules: ``--mesh`` parsing, the device-count mismatch, the axes the
+  port refuses, the device order of the axes it serves.
 - Shard shapes: each leaf's per-shard shape against the local block shape
   of the reference's ``NamedSharding`` (``parallel/sharding.py`` specs on
   the virtual 8-device CPU mesh; placing arrays compiles nothing) for the
@@ -158,12 +158,27 @@ class TestMeshRules:
         with pytest.raises(ValueError, match="needs 2 devices, have"):
             tmesh.make_mesh(tmesh.MeshConfig(tensor=2))
 
-    @pytest.mark.parametrize("axis", ["data", "fsdp", "pipe", "expert",
-                                      "sequence"])
+    @pytest.mark.parametrize("axis", ["data", "fsdp", "pipe"])
     def test_other_axes_refused(self, axis):
         with pytest.raises(ValueError,
                            match=f"mesh axis {axis}=2.*ROADMAP"):
             tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ["cpu"] * 2)
+
+    @pytest.mark.parametrize("axis", ["expert", "sequence"])
+    def test_served_axes_accepted(self, axis):
+        """The mesh's shape and device order are the reference's
+        ``make_mesh``'s (the last axis fastest), alone and beside
+        ``tensor``."""
+        for cfg in (tmesh.MeshConfig(**{axis: 2}),
+                    tmesh.MeshConfig(tensor=2, **{axis: 2})):
+            devices = [f"cpu:{i}" for i in range(cfg.total)]
+            mesh = tmesh.make_mesh(cfg, devices)
+            ref = jmesh.make_mesh(jmesh.MeshConfig(**{
+                a: getattr(cfg, a) for a in tmesh.AXES}),
+                devices=jax.devices()[:cfg.total])
+            assert mesh.shape == dict(ref.shape)
+            assert [d.index for d in mesh.devices] == [
+                d.id for d in ref.devices.flat]
 
 
 # ---------------------------------------------------------------------------
@@ -744,10 +759,10 @@ def test_engine_axis_rules():
                     teng.EngineConfig(**dict(ENGINE, paged_kv_block=8)),
                     dtype=F32, device="cpu",
                     mesh=tmesh.Mesh(tmesh.MeshConfig(data=2), devices))
-    with pytest.raises(ValueError, match="mesh axis sequence=2"):
+    with pytest.raises(ValueError, match="mesh axis fsdp=2"):
         teng.Engine(GQA, params, teng.EngineConfig(**ENGINE), dtype=F32,
                     device="cpu",
-                    mesh=tmesh.Mesh(tmesh.MeshConfig(sequence=2), devices))
+                    mesh=tmesh.Mesh(tmesh.MeshConfig(fsdp=2), devices))
 
 
 def test_graphs_across_cards_refused_by_name():

@@ -292,7 +292,8 @@ def test_port_imports_nothing_of_jax():
                    "server/kv_transfer.py", "events.py", "tracing.py",
                    "ops/chunk_attention.py", "ops/paged_decode_attention.py",
                    "models/convert.py", "models/safetensors.py",
-                   "models/orbax_tree.py", "training/train.py"):
+                   "models/orbax_tree.py", "training/train.py",
+                   "parallel/ring_attention.py", "parallel/long_context.py"):
         # the walk covers every subpackage, the newest modules included
         assert f"llm_instance_gateway_tpu_torch/{module}" in rel
     offenders = []
