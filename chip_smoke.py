@@ -88,12 +88,13 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    prints the int8 profiles beside the bf16 ones;
 
 9. dispatch — ``bench.py``'s device traffic on Llama-3-8B (int8 weights,
-   four rank-8 adapters, 48 requests of 100 + 64 tokens at once, 16 slots,
-   buckets 128/256, 32 steps per dispatch) in turns A B B A: A the sync
+   four rank-8 adapters, 48 requests of 100 + 64 tokens at once — 100 +
+   16 on the A side, ``DISPATCH_A_NEW`` — 16 slots, buckets 128/256, 32
+   steps per dispatch) in turns A B B A: A the sync
    loop with the eager block and prefill_batch=1, B the pipelined loop
    replaying the block's graph with prefill_batch=4; decode tokens/s,
    TPOT and TTFT p50/p95, exact launch counts per run, and the greedy
-   tokens where B differs from A;
+   tokens where B differs from A (over A's tokens);
 10. disagg — disaggregated serving at 8B: a ``--role prefill`` server
    (lanes) hands each prompt's KV over ``/v1/prefill`` -> ``/v1/attach`` to
    a ``--role decode`` server (paged pool, prefix cache, pipelined graph
@@ -216,12 +217,28 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    fallback (the dense result, the CPU's tokens); ``--mesh expert=2``
    served through the serve phase's window, its replayed decode step and
    peak memory beside expert=1's;
+18. data, fsdp and pipe — the last three mesh axes, every shard a view on
+   cuda:0 (``phase_axes`` after phase 17's sequence half, ``phase_pipe``
+   once the 8B tree is freed): ``--mesh data=2`` at 8B through the serve
+   phase's window (exact launches: the lane kernel once per data group),
+   a decode step's logits of rows in both groups against data=1 within
+   the mesh phase's 1/16 rule, with each group reading the other's lanes
+   and a prompt's KV in the wrong group planted (each must fail it), the
+   narrow f32 model's tokens equal to data=1's; ``--mesh fsdp=2`` through
+   the same window on lanes (the replayed step profiled beside the serve
+   phase's, the gathers' device ms alone) and on a 64-token-block pool,
+   a 700-token prefill and eight greedy steps bitwise fsdp=1's on lanes
+   and on the pool; the pipelined full-parameter train step at
+   Llama-3-8B's widths and 16 layers (pipe=2, two microbatches of one
+   1024-token row): two steps with flash and the backward at exactly 16
+   x 2 launches each, the first step's loss and update against the
+   unpipelined step's, walls and peak memory;
 
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
 serve phases, the dispatch phase's B runs, the disagg phase's hops, the
 spec phase's servers, the surface phase's, the checkpoint phase's, the
-families' and the train phase's),
+families', the train phase's and the mesh axes' phases),
 the nvidia-smi line, and last the device JSON line.  Imports nothing of
 JAX.
 
@@ -1399,7 +1416,9 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     model sharded over ``mesh_devices``; every kernel then launches once
     per shard.  Returns (stats, the params served, or the caller's under
     ``quant`` or a mesh; the adapter path) so later phases serve the same
-    weights."""
+    weights.  ``--mesh data=N`` decodes once per data group; ``flags``
+    with ``--paged-kv-block`` serve the window on the pool (the paged
+    kernel counted in the lane kernel's place; pass ``profile=False``)."""
     import threading
     import urllib.request
 
@@ -1421,6 +1440,7 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     init_s = time.time() - t0
     params = params if quant or engine.tp is not None else engine.params
     shards = engine.tp.t if engine.tp is not None else 1
+    groups = engine.tp.d if engine.tp is not None else 1
     server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     server_thread.start()
     url = "http://127.0.0.1:%d" % httpd.server_address[1]
@@ -1492,12 +1512,15 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
             raise AssertionError(f"{tag}: no decode steps")
         # One bucketed prefill program per request (no prefix cache here),
         # one lane decode launch per layer and decode step (replays
-        # counted), each once per tensor shard, nothing else.
+        # counted), each once per tensor shard, decode once per data group
+        # too (a prefill runs on its row's group), nothing else.
         lane_kernel = ("decode_attention_quant" if "--kv-quantize" in argv
                        else "decode_attention")
+        if "--paged-kv-block" in argv:
+            lane_kernel = "paged_" + lane_kernel
         check_only(launches, {
             "flash_prefill": len(jobs) * n_layers * shards,
-            lane_kernel: decode_steps * n_layers * shards}, tag)
+            lane_kernel: decode_steps * n_layers * shards * groups}, tag)
         _kv_floor(tag, engine)
         with urllib.request.urlopen(url + "/metrics", timeout=60) as f:
             metrics_text = f.read().decode()
@@ -1768,15 +1791,22 @@ def phase_paged_serve(torch, params, adapter_path: str,
         engine.stop()
 
 
-def _profile(torch, name: str, fn, reps: int) -> dict:
+def _profile(torch, name: str, fn, reps: int, host: bool = False) -> dict:
     """Host wall per call, device kernel time, device idle share and top
-    kernels of ``fn`` under torch.profiler."""
+    kernels of ``fn`` under torch.profiler, tracing the device only
+    unless ``host``: the host's per-op events of an eager 8B step (tens
+    of thousands over a few calls) cost the smoke ~10-30 s of processing
+    each, and the host wall comes from the clock.  A graph replay (a few
+    host events) traces both: traced alone, the device's replays read
+    ~1.7x the wall of a replay traced with the host (one card, one run)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -1787,7 +1817,10 @@ def _profile(torch, name: str, fn, reps: int) -> dict:
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        # A range on the device's timeline (the optimizer's step, a
+        # record_function) spans kernels counted on their own.
+        if (us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
             device_us += us
             rows.append((us / reps / 1e3, ev.count // reps, ev.key[:60]))
     rows.sort(reverse=True)
@@ -1830,7 +1863,8 @@ def _graph_profile(torch, name: str, fn, reps: int):
             fn()
     finally:
         gc.enable()
-    return _profile(torch, f"{name} (graph replay)", graph.replay, reps)
+    return _profile(torch, f"{name} (graph replay)", graph.replay, reps,
+                    host=True)
 
 
 def _with_graph(torch, name: str, fn, reps: int, why_not: str | None = None):
@@ -1964,12 +1998,18 @@ def wait_blocks_processed(eng) -> None:
     raise AssertionError("a dispatched decode block was never processed")
 
 
+# New tokens per request of the dispatch phase's A runs (B: bench.py's 64).
+DISPATCH_A_NEW = 16
+
+
 def phase_dispatch(torch, bf16_params) -> dict:
     """``bench.py``'s device traffic on Llama-3-8B (full width and depth,
     int8 weights, four rank-8 adapters on q/k/v/o): 48 requests arriving
-    at once, 100-token prompts, 64 new tokens, 16 slots, buckets (128,
-    256), decode_steps_per_sync=32.  Two engines over the same weights and
-    adapters serve it in turns, A B B A: A the sync loop with the eager
+    at once, 100-token prompts, 64 new tokens (``DISPATCH_A_NEW`` on the
+    A side, whose eager runs took most of the phase's wall), 16 slots,
+    buckets (128, 256), decode_steps_per_sync=32.  Two engines over the
+    same weights and adapters serve it in turns, A B B A: A the sync loop
+    with the eager
     decode block and prefill_batch=1, B the pipelined loop replaying the
     block's CUDA graph with prefill_batch=4.  Each run prints decode
     tokens/s, TPOT and TTFT percentiles and its exact launch counts; the
@@ -2009,6 +2049,9 @@ def phase_dispatch(torch, bf16_params) -> dict:
             pipeline_decode=True, prefill_batch=4, **base), lora_manager=lora,
             eos_id=None, dtype=torch.bfloat16, device="cuda"),
     }
+    # A (eager, host-paced: most of the phase's wall) decodes half B's
+    # tokens per request; the A/B comparisons run over A's tokens.
+    new_tokens = {"A": DISPATCH_A_NEW, "B": 64}
     programs = {}
     for name, eng in engines.items():
         programs[name] = {"prefill": 0, "prefill_many": 0}
@@ -2029,7 +2072,7 @@ def phase_dispatch(torch, bf16_params) -> dict:
         snap0 = eng.metrics_snapshot()
         progs0 = dict(programs[name])
         reset_launches()
-        reqs = [Request(prompt_tokens=p, max_new_tokens=64,
+        reqs = [Request(prompt_tokens=p, max_new_tokens=new_tokens[name],
                         adapter=names[i % len(names)])
                 for i, p in enumerate(prompts)]
         t0 = time.perf_counter()
@@ -2051,7 +2094,7 @@ def phase_dispatch(torch, bf16_params) -> dict:
             * cfg.n_layers,
             "decode_attention": steps * cfg.n_layers}, f"dispatch {name}")
         tokens = sum(len(r.output_tokens) for r in reqs)
-        if tokens != 48 * 64:
+        if tokens != 48 * new_tokens[name]:
             raise AssertionError(f"dispatch {name}: {tokens} tokens")
         ttft = [r.ttft_s * 1e3 for r in reqs]
         tpot = [(r.t_done - r.t_first_token) * 1e3
@@ -2118,7 +2161,8 @@ def phase_dispatch(torch, bf16_params) -> dict:
             "tpot_ms_p95",
             "ttft_ms_p50", "ttft_ms_p95")}
     log("dispatch", "llama3-8b, int8 weights, 4 rank-8 adapters, 48 x "
-        "(100 prompt + 64 new) tokens, 16 slots, 32 steps per dispatch: "
+        f"(100 prompt + 64 new; A {DISPATCH_A_NEW}) tokens, 16 slots, 32 "
+        "steps per dispatch: "
         + json.dumps({k: v for k, v in out.items() if k != "runs"}))
     # The kernels line counts the B runs' launches (the graph replays).
     out["launches"] = {k: sum(st["launches"][k] for n, st, _ in runs
@@ -2808,8 +2852,8 @@ def _spec_cycle_profile(torch, engine) -> dict:
     graphs = engine._graphs
     cycle = _profile(torch, "spec cycle (the engine's graph replay)",
                      lambda: graphs.run(engine._spec_block, 1, SPEC_K, False,
-                                        kind="spec"), 3)
-    reps = 3
+                                        kind="spec"), 3, host=True)
+    reps = 1  # the host's per-op events are what the split reads
     engine._spec_block(1, SPEC_K, False)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -4501,7 +4545,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
-    families, train, mesh, sequence, expert)."""
+    families, train, mesh, sequence, expert, data, fsdp, pipe)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -4687,9 +4731,10 @@ def _mesh_logits(torch, params) -> dict:
     return res
 
 
-def _mesh_narrow_f32(torch) -> dict:
-    """The narrow f32 model on the card at tensor=1 and tensor=2 (lanes,
-    graphs): identical greedy tokens."""
+def _mesh_narrow_f32(torch, axes=None, tag: str = "mesh") -> dict:
+    """The narrow f32 model on the card unsharded and over ``axes``
+    (default tensor=2; every shard on cuda:0; lanes, graphs): identical
+    greedy tokens."""
     import dataclasses
 
     from llm_instance_gateway_tpu_torch.models import transformer
@@ -4703,23 +4748,25 @@ def _mesh_narrow_f32(torch) -> dict:
                                      device="cuda")
     prompts = [[256] + [65 + (7 * i + j) % 200 for j in range(n)]
                for i, n in enumerate((5, 40, 12, 60, 3, 100))]
+    axes = axes or dict(tensor=2)
+    grid = mesh.MeshConfig(**axes)
     streams = {}
     for t in (1, 2):
         eng = Engine(cfg, params, EngineConfig(
             decode_slots=4, max_seq_len=256, prefill_buckets=(16, 64, 128),
             decode_steps_per_sync=4), eos_id=None, dtype=torch.float32,
-            device="cuda", mesh=(mesh.make_mesh(mesh.MeshConfig(tensor=2),
-                                                MESH_DEVICES)
+            device="cuda", mesh=(mesh.make_mesh(grid,
+                                                ["cuda:0"] * grid.total)
                                  if t == 2 else None))
         streams[t] = _serve_all(eng, [Request(prompt_tokens=p,
                                               max_new_tokens=24)
                                       for p in prompts])
     if streams[2] != streams[1]:
-        raise AssertionError(f"mesh f32: tensor=2 tokens {streams[2]} != "
-                             f"tensor=1 {streams[1]}")
+        raise AssertionError(f"{tag} f32: {axes} tokens {streams[2]} != "
+                             f"unsharded {streams[1]}")
     out = {"requests": len(prompts), "tokens": sum(map(len, streams[1])),
            "identical": True}
-    log("mesh", "narrow f32 tensor=2 vs tensor=1: " + json.dumps(out))
+    log(tag, f"narrow f32 {axes} vs unsharded: " + json.dumps(out))
     return out
 
 
@@ -5350,6 +5397,388 @@ def phase_expert(torch, engine, stats: dict) -> dict:
     return out
 
 
+# -- phase 18: the data, fsdp and pipe axes on one card ----------------------
+
+# Every shard a view on cuda:0, as phases 16-17 run theirs.
+AXES_DEVICES = ["cuda:0", "cuda:0"]
+DATA_FLAGS = ["--mesh", "data=2"]
+FSDP_FLAGS = ["--mesh", "fsdp=2"]
+# The pool for the fsdp window: 8 rows of 1024 tokens in 64-token blocks.
+FSDP_PAGED_FLAGS = FSDP_FLAGS + ["--paged-kv-block", "64",
+                                 "--paged-kv-blocks", "128"]
+# Faults planted in a data=2 decode step, each of which the logits check
+# (MESH_LOGIT_TOL) must fail: each group attending the other group's
+# lanes, and a prompt's KV written into a row of the wrong group.
+DATA_FAULTS = ("kv_crossed", "slot_misrouted")
+# The pipelined train step (run once the serve phases' 8B tree is freed):
+# Llama-3-8B's widths at 16 of its 32 layers, so params, gradients and
+# AdamW's two moments (~9 GB each in bf16) and the optimizer's temporaries
+# fit one card; pipe=2, M=2 microbatches of one 1024-token row.  Its
+# first update is held to the unpipelined step's over the elements either
+# step moved in the leaves checked: the microbatches' bf16 GEMMs round
+# apart from the batched ones, so an element whose gradient sits within
+# rounding of 0 may step the other way (and AdamW's first step is about
+# +-lr whatever the gradient's size, so a rounding apart can land one ulp
+# apart); at least PIPE_AGREE of them must step the same way, and the
+# losses agree within PIPE_LOSS_TOL.
+PIPE_LAYERS = 16
+PIPE_M = 2
+PIPE_S = 1024
+PIPE_LR = TRAIN_LR
+PIPE_LOSS_TOL = 1e-2  # relative
+PIPE_AGREE = 0.95
+
+
+def _data_logits(torch, params) -> dict:
+    """Two 700-token prompts in rows 1 and 2 of a 4-row lane cache (rows
+    1 and 2 sit in data groups 0 and 1 at data=2), prefilled, then one
+    decode step: data=2's logits of both rows against data=1's, eager,
+    within MESH_LOGIT_TOL, and each of ``DATA_FAULTS`` failing that
+    check."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cfg, dev, n, rows = LLAMA3_8B, torch.device("cuda"), 700, 4
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(data=2), AXES_DEVICES))
+    sharded = sharding.shard_params(params, tp)
+    gen = torch.Generator(device=dev).manual_seed(79)
+    prompts = torch.randint(0, cfg.vocab_size, (2, n), device=dev,
+                            generator=gen)
+    positions = torch.arange(n, device=dev)[None]
+    live = (1, 2)
+
+    def lane(c, d, r=rows):
+        return transformer.init_decode_cache(c, r, 1024, device=d)
+
+    def run(fault):
+        p = params if fault == "data1" else sharded
+        cache = (lane(cfg, dev) if fault == "data1"
+                 else sharding.shard_cache(lane, tp, rows=rows))
+        nxt = torch.zeros(rows, dtype=torch.long, device=dev)
+        for i, row in enumerate(live):
+            group = 0 if fault == "data1" else row // 2
+            logits, k, v = transformer.prefill(
+                cfg, p, prompts[i:i + 1], positions, data_group=group)
+            nxt[row] = logits[0, -1, :cfg.vocab_size].argmax()
+            if fault == "slot_misrouted" and row == 2:
+                # Row 2's KV in group 0's first row: the map gone wrong.
+                transformer.insert_prefill(cache.data[0], k, v, 0, n)
+            else:
+                transformer.insert_prefill(cache, k, v, row, n)
+            del logits, k, v
+        if fault == "kv_crossed":
+            cache = sharding.Shards(list(cache.data[1]), tp, None,
+                                    [cache.data[1], cache.data[0]])
+        active = torch.tensor([r in live for r in range(rows)], device=dev)
+        step, _ = transformer.decode_step(
+            cfg, p, cache, nxt, torch.full((rows,), n, device=dev),
+            active=active)
+        return step[list(live), :cfg.vocab_size].float()
+
+    with torch.no_grad():
+        out = {f: run(f) for f in ("data1", "data2") + DATA_FAULTS}
+    sound = {"decode_step": _share(out["data2"], out["data1"])}
+    faults = {f: {"decode_step": _share(out[f], out["data1"])}
+              for f in DATA_FAULTS}
+    _gate("data logits", sound, faults)
+    res = dict(sound, planted_faults=faults)
+    log("data", "logits data=2 vs data=1 (bf16, rows 1 and 2 in groups 0 "
+        f"and 1, tolerance {MESH_LOGIT_TOL}): " + json.dumps(res))
+    return res
+
+
+def _fsdp_logits(torch, params) -> dict:
+    """A 700-token prefill and eight greedy decode steps after it at
+    fsdp=1 and fsdp=2 (views on cuda:0), eager, on a lane and on a
+    paged pool: every step's logits bitwise equal (the gathered weights
+    are the same values in the same shapes), so the tokens too."""
+    from llm_instance_gateway_tpu_torch.models import paged, transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cfg, dev, n, steps, block = LLAMA3_8B, torch.device("cuda"), 700, 8, 64
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(fsdp=2), AXES_DEVICES))
+    sharded = sharding.shard_params(params, tp)
+    gen = torch.Generator(device=dev).manual_seed(80)
+    prompt = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                           generator=gen)
+    positions = torch.arange(n, device=dev)[None]
+    table = list(range(1, 1024 // block + 1))
+
+    def make(kind):
+        if kind == "lanes":
+            return lambda c, d: transformer.init_decode_cache(c, 1, 1024,
+                                                              device=d)
+        return lambda c, d: paged.init_paged_cache(c, 1, 1024, len(table),
+                                                   block, device=d)
+
+    def run(p, kind):
+        cache = (make(kind)(cfg, dev) if p is params
+                 else sharding.shard_cache(make(kind), tp))
+        logits, k, v = transformer.prefill(cfg, p, prompt, positions)
+        outs = [logits[0, -1, :cfg.vocab_size].clone()]
+        if kind == "lanes":
+            transformer.insert_prefill(cache, k, v, 0, n)
+            fn = transformer.decode_step
+        else:
+            paged.insert_prefill_paged(cache, k, v, 0,
+                                       table[:-(-n // block)], table, n)
+            fn = paged.decode_step_paged
+        del logits, k, v
+        tokens = []
+        for i in range(steps):
+            tok = outs[-1].argmax().reshape(1)
+            tokens.append(int(tok))
+            step, _ = fn(cfg, p, cache, tok,
+                         torch.tensor([n + i], device=dev))
+            outs.append(step[0, :cfg.vocab_size].clone())
+        return outs, tokens
+
+    res = {}
+    with torch.no_grad():
+        for kind in ("lanes", "paged"):
+            (want, want_t), (got, got_t) = run(params, kind), run(sharded,
+                                                                  kind)
+            equal = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+            res[kind] = {"steps": steps, "tokens": got_t,
+                         "tokens_equal": got_t == want_t,
+                         "logits_bitwise": all(equal),
+                         "max_abs_err": max((a.float() - b.float()).abs()
+                                            .max().item()
+                                            for a, b in zip(got, want))}
+            if not all(equal) or got_t != want_t:
+                raise AssertionError(f"fsdp {kind}: fsdp=2 is not fsdp=1 "
+                                     f"bitwise: {res[kind]}")
+    log("fsdp", "fsdp=2 vs fsdp=1, 700-token prefill + 8 greedy steps "
+        "(bf16, eager): " + json.dumps(res))
+    return res
+
+
+def _fsdp_gather_ms(torch, engine, reps: int = 5) -> float:
+    """Device ms (CUDA events) of one decode step's fsdp gathers alone:
+    every split leaf of every layer (LoRA ``o_b`` / ``down_b`` included)
+    and ``lm_head``, as the shard loop gathers them."""
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+
+    trees = [(t, lr) for t, lr in zip(sharding.parts(engine.params),
+                                      sharding.parts(engine.lora.buffers))]
+    n_layers = engine.model_cfg.n_layers
+
+    def gather_all():
+        for tree, lora in trees:
+            for i in range(n_layers):
+                for leaf in list(tree["layers"].values()) + list(
+                        lora.values()):
+                    for x in (leaf.values() if isinstance(leaf, dict)
+                              else [leaf]):
+                        if isinstance(x, sharding.FsdpLeaf):
+                            x[i]
+            sharding.whole(tree["lm_head"])
+
+    gather_all()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        gather_all()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _replayed(stats: dict) -> dict:
+    graph = stats.get("profile", {}).get("decode_step", {}).get(
+        "graph_replay")
+    return {k: (graph.get(k) if isinstance(graph, dict) else graph)
+            for k in ("wall_ms", "device_ms", "device_idle_share")}
+
+
+def phase_pipe(torch) -> dict:
+    """Phase 18, last part: the pipelined full-parameter train step at
+    Llama-3-8B's widths and ``PIPE_LAYERS`` layers (``pipe=2``, both
+    stages on cuda:0, M=2 rows of ``PIPE_S`` tokens): four steps (the
+    fourth profiled), each launching flash and the backward exactly L x
+    M times; the first
+    step's loss and update against the unpipelined
+    ``make_full_train_step`` from the same seeded weights
+    (``PIPE_LOSS_TOL``, ``PIPE_AGREE`` on layer 0's and the last layer's
+    ``wq`` / ``wo`` / ``w_down``, ``embed`` and ``lm_head``); step walls
+    and peak memory."""
+    import dataclasses
+    import gc
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, pipeline
+    from llm_instance_gateway_tpu_torch.training import train
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=PIPE_LAYERS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(81)
+    tokens = torch.randint(0, cfg.vocab_size, (PIPE_M, PIPE_S), device=dev,
+                           generator=gen)
+    positions = torch.arange(PIPE_S, device=dev)[None].expand(PIPE_M,
+                                                               PIPE_S)
+    checked = ("wq", "wo", "w_down")
+
+    def picks(tree, staged: bool):
+        out = {"embed": tree["embed"], "lm_head": tree["lm_head"]}
+        for name in checked:
+            leaf = tree["layers"][name]
+            out[f"{name}[0]"] = leaf[0, 0] if staged else leaf[0]
+            out[f"{name}[{PIPE_LAYERS - 1}]"] = (leaf[-1, -1] if staged
+                                                 else leaf[-1])
+        return {k: v.detach().clone() for k, v in out.items()}
+
+    runs = {}
+    for kind in ("pipe", "plain"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        params = transformer.init_params(cfg, seed=22, device="cuda")
+        if kind == "pipe":
+            m = mesh.make_mesh(mesh.MeshConfig(pipe=2), AXES_DEVICES)
+            tree = pipeline.stage_param_specs(
+                cfg, pipeline.stage_params(cfg, params, 2), m)
+            opt = train.make_optimizer(tree, lr=PIPE_LR)
+            step = pipeline.make_pipeline_train_step(cfg, opt, 2, PIPE_M, m)
+        else:
+            tree = params
+            opt = train.make_optimizer(tree, lr=PIPE_LR)
+            step = train.make_full_train_step(cfg, opt)
+        before = picks(tree, kind == "pipe")
+        losses, walls, launches = [], [], []
+        for i in range(2):
+            reset_launches()
+            t0 = time.time()
+            tree, _, loss = step(tree, None, tokens, positions)
+            losses.append(loss.item())
+            walls.append(time.time() - t0)
+            launches.append(read_launches())
+            if i == 0:
+                after = picks(tree, kind == "pipe")
+        # Two more steps: one untimed, one under the profiler.
+        reset_launches()
+        profiled = _profile(torch, f"{kind} train step", lambda: step(
+            tree, None, tokens, positions), 1)
+        launches.append(read_launches())
+        per = PIPE_M if kind == "pipe" else 1
+        for got, steps in zip(launches, (1, 1, 2)):
+            check_only(got, {"flash_prefill": PIPE_LAYERS * per * steps,
+                             "flash_backward": PIPE_LAYERS * per * steps},
+                       f"pipe train ({kind})")
+        runs[kind] = {"losses": losses, "step_wall_s": walls,
+                      "launches": launches, "profiled_step": profiled,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_above_start_gb": (torch.cuda.max_memory_allocated()
+                                              - mem0) / 1e9,
+                      "before": before, "after": after}
+        del tree, opt, step, params
+    pipe, plain = runs["pipe"], runs["plain"]
+    loss_err = abs(pipe["losses"][0] - plain["losses"][0]) / abs(
+        plain["losses"][0])
+    agree = {}
+    for name in pipe["after"]:
+        if not torch.equal(pipe["before"][name], plain["before"][name]):
+            raise AssertionError(f"pipe train: {name} starts apart")
+        a, b, b0 = pipe["after"][name], plain["after"][name], \
+            plain["before"][name]
+        moved = (a != b0) | (b != b0)
+        da, db = (a.float() - b0.float()).sign(), (b.float() - b0.float()) \
+            .sign()
+        agree[name] = {"moved": moved.float().mean().item(),
+                       "same_bits_where_moved": (a == b)[moved].float()
+                       .mean().item() if moved.any() else float("nan"),
+                       "same_sign_where_moved": (da == db)[moved].float()
+                       .mean().item() if moved.any() else float("nan")}
+    launches = {name: sum(step[name] for step in pipe["launches"])
+                for name in pipe["launches"][0]}
+    res = {"layers": PIPE_LAYERS, "microbatches": PIPE_M, "tokens": PIPE_S,
+           "lr": PIPE_LR, "loss_rel_err": loss_err, "agreement": agree,
+           "launches": launches,
+           **{k: {x: v for x, v in r.items()
+                  if x not in ("before", "after", "launches")}
+              for k, r in runs.items()}}
+    if not (math.isfinite(loss_err) and loss_err <= PIPE_LOSS_TOL):
+        raise AssertionError(f"pipe train: loss {pipe['losses'][0]} against "
+                             f"the unpipelined {plain['losses'][0]}")
+    for name, a in agree.items():
+        if not a["same_sign_where_moved"] >= PIPE_AGREE:
+            raise AssertionError(f"pipe train: {name} updated apart from "
+                                 f"the unpipelined step: {a}")
+    log("pipe", "pipelined full-parameter step (pipe=2, both stages on "
+        "cuda:0) against the unpipelined step: " + json.dumps(res))
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_axes(torch, params, adapter_path: str, serve_stats: dict) -> dict:
+    """Phase 18: the ``data``, ``fsdp`` and ``pipe`` axes, every shard a
+    view on cuda:0.  Llama-3-8B at ``--mesh data=2`` through the serve
+    phase's window (exact launches: decode once per data group), its
+    logits against data=1 with ``DATA_FAULTS`` planted, the narrow f32
+    model's identical tokens; ``--mesh fsdp=2`` through the same window
+    on lanes (the replayed step profiled beside fsdp=1's, the gathers'
+    device ms) and on the pool, its logits and tokens bitwise fsdp=1's.
+    The pipelined train step runs after the 8B tree is freed
+    (``phase_pipe``)."""
+    import gc
+
+    t0 = time.time()
+    data = phase_serve(torch, params, adapter_path, flags=DATA_FLAGS,
+                       tag="data", mesh_devices=AXES_DEVICES)[0]
+    data_differ = _differing(data.pop("answers"), serve_stats["answers"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_logits = _data_logits(torch, params)
+    data_narrow = _mesh_narrow_f32(torch, dict(data=2), "data")
+    gathers = {}
+    fsdp = phase_serve(
+        torch, params, adapter_path, flags=FSDP_FLAGS, tag="fsdp",
+        mesh_devices=AXES_DEVICES,
+        after=lambda eng, url, st: gathers.update(
+            gather_ms=_fsdp_gather_ms(torch, eng)))[0]
+    fsdp_differ = _differing(fsdp.pop("answers"), serve_stats["answers"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_paged = phase_serve(torch, params, adapter_path,
+                             flags=FSDP_PAGED_FLAGS, tag="fsdp paged",
+                             mesh_devices=AXES_DEVICES, profile=False)[0]
+    fsdp_paged.pop("answers")
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_logits = _fsdp_logits(torch, params)
+    steps = {"unsharded": _replayed(serve_stats), "data=2": _replayed(data),
+             "fsdp=2": _replayed(fsdp)}
+    device = steps["fsdp=2"]["device_ms"]
+    gathers["share_of_replayed_step"] = (
+        gathers["gather_ms"] / device if isinstance(device, float) else
+        "not measured")
+    fsdp_launches = {name: n + fsdp_paged["launches"].get(name, 0)
+                     for name, n in fsdp["launches"].items()}
+    out = {"wall_s": time.time() - t0, "launches_data": data["launches"],
+           "launches_fsdp": fsdp_launches,
+           "data_tokens_differing": data_differ,
+           "fsdp_tokens_differing": fsdp_differ,
+           "data_logits": data_logits, "data_narrow": data_narrow,
+           "fsdp_logits": fsdp_logits, "fsdp_gathers": gathers,
+           "replayed_step": steps,
+           "peak_mem_gb": {"data=2": data["peak_mem_gb"],
+                           "fsdp=2": fsdp["peak_mem_gb"],
+                           "fsdp=2 paged": fsdp_paged["peak_mem_gb"]}}
+    log("axes", f"greedy tokens differing from the serve phase: data=2 "
+        f"{data_differ['differ']} of {data_differ['of']}, fsdp=2 "
+        f"{fsdp_differ['differ']} of {fsdp_differ['of']} (bf16, across "
+        "servers; reported, not gated)")
+    log("axes", "phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -5402,11 +5831,19 @@ def main() -> int:
     done("mesh")
     sequence = phase_sequence(torch, params, adapter_path, paged_stats)
     done("sequence")
-    # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree: the 8B one goes,
-    # with all phase 14 loaded.
+    axes = phase_axes(torch, params, adapter_path, stats)
+    done("axes")
+    # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree, and phase 18's
+    # pipelined train step its own 16-layer tree and AdamW state: the 8B
+    # one goes, with all phase 14 loaded.
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    pipe = phase_pipe(torch)
+    done("pipe")
+    log("walls", "phase 18 (data, fsdp and pipe): " + json.dumps(
+        {"axes_s": axes["wall_s"], "pipe_s": walls["pipe"] - walls["axes"],
+         "total_s": walls["pipe"] - walls["sequence"]}))
     families = phase_families(torch)
     done("families")
     expert = families["servers"]["mixtral-8x7b"].pop("expert")
@@ -5433,7 +5870,10 @@ def main() -> int:
                "train": trained["launches"],
                "mesh": meshed["launches"],
                "sequence": sequence["launches"],
-               "expert": expert["launches"]}
+               "expert": expert["launches"],
+               "data": axes["launches_data"],
+               "fsdp": axes["launches_fsdp"],
+               "pipe": pipe["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

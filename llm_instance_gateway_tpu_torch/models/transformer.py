@@ -38,7 +38,12 @@ and ``w_down`` partials onto the residual: two reductions a layer
 (``_attn_block``, ``_mlp_block``); norms and residuals are replicated.
 A plain tree is the one-shard case, the same arithmetic.  Caches are then
 ``Shards`` too, each tensor shard's holding its KV heads, and the
-prefill's KV comes back whole.  ``prefill``'s ``attention_fn`` seam runs
+prefill's KV comes back whole.  Over ``data`` a decode, extend or chunk
+step runs each data group's grid on its rows (``_per_data_group``, the
+logits back whole on group 0's device) and a prefill on the group its
+caller names; over ``fsdp`` a layer's split weights are gathered as the
+shard loop takes the layer (``_Shards.layer``) and ``lm_head`` before
+the head.  ``prefill``'s ``attention_fn`` seam runs
 sequence blocks on the ``sequence`` groups with the ring's attention
 (``parallel/long_context.py``).
 
@@ -408,7 +413,8 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 def _logits(cfg: ModelConfig, params: Params, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps,
                  plus_one=cfg.norm_plus_one)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = (params["embed"].T if cfg.tie_embeddings
+            else sharding.whole(params["lm_head"]))  # gathered over fsdp
     return q_matmul(h, head).float()
 
 
@@ -441,11 +447,14 @@ def _no_slots(b: int, device) -> torch.Tensor:
 
 class _Shards:
     """The shards a forward iterates: the trees of sequence group
-    ``group`` of a ``Shards`` params tree (``parallel/sharding.py``) with
-    their local config, or the one tree of a plain one.  The residual
-    stream is a list with one entry per shard (one tensor, repeated, when
-    the shards share a device).  Attention runs on the first ``n_attn``
-    shards (expert 0's tensor shards), the MLP on all of them."""
+    ``group`` of a ``Shards`` params tree (``parallel/sharding.py``; one
+    data group's) with their local config, or the one tree of a plain
+    one.  The residual stream is a list with one entry per shard (one
+    tensor, repeated, when the shards share a device).  Attention runs on
+    the first ``n_attn`` shards (expert 0's tensor shards), the MLP on all
+    of them.  Leaves split over ``fsdp`` are gathered as a layer is
+    taken (``layer``); across cards layer i+1's gathers are issued on a
+    side stream per card while layer i computes."""
 
     def __init__(self, cfg: ModelConfig, params, lora_bufs, group: int = 0):
         sharded = isinstance(params, sharding.Shards)
@@ -459,10 +468,49 @@ class _Shards:
             self.loras = lora_bufs.groups[group]
         else:
             self.loras = [lora_bufs] * self.n
+        # fsdp across cards: side streams and the gathers issued ahead.
+        self._side = None
+        self._ahead: dict = {}
+        if (self.tp is not None and self.tp.f > 1 and not self.tp.one_device
+                and self.tp.devices[0].type == "cuda"):
+            self._side = {d: torch.cuda.Stream(device=d)
+                          for d in set(self.tp.devices)}
 
     def layer(self, i: int) -> list:
         """Layer ``i``'s params and LoRA slice, per shard; an ``expert``
-        shard's layer view carries its first expert (``_experts``)."""
+        shard's layer view carries its first expert (``_experts``).  Its
+        fsdp leaves come gathered: across cards from the gathers issued
+        when layer i-1 was taken (each card's stream waits on their
+        event), and layer i+1's are issued now."""
+        if self._side is None:
+            return self._take(i)
+        got = self._ahead.pop(i, None) or self._issue(i)
+        if i + 1 < self.cfg.n_layers:
+            self._ahead[i + 1] = self._issue(i + 1)
+        out, events = got
+        for dev, ev in events.items():
+            torch.cuda.current_stream(dev).wait_event(ev)
+        for lp, ll in out:
+            for x in list(lp.values()) + list((ll or {}).values()):
+                for t in (x.values() if isinstance(x, dict) else [x]):
+                    if isinstance(t, torch.Tensor) and t.is_cuda:
+                        t.record_stream(torch.cuda.current_stream(t.device))
+        return out
+
+    def _issue(self, i: int):
+        """Layer ``i`` taken on the side streams (the gathers queued
+        there), with an event per card marking their end."""
+        for dev, stream in self._side.items():
+            stream.wait_stream(torch.cuda.current_stream(dev))
+        with sharding.gather_streams(self._side):
+            out = self._take(i)
+        events = {}
+        for dev, stream in self._side.items():
+            events[dev] = torch.cuda.Event()
+            events[dev].record(stream)
+        return out, events
+
+    def _take(self, i: int) -> list:
         out = []
         for s, (tree, lora) in enumerate(zip(self.trees, self.loras)):
             lp = _layer(tree, i)
@@ -581,7 +629,8 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
     blocks, on every shard: ``shs[j]`` is block j's ``_Shards`` and
     ``hs[j]`` / ``positions[j]`` / ``sids[j]`` its per-shard residual,
     positions and slot ids.  Each block's K/V lands at its rows and each
-    shard's heads of ``k_all`` / ``v_all`` ``[L, B, S, K, hd]``.  Attention
+    shard's heads of ``k_all`` / ``v_all`` ``[L, B, S, K, hd]`` (None:
+    written nowhere, the training forward's case).  Attention
     is the flash kernel per shard (one block), or ``attention_fn(s, qs,
     ks, vs)`` over tensor shard ``s``'s q/k/v of every block, returning
     each block's output.  Returns the residual per block and shard."""
@@ -591,16 +640,17 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
     qkvs = [_attn_qkv(sh, layer, h, sid, lead, _rope_seq(sh.cfg, pos))
             for sh, layer, h, sid, lead, pos in zip(shs, layers, hs, sids,
                                                     leads, positions)]
-    start = 0
-    for lead, qkv in zip(leads, qkvs):
-        rows = slice(start, start + lead[1])
-        start += lead[1]
-        for s, (_, k, v) in enumerate(qkv):
-            # A replicated KV head is written once.
-            if tp is None or s == 0 or tp.kv_split:
-                heads = slice(None) if tp is None else tp.kv_heads(s)
-                k_all[i, :, rows, heads] = k.to(k_all.device)
-                v_all[i, :, rows, heads] = v.to(v_all.device)
+    if k_all is not None:  # training writes no KV
+        start = 0
+        for lead, qkv in zip(leads, qkvs):
+            rows = slice(start, start + lead[1])
+            start += lead[1]
+            for s, (_, k, v) in enumerate(qkv):
+                # A replicated KV head is written once.
+                if tp is None or s == 0 or tp.kv_split:
+                    heads = slice(None) if tp is None else tp.kv_heads(s)
+                    k_all[i, :, rows, heads] = k.to(k_all.device)
+                    v_all[i, :, rows, heads] = v.to(v_all.device)
     attns = [[None] * shs[0].n_attn for _ in shs]
     for s in range(shs[0].n_attn):
         qs, ks, vs = ([qkv[s][x] for qkv in qkvs] for x in range(3))
@@ -623,7 +673,8 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
 
 def prefill(cfg: ModelConfig, params: Params, tokens, positions,
             lora_bufs: Params | None = None,
-            slot_ids: torch.Tensor | None = None, attention_fn=None):
+            slot_ids: torch.Tensor | None = None, attention_fn=None,
+            data_group: int = 0):
     """Full-prompt forward.  Returns (logits [B,S,V] f32, k [L,B,S,K,hd], v).
 
     ``params`` may be a ``Shards`` tree (the shard grid): the KV comes
@@ -634,10 +685,19 @@ def prefill(cfg: ModelConfig, params: Params, tokens, positions,
     run on sequence group j of the params, and ``attention_fn(s, qs, ks,
     vs)`` maps tensor shard ``s``'s q/k/v of every block to each block's
     attention output (``prefill_layer``); the logits come back whole on
-    the first shard's device too."""
+    the first shard's device too.  Over ``data`` the prefill runs on
+    data group ``data_group``'s grid (its slot's), the inputs moved to
+    its devices and the results left there."""
     check_supported(cfg)
+    params = sharding.in_group(params, data_group)
+    lora_bufs = sharding.in_group(lora_bufs, data_group)
     blocks = list(tokens) if attention_fn is not None else [tokens]
     pos_blocks = list(positions) if attention_fn is not None else [positions]
+    if data_group:
+        devs = [params.tp.device(0, j) for j in range(len(blocks))]
+        blocks = [t.to(d) for t, d in zip(blocks, devs)]
+        pos_blocks = [p.to(d) for p, d in zip(pos_blocks, devs)]
+        slot_ids = None if slot_ids is None else slot_ids.to(devs[0])
     b = blocks[0].shape[0]
     if slot_ids is None:
         slot_ids = _no_slots(b, blocks[0].device)
@@ -657,6 +717,42 @@ def prefill(cfg: ModelConfig, params: Params, tokens, positions,
     logits = [sh.logits(cfg, h).to(dev0) for sh, h in zip(shs, hs)]
     return (logits[0] if len(logits) == 1 else torch.cat(logits, dim=1),
             k_all, v_all)
+
+
+# ---------------------------------------------------------------------------
+# The data groups
+# ---------------------------------------------------------------------------
+
+
+def _per_data_group(step, cfg: ModelConfig, params, cache, tokens,
+                    positions, lora_bufs, slot_ids, active):
+    """``step`` (``decode_step`` / ``extend_step``) on each data group's
+    block of rows, with the group's params, cache and LoRA buffers, its
+    rows' inputs moved to its devices; the logits come back whole on
+    group 0's device.  A group's cache holds its rows only, so row r of
+    the batch is row ``r - g * rows`` of group g's lanes."""
+    per = tokens.shape[0] // len(cache.data)
+    dev0 = sharding.parts(cache)[0]["k"].device
+    out = []
+    for g, cg in enumerate(cache.data):
+        dev = sharding.parts(cg)[0]["k"].device
+        rows = slice(g * per, (g + 1) * per)
+
+        def mine(x):
+            return None if x is None else x[rows].to(dev)
+        logits, _ = step(cfg, sharding.in_group(params, g), cg,
+                         mine(tokens), mine(positions),
+                         lora_bufs=sharding.in_group(lora_bufs, g),
+                         slot_ids=mine(slot_ids), active=mine(active))
+        out.append(logits.to(dev0))
+    return torch.cat(out)
+
+
+def _data_slot(cache, slot: int) -> tuple:
+    """(data group, its cache, the row there) of lane row ``slot``."""
+    per = sharding.parts(cache)[0]["length"].shape[0]
+    g = int(slot) // per
+    return g, cache.data[g], int(slot) - g * per
 
 
 # ---------------------------------------------------------------------------
@@ -712,9 +808,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     int8 cache the row's int8 cells and scales alike keep their old values,
     and attention runs the int8 kernel.  The cache tensors are updated in
     place.  ``params`` and ``cache`` may be sharded (``Shards``): each
-    shard writes and attends its own KV heads.
+    shard writes and attends its own KV heads, each data group its rows.
     """
     check_supported(cfg)
+    if sharding.n_data(cache) > 1:
+        return _per_data_group(decode_step, cfg, params, cache, tokens,
+                               positions, lora_bufs, slot_ids, active), cache
     b = tokens.shape[0]
     dev = tokens.device
     caches = sharding.parts(cache)
@@ -824,8 +923,12 @@ def extend_step(cfg: ModelConfig, params: Params, cache: Params,
     quantized where they land (``_kv_quantize``) and the read is the lane
     dequantized (``_kv_dequantize``).  The cache is updated in place.
     Returns (logits [B, C, V] f32, cache): logits[:, i] is the next-token
-    distribution after tokens[:, i]."""
+    distribution after tokens[:, i].  Over ``data`` each group runs its
+    rows."""
     check_supported(cfg)
+    if sharding.n_data(cache) > 1:
+        return _per_data_group(extend_step, cfg, params, cache, tokens,
+                               positions, lora_bufs, slot_ids, active), cache
     b = tokens.shape[0]
     dev = tokens.device
     caches = sharding.parts(cache)
@@ -929,8 +1032,15 @@ def prefill_with_cache(cfg: ModelConfig, params: Params, cache: Params,
     index ever leaves the lane and nothing syncs.  On an int8 cache the
     chunk's K/V are quantized where they land and the chunk attends the
     lane dequantized (``_kv_dequantize``).  The cache is updated in place.
+    Over ``data`` the chunk runs on the slot's data group.
     Returns (last_logits [V] f32, cache)."""
     check_supported(cfg)
+    if sharding.n_data(cache) > 1:
+        g, cg, row = _data_slot(cache, slot)
+        logits, _ = prefill_with_cache(
+            cfg, sharding.in_group(params, g), cg, tokens, positions, row,
+            lane_end, last_index, sharding.in_group(lora_bufs, g), lora_slot)
+        return logits.to(sharding.parts(cache)[0]["k"].device), cache
     pos = np.asarray(positions, dtype=np.int64)  # numpy or a CPU tensor
     caches = sharding.parts(cache)
     s_max = caches[0]["k"].shape[2]
@@ -967,7 +1077,12 @@ def insert_prefill(cache: Params, k_prompt: torch.Tensor,
     """Insert a prefilled sequence's KV ``[L, 1, S, K, hd]`` into decode
     slot ``slot`` (in place), quantized on an int8 cache.  ``length`` is the
     true prompt length; the padded tail is garbage, masked by
-    ``cache['length']``.  A sharded cache takes each shard's KV heads."""
+    ``cache['length']``.  A sharded cache takes each shard's KV heads,
+    in the slot's data group."""
+    if sharding.n_data(cache) > 1:
+        _, cg, row = _data_slot(cache, slot)
+        insert_prefill(cg, k_prompt, v_prompt, row, length)
+        return cache
     for c, heads in sharding.kv_parts(cache):
         s = min(k_prompt.shape[2], c["k"].shape[2])
         for name, prompt in (("k", k_prompt), ("v", v_prompt)):

@@ -19,6 +19,13 @@ query head maps to it); ``mesh_supports`` gates on exactly that.  The
 reference serves other layouts through XLA attention; the port has no
 such route (on a CUDA tensor a wrapper launches its kernel or raises), so
 the engine refuses them at construction.
+
+Over ``data`` each data group calls the wrappers on its own block of
+rows (the reference's ``_batch_axis``: the batch over ``data`` when it
+divides).  The reference replicates a batch that ``data`` does not
+divide and falls back to XLA attention; the port has no such route
+either, so ``Engine(...)`` refuses a ``decode_slots`` that ``data`` does
+not divide, by name.
 """
 
 from __future__ import annotations
@@ -31,8 +38,8 @@ def mesh_supports(cfg: ModelConfig, mesh) -> bool:
 
     Requirements (see module docstring): the ``tensor`` split must be
     group-aligned for GQA, and query heads must split evenly.  ``data``
-    needs no gate — batch axes that don't divide simply replicate (specs
-    are chosen per call-site shape).
+    is gated on the batch, not the layout (``Engine``: ``decode_slots``
+    divisible by ``data``).
     """
     t = mesh.shape.get("tensor", 1)
     if t == 1:

@@ -1,1 +1,3 @@
-"""Tensor-parallel serving: the mesh (``mesh.py``) and the per-shard trees (``sharding.py``)."""
+"""Meshes and what runs over them: the mesh (``mesh.py``), the per-shard
+trees (``sharding.py``), the ring prefill (``ring_attention.py``,
+``long_context.py``) and the pipelined trainer (``pipeline.py``)."""

@@ -6,18 +6,21 @@ and ffn columns inside a layer), ``expert`` (MoE experts) and
 ``sequence`` (ring attention).  A mesh here is a ``MeshConfig`` and the
 torch devices its shards sit on, one per mesh position.
 
-This port serves the ``tensor``, ``expert`` and ``sequence`` axes
-(``parallel/sharding.py``: the shard grid; ``parallel/long_context.py``:
-the ring prefill over ``sequence``): one process drives every shard, as
-the reference's GSPMD engine does.  ``data``, ``fsdp`` and ``pipe``
-larger than 1 are refused by ``make_mesh``, each by name; ROADMAP queues
-them.  Devices sit in the reference's axis order, the last axis fastest:
-the shard at (tensor i, expert e, sequence j) takes device
-``(i * expert + e) * sequence + j``.  Without an explicit device list a
-mesh takes the first ``total`` CUDA devices and refuses a size the host
-cannot give; an explicit list may repeat a device (``["cuda:0",
-"cuda:0"]``, ``["cpu", "cpu"]``), which is how one card or the CPU hosts
-a mesh of two.
+The port takes every axis.  Serving (``server/engine.py``) runs
+``data`` (the decode rows split in contiguous blocks, one full shard grid
+a block), ``fsdp`` (every weight split on its non-tensor axis, gathered
+before use), ``tensor``, ``expert`` and ``sequence`` (the ring prefill,
+``parallel/long_context.py``) and refuses ``pipe``, as the reference
+does; training runs ``pipe`` (``parallel/pipeline.py``).  One process
+drives every shard, as the reference's GSPMD engine does
+(``initialize_distributed`` is queued in ROADMAP.md).  Devices sit in the
+reference's axis order, ``data`` outermost and the last axis fastest: the
+shard at (data d, fsdp f, pipe p, tensor t, expert e, sequence j) takes
+device ``((((d*fsdp + f)*pipe + p)*tensor + t)*expert + e)*sequence +
+j`` (``device_index``).  Without an explicit device list a mesh takes the
+first ``total`` CUDA devices and refuses a size the host cannot give; an
+explicit list may repeat a device (``["cuda:0", "cuda:0"]``, ``["cpu",
+"cpu"]``), which is how one card or the CPU hosts a mesh of two.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ from dataclasses import dataclass
 import torch
 
 AXES = ("data", "fsdp", "pipe", "tensor", "expert", "sequence")
-# The axes the port serves; the others are queued in ROADMAP.md.
-SERVED_AXES = ("tensor", "expert", "sequence")
+# The axes ``make_mesh`` takes: all of them (serving refuses ``pipe`` at
+# ``Engine(...)``, as the reference does).
+SERVED_AXES = AXES
 
 
 @dataclass(frozen=True)
@@ -78,6 +82,17 @@ class Mesh:
     def size(self) -> int:
         return self.config.total
 
+    def device_index(self, data: int = 0, fsdp: int = 0, pipe: int = 0,
+                     tensor: int = 0, expert: int = 0,
+                     sequence: int = 0) -> int:
+        """The position in ``devices`` of the shard at these coordinates
+        (the reference's axis order, the last axis fastest)."""
+        idx = 0
+        for n, i in zip(self.config.shape,
+                        (data, fsdp, pipe, tensor, expert, sequence)):
+            idx = idx * n + i
+        return idx
+
 
 def parse_axes(spec: str) -> MeshConfig:
     """``--mesh``'s ``AXIS=N[,AXIS=N...]`` (the reference's parsing)."""
@@ -94,14 +109,8 @@ def parse_axes(spec: str) -> MeshConfig:
 
 def make_mesh(cfg: MeshConfig, devices=None) -> Mesh:
     """The mesh of ``cfg`` over ``devices`` (default: the first
-    ``cfg.total`` CUDA devices).  Raises ``ValueError`` on an axis this
-    port does not serve yet and on a device count that does not match."""
-    for axis, n in zip(AXES, cfg.shape):
-        if n > 1 and axis not in SERVED_AXES:
-            raise ValueError(
-                f"mesh axis {axis}={n}: the port serves the "
-                f"{', '.join(SERVED_AXES)} axes; {axis} is queued in "
-                "ROADMAP.md")
+    ``cfg.total`` CUDA devices).  Raises ``ValueError`` on a device count
+    that does not match."""
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

@@ -1,6 +1,7 @@
-"""The shard grid: Megatron tensor parallelism, MoE experts over
-``expert`` and parameter replicas over ``sequence``, as per-shard trees
-(port of ``parallel/sharding.py``: ``param_specs``, ``cache_specs``,
+"""The shard grid: ``data`` groups, parameters split over ``fsdp``,
+Megatron tensor parallelism, MoE experts over ``expert`` and parameter
+replicas over ``sequence``, as per-shard trees (port of
+``parallel/sharding.py``: ``param_specs``, ``cache_specs``,
 ``paged_cache_specs``, ``lora_specs`` and ``shard_pytree``).
 
 The reference annotates one tree with ``PartitionSpec``s and lets GSPMD
@@ -12,14 +13,38 @@ one process drives every shard (``models/transformer.py``'s shard loop).
 ``TensorParallel`` is the grid's one home: which shard sits on which
 device, the local config, and the reduction after a row-parallel block.
 
-The grid, over a mesh's ``tensor`` (t), ``expert`` (e) and ``sequence``
-(n) axes:
+The grid, over a mesh's ``data`` (d), ``fsdp`` (f), ``tensor`` (t),
+``expert`` (e) and ``sequence`` (n) axes (``pipe`` is the pipelined
+trainer's, ``parallel/pipeline.py``; serving refuses it):
 
-- a *group* is the t shards of one sequence block, times e for an MoE
-  model: shard ``s`` is tensor shard ``s % t`` of expert shard ``s // t``
-  (expert 0's shards first).  Attention runs on the first t (expert 0's,
-  replicated over ``expert``), the MLP on all of them; the one reduction
-  a block sums the group's partials;
+- ``data``: each data group is a whole grid of the axes below, holding
+  its own contiguous block of ``decode_slots / d`` lane rows (the
+  reference's ``cache_specs``: ``P(None, "data", ...)`` for ``k``, ``v``,
+  ``length`` and the int8 scales).  ``Shards.data[g]`` is group g's
+  ``Shards`` (``data[0]`` the list itself); on one device its trees are
+  group 0's and its cache a view of its rows of one cache, on distinct
+  cards copies.  A decode, extend or chunk step runs each group on its
+  rows (``models/transformer.py``);
+- ``fsdp``: every leaf ``param_specs`` or ``lora_specs`` puts over
+  ``fsdp`` is an ``FsdpLeaf``, split in f contiguous pieces along that
+  axis: the ``D`` rows of ``wq`` / ``wk`` / ``wv`` / ``w_gate`` / ``w_up``
+  (expert stacks too), the ``D`` columns of ``wo`` / ``w_down``, the rows
+  of ``lm_head`` and the LoRA ``o_b`` / ``down_b`` d_out.  An int8 leaf
+  follows ``shard_pytree``: ``q`` splits as the dense weight, the scale
+  takes the spec minus its contracted axis (split for ``wo`` / ``w_down``,
+  whole for the others).  Piece i sits on the device of fsdp position i;
+  indexing a layer gathers it whole on position 0's device, which alone
+  computes (the other positions only store): a ``torch.cat`` of views on
+  one device, one single-process ``torch.cuda.nccl.all_gather`` across
+  cards.  Everything else (norms, biases, embeddings, the router, the
+  caches) sits on position 0's devices only: the reference replicates it
+  over ``fsdp`` (``paged_cache_specs``' docstring), and computing once
+  needs one copy;
+- a *group* of the grid is the t shards of one sequence block, times e
+  for an MoE model: shard ``s`` is tensor shard ``s % t`` of expert shard
+  ``s // t`` (expert 0's shards first).  Attention runs on the first t
+  (expert 0's, replicated over ``expert``), the MLP on all of them; the
+  one reduction a block sums the group's partials;
 - expert stacks (``w_gate`` / ``w_up`` / ``w_down`` ``[L, E, ...]``, the
   int8 ``{"q", "s"}`` stacks and their ``[L, E, F]`` scales too) split E
   over ``expert``, E/e local experts a shard, and keep F over ``tensor``;
@@ -58,16 +83,19 @@ The splits inside a group, the reference's:
 
 Shards on one device share their whole leaves (one tensor, not a copy),
 their split leaves are views of the caller's tree, and every sequence
-group is group 0 itself; a replicated KV cache is one cache, and the
-paged tables and lengths are one tensor.  Shards on distinct cards hold
-copies, and the reduction is ``torch.cuda.nccl.all_reduce`` over the
+and data group is group 0 itself; a replicated KV cache is one cache, and
+the paged tables and lengths are one tensor.  Shards on distinct cards
+hold copies, and the reduction is ``torch.cuda.nccl.all_reduce`` over the
 per-card partials (single-process NCCL): a mesh is either on one device
 or on as many devices as shards.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import threading
 from typing import Callable
 
 import torch
@@ -85,6 +113,13 @@ _KV_LEAVES = ("wk", "wv", "wk_b", "wv_b")
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 _LORA_COLUMN = ("q", "k", "v", "gate", "up")
 _LORA_ROW = ("o", "down")
+# The leaves ``param_specs`` / ``lora_specs`` put over ``fsdp``, and the
+# axis they split on: ``D`` of every projection, d_out of the row
+# targets' LoRA ``b``; ``lm_head`` [D, V] on its rows.
+_FSDP_LAYER = {"wq": -2, "wk": -2, "wv": -2, "w_gate": -2, "w_up": -2,
+               "wo": -1, "w_down": -1}
+_FSDP_LORA = {"o_b": -1, "down_b": -1}
+_FSDP_TOP = {"lm_head": -2}
 
 
 def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
@@ -98,16 +133,27 @@ def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
 
 
 class TensorParallel:
-    """The shard grid of ``cfg`` over a mesh's ``tensor``, ``expert`` and
-    ``sequence`` axes (module docstring): where each shard sits, the local
-    config and the reduction after a row-parallel block.  Raises
-    ``ValueError`` for a layout the kernels cannot run shard-local
-    (``mesh_supports``), for a split that leaves uneven ffn columns or
-    experts, and for shards on some but not all distinct devices."""
+    """The shard grid of ``cfg`` over a mesh's ``data``, ``fsdp``,
+    ``tensor``, ``expert`` and ``sequence`` axes (module docstring): where
+    each shard sits, the local config and the reduction after a
+    row-parallel block.  One object describes data group ``data_index``
+    (``group(g)`` gives group g's).  Raises ``ValueError`` for a layout
+    the kernels cannot run shard-local (``mesh_supports``), for a split
+    that leaves uneven ffn columns, experts or fsdp pieces, and for shards
+    on some but not all distinct devices."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         shape = mesh.shape
         t, e, n = shape["tensor"], shape["expert"], shape["sequence"]
+        d, f = shape.get("data", 1), shape.get("fsdp", 1)
+        if f > 1:
+            split = {"d_model": cfg.d_model}
+            if not cfg.tie_embeddings:
+                split["lm_head rows"] = cfg.d_model
+            for what, size in split.items():
+                if size % f:
+                    raise ValueError(f"fsdp={f} does not divide {what}="
+                                     f"{size}")
         if not mesh_supports(cfg, mesh):
             raise ValueError(
                 f"tensor={t} does not split {cfg.name}'s "
@@ -123,6 +169,9 @@ class TensorParallel:
             raise ValueError(f"expert={e} does not divide {cfg.name}'s "
                              f"{cfg.n_experts} experts")
         self.t, self.e, self.n = t, e, n
+        self.d, self.f = d, f
+        self.mesh = mesh
+        self.data_index = 0
         # Shards a group: expert 0's t tensor shards, then the others'.
         self.g = t * e if self.moe else t
         self.local_experts = cfg.n_experts // e if self.moe else cfg.n_experts
@@ -136,11 +185,21 @@ class TensorParallel:
         self.kv_split = cfg.n_kv_heads % t == 0
         self.cfg = local_cfg(cfg, t)
 
-    def device(self, s: int, j: int = 0) -> torch.device:
-        """Shard ``s``'s device in sequence group ``j`` (the mesh's axis
-        order, the last axis fastest)."""
-        return self.devices[((s % self.t) * self.e + s // self.t) * self.n
-                            + j]
+    def group(self, g: int) -> "TensorParallel":
+        """Data group ``g``'s grid (this one's, on that group's devices)."""
+        if g == self.data_index:
+            return self
+        out = copy.copy(self)
+        out.data_index = g
+        return out
+
+    def device(self, s: int, j: int = 0, f: int = 0) -> torch.device:
+        """Shard ``s``'s device in sequence group ``j`` and at fsdp
+        position ``f`` of this data group (the mesh's axis order, the
+        last axis fastest)."""
+        return self.devices[self.mesh.device_index(
+            data=self.data_index, fsdp=f, tensor=s % self.t,
+            expert=s // self.t, sequence=j)]
 
     def expert_offset(self, s: int) -> int:
         """The first global expert shard ``s`` holds."""
@@ -181,17 +240,31 @@ class TensorParallel:
 class Shards(list):
     """One tree per shard of sequence group 0, in shard order, with the
     ``TensorParallel`` that split them; ``groups[j]`` is group j's trees
-    (``groups[0]`` the list itself)."""
+    (``groups[0]`` the list itself) and ``data[g]`` data group g's
+    ``Shards``, each of one data group (without ``data``: this one)."""
 
-    def __init__(self, trees, tp: TensorParallel, groups=None):
+    def __init__(self, trees, tp: TensorParallel, groups=None, data=None):
         super().__init__(trees)
         self.tp = tp
         self.groups = [list(self)] + list(groups or [])[1:]
+        self.data = list(data) if data else [self]
 
 
 def parts(tree) -> list:
-    """The per-shard trees of a sharded tree; ``[tree]`` for a plain one."""
+    """The per-shard trees of a sharded tree (data group 0's);
+    ``[tree]`` for a plain one."""
     return list(tree) if isinstance(tree, Shards) else [tree]
+
+
+def n_data(tree) -> int:
+    """The data groups of a sharded tree (1 for a plain one)."""
+    return len(tree.data) if isinstance(tree, Shards) else 1
+
+
+def in_group(tree, g: int):
+    """Data group ``g``'s part of a sharded tree; a plain tree (or None)
+    is every group's."""
+    return tree.data[g] if isinstance(tree, Shards) else tree
 
 
 def distinct(trees: list) -> list:
@@ -203,6 +276,113 @@ def distinct(trees: list) -> list:
             seen.add(id(t))
             out.append(t)
     return out
+
+
+# -- fsdp ---------------------------------------------------------------
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def gather_streams(streams: dict):
+    """Within it, an fsdp gather across cards runs on ``streams`` (device
+    -> stream): the shard loop issues layer i+1's gather there while
+    layer i computes on the current streams."""
+    prev = getattr(_local, "streams", None)
+    _local.streams = streams
+    try:
+        yield
+    finally:
+        _local.streams = prev
+
+
+def _gather(pieces: list, axis: int, one_device: bool) -> torch.Tensor:
+    """``pieces`` concatenated along ``axis`` on the first piece's
+    device: a ``torch.cat`` on one device, one single-process NCCL
+    all-gather across cards (on the ``gather_streams`` where set)."""
+    if one_device:
+        return torch.cat(pieces, dim=axis)
+    streams = getattr(_local, "streams", None)
+    shape = tuple(pieces[0].shape)
+    ins = [p.contiguous() for p in pieces]
+    outs = []
+    for p in ins:
+        with (torch.cuda.stream(streams[p.device]) if streams
+              else contextlib.nullcontext()):
+            outs.append(torch.empty((len(ins),) + shape, dtype=p.dtype,
+                                    device=p.device))
+    torch.cuda.nccl.all_gather(
+        ins, outs, streams=(None if streams is None
+                            else [streams[p.device] for p in ins]))
+    pos = len(shape) + axis
+    full = shape[:pos] + (len(ins) * shape[pos],) + shape[pos + 1:]
+    return outs[0].movedim(0, pos).reshape(full)
+
+
+class FsdpLeaf:
+    """A leaf split over ``fsdp``: ``pieces[i]`` is fsdp position i's
+    contiguous piece along ``axis`` (negative), on its device.  Indexing
+    a layer (``leaf[i]``, what ``_layer`` and ``lora.layer_slice`` do)
+    gathers that layer whole on position 0's device; ``gather()`` the
+    whole leaf; an assignment (the LoRA slot writes) writes each piece
+    its part, so every buffer keeps its address."""
+
+    def __init__(self, pieces: list, axis: int, one_device: bool):
+        self.pieces = pieces
+        self.axis = axis
+        self.one_device = one_device
+
+    @property
+    def shape(self) -> tuple:
+        shape = list(self.pieces[0].shape)
+        shape[self.axis] *= len(self.pieces)
+        return tuple(shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.pieces[0].device
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if not isinstance(i, int):
+            raise TypeError("an fsdp leaf is indexed by layer only")
+        return _gather([p[i] for p in self.pieces], self.axis,
+                       self.one_device)
+
+    def gather(self) -> torch.Tensor:
+        return _gather(list(self.pieces), self.axis, self.one_device)
+
+    def __setitem__(self, key, value) -> None:
+        n = self.pieces[0].shape[self.axis]
+        for i, p in enumerate(self.pieces):
+            part = value
+            if isinstance(value, torch.Tensor) and value.dim() and (
+                    value.shape[self.axis] == n * len(self.pieces)):
+                part = value.narrow(self.axis, i * n, n).to(p.device)
+            p[key] = part
+
+
+def whole(x):
+    """A leaf whole: an ``FsdpLeaf`` gathered (an int8 leaf part by
+    part), anything else itself."""
+    if isinstance(x, FsdpLeaf):
+        return x.gather()
+    if is_quantized(x):
+        return {k: whole(v) for k, v in x.items()}
+    return x
+
+
+def _fsdp(x, axis: int | None, s: int, j: int, tp: TensorParallel):
+    """Shard ``s``'s leaf ``x`` (group ``j``) split over ``fsdp`` on
+    ``axis`` (None: not split; placed on position 0's device); an int8
+    leaf's scale splits only where its spec keeps the axis (not the
+    contracted one, -2)."""
+    if is_quantized(x):
+        return {"q": _fsdp(x["q"], axis, s, j, tp),
+                "s": _fsdp(x["s"], axis if axis == -1 else None, s, j, tp)}
+    if axis is None or tp.f == 1:
+        return _place(x, tp.device(s, j), tp)
+    return FsdpLeaf([_place(_split(x, axis, f, tp.f), tp.device(s, j, f), tp)
+                     for f in range(tp.f)], axis, tp.one_device)
 
 
 def _split(x: torch.Tensor, axis: int | None, s: int, t: int) -> torch.Tensor:
@@ -230,18 +410,18 @@ def _on_device(tree, tp: TensorParallel):
     return tree.to(tp.devices[0])
 
 
-def _leaf(x, axis: int | None, s: int, dev, tp: TensorParallel,
+def _leaf(x, axis: int | None, s: int, tp: TensorParallel,
           expert: bool = False):
     """Shard ``s``'s part of a leaf split on ``axis`` over ``tensor``
     (None: whole) and, for an expert stack, on axis 1 over ``expert``;
     an int8 leaf's scale follows a column split and stays whole on a row
-    split, and follows the expert split."""
+    split, and follows the expert split.  Not yet placed (``_fsdp``)."""
     ti = s % tp.t
 
     def cut(y, ax):
         if expert:
             y = _split(y, 1, s // tp.t, tp.e)
-        return _place(_split(y, ax, ti, tp.t), dev, tp)
+        return _split(y, ax, ti, tp.t)
 
     if is_quantized(x):
         return {"q": cut(x["q"], axis), "s": cut(x["s"], -1 if axis == -1
@@ -262,8 +442,9 @@ def _layer_axis(name: str, tp: TensorParallel) -> int | None:
 def _grid(tp: TensorParallel, tree: Callable[[int, int], dict],
           shares: Callable[[int], int]) -> Shards:
     """The ``Shards`` of ``tree(s, j)`` over every shard and sequence
-    group; on one device group j is group 0, and shard ``s`` takes shard
-    ``shares(s)``'s tree where the two hold the same leaves."""
+    group of one data group; on one device group j is group 0, and shard
+    ``s`` takes shard ``shares(s)``'s tree where the two hold the same
+    leaves."""
     groups = []
     for j in range(1 if tp.one_device else tp.n):
         made: dict = {}
@@ -278,20 +459,35 @@ def _grid(tp: TensorParallel, tree: Callable[[int, int], dict],
     return Shards(groups[0], tp, groups)
 
 
+def _data_grid(tp: TensorParallel,
+               grid: Callable[[TensorParallel], Shards]) -> Shards:
+    """``grid(tp of group g)`` for every data group, joined in one
+    ``Shards`` (``data[g]``); on one device every group's trees are group
+    0's."""
+    out = [grid(tp)]
+    for g in range(1, tp.d):
+        tg = tp.group(g)
+        out.append(Shards(list(out[0]), tg, out[0].groups)
+                   if tp.one_device else grid(tg))
+    return Shards(list(out[0]), tp, out[0].groups, out)
+
+
 def shard_params(params: dict, tp: TensorParallel) -> Shards:
     """The per-shard trees of a port params tree (dense or int8)."""
     params = _on_device(params, tp)
 
-    def tree(s, j):
-        dev = tp.device(s, j)
-        out = {k: _leaf(v, None, s, dev, tp) for k, v in params.items()
-               if k != "layers"}
-        out["layers"] = {
-            name: _leaf(leaf, _layer_axis(name, tp), s, dev, tp,
-                        tp.moe and name in _EXPERT_LEAVES)
-            for name, leaf in params["layers"].items()}
-        return out
-    return _grid(tp, tree, lambda s: s)
+    def grid(tg):
+        def tree(s, j):
+            out = {k: _fsdp(v, _FSDP_TOP.get(k), s, j, tg)
+                   for k, v in params.items() if k != "layers"}
+            out["layers"] = {
+                name: _fsdp(_leaf(leaf, _layer_axis(name, tg), s, tg,
+                                  tg.moe and name in _EXPERT_LEAVES),
+                            _FSDP_LAYER.get(name), s, j, tg)
+                for name, leaf in params["layers"].items()}
+            return out
+        return _grid(tg, tree, lambda s: s)
+    return _data_grid(tp, grid)
 
 
 def _lora_axis(key: str, tp: TensorParallel) -> int | None:
@@ -310,11 +506,13 @@ def shard_lora(bufs: dict, tp: TensorParallel) -> Shards:
     shard's are its tensor shard's: expert stacks take no LoRA)."""
     bufs = _on_device(bufs, tp)
 
-    def tree(s, j):
-        dev = tp.device(s, j)
-        return {k: _leaf(v, _lora_axis(k, tp), s, dev, tp)
-                for k, v in bufs.items()}
-    return _grid(tp, tree, lambda s: s % tp.t)
+    def grid(tg):
+        def tree(s, j):
+            return {k: _fsdp(_leaf(v, _lora_axis(k, tg), s, tg),
+                             _FSDP_LORA.get(k), s, j, tg)
+                    for k, v in bufs.items()}
+        return _grid(tg, tree, lambda s: s % tg.t)
+    return _data_grid(tp, grid)
 
 
 def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
@@ -331,13 +529,15 @@ def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
 
 
 def _all_trees(bufs: Shards) -> list[tuple[int, dict]]:
-    """(tensor shard, tree) for every distinct tree of every group."""
+    """(tensor shard, tree) for every distinct tree of every sequence
+    and data group."""
     out, seen = [], set()
-    for group in bufs.groups:
-        for s, tree in enumerate(group):
-            if id(tree) not in seen:
-                seen.add(id(tree))
-                out.append((s % bufs.tp.t, tree))
+    for data in bufs.data:
+        for group in data.groups:
+            for s, tree in enumerate(group):
+                if id(tree) not in seen:
+                    seen.add(id(tree))
+                    out.append((s % bufs.tp.t, tree))
     return out
 
 
@@ -363,24 +563,54 @@ def clear_adapter(bufs, cfg: ModelConfig, slot: int) -> None:
         lora_lib.clear_adapter(part, bufs.tp.cfg, slot)
 
 
-def shard_cache(make: Callable[[ModelConfig, torch.device], dict],
-                tp: TensorParallel) -> Shards:
+def _cache_rows(cache: dict, start: int, n: int) -> dict:
+    """Lane rows ``[start, start + n)`` of a lane cache, as views (``k``,
+    ``v`` and the int8 scales on axis 1, ``length`` on axis 0)."""
+    return {name: x.narrow(0 if name == "length" else 1, start, n)
+            for name, x in cache.items()}
+
+
+def shard_cache(make: Callable[..., dict], tp: TensorParallel,
+                rows: int | None = None) -> Shards:
     """Per-shard caches, one per tensor shard of group 0, ``make(local
     cfg, device)`` each: KV heads split over the shards, or (MQA)
     replicated — one cache on one device.  Shards on one device share the
-    paged tables and the lengths."""
-    trees: list[dict] = []
-    for s in range(tp.t):
-        if s and tp.one_device and not tp.kv_split:
-            trees.append(trees[0])
-            continue
-        cache = make(tp.cfg, tp.device(s))
-        if s and tp.one_device:
-            for name in ("tables", "length"):
-                if name in cache:
-                    cache[name] = trees[0][name]
-        trees.append(cache)
-    return Shards(trees, tp)
+    paged tables and the lengths.  Over ``data`` (lanes only) ``rows`` is
+    the whole batch: data group g holds rows ``[g * rows / d, (g + 1) *
+    rows / d)``, made by ``make(local cfg, device, rows / d)`` on its
+    devices, or (one device) views of one cache of every row."""
+    if tp.d > 1 and (rows is None or rows % tp.d):
+        raise ValueError(f"data={tp.d} needs a batch it divides, got "
+                         f"{rows}")
+
+    def grid(tg, n_rows=None):
+        trees: list[dict] = []
+        for s in range(tg.t):
+            if s and tg.one_device and not tg.kv_split:
+                trees.append(trees[0])
+                continue
+            cache = (make(tg.cfg, tg.device(s)) if n_rows is None
+                     else make(tg.cfg, tg.device(s), n_rows))
+            if s and tg.one_device:
+                for name in ("tables", "length"):
+                    if name in cache:
+                        cache[name] = trees[0][name]
+            trees.append(cache)
+        return Shards(trees, tg)
+
+    if tp.d == 1:
+        return grid(tp)
+    per = rows // tp.d
+    if not tp.one_device:
+        out = [grid(tp.group(g), per) for g in range(tp.d)]
+    else:
+        full = grid(tp, rows)
+        views: dict = {}
+        out = [Shards([views.setdefault((id(c), g),
+                                        _cache_rows(c, g * per, per))
+                       for c in full], tp.group(g))
+               for g in range(tp.d)]
+    return Shards(list(out[0]), tp, None, out)
 
 
 def kv_parts(cache) -> list[tuple[dict, slice]]:

@@ -1405,14 +1405,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "replaces --draft-model's")
     p.add_argument("--mesh", default=None, metavar="AXIS=N[,AXIS=N...]",
                    help="serve sharded over a device mesh, e.g. 'tensor=2', "
-                        "'expert=2' or 'tensor=2,sequence=2' (axes: "
-                        "data,fsdp,pipe,tensor,expert,sequence; "
-                        "parallel/mesh.py; the port serves tensor, expert "
-                        "and sequence: heads and ffn columns, Mixtral's "
-                        "experts, ring-attention prefill of prompts beyond "
-                        "the largest bucket). On the card it takes that "
-                        "many CUDA devices; with --device cpu every shard "
-                        "sits on the CPU. Default: single device.")
+                        "'data=2', 'fsdp=2,tensor=2' or 'tensor=2,"
+                        "sequence=2' (axes: data,fsdp,pipe,tensor,expert,"
+                        "sequence; parallel/mesh.py). Served: data (the "
+                        "decode rows in equal blocks, one shard grid each; "
+                        "lanes only, --decode-slots a multiple of it), fsdp "
+                        "(weights split on their non-tensor axis, gathered "
+                        "per layer; lanes and the pool), tensor (heads and "
+                        "ffn columns), expert (Mixtral's experts), sequence "
+                        "(ring-attention prefill of prompts beyond the "
+                        "largest bucket); pipe is refused for serving (it "
+                        "is the pipelined trainer's, parallel/pipeline.py). "
+                        "On the card it takes that many CUDA devices; with "
+                        "--device cpu every shard sits on the CPU. Default: "
+                        "single device.")
     p.add_argument("--no-cuda-graphs", action="store_true",
                    help="run the decode and spec blocks eagerly instead of "
                         "replaying CUDA graphs of them; a mesh whose shards "
@@ -1446,9 +1452,10 @@ def make_server(argv=None, params=None, draft_params=None,
     one, which need never fit the card).
 
     ``--mesh`` serves the model over a mesh (``parallel/``): the engine
-    splits the weights, caches and adapter slots per shard over
-    ``tensor`` and ``expert``, and runs long prompts over the ring of a
-    ``sequence`` axis.  ``mesh_devices`` places the shards explicitly
+    splits the decode rows over ``data``, the weights over ``fsdp``, the
+    weights, caches and adapter slots per shard over ``tensor`` and
+    ``expert``, and runs long prompts over the ring of a ``sequence``
+    axis.  ``mesh_devices`` places the shards explicitly
     (``["cuda:0", "cuda:0"]`` holds a mesh of two on one card); by
     default they take the host's CUDA devices, or the CPU with
     ``--device cpu``."""

@@ -14,7 +14,10 @@ A graph reads and writes fixed addresses, so everything the block touches
 keeps its address for the graph's life: the engine's static carry and slot
 buffers (the penalty counts and the draft's catch-up triple included), both
 caches (tables and lengths written in place), the params and the LoRA
-buffers (slots written in place).  Rules on the card:
+buffers (slots written in place).  On a mesh whose shards share one card
+the graphs hold every shard's work: the data groups' loops over their
+rows and the fsdp gathers (``torch.cat`` of views, into the graphs'
+pool) replay with the block.  Rules on the card:
 
 - capture happens on the engine thread, once per key, after one eager
   warm-up of each block with every row inactive (it loads the kernel

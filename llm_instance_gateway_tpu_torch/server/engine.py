@@ -64,10 +64,19 @@ synchronous loop and the pipelined one).
   LoRA slots become per-shard trees (``parallel/sharding.py``'s grid:
   heads and ffn columns over ``tensor``, Mixtral's experts over
   ``expert``), and every forward runs its layers once per shard with two
-  reductions a layer.  A ``sequence`` axis replicates them and serves
-  ring-attention prefill (``parallel/long_context.py``): a prompt beyond
-  the largest bucket runs as ONE program over the ring (``_ring_prefill``,
-  padded to ``_ring_pad``) instead of chunk-streaming, while decode,
+  reductions a layer.  ``data`` (lanes only) gives each data group a
+  whole grid and its contiguous block of ``decode_slots / data`` rows:
+  row i belongs to group ``i // (decode_slots / data)`` (``_slot_group``),
+  whose grid runs a bucketed or ring prefill admitted into it, its chunks
+  and its rows of every decode, verify and extend step (a grouped prefill
+  whose rows span groups runs one program per group; a prefill that parks
+  runs on group 0 and its KV moves to its row's group at insert).
+  ``fsdp`` splits every weight on its non-tensor axis, gathered a layer
+  at a time on the devices that compute.  A ``sequence`` axis replicates
+  them and serves ring-attention prefill (``parallel/long_context.py``):
+  a prompt beyond the largest bucket runs as ONE program over the ring
+  (``_ring_prefill``, padded to ``_ring_pad``) instead of
+  chunk-streaming, while decode,
   bucketed prefill and chunks run on sequence group 0.  One engine thread
   drives every shard (a single controller, as the reference's GSPMD
   engine): admission, the allocator, the prefix cache, graphs,
@@ -413,8 +422,8 @@ class Engine:
                               if self.cfg.paged_kv_blocks is not None
                               else b * self._max_blocks_per_seq)
             self.cache = self._make_cache(
-                lambda cfg, dev: paged_lib.init_paged_cache(
-                    cfg, b, self.cfg.max_seq_len, self._n_blocks,
+                lambda cfg, dev, rows=b: paged_lib.init_paged_cache(
+                    cfg, rows, self.cfg.max_seq_len, self._n_blocks,
                     self._block, dtype=dtype, device=dev,
                     quantized=kv_quant))
             self._max_len = self._max_blocks_per_seq * self._block
@@ -438,8 +447,8 @@ class Engine:
         else:
             self._prefix_enabled = False
             self.cache = self._make_cache(
-                lambda cfg, dev: transformer.init_decode_cache(
-                    cfg, b, self.cfg.max_seq_len, dtype=dtype, device=dev,
+                lambda cfg, dev, rows=b: transformer.init_decode_cache(
+                    cfg, rows, self.cfg.max_seq_len, dtype=dtype, device=dev,
                     quantized=kv_quant))
             self._max_len = self.cfg.max_seq_len
             self._step_fn = transformer.decode_step
@@ -539,12 +548,15 @@ class Engine:
                          cuda_graphs: bool):
         """The engine's shard grid, a ``TensorParallel`` (None without a
         mesh), with the reference's serving rules for a mesh
-        (``server/engine.py``): ``tensor``, ``expert`` and ``sequence``
-        are served, ``pipe`` refused as the reference refuses it, ``data``
-        and ``fsdp`` refused by name (queued in ROADMAP.md).  A model
-        without experts on ``expert > 1`` serves replicated over that
-        axis, as GSPMD would (computed once, on expert 0's shards).
-        Shards on distinct cards are served eagerly only."""
+        (``server/engine.py``): ``data`` (on lanes), ``fsdp``, ``tensor``,
+        ``expert`` and ``sequence`` are served, ``pipe`` and paged KV with
+        ``data > 1`` refused as the reference refuses them, and a
+        ``decode_slots`` that ``data`` does not divide refused by name
+        (the reference replicates such a batch and falls back to XLA
+        attention; the port has no such route).  A model without experts
+        on ``expert > 1`` serves replicated over that axis, as GSPMD
+        would (computed once, on expert 0's shards).  Shards on distinct
+        cards are served eagerly only."""
         if mesh is None:
             return None
         shape = mesh.shape
@@ -557,10 +569,14 @@ class Engine:
                 "over fsdp/sequence and shards kv-heads over tensor): "
                 "scale data-parallel replicas as separate engine processes "
                 "behind the gateway")
-        for axis in ("data", "fsdp"):
-            if shape.get(axis, 1) > 1:
-                raise ValueError(f"mesh axis {axis}={shape[axis]} is not "
-                                 "served yet (queued in ROADMAP.md)")
+        data = shape.get("data", 1)
+        if self.cfg.decode_slots % data:
+            raise ValueError(
+                f"decode_slots={self.cfg.decode_slots} is not divisible by "
+                f"data={data}: each data group holds an equal block of the "
+                "decode rows (the reference replicates such a batch and "
+                "runs XLA attention; the port runs attention only through "
+                "its kernels, on each group's rows)")
         tp = sharding.TensorParallel(model_cfg, mesh)
         if (cuda_graphs and not tp.one_device
                 and any(d.type == "cuda" for d in tp.devices)):
@@ -572,10 +588,19 @@ class Engine:
         return tp
 
     def _make_cache(self, make):
-        """``make(cfg, device)``'s cache, per shard under a mesh."""
+        """``make(cfg, device, rows)``'s cache, per shard under a mesh (a
+        data group's rows under ``data``)."""
+        b = self.cfg.decode_slots
         if self.tp is None:
-            return make(self.model_cfg, self.device)
-        return sharding.shard_cache(make, self.tp)
+            return make(self.model_cfg, self.device, b)
+        return sharding.shard_cache(make, self.tp, rows=b)
+
+    def _slot_group(self, slot_idx) -> int:
+        """The data group of decode row ``slot_idx`` (0 without one, and
+        for a prefill with no row yet)."""
+        if self.tp is None or slot_idx is None:
+            return 0
+        return int(slot_idx) // (self.cfg.decode_slots // self.tp.d)
 
     # ------------------------------------------------------------------
     # device compute
@@ -600,26 +625,43 @@ class Engine:
             self._h2d(self._dev[name], getattr(self, f"_slot_{name}"))
 
     def _prefill_impl(self, tokens, positions, true_len: int, lora_slot: int,
-                      sp: SamplingParams):
-        """Prefill one padded prompt; sample the first new token."""
+                      sp: SamplingParams, group: int = 0):
+        """Prefill one padded prompt (on data group ``group``, its row's);
+        sample the first new token."""
         logits, k, v = transformer.prefill(
             self.model_cfg, self.params, self._tensor(tokens),
             self._tensor(positions), lora_bufs=self._lora_buffers(),
-            slot_ids=self._tensor([lora_slot]))
+            slot_ids=self._tensor([lora_slot]), data_group=group)
+        logits = logits.to(self.device)
         first, lp_info = self._sample_first(logits[0, true_len - 1], sp,
                                             true_len - 1)
         return first, k, v, lp_info
 
     def _prefill_many_impl(self, tokens, positions, true_lens, lora_slots,
-                           sps: list[SamplingParams]):
+                           sps: list[SamplingParams], groups=None):
         """Prefill P padded same-bucket prompts as one program; sample each
         row's first token (the [P, bucket] form of ``_prefill_impl``, with
-        per-row lengths, adapters and sampling parameters).
+        per-row lengths, adapters and sampling parameters).  ``groups``
+        (each row's data group) splits the rows into one program per
+        group, the rows kept in order.
         Returns (first tokens [P], k, v, (lp [P], top_v, top_i))."""
         cfg = self.model_cfg
-        logits, k, v = transformer.prefill(
-            cfg, self.params, self._tensor(tokens), self._tensor(positions),
-            lora_bufs=self._lora_buffers(), slot_ids=self._tensor(lora_slots))
+        groups = np.zeros(len(sps), np.int64) if groups is None else groups
+        ids = sorted(set(groups.tolist()))
+        rows = [np.nonzero(groups == g)[0] for g in ids]
+        outs = [transformer.prefill(
+            cfg, self.params, self._tensor(tokens[r]),
+            self._tensor(positions[r]), lora_bufs=self._lora_buffers(),
+            slot_ids=self._tensor(lora_slots[r]), data_group=g)
+            for g, r in zip(ids, rows)]
+        if len(outs) == 1:
+            logits, k, v = outs[0]
+        else:  # back in row order, on the engine's device
+            order = self._tensor(np.argsort(np.concatenate(rows)))
+            logits, k, v = (
+                torch.cat([o[i].to(self.device) for o in outs], dim=min(i, 1))
+                .index_select(min(i, 1), order) for i in range(3))
+        logits = logits.to(self.device)
         last_pos = self._tensor(np.asarray(true_lens) - 1)
         last = logits[torch.arange(len(sps), device=self.device), last_pos]
         seeds = np.array([_seed_i32(sp.seed) for sp in sps], np.int64)
@@ -1807,9 +1849,10 @@ class Engine:
             did = True
         return did
 
-    def _bucket_prefill(self, req: Request, n: int, lora_slot: int):
-        """Pad a bucketable prompt and prefill it.
-        Returns (first_token device scalar, k, v, lp_info)."""
+    def _bucket_prefill(self, req: Request, n: int, lora_slot: int,
+                        group: int = 0):
+        """Pad a bucketable prompt and prefill it (on data group
+        ``group``).  Returns (first_token device scalar, k, v, lp_info)."""
         bucket = self._bucket(n)
         self._note_padding(bucket - n)
         tokens = np.zeros((1, bucket), np.int64)
@@ -1817,10 +1860,11 @@ class Engine:
         positions = np.zeros((1, bucket), np.int64)
         positions[0, :n] = np.arange(n)
         return self._prefill_impl(tokens, positions, n, lora_slot,
-                                  req.sampling)
+                                  req.sampling, group)
 
-    def _bucket_prefill_many(self, reqs, ns, lora_slots):
-        """One [P, bucket] prefill over same-bucket prompts.
+    def _bucket_prefill_many(self, reqs, ns, lora_slots, groups=None):
+        """One [P, bucket] prefill over same-bucket prompts (one program
+        per data group of ``groups``).
         Returns (first tokens [P] device, k [L, P, S, ...], v, lp infos)."""
         bucket = self._bucket(max(ns))
         p = len(reqs)
@@ -1832,7 +1876,8 @@ class Engine:
             positions[i, :n] = np.arange(n)
         return self._prefill_many_impl(
             tokens, positions, np.asarray(ns, np.int64),
-            np.asarray(lora_slots, np.int64), [r.sampling for r in reqs])
+            np.asarray(lora_slots, np.int64), [r.sampling for r in reqs],
+            groups)
 
     def _collect_followers(self, first_req, limit: int) -> list:
         """Pull same-bucket followers of ``first_req`` for one grouped
@@ -1874,11 +1919,14 @@ class Engine:
         return self._collect_followers(first_req, min(
             self.cfg.prefill_batch, max(1, cap - len(self.decode_wait))))
 
-    def _grouped_batch(self, reqs, pipelined: bool, single_fn):
+    def _grouped_batch(self, reqs, pipelined: bool, single_fn,
+                       direct: bool = False):
         """The grouped prefills' shared preamble: drop cancelled rows and
         rows whose adapter is gone (each fails alone), hand a group of one
         to ``single_fn``, run ONE batched prefill (its failure fails the
-        group).  Returns None when the caller has nothing left to do, else
+        group; under ``data`` a ``direct`` group's rows run one program
+        per data group of the rows they will take).  Returns None when the
+        caller has nothing left to do, else
         ``(live, ns, lora_slots, k, v, tok_rows, lp_rows)``: in sync mode
         the first tokens and lp infos come to the host in one transfer per
         array; in pipelined mode as ``_Row`` views of one transfer started
@@ -1903,9 +1951,15 @@ class Engine:
             single_fn(live[0])
             return None
         self._stamp_prefill_start(*live)
+        groups = None
+        if direct and self.tp is not None and self.tp.d > 1:
+            free = [i for i, s in enumerate(self.slots)
+                    if s is None and i not in self._reserved_slots]
+            groups = np.array([self._slot_group(i) for i in free[:len(live)]]
+                              + [0] * (len(live) - len(free)), np.int64)
         try:
             first_tokens, k, v, (lps, top_vs, top_is) = (
-                self._bucket_prefill_many(live, ns, lora_slots))
+                self._bucket_prefill_many(live, ns, lora_slots, groups))
             p = len(live)
             if pipelined:
                 hb = _HostBatch(first_tokens, lps, top_vs, top_is)
@@ -1935,7 +1989,8 @@ class Engine:
         for FIFO) like a prefill-ahead."""
         batch = self._grouped_batch(
             reqs, pipelined,
-            self._do_prefill_pipelined if pipelined else self._do_prefill)
+            self._do_prefill_pipelined if pipelined else self._do_prefill,
+            direct=True)
         if batch is None:
             return
         live, ns, lora_slots, k, v, tok_rows, lp_rows = batch
@@ -2035,12 +2090,13 @@ class Engine:
             res = self._prefix_bucket_prefill(req, slot_idx, n, lora_slot)
             if res is not None:
                 return res
+        group = self._slot_group(slot_idx)
         if bucketed:
             first_token, k, v, lp_info = self._bucket_prefill(req, n,
-                                                              lora_slot)
+                                                              lora_slot, group)
         else:
             first_token, k, v, lp_info = self._ring_prefill(req, n,
-                                                            lora_slot)
+                                                            lora_slot, group)
         self._insert_prompt_kv(k, v, slot_idx, n)
         if bucketed:
             self._prefix_register_row(slot_idx, req.prompt_tokens,
@@ -2055,8 +2111,10 @@ class Engine:
         padded = -(-n // self._ring_pad) * self._ring_pad
         return padded <= self.cfg.max_seq_len
 
-    def _ring_prefill(self, req: Request, n: int, lora_slot: int):
-        """One sequence-parallel prefill program over the ring: the prompt
+    def _ring_prefill(self, req: Request, n: int, lora_slot: int,
+                      group: int = 0):
+        """One sequence-parallel prefill program over the ring, inside data
+        group ``group`` (its row's): the prompt
         pads right to a multiple of ``_ring_pad`` at positions
         ``arange(padded)`` (causal ring attention keeps the real positions
         exact; the insert trims the tail at ``n``), and the first token is
@@ -2070,10 +2128,11 @@ class Engine:
         tokens[0, :n] = req.prompt_tokens
         positions = np.arange(padded, dtype=np.int64)[None]
         tok, pos = long_context.shard_inputs(
-            self.mesh, self._tensor(tokens), self._tensor(positions))
+            self.mesh, self._tensor(tokens), self._tensor(positions), group)
         logits, k, v = self._ring(
             self.params, tok, pos, lora_bufs=self._lora_buffers(),
-            slot_ids=self._tensor([lora_slot]))
+            slot_ids=self._tensor([lora_slot]), data_group=group)
+        logits = logits.to(self.device)
         first_token, lp_info = self._sample_first(logits[0, n - 1],
                                                   req.sampling, n - 1)
         return first_token, k, v, lp_info

@@ -22,9 +22,10 @@ Differences from the reference, by design:
   optimizer keeps its own state, ``optimizer.state``);
 - a leaf the loss does not reach gets a zero gradient, not ``None``, so
   the update (weight decay included) touches every leaf as optax's does.
-The sharded recipe (params over an fsdp/tensor mesh, one jitted program)
-and the pipelined trainer (``parallel/pipeline.py``) need more than one
-card and are not ported here; ``logits_fn`` stays for the latter.
+The pipelined trainer is ``parallel/pipeline.py`` (GPipe over ``pipe``,
+its loss through ``logits_fn``, its step through ``make_step``).  The
+sharded recipe across cards (params over an fsdp/tensor mesh, one jitted
+program) is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,10 +66,12 @@ def causal_lm_loss(cfg: ModelConfig, params, tokens, positions, lora_bufs=None,
 
 
 def _leaves(tree) -> list:
-    """The floating tensors of a nested dict, in the tree's order."""
+    """The floating tensors of a nested dict (or list: a staged leaf's
+    stages across cards), in the tree's order."""
     if isinstance(tree, torch.Tensor):
         return [tree] if tree.is_floating_point() else []
-    return [leaf for v in tree.values() for leaf in _leaves(v)]
+    values = tree if isinstance(tree, (list, tuple)) else tree.values()
+    return [leaf for v in values for leaf in _leaves(v)]
 
 
 def make_optimizer(params, lr: float = 1e-4,
@@ -95,10 +98,11 @@ def _set_grads(loss: torch.Tensor, leaves: list) -> None:
         t.grad = torch.zeros_like(t) if g is None else g
 
 
-def make_full_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
-    """Full-parameter train step: ``step(params, opt_state, tokens,
-    positions) -> (params, opt_state, loss)``.  ``optimizer`` is
-    ``make_optimizer(params)``; the step updates ``params`` in place."""
+def make_step(optimizer: torch.optim.Optimizer, loss_fn):
+    """A full-parameter train step over ``loss_fn(params, tokens,
+    positions)``: ``step(params, opt_state, tokens, positions) ->
+    (params, opt_state, loss)``, every floating leaf of ``params``
+    trained, in place."""
 
     def step(params, opt_state, tokens, positions):
         leaves = _leaves(params)
@@ -106,13 +110,21 @@ def make_full_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
         with torch.enable_grad():
             for t in leaves:
                 t.requires_grad_(True)
-            loss = causal_lm_loss(cfg, params, tokens, positions)
+            loss = loss_fn(params, tokens, positions)
             _set_grads(loss, leaves)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return params, opt_state, loss.detach()
 
     return step
+
+
+def make_full_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
+    """Full-parameter train step: ``step(params, opt_state, tokens,
+    positions) -> (params, opt_state, loss)``.  ``optimizer`` is
+    ``make_optimizer(params)``; the step updates ``params`` in place."""
+    return make_step(optimizer, lambda p, tokens, positions: causal_lm_loss(
+        cfg, p, tokens, positions))
 
 
 def make_lora_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):

@@ -716,14 +716,17 @@ def test_adapter_swap_between_replays_takes_effect(narrow):
     assert a != base and b != a and unloaded == base
 
 
-def _serve_queued(eng, jobs):
+def _serve_queued(eng, jobs, adapters=None):
     """``_serve`` with every request submitted BEFORE ``start()`` (the
     reference's rule in ``parallel/multihost_check.py``): one admission
-    order, so the dispatch sequence does not follow the host's timing."""
+    order, so the dispatch sequence does not follow the host's timing.
+    ``adapters`` names each job's adapter (None: the base model)."""
     from llm_instance_gateway_tpu_torch.server.engine import Request
 
+    adapters = adapters or [None] * len(jobs)
     reqs = [eng.submit(Request(prompt_tokens=p, max_new_tokens=m,
-                               sampling=sp)) for p, m, sp in jobs]
+                               sampling=sp, adapter=a))
+            for (p, m, sp), a in zip(jobs, adapters)]
     eng.start()
     try:
         for r in reqs:
@@ -1901,3 +1904,192 @@ def test_expert_engine_across_cards_matches_expert1_f32(narrow, n):
                        devices=cards, axes=dict(expert=n), **kw)
     assert eng.tp.moe and eng.tp.local_experts == cfg.n_experts // n
     assert _serve_queued(eng, jobs) == want
+
+
+# ---------------------------------------------------------------------------
+# The data, fsdp and pipe axes: on one card (views) and across cards
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("axes", [dict(data=2), dict(data=2, tensor=2)],
+                         ids=["d2", "d2t2"])
+def test_data2_on_one_card_matches_data1_f32(narrow, axes):
+    """Each data group decodes its rows: greedy tokens equal data=1's with
+    the graphed blocks replaying both groups' loops, the lane kernel once
+    per group (and tensor shard) per layer and step."""
+    want = _serve_queued(_mesh_engine(narrow, 1, torch.float32), _jobs())
+    eng = _mesh_engine(narrow, 1, torch.float32, axes=axes)
+    eng.start()  # the warm-up step runs here, before the window
+    try:
+        d0 = dec.launches
+        got = _serve_running(eng, _jobs())
+    finally:
+        eng.stop()
+    assert got == want and eng._graphs.replays > 0
+    steps = int(eng.metrics_snapshot()["dispatch_steps_hist"]["sum"])
+    n_layers = narrow[torch.float32][0].n_layers
+    assert dec.launches - d0 == steps * n_layers * 2 * axes.get("tensor", 1)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["lanes", "paged"])
+def test_fsdp2_on_one_card_matches_fsdp1(narrow, paged):
+    """fsdp=2 gathers the same values in the same shapes: greedy tokens
+    equal fsdp=1's in bf16, the gathers replaying inside the graphs."""
+    kw = dict(paged_kv_block=16, prefix_cache=True) if paged else {}
+    want = _serve_queued(_mesh_engine(narrow, 1, torch.bfloat16, **kw),
+                         _jobs())
+    eng = _mesh_engine(narrow, 1, torch.bfloat16, axes=dict(fsdp=2), **kw)
+    assert _serve_queued(eng, _jobs()) == want and eng._graphs.replays > 0
+
+
+def test_pipeline_step_on_one_card_launches_per_live_pair(narrow):
+    """A pipelined bf16 train step (pipe=2, M=2, both stages on cuda:0):
+    the training forward and the backward kernel launch exactly L x M
+    times, and the loss equals the unpipelined step's within bf16."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.parallel import mesh, pipeline
+    from llm_instance_gateway_tpu_torch.training import train
+
+    cfg = narrow[torch.bfloat16][0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 129), device="cuda",
+                           generator=gen)
+    positions = torch.arange(129, device="cuda")[None].expand(2, 129)
+    m = mesh.make_mesh(mesh.MeshConfig(pipe=2), ["cuda:0", "cuda:0"])
+    staged = pipeline.stage_param_specs(cfg, pipeline.stage_params(
+        cfg, transformer.init_params(cfg, seed=5, device="cuda"), 2), m)
+    opt = train.make_optimizer(staged, lr=1e-3)
+    f0, b0 = fl.launches, fl.backward_launches
+    _, _, loss = pipeline.make_pipeline_train_step(cfg, opt, 2, 2, m)(
+        staged, None, tokens, positions)
+    torch.cuda.synchronize()
+    assert fl.launches - f0 == cfg.n_layers * 2
+    assert fl.backward_launches - b0 == cfg.n_layers * 2
+    plain = transformer.init_params(cfg, seed=5, device="cuda")
+    _, _, want = train.make_full_train_step(cfg, train.make_optimizer(
+        plain, lr=1e-3))(plain, None, tokens, positions)
+    assert abs(loss.item() - want.item()) <= 1e-2 * abs(want.item())
+
+
+def test_data2_across_cards_matches_data1_f32(narrow):
+    """``data=2`` over two cards (eager): each group's rows on its card,
+    greedy tokens equal to data=1's, an adapter row and a chunk stream
+    included."""
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+    from llm_instance_gateway_tpu_torch.server.lora_manager import LoRAManager
+
+    cards = _cards(2)
+    cfg = narrow[torch.float32][0]
+    jobs = _jobs() + [(_LONG, 8, _jobs()[0][2])]
+    out = {}
+    for axes, devices in ((None, None), (dict(data=2), cards)):
+        lora = LoRAManager(cfg, dtype=torch.float32, device="cuda")
+        lora.load("cards", weights=_lora_weights(cfg, 4), alpha=16.0, rank=8)
+        eng = _mesh_engine(narrow, 1, torch.float32, graphs=axes is None,
+                           devices=devices, axes=axes, lora=lora,
+                           stream_lanes=2)
+        if axes:
+            assert [sharding.parts(c)[0]["k"].device
+                    for c in eng.cache.data] == [
+                torch.device(c) for c in cards]
+        out[str(axes)] = _serve_queued(eng, jobs,
+                                       ["cards", None] * 3)
+    assert out["{'data': 2}"] == out["None"]
+
+
+@pytest.mark.parametrize("n,paged", [(2, False), (4, False), (2, True)],
+                         ids=["f2-lanes", "f4-lanes", "f2-paged"])
+def test_fsdp_across_cards_matches_one_card_f32(narrow, n, paged):
+    """``fsdp=n`` over n cards (eager; each layer's pieces gathered by one
+    NCCL all-gather, issued a layer ahead on a side stream): the forward
+    bitwise fsdp=1's, and the engine's greedy tokens equal."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cards = _cards(n)
+    cfg, params = narrow[torch.float32]
+    grid = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(fsdp=n), cards))
+    sp = sharding.shard_params(params, grid)
+    assert [p.device for p in sp[0]["layers"]["wq"].pieces] == [
+        torch.device(c) for c in cards]
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device="cuda")
+    positions = torch.arange(40, device="cuda")[None].expand(2, 40)
+    with torch.no_grad():
+        got = transformer.prefill(cfg, sp, tokens, positions)[0]
+        want = transformer.prefill(cfg, params, tokens, positions)[0]
+    assert torch.equal(got, want)
+    kw = dict(paged_kv_block=16, prefix_cache=True) if paged else {}
+    ref = _serve_queued(_mesh_engine(narrow, 1, torch.float32, **kw),
+                        _jobs())
+    eng = _mesh_engine(narrow, 1, torch.float32, graphs=False, devices=cards,
+                       axes=dict(fsdp=n), **kw)
+    assert _serve_queued(eng, _jobs()) == ref
+
+
+def test_pipe4_full_8b_steps_across_cards():
+    """Ten full-parameter AdamW steps of the whole 32-layer Llama-3-8B at
+    ``pipe=4``, one stage a card (M=4 microbatches of one 1024-token row):
+    the loss falls, each step launches flash and the backward exactly L x
+    M times; prints (``[pipe4]``) peak memory per card, step walls and
+    the profiled step's device ms per card."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, pipeline
+    from llm_instance_gateway_tpu_torch.training import train
+
+    cards = _cards(4)
+    cfg, m_micro, s = LLAMA3_8B, 4, 1024
+    m = mesh.make_mesh(mesh.MeshConfig(pipe=4), cards)
+    params = transformer.init_params(cfg, seed=17, device="cuda:0")
+    staged = pipeline.stage_param_specs(
+        cfg, pipeline.stage_params(cfg, params, 4), m)
+    del params
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (m_micro, s), device="cuda:0",
+                           generator=gen)
+    positions = torch.arange(s, device="cuda:0")[None].expand(m_micro, s)
+    opt = train.make_optimizer(staged, lr=1e-4)
+    step = pipeline.make_pipeline_train_step(cfg, opt, 4, m_micro, m)
+    losses, walls = [], []
+    for i in range(10):
+        f0, b0 = fl.launches, fl.backward_launches
+        t0 = time.perf_counter()
+        if i == 9:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                staged, _, loss = step(staged, None, tokens, positions)
+                for c in cards:
+                    torch.cuda.synchronize(c)
+        else:
+            staged, _, loss = step(staged, None, tokens, positions)
+        losses.append(loss.item())
+        for c in cards:
+            torch.cuda.synchronize(c)
+        walls.append(time.perf_counter() - t0)
+        assert fl.launches - f0 == cfg.n_layers * m_micro
+        assert fl.backward_launches - b0 == cfg.n_layers * m_micro
+    device_ms = {}
+    for ev in prof.events():
+        # Kernels only: a range on the device's timeline (the optimizer's
+        # step) spans kernels counted on their own.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)):
+            key = f"cuda:{ev.device_index}"
+            device_ms[key] = device_ms.get(key, 0.0) + (
+                ev.self_device_time_total / 1e3)
+    out = {"losses": losses, "step_wall_s": walls,
+           "profiled_step_device_ms_per_card": device_ms,
+           "peak_mem_gb_per_card": {
+               c: torch.cuda.max_memory_allocated(c) / 1e9 for c in cards},
+           "cards": [torch.cuda.get_device_name(i) for i in range(4)]}
+    print("[pipe4] " + json.dumps(out), flush=True)
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0]

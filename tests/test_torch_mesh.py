@@ -160,9 +160,12 @@ class TestMeshRules:
 
     @pytest.mark.parametrize("axis", ["data", "fsdp", "pipe"])
     def test_other_axes_refused(self, axis):
-        with pytest.raises(ValueError,
-                           match=f"mesh axis {axis}=2.*ROADMAP"):
-            tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ["cpu"] * 2)
+        """``make_mesh`` no longer refuses the other axes: it takes them
+        in the reference's device order (serving refuses ``pipe`` at
+        ``Engine(...)``, ``test_engine_axis_rules``)."""
+        self.test_served_axes_accepted(axis)
+        mesh = tmesh.make_mesh(tmesh.MeshConfig(**{axis: 2}), ["cpu"] * 2)
+        assert mesh.shape[axis] == 2 and mesh.size == 2
 
     @pytest.mark.parametrize("axis", ["expert", "sequence"])
     def test_served_axes_accepted(self, axis):
@@ -759,10 +762,19 @@ def test_engine_axis_rules():
                     teng.EngineConfig(**dict(ENGINE, paged_kv_block=8)),
                     dtype=F32, device="cpu",
                     mesh=tmesh.Mesh(tmesh.MeshConfig(data=2), devices))
-    with pytest.raises(ValueError, match="mesh axis fsdp=2"):
-        teng.Engine(GQA, params, teng.EngineConfig(**ENGINE), dtype=F32,
-                    device="cpu",
-                    mesh=tmesh.Mesh(tmesh.MeshConfig(fsdp=2), devices))
+    # fsdp is served now (lanes and the pool); data refuses a batch it
+    # does not divide, by name.
+    for paged in (None, 8):
+        eng = teng.Engine(GQA, params, teng.EngineConfig(
+            **dict(ENGINE, paged_kv_block=paged)), dtype=F32, device="cpu",
+            mesh=tmesh.Mesh(tmesh.MeshConfig(fsdp=2), devices))
+        assert eng.tp.f == 2
+        assert isinstance(eng.params[0]["layers"]["wq"], tsh.FsdpLeaf)
+    with pytest.raises(ValueError, match="decode_slots=3 is not divisible "
+                                         "by data=2"):
+        teng.Engine(GQA, params, teng.EngineConfig(
+            **dict(ENGINE, decode_slots=3)), dtype=F32, device="cpu",
+            mesh=tmesh.Mesh(tmesh.MeshConfig(data=2), devices))
 
 
 def test_graphs_across_cards_refused_by_name():
@@ -820,9 +832,22 @@ def test_server_mesh_flag():
     finally:
         httpd.server_close()
         eng.stop()
-    with pytest.raises(ValueError, match="mesh axis data=2"):
+    # data=2 is served now; pipe stays refused for serving.
+    httpd, eng, args = tapi.make_server([
+        "--device", "cpu", "--dtype", "float32", "--host", "127.0.0.1",
+        "--port", "0", "--max-seq-len", "64", "--decode-slots", "2",
+        "--mesh", "data=2,tensor=1"])
+    try:
+        assert eng.tp.d == 2 and len(eng.cache.data) == 2
+        req = eng.generate(teng.Request(prompt_tokens=[1, 2, 3],
+                                        max_new_tokens=3))
+        assert req.error is None and len(req.output_tokens) == 3
+    finally:
+        httpd.server_close()
+        eng.stop()
+    with pytest.raises(ValueError, match="pipe=1"):
         tapi.make_server(["--device", "cpu", "--port", "0",
-                          "--mesh", "data=2,tensor=1"])
+                          "--mesh", "pipe=2"])
 
 
 # ---------------------------------------------------------------------------
