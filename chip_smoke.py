@@ -4545,7 +4545,8 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     errors over all shapes checked, and launches summed over the serving
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
-    families, train, mesh, sequence, expert, data, fsdp, pipe)."""
+    families, train, mesh, sequence, expert, data, fsdp, pipe,
+    processes)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -5779,6 +5780,411 @@ def phase_axes(torch, params, adapter_path: str, serve_stats: dict) -> dict:
     return out
 
 
+# -- phase 19: the port across processes on one card ---------------------
+
+# Two processes share cuda:0 (gloo: NCCL refuses two ranks on one device),
+# each holding its shard of Llama-3-8B at full width and depth.
+PROC_SEED = 19
+PROC_PROMPTS = (12, 120, 700)  # prompt tokens of the lockstep serve
+PROC_NEW = 16  # greedy tokens a request
+PROC_LOGIT_TOKENS = 700  # the prefill before the compared decode step
+PROC_DECODE_REPS = 3  # eager decode steps profiled
+PROC_TRAIN_STEPS = 3
+# Faults planted in layer n_layers/2 of the two-process forward, each of
+# which the logits check (MESH_LOGIT_TOL) must fail: rank 1's wo partial
+# dropped (its wo zeroed), and the ranks' wo shards swapped.
+PROC_FAULTS = ("partial_dropped", "shards_swapped")
+PROC_TIMEOUT_S = 600
+
+# The worker each of the two processes runs (``multihost_check.
+# run_two_process``): it imports the port and this script's helpers only.
+PROC_WORKER = r"""
+import gc, json, math, os, sys, time
+sys.path.insert(0, os.environ["GRAFT_REPO"])
+import torch
+import torch.distributed as dist
+import chip_smoke as s
+from llm_instance_gateway_tpu_torch.models import lora, transformer
+from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
+from llm_instance_gateway_tpu_torch.parallel.mesh import (
+    Mesh, MeshConfig, initialize_distributed, make_mesh, world)
+from llm_instance_gateway_tpu_torch.server.engine import (
+    Engine, EngineConfig, Request, SamplingParams)
+from llm_instance_gateway_tpu_torch.training import train
+
+initialize_distributed()
+rank, size = world()
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+t_start = time.time()
+out = {"rank": rank, "walls": {}}
+mid = cfg.n_layers // 2
+half = cfg.n_heads * cfg.resolved_head_dim // 2
+n_logit = s.PROC_LOGIT_TOKENS
+gen = torch.Generator(device=dev).manual_seed(s.PROC_SEED)
+prompts = [torch.randint(1, cfg.vocab_size, (n,), device=dev,
+                         generator=gen).tolist() for n in s.PROC_PROMPTS]
+logit_tokens = torch.randint(0, cfg.vocab_size, (1, n_logit), device=dev,
+                             generator=gen)
+train_tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device=dev,
+                             generator=gen)
+train_pos = torch.arange(1024, device=dev).repeat(2, 1)
+slot_ids = torch.zeros(2, dtype=torch.int32, device=dev)
+
+
+def mark(what):
+    out["walls"][what] = round(time.time() - t_start, 1)
+    print(f"[processes rank {rank}] {what} at {out['walls'][what]} s",
+          flush=True)
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def engine_for(params, mesh):
+    return Engine(cfg, params, EngineConfig(
+        decode_slots=4, max_seq_len=1024,
+        prefill_buckets=(16, 64, 128, 512, 1024)),
+        eos_id=None, dtype=torch.bfloat16, seed=0, device=dev, mesh=mesh,
+        cuda_graphs=False)
+
+
+def serve(engine):
+    # Every request submitted before start(): both loops see one queue.
+    reqs = [Request(prompt_tokens=list(p), max_new_tokens=s.PROC_NEW,
+                    sampling=SamplingParams(temperature=0.0))
+            for p in prompts]
+    for r in reqs:
+        engine.submit(r)
+    steps0 = engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
+    s.reset_launches()
+    t0 = time.time()
+    engine.start()
+    try:
+        for r in reqs:
+            if not r.done.wait(300) or r.error is not None:
+                raise SystemExit(f"rank {rank}: request failed: {r.error}")
+    finally:
+        engine.stop()
+    steps = int(engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
+                - steps0)
+    return ([list(r.output_tokens) for r in reqs], s.read_launches(),
+            steps, time.time() - t0)
+
+
+def lane(c, d):
+    return transformer.init_decode_cache(c, 1, 1024, device=d)
+
+
+def decode_logits(params, tp, after=None):
+    # One 700-token prefill and the decode step after it: that step's
+    # logits [V] (f32, host), and ``after(step)`` of a function that runs
+    # the step again.
+    with torch.no_grad():
+        cache = sharding.shard_cache(lane, tp)
+        logits, k, v = transformer.prefill(
+            cfg, params, logit_tokens, torch.arange(n_logit, device=dev)[None])
+        nxt = logits[0, -1, :cfg.vocab_size].argmax().reshape(1)
+        transformer.insert_prefill(cache, k, v, 0, n_logit)
+        del logits, k, v
+        pos = torch.tensor([n_logit], device=dev)
+        step = transformer.decode_step(cfg, params, cache, nxt, pos)[0]
+        got = step[0, :cfg.vocab_size].float().cpu()
+        res = None if after is None else after(
+            lambda: transformer.decode_step(cfg, params, cache, nxt, pos))
+    return got, res
+
+
+def timed_step(step, world):
+    # An eager decode step: device ms and idle share under the profiler,
+    # the wall over PROC_DECODE_REPS steps started together (a barrier:
+    # the ranks' profilers start apart), and across processes the
+    # collectives' host ms (each call between two synchronizes, so it
+    # holds no device work of its own).
+    prof = s._profile(torch, f"rank {rank} eager decode step", step,
+                      s.PROC_DECODE_REPS)
+    row = {k: prof[k] for k in ("device_ms", "device_idle_share")}
+    if world:
+        dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(s.PROC_DECODE_REPS):
+        step()
+    torch.cuda.synchronize()
+    row["wall_ms"] = (time.perf_counter() - t0) * 1e3 / s.PROC_DECODE_REPS
+    if not world:
+        return row
+    coll = {"s": 0.0, "calls": 0}
+    plain = collectives._all_reduce
+
+    def timed(x, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(x, group)
+        torch.cuda.synchronize()
+        coll["s"] += time.perf_counter() - t0
+        coll["calls"] += 1
+        return y
+
+    collectives._all_reduce = timed
+    try:
+        for _ in range(s.PROC_DECODE_REPS):
+            step()
+    finally:
+        collectives._all_reduce = plain
+    row["collectives_host_ms"] = coll["s"] * 1e3 / s.PROC_DECODE_REPS
+    row["collective_calls_per_step"] = coll["calls"] / s.PROC_DECODE_REPS
+    return row
+
+
+def lora_full():
+    g = torch.Generator(device=dev).manual_seed(s.PROC_SEED + 1)
+    bufs = lora.init_lora_buffers(cfg, torch.bfloat16, "cuda")
+    for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+        bufs[f"{t}_a"][:, 0, :, :8] = (torch.randn(
+            (cfg.n_layers, d_in, 8), device=dev, generator=g)
+            / math.sqrt(d_in)).to(torch.bfloat16)
+    bufs["scale"][0] = 16.0 / 8
+    return bufs
+
+
+def slot0(tree):
+    # Slot 0 of LoRA buffers (views), a plain tree or every shard's.
+    def one(t):
+        return {k: (v[:1] if k == "scale" else v[:, :1]) for k, v in t.items()}
+    if isinstance(tree, sharding.Shards):
+        return sharding.Shards([one(t) for t in tree], tree.tp)
+    return one(tree)
+
+
+def lora_steps(params, bufs, like):
+    opt = train.make_optimizer(bufs, lr=s.TRAIN_8B_LR, weight_decay=0.0)
+    step = train.make_lora_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s.reset_launches()
+    losses, walls, first = [], [], None
+    for i in range(s.PROC_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(params, bufs, opt.state, train_tokens, train_pos,
+                           slot_ids)[2].item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            got = slot0(bufs)
+            got = (sharding.unshard(got, like)
+                   if isinstance(got, sharding.Shards) else
+                   {k: v.detach().cpu() for k, v in got.items()})
+            first = {k: v.float() for k, v in got.items() if k != "scale"}
+    launches = s.read_launches()
+    s.check_only(launches, {
+        "flash_prefill": s.PROC_TRAIN_STEPS * cfg.n_layers,
+        "flash_backward": s.PROC_TRAIN_STEPS * cfg.n_layers},
+        f"processes rank {rank} LoRA steps")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"rank {rank}: the loss did not fall: {losses}")
+    del opt, step
+    return {"losses": losses, "step_wall_ms": walls,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}, first
+
+
+def agreement(got, want, before):
+    # The pipe phase's rule: where either side moved a value, the share
+    # whose move has the same sign.
+    rows = {}
+    for k, b in want.items():
+        a, b0 = got[k], before[k].float()
+        moved = (a != b0) | (b != b0)
+        same = ((a - b0).sign() == (b - b0).sign())[moved]
+        rows[k] = same.float().mean().item() if moved.any() else 1.0
+    return min(rows.values()), rows
+
+
+# -- the one-process references (rank 0, views, while rank 1 waits) --------
+mesh = make_mesh(MeshConfig(tensor=2), ["cuda:0"])
+tp = sharding.TensorParallel(cfg, mesh)
+like = {k: v.cpu() for k, v in slot0(lora_full()).items()}
+before = {k: v.float() for k, v in like.items() if k != "scale"}
+ref = {}
+for r in range(size):
+    if r == rank:
+        full = transformer.init_params(cfg, seed=s.PROC_SEED, device="cuda")
+        if rank == 0:
+            views = Mesh(MeshConfig(tensor=2), (dev, dev))
+            one = engine_for(full, views)
+            ref["tokens"], _, _, ref["serve_s"] = serve(one)
+            ref["logits"], ref["step"] = decode_logits(
+                one.params, one.tp, lambda step: timed_step(step, False))
+            del one
+            free()
+            bufs = lora_full()
+            ref["lora"], ref["first"] = lora_steps(full, bufs, like)
+            del bufs
+            free()
+            mark("references")
+        engine = engine_for(full, mesh)
+        wo = full["layers"]["wo"]
+        other_wo = wo[mid, (1 - rank) * half:(2 - rank) * half].clone()
+        del full, wo
+        free()
+        mark("tensor=2 shards")
+    dist.barrier()
+
+# -- tensor=2 across the two processes ---------------------------------------
+out["tokens"], launches, steps, out["serve_s"] = serve(engine)
+s.check_only(launches, {
+    "flash_prefill": len(prompts) * cfg.n_layers,
+    "decode_attention": steps * cfg.n_layers}, f"processes rank {rank} serve")
+out["serve_launches"], out["decode_steps"] = launches, steps
+mark("serve")
+params = engine.params
+del engine
+free()
+
+
+def planted(fault):
+    tree = params[0]
+    new = tree["layers"]["wo"].clone()
+    if fault == "partial_dropped":
+        if rank == 1:
+            new[mid].zero_()
+    else:
+        new[mid] = other_wo
+    return sharding.Shards([dict(tree, layers=dict(tree["layers"], wo=new))],
+                           params.tp)
+
+
+s.reset_launches()
+logits, _ = decode_logits(params, tp)
+s.check_only(s.read_launches(), {"flash_prefill": cfg.n_layers,
+                                 "decode_attention": cfg.n_layers},
+             f"processes rank {rank} logits")
+fault_logits = {}
+for fault in s.PROC_FAULTS:
+    fault_logits[fault], _ = decode_logits(planted(fault), tp)
+    free()
+# The same logits on both ranks (rank 0's sent to rank 1).
+theirs = logits.clone()
+dist.broadcast(theirs, 0)
+out["logits_equal_across_ranks"] = bool(torch.equal(theirs, logits))
+_, out["step"] = decode_logits(params, tp,
+                               lambda step: timed_step(step, True))
+mark("logits")
+if rank == 0:
+    out["logits"] = {"sound": s._share(logits, ref["logits"]),
+                     **{f: s._share(g, ref["logits"])
+                        for f, g in fault_logits.items()}}
+    out["ref_step"] = ref["step"]
+    out["ref_tokens"], out["ref_serve_s"] = ref["tokens"], ref["serve_s"]
+    out["ref_lora"] = ref["lora"]
+
+# -- the LoRA step at tensor=2, then at data=2 --------------------------------
+out["lora"] = {}
+for axes in ("tensor=2", "data=2"):
+    if axes == "data=2":
+        del params
+        free()
+        mesh = make_mesh(MeshConfig(data=2), ["cuda:0"])
+        tp = sharding.TensorParallel(cfg, mesh)
+        for r in range(size):
+            if r == rank:
+                full = transformer.init_params(cfg, seed=s.PROC_SEED,
+                                               device="cuda")
+                params = sharding.shard_params(full, tp)
+                del full
+                free()
+            dist.barrier()
+    bufs = sharding.shard_lora(lora_full(), tp)
+    free()
+    res, first = lora_steps(params, bufs, like)
+    if rank == 0:
+        res["first_loss_rel_err"] = abs(
+            res["losses"][0] - ref["lora"]["losses"][0]) / abs(
+            ref["lora"]["losses"][0])
+        res["first_update_agree"], _ = agreement(first, ref["first"], before)
+    out["lora"][axes] = res
+    del bufs
+    free()
+    mark(f"lora {axes}")
+print("[processes-result] " + json.dumps(out), flush=True)
+"""
+
+
+def phase_processes(torch) -> dict:
+    """Phase 19: the port across two processes on cuda:0
+    (``parallel/multihost_check.run_two_process``, gloo between them, each
+    holding its shard of Llama-3-8B at full width and depth, built one
+    process after the other with the seeded tree freed).  ``--mesh
+    tensor=2`` served eagerly with every request submitted before
+    ``start()``: both processes' greedy tokens identical, counted against
+    the one-process tensor=2 engine's (views, reported), exact launches
+    per process; the decode step after a 700-token prefill, its logits on
+    both ranks bitwise equal and within MESH_LOGIT_TOL of one process's,
+    with PROC_FAULTS planted each beyond it; an eager decode step's wall,
+    device ms and collectives' host ms beside one process's.  The 8B LoRA
+    step (rank 8, two 1024-token rows) at tensor=2 and then at data=2:
+    PROC_TRAIN_STEPS steps with the loss falling, the first step's loss
+    and slot against the one-process (unsharded) step (PIPE_LOSS_TOL,
+    PIPE_AGREE), exact flash and backward launches, step walls and peak
+    memory per process."""
+    from llm_instance_gateway_tpu_torch.parallel import multihost_check
+
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    outs = multihost_check.run_two_process(PROC_WORKER, n_local=1,
+                                           timeout_s=PROC_TIMEOUT_S)
+    os.makedirs(os.path.join(REPO, "build", "smoke"), exist_ok=True)
+    for rank, text in enumerate(outs):
+        with open(os.path.join(REPO, "build", "smoke",
+                               f"processes_rank{rank}.log"), "w") as f:
+            f.write(text)
+    res = [json.loads(line.split(" ", 1)[1])
+           for line in multihost_check.ok_lines(outs, "[processes-result] ")]
+    r0, r1 = res
+    if r0["tokens"] != r1["tokens"]:
+        raise AssertionError("processes: the ranks read back different "
+                             f"tokens: {r0['tokens']} / {r1['tokens']}")
+    if not r1["logits_equal_across_ranks"]:
+        raise AssertionError("processes: the ranks' logits differ")
+    _gate("processes", {"sound": r0["logits"]["sound"]},
+          {f: {"decode_step": r0["logits"][f]} for f in PROC_FAULTS})
+    differ = sum(int(a != b) for got, want in zip(r0["tokens"],
+                                                  r0["ref_tokens"])
+                 for a, b in zip(got, want))
+    for axes, row in r0["lora"].items():
+        if not row["first_loss_rel_err"] <= PIPE_LOSS_TOL:
+            raise AssertionError(f"processes LoRA {axes}: first loss "
+                                 f"{row['losses'][0]} against one process's "
+                                 f"{r0['ref_lora']['losses'][0]}")
+        if not row["first_update_agree"] >= PIPE_AGREE:
+            raise AssertionError(f"processes LoRA {axes}: slot updated apart "
+                                 f"from one process's: {row}")
+    launches: dict = {}
+    for r in res:
+        for part in ([r["serve_launches"]]
+                     + [row["launches"] for row in r["lora"].values()]):
+            for name, n in part.items():
+                launches[name] = launches.get(name, 0) + n
+    out = {"wall_s": time.time() - t0, "tokens_differing": {
+        "differ": differ, "of": sum(map(len, r0["tokens"]))},
+        "serve_s": [r["serve_s"] for r in res],
+        "one_process_serve_s": r0["ref_serve_s"],
+        "decode_steps": r0["decode_steps"], "logits": r0["logits"],
+        "eager_step": {"one_process": r0["ref_step"],
+                       "rank0": r0["step"], "rank1": r1["step"]},
+        "lora": {axes: [r["lora"][axes] for r in res]
+                 for axes in r0["lora"]},
+        "one_process_lora": r0["ref_lora"], "launches": launches,
+        "worker_walls": [r["walls"] for r in res]}
+    log("processes", f"greedy tokens differing from one process: {differ} "
+        f"of {out['tokens_differing']['of']} (bf16; reported, not gated)")
+    log("processes", "phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -5841,6 +6247,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipe = phase_pipe(torch)
     done("pipe")
+    processes = phase_processes(torch)
+    done("processes")
     log("walls", "phase 18 (data, fsdp and pipe): " + json.dumps(
         {"axes_s": axes["wall_s"], "pipe_s": walls["pipe"] - walls["axes"],
          "total_s": walls["pipe"] - walls["sequence"]}))
@@ -5873,7 +6281,8 @@ def main() -> int:
                "expert": expert["launches"],
                "data": axes["launches_data"],
                "fsdp": axes["launches_fsdp"],
-               "pipe": pipe["launches"]}
+               "pipe": pipe["launches"],
+               "processes": processes["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,12 @@ caller names; over ``fsdp`` a layer's split weights are gathered as the
 shard loop takes the layer (``_Shards.layer``) and ``lm_head`` before
 the head.  ``prefill``'s ``attention_fn`` seam runs
 sequence blocks on the ``sequence`` groups with the ring's attention
-(``parallel/long_context.py``).
+(``parallel/long_context.py``).  Across processes a ``Shards`` holds this
+process's shards: the loops run over them, the residual enters each
+block through the column-parallel copy and leaves it through the
+row-parallel sum over the processes (``parallel/collectives.py``), and
+the embedding, norms and head run on every process, so each holds the
+whole ``[B, V]`` logits.
 
 Differences from the JAX functions, by design:
 - ``decode_step``, ``insert_prefill`` and ``prefill_with_cache`` update the
@@ -463,7 +468,7 @@ class _Shards:
         self.trees = params.groups[group] if sharded else [params]
         self.cfg = cfg if self.tp is None else self.tp.cfg
         self.n = len(self.trees)
-        self.n_attn = 1 if self.tp is None else self.tp.t
+        self.n_attn = 1 if self.tp is None else self.tp.n_attn
         if isinstance(lora_bufs, sharding.Shards):
             self.loras = lora_bufs.groups[group]
         else:
@@ -526,10 +531,15 @@ class _Shards:
             return [x]
         return [self.tp.on(s, x, self.group) for s in range(self.n)]
 
-    def residual(self, hs: list, parts: list) -> list:
+    def residual(self, hs: list, parts: list, attn: bool = False) -> list:
         if self.tp is None:
             return [hs[0] + parts[0]]
-        return self.tp.residual(hs, parts)
+        return self.tp.residual(hs, parts, attn)
+
+    def enter(self, hs: list, attn: bool = False) -> list:
+        """The residual as it enters the shards' block (across processes
+        the column-parallel copy, ``TensorParallel.enter``)."""
+        return hs if self.tp is None else self.tp.enter(hs, attn)
 
     def embed(self, cfg: ModelConfig, tokens: torch.Tensor) -> list:
         if self.tp is None or self.tp.one_device:
@@ -560,6 +570,7 @@ def _attn_qkv(sh: _Shards, layer: list, hs: list, sids: list, lead: tuple,
     Returns ``(q, k, v)`` per shard, each ``[*lead, heads, hd]``."""
     c = sh.cfg
     hd = c.resolved_head_dim
+    hs = sh.enter(hs, attn=True)
     out = []
     for s, (lp, ll) in enumerate(layer[:sh.n_attn]):
         hn = rms_norm(hs[s], lp["attn_norm"], c.norm_eps,
@@ -579,7 +590,7 @@ def _attn_out(sh: _Shards, layer: list, hs: list, sids: list, lead: tuple,
     (``[*lead, ...]``), reduced onto the residual of every shard."""
     parts = [_project(attn.reshape(*lead, -1), lp["wo"], ll, "o", sids[s])
              for s, ((lp, ll), attn) in enumerate(zip(layer, attns))]
-    return sh.residual(hs, parts + [None] * (sh.n - len(parts)))
+    return sh.residual(hs, parts + [None] * (sh.n - len(parts)), attn=True)
 
 
 def _attn_block(sh: _Shards, layer: list, hs: list, sids: list,
@@ -601,8 +612,9 @@ def _mlp_block(sh: _Shards, layer: list, hs: list, sids: list,
     ffn columns), the row-parallel partials reduced onto the residual."""
     c = sh.cfg
     parts = []
+    entered = sh.enter(hs)
     for s, (lp, ll) in enumerate(layer):
-        hn = rms_norm(hs[s], lp["mlp_norm"], c.norm_eps,
+        hn = rms_norm(entered[s], lp["mlp_norm"], c.norm_eps,
                       plus_one=c.norm_plus_one)
         parts.append(_mlp(c, lp, hn, ll, sids[s], host_flag))
     return sh.residual(hs, parts)

@@ -27,9 +27,10 @@ Inside a stage, ``tensor`` and ``data`` compose as in serving
 pp2tp4, dp2pp2tp2 and pp4tp2 meshes run with every shard on one device
 (views, differentiable) or, forward only, across cards.  A train step
 across cards runs ``pipe`` with ``tensor = data = 1``: its reductions
-there would be NCCL calls autograd cannot differentiate (the fsdp/data
-train step across cards is queued in ROADMAP.md).  The embedding and the
-head run outside the stages, on the first device.
+there would be single-process NCCL calls autograd cannot differentiate;
+across cards ``tensor``, ``fsdp`` and ``data`` train one process per card
+(``training/train.py``'s sharded recipe over ``parallel/collectives.py``).
+The embedding and the head run outside the stages, on the first device.
 """
 
 from __future__ import annotations
@@ -94,11 +95,11 @@ def stage_param_specs(cfg: ModelConfig, staged: Params,
     if mesh is None or len(set(mesh.devices)) == 1:
         if mesh is not None:
             dev = mesh.devices[0]
-            return _map_tree(staged, lambda x: x.to(dev))
+            return sharding.map_tree(staged, lambda x: x.to(dev))
         return staged
     pipe = mesh.shape["pipe"]
     firsts = [_stage_mesh(mesh, i).devices[0] for i in range(pipe)]
-    out = {k: _map_tree(v, lambda x: x.to(mesh.devices[0]))
+    out = {k: sharding.map_tree(v, lambda x: x.to(mesh.devices[0]))
            for k, v in staged.items() if k != "layers"}
     # Copies, each stage's own (a view would keep the whole stack alive).
     out["layers"] = {
@@ -106,12 +107,6 @@ def stage_param_specs(cfg: ModelConfig, staged: Params,
                for i, dev in enumerate(firsts)]
         for name, leaf in staged["layers"].items()}
     return out
-
-
-def _map_tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _stage_tree(params: Params, i: int) -> Params:
@@ -240,8 +235,10 @@ def make_pipeline_train_step(cfg: ModelConfig, optimizer, pipe: int,
             f"a pipelined train step across cards runs pipe with tensor=1 "
             f"and data=1 (got tensor={mesh.shape['tensor']}, "
             f"data={mesh.shape['data']}): their reductions across cards are "
-            "NCCL calls autograd cannot differentiate; the fsdp/data train "
-            "step across cards is queued in ROADMAP.md")
+            "NCCL calls autograd cannot differentiate; across cards train "
+            "tensor and data one process per card "
+            "(parallel/mesh.initialize_distributed, "
+            "training/train.make_full_train_step over a Shards tree)")
     return train.make_step(optimizer, lambda p, tokens, positions:
                            pipeline_lm_loss(cfg, p, tokens, positions, pipe,
                                             n_microbatches, mesh=mesh))

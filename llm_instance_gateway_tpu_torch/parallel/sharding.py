@@ -88,6 +88,23 @@ the paged tables and lengths are one tensor.  Shards on distinct cards
 hold copies, and the reduction is ``torch.cuda.nccl.all_reduce`` over the
 per-card partials (single-process NCCL): a mesh is either on one device
 or on as many devices as shards.
+
+Across processes (a mesh whose positions belong to processes,
+``parallel/mesh.py``) a ``Shards`` holds this process's shards only
+(``TensorParallel.shards``: their indices in the group, in order), as
+copies on its one device: whole leaves one copy its shards share, split
+leaves and fsdp pieces one copy each, so the caller's tree can be freed.
+A row-parallel block sums the local partials in shard order and then the
+processes' sums (``collectives.reduce`` over the attention or the MLP
+group); an ``FsdpLeaf`` holds its local pieces and gathers the others
+through ``collectives.gather`` on every process, each of which computes
+(the one-process rule that fsdp position 0 alone computes cannot hold:
+every process needs the replicated result).  ``tensor``, ``expert`` and
+``fsdp`` may span processes, and ``data`` in training, one data group a
+process; ``sequence`` may not (the ring across processes is queued).
+With ``expert`` across processes each process attends over its tensor
+shards of its first expert (attention is replicated over ``expert``) and
+the attention reduction spans ``tensor`` alone.
 """
 
 from __future__ import annotations
@@ -104,6 +121,7 @@ from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
 from llm_instance_gateway_tpu_torch.ops.quant import is_quantized
 from llm_instance_gateway_tpu_torch.ops.sharded_attention import mesh_supports
+from llm_instance_gateway_tpu_torch.parallel import collectives
 
 # Layer leaves split on their last (output) axis, on axis -2 (input).
 _COLUMN = ("wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "w_gate", "w_up")
@@ -137,10 +155,14 @@ class TensorParallel:
     ``tensor``, ``expert`` and ``sequence`` axes (module docstring): where
     each shard sits, the local config and the reduction after a
     row-parallel block.  One object describes data group ``data_index``
-    (``group(g)`` gives group g's).  Raises ``ValueError`` for a layout
-    the kernels cannot run shard-local (``mesh_supports``), for a split
-    that leaves uneven ffn columns, experts or fsdp pieces, and for shards
-    on some but not all distinct devices."""
+    (``group(g)`` gives group g's) and this process's shards of it
+    (``shards``, indices into the group; every shard in one process).
+    Methods take a shard's position in ``shards``.  Raises ``ValueError``
+    for a layout the kernels cannot run shard-local (``mesh_supports``),
+    for a split that leaves uneven ffn columns, experts or fsdp pieces,
+    for shards on some but not all distinct devices, and, across
+    processes, for a process whose shards are not one block of the grid
+    on one device or whose axes cannot span processes."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         shape = mesh.shape
@@ -171,19 +193,70 @@ class TensorParallel:
         self.t, self.e, self.n = t, e, n
         self.d, self.f = d, f
         self.mesh = mesh
-        self.data_index = 0
         # Shards a group: expert 0's t tensor shards, then the others'.
         self.g = t * e if self.moe else t
         self.local_experts = cfg.n_experts // e if self.moe else cfg.n_experts
         self.devices = list(mesh.devices)
-        distinct = len(set(self.devices))
-        if distinct not in (1, len(self.devices)):
+        self.multi = mesh.spans_processes
+        if self.multi:
+            self._own(mesh)
+        else:
+            self.data_index, self.shards = 0, list(range(self.g))
+            self.fsdp_local = list(range(f))
+            self.attn_group = self.mlp_group = None
+            self.fsdp_group = self.data_group = None
+        local = {self.devices[i] for i in range(len(self.devices))
+                 if mesh.local(i)}
+        distinct = len(local)
+        if distinct not in (1, mesh.size) or (self.multi and distinct > 1):
             raise ValueError(
-                f"mesh {dict(shape)} over {distinct} distinct devices: the "
-                "shards must sit all on one device or each on its own")
+                f"mesh {dict(shape)} over {distinct} distinct devices in "
+                "this process: the shards must sit all on one device or "
+                "each on its own (across processes: a process's on one)")
         self.one_device = distinct == 1
         self.kv_split = cfg.n_kv_heads % t == 0
         self.cfg = local_cfg(cfg, t)
+        # Attention runs on the shards of this process's first expert.
+        first = self.shards[0] // t
+        self.n_attn = sum(1 for s in self.shards if s // t == first)
+
+    def _own(self, mesh) -> None:
+        """This process's part of the grid: its data group, its shards and
+        fsdp positions (a block: every local shard at every local fsdp
+        position) and its process groups."""
+        shape = mesh.shape
+        for axis, why in (("sequence", "the ring over send/recv"),
+                          ("pipe", "the pipelined trainer over processes")):
+            if shape[axis] > 1:
+                raise ValueError(
+                    f"{axis}={shape[axis]} on a mesh across processes: "
+                    f"{why} is queued in ROADMAP.md")
+        if not self.moe and shape["expert"] > 1:
+            raise ValueError(
+                "expert > 1 across processes for a model without experts "
+                "(the axis would only replicate it)")
+        seen = set()
+        for i in range(mesh.size):
+            if mesh.local(i):
+                dd, ff, _, tt, ee, _ = mesh.coords(i)
+                seen.add((dd, ff, (ee * self.t + tt) if self.moe else tt))
+        groups = sorted({x[0] for x in seen})
+        if len(groups) > 1:
+            raise ValueError(
+                f"data={self.d} puts {len(groups)} data groups in one "
+                "process; give each process one")
+        self.data_index = groups[0]
+        self.shards = sorted({x[2] for x in seen})
+        self.fsdp_local = sorted({x[1] for x in seen})
+        if len(seen) != len(self.shards) * len(self.fsdp_local):
+            raise ValueError(
+                f"mesh {dict(shape)}: process {mesh.rank}'s positions are "
+                "not one block of shards by fsdp positions")
+        self.attn_group = mesh.group("tensor")
+        self.mlp_group = mesh.group("tensor", "expert") if self.moe \
+            else self.attn_group
+        self.fsdp_group = mesh.group("fsdp")
+        self.data_group = mesh.group("data")
 
     def group(self, g: int) -> "TensorParallel":
         """Data group ``g``'s grid (this one's, on that group's devices)."""
@@ -193,55 +266,79 @@ class TensorParallel:
         out.data_index = g
         return out
 
-    def device(self, s: int, j: int = 0, f: int = 0) -> torch.device:
-        """Shard ``s``'s device in sequence group ``j`` and at fsdp
-        position ``f`` of this data group (the mesh's axis order, the
-        last axis fastest)."""
+    def _device(self, s: int, j: int = 0, f: int | None = None):
+        """Shard ``s`` (an index into the group)'s device in sequence group
+        ``j`` at fsdp position ``f`` (default: this process's first)."""
         return self.devices[self.mesh.device_index(
-            data=self.data_index, fsdp=f, tensor=s % self.t,
-            expert=s // self.t, sequence=j)]
+            data=self.data_index,
+            fsdp=self.fsdp_local[0] if f is None else f,
+            tensor=s % self.t, expert=s // self.t, sequence=j)]
 
-    def expert_offset(self, s: int) -> int:
-        """The first global expert shard ``s`` holds."""
-        return (s // self.t) * self.local_experts if self.moe else 0
+    def device(self, k: int, j: int = 0, f: int | None = None):
+        """Local shard ``k``'s device in sequence group ``j`` and at fsdp
+        position ``f`` of this data group (the mesh's axis order, the last
+        axis fastest)."""
+        return self._device(self.shards[k], j, f)
 
-    def kv_heads(self, s: int) -> slice:
-        """Tensor shard ``s``'s KV heads in the full layout."""
+    def expert_offset(self, k: int) -> int:
+        """The first global expert local shard ``k`` holds."""
+        return ((self.shards[k] // self.t) * self.local_experts
+                if self.moe else 0)
+
+    def kv_heads(self, k: int) -> slice:
+        """Local attention shard ``k``'s KV heads in the full layout."""
         if not self.kv_split:
             return slice(None)
-        k = self.cfg.n_kv_heads
-        return slice(s * k, (s + 1) * k)
+        n, ti = self.cfg.n_kv_heads, self.shards[k] % self.t
+        return slice(ti * n, (ti + 1) * n)
 
-    def residual(self, hs: list, parts: list) -> list:
+    def residual(self, hs: list, parts: list, attn: bool = False) -> list:
         """The residual stream per shard of a group after a row-parallel
         block: ``hs[s] + sum(parts)``, where a ``None`` part adds nothing
         (the attention of expert shards past the first); summed in shard
-        order on one device (or a group of one shard), by one NCCL
-        all-reduce across cards."""
+        order on one device (or a group of one shard), then over the
+        processes (the attention's group or the MLP's, ``attn``), by one
+        NCCL all-reduce across cards."""
         if self.one_device or len(parts) == 1:
             live = [p for p in parts if p is not None]
             total = live[0]
             for p in live[1:]:
                 total = total + p
+            total = collectives.reduce(
+                total, self.attn_group if attn else self.mlp_group)
             return [hs[0] + total] * len(hs)
         parts = [torch.zeros_like(h) if p is None else p
                  for h, p in zip(hs, parts)]
         torch.cuda.nccl.all_reduce(parts)
         return [h + p for h, p in zip(hs, parts)]
 
-    def on(self, s: int, x, j: int = 0):
-        """``x`` on shard ``s``'s device of group ``j`` (itself where it
-        lies there)."""
+    def enter(self, hs: list, attn: bool = False) -> list:
+        """The residual per shard as it enters a column-parallel block:
+        across processes through ``collectives.copy`` (once per distinct
+        tensor), so its gradient sums every process's shards."""
+        group = self.attn_group if attn else self.mlp_group
+        if group is None:
+            return hs
+        done: dict = {}
+        for h in hs:
+            if id(h) not in done:
+                done[id(h)] = collectives.copy(h, group)
+        return [done[id(h)] for h in hs]
+
+    def on(self, k: int, x, j: int = 0):
+        """``x`` on local shard ``k``'s device of group ``j`` (itself where
+        it lies there)."""
         if x is None or self.one_device:
             return x
-        return x.to(self.device(s, j))
+        return x.to(self.device(k, j))
 
 
 class Shards(list):
-    """One tree per shard of sequence group 0, in shard order, with the
-    ``TensorParallel`` that split them; ``groups[j]`` is group j's trees
-    (``groups[0]`` the list itself) and ``data[g]`` data group g's
-    ``Shards``, each of one data group (without ``data``: this one)."""
+    """One tree per local shard of sequence group 0, in shard order, with
+    the ``TensorParallel`` that split them; ``groups[j]`` is group j's
+    trees (``groups[0]`` the list itself) and ``data[g]`` data group g's
+    ``Shards``, each of one data group (without ``data``: this one;
+    across processes None for the groups of other processes)."""
 
     def __init__(self, trees, tp: TensorParallel, groups=None, data=None):
         super().__init__(trees)
@@ -296,12 +393,15 @@ def gather_streams(streams: dict):
         _local.streams = prev
 
 
-def _gather(pieces: list, axis: int, one_device: bool) -> torch.Tensor:
+def _gather(pieces: list, axis: int, one_device: bool,
+            group=None) -> torch.Tensor:
     """``pieces`` concatenated along ``axis`` on the first piece's
-    device: a ``torch.cat`` on one device, one single-process NCCL
-    all-gather across cards (on the ``gather_streams`` where set)."""
+    device: a ``torch.cat`` on one device (then, across processes, the
+    fsdp gather of every process's), one single-process NCCL all-gather
+    across cards (on the ``gather_streams`` where set)."""
     if one_device:
-        return torch.cat(pieces, dim=axis)
+        x = pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=axis)
+        return collectives.gather(x, axis, group)
     streams = getattr(_local, "streams", None)
     shape = tuple(pieces[0].shape)
     ins = [p.contiguous() for p in pieces]
@@ -320,22 +420,29 @@ def _gather(pieces: list, axis: int, one_device: bool) -> torch.Tensor:
 
 
 class FsdpLeaf:
-    """A leaf split over ``fsdp``: ``pieces[i]`` is fsdp position i's
-    contiguous piece along ``axis`` (negative), on its device.  Indexing
-    a layer (``leaf[i]``, what ``_layer`` and ``lora.layer_slice`` do)
-    gathers that layer whole on position 0's device; ``gather()`` the
-    whole leaf; an assignment (the LoRA slot writes) writes each piece
-    its part, so every buffer keeps its address."""
+    """A leaf split over ``fsdp``: ``pieces[i]`` is fsdp position
+    ``positions[i]``'s contiguous piece along ``axis`` (negative), on its
+    device, of ``total`` pieces (across processes a process holds its own
+    positions only, and ``group`` gathers the rest).  Indexing a layer
+    (``leaf[i]``, what ``_layer`` and ``lora.layer_slice`` do) gathers
+    that layer whole (on position 0's device in one process, on every
+    process across them); ``gather()`` the whole leaf; an assignment (the
+    LoRA slot writes) writes each local piece its part, so every buffer
+    keeps its address."""
 
-    def __init__(self, pieces: list, axis: int, one_device: bool):
+    def __init__(self, pieces: list, axis: int, one_device: bool,
+                 group=None, positions=None, total: int | None = None):
         self.pieces = pieces
         self.axis = axis
         self.one_device = one_device
+        self.group = group
+        self.positions = list(positions or range(len(pieces)))
+        self.total = total or len(pieces)
 
     @property
     def shape(self) -> tuple:
         shape = list(self.pieces[0].shape)
-        shape[self.axis] *= len(self.pieces)
+        shape[self.axis] *= self.total
         return tuple(shape)
 
     @property
@@ -346,18 +453,19 @@ class FsdpLeaf:
         if not isinstance(i, int):
             raise TypeError("an fsdp leaf is indexed by layer only")
         return _gather([p[i] for p in self.pieces], self.axis,
-                       self.one_device)
+                       self.one_device, self.group)
 
     def gather(self) -> torch.Tensor:
-        return _gather(list(self.pieces), self.axis, self.one_device)
+        return _gather(list(self.pieces), self.axis, self.one_device,
+                       self.group)
 
     def __setitem__(self, key, value) -> None:
         n = self.pieces[0].shape[self.axis]
-        for i, p in enumerate(self.pieces):
+        for f, p in zip(self.positions, self.pieces):
             part = value
             if isinstance(value, torch.Tensor) and value.dim() and (
-                    value.shape[self.axis] == n * len(self.pieces)):
-                part = value.narrow(self.axis, i * n, n).to(p.device)
+                    value.shape[self.axis] == n * self.total):
+                part = value.narrow(self.axis, f * n, n).to(p.device)
             p[key] = part
 
 
@@ -371,18 +479,24 @@ def whole(x):
     return x
 
 
-def _fsdp(x, axis: int | None, s: int, j: int, tp: TensorParallel):
+def _fsdp(x, axis: int | None, s: int, j: int, tp: TensorParallel, place,
+          positions=None):
     """Shard ``s``'s leaf ``x`` (group ``j``) split over ``fsdp`` on
-    ``axis`` (None: not split; placed on position 0's device); an int8
-    leaf's scale splits only where its spec keeps the axis (not the
-    contracted one, -2)."""
+    ``axis`` (None: not split; placed on this process's first fsdp
+    position's device), its pieces at ``positions`` (default: this
+    process's) placed by ``place(x, device)``; an int8 leaf's scale
+    splits only where its spec keeps the axis (not the contracted one,
+    -2)."""
     if is_quantized(x):
-        return {"q": _fsdp(x["q"], axis, s, j, tp),
-                "s": _fsdp(x["s"], axis if axis == -1 else None, s, j, tp)}
+        return {"q": _fsdp(x["q"], axis, s, j, tp, place, positions),
+                "s": _fsdp(x["s"], axis if axis == -1 else None, s, j, tp,
+                           place, positions)}
     if axis is None or tp.f == 1:
-        return _place(x, tp.device(s, j), tp)
-    return FsdpLeaf([_place(_split(x, axis, f, tp.f), tp.device(s, j, f), tp)
-                     for f in range(tp.f)], axis, tp.one_device)
+        return place(x, tp._device(s, j))
+    positions = tp.fsdp_local if positions is None else positions
+    return FsdpLeaf([place(_split(x, axis, f, tp.f), tp._device(s, j, f))
+                     for f in positions], axis, tp.one_device,
+                    tp.fsdp_group, positions, tp.f)
 
 
 def _split(x: torch.Tensor, axis: int | None, s: int, t: int) -> torch.Tensor:
@@ -392,18 +506,35 @@ def _split(x: torch.Tensor, axis: int | None, s: int, t: int) -> torch.Tensor:
     return x.narrow(axis, s * n, n)
 
 
-def _place(x, dev: torch.device, tp: TensorParallel):
-    """A shard's leaf on its device: the view itself on one device (the
-    tree is there already, ``_on_device``), a copy on another card."""
-    if tp.one_device:
-        return x
-    return x.to(dev).contiguous()
+def _placer(tp: TensorParallel):
+    """``place(x, device)`` for a shard's leaf: the view itself on one
+    device in one process (the tree is there already, ``_on_device``), a
+    copy on another card; across processes a contiguous copy of its own,
+    so the caller's tree can be freed.  One region of the source on one
+    device is placed once: shards share their whole leaves (an fsdp piece
+    of ``lm_head`` too, whose view each shard cuts anew) as one tensor."""
+    memo: dict = {}
+
+    def place(x, dev):
+        key = (x.data_ptr(), x.dtype, tuple(x.shape), x.stride(),
+               str(x.device), str(dev))
+        if key not in memo:
+            if tp.multi:
+                y = torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
+            elif tp.one_device:
+                y = x
+            else:
+                y = x.to(dev).contiguous()
+            memo[key] = (x, y)
+        return memo[key][1]
+    return place
 
 
 def _on_device(tree, tp: TensorParallel):
-    """Shards on one device: the whole tree moved there once (a no-op for
-    a tree already there), so their leaves are views of one copy."""
-    if not tp.one_device:
+    """Shards on one device in one process: the whole tree moved there
+    once (a no-op for a tree already there), so their leaves are views of
+    one copy."""
+    if not tp.one_device or tp.multi:
         return tree
     if isinstance(tree, dict):
         return {k: _on_device(v, tp) for k, v in tree.items()}
@@ -441,15 +572,15 @@ def _layer_axis(name: str, tp: TensorParallel) -> int | None:
 
 def _grid(tp: TensorParallel, tree: Callable[[int, int], dict],
           shares: Callable[[int], int]) -> Shards:
-    """The ``Shards`` of ``tree(s, j)`` over every shard and sequence
-    group of one data group; on one device group j is group 0, and shard
-    ``s`` takes shard ``shares(s)``'s tree where the two hold the same
-    leaves."""
+    """The ``Shards`` of ``tree(s, j)`` over this process's shards and
+    every sequence group of one data group; on one device group j is
+    group 0, and shard ``s`` takes shard ``shares(s)``'s tree where the
+    two hold the same leaves."""
     groups = []
     for j in range(1 if tp.one_device else tp.n):
         made: dict = {}
         group = []
-        for s in range(tp.g):
+        for s in tp.shards:
             key = shares(s) if tp.one_device else s
             if key not in made:
                 made[key] = tree(s, j)
@@ -463,7 +594,12 @@ def _data_grid(tp: TensorParallel,
                grid: Callable[[TensorParallel], Shards]) -> Shards:
     """``grid(tp of group g)`` for every data group, joined in one
     ``Shards`` (``data[g]``); on one device every group's trees are group
-    0's."""
+    0's; across processes only this process's group is made."""
+    if tp.multi:
+        out: list = [None] * tp.d
+        out[tp.data_index] = grid(tp)
+        mine = out[tp.data_index]
+        return Shards(list(mine), tp, mine.groups, out)
     out = [grid(tp)]
     for g in range(1, tp.d):
         tg = tp.group(g)
@@ -472,22 +608,25 @@ def _data_grid(tp: TensorParallel,
     return Shards(list(out[0]), tp, out[0].groups, out)
 
 
+def _param_tree(params: dict, s: int, j: int, tp: TensorParallel, place,
+                positions=None) -> dict:
+    """Shard ``s``'s params tree (group ``j``)."""
+    out = {k: _fsdp(v, _FSDP_TOP.get(k), s, j, tp, place, positions)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = {
+        name: _fsdp(_leaf(leaf, _layer_axis(name, tp), s, tp,
+                          tp.moe and name in _EXPERT_LEAVES),
+                    _FSDP_LAYER.get(name), s, j, tp, place, positions)
+        for name, leaf in params["layers"].items()}
+    return out
+
+
 def shard_params(params: dict, tp: TensorParallel) -> Shards:
     """The per-shard trees of a port params tree (dense or int8)."""
     params = _on_device(params, tp)
-
-    def grid(tg):
-        def tree(s, j):
-            out = {k: _fsdp(v, _FSDP_TOP.get(k), s, j, tg)
-                   for k, v in params.items() if k != "layers"}
-            out["layers"] = {
-                name: _fsdp(_leaf(leaf, _layer_axis(name, tg), s, tg,
-                                  tg.moe and name in _EXPERT_LEAVES),
-                            _FSDP_LAYER.get(name), s, j, tg)
-                for name, leaf in params["layers"].items()}
-            return out
-        return _grid(tg, tree, lambda s: s)
-    return _data_grid(tp, grid)
+    place = _placer(tp)
+    return _data_grid(tp, lambda tg: _grid(
+        tg, lambda s, j: _param_tree(params, s, j, tg, place), lambda s: s))
 
 
 def _lora_axis(key: str, tp: TensorParallel) -> int | None:
@@ -501,18 +640,105 @@ def _lora_axis(key: str, tp: TensorParallel) -> int | None:
     return None
 
 
+def _lora_tree(bufs: dict, s: int, j: int, tp: TensorParallel, place,
+               positions=None) -> dict:
+    """Shard ``s``'s LoRA slot buffers (group ``j``)."""
+    return {k: _fsdp(_leaf(v, _lora_axis(k, tp), s, tp), _FSDP_LORA.get(k),
+                     s, j, tp, place, positions)
+            for k, v in bufs.items()}
+
+
 def shard_lora(bufs: dict, tp: TensorParallel) -> Shards:
     """The per-shard LoRA slot buffers of a full buffer tree (an expert
     shard's are its tensor shard's: expert stacks take no LoRA)."""
     bufs = _on_device(bufs, tp)
+    place = _placer(tp)
+    return _data_grid(tp, lambda tg: _grid(
+        tg, lambda s, j: _lora_tree(bufs, s, j, tg, place),
+        lambda s: s % tg.t))
 
-    def grid(tg):
-        def tree(s, j):
-            return {k: _fsdp(_leaf(v, _lora_axis(k, tg), s, tg),
-                             _FSDP_LORA.get(k), s, j, tg)
-                    for k, v in bufs.items()}
-        return _grid(tg, tree, lambda s: s % tg.t)
-    return _data_grid(tp, grid)
+
+def _tensors(leaf) -> list:
+    """The tensors of a leaf: an ``FsdpLeaf``'s local pieces, an int8
+    leaf's parts."""
+    if isinstance(leaf, FsdpLeaf):
+        return list(leaf.pieces)
+    if isinstance(leaf, dict):
+        return [t for v in leaf.values() for t in _tensors(v)]
+    return [leaf]
+
+
+def tensor_replicated(tree: Shards) -> list:
+    """The distinct local tensors of a params or LoRA ``Shards`` that
+    every tensor shard holds whole and uses inside its blocks: the layer
+    leaves ``tensor`` does not split (norms, the router, replicated K/V
+    projections) and the LoRA buffers it does not split, ``scale`` aside.
+    Across processes each process's gradient of them is its shards'
+    part."""
+    tp = tree.tp
+    out, seen = [], set()
+    for t in tree:
+        if "layers" in t:
+            leaves = [leaf for name, leaf in t["layers"].items()
+                      if _layer_axis(name, tp) is None]
+        else:
+            leaves = [v for k, v in t.items()
+                      if k != "scale" and _lora_axis(k, tp) is None]
+        for x in (x for leaf in leaves for x in _tensors(leaf)):
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+    return out
+
+
+def _walk(tree, path=()):
+    """(path, leaf) over a nested dict, an ``FsdpLeaf`` or a tensor being
+    a leaf."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def unshard(tree: Shards, like: dict) -> dict:
+    """The whole tree a params or LoRA ``Shards`` holds, on the host in
+    every process: ``like`` (a whole tree of the same layout, the one that
+    was sharded for instance) copied and overwritten with every shard's
+    values, gathered from every process.  For checks and exports."""
+    tp = tree.tp
+    mine = {}
+    for s, t in zip(tp.shards, tree):
+        for path, leaf in _walk(t):
+            if isinstance(leaf, FsdpLeaf):
+                for f, p in zip(leaf.positions, leaf.pieces):
+                    mine[(path, s, f)] = p.detach().cpu()
+            else:
+                mine[(path, s, None)] = leaf.detach().cpu()
+    everyone = [mine]
+    if tp.multi:
+        everyone = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, mine)
+    got = {k: v for part in everyone for k, v in part.items()}
+    out = map_tree(like, lambda x: x.detach().cpu().clone())
+    make = _lora_tree if "scale" in like else _param_tree
+    for s in range(tp.g):
+        views = make(out, s, 0, tp, lambda x, dev: x, list(range(tp.f)))
+        for path, leaf in _walk(views):
+            if isinstance(leaf, FsdpLeaf):
+                for f, p in zip(leaf.positions, leaf.pieces):
+                    if (path, s, f) in got:
+                        p.copy_(got[(path, s, f)])
+            elif (path, s, None) in got:
+                leaf.copy_(got[(path, s, None)])
+    return out
+
+
+def map_tree(tree, fn):
+    """``fn`` over every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
@@ -529,12 +755,14 @@ def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
 
 
 def _all_trees(bufs: Shards) -> list[tuple[int, dict]]:
-    """(tensor shard, tree) for every distinct tree of every sequence
-    and data group."""
+    """(tensor shard, tree) for every distinct local tree of every
+    sequence and data group."""
     out, seen = [], set()
     for data in bufs.data:
+        if data is None:
+            continue
         for group in data.groups:
-            for s, tree in enumerate(group):
+            for s, tree in zip(bufs.tp.shards, group):
                 if id(tree) not in seen:
                     seen.add(id(tree))
                     out.append((s % bufs.tp.t, tree))
@@ -572,8 +800,8 @@ def _cache_rows(cache: dict, start: int, n: int) -> dict:
 
 def shard_cache(make: Callable[..., dict], tp: TensorParallel,
                 rows: int | None = None) -> Shards:
-    """Per-shard caches, one per tensor shard of group 0, ``make(local
-    cfg, device)`` each: KV heads split over the shards, or (MQA)
+    """Per-shard caches, one per local attention shard of group 0
+    (``TensorParallel.n_attn``), ``make(local cfg, device)`` each: KV heads split over the shards, or (MQA)
     replicated — one cache on one device.  Shards on one device share the
     paged tables and the lengths.  Over ``data`` (lanes only) ``rows`` is
     the whole batch: data group g holds rows ``[g * rows / d, (g + 1) *
@@ -585,7 +813,7 @@ def shard_cache(make: Callable[..., dict], tp: TensorParallel,
 
     def grid(tg, n_rows=None):
         trees: list[dict] = []
-        for s in range(tg.t):
+        for s in range(tg.n_attn):
             if s and tg.one_device and not tg.kv_split:
                 trees.append(trees[0])
                 continue

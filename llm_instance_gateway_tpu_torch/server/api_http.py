@@ -104,7 +104,12 @@ from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import CONFIGS
 from llm_instance_gateway_tpu_torch.models.convert import load_serving_checkpoint
 from llm_instance_gateway_tpu_torch.ops.quant import quantize_params
-from llm_instance_gateway_tpu_torch.parallel.mesh import make_mesh, parse_axes
+from llm_instance_gateway_tpu_torch.parallel.mesh import (
+    initialize_distributed,
+    make_mesh,
+    parse_axes,
+    world,
+)
 from llm_instance_gateway_tpu_torch.server import metrics as metrics_mod
 from llm_instance_gateway_tpu_torch.server.engine import (
     Engine,
@@ -1417,8 +1422,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "largest bucket); pipe is refused for serving (it "
                         "is the pipelined trainer's, parallel/pipeline.py). "
                         "On the card it takes that many CUDA devices; with "
-                        "--device cpu every shard sits on the CPU. Default: "
-                        "single device.")
+                        "--device cpu every shard sits on the CPU. Across "
+                        "processes (TPU_GATEWAY_COORDINATOR, "
+                        "TPU_GATEWAY_PROCESS_ID, TPU_GATEWAY_NUM_PROCESSES) "
+                        "each process takes its share. Default: single "
+                        "device.")
     p.add_argument("--no-cuda-graphs", action="store_true",
                    help="run the decode and spec blocks eagerly instead of "
                         "replaying CUDA graphs of them; a mesh whose shards "
@@ -1562,9 +1570,12 @@ def make_server(argv=None, params=None, draft_params=None,
         logger.info("weights quantized to int8 (per output channel)")
     mesh = None
     if args.mesh:
+        # A no-op in one process; the world of the env contract otherwise
+        # (TPU_GATEWAY_COORDINATOR / _PROCESS_ID / _NUM_PROCESSES).
+        initialize_distributed()
         mesh_cfg = parse_axes(args.mesh)
         if mesh_devices is None and args.device == "cpu":
-            mesh_devices = ["cpu"] * mesh_cfg.total
+            mesh_devices = ["cpu"] * (mesh_cfg.total // world()[1])
         mesh = make_mesh(mesh_cfg, mesh_devices)
         logger.info("serving sharded over mesh %s on %s", mesh.shape,
                     [str(d) for d in mesh.devices])

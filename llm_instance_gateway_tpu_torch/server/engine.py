@@ -85,7 +85,14 @@ synchronous loop and the pipelined one).
   copy.  Shards on one card share one CUDA graph per block; shards on
   distinct cards (their partials summed by single-process NCCL) are
   served eagerly, ``cuda_graphs=False``, as graphs across cards are
-  queued.
+  queued.  A mesh across processes (``parallel/mesh.initialize_
+  distributed``) runs one engine per process in lockstep, as the
+  reference's multi-controller engine does: each holds its own shards
+  and issues the same collectives in the same order, so every request is
+  submitted to every process before ``start()``, sampling is greedy or
+  seeded alike, and the sync loop runs eagerly; ``tensor``, ``expert``
+  and ``fsdp`` may span processes, and every process reads back the same
+  tokens (``parallel/multihost_check.py``).
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.
@@ -387,7 +394,7 @@ class Engine:
         self.mesh = mesh
         self.tp = self._tensor_parallel(model_cfg, mesh, cuda_graphs)
         if self.tp is not None:
-            device = self.tp.devices[0]
+            device = self.tp.device(0)
             params = sharding.shard_params(params, self.tp)
             if lora_manager is not None:
                 lora_manager.place(self.tp)
@@ -577,6 +584,9 @@ class Engine:
                 "decode rows (the reference replicates such a batch and "
                 "runs XLA attention; the port runs attention only through "
                 "its kernels, on each group's rows)")
+        if mesh.spans_processes:
+            self._lockstep_rules(shape, cuda_graphs and any(
+                d.type == "cuda" for d in mesh.devices))
         tp = sharding.TensorParallel(model_cfg, mesh)
         if (cuda_graphs and not tp.one_device
                 and any(d.type == "cuda" for d in tp.devices)):
@@ -586,6 +596,41 @@ class Engine:
                 "ROADMAP.md; place every shard on one card, or serve "
                 "eagerly (cuda_graphs=False, --no-cuda-graphs)")
         return tp
+
+    def _lockstep_rules(self, shape: dict, cuda_graphs: bool) -> None:
+        """The serving rules of a mesh across processes, each refused by
+        name: ``data`` (a value the host reads must be fully replicated,
+        the reference's rule, and a data group's rows live on one
+        process), ``sequence`` (the ring across processes is queued),
+        CUDA graphs (queued, as across cards), and the host decisions
+        that read the clock or the device's progress rather than the
+        queue (the pipelined loop, the adaptive planner, the handoff TTL
+        sweep): one process deciding otherwise than another hangs both
+        inside a collective."""
+        for axis, why in (
+                ("data", "every value the host reads must be fully "
+                         "replicated, and a data group's rows would live on "
+                         "one process; run data-parallel replicas as "
+                         "separate engines"),
+                ("sequence", "the ring across processes is queued in "
+                             "ROADMAP.md")):
+            if shape.get(axis, 1) > 1:
+                raise ValueError(f"{axis}={shape[axis]} on a mesh across "
+                                 f"processes: {why}")
+        if cuda_graphs:
+            raise ValueError(
+                "CUDA graphs across processes are queued in ROADMAP.md "
+                "(as across cards); serve eagerly (cuda_graphs=False, "
+                "--no-cuda-graphs)")
+        for name, on in (("pipeline_decode", self.cfg.pipeline_decode),
+                         ("adaptive_steps", self.cfg.adaptive_steps > 0),
+                         ("handoff_ttl_s", self.cfg.handoff_ttl_s > 0)):
+            if on:
+                raise ValueError(
+                    f"{name} on a mesh across processes: its decisions "
+                    "read the clock or the device's progress, which the "
+                    "processes do not share (lockstep serving runs the "
+                    "sync loop)")
 
     def _make_cache(self, make):
         """``make(cfg, device, rows)``'s cache, per shard under a mesh (a

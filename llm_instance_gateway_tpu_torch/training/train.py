@@ -23,9 +23,25 @@ Differences from the reference, by design:
 - a leaf the loss does not reach gets a zero gradient, not ``None``, so
   the update (weight decay included) touches every leaf as optax's does.
 The pipelined trainer is ``parallel/pipeline.py`` (GPipe over ``pipe``,
-its loss through ``logits_fn``, its step through ``make_step``).  The
-sharded recipe across cards (params over an fsdp/tensor mesh, one jitted
-program) is queued in ROADMAP.md.
+its loss through ``logits_fn``, its step through ``make_step``).
+
+The sharded recipe (the reference's: params over ``fsdp`` and ``tensor``,
+the batch's rows over ``data``, the optimizer state like the params): the
+steps take a ``parallel/sharding.Shards`` tree as well as a plain one,
+and ``make_optimizer`` of a ``Shards`` holds the AdamW state of its
+leaves only.  In one process the shards are views of the caller's tree on
+one device (the caller's tree is what updates); across processes each
+process holds, computes and updates its own shards, one device each
+(``parallel/mesh.initialize_distributed``).  The loss is the reference's
+global masked mean: each data group's masked sum over the count of real
+targets all-reduced over ``data``, summed over ``data``
+(``collectives.reduce``: its backward is the identity, the loss being
+replicated).  After the backward a process sums over ``data`` every
+leaf's gradient, and over ``tensor`` the gradients of the leaves every
+tensor shard holds whole (``sharding.tensor_replicated``), so replicated
+leaves come out equal on every rank; the fsdp gather's backward leaves
+each piece its own.  ``expert``, ``sequence`` and ``pipe`` across
+processes are refused by name (queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ import torch
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
+from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
 from llm_instance_gateway_tpu_torch.server.lora_manager import save_adapter
 
 # optax.adamw's defaults (b1, b2, eps; eps_root is 0).
@@ -51,27 +68,99 @@ def causal_lm_loss(cfg: ModelConfig, params, tokens, positions, lora_bufs=None,
     Position 0 repeated marks padding (the serving convention); the mask
     keeps pad targets out of the mean.  ``logits_fn(params, tokens,
     positions) -> [B, S, V]`` swaps the forward, so the shift/mask
-    convention stays defined in one place."""
+    convention stays defined in one place.  A ``Shards`` ``params`` takes
+    the sharded recipe (module docstring)."""
+    if logits_fn is None and isinstance(params, sharding.Shards):
+        return _sharded_loss(cfg, params, tokens, positions, lora_bufs,
+                             slot_ids)
     if logits_fn is None:
         def logits_fn(p, t, pos):
             return transformer.prefill(
                 cfg, p, t, pos, lora_bufs=lora_bufs, slot_ids=slot_ids)[0]
 
     logits = logits_fn(params, tokens[:, :-1], positions[:, :-1])
+    total, count = _masked_sum(logits, tokens, positions)
+    return total / count.clamp_min(1.0)
+
+
+def _masked_sum(logits: torch.Tensor, tokens, positions) -> tuple:
+    """(the negative log-likelihood summed over the real targets, their
+    count)."""
     targets = tokens[:, 1:].long()
     mask = (positions[:, 1:] > 0).float()
     logp = torch.log_softmax(logits, dim=-1)
     token_logp = logp.gather(-1, targets[..., None])[..., 0]
-    return -(token_logp * mask).sum() / mask.sum().clamp_min(1.0)
+    return -(token_logp * mask).sum(), mask.sum()
+
+
+def _check_trainable(tp: sharding.TensorParallel) -> None:
+    """The sharded step's layouts: each process's shards on one device,
+    ``pipe`` left to the pipelined trainer, ``expert`` inside a process
+    (``sequence`` and ``pipe`` across processes ``TensorParallel``
+    refuses)."""
+    if not tp.one_device:
+        raise ValueError(
+            "a sharded train step runs each process's shards on one device: "
+            "across cards run one process per card "
+            "(parallel/mesh.initialize_distributed)")
+    if tp.mesh.shape["pipe"] > 1:
+        raise ValueError("pipe > 1 is the pipelined trainer's "
+                         "(parallel/pipeline.make_pipeline_train_step)")
+    if tp.multi and tp.moe and len({s // tp.t for s in tp.shards}) < tp.e:
+        raise ValueError(
+            f"expert={tp.e} across processes in training: the experts' "
+            "all-to-all over processes is queued in ROADMAP.md")
+
+
+def _sharded_loss(cfg: ModelConfig, params: sharding.Shards, tokens,
+                  positions, lora_bufs, slot_ids) -> torch.Tensor:
+    """The global masked mean over a ``Shards`` tree: each data group (this
+    process's, across processes) its rows, the sum and the count of real
+    targets summed over ``data``."""
+    tp = params.tp
+    _check_trainable(tp)
+    b = tokens.shape[0]
+    if b % tp.d:
+        raise ValueError(f"a batch of {b} rows over data={tp.d}")
+    per = b // tp.d
+    dev = tp.device(0)
+    total = count = None
+    for g in ([tp.data_index] if tp.multi else range(tp.d)):
+        rows = slice(g * per, (g + 1) * per)
+        tok, pos = tokens[rows].to(dev), positions[rows].to(dev)
+        sids = None if slot_ids is None else slot_ids[rows].to(dev)
+        logits = transformer.prefill(
+            cfg, params, tok[:, :-1], pos[:, :-1], lora_bufs=lora_bufs,
+            slot_ids=sids, data_group=g)[0].to(dev)
+        t, c = _masked_sum(logits, tok, pos)
+        total, count = ((t, c) if total is None
+                        else (total + t, count + c))
+    count = collectives.all_reduce(count, tp.data_group)
+    return collectives.reduce(total, tp.data_group) / count.clamp_min(1.0)
 
 
 def _leaves(tree) -> list:
-    """The floating tensors of a nested dict (or list: a staged leaf's
-    stages across cards), in the tree's order."""
+    """The distinct floating tensors of a nested dict, a ``Shards`` (its
+    local trees, an ``FsdpLeaf``'s local pieces) or a list (a staged
+    leaf's stages across cards), in the tree's order."""
+    out, seen = [], set()
+    for leaf in _walk(tree):
+        if leaf.is_floating_point() and id(leaf) not in seen:
+            seen.add(id(leaf))
+            out.append(leaf)
+    return out
+
+
+def _walk(tree):
     if isinstance(tree, torch.Tensor):
-        return [tree] if tree.is_floating_point() else []
+        yield tree
+        return
+    if isinstance(tree, sharding.FsdpLeaf):
+        yield from tree.pieces
+        return
     values = tree if isinstance(tree, (list, tuple)) else tree.values()
-    return [leaf for v in values for leaf in _leaves(v)]
+    for v in values:
+        yield from _walk(v)
 
 
 def make_optimizer(params, lr: float = 1e-4,
@@ -90,12 +179,22 @@ def _check_held(optimizer: torch.optim.Optimizer, leaves: list) -> None:
                          "leaves (build it with make_optimizer(tree))")
 
 
-def _set_grads(loss: torch.Tensor, leaves: list) -> None:
+def _set_grads(loss: torch.Tensor, leaves: list, tree=None) -> None:
     """Each leaf's ``.grad``: d loss / d leaf, zeros where the loss does
-    not reach it."""
+    not reach it; for a ``Shards`` ``tree``, summed over the processes
+    that hold the leaf's other parts (module docstring)."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     for t, g in zip(leaves, grads):
         t.grad = torch.zeros_like(t) if g is None else g
+    if not isinstance(tree, sharding.Shards):
+        return
+    tp = tree.tp
+    if tp.mlp_group is not None:
+        for t in sharding.tensor_replicated(tree):
+            t.grad = collectives.all_reduce(t.grad, tp.mlp_group)
+    if tp.data_group is not None:
+        for t in leaves:
+            t.grad = collectives.all_reduce(t.grad, tp.data_group)
 
 
 def make_step(optimizer: torch.optim.Optimizer, loss_fn):
@@ -111,7 +210,7 @@ def make_step(optimizer: torch.optim.Optimizer, loss_fn):
             for t in leaves:
                 t.requires_grad_(True)
             loss = loss_fn(params, tokens, positions)
-            _set_grads(loss, leaves)
+            _set_grads(loss, leaves, params)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return params, opt_state, loss.detach()
@@ -136,17 +235,20 @@ def make_lora_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
 
     def step(params, lora_bufs, opt_state, tokens, positions, slot_ids):
         _check_held(optimizer, _leaves(lora_bufs))
-        trainable = [t for key, t in lora_bufs.items() if key != "scale"]
+        scales = _leaves([t["scale"] for t in sharding.parts(lora_bufs)])
+        held = {id(t) for t in scales}
+        trainable = [t for t in _leaves(lora_bufs) if id(t) not in held]
         with torch.enable_grad():
             for t in trainable:
                 t.requires_grad_(True)
             loss = causal_lm_loss(cfg, params, tokens, positions,
                                   lora_bufs=lora_bufs, slot_ids=slot_ids)
-            _set_grads(loss, trainable)
+            _set_grads(loss, trainable, lora_bufs)
         # The scale vector is serving metadata (alpha/r), not a trainable:
         # an explicit zero gradient keeps it in the update, as optax's
         # zeroed leaf does, so weight decay > 0 decays it there too.
-        lora_bufs["scale"].grad = torch.zeros_like(lora_bufs["scale"])
+        for t in scales:
+            t.grad = torch.zeros_like(t)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
         return lora_bufs, opt_state, loss.detach()

@@ -2093,3 +2093,175 @@ def test_pipe4_full_8b_steps_across_cards():
     print("[pipe4] " + json.dumps(out), flush=True)
     assert all(math.isfinite(x) for x in losses)
     assert losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# one process a card (parallel/mesh.initialize_distributed, NCCL)
+# ---------------------------------------------------------------------------
+
+# Each of n processes holds one card (cuda:{rank}) and its shard; the
+# collectives between them run over NCCL (parallel/collectives.py).
+PROCESSES_WORKER = r"""
+import dataclasses, json, math, os, sys, time
+sys.path.insert(0, os.environ["GRAFT_REPO"])
+import torch
+from llm_instance_gateway_tpu_torch.models import lora, transformer
+from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+from llm_instance_gateway_tpu_torch.ops import flash_attention as fl
+from llm_instance_gateway_tpu_torch.parallel import multihost_check, sharding
+from llm_instance_gateway_tpu_torch.parallel.mesh import (
+    initialize_distributed, make_mesh, parse_axes, world)
+from llm_instance_gateway_tpu_torch.server.engine import (
+    Engine, EngineConfig, Request, SamplingParams)
+from llm_instance_gateway_tpu_torch.training import train
+
+initialize_distributed()
+rank, size = world()
+dev = torch.device("cuda", rank)
+torch.cuda.set_device(dev)
+case = os.environ["GRAFT_CASE"]
+mesh = make_mesh(parse_axes(os.environ["GRAFT_MESH"]), [str(dev)])
+out = {"rank": rank, "card": torch.cuda.get_device_name(dev),
+       "backend": sorted({g.backend for g in mesh.groups.values()})}
+if case == "serve":
+    cfg = dataclasses.replace(LLAMA3_8B, **json.loads(os.environ["GRAFT_CFG"]))
+    eng = Engine(cfg, multihost_check.load_tree(os.environ["GRAFT_WEIGHTS"],
+                                                dev),
+                 EngineConfig(decode_slots=4, max_seq_len=256,
+                              prefill_buckets=(16, 64),
+                              decode_steps_per_sync=4),
+                 eos_id=None, dtype=torch.float32, device=dev, mesh=mesh,
+                 cuda_graphs=False)
+    reqs = [Request(prompt_tokens=p, max_new_tokens=m,
+                    sampling=SamplingParams(temperature=0.0))
+            for p, m in json.loads(os.environ["GRAFT_JOBS"])]
+    for r in reqs:
+        eng.submit(r)
+    eng.start()
+    try:
+        for r in reqs:
+            assert r.done.wait(300) and r.error is None, r.error
+    finally:
+        eng.stop()
+    out["tokens"] = [list(r.output_tokens) for r in reqs]
+else:  # ten Llama-3-8B steps: "lora" (rank 8) or "full"
+    cfg = LLAMA3_8B
+    tp = sharding.TensorParallel(cfg, mesh)
+    full = transformer.init_params(cfg, seed=17, device=dev)
+    params = sharding.shard_params(full, tp)
+    del full
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device=dev,
+                           generator=gen)
+    positions = torch.arange(1024, device=dev).repeat(2, 1)
+    if case == "lora":
+        bufs = lora.init_lora_buffers(cfg, torch.bfloat16, dev)
+        for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+            bufs[f"{t}_a"][:, 0, :, :8] = (torch.randn(
+                (cfg.n_layers, d_in, 8), device=dev, generator=gen)
+                / math.sqrt(d_in)).to(torch.bfloat16)
+        bufs["scale"][0] = 2.0
+        bufs = sharding.shard_lora(bufs, tp)
+        opt = train.make_optimizer(bufs, lr=1e-3)
+        step = train.make_lora_train_step(cfg, opt)
+        slots = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def run():
+            return step(params, bufs, opt.state, tokens, positions, slots)[2]
+    else:
+        opt = train.make_optimizer(params, lr=1e-4)
+        step = train.make_full_train_step(cfg, opt)
+
+        def run():
+            return step(params, opt.state, tokens, positions)[2]
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    f0, b0 = fl.launches, fl.backward_launches
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(run().item())
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_wall_s=walls,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               flash_launches=fl.launches - f0,
+               backward_launches=fl.backward_launches - b0)
+print("[processes] " + json.dumps(out), flush=True)
+"""
+
+
+def _processes(n: int, case: str, axes: str, env=None) -> list:
+    """The worker's result per process, ``n`` processes one card each."""
+    import json
+
+    from llm_instance_gateway_tpu_torch.parallel import multihost_check
+
+    outs = multihost_check.run_processes(
+        PROCESSES_WORKER, n, n_local=1, timeout_s=600,
+        env={"GRAFT_CASE": case, "GRAFT_MESH": axes, **(env or {})})
+    return [json.loads(line.split(" ", 1)[1])
+            for line in multihost_check.ok_lines(outs, "[processes] ")]
+
+
+@pytest.mark.parametrize("axes", ["tensor=4", "fsdp=2,tensor=2"])
+def test_processes_serve_as_one_process_across_cards(narrow, tmp_path, axes):
+    """Four processes, one card each, NCCL between them, the narrow f32
+    model with four KV heads (so tensor=4 splits them) at ``axes``: every
+    process reads back the greedy tokens of the one-process engine that
+    drives the same mesh over the four cards."""
+    import dataclasses
+    import json
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.parallel import mesh, multihost_check
+
+    cards = _cards(4)
+    cfg = dataclasses.replace(narrow[torch.float32][0], n_kv_heads=4)
+    params = transformer.init_params(cfg, seed=6, dtype=torch.float32,
+                                     device="cuda")
+    weights = str(tmp_path / "weights.npz")
+    multihost_check.save_tree(weights, params)
+    jobs = _jobs()
+    ref = _serve_queued(_mesh_engine(
+        narrow, 1, torch.float32, graphs=False, devices=cards,
+        params=params, model_cfg=cfg,
+        axes={k: int(v) for k, v in dataclasses.asdict(
+            mesh.parse_axes(axes)).items() if int(v) > 1}), jobs)
+    fields = {k: getattr(cfg, k) for k in (
+        "name", "d_model", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+        "d_ff", "vocab_size", "max_lora_slots", "max_lora_rank")}
+    res = _processes(4, "serve", axes, {
+        "GRAFT_CFG": json.dumps(fields), "GRAFT_WEIGHTS": weights,
+        "GRAFT_JOBS": json.dumps([[p, m] for p, m, _ in jobs])})
+    assert all(r["backend"] == ["nccl"] for r in res), res
+    for r in res:
+        assert r["tokens"] == [list(t) for t in ref], (r["rank"], axes)
+
+
+@pytest.mark.parametrize("case,axes", [("lora", "data=2,tensor=2"),
+                                       ("full", "fsdp=4")])
+def test_processes_8b_steps_across_cards(case, axes):
+    """Ten Llama-3-8B steps (two 1024-token rows, bf16) across four
+    processes, one card each: the rank-8 LoRA step at data=2,tensor=2 and
+    the full-parameter step of the whole 32-layer model at fsdp=4 (it
+    does not fit one card).  The loss falls and is the same on every
+    process, flash and its backward launch once per layer per step on
+    each; prints (``[processes4]``) losses, step walls and peak memory
+    per card."""
+    import json
+
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+
+    _cards(4)
+    res = _processes(4, case, axes)
+    print("[processes4] " + json.dumps({"case": case, "axes": axes,
+                                        "ranks": res}), flush=True)
+    losses = [r["losses"] for r in res]
+    assert all(x == losses[0] for x in losses), losses
+    assert all(math.isfinite(x) for x in losses[0])
+    assert losses[0][-1] < losses[0][0], losses[0]
+    for r in res:
+        assert r["backend"] == ["nccl"]
+        assert r["flash_launches"] == 10 * LLAMA3_8B.n_layers
+        assert r["backward_launches"] == 10 * LLAMA3_8B.n_layers
