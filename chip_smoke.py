@@ -233,6 +233,17 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    1024-token row): two steps with flash and the backward at exactly 16
    x 2 launches each, the first step's loss and update against the
    unpipelined step's, walls and peak memory;
+19. processes — the port across two processes on cuda:0, gloo between
+   them (``phase_processes``, after phase 18's pipe half): ``--mesh
+   tensor=2`` served in lockstep and its decode logits against one
+   process's with planted faults, the 8B LoRA step at tensor=2 and
+   data=2; ``--mesh sequence=2`` (each process a whole 8B tree and its
+   own lane cache): the 6001-token prompt in one ring program a process,
+   its K/V exchanged, tokens equal across the ranks, the ring's last
+   logits against one process's ring with a dropped block and reversed
+   blocks planted; two 8B LoRA steps at sequence=2 (the ring, no kernel
+   launched) and two at expert=2 on Mixtral-8x7B's widths at 4 layers,
+   each against the one-process step;
 
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
@@ -5795,6 +5806,21 @@ PROC_TRAIN_STEPS = 3
 # dropped (its wo zeroed), and the ranks' wo shards swapped.
 PROC_FAULTS = ("partial_dropped", "shards_swapped")
 PROC_TIMEOUT_S = 600
+# ``--mesh sequence=2`` across the two processes: the lane window at
+# phase 17's context, its 6001-token prompt (one ring program, padded to
+# 6144: 3072 positions a process) and two bucketed ones.
+PROC_SEQ_PROMPTS = (6001, 120, 700)
+PROC_SEQ_MAX_LEN = 8192
+PROC_SEQ_TRAIN_STEPS = 2  # LoRA steps at sequence=2 (512 positions each)
+# Faults planted in the ring across the processes (the last-token logits
+# must fail MESH_LOGIT_TOL): block 1 folded without block 0's K/V (a
+# dropped block), and the exchanged blocks folded in reverse order.
+PROC_SEQ_FAULTS = ("block_dropped", "blocks_reversed")
+# ``expert=2`` LoRA steps on Mixtral-8x7B's widths cut to this depth (its
+# 32 layers are ~93 GB in bf16; 4 layers are ~12 GB, a process holding
+# half the experts, 4 of 8).
+PROC_MOE_LAYERS = 4
+PROC_MOE_TRAIN_STEPS = 2
 
 # The worker each of the two processes runs (``multihost_check.
 # run_two_process``): it imports the port and this script's helpers only.
@@ -5804,11 +5830,16 @@ sys.path.insert(0, os.environ["GRAFT_REPO"])
 import torch
 import torch.distributed as dist
 import chip_smoke as s
+import dataclasses
 from llm_instance_gateway_tpu_torch.models import lora, transformer
 from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
-from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
+from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
+from llm_instance_gateway_tpu_torch.parallel import (
+    collectives, long_context, sharding)
 from llm_instance_gateway_tpu_torch.parallel.mesh import (
     Mesh, MeshConfig, initialize_distributed, make_mesh, world)
+from llm_instance_gateway_tpu_torch.parallel.ring_attention import (
+    ring_attention_blocks)
 from llm_instance_gateway_tpu_torch.server.engine import (
     Engine, EngineConfig, Request, SamplingParams)
 from llm_instance_gateway_tpu_torch.training import train
@@ -5831,6 +5862,12 @@ train_tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device=dev,
                              generator=gen)
 train_pos = torch.arange(1024, device=dev).repeat(2, 1)
 slot_ids = torch.zeros(2, dtype=torch.int32, device=dev)
+seq_prompts = [torch.randint(1, cfg.vocab_size, (n,), device=dev,
+                             generator=gen).tolist()
+               for n in s.PROC_SEQ_PROMPTS]
+moe_cfg = dataclasses.replace(MIXTRAL_8X7B, n_layers=s.PROC_MOE_LAYERS)
+moe_tokens = torch.randint(0, moe_cfg.vocab_size, (2, 1024), device=dev,
+                           generator=gen)
 
 
 def mark(what):
@@ -5844,19 +5881,19 @@ def free():
     torch.cuda.empty_cache()
 
 
-def engine_for(params, mesh):
+def engine_for(params, mesh, max_seq_len=1024):
     return Engine(cfg, params, EngineConfig(
-        decode_slots=4, max_seq_len=1024,
+        decode_slots=4, max_seq_len=max_seq_len,
         prefill_buckets=(16, 64, 128, 512, 1024)),
         eos_id=None, dtype=torch.bfloat16, seed=0, device=dev, mesh=mesh,
         cuda_graphs=False)
 
 
-def serve(engine):
+def serve(engine, which=None):
     # Every request submitted before start(): both loops see one queue.
     reqs = [Request(prompt_tokens=list(p), max_new_tokens=s.PROC_NEW,
                     sampling=SamplingParams(temperature=0.0))
-            for p in prompts]
+            for p in which or prompts]
     for r in reqs:
         engine.submit(r)
     steps0 = engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
@@ -5940,12 +5977,12 @@ def timed_step(step, world):
     return row
 
 
-def lora_full():
+def lora_full(c=cfg):
     g = torch.Generator(device=dev).manual_seed(s.PROC_SEED + 1)
-    bufs = lora.init_lora_buffers(cfg, torch.bfloat16, "cuda")
-    for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+    bufs = lora.init_lora_buffers(c, torch.bfloat16, "cuda")
+    for t, (d_in, _d_out) in lora.target_dims(c).items():
         bufs[f"{t}_a"][:, 0, :, :8] = (torch.randn(
-            (cfg.n_layers, d_in, 8), device=dev, generator=g)
+            (c.n_layers, d_in, 8), device=dev, generator=g)
             / math.sqrt(d_in)).to(torch.bfloat16)
     bufs["scale"][0] = 16.0 / 8
     return bufs
@@ -5960,16 +5997,20 @@ def slot0(tree):
     return one(tree)
 
 
-def lora_steps(params, bufs, like):
+def lora_steps(params, bufs, like, c=cfg, tokens=None,
+               steps=s.PROC_TRAIN_STEPS, expected=None):
+    # ``steps`` LoRA steps, the launches exactly ``expected`` (default:
+    # flash and its backward once a layer a step).
     opt = train.make_optimizer(bufs, lr=s.TRAIN_8B_LR, weight_decay=0.0)
-    step = train.make_lora_train_step(cfg, opt)
+    step = train.make_lora_train_step(c, opt)
+    tokens = train_tokens if tokens is None else tokens
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     s.reset_launches()
     losses, walls, first = [], [], None
-    for i in range(s.PROC_TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
-        losses.append(step(params, bufs, opt.state, train_tokens, train_pos,
+        losses.append(step(params, bufs, opt.state, tokens, train_pos,
                            slot_ids)[2].item())
         walls.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
@@ -5980,15 +6021,81 @@ def lora_steps(params, bufs, like):
             first = {k: v.float() for k, v in got.items() if k != "scale"}
     launches = s.read_launches()
     s.check_only(launches, {
-        "flash_prefill": s.PROC_TRAIN_STEPS * cfg.n_layers,
-        "flash_backward": s.PROC_TRAIN_STEPS * cfg.n_layers},
-        f"processes rank {rank} LoRA steps")
+        "flash_prefill": steps * c.n_layers,
+        "flash_backward": steps * c.n_layers}
+        if expected is None else expected,
+        f"processes rank {rank} LoRA steps ({c.name})")
     if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f"rank {rank}: the loss did not fall: {losses}")
     del opt, step
     return {"losses": losses, "step_wall_ms": walls,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": launches}, first
+
+
+def ring_row(params, mesh, attention_fn=long_context.ring_attend):
+    # The ring prefill of the long prompt (padded to the serve's ring
+    # multiple, 1024) over ``mesh``: its last real position's logits [V]
+    # (f32, host), the same on every process.
+    p = seq_prompts[0]
+    padded = -(-len(p) // 1024) * 1024
+    tokens = torch.zeros((1, padded), dtype=torch.long, device=dev)
+    tokens[0, :len(p)] = torch.tensor(p, device=dev)
+    with torch.no_grad():
+        logits = transformer.prefill(
+            cfg, params, *long_context.shard_inputs(
+                mesh, tokens, torch.arange(padded, device=dev)[None]),
+            attention_fn=attention_fn)[0]
+        row = long_context.logits_row(params, logits, len(p) - 1)
+    return row[0, :cfg.vocab_size].float().cpu()
+
+
+def faulty(fault):
+    # The ring's seam with a PROC_SEQ_FAULTS fault planted.
+    def attend(_s, qs, ks, vs, first=0):
+        if fault == "blocks_reversed":
+            return ring_attention_blocks(qs, ks[::-1], vs[::-1], first=first)
+        return [ring_attention_blocks([q], ks[first + i:first + i + 1],
+                                      vs[first + i:first + i + 1])[0]
+                for i, q in enumerate(qs)]
+    return attend
+
+
+def ring_timed(params, mesh, world):
+    # The ring prefill's wall, device ms and idle share under the
+    # profiler (the ranks started together); then, across processes, one
+    # more call with the exchange timed on the host (each gather between
+    # two synchronizes) and its gathered bytes counted.  Returns the
+    # sound row of that call and the numbers.
+    if world:
+        dist.barrier()
+    prof = s._profile(torch, f"rank {rank} ring prefill of "
+                      f"{len(seq_prompts[0])} tokens", lambda: ring_row(
+                          params, mesh), 1)
+    row = {k: prof[k] for k in ("wall_ms", "device_ms", "device_idle_share")}
+    if not world:
+        return ring_row(params, mesh), row
+    ex = {"s": 0.0, "calls": 0, "bytes": 0}
+    plain = collectives._all_gather
+
+    def timed(x, axis, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = plain(x, axis, group)
+        torch.cuda.synchronize()
+        ex["s"] += time.perf_counter() - t0
+        ex["calls"] += 1
+        ex["bytes"] += y.numel() * y.element_size()
+        return y
+
+    collectives._all_gather = timed
+    try:
+        got = ring_row(params, mesh)
+    finally:
+        collectives._all_gather = plain
+    row.update(exchange_host_ms=ex["s"] * 1e3, exchange_calls=ex["calls"],
+               exchange_gathered_bytes=ex["bytes"])
+    return got, row
 
 
 def agreement(got, want, before):
@@ -6023,6 +6130,14 @@ for r in range(size):
             bufs = lora_full()
             ref["lora"], ref["first"] = lora_steps(full, bufs, like)
             del bufs
+            free()
+            views = Mesh(MeshConfig(sequence=2), (dev, dev))
+            one = engine_for(full, views, s.PROC_SEQ_MAX_LEN)
+            ref["seq_tokens"], _, _, ref["seq_serve_s"] = serve(one,
+                                                                seq_prompts)
+            ref["seq_row"], ref["seq_ring"] = ring_timed(one.params, views,
+                                                         False)
+            del one
             free()
             mark("references")
         engine = engine_for(full, mesh)
@@ -6105,10 +6220,110 @@ for axes in ("tensor=2", "data=2"):
             res["losses"][0] - ref["lora"]["losses"][0]) / abs(
             ref["lora"]["losses"][0])
         res["first_update_agree"], _ = agreement(first, ref["first"], before)
+        res["ref_first_loss"] = ref["lora"]["losses"][0]
     out["lora"][axes] = res
     del bufs
     free()
     mark(f"lora {axes}")
+
+# -- sequence=2 across the two processes: the ring served, then trained -----
+seq_mesh = make_mesh(MeshConfig(sequence=2), ["cuda:0"])
+for r in range(size):
+    if r == rank:  # the data=2 tree is this process's whole tree
+        engine = engine_for(params[0], seq_mesh, s.PROC_SEQ_MAX_LEN)
+        del params
+        free()
+    dist.barrier()
+rings = {"n": 0}
+plain_ring = engine._ring
+
+
+def counted_ring(*args, **kwargs):
+    rings["n"] += 1
+    return plain_ring(*args, **kwargs)
+
+
+engine._ring = counted_ring
+out["seq_tokens"], launches, steps, out["seq_serve_s"] = serve(engine,
+                                                               seq_prompts)
+# The ring runs no kernel of the port (its block products are torch ops);
+# the two bucketed prompts run flash, decode the lane kernel.
+s.check_only(launches, {
+    "flash_prefill": (len(seq_prompts) - 1) * cfg.n_layers,
+    "decode_attention": steps * cfg.n_layers},
+    f"processes rank {rank} sequence=2 serve")
+if rings["n"] != 1:
+    raise SystemExit(f"rank {rank}: {rings['n']} ring programs for one long "
+                     "prompt")
+out["seq_serve_launches"], out["seq_decode_steps"] = launches, steps
+out["seq_ring_programs"] = rings["n"]
+mark("sequence=2 serve")
+params, tp = engine.params, engine.tp
+del engine
+free()
+row, out["seq_ring"] = ring_timed(params, seq_mesh, True)
+fault_rows = {f: ring_row(params, seq_mesh, faulty(f))
+              for f in s.PROC_SEQ_FAULTS}
+if rank == 0:
+    out["seq_logits"] = {"sound": s._share(row, ref["seq_row"]),
+                         **{f: s._share(g, ref["seq_row"])
+                            for f, g in fault_rows.items()}}
+    out["ref_seq_tokens"], out["ref_seq_ring"] = (ref["seq_tokens"],
+                                                  ref["seq_ring"])
+    out["ref_seq_serve_s"] = ref["seq_serve_s"]
+mark("sequence=2 ring")
+bufs = sharding.shard_lora(lora_full(), tp)
+free()
+# The sequence route's attention is the ring (torch ops): no flash, no
+# backward kernel.
+res, first = lora_steps(params, bufs, like, steps=s.PROC_SEQ_TRAIN_STEPS,
+                        expected={})
+if rank == 0:
+    res["first_loss_rel_err"] = abs(
+        res["losses"][0] - ref["lora"]["losses"][0]) / abs(
+        ref["lora"]["losses"][0])
+    res["first_update_agree"], _ = agreement(first, ref["first"], before)
+    res["ref_first_loss"] = ref["lora"]["losses"][0]
+out["lora"]["sequence=2"] = res
+del bufs, params
+free()
+mark("lora sequence=2")
+
+# -- expert=2 across the two processes: LoRA steps at Mixtral's widths ------
+moe_mesh = make_mesh(MeshConfig(expert=2), ["cuda:0"])
+moe_tp = sharding.TensorParallel(moe_cfg, moe_mesh)
+moe_like = {k: v.cpu() for k, v in slot0(lora_full(moe_cfg)).items()}
+moe_before = {k: v.float() for k, v in moe_like.items() if k != "scale"}
+for r in range(size):
+    if r == rank:
+        full = transformer.init_params(moe_cfg, seed=s.PROC_SEED + 2,
+                                       device="cuda")
+        if rank == 0:  # the one-process (unsharded) reference
+            bufs = lora_full(moe_cfg)
+            ref["moe"], ref["moe_first"] = lora_steps(
+                full, bufs, moe_like, moe_cfg, moe_tokens,
+                s.PROC_MOE_TRAIN_STEPS)
+            del bufs
+            free()
+        params = sharding.shard_params(full, moe_tp)
+        del full
+        free()
+    dist.barrier()
+bufs = sharding.shard_lora(lora_full(moe_cfg), moe_tp)
+res, first = lora_steps(params, bufs, moe_like, moe_cfg, moe_tokens,
+                        s.PROC_MOE_TRAIN_STEPS)
+if rank == 0:
+    res["first_loss_rel_err"] = abs(
+        res["losses"][0] - ref["moe"]["losses"][0]) / abs(
+        ref["moe"]["losses"][0])
+    res["first_update_agree"], _ = agreement(first, ref["moe_first"],
+                                             moe_before)
+    res["ref_first_loss"] = ref["moe"]["losses"][0]
+    out["ref_moe_lora"] = ref["moe"]
+out["lora"]["expert=2"] = res
+del bufs, params
+free()
+mark("lora expert=2")
 print("[processes-result] " + json.dumps(out), flush=True)
 """
 
@@ -6129,7 +6344,18 @@ def phase_processes(torch) -> dict:
     PROC_TRAIN_STEPS steps with the loss falling, the first step's loss
     and slot against the one-process (unsharded) step (PIPE_LOSS_TOL,
     PIPE_AGREE), exact flash and backward launches, step walls and peak
-    memory per process."""
+    memory per process.  ``--mesh sequence=2`` across the two processes
+    (each a whole 8B tree and its own lane cache, 8192-token context):
+    the 6001-token prompt in one ring program a process (its K/V
+    exchanged over gloo), two bucketed prompts, both ranks' greedy tokens
+    identical, counted against the one-process sequence=2 engine's; the
+    ring's last-token logits within MESH_LOGIT_TOL of one process's ring,
+    PROC_SEQ_FAULTS planted each beyond it; the ring's wall, device ms,
+    and the exchange's host ms and bytes per rank beside one process's.
+    Two LoRA steps at sequence=2 (512 positions a process; the ring's
+    attention launches no kernel, checked exactly) and two at expert=2 on
+    Mixtral-8x7B's widths cut to PROC_MOE_LAYERS layers, each against
+    the one-process step under the same rules."""
     from llm_instance_gateway_tpu_torch.parallel import multihost_check
 
     t0 = time.time()
@@ -6154,17 +6380,29 @@ def phase_processes(torch) -> dict:
     differ = sum(int(a != b) for got, want in zip(r0["tokens"],
                                                   r0["ref_tokens"])
                  for a, b in zip(got, want))
+    if r0["seq_tokens"] != r1["seq_tokens"]:
+        raise AssertionError("processes sequence=2: the ranks read back "
+                             f"different tokens: {r0['seq_tokens']} / "
+                             f"{r1['seq_tokens']}")
+    if [r["seq_ring_programs"] for r in res] != [1, 1]:
+        raise AssertionError("processes sequence=2: ring programs per rank "
+                             f"{[r['seq_ring_programs'] for r in res]}")
+    _gate("processes sequence=2", {"ring_last": r0["seq_logits"]["sound"]},
+          {f: {"ring_last": r0["seq_logits"][f]} for f in PROC_SEQ_FAULTS})
+    seq_differ = sum(int(a != b) for got, want in zip(r0["seq_tokens"],
+                                                      r0["ref_seq_tokens"])
+                     for a, b in zip(got, want))
     for axes, row in r0["lora"].items():
         if not row["first_loss_rel_err"] <= PIPE_LOSS_TOL:
             raise AssertionError(f"processes LoRA {axes}: first loss "
                                  f"{row['losses'][0]} against one process's "
-                                 f"{r0['ref_lora']['losses'][0]}")
+                                 f"{row['ref_first_loss']}")
         if not row["first_update_agree"] >= PIPE_AGREE:
             raise AssertionError(f"processes LoRA {axes}: slot updated apart "
                                  f"from one process's: {row}")
     launches: dict = {}
     for r in res:
-        for part in ([r["serve_launches"]]
+        for part in ([r["serve_launches"], r["seq_serve_launches"]]
                      + [row["launches"] for row in r["lora"].values()]):
             for name, n in part.items():
                 launches[name] = launches.get(name, 0) + n
@@ -6178,9 +6416,22 @@ def phase_processes(torch) -> dict:
         "lora": {axes: [r["lora"][axes] for r in res]
                  for axes in r0["lora"]},
         "one_process_lora": r0["ref_lora"], "launches": launches,
+        "sequence": {
+            "tokens_differing": {"differ": seq_differ,
+                                 "of": sum(map(len, r0["seq_tokens"]))},
+            "serve_s": [r["seq_serve_s"] for r in res],
+            "one_process_serve_s": r0["ref_seq_serve_s"],
+            "decode_steps": r0["seq_decode_steps"],
+            "logits": r0["seq_logits"],
+            "ring": {"one_process": r0["ref_seq_ring"],
+                     "rank0": r0["seq_ring"], "rank1": r1["seq_ring"]}},
+        "one_process_moe_lora": r0["ref_moe_lora"],
         "worker_walls": [r["walls"] for r in res]}
     log("processes", f"greedy tokens differing from one process: {differ} "
         f"of {out['tokens_differing']['of']} (bf16; reported, not gated)")
+    log("processes", "sequence=2 greedy tokens differing from one "
+        f"process's sequence=2 engine: {seq_differ} of "
+        f"{out['sequence']['tokens_differing']['of']} (bf16; reported)")
     log("processes", "phase " + json.dumps(out))
     return out
 

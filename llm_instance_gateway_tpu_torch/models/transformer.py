@@ -99,7 +99,7 @@ from llm_instance_gateway_tpu_torch.ops.quant import (
     quantize_weight,
 )
 from llm_instance_gateway_tpu_torch.ops.quant import matmul as q_matmul
-from llm_instance_gateway_tpu_torch.parallel import sharding
+from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
 
 Params = dict[str, Any]
 
@@ -645,27 +645,38 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
     written nowhere, the training forward's case).  Attention
     is the flash kernel per shard (one block), or ``attention_fn(s, qs,
     ks, vs)`` over tensor shard ``s``'s q/k/v of every block, returning
-    each block's output.  Returns the residual per block and shard."""
+    each block's output.  Where the sequence spans processes the blocks
+    are this process's (the first one ``shs[0].group``): the K/V of every
+    block comes over the sequence group (``collectives.exchange``), and
+    ``attention_fn(s, qs, ks, vs, first=...)`` gets this process's
+    queries and every block's K/V.  Returns the residual per block and
+    shard."""
     tp = shs[0].tp
+    seq = None if tp is None or attention_fn is None else tp.seq_group
     layers = [sh.layer(i) for sh in shs]
     leads = [tuple(h[0].shape[:2]) for h in hs]
     qkvs = [_attn_qkv(sh, layer, h, sid, lead, _rope_seq(sh.cfg, pos))
             for sh, layer, h, sid, lead, pos in zip(shs, layers, hs, sids,
                                                     leads, positions)]
-    if k_all is not None:  # training writes no KV
-        start = 0
-        for lead, qkv in zip(leads, qkvs):
-            rows = slice(start, start + lead[1])
-            start += lead[1]
-            for s, (_, k, v) in enumerate(qkv):
-                # A replicated KV head is written once.
-                if tp is None or s == 0 or tp.kv_split:
-                    heads = slice(None) if tp is None else tp.kv_heads(s)
-                    k_all[i, :, rows, heads] = k.to(k_all.device)
-                    v_all[i, :, rows, heads] = v.to(v_all.device)
     attns = [[None] * shs[0].n_attn for _ in shs]
     for s in range(shs[0].n_attn):
         qs, ks, vs = ([qkv[s][x] for qkv in qkvs] for x in range(3))
+        if seq is not None:
+            # The sequence spans processes: every block's K/V from every
+            # process, one exchange a layer (its backward hands each
+            # process the gradient of its own blocks).
+            kv = collectives.exchange(torch.stack(
+                [torch.cat(ks, dim=1), torch.cat(vs, dim=1)]), 2, seq)
+            ks, vs = (list(x.chunk(tp.n, dim=1)) for x in kv)
+        if k_all is not None and (tp is None or s == 0 or tp.kv_split):
+            # Training writes no KV; a replicated KV head is written once.
+            heads = slice(None) if tp is None else tp.kv_heads(s)
+            start = 0
+            for k, v in zip(ks, vs):
+                rows = slice(start, start + k.shape[1])
+                start += k.shape[1]
+                k_all[i, :, rows, heads] = k.to(k_all.device)
+                v_all[i, :, rows, heads] = v.to(v_all.device)
         if attention_fn is None:
             # Right-padded batches: causal tiling alone keeps real
             # positions exact (the kernel ignores positions, like the TPU
@@ -674,7 +685,9 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
                 attns[0][s] = flash_attention(qs[0], ks[0],
                                               vs[0].contiguous())
             continue
-        for j, out in enumerate(attention_fn(s, qs, ks, vs)):
+        outs = (attention_fn(s, qs, ks, vs) if seq is None else
+                attention_fn(s, qs, ks, vs, first=shs[0].group))
+        for j, out in enumerate(outs):
             attns[j][s] = out
     hs = [_attn_out(sh, layer, h, sid, lead, attn)
           for sh, layer, h, sid, lead, attn in zip(shs, layers, hs, sids,
@@ -699,25 +712,32 @@ def prefill(cfg: ModelConfig, params: Params, tokens, positions,
     attention output (``prefill_layer``); the logits come back whole on
     the first shard's device too.  Over ``data`` the prefill runs on
     data group ``data_group``'s grid (its slot's), the inputs moved to
-    its devices and the results left there."""
+    its devices and the results left there.  Where ``sequence`` spans
+    processes the blocks are this process's (``TensorParallel.
+    seq_local``): the K/V comes back whole (every block's, exchanged) and
+    the logits of this process's blocks only."""
     check_supported(cfg)
     params = sharding.in_group(params, data_group)
     lora_bufs = sharding.in_group(lora_bufs, data_group)
     blocks = list(tokens) if attention_fn is not None else [tokens]
     pos_blocks = list(positions) if attention_fn is not None else [positions]
+    tp = params.tp if isinstance(params, sharding.Shards) else None
+    ring = attention_fn is not None and tp is not None
+    first = tp.seq_local[0] if ring else 0
+    n_seq = tp.n if ring and tp.seq_group is not None else len(blocks)
     if data_group:
-        devs = [params.tp.device(0, j) for j in range(len(blocks))]
+        devs = [params.tp.device(0, first + j) for j in range(len(blocks))]
         blocks = [t.to(d) for t, d in zip(blocks, devs)]
         pos_blocks = [p.to(d) for p, d in zip(pos_blocks, devs)]
         slot_ids = None if slot_ids is None else slot_ids.to(devs[0])
     b = blocks[0].shape[0]
     if slot_ids is None:
         slot_ids = _no_slots(b, blocks[0].device)
-    shs = [_Shards(cfg, params, lora_bufs, group=j)
+    shs = [_Shards(cfg, params, lora_bufs, group=first + j)
            for j in range(len(blocks))]
     hs = [sh.embed(cfg, tok) for sh, tok in zip(shs, blocks)]
     hd = cfg.resolved_head_dim
-    s = sum(tok.shape[1] for tok in blocks)
+    s = sum(tok.shape[1] for tok in blocks) * n_seq // len(blocks)
     kv_shape = (cfg.n_layers, b, s, cfg.n_kv_heads, hd)
     dev0 = hs[0][0].device
     k_all = torch.empty(kv_shape, dtype=hs[0][0].dtype, device=dev0)

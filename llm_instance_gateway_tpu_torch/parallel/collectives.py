@@ -19,7 +19,13 @@ the identity):
   reduce-scatter backward divided by the group's size: every fsdp position
   computes the same rows with the gathered weight, so the reduce-scatter's
   sum counts each row's gradient once per position;
-- ``all_reduce``: a plain sum, for counts (no gradient).
+- ``exchange``: the ring's K/V exchange over ``sequence``.  All-gather
+  forward along an axis, reduce-scatter backward NOT divided: each
+  sequence position's queries differ, so the gradient of a block's K/V
+  is the plain sum of what every position's queries sent it;
+- ``all_reduce``: a plain sum, for counts (no gradient);
+- ``broadcast``: one member's tensor on every member (no gradient): the
+  ring's last real row, which one sequence position holds.
 
 The backend is the mesh's (``parallel/mesh.py``): NCCL between cards that
 no two processes share, gloo otherwise.  Over gloo a CUDA tensor is staged
@@ -134,6 +140,17 @@ class _Gather(torch.autograd.Function):
         return _reduce_scatter(grad, ctx.axis, g) / g.size, None, None
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, group):
+        ctx.axis, ctx.group = axis, group
+        return _all_gather(x, axis, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.axis, ctx.group), None, None
+
+
 def reduce(x: torch.Tensor, group: Group | None) -> torch.Tensor:
     """The row-parallel sum of ``x`` over ``group`` (identity backward)."""
     return x if group is None else _Reduce.apply(x, group)
@@ -156,3 +173,22 @@ def gather(x: torch.Tensor, axis: int, group: Group | None) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group: Group | None) -> torch.Tensor:
     """A plain sum over ``group`` (counts, gradients after backward)."""
     return x if group is None else _all_reduce(x.detach(), group)
+
+
+def exchange(x: torch.Tensor, axis: int,
+             group: Group | None) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``axis`` in the group's
+    order (the sequence blocks in order); its backward hands each member
+    the sum of the gradients of its block."""
+    return x if group is None else _Exchange.apply(x, axis, group)
+
+
+def broadcast(x: torch.Tensor, src: int, group: Group | None) -> torch.Tensor:
+    """Member ``src``'s ``x`` (an index into ``group.ranks``) on every
+    member: a tensor of ``x``'s shape and dtype, whatever the others
+    hold."""
+    if group is None:
+        return x
+    buf, back, _ = _staged(group, x.detach().contiguous().clone())
+    dist.broadcast(buf, group.ranks[src], group=group.handle)
+    return back(buf)

@@ -33,7 +33,9 @@ the others' from them: process p owns positions ``[p * total / N, (p + 1)
 (``parallel/sharding.py``).  The collectives between processes
 (``parallel/collectives.py``) run over one process group per set of
 positions that differ only in ``tensor``, in ``tensor`` and ``expert``,
-in ``fsdp`` or in ``data`` (``Mesh.group``).  Their backend follows one
+in ``fsdp``, in ``data``, in ``sequence`` (the ring's K/V exchange) or in
+``data`` and ``sequence`` (the training loss and gradient sums)
+(``Mesh.group``).  Their backend follows one
 rule, logged when the mesh is made: NCCL when every process's positions
 sit on CUDA devices no other process uses, else gloo (NCCL refuses two
 ranks on one device, which is how one card hosts two processes).
@@ -61,8 +63,11 @@ AXES = ("data", "fsdp", "pipe", "tensor", "expert", "sequence")
 SERVED_AXES = AXES
 # The position sets a mesh across processes makes a process group for:
 # the attention reduction (tensor), the MLP reduction (tensor and expert),
-# the fsdp gather and the data-parallel sums.
-GROUP_AXES = (("tensor",), ("tensor", "expert"), ("fsdp",), ("data",))
+# the fsdp gather, the data-parallel sums, the ring's K/V exchange
+# (sequence) and the training sums over the batch's rows and positions
+# (data and sequence).
+GROUP_AXES = (("tensor",), ("tensor", "expert"), ("fsdp",), ("data",),
+              ("sequence",), ("data", "sequence"))
 # How long a collective (and the world's rendezvous) waits for its peers
 # before it raises: a divergence between processes becomes a failure, not
 # a hang.

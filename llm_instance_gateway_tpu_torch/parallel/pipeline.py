@@ -238,7 +238,9 @@ def make_pipeline_train_step(cfg: ModelConfig, optimizer, pipe: int,
             "NCCL calls autograd cannot differentiate; across cards train "
             "tensor and data one process per card "
             "(parallel/mesh.initialize_distributed, "
-            "training/train.make_full_train_step over a Shards tree)")
+            "training/train.make_full_train_step over a Shards tree); pipe "
+            "with them across processes is the next slice queued in "
+            "ROADMAP.md")
     return train.make_step(optimizer, lambda p, tokens, positions:
                            pipeline_lm_loss(cfg, p, tokens, positions, pipe,
                                             n_microbatches, mesh=mesh))

@@ -12,12 +12,17 @@ scores.  Causality is global: query ``j * S_loc + i`` sees key
 -1e30, scores scaled by 1/sqrt(hd), query head h reading KV head
 ``h // (H / K)``, and the output ``o / max(l, 1e-30)`` cast to q's dtype.
 
-In one process the rotation is a copy of each held block to the next
-block's device (``.to(device, non_blocking=True)``, ordered on the
-streams of both devices), and a no-op where the blocks share a device.
-The block products are plain torch ops, the reference's XLA einsums:
-there is no Pallas kernel to port (ROADMAP queues a kernel route as
-speed work).
+Block j folds the sources in the rotation's order (``src = j, j - 1,
+...``), each K/V block copied to its device (``.to(device,
+non_blocking=True)``, ordered on the streams of both devices; a no-op
+where the blocks share a device).  Across processes (``sequence``
+spanning them) a process holds the queries of some blocks only and the
+K/V of every block, exchanged over the sequence group
+(``collectives.exchange``, in ``models/transformer.prefill_layer``); it
+folds each of its blocks the same way, so its outputs are bitwise the
+one-process ring's for those blocks.  The block products are plain torch
+ops, the reference's XLA einsums: there is no Pallas kernel to port
+(ROADMAP queues a kernel route as speed work).
 
 Unlike the reference, the loop skips the blocks wholly above the
 diagonal (``src > j``) on a causal ring: step 0 is the diagonal, so every
@@ -30,26 +35,64 @@ are bitwise equal (``tests/test_torch_ring.py``).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 NEG_INF = -1e30
 
 
+def _fold_step(qg, q_pos, scale, m, l, o, k_cur, v_cur, src: int,
+               s_loc: int, causal: bool) -> tuple:
+    """One key block ``src`` folded into a query block's online softmax
+    (m, l, o): the new (m, l, o)."""
+    scores = torch.einsum("bikgh,bjkh->bkgij", qg, k_cur.float()) * scale
+    if causal:
+        k_pos = src * s_loc + torch.arange(s_loc, device=scores.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    p = torch.exp(scores - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    return (m_new, l * corr + p.sum(dim=-1),
+            o * corr[..., None] + torch.einsum("bkgij,bjkh->bkgih", p,
+                                               v_cur.float()))
+
+
+def _fold(st: dict, k_cur, v_cur, src: int, s_loc: int,
+          causal: bool) -> None:
+    """Fold key block ``src`` into a query block's online softmax state
+    ``st`` (in place).  Under autograd the step is recomputed in the
+    backward (``torch.utils.checkpoint``) rather than holding its
+    ``[B, K, G, S_loc, S_loc]`` f32 scores and probabilities a fold: the
+    same values, at one fold's memory instead of every layer's."""
+    args = (st["qg"], st["q_pos"], st["scale"], st["m"], st["l"], st["o"],
+            k_cur, v_cur, src, s_loc, causal)
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in args):
+        out = torch.utils.checkpoint.checkpoint(_fold_step, *args,
+                                                use_reentrant=False)
+    else:
+        out = _fold_step(*args)
+    st["m"], st["l"], st["o"] = out
+
+
 def ring_attention_blocks(qs: list, ks: list, vs: list, causal: bool = True,
-                          skip_masked: bool = True) -> list:
+                          skip_masked: bool = True, first: int = 0) -> list:
     """The attention of every sequence block: ``qs[j]`` ``[B, S_loc, H,
     hd]`` and ``ks[j]`` / ``vs[j]`` ``[B, S_loc, K, hd]``, block j on its
     own device.  Returns each block's output ``[B, S_loc, H, hd]`` on that
-    block's device, in q's dtype."""
-    n = len(qs)
+    block's device, in q's dtype.  ``qs`` may hold only the blocks
+    ``first .. first + len(qs) - 1`` of the ``len(ks)`` (a process's part
+    of a ring across processes)."""
+    n = len(ks)
     b, s_loc, n_heads, hd = qs[0].shape
     n_kv = ks[0].shape[2]
     g = n_heads // n_kv
     state = []
-    for j, q in enumerate(qs):
+    for i, q in enumerate(qs):
         dev = q.device
         state.append({
             "qg": q.reshape(b, s_loc, n_kv, g, hd).float(),
-            "q_pos": j * s_loc + torch.arange(s_loc, device=dev),
+            "q_pos": (first + i) * s_loc + torch.arange(s_loc, device=dev),
             "m": torch.full((b, n_kv, g, s_loc), NEG_INF,
                             dtype=torch.float32, device=dev),
             "l": torch.zeros((b, n_kv, g, s_loc), dtype=torch.float32,
@@ -59,31 +102,15 @@ def ring_attention_blocks(qs: list, ks: list, vs: list, causal: bool = True,
             "scale": 1.0 / torch.full((), hd, dtype=torch.float32,
                                       device=dev).sqrt(),
         })
-    held = list(zip(ks, vs))
-    for step in range(n):
-        for j, st in enumerate(state):
+    for i, (q, st) in enumerate(zip(qs, state)):
+        j = first + i
+        for step in range(n):
             src = (j - step) % n
             if causal and skip_masked and src > j:
                 continue
-            k_cur, v_cur = held[j]
-            scores = torch.einsum("bikgh,bjkh->bkgij", st["qg"],
-                                  k_cur.float()) * st["scale"]
-            if causal:
-                k_pos = src * s_loc + torch.arange(s_loc,
-                                                   device=scores.device)
-                mask = st["q_pos"][:, None] >= k_pos[None, :]
-                scores = torch.where(mask, scores, NEG_INF)
-            m_new = torch.maximum(st["m"], scores.amax(dim=-1))
-            p = torch.exp(scores - m_new[..., None])
-            corr = torch.exp(st["m"] - m_new)
-            st["l"] = st["l"] * corr + p.sum(dim=-1)
-            st["o"] = st["o"] * corr[..., None] + torch.einsum(
-                "bkgij,bjkh->bkgih", p, v_cur.float())
-            st["m"] = m_new
-        if step + 1 < n:
-            # Block j passes what it holds to block j + 1.
-            held = [tuple(x.to(qs[j].device, non_blocking=True)
-                          for x in held[(j - 1) % n]) for j in range(n)]
+            _fold(st, ks[src].to(q.device, non_blocking=True),
+                  vs[src].to(q.device, non_blocking=True), src, s_loc,
+                  causal)
     outs = []
     for q, st in zip(qs, state):
         out = st["o"] / torch.clamp_min(st["l"][..., None], 1e-30)

@@ -57,6 +57,10 @@ trainer's, ``parallel/pipeline.py``; serving refuses it):
   devices of sequence block j (``Shards.groups``), used by the ring
   prefill alone (``parallel/long_context.py``); decode, bucketed prefill
   and chunks run on group 0, whose devices also hold the KV cache.
+  Across processes every process holds whole trees of its sequence
+  blocks (``seq_local``) and a KV cache of its own: after the ring each
+  inserts the whole prompt's K/V (exchanged over ``seq_group``) and
+  decodes on its replica, every process computing the same tokens.
 
 The splits inside a group, the reference's:
 
@@ -100,11 +104,13 @@ group); an ``FsdpLeaf`` holds its local pieces and gathers the others
 through ``collectives.gather`` on every process, each of which computes
 (the one-process rule that fsdp position 0 alone computes cannot hold:
 every process needs the replicated result).  ``tensor``, ``expert`` and
-``fsdp`` may span processes, and ``data`` in training, one data group a
-process; ``sequence`` may not (the ring across processes is queued).
-With ``expert`` across processes each process attends over its tensor
-shards of its first expert (attention is replicated over ``expert``) and
-the attention reduction spans ``tensor`` alone.
+``fsdp`` and ``sequence`` may span processes, and ``data`` in training,
+one data group a process; ``pipe`` may not (the pipelined trainer over
+processes is queued).  With ``expert`` across processes each process
+attends over its tensor shards of its first expert (attention is
+replicated over ``expert``) and the attention reduction spans ``tensor``
+alone.  Across processes every shard sits on the process's one device
+(``TensorParallel.device``), whichever sequence block it serves.
 """
 
 from __future__ import annotations
@@ -131,6 +137,10 @@ _KV_LEAVES = ("wk", "wv", "wk_b", "wv_b")
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 _LORA_COLUMN = ("q", "k", "v", "gate", "up")
 _LORA_ROW = ("o", "down")
+# The attention block's layer leaves and LoRA targets (the rest is the
+# MLP block's).
+_ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b",
+               "q", "k", "v", "o")
 # The leaves ``param_specs`` / ``lora_specs`` put over ``fsdp``, and the
 # axis they split on: ``D`` of every projection, d_out of the row
 # targets' LoRA ``b``; ``lm_head`` [D, V] on its rows.
@@ -203,8 +213,10 @@ class TensorParallel:
         else:
             self.data_index, self.shards = 0, list(range(self.g))
             self.fsdp_local = list(range(f))
+            self.seq_local = list(range(n))
             self.attn_group = self.mlp_group = None
             self.fsdp_group = self.data_group = None
+            self.seq_group = self.rows_group = None
         local = {self.devices[i] for i in range(len(self.devices))
                  if mesh.local(i)}
         distinct = len(local)
@@ -221,16 +233,16 @@ class TensorParallel:
         self.n_attn = sum(1 for s in self.shards if s // t == first)
 
     def _own(self, mesh) -> None:
-        """This process's part of the grid: its data group, its shards and
-        fsdp positions (a block: every local shard at every local fsdp
-        position) and its process groups."""
+        """This process's part of the grid: its data group, its shards,
+        fsdp positions and sequence blocks (a block: every local shard at
+        every local fsdp position and sequence block) and its process
+        groups."""
         shape = mesh.shape
-        for axis, why in (("sequence", "the ring over send/recv"),
-                          ("pipe", "the pipelined trainer over processes")):
-            if shape[axis] > 1:
-                raise ValueError(
-                    f"{axis}={shape[axis]} on a mesh across processes: "
-                    f"{why} is queued in ROADMAP.md")
+        if shape["pipe"] > 1:
+            raise ValueError(
+                f"pipe={shape['pipe']} on a mesh across processes: the "
+                "pipelined trainer over processes (stage activations sent "
+                "point to point) is the next slice queued in ROADMAP.md")
         if not self.moe and shape["expert"] > 1:
             raise ValueError(
                 "expert > 1 across processes for a model without experts "
@@ -238,8 +250,10 @@ class TensorParallel:
         seen = set()
         for i in range(mesh.size):
             if mesh.local(i):
-                dd, ff, _, tt, ee, _ = mesh.coords(i)
-                seen.add((dd, ff, (ee * self.t + tt) if self.moe else tt))
+                dd, ff, _, tt, ee, jj = mesh.coords(i)
+                seen.add((dd, ff, (ee * self.t + tt) if self.moe else tt,
+                          jj))
+                self.local_device = mesh.devices[i]
         groups = sorted({x[0] for x in seen})
         if len(groups) > 1:
             raise ValueError(
@@ -248,15 +262,20 @@ class TensorParallel:
         self.data_index = groups[0]
         self.shards = sorted({x[2] for x in seen})
         self.fsdp_local = sorted({x[1] for x in seen})
-        if len(seen) != len(self.shards) * len(self.fsdp_local):
+        self.seq_local = sorted({x[3] for x in seen})
+        if len(seen) != (len(self.shards) * len(self.fsdp_local)
+                         * len(self.seq_local)):
             raise ValueError(
                 f"mesh {dict(shape)}: process {mesh.rank}'s positions are "
-                "not one block of shards by fsdp positions")
+                "not one block of shards by fsdp positions by sequence "
+                "blocks")
         self.attn_group = mesh.group("tensor")
         self.mlp_group = mesh.group("tensor", "expert") if self.moe \
             else self.attn_group
         self.fsdp_group = mesh.group("fsdp")
         self.data_group = mesh.group("data")
+        self.seq_group = mesh.group("sequence")
+        self.rows_group = mesh.group("data", "sequence")
 
     def group(self, g: int) -> "TensorParallel":
         """Data group ``g``'s grid (this one's, on that group's devices)."""
@@ -268,7 +287,10 @@ class TensorParallel:
 
     def _device(self, s: int, j: int = 0, f: int | None = None):
         """Shard ``s`` (an index into the group)'s device in sequence group
-        ``j`` at fsdp position ``f`` (default: this process's first)."""
+        ``j`` at fsdp position ``f`` (default: this process's first);
+        across processes this process's one device."""
+        if self.multi:
+            return self.local_device
         return self.devices[self.mesh.device_index(
             data=self.data_index,
             fsdp=self.fsdp_local[0] if f is None else f,
@@ -668,22 +690,29 @@ def _tensors(leaf) -> list:
     return [leaf]
 
 
-def tensor_replicated(tree: Shards) -> list:
+def tensor_replicated(tree: Shards, attn: bool) -> list:
     """The distinct local tensors of a params or LoRA ``Shards`` that
-    every tensor shard holds whole and uses inside its blocks: the layer
+    every tensor shard holds whole and uses inside its attention block
+    (``attn``; their gradients summed over the attention group) or its
+    MLP block (over the MLP group, which spans ``expert`` too): the layer
     leaves ``tensor`` does not split (norms, the router, replicated K/V
     projections) and the LoRA buffers it does not split, ``scale`` aside.
     Across processes each process's gradient of them is its shards'
     part."""
     tp = tree.tp
+
+    def block(name: str) -> bool:
+        return (name in _ATTN_NAMES) == attn
+
     out, seen = [], set()
     for t in tree:
         if "layers" in t:
             leaves = [leaf for name, leaf in t["layers"].items()
-                      if _layer_axis(name, tp) is None]
+                      if _layer_axis(name, tp) is None and block(name)]
         else:
             leaves = [v for k, v in t.items()
-                      if k != "scale" and _lora_axis(k, tp) is None]
+                      if k != "scale" and _lora_axis(k, tp) is None
+                      and block(k.rpartition("_")[0])]
         for x in (x for leaf in leaves for x in _tensors(leaf)):
             if id(x) not in seen:
                 seen.add(id(x))

@@ -90,9 +90,11 @@ synchronous loop and the pipelined one).
   reference's multi-controller engine does: each holds its own shards
   and issues the same collectives in the same order, so every request is
   submitted to every process before ``start()``, sampling is greedy or
-  seeded alike, and the sync loop runs eagerly; ``tensor``, ``expert``
-  and ``fsdp`` may span processes, and every process reads back the same
-  tokens (``parallel/multihost_check.py``).
+  seeded alike, and the sync loop runs eagerly; ``tensor``, ``expert``,
+  ``fsdp`` and ``sequence`` may span processes (over ``sequence`` each
+  process runs the ring on its blocks, inserts the whole prompt's K/V,
+  exchanged, into its own cache and decodes on that replica), and every
+  process reads back the same tokens (``parallel/multihost_check.py``).
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.
@@ -601,27 +603,22 @@ class Engine:
         """The serving rules of a mesh across processes, each refused by
         name: ``data`` (a value the host reads must be fully replicated,
         the reference's rule, and a data group's rows live on one
-        process), ``sequence`` (the ring across processes is queued),
-        CUDA graphs (queued, as across cards), and the host decisions
-        that read the clock or the device's progress rather than the
-        queue (the pipelined loop, the adaptive planner, the handoff TTL
-        sweep): one process deciding otherwise than another hangs both
-        inside a collective."""
-        for axis, why in (
-                ("data", "every value the host reads must be fully "
-                         "replicated, and a data group's rows would live on "
-                         "one process; run data-parallel replicas as "
-                         "separate engines"),
-                ("sequence", "the ring across processes is queued in "
-                             "ROADMAP.md")):
-            if shape.get(axis, 1) > 1:
-                raise ValueError(f"{axis}={shape[axis]} on a mesh across "
-                                 f"processes: {why}")
+        process), CUDA graphs (queued as speed work, as across cards),
+        and the host decisions that read the clock or the device's
+        progress rather than the queue (the pipelined loop, the adaptive
+        planner, the handoff TTL sweep): one process deciding otherwise
+        than another hangs both inside a collective."""
+        if shape.get("data", 1) > 1:
+            raise ValueError(
+                f"data={shape['data']} on a mesh across processes: every "
+                "value the host reads must be fully replicated, and a data "
+                "group's rows would live on one process; run data-parallel "
+                "replicas as separate engines")
         if cuda_graphs:
             raise ValueError(
-                "CUDA graphs across processes are queued in ROADMAP.md "
-                "(as across cards); serve eagerly (cuda_graphs=False, "
-                "--no-cuda-graphs)")
+                "CUDA graphs across processes are queued in ROADMAP.md's "
+                "speed list (as across cards); serve eagerly "
+                "(cuda_graphs=False, --no-cuda-graphs)")
         for name, on in (("pipeline_decode", self.cfg.pipeline_decode),
                          ("adaptive_steps", self.cfg.adaptive_steps > 0),
                          ("handoff_ttl_s", self.cfg.handoff_ttl_s > 0)):
@@ -2163,7 +2160,8 @@ class Engine:
         pads right to a multiple of ``_ring_pad`` at positions
         ``arange(padded)`` (causal ring attention keeps the real positions
         exact; the insert trims the tail at ``n``), and the first token is
-        sampled from the last real position.
+        sampled from the last real position (across processes, its row
+        broadcast from the process whose block holds it).
         Returns (first_token device scalar, k, v, lp_info)."""
         from llm_instance_gateway_tpu_torch.parallel import long_context
 
@@ -2177,8 +2175,9 @@ class Engine:
         logits, k, v = self._ring(
             self.params, tok, pos, lora_bufs=self._lora_buffers(),
             slot_ids=self._tensor([lora_slot]), data_group=group)
-        logits = logits.to(self.device)
-        first_token, lp_info = self._sample_first(logits[0, n - 1],
+        row = long_context.logits_row(
+            sharding.in_group(self.params, group), logits, n - 1)
+        first_token, lp_info = self._sample_first(row[0].to(self.device),
                                                   req.sampling, n - 1)
         return first_token, k, v, lp_info
 

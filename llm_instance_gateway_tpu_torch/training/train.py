@@ -25,23 +25,30 @@ Differences from the reference, by design:
 The pipelined trainer is ``parallel/pipeline.py`` (GPipe over ``pipe``,
 its loss through ``logits_fn``, its step through ``make_step``).
 
-The sharded recipe (the reference's: params over ``fsdp`` and ``tensor``,
-the batch's rows over ``data``, the optimizer state like the params): the
-steps take a ``parallel/sharding.Shards`` tree as well as a plain one,
-and ``make_optimizer`` of a ``Shards`` holds the AdamW state of its
-leaves only.  In one process the shards are views of the caller's tree on
-one device (the caller's tree is what updates); across processes each
-process holds, computes and updates its own shards, one device each
-(``parallel/mesh.initialize_distributed``).  The loss is the reference's
-global masked mean: each data group's masked sum over the count of real
-targets all-reduced over ``data``, summed over ``data``
-(``collectives.reduce``: its backward is the identity, the loss being
-replicated).  After the backward a process sums over ``data`` every
-leaf's gradient, and over ``tensor`` the gradients of the leaves every
-tensor shard holds whole (``sharding.tensor_replicated``), so replicated
-leaves come out equal on every rank; the fsdp gather's backward leaves
-each piece its own.  ``expert``, ``sequence`` and ``pipe`` across
-processes are refused by name (queued in ROADMAP.md).
+The sharded recipe (the reference's: params over ``fsdp``, ``tensor``
+and ``expert``, the batch over ``data`` and ``sequence``, the optimizer
+state like the params): the steps take a ``parallel/sharding.Shards``
+tree as well as a plain one, and ``make_optimizer`` of a ``Shards`` holds
+the AdamW state of its leaves only.  In one process the shards are views
+of the caller's tree on one device (the caller's tree is what updates);
+across processes each process holds, computes and updates its own
+shards, one device each (``parallel/mesh.initialize_distributed``).  The
+loss is the reference's global masked mean: the masked sum of each data
+group's rows over the count of real targets, both summed over ``data``
+and ``sequence`` (``collectives.reduce``: its backward is the identity,
+the loss being replicated).  Where ``sequence`` spans processes each
+process runs the forward of its blocks of the row, the ring's attention
+reading every block's K/V through the exchange (``collectives.
+exchange``, whose backward sums each block's K/V gradient over the
+processes), and takes its targets from the whole row it is handed
+(``_ring_sum``).  After the backward a process sums over ``data`` and
+``sequence`` every leaf's gradient, and the gradients of the leaves
+every shard of a block holds whole (``sharding.tensor_replicated``) over
+that block's group: the attention's over ``tensor``, the MLP's (its norm,
+the router) over ``tensor`` and ``expert``, so replicated leaves come out
+equal on every rank; the fsdp gather's backward leaves each piece its
+own.  ``pipe`` across processes is refused by name (queued in
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,7 +60,11 @@ import torch
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
-from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
+from llm_instance_gateway_tpu_torch.parallel import (
+    collectives,
+    long_context,
+    sharding,
+)
 from llm_instance_gateway_tpu_torch.server.lora_manager import save_adapter
 
 # optax.adamw's defaults (b1, b2, eps; eps_root is 0).
@@ -79,25 +90,23 @@ def causal_lm_loss(cfg: ModelConfig, params, tokens, positions, lora_bufs=None,
                 cfg, p, t, pos, lora_bufs=lora_bufs, slot_ids=slot_ids)[0]
 
     logits = logits_fn(params, tokens[:, :-1], positions[:, :-1])
-    total, count = _masked_sum(logits, tokens, positions)
+    total, count = _masked_sum(logits, tokens[:, 1:], positions[:, 1:])
     return total / count.clamp_min(1.0)
 
 
-def _masked_sum(logits: torch.Tensor, tokens, positions) -> tuple:
-    """(the negative log-likelihood summed over the real targets, their
-    count)."""
-    targets = tokens[:, 1:].long()
-    mask = (positions[:, 1:] > 0).float()
+def _masked_sum(logits: torch.Tensor, targets, target_positions) -> tuple:
+    """(the negative log-likelihood of ``targets`` summed over the real
+    ones, whose positions are not 0, their count)."""
+    mask = (target_positions > 0).float()
     logp = torch.log_softmax(logits, dim=-1)
-    token_logp = logp.gather(-1, targets[..., None])[..., 0]
+    token_logp = logp.gather(-1, targets.long()[..., None])[..., 0]
     return -(token_logp * mask).sum(), mask.sum()
 
 
 def _check_trainable(tp: sharding.TensorParallel) -> None:
     """The sharded step's layouts: each process's shards on one device,
-    ``pipe`` left to the pipelined trainer, ``expert`` inside a process
-    (``sequence`` and ``pipe`` across processes ``TensorParallel``
-    refuses)."""
+    ``pipe`` left to the pipelined trainer (across processes
+    ``TensorParallel`` refuses it)."""
     if not tp.one_device:
         raise ValueError(
             "a sharded train step runs each process's shards on one device: "
@@ -106,17 +115,41 @@ def _check_trainable(tp: sharding.TensorParallel) -> None:
     if tp.mesh.shape["pipe"] > 1:
         raise ValueError("pipe > 1 is the pipelined trainer's "
                          "(parallel/pipeline.make_pipeline_train_step)")
-    if tp.multi and tp.moe and len({s // tp.t for s in tp.shards}) < tp.e:
-        raise ValueError(
-            f"expert={tp.e} across processes in training: the experts' "
-            "all-to-all over processes is queued in ROADMAP.md")
+
+
+def _ring_sum(cfg: ModelConfig, params: sharding.Shards, tok, pos,
+              lora_bufs, sids, group: int) -> tuple:
+    """``_masked_sum`` of this process's sequence blocks, the sequence
+    spanning processes: the forward's inputs (the row but its last token)
+    right-padded to a multiple of ``sequence`` (pads at position 0, which
+    the causal ring keeps out of every real query and the mask out of the
+    sum), this process's blocks run through the ring, each position's
+    target the next token of the whole row (a block's last position's is
+    the next block's first)."""
+    tp = params.tp
+    inputs = (tok[:, :-1], pos[:, :-1], tok[:, 1:], pos[:, 1:])
+    pad = -inputs[0].shape[1] % tp.n
+    if pad:
+        inputs = tuple(torch.nn.functional.pad(x, (0, pad)) for x in inputs)
+    s_loc = inputs[0].shape[1] // tp.n
+    mine = [slice(j * s_loc, (j + 1) * s_loc) for j in tp.seq_local]
+    x, xp, targets, target_pos = inputs
+    logits = transformer.prefill(
+        cfg, params, [x[:, m] for m in mine], [xp[:, m] for m in mine],
+        lora_bufs=lora_bufs, slot_ids=sids,
+        attention_fn=long_context.ring_attend, data_group=group)[0]
+    span = slice(mine[0].start, mine[-1].stop)
+    return _masked_sum(logits.to(tok.device), targets[:, span],
+                       target_pos[:, span])
 
 
 def _sharded_loss(cfg: ModelConfig, params: sharding.Shards, tokens,
                   positions, lora_bufs, slot_ids) -> torch.Tensor:
     """The global masked mean over a ``Shards`` tree: each data group (this
-    process's, across processes) its rows, the sum and the count of real
-    targets summed over ``data``."""
+    process's, across processes) its rows, across processes over
+    ``sequence`` each process its blocks of them (``_ring_sum``), the sum
+    and the count of real targets summed over ``data`` and
+    ``sequence``."""
     tp = params.tp
     _check_trainable(tp)
     b = tokens.shape[0]
@@ -129,14 +162,17 @@ def _sharded_loss(cfg: ModelConfig, params: sharding.Shards, tokens,
         rows = slice(g * per, (g + 1) * per)
         tok, pos = tokens[rows].to(dev), positions[rows].to(dev)
         sids = None if slot_ids is None else slot_ids[rows].to(dev)
-        logits = transformer.prefill(
-            cfg, params, tok[:, :-1], pos[:, :-1], lora_bufs=lora_bufs,
-            slot_ids=sids, data_group=g)[0].to(dev)
-        t, c = _masked_sum(logits, tok, pos)
+        if tp.seq_group is not None:
+            t, c = _ring_sum(cfg, params, tok, pos, lora_bufs, sids, g)
+        else:
+            logits = transformer.prefill(
+                cfg, params, tok[:, :-1], pos[:, :-1], lora_bufs=lora_bufs,
+                slot_ids=sids, data_group=g)[0].to(dev)
+            t, c = _masked_sum(logits, tok[:, 1:], pos[:, 1:])
         total, count = ((t, c) if total is None
                         else (total + t, count + c))
-    count = collectives.all_reduce(count, tp.data_group)
-    return collectives.reduce(total, tp.data_group) / count.clamp_min(1.0)
+    count = collectives.all_reduce(count, tp.rows_group)
+    return collectives.reduce(total, tp.rows_group) / count.clamp_min(1.0)
 
 
 def _leaves(tree) -> list:
@@ -189,12 +225,13 @@ def _set_grads(loss: torch.Tensor, leaves: list, tree=None) -> None:
     if not isinstance(tree, sharding.Shards):
         return
     tp = tree.tp
-    if tp.mlp_group is not None:
-        for t in sharding.tensor_replicated(tree):
-            t.grad = collectives.all_reduce(t.grad, tp.mlp_group)
-    if tp.data_group is not None:
+    for attn, group in ((True, tp.attn_group), (False, tp.mlp_group)):
+        if group is not None:
+            for t in sharding.tensor_replicated(tree, attn):
+                t.grad = collectives.all_reduce(t.grad, group)
+    if tp.rows_group is not None:
         for t in leaves:
-            t.grad = collectives.all_reduce(t.grad, tp.data_group)
+            t.grad = collectives.all_reduce(t.grad, tp.rows_group)
 
 
 def make_step(optimizer: torch.optim.Optimizer, loss_fn):

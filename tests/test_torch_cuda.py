@@ -2135,6 +2135,10 @@ if case == "serve":
     reqs = [Request(prompt_tokens=p, max_new_tokens=m,
                     sampling=SamplingParams(temperature=0.0))
             for p, m in json.loads(os.environ["GRAFT_JOBS"])]
+    rings = []
+    if eng._ring is not None:
+        ring = eng._ring
+        eng._ring = lambda *a, **kw: rings.append(1) or ring(*a, **kw)
     for r in reqs:
         eng.submit(r)
     eng.start()
@@ -2144,6 +2148,81 @@ if case == "serve":
     finally:
         eng.stop()
     out["tokens"] = [list(r.output_tokens) for r in reqs]
+    out["ring_programs"] = len(rings)
+elif case == "ring8b":  # Llama-3-8B's ring prefill of a 6001-token prompt
+    from llm_instance_gateway_tpu_torch.parallel import collectives, long_context
+    from torch.profiler import ProfilerActivity, profile
+    cfg = LLAMA3_8B
+    tp = sharding.TensorParallel(cfg, mesh)
+    full = transformer.init_params(cfg, seed=17, device=dev)
+    params = sharding.shard_params(full, tp)
+    del full
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n, padded = 6001, 6144
+    tokens = torch.zeros((1, padded), dtype=torch.long, device=dev)
+    tokens[0, :n] = torch.randint(1, cfg.vocab_size, (n,), device=dev,
+                                  generator=gen)
+    blocks = long_context.shard_inputs(
+        mesh, tokens, torch.arange(padded, device=dev)[None])
+    fn = long_context.make_sharded_prefill(cfg, mesh)
+
+    def ring():
+        with torch.no_grad():
+            logits = fn(params, *blocks)[0]
+            return long_context.logits_row(params, logits, n - 1)
+
+    ring()
+    torch.distributed.barrier()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    row = ring()
+    torch.cuda.synchronize(dev)
+    out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ring()
+        torch.cuda.synchronize(dev)
+    us = sum(getattr(e, "self_device_time_total", 0.0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    out["device_ms"] = us / 1e3 if us else "not measured"
+    gathered = []
+    plain = collectives._all_gather
+    collectives._all_gather = lambda x, a, g: (
+        lambda y: gathered.append(y.numel() * y.element_size()) or y)(
+        plain(x, a, g))
+    ring()
+    collectives._all_gather = plain
+    out["exchange_gathered_bytes"] = sum(gathered)
+    out["row_finite"] = bool(torch.isfinite(row).all())
+    out["argmax"] = int(row[0, :cfg.vocab_size].argmax())
+elif case == "moe":  # ten LoRA steps on Mixtral-8x7B at full depth
+    from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
+    cfg = MIXTRAL_8X7B
+    tp = sharding.TensorParallel(cfg, mesh)
+    # A process's shard built a layer at a time (the whole bf16 tree is
+    # ~93 GB): each layer drawn whole from its own seed, sharded, and
+    # copied into this process's stacks.
+    one_cfg = dataclasses.replace(cfg, n_layers=1)
+    one_tp = sharding.TensorParallel(one_cfg, mesh)
+    tree = None
+    for i in range(cfg.n_layers):
+        layer = sharding.shard_params(transformer.init_params(
+            one_cfg, seed=100 + i, device=dev), one_tp)[0]
+        if tree is None:
+            tree = {k: v for k, v in layer.items() if k != "layers"}
+            tree["layers"] = {k: torch.empty((cfg.n_layers,) + v.shape[1:],
+                                             dtype=v.dtype, device=dev)
+                              for k, v in layer["layers"].items()}
+        for k, v in layer["layers"].items():
+            tree["layers"][k][i] = v[0]
+        del layer
+        torch.cuda.empty_cache()
+    params = sharding.Shards([tree], tp)
+    out["param_gb"] = sum(v.numel() * v.element_size() for v in (
+        list(tree["layers"].values())
+        + [v for k, v in tree.items() if k != "layers"])) / 1e9
+    gen = torch.Generator(device=dev).manual_seed(18)
 else:  # ten Llama-3-8B steps: "lora" (rank 8) or "full"
     cfg = LLAMA3_8B
     tp = sharding.TensorParallel(cfg, mesh)
@@ -2152,10 +2231,11 @@ else:  # ten Llama-3-8B steps: "lora" (rank 8) or "full"
     del full
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(18)
+if case in ("lora", "full", "moe"):
     tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device=dev,
                            generator=gen)
     positions = torch.arange(1024, device=dev).repeat(2, 1)
-    if case == "lora":
+    if case in ("lora", "moe"):
         bufs = lora.init_lora_buffers(cfg, torch.bfloat16, dev)
         for t, (d_in, _d_out) in lora.target_dims(cfg).items():
             bufs[f"{t}_a"][:, 0, :, :8] = (torch.randn(
@@ -2204,25 +2284,31 @@ def _processes(n: int, case: str, axes: str, env=None) -> list:
             for line in multihost_check.ok_lines(outs, "[processes] ")]
 
 
-@pytest.mark.parametrize("axes", ["tensor=4", "fsdp=2,tensor=2"])
+@pytest.mark.parametrize("axes", ["tensor=4", "fsdp=2,tensor=2",
+                                  "sequence=2", "tensor=2,sequence=2"])
 def test_processes_serve_as_one_process_across_cards(narrow, tmp_path, axes):
-    """Four processes, one card each, NCCL between them, the narrow f32
-    model with four KV heads (so tensor=4 splits them) at ``axes``: every
-    process reads back the greedy tokens of the one-process engine that
-    drives the same mesh over the four cards."""
+    """One process a card (four, or two at sequence=2), NCCL between them,
+    the narrow f32 model with four KV heads (so tensor=4 splits them) at
+    ``axes``: every process reads back the greedy tokens of the
+    one-process engine that drives the same mesh over the cards; over
+    ``sequence`` a prompt beyond the largest bucket runs one ring program
+    a process, its K/V exchanged between the cards."""
     import dataclasses
     import json
 
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.parallel import mesh, multihost_check
 
-    cards = _cards(4)
+    mesh_cfg = mesh.parse_axes(axes)
+    cards = _cards(mesh_cfg.total)
     cfg = dataclasses.replace(narrow[torch.float32][0], n_kv_heads=4)
     params = transformer.init_params(cfg, seed=6, dtype=torch.float32,
                                      device="cuda")
     weights = str(tmp_path / "weights.npz")
     multihost_check.save_tree(weights, params)
     jobs = _jobs()
+    if mesh_cfg.sequence > 1:
+        jobs = [(_LONG, 12, jobs[0][2])] + jobs
     ref = _serve_queued(_mesh_engine(
         narrow, 1, torch.float32, graphs=False, devices=cards,
         params=params, model_cfg=cfg,
@@ -2231,23 +2317,30 @@ def test_processes_serve_as_one_process_across_cards(narrow, tmp_path, axes):
     fields = {k: getattr(cfg, k) for k in (
         "name", "d_model", "n_layers", "n_heads", "n_kv_heads", "head_dim",
         "d_ff", "vocab_size", "max_lora_slots", "max_lora_rank")}
-    res = _processes(4, "serve", axes, {
+    res = _processes(mesh_cfg.total, "serve", axes, {
         "GRAFT_CFG": json.dumps(fields), "GRAFT_WEIGHTS": weights,
         "GRAFT_JOBS": json.dumps([[p, m] for p, m, _ in jobs])})
     assert all(r["backend"] == ["nccl"] for r in res), res
     for r in res:
         assert r["tokens"] == [list(t) for t in ref], (r["rank"], axes)
+        assert r["ring_programs"] == int(mesh_cfg.sequence > 1), r
 
 
 @pytest.mark.parametrize("case,axes", [("lora", "data=2,tensor=2"),
-                                       ("full", "fsdp=4")])
+                                       ("full", "fsdp=4"),
+                                       ("lora", "data=2,sequence=2"),
+                                       ("moe", "expert=4")])
 def test_processes_8b_steps_across_cards(case, axes):
-    """Ten Llama-3-8B steps (two 1024-token rows, bf16) across four
-    processes, one card each: the rank-8 LoRA step at data=2,tensor=2 and
-    the full-parameter step of the whole 32-layer model at fsdp=4 (it
-    does not fit one card).  The loss falls and is the same on every
-    process, flash and its backward launch once per layer per step on
-    each; prints (``[processes4]``) losses, step walls and peak memory
+    """Ten steps (two 1024-token rows, bf16) across four processes, one
+    card each: the rank-8 LoRA step of Llama-3-8B at data=2,tensor=2 and
+    at data=2,sequence=2 (each process 512 positions of a row, the ring's
+    K/V exchanged), the full-parameter step of the whole 32-layer model at
+    fsdp=4 (it does not fit one card), and the LoRA step of Mixtral-8x7B
+    at full depth over expert=4 (two experts a card, each process's
+    shard built a layer at a time).  The loss falls and is the same on
+    every process; flash and its backward launch once per layer per step
+    on each, none on the sequence route (the ring's attention is torch
+    ops); prints (``[processes4]``) losses, step walls and peak memory
     per card."""
     import json
 
@@ -2261,7 +2354,25 @@ def test_processes_8b_steps_across_cards(case, axes):
     assert all(x == losses[0] for x in losses), losses
     assert all(math.isfinite(x) for x in losses[0])
     assert losses[0][-1] < losses[0][0], losses[0]
+    per_step = 0 if "sequence" in axes else LLAMA3_8B.n_layers
     for r in res:
         assert r["backend"] == ["nccl"]
-        assert r["flash_launches"] == 10 * LLAMA3_8B.n_layers
-        assert r["backward_launches"] == 10 * LLAMA3_8B.n_layers
+        assert r["flash_launches"] == 10 * per_step
+        assert r["backward_launches"] == 10 * per_step
+
+
+def test_processes_ring_8b_sequence4_across_cards():
+    """Llama-3-8B's ring prefill of a 6001-token prompt (padded to 6144)
+    at sequence=4, one process a card (1536 positions each, the K/V
+    exchanged over NCCL): the last real position's logits the same on
+    every card; prints (``[processes4]``) the ring's wall and device ms
+    and the exchange's gathered bytes per card."""
+    import json
+
+    _cards(4)
+    res = _processes(4, "ring8b", "sequence=4")
+    print("[processes4] " + json.dumps({"case": "ring8b",
+                                        "axes": "sequence=4",
+                                        "ranks": res}), flush=True)
+    assert all(r["backend"] == ["nccl"] and r["row_finite"] for r in res)
+    assert len({r["argmax"] for r in res}) == 1, res
