@@ -244,6 +244,14 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    blocks planted; two 8B LoRA steps at sequence=2 (the ring, no kernel
    launched) and two at expert=2 on Mixtral-8x7B's widths at 4 layers,
    each against the one-process step;
+20. pipe processes — the pipelined full-parameter step with a stage a
+   process (``phase_pipe_processes``, after phase 19): two processes on
+   cuda:0 over gloo, phase 18's 16-layer tree and batch, the activations
+   and their gradients sent point to point; four steps with flash and
+   the backward at exactly 8 x 2 launches each in each process, the
+   first loss and update against phase 18's one-process pipelined step,
+   microbatches swapped at the boundary planted (it must fail), step
+   walls, the boundary's host ms and bytes and peak memory per process;
 
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
@@ -4557,7 +4565,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
     families, train, mesh, sequence, expert, data, fsdp, pipe,
-    processes)."""
+    processes, pipe_processes)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -5723,6 +5731,11 @@ def phase_pipe(torch) -> dict:
                                  f"the unpipelined step: {a}")
     log("pipe", "pipelined full-parameter step (pipe=2, both stages on "
         "cuda:0) against the unpipelined step: " + json.dumps(res))
+    # Phase 20's reference: this one-process pipelined step's first loss
+    # and picks, on the host.
+    res["reference"] = {"loss": pipe["losses"][0],
+                        **{k: {n: t.cpu() for n, t in pipe[k].items()}
+                           for k in ("before", "after")}}
     del runs
     gc.collect()
     torch.cuda.empty_cache()
@@ -6436,6 +6449,269 @@ def phase_processes(torch) -> dict:
     return out
 
 
+# -- phase 20: the pipelined trainer with a stage a process ------------------
+
+# Two processes share cuda:0 (gloo), stage i in process i: phase 18's
+# seeded 16-layer tree and batch (PIPE_LAYERS, PIPE_M rows of PIPE_S
+# tokens), each process building its stage in turn.  Gated against phase
+# 18's one-process pipelined step: the first loss (PIPE_LOSS_TOL), the
+# first update on phase 18's picks (PIPE_AGREE, its sign rule) and
+# exactly PIPE_LAYERS / 2 x PIPE_M launches of flash and of the flash
+# backward per step in each process.  The planted fault (the gate must
+# fail it): stage 1 takes the microbatches it receives in swapped order.
+PIPE_PROC_TIMEOUT_S = 300
+PIPE_PROC_FAULT = "microbatches_swapped"
+
+PIPE_PROC_WORKER = r"""
+import dataclasses, gc, json, os, sys, time
+sys.path.insert(0, os.environ["GRAFT_REPO"])
+import torch
+import torch.distributed as dist
+import chip_smoke as s
+from llm_instance_gateway_tpu_torch.models import transformer
+from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+from llm_instance_gateway_tpu_torch.parallel import collectives, pipeline
+from llm_instance_gateway_tpu_torch.parallel.mesh import (
+    MeshConfig, initialize_distributed, make_mesh, world)
+from llm_instance_gateway_tpu_torch.training import train
+
+initialize_distributed()
+rank, size = world()
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+t_start = time.time()
+cfg = dataclasses.replace(LLAMA3_8B, n_layers=s.PIPE_LAYERS)
+per_stage = s.PIPE_LAYERS // 2
+out = {"rank": rank, "stage": rank, "walls": {}}
+
+
+def mark(what):
+    out["walls"][what] = round(time.time() - t_start, 1)
+    print(f"[pipe processes rank {rank}] {what} at {out['walls'][what]} s",
+          flush=True)
+
+
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+gen = torch.Generator(device=dev).manual_seed(81)
+tokens = torch.randint(0, cfg.vocab_size, (s.PIPE_M, s.PIPE_S), device=dev,
+                       generator=gen)
+positions = torch.arange(s.PIPE_S, device=dev)[None].expand(s.PIPE_M,
+                                                            s.PIPE_S)
+mesh = make_mesh(MeshConfig(pipe=2), ["cuda:0"])
+for r in range(size):
+    if r == rank:
+        full = transformer.init_params(cfg, seed=22, device="cuda")
+        tree = pipeline.stage_param_specs(
+            cfg, pipeline.stage_params(cfg, full, 2), mesh)
+        del full
+        free()
+    dist.barrier()
+mark("stage built")
+layers = tree["stages"][rank][0]["layers"]
+
+
+def picks():
+    # Phase 18's picks that this stage holds.
+    got = {"embed": tree["embed"]} if rank == 0 else {
+        "lm_head": tree["lm_head"]}
+    at, layer = (0, 0) if rank == 0 else (-1, s.PIPE_LAYERS - 1)
+    for name in ("wq", "wo", "w_down"):
+        got[f"{name}[{layer}]"] = layers[name][at]
+    return {k: v.detach().clone() for k, v in got.items()}
+
+
+ref = torch.load(os.path.join(s.REPO, "build", "smoke", "pipe_reference.pt"),
+                 mmap=True)
+mine = sorted(picks())
+
+
+def gate(loss, before, after):
+    # The first loss and update against phase 18's one-process step.
+    row = {"loss": loss,
+           "loss_rel_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "loss_bitwise_equal": loss == ref["loss"], "picks": {}}
+    for k in mine:
+        b0 = ref["before"][k].to(dev)
+        if not torch.equal(before[k], b0):
+            raise SystemExit(f"rank {rank}: {k} starts apart from phase 18")
+        a, b = after[k], ref["after"][k].to(dev)
+        moved = (a != b0) | (b != b0)
+        same = ((a.float() - b0.float()).sign()
+                == (b.float() - b0.float()).sign())
+        row["picks"][k] = {
+            "moved": moved.float().mean().item(),
+            "same_bits_where_moved": (a == b)[moved].float().mean().item(),
+            "same_sign_where_moved": same[moved].float().mean().item()}
+        del b0, a, b, moved, same
+    row["agree"] = min(r["same_sign_where_moved"]
+                       for r in row["picks"].values())
+    return row
+
+
+leaves = train._leaves(tree)
+start = [t.detach().clone() for t in leaves]
+before = picks()
+opt = train.make_optimizer(tree, lr=s.PIPE_LR)
+step = pipeline.make_pipeline_train_step(cfg, opt, 2, s.PIPE_M, mesh)
+torch.cuda.synchronize()
+torch.cuda.reset_peak_memory_stats()
+expected = {"flash_prefill": per_stage * s.PIPE_M,
+            "flash_backward": per_stage * s.PIPE_M}
+losses, walls, launches = [], [], []
+bound = {"send_host_ms": 0.0, "recv_host_ms": 0.0, "bytes_sent": 0,
+         "bytes_received": 0, "sends": 0, "receives": 0}
+plain_send, plain_recv = collectives.send, collectives.recv
+
+
+def timed_send(x, peer, group):
+    # Each transfer between two synchronizes: the host time of the
+    # transfer, not of the compute that made its input.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = plain_send(x, peer, group)
+    bound["send_host_ms"] += (time.perf_counter() - t0) * 1e3
+    bound["bytes_sent"] += x.numel() * x.element_size()
+    bound["sends"] += 1
+    return got
+
+
+def timed_recv(shape, dtype, device, peer, group):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = plain_recv(shape, dtype, device, peer, group)
+    torch.cuda.synchronize()
+    bound["recv_host_ms"] += (time.perf_counter() - t0) * 1e3
+    bound["bytes_received"] += got.numel() * got.element_size()
+    bound["receives"] += 1
+    return got
+
+
+for i in range(2):
+    if i == 1:  # the boundary timed on the host (its wall reads the syncs)
+        collectives.send, collectives.recv = timed_send, timed_recv
+    s.reset_launches()
+    dist.barrier()
+    t0 = time.time()
+    loss = step(tree, None, tokens, positions)[2].item()
+    walls.append(time.time() - t0)
+    collectives.send, collectives.recv = plain_send, plain_recv
+    losses.append(loss)
+    launches.append(s.read_launches())
+    s.check_only(launches[-1], expected, f"pipe processes rank {rank} step")
+    if i == 0:
+        out["gate"] = gate(loss, before, picks())
+        mark("first step")
+# Two more steps: one untimed, the fourth under the profiler.
+s.reset_launches()
+dist.barrier()
+out["profiled_step"] = s._profile(torch, f"rank {rank} pipe stage step",
+                                  lambda: step(tree, None, tokens,
+                                               positions), 1)
+launches.append(s.read_launches())
+s.check_only(launches[-1], {k: 2 * n for k, n in expected.items()},
+             f"pipe processes rank {rank} profiled steps")
+out.update(losses=losses, step_wall_s=walls, boundary=bound,
+           launches={k: sum(x[k] for x in launches) for k in launches[0]},
+           peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+mark("sound steps")
+# The planted fault, from the same start: stage 1 takes the two
+# microbatches it receives in swapped order.
+del opt, step
+free()
+with torch.no_grad():
+    for t, x in zip(leaves, start):
+        t.copy_(x)
+del start
+free()
+Link = pipeline._Link
+
+
+class Swapped(Link):
+    def recv_act(self, j, shape, dtype, device):
+        if j == 0:
+            self.held = Link.recv_act(self, 0, shape, dtype, device)
+            return Link.recv_act(self, 1, shape, dtype, device)
+        return self.held
+
+
+pipeline._Link = Swapped
+opt = train.make_optimizer(tree, lr=s.PIPE_LR)
+loss = pipeline.make_pipeline_train_step(cfg, opt, 2, s.PIPE_M, mesh)(
+    tree, None, tokens, positions)[2].item()
+pipeline._Link = Link
+out["fault"] = gate(loss, before, picks())
+mark("fault")
+print("[pipe-processes-result] " + json.dumps(out), flush=True)
+"""
+
+
+def phase_pipe_processes(torch, reference: dict) -> dict:
+    """Phase 20: the pipelined full-parameter step with each stage in a
+    process of its own (``parallel/pipeline.py`` across processes: two
+    processes on cuda:0 over gloo, the activations and their gradients
+    sent point to point), on phase 18's seeded 16-layer Llama-3-8B tree
+    and batch.  Four steps (the fourth profiled per process), each
+    launching flash and the flash backward exactly PIPE_LAYERS / 2 x
+    PIPE_M times in each process; the first loss and update against phase
+    18's one-process pipelined step (``reference``: its first loss and
+    picks, on the host; PIPE_LOSS_TOL, PIPE_AGREE), and the planted
+    PIPE_PROC_FAULT beyond that gate.  Per process: step walls, the
+    boundary's send/recv host ms and bytes, peak memory."""
+    from llm_instance_gateway_tpu_torch.parallel import multihost_check
+
+    t0 = time.time()
+    smoke = os.path.join(REPO, "build", "smoke")
+    os.makedirs(smoke, exist_ok=True)
+    path = os.path.join(smoke, "pipe_reference.pt")
+    torch.save(reference, path)
+    torch.cuda.empty_cache()
+    try:
+        outs = multihost_check.run_two_process(
+            PIPE_PROC_WORKER, n_local=1, timeout_s=PIPE_PROC_TIMEOUT_S)
+    finally:
+        os.remove(path)
+    for rank, text in enumerate(outs):
+        with open(os.path.join(smoke, f"pipe_processes_rank{rank}.log"),
+                  "w") as f:
+            f.write(text)
+    res = [json.loads(line.split(" ", 1)[1]) for line in
+           multihost_check.ok_lines(outs, "[pipe-processes-result] ")]
+
+    def passes(row) -> bool:
+        return (math.isfinite(row["loss_rel_err"])
+                and row["loss_rel_err"] <= PIPE_LOSS_TOL
+                and row["agree"] >= PIPE_AGREE)
+
+    if len({r["gate"]["loss"] for r in res}) != 1:
+        raise AssertionError("pipe processes: the stages report different "
+                             f"losses: {[r['gate']['loss'] for r in res]}")
+    for r in res:
+        if not passes(r["gate"]):
+            raise AssertionError(f"pipe processes: stage {r['stage']} apart "
+                                 f"from phase 18's step: {r['gate']}")
+    if all(passes(r["fault"]) for r in res):
+        raise AssertionError(f"pipe processes: the planted {PIPE_PROC_FAULT} "
+                             "passed the gate: "
+                             f"{[r['fault'] for r in res]}")
+    launches: dict = {}
+    for r in res:
+        for name, n in r["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    out = {"wall_s": time.time() - t0, "reference_loss": reference["loss"],
+           "launches": launches, "fault": PIPE_PROC_FAULT,
+           "stages": [{k: r[k] for k in ("stage", "gate", "fault", "losses",
+                                         "step_wall_s", "boundary",
+                                         "profiled_step", "peak_mem_gb",
+                                         "launches", "walls")}
+                      for r in res]}
+    log("pipe processes", "phase " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     import gc
 
@@ -6500,6 +6776,8 @@ def main() -> int:
     done("pipe")
     processes = phase_processes(torch)
     done("processes")
+    pipe_processes = phase_pipe_processes(torch, pipe.pop("reference"))
+    done("pipe processes")
     log("walls", "phase 18 (data, fsdp and pipe): " + json.dumps(
         {"axes_s": axes["wall_s"], "pipe_s": walls["pipe"] - walls["axes"],
          "total_s": walls["pipe"] - walls["sequence"]}))
@@ -6533,7 +6811,8 @@ def main() -> int:
                "data": axes["launches_data"],
                "fsdp": axes["launches_fsdp"],
                "pipe": pipe["launches"],
-               "processes": processes["launches"]}
+               "processes": processes["launches"],
+               "pipe_processes": pipe_processes["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@ inserts between the reference's shards when a mesh spans processes (the
 JAX package has no such module; XLA places its all-reduces and
 all-gathers itself).
 
-Four operations, each over a ``Group`` (a process group, its ranks and its
+The operations, each over a ``Group`` (a process group, its ranks and its
 backend; ``None`` when the axis stays inside one process, where each is
 the identity):
 
@@ -25,7 +25,12 @@ the identity):
   is the plain sum of what every position's queries sent it;
 - ``all_reduce``: a plain sum, for counts (no gradient);
 - ``broadcast``: one member's tensor on every member (no gradient): the
-  ring's last real row, which one sequence position holds.
+  ring's last real row, which one sequence position holds;
+- ``send`` / ``recv``: one member's tensor to another, point to point (no
+  gradient): a pipeline stage's activation to the next stage, and its
+  gradient back.  ``send`` starts the transfer and returns it pending
+  (``wait_all``); ``recv`` waits for it, up to the group's timeout.  Both
+  sides must issue their transfers in the same order.
 
 The backend is the mesh's (``parallel/mesh.py``): NCCL between cards that
 no two processes share, gloo otherwise.  Over gloo a CUDA tensor is staged
@@ -192,3 +197,31 @@ def broadcast(x: torch.Tensor, src: int, group: Group | None) -> torch.Tensor:
     buf, back, _ = _staged(group, x.detach().contiguous().clone())
     dist.broadcast(buf, group.ranks[src], group=group.handle)
     return back(buf)
+
+
+def send(x: torch.Tensor, peer: int, group: Group) -> list:
+    """Start sending ``x`` to member ``peer`` (an index into
+    ``group.ranks``): the pending transfers, which hold the buffer until
+    ``wait_all``."""
+    buf, _, _ = _staged(group, x.detach().contiguous())
+    return [(dist.isend(buf, group.ranks[peer], group=group.handle), buf)]
+
+
+def recv(shape: tuple, dtype: torch.dtype, device, peer: int,
+         group: Group) -> torch.Tensor:
+    """The tensor member ``peer`` sends next (``shape``, ``dtype``), on
+    ``device``; raises at the group's timeout when none comes."""
+    device = torch.device(device)
+    host = group.backend == "gloo" and device.type == "cuda"
+    buf = (torch.empty(shape, dtype=dtype, pin_memory=True) if host
+           else torch.empty(shape, dtype=dtype, device=device))
+    dist.irecv(buf, group.ranks[peer], group=group.handle).wait()
+    return buf.to(device, non_blocking=True) if host else buf
+
+
+def wait_all(pending: list) -> None:
+    """Wait for ``send``'s pending transfers (and release their
+    buffers)."""
+    for work, _ in pending:
+        work.wait()
+    pending.clear()

@@ -33,9 +33,11 @@ the others' from them: process p owns positions ``[p * total / N, (p + 1)
 (``parallel/sharding.py``).  The collectives between processes
 (``parallel/collectives.py``) run over one process group per set of
 positions that differ only in ``tensor``, in ``tensor`` and ``expert``,
-in ``fsdp``, in ``data``, in ``sequence`` (the ring's K/V exchange) or in
-``data`` and ``sequence`` (the training loss and gradient sums)
-(``Mesh.group``).  Their backend follows one
+in ``fsdp``, in ``data``, in ``sequence`` (the ring's K/V exchange), in
+``data`` and ``sequence`` (the training loss and gradient sums) or in
+``pipe`` (a pipeline stage's neighbours, ``parallel/pipeline.py``)
+(``Mesh.group``).  Where ``pipe`` > 1 a process owns one stage (pipe
+across processes) or every stage (pipe inside it).  Their backend follows one
 rule, logged when the mesh is made: NCCL when every process's positions
 sit on CUDA devices no other process uses, else gloo (NCCL refuses two
 ranks on one device, which is how one card hosts two processes).
@@ -64,10 +66,12 @@ SERVED_AXES = AXES
 # The position sets a mesh across processes makes a process group for:
 # the attention reduction (tensor), the MLP reduction (tensor and expert),
 # the fsdp gather, the data-parallel sums, the ring's K/V exchange
-# (sequence) and the training sums over the batch's rows and positions
-# (data and sequence).
+# (sequence), the training sums over the batch's rows and positions
+# (data and sequence) and a pipeline stage's neighbours (pipe: the
+# positions at the same coordinates in every stage, between which
+# activations and their gradients go point to point).
 GROUP_AXES = (("tensor",), ("tensor", "expert"), ("fsdp",), ("data",),
-              ("sequence",), ("data", "sequence"))
+              ("sequence",), ("data", "sequence"), ("pipe",))
 # How long a collective (and the world's rendezvous) waits for its peers
 # before it raises: a divergence between processes becomes a failure, not
 # a hang.
@@ -247,8 +251,19 @@ def _make_groups(cfg: MeshConfig, processes: tuple[int, ...], rank: int,
     differing only in a ``GROUP_AXES`` entry span (every process creates
     every group, in one order); this process's per entry.  Raises
     ``ValueError`` where a process would sit in two such sets (a layout
-    whose processes do not own whole blocks of the grid)."""
+    whose processes do not own whole blocks of the grid), or owns part of
+    the ``pipe`` axis (more than one stage but not all)."""
     grid = Mesh(cfg, (), processes, rank)
+    if cfg.pipe > 1:
+        for p in sorted(set(processes)):
+            stages = sorted({grid.coords(i)[2]
+                             for i, q in enumerate(processes) if q == p})
+            if len(stages) not in (1, cfg.pipe):
+                raise ValueError(
+                    f"mesh {dict(zip(AXES, cfg.shape))}: process {p} owns "
+                    f"pipe coordinates {stages}, part of the pipe axis; a "
+                    "process owns one pipeline stage (pipe across "
+                    "processes) or all of them (pipe inside the process)")
     handles: dict = {}
     mine: dict = {}
     for axes in GROUP_AXES:

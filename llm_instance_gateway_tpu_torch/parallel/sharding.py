@@ -105,11 +105,11 @@ through ``collectives.gather`` on every process, each of which computes
 (the one-process rule that fsdp position 0 alone computes cannot hold:
 every process needs the replicated result).  ``tensor``, ``expert`` and
 ``fsdp`` and ``sequence`` may span processes, and ``data`` in training,
-one data group a process; ``pipe`` may not (the pipelined trainer over
-processes is queued).  With ``expert`` across processes each process
-attends over its tensor shards of its first expert (attention is
-replicated over ``expert``) and the attention reduction spans ``tensor``
-alone.  Across processes every shard sits on the process's one device
+one data group a process, and ``pipe`` in the pipelined trainer
+(``parallel/pipeline.py``: a process's grid is its stage's).  With
+``expert`` across processes each process attends over its tensor shards
+of its first expert (attention is replicated over ``expert``) and the
+attention reduction spans ``tensor`` alone.  Across processes every shard sits on the process's one device
 (``TensorParallel.device``), whichever sequence block it serves.
 """
 
@@ -236,13 +236,11 @@ class TensorParallel:
         """This process's part of the grid: its data group, its shards,
         fsdp positions and sequence blocks (a block: every local shard at
         every local fsdp position and sequence block) and its process
-        groups."""
+        groups.  On a ``pipe`` mesh it is the grid of this process's
+        stage, or of every stage when the process owns them all: the
+        stages' grids are alike, and every group but ``("pipe",)`` keys on
+        the pipe coordinate, so each is the stage's own."""
         shape = mesh.shape
-        if shape["pipe"] > 1:
-            raise ValueError(
-                f"pipe={shape['pipe']} on a mesh across processes: the "
-                "pipelined trainer over processes (stage activations sent "
-                "point to point) is the next slice queued in ROADMAP.md")
         if not self.moe and shape["expert"] > 1:
             raise ValueError(
                 "expert > 1 across processes for a model without experts "
@@ -730,27 +728,26 @@ def _walk(tree, path=()):
         yield path, tree
 
 
-def unshard(tree: Shards, like: dict) -> dict:
-    """The whole tree a params or LoRA ``Shards`` holds, on the host in
-    every process: ``like`` (a whole tree of the same layout, the one that
-    was sharded for instance) copied and overwritten with every shard's
-    values, gathered from every process.  For checks and exports."""
-    tp = tree.tp
+def shard_values(tree: Shards, value=None) -> dict:
+    """(path, shard, fsdp position or None) -> ``value(leaf)`` (default:
+    the leaf itself) on the host, for this process's shards of a params or
+    LoRA ``Shards`` (``fill_whole`` writes them into a whole tree)."""
+    value = value or (lambda x: x)
     mine = {}
-    for s, t in zip(tp.shards, tree):
+    for s, t in zip(tree.tp.shards, tree):
         for path, leaf in _walk(t):
             if isinstance(leaf, FsdpLeaf):
                 for f, p in zip(leaf.positions, leaf.pieces):
-                    mine[(path, s, f)] = p.detach().cpu()
+                    mine[(path, s, f)] = value(p).detach().cpu()
             else:
-                mine[(path, s, None)] = leaf.detach().cpu()
-    everyone = [mine]
-    if tp.multi:
-        everyone = [None] * torch.distributed.get_world_size()
-        torch.distributed.all_gather_object(everyone, mine)
-    got = {k: v for part in everyone for k, v in part.items()}
-    out = map_tree(like, lambda x: x.detach().cpu().clone())
-    make = _lora_tree if "scale" in like else _param_tree
+                mine[(path, s, None)] = value(leaf).detach().cpu()
+    return mine
+
+
+def fill_whole(out: dict, got: dict, tp: TensorParallel) -> None:
+    """``shard_values``' entries (gathered from every process) written
+    into ``out``, a whole params or LoRA tree on the host, in place."""
+    make = _lora_tree if "scale" in out else _param_tree
     for s in range(tp.g):
         views = make(out, s, 0, tp, lambda x, dev: x, list(range(tp.f)))
         for path, leaf in _walk(views):
@@ -760,6 +757,22 @@ def unshard(tree: Shards, like: dict) -> dict:
                         p.copy_(got[(path, s, f)])
             elif (path, s, None) in got:
                 leaf.copy_(got[(path, s, None)])
+
+
+def unshard(tree: Shards, like: dict) -> dict:
+    """The whole tree a params or LoRA ``Shards`` holds, on the host in
+    every process: ``like`` (a whole tree of the same layout, the one that
+    was sharded for instance) copied and overwritten with every shard's
+    values, gathered from every process.  For checks and exports."""
+    tp = tree.tp
+    mine = shard_values(tree)
+    everyone = [mine]
+    if tp.multi:
+        everyone = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(everyone, mine)
+    got = {k: v for part in everyone for k, v in part.items()}
+    out = map_tree(like, lambda x: x.detach().cpu().clone())
+    fill_whole(out, got, tp)
     return out
 
 

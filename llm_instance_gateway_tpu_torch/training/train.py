@@ -47,8 +47,9 @@ every shard of a block holds whole (``sharding.tensor_replicated``) over
 that block's group: the attention's over ``tensor``, the MLP's (its norm,
 the router) over ``tensor`` and ``expert``, so replicated leaves come out
 equal on every rank; the fsdp gather's backward leaves each piece its
-own.  ``pipe`` across processes is refused by name (queued in
-ROADMAP.md).
+own.  ``pipe`` is the pipelined trainer's, in one process or across
+them (``parallel/pipeline.py``, whose step across processes sums its
+stages' gradients through ``sum_replicated``).
 """
 
 from __future__ import annotations
@@ -105,16 +106,17 @@ def _masked_sum(logits: torch.Tensor, targets, target_positions) -> tuple:
 
 def _check_trainable(tp: sharding.TensorParallel) -> None:
     """The sharded step's layouts: each process's shards on one device,
-    ``pipe`` left to the pipelined trainer (across processes
-    ``TensorParallel`` refuses it)."""
+    ``pipe`` left to the pipelined trainer."""
     if not tp.one_device:
         raise ValueError(
             "a sharded train step runs each process's shards on one device: "
             "across cards run one process per card "
             "(parallel/mesh.initialize_distributed)")
     if tp.mesh.shape["pipe"] > 1:
-        raise ValueError("pipe > 1 is the pipelined trainer's "
-                         "(parallel/pipeline.make_pipeline_train_step)")
+        raise ValueError(
+            f"pipe={tp.mesh.shape['pipe']} is the pipelined trainer's "
+            "(parallel/pipeline.make_pipeline_train_step), which runs its "
+            "stages in one process or each in processes of its own")
 
 
 def _ring_sum(cfg: ModelConfig, params: sharding.Shards, tok, pos,
@@ -224,14 +226,23 @@ def _set_grads(loss: torch.Tensor, leaves: list, tree=None) -> None:
         t.grad = torch.zeros_like(t) if g is None else g
     if not isinstance(tree, sharding.Shards):
         return
+    sum_replicated(tree)
+    tp = tree.tp
+    if tp.rows_group is not None:
+        for t in leaves:
+            t.grad = collectives.all_reduce(t.grad, tp.rows_group)
+
+
+def sum_replicated(tree: sharding.Shards) -> None:
+    """The gradients of the leaves every shard of a block holds whole
+    (``sharding.tensor_replicated``) summed over that block's group: the
+    attention's over ``tensor``, the MLP's over ``tensor`` and
+    ``expert``."""
     tp = tree.tp
     for attn, group in ((True, tp.attn_group), (False, tp.mlp_group)):
         if group is not None:
             for t in sharding.tensor_replicated(tree, attn):
                 t.grad = collectives.all_reduce(t.grad, group)
-    if tp.rows_group is not None:
-        for t in leaves:
-            t.grad = collectives.all_reduce(t.grad, tp.rows_group)
 
 
 def make_step(optimizer: torch.optim.Optimizer, loss_fn):

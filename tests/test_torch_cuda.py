@@ -2223,6 +2223,36 @@ elif case == "moe":  # ten LoRA steps on Mixtral-8x7B at full depth
         list(tree["layers"].values())
         + [v for k, v in tree.items() if k != "layers"])) / 1e9
     gen = torch.Generator(device=dev).manual_seed(18)
+elif case == "pipe8b":  # ten full-parameter steps of the whole 8B, pipelined
+    from llm_instance_gateway_tpu_torch.parallel import pipeline
+    cfg = LLAMA3_8B
+    m = int(os.environ["GRAFT_MICROBATCHES"])
+    pipe = mesh.shape["pipe"]
+    full = transformer.init_params(cfg, seed=17, device=dev)
+    params = pipeline.stage_param_specs(
+        cfg, pipeline.stage_params(cfg, full, pipe), mesh)
+    del full
+    torch.cuda.empty_cache()
+    out["stages"] = sorted(params["stages"])
+    gen = torch.Generator(device=dev).manual_seed(18)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), device=dev,
+                           generator=gen)
+    positions = torch.arange(1024, device=dev)[None].expand(4, 1024)
+    opt = train.make_optimizer(params, lr=1e-4)
+    step = pipeline.make_pipeline_train_step(cfg, opt, pipe, m, mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, walls = [], []
+    f0, b0 = fl.launches, fl.backward_launches
+    for _ in range(10):
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        losses.append(step(params, None, tokens, positions)[2].item())
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    out.update(losses=losses, step_wall_s=walls,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               flash_launches=fl.launches - f0,
+               backward_launches=fl.backward_launches - b0)
 else:  # ten Llama-3-8B steps: "lora" (rank 8) or "full"
     cfg = LLAMA3_8B
     tp = sharding.TensorParallel(cfg, mesh)
@@ -2376,3 +2406,70 @@ def test_processes_ring_8b_sequence4_across_cards():
                                         "ranks": res}), flush=True)
     assert all(r["backend"] == ["nccl"] and r["row_finite"] for r in res)
     assert len({r["argmax"] for r in res}) == 1, res
+
+
+# axes -> microbatches of the 4 x 1024-token batch (one row each, or with
+# data=2 two rows: one a data group).
+PIPE_PROCESSES = {"pipe=4": 4, "pipe=2,tensor=2": 4, "data=2,pipe=2": 2}
+
+
+@pytest.mark.parametrize("axes", list(PIPE_PROCESSES))
+def test_processes_pipe_8b_steps_across_cards(axes):
+    """Ten full-parameter AdamW steps of the whole 32-layer Llama-3-8B
+    pipelined with a stage in processes of their own (four processes, one
+    card each, NCCL; activations and their gradients sent point to point):
+    ``pipe=4`` (a stage a card), ``pipe=2,tensor=2`` (tensor across
+    processes inside a stage) and ``data=2,pipe=2``.  The loss falls and
+    is the same on every process; flash and its backward launch exactly
+    (L/pp) x M times per step per local tensor shard; at ``pipe=4`` the
+    first loss is held (1e-2, relative) to the one-process pipelined step
+    across the same cards on the same weights and batch.  Prints
+    (``[processes4]``) losses, step walls and peak memory per card."""
+    import gc
+    import json
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, pipeline
+    from llm_instance_gateway_tpu_torch.training import train
+
+    cards = _cards(4)
+    m = PIPE_PROCESSES[axes]
+    mesh_cfg = mesh.parse_axes(axes)
+    ref = None
+    if axes == "pipe=4":  # the one-process route across the same cards
+        one = mesh.make_mesh(mesh_cfg, cards)
+        staged = pipeline.stage_param_specs(LLAMA3_8B, pipeline.stage_params(
+            LLAMA3_8B, transformer.init_params(LLAMA3_8B, seed=17,
+                                               device="cuda:0"), 4), one)
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda:0").manual_seed(18)
+        tokens = torch.randint(0, LLAMA3_8B.vocab_size, (4, 1024),
+                               device="cuda:0", generator=gen)
+        positions = torch.arange(1024, device="cuda:0")[None].expand(4, 1024)
+        ref = pipeline.make_pipeline_train_step(
+            LLAMA3_8B, train.make_optimizer(staged, lr=1e-4), 4, m, one)(
+            staged, None, tokens, positions)[2].item()
+        del staged
+        gc.collect()
+        for c in cards:
+            with torch.cuda.device(c):
+                torch.cuda.empty_cache()
+    res = _processes(4, "pipe8b", axes, {"GRAFT_MICROBATCHES": str(m)})
+    print("[processes4] " + json.dumps({"case": "pipe8b", "axes": axes,
+                                        "one_process_first_loss": ref,
+                                        "ranks": res}), flush=True)
+    losses = [r["losses"] for r in res]
+    assert all(x == losses[0] for x in losses), losses
+    assert all(math.isfinite(x) for x in losses[0])
+    assert losses[0][-1] < losses[0][0], losses[0]
+    if ref is not None:
+        assert abs(losses[0][0] - ref) <= 1e-2 * abs(ref), (losses[0][0], ref)
+    # One position a process: one tensor shard of one stage.
+    assert mesh_cfg.total == 4
+    per_step = LLAMA3_8B.n_layers // mesh_cfg.pipe * m
+    for r in res:
+        assert r["backend"] == ["nccl"]
+        assert len(r["stages"]) == 1, r
+        assert r["flash_launches"] == 10 * per_step, r
+        assert r["backward_launches"] == 10 * per_step, r
