@@ -87,10 +87,11 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    cold prefill; profiles one int8 paged decode step and one chunk, and
    prints the int8 profiles beside the bf16 ones;
 
-9. dispatch — ``bench.py``'s device traffic on Llama-3-8B (int8 weights,
-   four rank-8 adapters, 48 requests of 100 + 64 tokens at once — 100 +
-   16 on the A side, ``DISPATCH_A_NEW`` — 16 slots, buckets 128/256, 32
-   steps per dispatch) in turns A B B A: A the sync
+9. dispatch — ``bench.py``'s device traffic on Llama-3-8B's widths at
+   ``DISPATCH_LAYERS`` of its 32 layers (int8 weights, four rank-8
+   adapters, 48 requests of 100 + 64 tokens at once — 100 + 16 on the A
+   side, ``DISPATCH_A_NEW`` — 16 slots, buckets 128/256, 32 steps per
+   dispatch) in turns A B B A: A the sync
    loop with the eager block and prefill_batch=1, B the pipelined loop
    replaying the block's graph with prefill_batch=4; decode tokens/s,
    TPOT and TTFT p50/p95, exact launch counts per run, and the greedy
@@ -1430,8 +1431,11 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
     int8 one, and the prefill goes unprofiled) and ``flags`` more of the
     server's flags; ``params`` is served as given (quantized under int8
     flags), else the server draws random seeded weights; ``after(engine,
-    url, stats)`` runs last, on the live server, and ``profile=False``
-    skips the profiles.  ``flags`` with ``--mesh tensor=N`` serves the
+    url, stats)`` runs last, on the live server, ``profile=False``
+    skips the profiles and ``profile="replay"`` profiles the decode step's
+    graph replays alone (an eager step over many shards is seconds of
+    host time, and its tens of thousands of kernel events as many of
+    processing).  ``flags`` with ``--mesh tensor=N`` serves the
     model sharded over ``mesh_devices``; every kernel then launches once
     per shard.  Returns (stats, the params served, or the caller's under
     ``quant`` or a mesh; the adapter path) so later phases serve the same
@@ -1586,8 +1590,11 @@ def phase_serve(torch, params=None, adapter_path=None, quant=False,
                             list(r.output_tokens) for r in submitted}
         # After the counted window: these launches are not the serve's.
         if profile:
-            stats["profile"] = phase_profile(torch, engine,
-                                             prefill=not quant)
+            t_prof = time.time()
+            stats["profile"] = phase_profile(
+                torch, engine, prefill=not quant and profile != "replay",
+                eager=profile != "replay")
+            stats["profile_s"] = time.time() - t_prof
         if after is not None:
             after(engine, url, stats)
         stats["peak_mem_gb_with_profile"] = (
@@ -1886,10 +1893,11 @@ def _graph_profile(torch, name: str, fn, reps: int):
                     host=True)
 
 
-def _with_graph(torch, name: str, fn, reps: int, why_not: str | None = None):
-    """Eager profile of ``fn`` and, beside it, its graph replays — or
-    ``why_not``, the reason there is none."""
-    out = _profile(torch, name, fn, reps)
+def _with_graph(torch, name: str, fn, reps: int, why_not: str | None = None,
+                eager: bool = True):
+    """Eager profile of ``fn`` (unless not ``eager``) and, beside it, its
+    graph replays — or ``why_not``, the reason there is none."""
+    out = _profile(torch, name, fn, reps) if eager else {}
     if why_not:
         out["graph_replay"] = f"not captured: {why_not}"
         return out
@@ -1953,7 +1961,8 @@ def phase_paged_profile(torch, engine) -> dict:
                         "card per call")}
 
 
-def phase_profile(torch, engine, prefill: bool = True, cfg=None) -> dict:
+def phase_profile(torch, engine, prefill: bool = True, cfg=None,
+                  eager: bool = True) -> dict:
     """Where one 8B decode step (8 rows, mixed adapters, ragged lengths)
     and one 1024-token prefill spend their time: host wall per call, device
     kernel time, device idle share, top kernels (torch.profiler).  On the
@@ -1963,7 +1972,7 @@ def phase_profile(torch, engine, prefill: bool = True, cfg=None) -> dict:
     prefill is profiled eager only (it reads the exact fallback's
     overflow flag on the host, once a layer).  ``cfg`` overrides the
     engine's config (an MoE model in drop mode, the exact fallback's
-    cost)."""
+    cost); ``eager=False`` profiles the graph replays alone."""
     from llm_instance_gateway_tpu_torch.models import transformer
     from llm_instance_gateway_tpu_torch.server.sampling import sample
 
@@ -1993,7 +2002,8 @@ def phase_profile(torch, engine, prefill: bool = True, cfg=None) -> dict:
                                    lora_bufs=lora_bufs,
                                    slot_ids=slots[1:2])[0]
 
-    out = {"decode_step": _with_graph(torch, "decode_step", decode, 3)}
+    out = {"decode_step": _with_graph(torch, "decode_step", decode, 3,
+                                      eager=eager)}
     if prefill:
         out["prefill_1024"] = _with_graph(
             torch, "prefill_1024", run_prefill, 2,
@@ -2019,11 +2029,17 @@ def wait_blocks_processed(eng) -> None:
 
 # New tokens per request of the dispatch phase's A runs (B: bench.py's 64).
 DISPATCH_A_NEW = 16
+# The dispatch phase's depth: the serve phase's first 8 of Llama-3-8B's
+# 32 layers (the whole smoke past ~1000 s of its 1200 once phase 21 came:
+# at full depth the phase took 139 s of a 1047 s run on one H100, at 16
+# layers 73 s of a 1036 s run).
+DISPATCH_LAYERS = 8
 
 
 def phase_dispatch(torch, bf16_params) -> dict:
-    """``bench.py``'s device traffic on Llama-3-8B (full width and depth,
-    int8 weights, four rank-8 adapters on q/k/v/o): 48 requests arriving
+    """``bench.py``'s device traffic on Llama-3-8B (full width, the first
+    ``DISPATCH_LAYERS`` layers of the serve phase's tree, int8 weights,
+    four rank-8 adapters on q/k/v/o): 48 requests arriving
     at once, 100-token prompts, 64 new tokens (``DISPATCH_A_NEW`` on the
     A side, whose eager runs took most of the phase's wall), 16 slots,
     buckets (128, 256), decode_steps_per_sync=32.  Two engines over the
@@ -2044,8 +2060,11 @@ def phase_dispatch(torch, bf16_params) -> dict:
         Engine, EngineConfig, Request)
     from llm_instance_gateway_tpu_torch.server.lora_manager import LoRAManager
 
-    cfg = dataclasses.replace(LLAMA3_8B, max_lora_slots=4, max_lora_rank=8)
-    params = quantize_params(bf16_params)
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=DISPATCH_LAYERS,
+                              max_lora_slots=4, max_lora_rank=8)
+    params = quantize_params(dict(bf16_params, layers={
+        name: leaf[:DISPATCH_LAYERS]
+        for name, leaf in bf16_params["layers"].items()}))
     lora = LoRAManager(cfg, dtype=torch.bfloat16, device="cuda")
     names = []
     for i in range(4):  # bench.make_adapter_weights(cfg, rank=8, seed=i)
@@ -2179,7 +2198,8 @@ def phase_dispatch(torch, bf16_params) -> dict:
             "decode_tokens_per_s", "decode_step_ms_mean", "tpot_ms_p50",
             "tpot_ms_p95",
             "ttft_ms_p50", "ttft_ms_p95")}
-    log("dispatch", "llama3-8b, int8 weights, 4 rank-8 adapters, 48 x "
+    log("dispatch", f"llama3-8b at {DISPATCH_LAYERS} layers, int8 weights, "
+        "4 rank-8 adapters, 48 x "
         f"(100 prompt + 64 new; A {DISPATCH_A_NEW}) tokens, 16 slots, 32 "
         "steps per dispatch: "
         + json.dumps({k: v for k, v in out.items() if k != "runs"}))
@@ -4018,14 +4038,17 @@ def _kernel_rows_at(torch, layouts, tag: str, seed: int) -> dict:
     return rows
 
 
-def phase_families(torch) -> dict:
+def phase_families(torch, then=None) -> dict:
     """Phase 13: every family's head layout card against CPU; flash and
     the lane kernels in bf16 at each full-width server's layout against
     their plain versions; then the Qwen2.5-7B (seeded q/k/v biases),
     Gemma-2B, Gemma-7B and Mixtral-8x7B (int8 weights and KV, 16 slots,
     pipelined) servers through ``phase_serve``, at full width and depth,
-    one at a time, each freed before the next is built.  Returns the
-    servers' launches summed, their stats and the kernel rows."""
+    one at a time, each freed before the next is built.  ``then[model]
+    (params, stats, adapter_path)`` runs after that model's server, on
+    its tree (phase 21 on Qwen's); its result is ``out["then"][model]``.
+    Returns the servers' launches summed, their stats and the kernel
+    rows."""
     import gc
 
     from llm_instance_gateway_tpu_torch.models import transformer
@@ -4035,7 +4058,7 @@ def phase_families(torch) -> dict:
     _family_reference(torch)
     ref_s = time.time() - t0
     kernel_rows = _family_kernel_rows(torch)
-    servers, launches = {}, {}
+    servers, launches, after = {}, {}, {}
     for model, flags in FAMILY_SERVERS:
         gc.collect()
         torch.cuda.empty_cache()
@@ -4049,16 +4072,18 @@ def phase_families(torch) -> dict:
                                              dtype=torch.bfloat16,
                                              device="cuda")
             _seed_biases(torch, params, 13, 0.5)
-        servers[model] = phase_serve(
+        servers[model], served, adapter_path = phase_serve(
             torch, params, model=model, flags=flags, tag=tag,
-            after=_moe_extras(torch, tag, cfg) if cfg.n_experts else None)[0]
-        del params
+            after=_moe_extras(torch, tag, cfg) if cfg.n_experts else None)
+        if model in (then or {}):
+            after[model] = then[model](served, servers[model], adapter_path)
+        del params, served
         servers[model].pop("answers")
         for name, n in servers[model]["launches"].items():
             launches[name] = launches.get(name, 0) + n
     out = {"reference_s": ref_s, "wall_s": time.time() - t0,
            "launches": launches, "servers": servers,
-           "kernel_rows": kernel_rows}
+           "kernel_rows": kernel_rows, "then": after}
     log("families", "phase wall " + json.dumps(
         {"reference_s": ref_s, "wall_s": out["wall_s"]}))
     return out
@@ -4565,7 +4590,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
     families, train, mesh, sequence, expert, data, fsdp, pipe,
-    processes, pipe_processes)."""
+    processes, pipe_processes, layouts)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -6530,23 +6555,34 @@ mine = sorted(picks())
 
 
 def gate(loss, before, after):
-    # The first loss and update against phase 18's one-process step.
+    # The first loss and update against phase 18's one-process step,
+    # counted over row blocks of each pick: a boolean index of a whole
+    # lm_head or embed pick builds an 8 GB index tensor, which two stage
+    # processes and the smoke's own share of the card may not leave free.
     row = {"loss": loss,
            "loss_rel_err": abs(loss - ref["loss"]) / abs(ref["loss"]),
            "loss_bitwise_equal": loss == ref["loss"], "picks": {}}
     for k in mine:
-        b0 = ref["before"][k].to(dev)
-        if not torch.equal(before[k], b0):
-            raise SystemExit(f"rank {rank}: {k} starts apart from phase 18")
-        a, b = after[k], ref["after"][k].to(dev)
-        moved = (a != b0) | (b != b0)
-        same = ((a.float() - b0.float()).sign()
-                == (b.float() - b0.float()).sign())
+        n = {"moved": 0, "same_bits": 0, "same_sign": 0}
+        rows = max(1, 2 ** 26 // max(1, after[k][0].numel()))
+        for i in range(0, after[k].shape[0], rows):
+            b0 = ref["before"][k][i:i + rows].to(dev)
+            if not torch.equal(before[k][i:i + rows], b0):
+                raise SystemExit(f"rank {rank}: {k} starts apart from "
+                                 "phase 18")
+            a, b = after[k][i:i + rows], ref["after"][k][i:i + rows].to(dev)
+            moved = (a != b0) | (b != b0)
+            same = ((a.float() - b0.float()).sign()
+                    == (b.float() - b0.float()).sign())
+            n["moved"] += moved.sum().item()
+            n["same_bits"] += ((a == b) & moved).sum().item()
+            n["same_sign"] += (same & moved).sum().item()
+            del b0, a, b, moved, same
+        m = n["moved"] or float("nan")
         row["picks"][k] = {
-            "moved": moved.float().mean().item(),
-            "same_bits_where_moved": (a == b)[moved].float().mean().item(),
-            "same_sign_where_moved": same[moved].float().mean().item()}
-        del b0, a, b, moved, same
+            "moved": n["moved"] / after[k].numel(),
+            "same_bits_where_moved": n["same_bits"] / m,
+            "same_sign_where_moved": n["same_sign"] / m}
     row["agree"] = min(r["same_sign_where_moved"]
                        for r in row["picks"].values())
     return row
@@ -6669,6 +6705,9 @@ def phase_pipe_processes(torch, reference: dict) -> dict:
     path = os.path.join(smoke, "pipe_reference.pt")
     torch.save(reference, path)
     torch.cuda.empty_cache()
+    log("pipe processes", "this process before the stages: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
     try:
         outs = multihost_check.run_two_process(
             PIPE_PROC_WORKER, n_local=1, timeout_s=PIPE_PROC_TIMEOUT_S)
@@ -6709,6 +6748,276 @@ def phase_pipe_processes(torch, reference: dict) -> dict:
                                          "launches", "walls")}
                       for r in res]}
     log("pipe processes", "phase " + json.dumps(out))
+    return out
+
+
+# -- phase 21: head layouts the reference's kernels do not split -------------
+
+# Qwen2.5-7B at tensor=8, every shard on cuda:0: the head plan's 4:1 a
+# shard (``ops/sharded_attention.head_plan``: each KV head on two shards,
+# each group of 7 query heads padded with a zero head to 8).
+LAYOUT_T = 8
+LAYOUT_DEVICES = ["cuda:0"] * LAYOUT_T
+LAYOUT_FLAGS = ["--mesh", f"tensor={LAYOUT_T}"]
+# Faults planted in the tensor=8 tree, each of which the logits check
+# (MESH_LOGIT_TOL) must fail: every zero query head's ``wo`` rows set to
+# its shard's first real head's rows in every layer (padding that leaks
+# into the output), and shard 1's query heads attending KV head 1 instead
+# of its group's head 0 (a plan that maps a shard to the wrong KV head).
+LAYOUT_FAULTS = ("padded_wo", "wrong_kv")
+
+
+def _paged_quant_row_at(torch, label: str, h: int, k: int, hd: int,
+                        seed: int) -> dict:
+    """The int8 paged kernel at one layout (8 rows, 64-token blocks, 16
+    of them a row, shuffled tables, ragged lengths up to 1024) against
+    its plain version (``check_kernel``'s limits); a length-0 row gives
+    zeros.  A row of the kernels line (errors only)."""
+    from llm_instance_gateway_tpu_torch.ops import paged_decode_attention as pd
+
+    dev, b, page, m = torch.device("cuda"), 8, 64, 16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = [0, 1, 777, 1024, 5, 300, 512, 1000]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn(b, h, hd, device=dev, generator=gen).to(torch.bfloat16)
+    kq, ks = _int8_kv(torch, gen, (b * m + 1, page, k, hd))
+    vq, vs = _int8_kv(torch, gen, (b * m + 1, page, k, hd))
+    perm = torch.randperm(b * m, generator=torch.Generator().manual_seed(seed))
+    tables = (perm + 1).reshape(b, m).to(torch.int32).to(dev)
+    args = (q, kq, vq, tables, lengths, ks, vs)
+    got = pd.paged_decode_attention(*args)
+    layout = f"{label}: H={h} K={k} hd={hd}"
+    row = dict(shape=f"{layout}, B={b} P={page} M={m}, int8 pools + f32 "
+               f"scale pools, lengths={lens}", **check_kernel(
+                   f"paged decode int8 {layout}", got,
+                   pd.paged_decode_attention_quant_reference(*args)))
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError(f"paged decode int8 {layout}: a length-0 row "
+                             "must give zeros")
+    return row
+
+
+def _layout_kernel_rows(torch) -> dict:
+    """Flash and the bf16 lane kernel (``_kernel_rows_at``) and the int8
+    paged kernel at one shard of Qwen2.5-7B at tensor=8 (4:1 at hd 128)."""
+    label = f"qwen2.5-7b tensor={LAYOUT_T} shard"
+    rows = _kernel_rows_at(torch, [(label, 4, 1, 128, 8, False)], "layouts",
+                           2121)
+    row = _paged_quant_row_at(torch, label, 4, 1, 128, 2122)
+    log("layouts", "paged_decode_attention_quant " + json.dumps(row))
+    rows["paged_decode_attention_quant"] = [row]
+    return rows
+
+
+def _layout_tree(torch, params, tp, fault=None):
+    """(Qwen2.5-7B's tree at tensor=8, its grid), sound or with ``fault``
+    (``LAYOUT_FAULTS``) planted: new ``wo`` leaves for ``padded_wo`` (the
+    tree served stays as it is), a grid whose plan gives shard 1 KV head 1
+    for ``wrong_kv``."""
+    import copy
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+
+    if fault == "wrong_kv":
+        kv = list(tp.plan.kv_heads)
+        kv[1] = (kv[1][0] + 1,)
+        tp = copy.copy(tp)
+        tp.plan = dataclasses.replace(tp.plan, kv_heads=tuple(kv))
+    sharded = sharding.shard_params(params, tp)
+    if fault != "padded_wo":
+        return sharded, tp
+    hd, trees = tp.hd, []
+    for s, tree in enumerate(sharded):
+        heads = tp.plan.q_heads[s]
+        if min(heads) >= 0:
+            trees.append(tree)
+            continue
+        wo = tree["layers"]["wo"].clone()
+        for j, h in enumerate(heads):
+            if h < 0:
+                wo[:, j * hd:(j + 1) * hd] = wo[:, :hd]
+        trees.append(dict(tree, layers=dict(tree["layers"], wo=wo)))
+    return sharding.Shards(trees, tp), tp
+
+
+def _layout_logits(torch, params) -> dict:
+    """One Qwen2.5-7B prefill (700 seeded tokens) and the decode step
+    after it at tensor=1 and at tensor=8 on one card, eager: the logits
+    of both against each other under MESH_LOGIT_TOL, each planted fault
+    (``LAYOUT_FAULTS``) beyond it; the prompt's K/V too (reported)."""
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import QWEN2_5_7B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    cfg, dev, n = QWEN2_5_7B, torch.device("cuda"), 700
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(tensor=LAYOUT_T), LAYOUT_DEVICES))
+    gen = torch.Generator(device=dev).manual_seed(78)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), device=dev,
+                           generator=gen)
+    positions = torch.arange(n, device=dev)[None]
+
+    def lane(c, d):
+        return transformer.init_decode_cache(c, 1, 1024, device=d)
+
+    out, nxt = {}, None
+    with torch.no_grad():
+        for run in ("tensor1", "sound") + LAYOUT_FAULTS:
+            if run == "tensor1":
+                p, cache = params, lane(cfg, dev)
+            else:
+                p, grid = _layout_tree(torch, params, tp,
+                                       None if run == "sound" else run)
+                cache = sharding.shard_cache(lane, grid)
+            logits, k, v = transformer.prefill(cfg, p, tokens, positions)
+            last = logits[0, -1, :cfg.vocab_size].float()
+            if nxt is None:
+                nxt = last.argmax().reshape(1)
+            transformer.insert_prefill(cache, k, v, 0, n)
+            step, _ = transformer.decode_step(
+                cfg, p, cache, nxt, torch.tensor([n], device=dev))
+            out[run] = (last, step[0, :cfg.vocab_size].float(), k.float())
+            del cache, k, v, p
+
+    def compare(run) -> dict:
+        return {name: _share(out[run][i], out["tensor1"][i])
+                for name, i in (("prefill_last", 0), ("decode_step", 1))}
+
+    sound = compare("sound")
+    faults = {f: compare(f) for f in LAYOUT_FAULTS}
+    _gate("layouts", sound, faults)
+    res = dict(sound, planted_faults=faults,
+               prefill_kv_max_abs_err=(out["sound"][2]
+                                       - out["tensor1"][2]).abs().max().item(),
+               prefill_kv_max_abs=out["tensor1"][2].abs().max().item(),
+               plan=tp.layout)
+    log("layouts", f"logits tensor={LAYOUT_T} vs tensor=1 (bf16, tolerance "
+        f"{MESH_LOGIT_TOL} of the largest |logit|; planted faults in every "
+        "layer): " + json.dumps(res))
+    return res
+
+
+def _layout_bytes(engine, params) -> dict:
+    """What the plan costs on the card: the bytes of the sharded weights
+    that are copies rather than views of the served tree (each shard with
+    a zero head holds its head leaves as a copy), the zero heads' share of
+    them, and the KV cache's bytes beside an unsharded cache's (the shards
+    of a KV head share one cache on one card)."""
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return [t for v in tree.values() for t in tensors(v)]
+        return [tree]
+
+    own = {t.untyped_storage().data_ptr() for t in tensors(params)}
+    seen, copied = set(), 0
+    for tree in sharding.parts(engine.params):
+        for t in tensors(tree):
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in own and ptr not in seen:
+                seen.add(ptr)
+                copied += t.untyped_storage().nbytes()
+    tp, cfg = engine.tp, engine.model_cfg
+    hd, el = tp.hd, params["layers"]["wq"].element_size()
+    zero_q = sum(h < 0 for heads in tp.plan.q_heads for h in heads)
+    zero_kv = sum(h < 0 for heads in tp.plan.kv_heads for h in heads)
+    per_q = cfg.n_layers * hd * (2 * cfg.d_model
+                                 + (1 if cfg.attention_bias else 0)) * el
+    per_kv = cfg.n_layers * hd * 2 * (cfg.d_model
+                                      + (1 if cfg.attention_bias else 0)) * el
+    caches = sharding.distinct(sharding.parts(engine.cache))
+    cache_bytes = sum(x.untyped_storage().nbytes() for c in caches
+                      for name, x in c.items()
+                      if name not in ("tables", "length"))
+    local_kv = tp.cfg.n_kv_heads
+    return {"weights_copied_gb": copied / 1e9,
+            "zero_heads_gb": (zero_q * per_q + zero_kv * per_kv) / 1e9,
+            "zero_query_heads": zero_q, "zero_kv_heads": zero_kv,
+            "kv_cache_gb": cache_bytes / 1e9,
+            "kv_cache_unsharded_gb": (cache_bytes * cfg.n_kv_heads
+                                      / (len(caches) * local_kv)) / 1e9,
+            "distinct_caches": len(caches)}
+
+
+def phase_layouts(torch, params, adapter_path: str, t1_stats: dict) -> dict:
+    """Phase 21: a head layout the reference's kernels do not split,
+    served through the head plan: Qwen2.5-7B (families' seeded tree, q/k/v
+    biases non-zero) at ``--mesh tensor=8`` on cuda:0, 4:1 a shard.  Flash,
+    the bf16 lane kernel and the int8 paged kernel at the shard layout
+    against their plain versions; one prefill's and one decode step's
+    logits against tensor=1 under MESH_LOGIT_TOL, both planted faults
+    beyond it; the lane serve's window (``phase_serve``, families' adapter
+    on three rows, graphs; exact launches, each kernel once per shard; the
+    replayed decode step profiled) with its greedy tokens counted against
+    the families phase's tensor=1 answers, and the same window on an int8
+    KV pool; peak memory and the plan's bytes; the walls of its parts.
+    ``t1_stats``: the families phase's tensor=1 Qwen serve."""
+    import gc
+
+    t0 = time.time()
+    walls = {}
+
+    def mark(part: str) -> None:
+        walls[part] = time.time() - t0 - sum(walls.values())
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernel_rows = _layout_kernel_rows(torch)
+    mark("kernels_s")
+    logits = _layout_logits(torch, params)
+    mark("logits_s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_bytes = {}
+    lanes = phase_serve(
+        torch, params, adapter_path, model="qwen2.5-7b", flags=LAYOUT_FLAGS,
+        tag="layouts", mesh_devices=LAYOUT_DEVICES, profile="replay",
+        after=lambda eng, url, st: plan_bytes.update(
+            _layout_bytes(eng, params)))[0]
+    mark("lanes_s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = phase_serve(
+        torch, params, adapter_path, model="qwen2.5-7b",
+        flags=LAYOUT_FLAGS + ["--paged-kv-block", "64", "--kv-quantize",
+                              "int8"],
+        tag="layouts paged int8", mesh_devices=LAYOUT_DEVICES,
+        profile=False)[0]
+    mark("pool_s")
+    want = t1_stats["answers"]
+    tokens = {}
+    for name, st in (("lanes", lanes), ("paged_int8", pool)):
+        got = st.pop("answers")
+        total = sum(map(len, got.values()))
+        equal = sum(int(a == b) for key, toks in got.items()
+                    for a, b in zip(toks, want[key]))
+        tokens[name] = {"equal": equal, "of": total}
+    log("layouts", "greedy tokens equal to tensor=1's bf16 lanes "
+        "(reported, not gated): " + json.dumps(tokens))
+    launches = dict(lanes["launches"])
+    for name, n in pool["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    per_step = {}
+    for label, st in (("tensor1", t1_stats), (f"tensor{LAYOUT_T}", lanes)):
+        graph = st.get("profile", {}).get("decode_step", {}).get(
+            "graph_replay")
+        per_step[label] = ({k: graph.get(k) for k in
+                            ("wall_ms", "device_ms", "device_idle_share")}
+                           if isinstance(graph, dict) else graph)
+    walls["lanes_profile_s"] = lanes["profile_s"]
+    out = {"wall_s": time.time() - t0, "walls": walls, "launches": launches,
+           "launches_per_shard": {k: v / LAYOUT_T
+                                  for k, v in launches.items()},
+           "tokens_equal": tokens, "logits": logits, "per_step": per_step,
+           "peak_mem_gb": {"tensor1": t1_stats["peak_mem_gb"],
+                           f"tensor{LAYOUT_T}": lanes["peak_mem_gb"],
+                           f"tensor{LAYOUT_T} paged int8":
+                           pool["peak_mem_gb"]},
+           "plan_bytes": plan_bytes, "kernel_rows": kernel_rows}
+    log("layouts", "phase " + json.dumps({k: v for k, v in out.items()
+                                          if k != "kernel_rows"}))
     return out
 
 
@@ -6781,16 +7090,22 @@ def main() -> int:
     log("walls", "phase 18 (data, fsdp and pipe): " + json.dumps(
         {"axes_s": axes["wall_s"], "pipe_s": walls["pipe"] - walls["axes"],
          "total_s": walls["pipe"] - walls["sequence"]}))
-    families = phase_families(torch)
+    families = phase_families(torch, then={
+        "qwen2.5-7b": lambda p, st, adapter: phase_layouts(torch, p, adapter,
+                                                           st)})
     done("families")
+    layouts = families["then"]["qwen2.5-7b"]
+    log("walls", "phase 21 (layouts, inside families): " + json.dumps(
+        {"layouts_s": layouts["wall_s"]}))
     expert = families["servers"]["mixtral-8x7b"].pop("expert")
     log("walls", "phase 17 (sequence and expert): " + json.dumps(
         {"sequence_s": sequence["wall_s"], "expert_s": expert["wall_s"],
          "total_s": sequence["wall_s"] + expert["wall_s"]}))
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
-    for name, rows in meshed["kernel_rows"].items():
-        kernel_rows[name] = rows + kernel_rows[name]
+    for part in (meshed, layouts):
+        for name, rows in part["kernel_rows"].items():
+            kernel_rows[name] = rows + kernel_rows[name]
     kernel_rows.update(trained["kernel_rows"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
@@ -6812,7 +7127,8 @@ def main() -> int:
                "fsdp": axes["launches_fsdp"],
                "pipe": pipe["launches"],
                "processes": processes["launches"],
-               "pipe_processes": pipe_processes["launches"]}
+               "pipe_processes": pipe_processes["launches"],
+               "layouts": layouts["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

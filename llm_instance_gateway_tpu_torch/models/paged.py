@@ -221,7 +221,8 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
     The trailing partial block carries bucket padding into a real block,
     masked by ``length``.  An int8 pool gets the prompt quantized, its
     scales written to the same blocks of the scale pools.  A sharded pool
-    takes each shard's KV heads."""
+    takes each shard's KV heads (every replica, zeros at its zero
+    heads)."""
     lyr, _, s, _, hd = k_prompt.shape
     for cache_s, heads in sharding.kv_parts(cache):
         block = cache_s["k"].shape[2]
@@ -231,8 +232,8 @@ def insert_prefill_paged(cache: Params, k_prompt: torch.Tensor,
         n_b = phys.shape[0]
         pad = n_b * block - s
         for name, prompt in (("k", k_prompt), ("v", v_prompt)):
-            new = torch.nn.functional.pad(
-                prompt[:, 0, :, heads].to(dev), (0, 0, 0, 0, 0, pad))
+            new = torch.nn.functional.pad(sharding.local_heads(
+                prompt[:, 0, :, heads], kh).to(dev), (0, 0, 0, 0, 0, pad))
             if f"{name}_scale" in cache_s:
                 new, scales = _kv_quantize(new)
                 cache_s[f"{name}_scale"][:, phys] = scales.reshape(

@@ -453,7 +453,8 @@ def _no_slots(b: int, device) -> torch.Tensor:
 class _Shards:
     """The shards a forward iterates: the trees of sequence group
     ``group`` of a ``Shards`` params tree (``parallel/sharding.py``; one
-    data group's) with their local config, or the one tree of a plain
+    data group's) with their local config (the head plan's heads, the
+    same on every shard, zero heads included), or the one tree of a plain
     one.  The residual stream is a list with one entry per shard (one
     tensor, repeated, when the shards share a device).  Attention runs on
     the first ``n_attn`` shards (expert 0's tensor shards), the MLP on all
@@ -668,15 +669,17 @@ def prefill_layer(shs: list, i: int, hs: list, positions: list,
             kv = collectives.exchange(torch.stack(
                 [torch.cat(ks, dim=1), torch.cat(vs, dim=1)]), 2, seq)
             ks, vs = (list(x.chunk(tp.n, dim=1)) for x in kv)
-        if k_all is not None and (tp is None or s == 0 or tp.kv_split):
-            # Training writes no KV; a replicated KV head is written once.
+        if k_all is not None and (tp is None or tp.kv_first(s)):
+            # Training writes no KV; a replicated KV head is written once,
+            # from its first shard, and a zero head never.
             heads = slice(None) if tp is None else tp.kv_heads(s)
+            n = k_all.shape[3] if tp is None else heads.stop - heads.start
             start = 0
             for k, v in zip(ks, vs):
                 rows = slice(start, start + k.shape[1])
                 start += k.shape[1]
-                k_all[i, :, rows, heads] = k.to(k_all.device)
-                v_all[i, :, rows, heads] = v.to(v_all.device)
+                k_all[i, :, rows, heads] = k[:, :, :n].to(k_all.device)
+                v_all[i, :, rows, heads] = v[:, :, :n].to(v_all.device)
         if attention_fn is None:
             # Right-padded batches: causal tiling alone keeps real
             # positions exact (the kernel ignores positions, like the TPU
@@ -1109,8 +1112,8 @@ def insert_prefill(cache: Params, k_prompt: torch.Tensor,
     """Insert a prefilled sequence's KV ``[L, 1, S, K, hd]`` into decode
     slot ``slot`` (in place), quantized on an int8 cache.  ``length`` is the
     true prompt length; the padded tail is garbage, masked by
-    ``cache['length']``.  A sharded cache takes each shard's KV heads,
-    in the slot's data group."""
+    ``cache['length']``.  A sharded cache takes each shard's KV heads
+    (every replica, zeros at its zero heads), in the slot's data group."""
     if sharding.n_data(cache) > 1:
         _, cg, row = _data_slot(cache, slot)
         insert_prefill(cg, k_prompt, v_prompt, row, length)
@@ -1118,7 +1121,8 @@ def insert_prefill(cache: Params, k_prompt: torch.Tensor,
     for c, heads in sharding.kv_parts(cache):
         s = min(k_prompt.shape[2], c["k"].shape[2])
         for name, prompt in (("k", k_prompt), ("v", v_prompt)):
-            new = prompt[:, 0, :s, heads].to(c[name].device)
+            new = sharding.local_heads(prompt[:, 0, :s, heads],
+                                       c[name].shape[3]).to(c[name].device)
             if f"{name}_scale" in c:
                 new, c[f"{name}_scale"][:, slot, :s] = _kv_quantize(new)
             c[name][:, slot, :s] = new.to(c[name].dtype)

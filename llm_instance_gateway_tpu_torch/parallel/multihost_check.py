@@ -218,10 +218,14 @@ def run_processes(worker_src: str, n_processes: int, n_local: int = 4,
         raise RuntimeError(
             f"{n_processes}-process worker timed out:\n"
             + "\n---\n".join(o[-2000:] for o in outs))
-    for p, out in zip(procs, outs):
-        if p.returncode != 0:
-            raise RuntimeError(
-                f"{n_processes}-process worker failed:\n{out[-3000:]}")
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        # Every failed process's tail: the one that failed first is often
+        # not the first listed (its peers fail after it, in a collective).
+        raise RuntimeError(
+            f"{n_processes}-process worker failed:\n" + "\n---\n".join(
+                f"[process {i}, exit {procs[i].returncode}]\n"
+                f"{outs[i][-3000:]}" for i in failed))
     return outs
 
 

@@ -600,9 +600,14 @@ def make_pipeline_train_step(cfg: ModelConfig, optimizer, pipe: int,
     processes ``params`` is ``stage_param_specs``' part of this process
     and the loss comes back on every process.  Raises ``ValueError`` for
     one process across cards with ``tensor``, ``data`` or ``fsdp`` above
-    1 (one process a card serves those)."""
+    1 (one process a card serves those), and for a ``tensor`` that does
+    not split the heads as the reference does (``sharding.
+    require_plain``)."""
     from llm_instance_gateway_tpu_torch.training import train
 
+    if mesh is not None:
+        sharding.require_plain(cfg, mesh.shape["tensor"],
+                               "a pipelined train step")
     if mesh is not None and mesh.spans_processes:
         return _process_step(cfg, optimizer, pipe, n_microbatches, mesh)
     if mesh is not None and len(set(mesh.devices)) > 1 and (

@@ -7,9 +7,9 @@ replicas over ``sequence``, as per-shard trees (port of
 The reference annotates one tree with ``PartitionSpec``s and lets GSPMD
 place the blocks; here a sharded tree is a ``Shards`` list with one
 ordinary port tree per shard — the tree of the local config
-(``TensorParallel.cfg``: ``n_heads / t`` query heads, ``n_kv_heads / t``
-KV heads or all of them when they are replicated, ``d_ff / t``) — and
-one process drives every shard (``models/transformer.py``'s shard loop).
+(``TensorParallel.cfg``: the query and KV heads of the head plan,
+``d_ff / t``) — and one process drives every shard
+(``models/transformer.py``'s shard loop).
 ``TensorParallel`` is the grid's one home: which shard sits on which
 device, the local config, and the reduction after a row-parallel block.
 
@@ -64,23 +64,33 @@ trainer's, ``parallel/pipeline.py``; serving refuses it):
 
 The splits inside a group, the reference's:
 
+- the heads by the head plan (``ops/sharded_attention.head_plan``): a
+  contiguous split where the reference's ``mesh_supports`` holds, else
+  KV heads replicated over the shards that share them and zero heads
+  padding the KV heads and the query groups; a shard's head leaves are
+  then copies with zero columns (rows of ``wo``) at its zero heads,
+  views where its heads are one run of real ones;
 - column-parallel, over the output axis: ``wq`` / ``wk`` / ``wv`` (by
   heads, with the Qwen biases) and ``w_gate`` / ``w_up`` (over F, for
   expert stacks too);
-- row-parallel, over the input axis: ``wo`` and ``w_down``; their
-  partial products are summed across shards (``TensorParallel.residual``),
-  the one reduction after ``wo`` and the one after ``w_down`` per layer;
+- row-parallel, over the input axis: ``wo`` (by query heads) and
+  ``w_down``; their partial products are summed across shards
+  (``TensorParallel.residual``), the one reduction after ``wo`` and the
+  one after ``w_down`` per layer;
 - int8 ``{"q", "s"}`` leaves as ``shard_pytree`` splits them: ``q`` as
   the dense weight, the per-output-channel scale with a column split and
   whole on a row split;
 - KV caches (lanes, the paged pool, the int8 scales) over their KV-head
-  axis, replicated when ``n_kv_heads % t != 0`` (MQA, ``cache_specs``),
-  one per tensor shard of group 0;
+  axis in the plan's local layout, one per tensor shard of group 0; the
+  shards that hold the same KV heads on one device share one cache (MQA's
+  one head, ``cache_specs``' replication, or a plan's replicas);
 - LoRA: a column target keeps ``a`` whole and splits ``b`` on d_out
   (``lora_specs``); a row target (``o``, ``down``) splits ``a`` on d_in
   and keeps ``b`` whole — ``(x_s @ a_s) @ b`` is linear, so each shard
   adds its delta to its partial before the reduction and the sum is the
-  reference's ``(x @ a) @ b``;
+  reference's ``(x @ a) @ b``; ``q`` / ``k`` / ``v`` ``b`` and ``o``
+  ``a`` follow the heads, zero at a zero head (an adapter written at run
+  time too, ``write_adapter``);
 - everything else (embeddings, ``lm_head``, norms, the MoE router)
   whole on every shard: sampling, penalties and logprobs see the full
   ``[B, V]`` logits on the first shard's device.
@@ -126,17 +136,21 @@ import torch
 from llm_instance_gateway_tpu_torch.models import lora as lora_lib
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
 from llm_instance_gateway_tpu_torch.ops.quant import is_quantized
-from llm_instance_gateway_tpu_torch.ops.sharded_attention import mesh_supports
+from llm_instance_gateway_tpu_torch.ops.sharded_attention import head_plan
 from llm_instance_gateway_tpu_torch.parallel import collectives
 
-# Layer leaves split on their last (output) axis, on axis -2 (input).
-_COLUMN = ("wq", "wk", "wv", "wq_b", "wk_b", "wv_b", "w_gate", "w_up")
-_ROW = ("wo", "w_down")
-_KV_LEAVES = ("wk", "wv", "wk_b", "wv_b")
+# Layer leaves and LoRA buffers ``tensor`` splits by heads: the plan's
+# query or KV heads, on the output axis (-1) or, for ``wo`` and the LoRA
+# ``o_a``, the input axis (-2).
+_HEAD_LEAVES = {"wq": ("q", -1), "wq_b": ("q", -1), "wo": ("q", -2),
+                "q_b": ("q", -1), "o_a": ("q", -2),
+                "wk": ("kv", -1), "wv": ("kv", -1), "wk_b": ("kv", -1),
+                "wv_b": ("kv", -1), "k_b": ("kv", -1), "v_b": ("kv", -1)}
+# The MLP's, split evenly over ffn columns (-1) or rows (-2).
+_FF_LEAVES = {"w_gate": -1, "w_up": -1, "w_down": -2,
+              "gate_b": -1, "up_b": -1, "down_a": -2}
 # MoE expert stacks ``[L, E, ...]``: E (axis 1) over ``expert``.
 _EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
-_LORA_COLUMN = ("q", "k", "v", "gate", "up")
-_LORA_ROW = ("o", "down")
 # The attention block's layer leaves and LoRA targets (the rest is the
 # MLP block's).
 _ATTN_NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "wq_b", "wk_b", "wv_b",
@@ -150,13 +164,27 @@ _FSDP_LORA = {"o_b": -1, "down_b": -1}
 _FSDP_TOP = {"lm_head": -2}
 
 
+def require_plain(cfg: ModelConfig, t: int, what: str) -> None:
+    """Raises ``ValueError`` naming the layout unless ``tensor=t`` splits
+    ``cfg``'s heads as the reference splits them (``HeadPlan.
+    contiguous``): ``what`` (a train step) does not run on the others."""
+    plan = head_plan(cfg, t)
+    if not plan.contiguous:
+        raise ValueError(
+            f"{what} does not run on {cfg.name}'s {plan.describe()}: its "
+            "zero heads' wo rows would take gradients, and its replicated "
+            "KV projections' gradients would need summing over the shards "
+            "that share them (ROADMAP.md queues this); train at a tensor "
+            "size that splits the heads evenly (mesh_supports)")
+
+
 def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
-    """The config of one shard of a ``tensor=t`` split (``n_experts``
-    stays global: routing indexes every expert)."""
-    kv_split = cfg.n_kv_heads % t == 0
+    """The config of one shard of a ``tensor=t`` split: the head plan's
+    local heads (``n_experts`` stays global: routing indexes every
+    expert)."""
+    plan = head_plan(cfg, t)
     return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // t,
-        n_kv_heads=cfg.n_kv_heads // t if kv_split else cfg.n_kv_heads,
+        cfg, n_heads=plan.n_heads, n_kv_heads=plan.n_kv_heads,
         d_ff=cfg.d_ff // t, head_dim=cfg.resolved_head_dim)
 
 
@@ -167,12 +195,14 @@ class TensorParallel:
     row-parallel block.  One object describes data group ``data_index``
     (``group(g)`` gives group g's) and this process's shards of it
     (``shards``, indices into the group; every shard in one process).
-    Methods take a shard's position in ``shards``.  Raises ``ValueError``
-    for a layout the kernels cannot run shard-local (``mesh_supports``),
-    for a split that leaves uneven ffn columns, experts or fsdp pieces,
-    for shards on some but not all distinct devices, and, across
-    processes, for a process whose shards are not one block of the grid
-    on one device or whose axes cannot span processes."""
+    Methods take a shard's position in ``shards``.  ``plan`` holds each
+    tensor shard's heads (``head_plan``; ``plan.contiguous`` where it is
+    the reference's split, ``require_plain``), ``layout`` names it.
+    Raises ``ValueError`` for a split that leaves uneven ffn columns,
+    experts or fsdp pieces, for shards on some but not all distinct
+    devices, and, across processes, for a process whose shards are not
+    one block of the grid on one device or whose axes cannot span
+    processes."""
 
     def __init__(self, cfg: ModelConfig, mesh):
         shape = mesh.shape
@@ -186,14 +216,6 @@ class TensorParallel:
                 if size % f:
                     raise ValueError(f"fsdp={f} does not divide {what}="
                                      f"{size}")
-        if not mesh_supports(cfg, mesh):
-            raise ValueError(
-                f"tensor={t} does not split {cfg.name}'s "
-                f"{cfg.n_heads}:{cfg.n_kv_heads} head layout group-aligned "
-                "(query heads must split evenly, and tensor must divide the "
-                "KV heads or the KV head be one): the port runs attention "
-                "only through its kernels, one call per shard, and has no "
-                "XLA-style fallback for such a layout")
         if cfg.d_ff % t:
             raise ValueError(f"tensor={t} does not divide d_ff={cfg.d_ff}")
         self.moe = bool(cfg.n_experts) and e > 1
@@ -226,8 +248,13 @@ class TensorParallel:
                 "this process: the shards must sit all on one device or "
                 "each on its own (across processes: a process's on one)")
         self.one_device = distinct == 1
-        self.kv_split = cfg.n_kv_heads % t == 0
+        self.full_cfg = cfg
+        self.plan = head_plan(cfg, t)
+        self.layout = f"{cfg.name}'s {self.plan.describe()}"
+        # False where every shard holds the one KV head whole (MQA).
+        self.kv_split = not (t > 1 and cfg.n_kv_heads == 1)
         self.cfg = local_cfg(cfg, t)
+        self.hd = cfg.resolved_head_dim
         # Attention runs on the shards of this process's first expert.
         first = self.shards[0] // t
         self.n_attn = sum(1 for s in self.shards if s // t == first)
@@ -306,11 +333,20 @@ class TensorParallel:
                 if self.moe else 0)
 
     def kv_heads(self, k: int) -> slice:
-        """Local attention shard ``k``'s KV heads in the full layout."""
-        if not self.kv_split:
-            return slice(None)
-        n, ti = self.cfg.n_kv_heads, self.shards[k] % self.t
-        return slice(ti * n, (ti + 1) * n)
+        """Local attention shard ``k``'s real KV heads in the full layout
+        (the first of its local heads; any after them are zero heads)."""
+        real = [h for h in self.plan.kv_heads[self.shards[k] % self.t]
+                if h >= 0]
+        return slice(real[0], real[-1] + 1) if real else slice(0, 0)
+
+    def kv_first(self, k: int) -> bool:
+        """Whether local attention shard ``k`` holds real KV heads that no
+        local shard before it holds (it writes them into the full
+        layout)."""
+        heads = self.plan.kv_heads[self.shards[k] % self.t]
+        return any(h >= 0 for h in heads) and all(
+            self.plan.kv_heads[self.shards[j] % self.t] != heads
+            for j in range(k))
 
     def residual(self, hs: list, parts: list, attn: bool = False) -> list:
         """The residual stream per shard of a group after a row-parallel
@@ -526,6 +562,27 @@ def _split(x: torch.Tensor, axis: int | None, s: int, t: int) -> torch.Tensor:
     return x.narrow(axis, s * n, n)
 
 
+def _take_heads(x: torch.Tensor, axis: int, heads: tuple,
+                hd: int) -> torch.Tensor:
+    """The heads ``heads`` (global indices, each ``hd`` wide along
+    ``axis``; -1 a zero head) of ``x``: a view where they are one run of
+    real heads, else a copy with zeros at the zero heads."""
+    first = heads[0]
+    if first >= 0 and list(heads) == list(range(first,
+                                                 first + len(heads))):
+        return x.narrow(axis, first * hd, len(heads) * hd)
+    zero = torch.zeros_like(x.narrow(axis, 0, hd))
+    return torch.cat([x.narrow(axis, h * hd, hd) if h >= 0 else zero
+                      for h in heads], dim=axis)
+
+
+def local_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` ``[..., k, hd]`` (a shard's real KV heads, ``kv_parts``) with
+    zero heads after them up to its local layout's ``n``."""
+    pad = n - x.shape[-2]
+    return x if pad == 0 else torch.nn.functional.pad(x, (0, 0, 0, pad))
+
+
 def _placer(tp: TensorParallel):
     """``place(x, device)`` for a shard's leaf: the view itself on one
     device in one process (the tree is there already, ``_on_device``), a
@@ -561,18 +618,25 @@ def _on_device(tree, tp: TensorParallel):
     return tree.to(tp.devices[0])
 
 
-def _leaf(x, axis: int | None, s: int, tp: TensorParallel,
-          expert: bool = False):
-    """Shard ``s``'s part of a leaf split on ``axis`` over ``tensor``
-    (None: whole) and, for an expert stack, on axis 1 over ``expert``;
-    an int8 leaf's scale follows a column split and stays whole on a row
+def _leaf(x, name: str, s: int, tp: TensorParallel, expert: bool = False):
+    """Shard ``s``'s part of layer leaf or LoRA buffer ``name`` over
+    ``tensor`` (``_tensor_axis``: its plan's heads, or an even split of
+    the ffn axis) and, for an expert stack, on axis 1 over ``expert``; an
+    int8 leaf's scale follows a column split and stays whole on a row
     split, and follows the expert split.  Not yet placed (``_fsdp``)."""
     ti = s % tp.t
+    axis = _tensor_axis(name, tp)
+    heads = None
+    if axis is not None and name in _HEAD_LEAVES:
+        heads = (tp.plan.q_heads if _HEAD_LEAVES[name][0] == "q"
+                 else tp.plan.kv_heads)[ti]
 
     def cut(y, ax):
         if expert:
             y = _split(y, 1, s // tp.t, tp.e)
-        return _split(y, ax, ti, tp.t)
+        if ax is None or heads is None:
+            return _split(y, ax, ti, tp.t)
+        return _take_heads(y, ax, heads, tp.hd)
 
     if is_quantized(x):
         return {"q": cut(x["q"], axis), "s": cut(x["s"], -1 if axis == -1
@@ -580,14 +644,14 @@ def _leaf(x, axis: int | None, s: int, tp: TensorParallel,
     return cut(x, axis)
 
 
-def _layer_axis(name: str, tp: TensorParallel) -> int | None:
-    if name in _KV_LEAVES and not tp.kv_split:
-        return None
-    if name in _COLUMN:
-        return -1
-    if name in _ROW:
-        return -2
-    return None
+def _tensor_axis(name: str, tp: TensorParallel) -> int | None:
+    """The axis ``tensor`` splits layer leaf or LoRA buffer ``name`` on;
+    None where every shard holds it whole (MQA's one KV head's
+    projections among them)."""
+    if name in _HEAD_LEAVES:
+        kind, axis = _HEAD_LEAVES[name]
+        return None if kind == "kv" and not tp.kv_split else axis
+    return _FF_LEAVES.get(name)
 
 
 def _grid(tp: TensorParallel, tree: Callable[[int, int], dict],
@@ -634,7 +698,7 @@ def _param_tree(params: dict, s: int, j: int, tp: TensorParallel, place,
     out = {k: _fsdp(v, _FSDP_TOP.get(k), s, j, tp, place, positions)
            for k, v in params.items() if k != "layers"}
     out["layers"] = {
-        name: _fsdp(_leaf(leaf, _layer_axis(name, tp), s, tp,
+        name: _fsdp(_leaf(leaf, name, s, tp,
                           tp.moe and name in _EXPERT_LEAVES),
                     _FSDP_LAYER.get(name), s, j, tp, place, positions)
         for name, leaf in params["layers"].items()}
@@ -649,21 +713,10 @@ def shard_params(params: dict, tp: TensorParallel) -> Shards:
         tg, lambda s, j: _param_tree(params, s, j, tg, place), lambda s: s))
 
 
-def _lora_axis(key: str, tp: TensorParallel) -> int | None:
-    target, _, part = key.rpartition("_")
-    if target in ("k", "v") and not tp.kv_split:
-        return None
-    if target in _LORA_COLUMN and part == "b":
-        return -1
-    if target in _LORA_ROW and part == "a":
-        return -2
-    return None
-
-
 def _lora_tree(bufs: dict, s: int, j: int, tp: TensorParallel, place,
                positions=None) -> dict:
     """Shard ``s``'s LoRA slot buffers (group ``j``)."""
-    return {k: _fsdp(_leaf(v, _lora_axis(k, tp), s, tp), _FSDP_LORA.get(k),
+    return {k: _fsdp(_leaf(v, k, s, tp), _FSDP_LORA.get(k),
                      s, j, tp, place, positions)
             for k, v in bufs.items()}
 
@@ -706,10 +759,10 @@ def tensor_replicated(tree: Shards, attn: bool) -> list:
     for t in tree:
         if "layers" in t:
             leaves = [leaf for name, leaf in t["layers"].items()
-                      if _layer_axis(name, tp) is None and block(name)]
+                      if _tensor_axis(name, tp) is None and block(name)]
         else:
             leaves = [v for k, v in t.items()
-                      if k != "scale" and _lora_axis(k, tp) is None
+                      if k != "scale" and _tensor_axis(k, tp) is None
                       and block(k.rpartition("_")[0])]
         for x in (x for leaf in leaves for x in _tensors(leaf)):
             if id(x) not in seen:
@@ -746,7 +799,9 @@ def shard_values(tree: Shards, value=None) -> dict:
 
 def fill_whole(out: dict, got: dict, tp: TensorParallel) -> None:
     """``shard_values``' entries (gathered from every process) written
-    into ``out``, a whole params or LoRA tree on the host, in place."""
+    into ``out``, a whole params or LoRA tree on the host, in place (a
+    contiguous head split only: a padded shard's leaves are copies)."""
+    require_plain(tp.full_cfg, tp.t, "a whole tree gathered from shards")
     make = _lora_tree if "scale" in out else _param_tree
     for s in range(tp.g):
         views = make(out, s, 0, tp, lambda x, dev: x, list(range(tp.f)))
@@ -792,7 +847,7 @@ def _adapter_part(adapter: dict, s: int, tp: TensorParallel) -> dict:
         for part in ("a", "b"):
             x = ab[part]
             x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
-            out[t][part] = _split(x, _lora_axis(f"{t}_{part}", tp), s, tp.t)
+            out[t][part] = _leaf(x, f"{t}_{part}", s, tp)
     return out
 
 
@@ -843,9 +898,11 @@ def _cache_rows(cache: dict, start: int, n: int) -> dict:
 def shard_cache(make: Callable[..., dict], tp: TensorParallel,
                 rows: int | None = None) -> Shards:
     """Per-shard caches, one per local attention shard of group 0
-    (``TensorParallel.n_attn``), ``make(local cfg, device)`` each: KV heads split over the shards, or (MQA)
-    replicated — one cache on one device.  Shards on one device share the
-    paged tables and the lengths.  Over ``data`` (lanes only) ``rows`` is
+    (``TensorParallel.n_attn``), ``make(local cfg, device)`` each, in the
+    head plan's local layout: the shards that hold the same KV heads (MQA's
+    one, a plan's replicas) share one cache on one device and each hold a
+    replica on distinct ones.  Shards on one device share the paged tables
+    and the lengths.  Over ``data`` (lanes only) ``rows`` is
     the whole batch: data group g holds rows ``[g * rows / d, (g + 1) *
     rows / d)``, made by ``make(local cfg, device, rows / d)`` on its
     devices, or (one device) views of one cache of every row."""
@@ -855,9 +912,11 @@ def shard_cache(make: Callable[..., dict], tp: TensorParallel,
 
     def grid(tg, n_rows=None):
         trees: list[dict] = []
+        held: dict = {}
         for s in range(tg.n_attn):
-            if s and tg.one_device and not tg.kv_split:
-                trees.append(trees[0])
+            heads = tg.plan.kv_heads[tg.shards[s] % tg.t]
+            if tg.one_device and heads in held:
+                trees.append(held[heads])
                 continue
             cache = (make(tg.cfg, tg.device(s)) if n_rows is None
                      else make(tg.cfg, tg.device(s), n_rows))
@@ -865,6 +924,7 @@ def shard_cache(make: Callable[..., dict], tp: TensorParallel,
                 for name in ("tables", "length"):
                     if name in cache:
                         cache[name] = trees[0][name]
+            held[heads] = cache
             trees.append(cache)
         return Shards(trees, tg)
 
@@ -884,8 +944,10 @@ def shard_cache(make: Callable[..., dict], tp: TensorParallel,
 
 
 def kv_parts(cache) -> list[tuple[dict, slice]]:
-    """(cache, its KV heads in the full layout) per distinct shard cache;
-    ``[(cache, slice(None))]`` for a plain one."""
+    """(cache, its real KV heads in the full layout) per distinct shard
+    cache, replicas included (each is written); ``[(cache, slice(None))]``
+    for a plain one.  A cache's real heads come first, zero heads after
+    them (``local_heads``)."""
     if not isinstance(cache, Shards):
         return [(cache, slice(None))]
     out, seen = [], set()

@@ -64,7 +64,12 @@ synchronous loop and the pipelined one).
   LoRA slots become per-shard trees (``parallel/sharding.py``'s grid:
   heads and ffn columns over ``tensor``, Mixtral's experts over
   ``expert``), and every forward runs its layers once per shard with two
-  reductions a layer.  ``data`` (lanes only) gives each data group a
+  reductions a layer.  Every head layout serves on every ``tensor``: one
+  the reference's kernels split group-aligned as a contiguous split, any
+  other through the head plan's replicated KV heads and zero-padded
+  query heads (``ops/sharded_attention.head_plan``; Qwen2.5-7B at
+  tensor=8 is 4:1 a shard), every shard's kernel call group-aligned.
+  ``data`` (lanes only) gives each data group a
   whole grid and its contiguous block of ``decode_slots / data`` rows:
   row i belongs to group ``i // (decode_slots / data)`` (``_slot_group``),
   whose grid runs a bucketed or ring prefill admitted into it, its chunks
@@ -558,14 +563,18 @@ class Engine:
         """The engine's shard grid, a ``TensorParallel`` (None without a
         mesh), with the reference's serving rules for a mesh
         (``server/engine.py``): ``data`` (on lanes), ``fsdp``, ``tensor``,
-        ``expert`` and ``sequence`` are served, ``pipe`` and paged KV with
-        ``data > 1`` refused as the reference refuses them, and a
-        ``decode_slots`` that ``data`` does not divide refused by name
-        (the reference replicates such a batch and falls back to XLA
-        attention; the port has no such route).  A model without experts
-        on ``expert > 1`` serves replicated over that axis, as GSPMD
-        would (computed once, on expert 0's shards).  Shards on distinct
-        cards are served eagerly only."""
+        ``expert`` and ``sequence`` are served, ``pipe``, paged KV with
+        ``data > 1`` and a ``decode_slots`` that ``data`` does not divide
+        refused by name as the reference refuses them (its cache's batch
+        axis is placed over ``data``, and ``jax.device_put`` raises for a
+        batch it does not divide).  Every head layout is served on
+        ``tensor`` (``sharding.TensorParallel``'s head plan; where the
+        reference's kernels cannot split the heads group-aligned, it runs
+        XLA attention and the port its kernels over padded and replicated
+        heads).  A model without experts on ``expert > 1`` serves
+        replicated over that axis, as GSPMD would (computed once, on
+        expert 0's shards).  Shards on distinct cards are served eagerly
+        only."""
         if mesh is None:
             return None
         shape = mesh.shape
@@ -583,13 +592,14 @@ class Engine:
             raise ValueError(
                 f"decode_slots={self.cfg.decode_slots} is not divisible by "
                 f"data={data}: each data group holds an equal block of the "
-                "decode rows (the reference replicates such a batch and "
-                "runs XLA attention; the port runs attention only through "
-                "its kernels, on each group's rows)")
+                "decode rows (the reference's cache places its batch axis "
+                "over data, and cannot place such a batch either)")
         if mesh.spans_processes:
             self._lockstep_rules(shape, cuda_graphs and any(
                 d.type == "cuda" for d in mesh.devices))
         tp = sharding.TensorParallel(model_cfg, mesh)
+        if not tp.plan.contiguous:
+            logger.info("mesh %s: serving %s", dict(shape), tp.layout)
         if (cuda_graphs and not tp.one_device
                 and any(d.type == "cuda" for d in tp.devices)):
             raise ValueError(

@@ -105,8 +105,10 @@ def _masked_sum(logits: torch.Tensor, targets, target_positions) -> tuple:
 
 
 def _check_trainable(tp: sharding.TensorParallel) -> None:
-    """The sharded step's layouts: each process's shards on one device,
-    ``pipe`` left to the pipelined trainer."""
+    """The sharded step's layouts: the heads split as the reference splits
+    them (``sharding.require_plain``), each process's shards on one
+    device, ``pipe`` left to the pipelined trainer."""
+    sharding.require_plain(tp.full_cfg, tp.t, "a sharded train step")
     if not tp.one_device:
         raise ValueError(
             "a sharded train step runs each process's shards on one device: "

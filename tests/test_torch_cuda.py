@@ -1734,6 +1734,49 @@ def test_hop_into_tensor2_across_cards_f32(narrow):
     assert req.output_tokens == want
 
 
+@pytest.mark.parametrize("paged", [False, True], ids=["lanes", "paged"])
+def test_padded_layout_across_cards_matches_one_card_f32(narrow, paged):
+    """A 14:2 layout (Qwen2.5-7B's structure at the narrow widths, seeded
+    q/k/v biases) at tensor=4 with one shard a card, through the head plan
+    (4:1 a shard, each KV head's two replicas on two cards with a cache
+    each, each group of 7 padded to 8): the greedy tokens of tensor=1 on
+    one card at f32, flash launching once per shard per layer."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models import transformer
+    from llm_instance_gateway_tpu_torch.models.configs import QWEN2_5_7B
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+
+    cards = _cards(4)
+    narrow_cfg = narrow[torch.float32][0]
+    cfg = dataclasses.replace(
+        QWEN2_5_7B, name="qwen-narrow-14-2", d_model=narrow_cfg.d_model,
+        n_layers=narrow_cfg.n_layers, n_heads=14, n_kv_heads=2,
+        head_dim=128, d_ff=narrow_cfg.d_ff, vocab_size=320,
+        max_lora_slots=2, max_lora_rank=8)
+    params = transformer.init_params(cfg, seed=3, dtype=torch.float32,
+                                     device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name in ("wq_b", "wk_b", "wv_b"):
+        leaf = params["layers"][name]
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda")
+                   * 0.5)
+    kw = dict(paged_kv_block=16, prefix_cache=True) if paged else {}
+    streams, flash = {}, {}
+    for t, devices in ((1, None), (4, cards)):
+        eng = _mesh_engine(narrow, t, torch.float32, graphs=t == 1,
+                           devices=devices, params=params, model_cfg=cfg,
+                           **kw)
+        if t == 4:
+            assert not eng.tp.plan.contiguous and not eng.tp.one_device
+            assert len(sharding.distinct(sharding.parts(eng.cache))) == 4
+        f0 = fl.launches
+        streams[t] = _serve(eng, _jobs())
+        flash[t] = fl.launches - f0
+    assert streams[4] == streams[1]
+    assert flash[4] == 4 * flash[1] == 4 * cfg.n_layers * len(_jobs())
+
+
 def test_server_mesh_over_the_hosts_cards():
     """``--mesh tensor=N --no-cuda-graphs`` on a host with N cards (its
     shards on all of them by default) serves Gemma-2B, one KV head

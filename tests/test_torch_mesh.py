@@ -31,8 +31,9 @@ CPU at f32 with every shard on the CPU.
   shards' one device taken as distinct and NCCL's in-place sum stood in
   for: the forward, engines and a hop as above.  The card tests run
   them with NCCL over two cards.
-- Refusals by name: layouts outside ``mesh_supports``, other axes, and
-  graphs across cards.
+- Layouts outside ``mesh_supports`` construct through the head plan
+  (``tests/test_torch_layouts.py`` serves them); refusals by name: other
+  axes, and graphs across cards.
 """
 
 import dataclasses
@@ -740,14 +741,30 @@ def test_lora_unload_and_reload_touch_every_shard():
 # ---------------------------------------------------------------------------
 
 
-def test_unsupported_layout_refused_by_name():
+def test_layouts_outside_mesh_supports_construct():
+    """Qwen2.5-7B's 28:4 and the 8:4 model at tensor=8, which
+    ``mesh_supports`` refuses, construct through the head plan: 4:1 a
+    shard (each KV head on two shards, each group of 7 padded to 8) and
+    1:1 a shard (each KV head on two shards, no padding)."""
     cfg = dataclasses.replace(CONFIGS["qwen2.5-7b"], n_layers=1)
-    with pytest.raises(ValueError, match=r"tensor=8 .*28:4 head layout"):
-        tsh.TensorParallel(cfg, cpu_mesh(8))
+    tp = tsh.TensorParallel(cfg, cpu_mesh(8))
+    assert not tsa.mesh_supports(cfg, cpu_mesh(8)) and not tp.plan.contiguous
+    assert (tp.cfg.n_heads, tp.cfg.n_kv_heads) == (4, 1)
+    assert tp.plan.kv_heads == tuple((s // 2,) for s in range(8))
+    assert tp.plan.q_heads[1] == (4, 5, 6, -1)
+    assert "28:4 over tensor=8, 4:1 a shard" in tp.layout
     params = model_params(GQA)
-    with pytest.raises(ValueError, match=r"tensor=8 .*8:4 head layout"):
-        teng.Engine(GQA, params, teng.EngineConfig(**ENGINE), dtype=F32,
-                    device="cpu", mesh=cpu_mesh(8))
+    eng = teng.Engine(GQA, params, teng.EngineConfig(**ENGINE), dtype=F32,
+                      device="cpu", mesh=cpu_mesh(8))
+    assert (eng.tp.cfg.n_heads, eng.tp.cfg.n_kv_heads) == (1, 1)
+    assert not eng.tp.plan.padded and eng.tp.plan.replicas == 2
+    wq = [tree["layers"]["wq"] for tree in eng.params]
+    assert [tuple(w.shape) for w in wq] == [
+        (GQA.n_layers, GQA.d_model, GQA.resolved_head_dim)] * 8
+    # One cache per KV head: the two shards of each share it.
+    caches = tsh.parts(eng.cache)
+    assert len(tsh.distinct(caches)) == 4
+    assert all(caches[2 * i] is caches[2 * i + 1] for i in range(4))
 
 
 def test_engine_axis_rules():
