@@ -230,12 +230,13 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    phase's, the gathers' device ms alone) and on a 64-token-block pool,
    a 700-token prefill and eight greedy steps bitwise fsdp=1's on lanes
    and on the pool; the pipelined full-parameter train step at
-   Llama-3-8B's widths and 16 layers (pipe=2, two microbatches of one
-   1024-token row): two steps with flash and the backward at exactly 16
+   Llama-3-8B's widths and 8 layers (pipe=2, two microbatches of one
+   1024-token row): two steps with flash and the backward at exactly 8
    x 2 launches each, the first step's loss and update against the
    unpipelined step's, walls and peak memory;
 19. processes — the port across two processes on cuda:0, gloo between
-   them (``phase_processes``, after phase 18's pipe half): ``--mesh
+   them (``phase_processes``, after phase 18's pipe half), the 8B's
+   widths at ``PROC_LAYERS`` (8) of its 32 layers: ``--mesh
    tensor=2`` served in lockstep and its decode logits against one
    process's with planted faults, the 8B LoRA step at tensor=2 and
    data=2; ``--mesh sequence=2`` (each process a whole 8B tree and its
@@ -247,12 +248,29 @@ Phases, each printing its own line; any failure raises (exit code != 0):
    each against the one-process step;
 20. pipe processes — the pipelined full-parameter step with a stage a
    process (``phase_pipe_processes``, after phase 19): two processes on
-   cuda:0 over gloo, phase 18's 16-layer tree and batch, the activations
+   cuda:0 over gloo, phase 18's 8-layer tree and batch, the activations
    and their gradients sent point to point; four steps with flash and
-   the backward at exactly 8 x 2 launches each in each process, the
+   the backward at exactly 4 x 2 launches each in each process, the
    first loss and update against phase 18's one-process pipelined step,
    microbatches swapped at the boundary planted (it must fail), step
    walls, the boundary's host ms and bytes and peak memory per process;
+21. layouts — a head layout the reference's kernels do not split
+   (``phase_layouts``, inside phase 13 after its Qwen2.5-7B server, on
+   that tree): Qwen2.5-7B at ``--mesh tensor=8`` on cuda:0 through the
+   head plan (4:1 a shard, each KV head on two shards, each group of 7
+   padded with a zero head), its logits against tensor=1 with planted
+   faults, the lane window and an int8 KV pool window, exact launches
+   per shard, the plan's bytes;
+22. layouts train — training on that layout (``phase_layouts_train``,
+   the end of phase 21, on its tree): two rank-8 LoRA steps at full width
+   and depth at tensor=8 and at tensor=1 (two 1024-token rows), the first
+   loss and the update gated, the zero heads' ``o_a`` rows exactly 0 and
+   the KV replicas bitwise equal, exact launches per shard; two
+   full-parameter steps at Qwen2.5-7B's widths cut to 2 layers gated the
+   same way, and again with the zero heads' gradients left in and with
+   the KV replicas each left with its own shard's gradient planted (each
+   must fail the gate);
+   the flash backward at the shard layout against its plain version;
 
 each phase's end is logged as seconds since start (``[walls]``); then
 prints one JSON line with every kernel's numbers (launches over the
@@ -4590,7 +4608,7 @@ def kernels_line(kernel_rows: dict, by_path: dict) -> dict:
     paths (``launches_by_path`` splits them: lane, paged, int8 lane, int8
     paged, dispatch, disagg, int8 disagg, spec, surface, checkpoint,
     families, train, mesh, sequence, expert, data, fsdp, pipe,
-    processes, pipe_processes, layouts)."""
+    processes, pipe_processes, layouts, layouts_train)."""
     out = []
     for name, rows in kernel_rows.items():
         main = rows[-1]
@@ -4672,6 +4690,9 @@ MESH_FAULTS = ("wo_zeroed", "wo_swapped")
 # The narrow f32 model served at tensor=1 and tensor=2 on the card: at f32
 # the reduction order parts the forwards by ~1e-6, so greedy tokens must
 # be identical.
+# Timed calls per point of the calibration fits (``calibrate``'s
+# default is 10; 4 keep the phase short for the smoke's time limit).
+MESH_CALIB_REPEATS = 4
 MESH_NARROW = dict(name="llama3-8b-narrow", d_model=512, n_layers=4,
                    n_heads=8, n_kv_heads=2, head_dim=128, d_ff=1024,
                    vocab_size=320, max_lora_slots=2, max_lora_rank=8)
@@ -4916,7 +4937,7 @@ def _mesh_calibrate(torch, params, mesh=None) -> dict:
         prefill_buckets=(64, 128, 256, 384, 1024), decode_steps_per_sync=8),
         eos_id=None, dtype=torch.bfloat16, device="cuda", mesh=mesh)
     t0 = time.time()
-    model = calibrate.calibrate_from_engine(eng)
+    model = calibrate.calibrate_from_engine(eng, repeats=MESH_CALIB_REPEATS)
     wall = time.time() - t0
     name = "llama3-8b" + ("" if mesh is None else "-tensor2")
     art = calibrate.calibration_artifact(
@@ -5456,9 +5477,9 @@ FSDP_PAGED_FLAGS = FSDP_FLAGS + ["--paged-kv-block", "64",
 # lanes, and a prompt's KV written into a row of the wrong group.
 DATA_FAULTS = ("kv_crossed", "slot_misrouted")
 # The pipelined train step (run once the serve phases' 8B tree is freed):
-# Llama-3-8B's widths at 16 of its 32 layers, so params, gradients and
-# AdamW's two moments (~9 GB each in bf16) and the optimizer's temporaries
-# fit one card; pipe=2, M=2 microbatches of one 1024-token row.  Its
+# Llama-3-8B's widths at 8 of its 32 layers (16 fit one card, with params,
+# gradients, AdamW's two moments and the optimizer's temporaries; 8 keep
+# this phase and phase 20 short for the smoke's time limit); pipe=2, M=2 microbatches of one 1024-token row.  Its
 # first update is held to the unpipelined step's over the elements either
 # step moved in the leaves checked: the microbatches' bf16 GEMMs round
 # apart from the batched ones, so an element whose gradient sits within
@@ -5466,7 +5487,7 @@ DATA_FAULTS = ("kv_crossed", "slot_misrouted")
 # +-lr whatever the gradient's size, so a rounding apart can land one ulp
 # apart); at least PIPE_AGREE of them must step the same way, and the
 # losses agree within PIPE_LOSS_TOL.
-PIPE_LAYERS = 16
+PIPE_LAYERS = 8
 PIPE_M = 2
 PIPE_S = 1024
 PIPE_LR = TRAIN_LR
@@ -5834,6 +5855,11 @@ def phase_axes(torch, params, adapter_path: str, serve_stats: dict) -> dict:
 # Two processes share cuda:0 (gloo: NCCL refuses two ranks on one device),
 # each holding its shard of Llama-3-8B at full width and depth.
 PROC_SEED = 19
+# Llama-3-8B's widths at 8 of its 32 layers (the smoke passed 1100 s of
+# its 1200 once phase 22 came, 127 s of it this phase at full depth;
+# every check here is per layer or against one process's run of the same
+# tree).
+PROC_LAYERS = 8
 PROC_PROMPTS = (12, 120, 700)  # prompt tokens of the lockstep serve
 PROC_NEW = 16  # greedy tokens a request
 PROC_LOGIT_TOKENS = 700  # the prefill before the compared decode step
@@ -5870,7 +5896,7 @@ import torch.distributed as dist
 import chip_smoke as s
 import dataclasses
 from llm_instance_gateway_tpu_torch.models import lora, transformer
-from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B as cfg
+from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
 from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
 from llm_instance_gateway_tpu_torch.parallel import (
     collectives, long_context, sharding)
@@ -5888,6 +5914,7 @@ dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
 t_start = time.time()
 out = {"rank": rank, "walls": {}}
+cfg = dataclasses.replace(LLAMA3_8B, n_layers=s.PROC_LAYERS)
 mid = cfg.n_layers // 2
 half = cfg.n_heads * cfg.resolved_head_dim // 2
 n_logit = s.PROC_LOGIT_TOKENS
@@ -6369,8 +6396,9 @@ print("[processes-result] " + json.dumps(out), flush=True)
 def phase_processes(torch) -> dict:
     """Phase 19: the port across two processes on cuda:0
     (``parallel/multihost_check.run_two_process``, gloo between them, each
-    holding its shard of Llama-3-8B at full width and depth, built one
-    process after the other with the seeded tree freed).  ``--mesh
+    holding its shard of Llama-3-8B at full width and ``PROC_LAYERS`` of
+    its layers, built one process after the other with the seeded tree
+    freed).  ``--mesh
     tensor=2`` served eagerly with every request submitted before
     ``start()``: both processes' greedy tokens identical, counted against
     the one-process tensor=2 engine's (views, reported), exact launches
@@ -6477,7 +6505,7 @@ def phase_processes(torch) -> dict:
 # -- phase 20: the pipelined trainer with a stage a process ------------------
 
 # Two processes share cuda:0 (gloo), stage i in process i: phase 18's
-# seeded 16-layer tree and batch (PIPE_LAYERS, PIPE_M rows of PIPE_S
+# seeded 8-layer tree and batch (PIPE_LAYERS, PIPE_M rows of PIPE_S
 # tokens), each process building its stage in turn.  Gated against phase
 # 18's one-process pipelined step: the first loss (PIPE_LOSS_TOL), the
 # first update on phase 18's picks (PIPE_AGREE, its sign rule) and
@@ -6689,7 +6717,7 @@ def phase_pipe_processes(torch, reference: dict) -> dict:
     """Phase 20: the pipelined full-parameter step with each stage in a
     process of its own (``parallel/pipeline.py`` across processes: two
     processes on cuda:0 over gloo, the activations and their gradients
-    sent point to point), on phase 18's seeded 16-layer Llama-3-8B tree
+    sent point to point), on phase 18's seeded 8-layer Llama-3-8B tree
     and batch.  Four steps (the fourth profiled per process), each
     launching flash and the flash backward exactly PIPE_LAYERS / 2 x
     PIPE_M times in each process; the first loss and update against phase
@@ -6941,6 +6969,296 @@ def _layout_bytes(engine, params) -> dict:
             "distinct_caches": len(caches)}
 
 
+# -- phase 22: training on that layout -----------------------------------
+
+# Qwen2.5-7B's tree at tensor=8 on cuda:0: LoRA steps at full width and
+# depth (phase 15's batch shape: two seeded 1024-token rows, slot 0 at
+# rank 8, b zero), and full-parameter steps at its widths cut to 2 layers
+# (its AdamW state beside the 7B tree's), each at tensor=8 and at
+# tensor=1 on the same weights and batch.
+LAYOUT_TRAIN_STEPS = 2
+LAYOUT_TRAIN_S = 1024
+LAYOUT_TRAIN_RANK = 8
+LAYOUT_FULL_LAYERS = 2
+LAYOUT_TRAIN_DECAY = 0.1
+# Faults planted in the tensor=8 full-parameter steps at 2 layers, each
+# of which the gate must fail: the zero heads' gradients left in (their
+# ``wo`` rows take the causal mean of V's gradient), and every shard
+# holding a copy of its heads of its own, so that nothing sums a KV
+# head's replicas (each updated with its own shard's gradient).
+LAYOUT_TRAIN_FAULTS = ("unmasked", "unsummed")
+
+
+def _layout_train_planted(fault):
+    """``fault`` (``LAYOUT_TRAIN_FAULTS``, or None) planted: returns the
+    function that takes it out again."""
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+    from llm_instance_gateway_tpu_torch.training import train
+
+    saved = []
+
+    def patch(obj, name, value):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    if fault == "unmasked":
+        patch(train, "_mask_zero_heads", lambda tree: None)
+    elif fault == "unsummed":
+        patch(sharding._Placer, "heads",
+              lambda self, x, axis, heads, hd: sharding._take_heads(
+                  x, axis, heads, hd).clone())
+
+    def restore():
+        for obj, name, value in reversed(saved):
+            setattr(obj, name, value)
+    return restore
+
+
+def _layout_train_tree(torch, cfg, kind: str):
+    """The trainable tree a run starts from, the same every time: rank-8
+    LoRA buffers (slot 0's ``a`` seeded, ``b`` zero) or the 2-layer
+    params (seeded, q/k/v biases non-zero), bf16 on the card."""
+    from llm_instance_gateway_tpu_torch.models import lora, transformer
+
+    bf16 = torch.bfloat16
+    if kind == "full":
+        tree = transformer.init_params(cfg, seed=2222, dtype=bf16,
+                                       device="cuda")
+        _seed_biases(torch, tree, 2223, 0.5)
+        return tree
+    gen = torch.Generator(device="cuda").manual_seed(2224)
+    bufs = lora.init_lora_buffers(cfg, bf16, "cuda")
+    r = LAYOUT_TRAIN_RANK
+    for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+        bufs[f"{t}_a"][:, 0, :, :r] = (torch.randn(
+            (cfg.n_layers, d_in, r), device="cuda", generator=gen)
+            / math.sqrt(d_in)).to(bf16)
+    bufs["scale"][0] = 2.0
+    return bufs
+
+
+def _layout_train_picks(tree, kind: str) -> dict:
+    """The leaves whose update the gate reads, cloned: the q/k/v/o LoRA
+    ``a`` and ``b`` of slot 0's rank lanes, or the attention's
+    projections and its query and value biases."""
+    from llm_instance_gateway_tpu_torch.models import lora
+
+    r = LAYOUT_TRAIN_RANK
+    if kind == "full":
+        # Not ``wk_b``: a key bias shifts every score of a query's row
+        # alike, which the softmax ignores, so its gradient is rounding
+        # noise and its update Adam's +-lr steps of it.
+        return {n: tree["layers"][n].detach().clone()
+                for n in ("wq", "wk", "wv", "wo", "wq_b", "wv_b")}
+    return {f"{t}_{ab}": (tree[f"{t}_a"][:, 0, :, :r] if ab == "a"
+                          else tree[f"{t}_b"][:, 0, :r]).detach().clone()
+            for t in lora.TARGETS[:4] for ab in ("a", "b")}
+
+
+def _layout_train_run(torch, cfg, base, tp, batch, kind: str,
+                      fault=None) -> dict:
+    """``LAYOUT_TRAIN_STEPS`` steps of ``kind`` ("lora" on the frozen
+    ``base`` tree, or "full") over ``tp``'s grid (None: tensor=1), with
+    ``fault`` planted: the losses, walls, launches, peak memory, the
+    picks before and after (the caller's tree, written back), the zero
+    heads' largest |value| and whether every KV replica equals its
+    head's first (with the tensors a head has)."""
+    import gc
+
+    from llm_instance_gateway_tpu_torch.parallel import sharding
+    from llm_instance_gateway_tpu_torch.training import train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    restore = _layout_train_planted(fault)
+    try:
+        whole = _layout_train_tree(torch, cfg, kind)
+        before = _layout_train_picks(whole, kind)
+        if kind == "full":
+            tree = whole if tp is None else sharding.shard_params(whole, tp)
+        else:
+            tree = whole if tp is None else sharding.shard_lora(whole, tp)
+        opt = train.make_optimizer(tree, lr=TRAIN_8B_LR,
+                                   weight_decay=LAYOUT_TRAIN_DECAY)
+        tokens, positions, slots = batch
+        if kind == "full":
+            step = train.make_full_train_step(cfg, opt)
+
+            def run():
+                return step(tree, None, tokens, positions)[2]
+        else:
+            step = train.make_lora_train_step(cfg, opt)
+
+            def run():
+                return step(base, tree, None, tokens, positions, slots)[2]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, walls = [], []
+        for _ in range(LAYOUT_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(run().item())
+            walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        out = {"losses": losses, "step_wall_s": walls, "launches": launches,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "before": before, "after": _layout_train_picks(whole, kind)}
+        if tp is not None:
+            hd = tp.hd
+            out["zero_heads_max"] = max(
+                [x.narrow(a, j * hd, hd).abs().max().item()
+                 for x, a, js in sharding.zero_heads(tree) for j in js]
+                or [0.0])
+            heads: dict = {}
+            for held in sharding.kv_replicas(tree):
+                for x, h in held:
+                    if h >= 0:
+                        heads.setdefault((id(held), h), []).append(x)
+            out["replicas_equal"] = all(
+                torch.equal(xs[0], x) for xs in heads.values()
+                for x in xs[1:])
+            out["kv_tensors_per_head"] = max(map(len, heads.values()))
+        del tree, opt, step, whole
+    finally:
+        restore()
+    return out
+
+
+def _layout_train_gate(torch, tag: str, ref: dict, run: dict) -> dict:
+    """The gate's readings for one tensor=8 run against tensor=1's: the
+    first loss (``PIPE_LOSS_TOL``, relative), each picked leaf's
+    same-sign share where either side moved (``PIPE_AGREE``), the zero
+    heads exactly 0, the KV replicas bitwise equal; ``passes`` whether all
+    hold."""
+    loss_err = abs(run["losses"][0] - ref["losses"][0]) / abs(
+        ref["losses"][0])
+    agree = {}
+    for name, b0 in ref["before"].items():
+        if not torch.equal(b0, run["before"][name]):
+            raise AssertionError(f"{tag}: {name} starts apart")
+        a, b, b0 = run["after"][name].float(), ref["after"][name].float(), \
+            b0.float()
+        moved = (a != b0) | (b != b0)
+        same = ((a - b0).sign() == (b - b0).sign())[moved]
+        agree[name] = same.float().mean().item() if moved.any() else 1.0
+    res = {"loss": run["losses"], "loss_tensor1": ref["losses"],
+           "loss_rel_err": loss_err, "agree_min": min(agree.values()),
+           "agree": agree, "zero_heads_max": run["zero_heads_max"],
+           "replicas_equal": run["replicas_equal"],
+           "kv_tensors_per_head": run["kv_tensors_per_head"]}
+    res["passes"] = bool(math.isfinite(loss_err) and loss_err <= PIPE_LOSS_TOL
+                         and res["agree_min"] >= PIPE_AGREE
+                         and run["zero_heads_max"] == 0.0
+                         and run["replicas_equal"])
+    return res
+
+
+def phase_layouts_train(torch, params) -> dict:
+    """Phase 22: training on Qwen2.5-7B's tensor=8 head plan on cuda:0
+    (``params``: phase 21's tree, bf16, q/k/v biases non-zero).  The flash
+    backward at the shard layout (4:1, hd 128, two 1023-token rows)
+    against its plain version; ``LAYOUT_TRAIN_STEPS`` rank-8 LoRA steps at
+    full width and depth (two seeded 1024-token rows) at tensor=8 (flash
+    and its backward exactly steps x 28 layers x 8 shards) and at
+    tensor=1, gated (``_layout_train_gate``); full-parameter steps at
+    Qwen2.5-7B's widths cut to ``LAYOUT_FULL_LAYERS`` layers at tensor=8
+    and tensor=1, gated the same way (the zero heads' ``wo`` rows exactly
+    0), and again at tensor=8 with each of ``LAYOUT_TRAIN_FAULTS``
+    planted, each of which must fail the gate; walls and peak memory."""
+    import dataclasses
+
+    from llm_instance_gateway_tpu_torch.models.configs import QWEN2_5_7B
+    from llm_instance_gateway_tpu_torch.parallel import mesh, sharding
+
+    t0 = time.time()
+    walls = {}
+
+    def mark(part: str) -> None:
+        walls[part] = time.time() - t0 - sum(walls.values())
+
+    cfg = QWEN2_5_7B
+    tp = sharding.TensorParallel(cfg, mesh.make_mesh(
+        mesh.MeshConfig(tensor=LAYOUT_T), LAYOUT_DEVICES))
+    gen = torch.Generator(device="cuda").manual_seed(2221)
+    bwd = _bwd_row(torch, gen, 2, LAYOUT_TRAIN_S - 1, tp.cfg.n_heads,
+                   tp.cfg.n_kv_heads, tp.hd, torch.bfloat16)
+    log("layouts train", "flash_backward at the shard layout "
+        + json.dumps(bwd))
+    mark("kernel_s")
+    s = LAYOUT_TRAIN_S
+    batch = (torch.randint(0, cfg.vocab_size, (2, s), device="cuda",
+                           generator=gen),
+             torch.arange(s, device="cuda").repeat(2, 1),
+             torch.zeros(2, dtype=torch.int32, device="cuda"))
+    sharded = sharding.shard_params(params, tp)
+    ref = _layout_train_run(torch, cfg, params, None, batch, "lora")
+    mark("lora_tensor1_s")
+    sound = _layout_train_run(torch, cfg, sharded, tp, batch, "lora")
+    mark("lora_tensor8_s")
+    per = LAYOUT_TRAIN_STEPS * cfg.n_layers
+    check_only(ref["launches"], {"flash_prefill": per,
+                                 "flash_backward": per},
+               "layouts train tensor=1")
+    check_only(sound["launches"], {"flash_prefill": per * LAYOUT_T,
+                                   "flash_backward": per * LAYOUT_T},
+               "layouts train tensor=8")
+    lora_gate = _layout_train_gate(torch, "layouts train lora", ref, sound)
+    del sharded
+    full_cfg = dataclasses.replace(cfg, n_layers=LAYOUT_FULL_LAYERS)
+    full_tp = sharding.TensorParallel(full_cfg, mesh.make_mesh(
+        mesh.MeshConfig(tensor=LAYOUT_T), LAYOUT_DEVICES))
+    full_ref = _layout_train_run(torch, full_cfg, None, None, batch, "full")
+    full = _layout_train_run(torch, full_cfg, None, full_tp, batch, "full")
+    per = LAYOUT_TRAIN_STEPS * LAYOUT_FULL_LAYERS
+    check_only(full_ref["launches"], {"flash_prefill": per,
+                                      "flash_backward": per},
+               "layouts train full tensor=1")
+    check_only(full["launches"], {"flash_prefill": per * LAYOUT_T,
+                                  "flash_backward": per * LAYOUT_T},
+               "layouts train full tensor=8")
+    full_gate = _layout_train_gate(torch, "layouts train full", full_ref,
+                                   full)
+    mark("full_s")
+    faults = {}
+    for fault in LAYOUT_TRAIN_FAULTS:
+        run = _layout_train_run(torch, full_cfg, None, full_tp, batch,
+                                "full", fault)
+        faults[fault] = _layout_train_gate(torch, f"layouts train {fault}",
+                                           full_ref, run)
+        log("layouts train", f"planted {fault}: " + json.dumps(
+            faults[fault]))
+    mark("faults_s")
+    out = {"wall_s": time.time() - t0, "walls": walls, "plan": tp.layout,
+           "steps": LAYOUT_TRAIN_STEPS, "lr": TRAIN_8B_LR,
+           "weight_decay": LAYOUT_TRAIN_DECAY,
+           "lora": dict(lora_gate, step_wall_s={
+               "tensor1": ref["step_wall_s"],
+               f"tensor{LAYOUT_T}": sound["step_wall_s"]},
+               peak_mem_gb={"tensor1": ref["peak_mem_gb"],
+                            f"tensor{LAYOUT_T}": sound["peak_mem_gb"]}),
+           "planted_faults": faults,
+           "full": dict(full_gate, layers=LAYOUT_FULL_LAYERS, step_wall_s={
+               "tensor1": full_ref["step_wall_s"],
+               f"tensor{LAYOUT_T}": full["step_wall_s"]},
+               peak_mem_gb={"tensor1": full_ref["peak_mem_gb"],
+                            f"tensor{LAYOUT_T}": full["peak_mem_gb"]}),
+           "launches": sound["launches"],
+           "kernel_rows": {"flash_backward": [bwd]}}
+    log("layouts train", "phase " + json.dumps(
+        {k: v for k, v in out.items() if k != "kernel_rows"}))
+    for what, gate in (("LoRA", lora_gate), ("full-parameter", full_gate)):
+        if not gate["passes"]:
+            raise AssertionError(f"layouts train {what} at tensor="
+                                 f"{LAYOUT_T} against tensor=1: "
+                                 + json.dumps(gate))
+    for fault, gate in faults.items():
+        if gate["passes"]:
+            raise AssertionError(f"layouts train: the planted fault {fault} "
+                                 "passes the gate, which cannot see such a "
+                                 "fault: " + json.dumps(gate))
+    return out
+
+
 def phase_layouts(torch, params, adapter_path: str, t1_stats: dict) -> dict:
     """Phase 21: a head layout the reference's kernels do not split,
     served through the head plan: Qwen2.5-7B (families' seeded tree, q/k/v
@@ -7007,6 +7325,12 @@ def phase_layouts(torch, params, adapter_path: str, t1_stats: dict) -> dict:
                             ("wall_ms", "device_ms", "device_idle_share")}
                            if isinstance(graph, dict) else graph)
     walls["lanes_profile_s"] = lanes["profile_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_layouts_train(torch, params)
+    walls["train_s"] = trained["wall_s"]
+    for name, rows in trained.pop("kernel_rows").items():
+        kernel_rows[name] = rows + kernel_rows.get(name, [])
     out = {"wall_s": time.time() - t0, "walls": walls, "launches": launches,
            "launches_per_shard": {k: v / LAYOUT_T
                                   for k, v in launches.items()},
@@ -7015,9 +7339,11 @@ def phase_layouts(torch, params, adapter_path: str, t1_stats: dict) -> dict:
                            f"tensor{LAYOUT_T}": lanes["peak_mem_gb"],
                            f"tensor{LAYOUT_T} paged int8":
                            pool["peak_mem_gb"]},
-           "plan_bytes": plan_bytes, "kernel_rows": kernel_rows}
+           "plan_bytes": plan_bytes, "kernel_rows": kernel_rows,
+           "train": trained}
     log("layouts", "phase " + json.dumps({k: v for k, v in out.items()
-                                          if k != "kernel_rows"}))
+                                          if k not in ("kernel_rows",
+                                                       "train")}))
     return out
 
 
@@ -7076,7 +7402,7 @@ def main() -> int:
     axes = phase_axes(torch, params, adapter_path, stats)
     done("axes")
     # Phase 13 builds Mixtral-8x7B's ~47 GB int8 tree, and phase 18's
-    # pipelined train step its own 16-layer tree and AdamW state: the 8B
+    # pipelined train step its own 8-layer tree and AdamW state: the 8B
     # one goes, with all phase 14 loaded.
     del params
     gc.collect()
@@ -7095,18 +7421,19 @@ def main() -> int:
                                                            st)})
     done("families")
     layouts = families["then"]["qwen2.5-7b"]
-    log("walls", "phase 21 (layouts, inside families): " + json.dumps(
-        {"layouts_s": layouts["wall_s"]}))
+    log("walls", "phases 21 and 22 (layouts, inside families): "
+        + json.dumps({"layouts_s": layouts["wall_s"],
+                      "layouts_train_s": layouts["train"]["wall_s"]}))
     expert = families["servers"]["mixtral-8x7b"].pop("expert")
     log("walls", "phase 17 (sequence and expert): " + json.dumps(
         {"sequence_s": sequence["wall_s"], "expert_s": expert["wall_s"],
          "total_s": sequence["wall_s"] + expert["wall_s"]}))
     for name, rows in families["kernel_rows"].items():
         kernel_rows[name] = rows + kernel_rows[name]  # the main shape last
+    kernel_rows.update(trained["kernel_rows"])
     for part in (meshed, layouts):
         for name, rows in part["kernel_rows"].items():
             kernel_rows[name] = rows + kernel_rows[name]
-    kernel_rows.update(trained["kernel_rows"])
     by_path = {"lane": stats["launches"], "paged": paged_stats["launches"],
                "lane_int8": q_stats["launches"],
                "paged_int8": qp_stats["launches"],
@@ -7128,7 +7455,8 @@ def main() -> int:
                "pipe": pipe["launches"],
                "processes": processes["launches"],
                "pipe_processes": pipe_processes["launches"],
-               "layouts": layouts["launches"]}
+               "layouts": layouts["launches"],
+               "layouts_train": layouts["train"]["launches"]}
     print(json.dumps(kernels_line(kernel_rows, by_path)))
     print(smi)
     print(json.dumps({"ok": True, "device": {

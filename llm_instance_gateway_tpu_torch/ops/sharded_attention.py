@@ -39,8 +39,9 @@ shards and each group of 7 padded to 8.  A zero query head has zero
 ``wq`` columns, bias and LoRA ``q`` columns and meets only zero ``wo``
 rows (and LoRA ``o`` rows), so it adds nothing; a zero KV head has zero
 ``wk`` / ``wv`` columns and biases, so its cache holds zeros (an int8
-zero quantizes to 0 at the 1e-8 scale floor).  The plan is for serving:
-training refuses a padded or replicated layout (``training/train.py``).
+zero quantizes to 0 at the 1e-8 scale floor).  Training runs on the plan
+too (``training/train.py``): the zero heads' gradients are zeroed and a
+replicated KV head's summed over the shards that hold it.
 
 Over ``data`` each data group calls the wrappers on its own block of
 rows (the reference's ``cache_specs``: the batch over ``data``).  The

@@ -46,9 +46,12 @@ backpropagates its share of the global masked mean, every other stage
 the surrogate ``<out_j, g_j>`` of the gradient ``g_j`` it received, and
 each stage past the first sends back the whole gradient of its received
 activation (the column-parallel copy's backward has summed it over
-``tensor``).  Then the gradients are summed over ``tensor`` (the
-replicated leaves) and ``data``, a tied ``embed``'s two copies exchange
-theirs, and AdamW steps each process's own leaves.
+``tensor``).  Then the zero heads' gradients are zeroed and the
+gradients summed over ``tensor`` (the replicated leaves, a replicated KV
+head's copies: ``train.shard_grads``) and ``data``, a tied ``embed``'s
+two copies exchange theirs, and AdamW steps each process's own leaves.
+Every head layout the reference trains runs, the head plan's padded and
+replicated heads too, on both routes.
 """
 
 from __future__ import annotations
@@ -438,14 +441,16 @@ class _Processes:
         return self.broadcast(total / count)
 
     def sum_grads(self, leaves: list) -> None:
-        """After the backward: the replicated leaves' gradients summed over
-        ``tensor`` (``train.sum_replicated``), every leaf's over ``data``,
-        and a tied ``embed``'s two copies (the first and the last stage's,
-        on different processes) each the sum of both."""
+        """After the backward: each stage's gradients made the whole
+        stage's over ``tensor`` (``train.shard_grads``: zero heads masked,
+        KV-head replicas and replicated leaves summed), every leaf's
+        summed over ``data``, and a tied ``embed``'s two copies (the first
+        and the last stage's, on different processes) each the sum of
+        both."""
         from llm_instance_gateway_tpu_torch.training import train
 
         for sh in self.shards:
-            train.sum_replicated(sh)
+            train.shard_grads(sh)
         if self.data is not None:
             for t in leaves:
                 t.grad = collectives.all_reduce(t.grad, self.data)
@@ -600,14 +605,15 @@ def make_pipeline_train_step(cfg: ModelConfig, optimizer, pipe: int,
     processes ``params`` is ``stage_param_specs``' part of this process
     and the loss comes back on every process.  Raises ``ValueError`` for
     one process across cards with ``tensor``, ``data`` or ``fsdp`` above
-    1 (one process a card serves those), and for a ``tensor`` that does
-    not split the heads as the reference does (``sharding.
-    require_plain``)."""
+    1 (one process a card serves those).  Every head layout the
+    reference trains runs (the head plan's, ``ops/sharded_attention.
+    head_plan``): in one process each forward cuts the stages' shards
+    anew from the staged leaves, so a padded shard's copy passes its real
+    heads' gradients back and its zero heads, constants, take none, and a
+    KV head's replicas (views of one region) are summed by autograd;
+    across processes ``train.shard_grads`` masks and sums them."""
     from llm_instance_gateway_tpu_torch.training import train
 
-    if mesh is not None:
-        sharding.require_plain(cfg, mesh.shape["tensor"],
-                               "a pipelined train step")
     if mesh is not None and mesh.spans_processes:
         return _process_step(cfg, optimizer, pipe, n_microbatches, mesh)
     if mesh is not None and len(set(mesh.devices)) > 1 and (

@@ -69,7 +69,14 @@ The splits inside a group, the reference's:
   KV heads replicated over the shards that share them and zero heads
   padding the KV heads and the query groups; a shard's head leaves are
   then copies with zero columns (rows of ``wo``) at its zero heads,
-  views where its heads are one run of real ones;
+  views where its heads are one run of real ones, and the shards that
+  hold the same heads share one tensor.  Training runs on every layout:
+  a step zeroes the gradients of the zero heads' slices (``zero_heads``),
+  sums each replicated KV head's over the tensors that hold it, on this
+  process and the others of the attention group (``kv_replicas``), and
+  in one process writes the copies' real heads back into the caller's
+  tree (``write_back``); ``unshard`` takes each head from its first
+  shard and checks the replicas agree;
 - column-parallel, over the output axis: ``wq`` / ``wk`` / ``wv`` (by
   heads, with the Qwen biases) and ``w_gate`` / ``w_up`` (over F, for
   expert stacks too);
@@ -164,20 +171,6 @@ _FSDP_LORA = {"o_b": -1, "down_b": -1}
 _FSDP_TOP = {"lm_head": -2}
 
 
-def require_plain(cfg: ModelConfig, t: int, what: str) -> None:
-    """Raises ``ValueError`` naming the layout unless ``tensor=t`` splits
-    ``cfg``'s heads as the reference splits them (``HeadPlan.
-    contiguous``): ``what`` (a train step) does not run on the others."""
-    plan = head_plan(cfg, t)
-    if not plan.contiguous:
-        raise ValueError(
-            f"{what} does not run on {cfg.name}'s {plan.describe()}: its "
-            "zero heads' wo rows would take gradients, and its replicated "
-            "KV projections' gradients would need summing over the shards "
-            "that share them (ROADMAP.md queues this); train at a tensor "
-            "size that splits the heads evenly (mesh_supports)")
-
-
 def local_cfg(cfg: ModelConfig, t: int) -> ModelConfig:
     """The config of one shard of a ``tensor=t`` split: the head plan's
     local heads (``n_experts`` stays global: routing indexes every
@@ -197,7 +190,7 @@ class TensorParallel:
     (``shards``, indices into the group; every shard in one process).
     Methods take a shard's position in ``shards``.  ``plan`` holds each
     tensor shard's heads (``head_plan``; ``plan.contiguous`` where it is
-    the reference's split, ``require_plain``), ``layout`` names it.
+    the reference's split), ``layout`` names it.
     Raises ``ValueError`` for a split that leaves uneven ffn columns,
     experts or fsdp pieces, for shards on some but not all distinct
     devices, and, across processes, for a process whose shards are not
@@ -394,7 +387,12 @@ class Shards(list):
     the ``TensorParallel`` that split them; ``groups[j]`` is group j's
     trees (``groups[0]`` the list itself) and ``data[g]`` data group g's
     ``Shards``, each of one data group (without ``data``: this one;
-    across processes None for the groups of other processes)."""
+    across processes None for the groups of other processes).  ``source``
+    is the whole tree ``shard_params`` / ``shard_lora`` cut them from
+    where the shards are views of it (one process, one device), else
+    None (``write_back``)."""
+
+    source = None
 
     def __init__(self, trees, tp: TensorParallel, groups=None, data=None):
         super().__init__(trees)
@@ -571,6 +569,9 @@ def _take_heads(x: torch.Tensor, axis: int, heads: tuple,
     if first >= 0 and list(heads) == list(range(first,
                                                  first + len(heads))):
         return x.narrow(axis, first * hd, len(heads) * hd)
+    # The zero heads are constants: where ``x`` takes gradients (the
+    # pipelined trainer cuts its stages anew each forward) only the real
+    # heads pass theirs back.
     zero = torch.zeros_like(x.narrow(axis, 0, hd))
     return torch.cat([x.narrow(axis, h * hd, hd) if h >= 0 else zero
                       for h in heads], dim=axis)
@@ -583,28 +584,45 @@ def local_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x if pad == 0 else torch.nn.functional.pad(x, (0, 0, 0, pad))
 
 
-def _placer(tp: TensorParallel):
+def _key(x: torch.Tensor) -> tuple:
+    """A region of memory as a tensor views it."""
+    return (x.data_ptr(), x.dtype, tuple(x.shape), x.stride(), str(x.device))
+
+
+class _Placer:
     """``place(x, device)`` for a shard's leaf: the view itself on one
     device in one process (the tree is there already, ``_on_device``), a
     copy on another card; across processes a contiguous copy of its own,
     so the caller's tree can be freed.  One region of the source on one
     device is placed once: shards share their whole leaves (an fsdp piece
-    of ``lm_head`` too, whose view each shard cuts anew) as one tensor."""
-    memo: dict = {}
+    of ``lm_head`` too, whose view each shard cuts anew) as one tensor.
+    ``heads(x, axis, heads, hd)`` cuts a shard's heads (``_take_heads``)
+    once per region and heads, so the shards holding the same heads (a
+    KV head's replicas, an expert shard's attention) share one tensor,
+    a padded one's copy too: no two tensors of a tree hold one weight."""
 
-    def place(x, dev):
-        key = (x.data_ptr(), x.dtype, tuple(x.shape), x.stride(),
-               str(x.device), str(dev))
-        if key not in memo:
-            if tp.multi:
+    def __init__(self, tp: TensorParallel):
+        self.tp = tp
+        self.memo: dict = {}
+        self.cuts: dict = {}
+
+    def __call__(self, x, dev):
+        key = _key(x) + (str(dev),)
+        if key not in self.memo:
+            if self.tp.multi:
                 y = torch.empty(x.shape, dtype=x.dtype, device=dev).copy_(x)
-            elif tp.one_device:
+            elif self.tp.one_device:
                 y = x
             else:
                 y = x.to(dev).contiguous()
-            memo[key] = (x, y)
-        return memo[key][1]
-    return place
+            self.memo[key] = (x, y)
+        return self.memo[key][1]
+
+    def heads(self, x, axis: int, heads: tuple, hd: int):
+        key = _key(x) + (axis, heads)
+        if key not in self.cuts:
+            self.cuts[key] = (x, _take_heads(x, axis, heads, hd))
+        return self.cuts[key][1]
 
 
 def _on_device(tree, tp: TensorParallel):
@@ -618,25 +636,36 @@ def _on_device(tree, tp: TensorParallel):
     return tree.to(tp.devices[0])
 
 
-def _leaf(x, name: str, s: int, tp: TensorParallel, expert: bool = False):
+def _head_cut(name: str, s: int, tp: TensorParallel):
+    """(head axis, the global heads of tensor shard ``s % t``, -1 a zero
+    head) where ``tensor`` cuts layer leaf or LoRA buffer ``name`` by the
+    plan's heads, else None."""
+    if name not in _HEAD_LEAVES or _tensor_axis(name, tp) is None:
+        return None
+    kind, axis = _HEAD_LEAVES[name]
+    return axis, (tp.plan.q_heads if kind == "q"
+                  else tp.plan.kv_heads)[s % tp.t]
+
+
+def _leaf(x, name: str, s: int, tp: TensorParallel, expert: bool = False,
+          place=None):
     """Shard ``s``'s part of layer leaf or LoRA buffer ``name`` over
-    ``tensor`` (``_tensor_axis``: its plan's heads, or an even split of
-    the ffn axis) and, for an expert stack, on axis 1 over ``expert``; an
-    int8 leaf's scale follows a column split and stays whole on a row
-    split, and follows the expert split.  Not yet placed (``_fsdp``)."""
+    ``tensor`` (``_tensor_axis``: its plan's heads, cut by ``place.heads``
+    where given, else anew, or an even split of the ffn axis) and, for an
+    expert stack, on axis 1 over ``expert``; an int8 leaf's scale follows
+    a column split and stays whole on a row split, and follows the expert
+    split.  Not yet placed (``_fsdp``)."""
     ti = s % tp.t
     axis = _tensor_axis(name, tp)
-    heads = None
-    if axis is not None and name in _HEAD_LEAVES:
-        heads = (tp.plan.q_heads if _HEAD_LEAVES[name][0] == "q"
-                 else tp.plan.kv_heads)[ti]
+    head = _head_cut(name, s, tp)
+    take = place.heads if place is not None else _take_heads
 
     def cut(y, ax):
         if expert:
             y = _split(y, 1, s // tp.t, tp.e)
-        if ax is None or heads is None:
+        if ax is None or head is None:
             return _split(y, ax, ti, tp.t)
-        return _take_heads(y, ax, heads, tp.hd)
+        return take(y, ax, head[1], tp.hd)
 
     if is_quantized(x):
         return {"q": cut(x["q"], axis), "s": cut(x["s"], -1 if axis == -1
@@ -699,24 +728,32 @@ def _param_tree(params: dict, s: int, j: int, tp: TensorParallel, place,
            for k, v in params.items() if k != "layers"}
     out["layers"] = {
         name: _fsdp(_leaf(leaf, name, s, tp,
-                          tp.moe and name in _EXPERT_LEAVES),
+                          tp.moe and name in _EXPERT_LEAVES, place),
                     _FSDP_LAYER.get(name), s, j, tp, place, positions)
         for name, leaf in params["layers"].items()}
+    return out
+
+
+def _one_process(tp: TensorParallel, tree: dict, out: Shards) -> Shards:
+    """``out`` with its ``source``: ``tree`` where its shards are views of
+    it (one process, one device)."""
+    if tp.one_device and not tp.multi:
+        out.source = tree
     return out
 
 
 def shard_params(params: dict, tp: TensorParallel) -> Shards:
     """The per-shard trees of a port params tree (dense or int8)."""
     params = _on_device(params, tp)
-    place = _placer(tp)
-    return _data_grid(tp, lambda tg: _grid(
-        tg, lambda s, j: _param_tree(params, s, j, tg, place), lambda s: s))
+    place = _Placer(tp)
+    return _one_process(tp, params, _data_grid(tp, lambda tg: _grid(
+        tg, lambda s, j: _param_tree(params, s, j, tg, place), lambda s: s)))
 
 
 def _lora_tree(bufs: dict, s: int, j: int, tp: TensorParallel, place,
                positions=None) -> dict:
     """Shard ``s``'s LoRA slot buffers (group ``j``)."""
-    return {k: _fsdp(_leaf(v, k, s, tp), _FSDP_LORA.get(k),
+    return {k: _fsdp(_leaf(v, k, s, tp, place=place), _FSDP_LORA.get(k),
                      s, j, tp, place, positions)
             for k, v in bufs.items()}
 
@@ -725,10 +762,10 @@ def shard_lora(bufs: dict, tp: TensorParallel) -> Shards:
     """The per-shard LoRA slot buffers of a full buffer tree (an expert
     shard's are its tensor shard's: expert stacks take no LoRA)."""
     bufs = _on_device(bufs, tp)
-    place = _placer(tp)
-    return _data_grid(tp, lambda tg: _grid(
+    place = _Placer(tp)
+    return _one_process(tp, bufs, _data_grid(tp, lambda tg: _grid(
         tg, lambda s, j: _lora_tree(bufs, s, j, tg, place),
-        lambda s: s % tg.t))
+        lambda s: s % tg.t)))
 
 
 def _tensors(leaf) -> list:
@@ -771,6 +808,97 @@ def tensor_replicated(tree: Shards, attn: bool) -> list:
     return out
 
 
+def _head_tensors(tree: Shards):
+    """(name, head axis, global heads, fsdp position or None, tensor) for
+    each distinct local tensor of a params or LoRA ``Shards``' head leaves
+    that ``tensor`` splits by the plan's heads (``_head_cut``; int8
+    leaves, which do not train, aside), in the tree's order (the same on
+    every process)."""
+    tp = tree.tp
+    seen: set = set()
+    for s, t in zip(tp.shards, tree):
+        leaves = t["layers"] if "layers" in t else t
+        for name, leaf in leaves.items():
+            head = _head_cut(name, s, tp)
+            if head is None or is_quantized(leaf):
+                continue
+            parts = (zip(leaf.positions, leaf.pieces)
+                     if isinstance(leaf, FsdpLeaf) else [(None, leaf)])
+            for f, x in parts:
+                if id(x) not in seen:
+                    seen.add(id(x))
+                    yield (name, *head, f, x)
+
+
+def zero_heads(tree: Shards) -> list:
+    """(tensor, head axis, local indices of its zero heads) for each
+    distinct local tensor of a params or LoRA ``Shards`` that holds zero
+    heads: the slices whose gradients a train step zeroes (a zero query
+    head meets real V, so its ``wo`` / ``o_a`` rows would take
+    gradients)."""
+    return [(x, axis, [j for j, h in enumerate(heads) if h < 0])
+            for _, axis, heads, _, x in _head_tensors(tree)
+            if min(heads) < 0]
+
+
+def kv_replicas(tree: Shards) -> list:
+    """Where the plan replicates KV heads over tensor shards (each shard
+    then holds one): per KV head leaf and fsdp position, [(tensor, its
+    global KV head, -1 a zero one)] over this process's distinct tensors,
+    in one order on every process.  A train step across processes sums
+    each head's gradient over every tensor holding it, here and on the
+    processes of the attention group (``train._sum_kv_replicas``); in one
+    process the replicas of a head are one tensor (``_Placer.heads``)."""
+    tp = tree.tp
+    if tp.plan.replicas == 1 or not tp.kv_split:
+        return []
+    out: dict = {}
+    for name, _, heads, f, x in _head_tensors(tree):
+        if _HEAD_LEAVES[name][0] == "kv":
+            out.setdefault((name, f), []).append((x, heads[0]))
+    return list(out.values())
+
+
+def _put_heads(dst: torch.Tensor, x: torch.Tensor, axis: int, heads: tuple,
+               hd: int, written: set | None = None, where: str = "") -> None:
+    """A shard's head leaf ``x`` written into ``dst``, the whole leaf (or
+    its fsdp piece) it was cut from: local head j to global head
+    ``heads[j]``, the zero heads (-1) skipped.  With ``written`` (the
+    global heads written so far, updated) a head already written is a
+    replica, which must equal it bitwise, else ``ValueError``."""
+    for j, h in enumerate(heads):
+        if h < 0:
+            continue
+        d, v = dst.narrow(axis, h * hd, hd), x.narrow(axis, j * hd, hd)
+        if written is None or h not in written:
+            d.copy_(v)
+            if written is not None:
+                written.add(h)
+        elif not torch.equal(d, v):
+            raise ValueError(f"{where}: its replica of KV head {h} differs "
+                             "from the first shard's")
+
+
+def write_back(tree: Shards) -> None:
+    """In one process on one device: the real heads of every head leaf
+    the shards hold as a copy (a padded shard's) written into the tree
+    they were cut from (``Shards.source``), so it holds what the shards
+    hold, as the views give it the rest; a no-op without ``source``."""
+    src = tree.source
+    if src is None:
+        return
+    whole = src["layers"] if "layers" in src else src
+    fsdp_axes = _FSDP_LAYER if "layers" in src else _FSDP_LORA
+    with torch.no_grad():
+        for name, axis, heads, f, x in _head_tensors(tree):
+            dst = whole[name]
+            if f is not None:
+                dst = _split(dst, fsdp_axes[name], f, tree.tp.f)
+            if (x.untyped_storage().data_ptr()
+                    != dst.untyped_storage().data_ptr()):
+                _put_heads(dst, x, axis, heads, tree.tp.hd)
+
+
 def _walk(tree, path=()):
     """(path, leaf) over a nested dict, an ``FsdpLeaf`` or a tensor being
     a leaf."""
@@ -797,28 +925,56 @@ def shard_values(tree: Shards, value=None) -> dict:
     return mine
 
 
+class _Whole:
+    """``fill_whole``'s placer: every leaf of a shard's tree is the whole
+    tree's own region, a head leaf left uncut (``_put_heads`` writes its
+    heads)."""
+
+    def __call__(self, x, dev):
+        return x
+
+    def heads(self, x, axis, heads, hd):
+        return x
+
+
 def fill_whole(out: dict, got: dict, tp: TensorParallel) -> None:
     """``shard_values``' entries (gathered from every process) written
-    into ``out``, a whole params or LoRA tree on the host, in place (a
-    contiguous head split only: a padded shard's leaves are copies)."""
-    require_plain(tp.full_cfg, tp.t, "a whole tree gathered from shards")
+    into ``out``, a whole params or LoRA tree on the host, in place, on
+    every head layout: a head leaf's real heads each from the first
+    tensor shard that holds it (``_put_heads``), its zero heads dropped,
+    a KV head's replicas on the later shards equal to it bitwise, else
+    ``ValueError``; every other leaf from each shard's part of it."""
     make = _lora_tree if "scale" in out else _param_tree
+    written: dict = {}
     for s in range(tp.g):
-        views = make(out, s, 0, tp, lambda x, dev: x, list(range(tp.f)))
+        views = make(out, s, 0, tp, _Whole(), list(range(tp.f)))
         for path, leaf in _walk(views):
-            if isinstance(leaf, FsdpLeaf):
-                for f, p in zip(leaf.positions, leaf.pieces):
-                    if (path, s, f) in got:
-                        p.copy_(got[(path, s, f)])
-            elif (path, s, None) in got:
-                leaf.copy_(got[(path, s, None)])
+            head = _head_cut(path[1] if path[0] == "layers" else path[0],
+                             s, tp)
+            if head is not None and path[-1] == "s" and head[0] != -1:
+                head = None  # an int8 row split's scale: whole
+            parts = (zip(leaf.positions, leaf.pieces)
+                     if isinstance(leaf, FsdpLeaf) else [(None, leaf)])
+            for f, p in parts:
+                v = got.get((path, s, f))
+                if v is None:
+                    continue
+                if head is None:
+                    p.copy_(v)
+                elif s < tp.t:  # an expert shard's heads: its tensor shard's
+                    _put_heads(p, v, *head, tp.hd,
+                               written.setdefault((path, f), set()),
+                               f"{'/'.join(path)}: tensor shard {s} "
+                               f"({tp.layout})")
 
 
 def unshard(tree: Shards, like: dict) -> dict:
     """The whole tree a params or LoRA ``Shards`` holds, on the host in
     every process: ``like`` (a whole tree of the same layout, the one that
     was sharded for instance) copied and overwritten with every shard's
-    values, gathered from every process.  For checks and exports."""
+    values, gathered from every process (``fill_whole``: each head from
+    the first shard that holds it, the replicas checked).  For checks and
+    exports."""
     tp = tree.tp
     mine = shard_values(tree)
     everyone = [mine]

@@ -48,8 +48,28 @@ that block's group: the attention's over ``tensor``, the MLP's (its norm,
 the router) over ``tensor`` and ``expert``, so replicated leaves come out
 equal on every rank; the fsdp gather's backward leaves each piece its
 own.  ``pipe`` is the pipelined trainer's, in one process or across
-them (``parallel/pipeline.py``, whose step across processes sums its
-stages' gradients through ``sum_replicated``).
+them (``parallel/pipeline.py``, whose step across processes makes its
+stages' gradients the whole tree's through ``shard_grads``).
+
+Every head layout the reference trains runs, the head plan's too
+(``ops/sharded_attention.head_plan``: zero heads padding the query groups
+and KV heads, KV heads replicated over the shards that share them).  A
+padded shard holds its head leaves as copies, which the step trains as
+it trains the views (the shards' tensors are the parameters, each weight
+in exactly one of them: the shards of one head share its tensor).  A zero
+query head attends to a real KV head with q = 0, so its output is the
+causal mean of V and its ``wo`` / LoRA ``o_a`` rows would take
+gradients: after the backward the step zeroes every zero head's slice of
+every head leaf's gradient (``_mask_zero_heads``), so with a zero value
+and a zero gradient AdamW leaves it at exactly 0, weight decay included.
+A KV head's replicas take the gradient summed over every tensor that
+holds it (``_sum_kv_replicas``): on one device they are one tensor, which
+autograd sums; across processes each process holds its own copy and the
+sum runs over the attention group, so every replica takes the same
+update.  In one process the step then writes each copy's real heads back
+into the caller's tree (``sharding.write_back``): the caller's tree is
+what updates on a padded layout too, equal to ``sharding.unshard``'s
+result.
 """
 
 from __future__ import annotations
@@ -105,10 +125,8 @@ def _masked_sum(logits: torch.Tensor, targets, target_positions) -> tuple:
 
 
 def _check_trainable(tp: sharding.TensorParallel) -> None:
-    """The sharded step's layouts: the heads split as the reference splits
-    them (``sharding.require_plain``), each process's shards on one
-    device, ``pipe`` left to the pipelined trainer."""
-    sharding.require_plain(tp.full_cfg, tp.t, "a sharded train step")
+    """The sharded step's layouts: each process's shards on one device,
+    ``pipe`` left to the pipelined trainer (every head layout trains)."""
     if not tp.one_device:
         raise ValueError(
             "a sharded train step runs each process's shards on one device: "
@@ -221,30 +239,67 @@ def _check_held(optimizer: torch.optim.Optimizer, leaves: list) -> None:
 
 def _set_grads(loss: torch.Tensor, leaves: list, tree=None) -> None:
     """Each leaf's ``.grad``: d loss / d leaf, zeros where the loss does
-    not reach it; for a ``Shards`` ``tree``, summed over the processes
-    that hold the leaf's other parts (module docstring)."""
+    not reach it; for a ``Shards`` ``tree``, the whole tree's
+    (``shard_grads``), summed over the processes that hold the leaf's
+    other parts (module docstring)."""
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     for t, g in zip(leaves, grads):
         t.grad = torch.zeros_like(t) if g is None else g
     if not isinstance(tree, sharding.Shards):
         return
-    sum_replicated(tree)
+    shard_grads(tree)
     tp = tree.tp
     if tp.rows_group is not None:
         for t in leaves:
             t.grad = collectives.all_reduce(t.grad, tp.rows_group)
 
 
-def sum_replicated(tree: sharding.Shards) -> None:
-    """The gradients of the leaves every shard of a block holds whole
-    (``sharding.tensor_replicated``) summed over that block's group: the
-    attention's over ``tensor``, the MLP's over ``tensor`` and
-    ``expert``."""
+def shard_grads(tree: sharding.Shards) -> None:
+    """After the backward, a ``Shards``' gradients made the whole tree's
+    over ``tensor`` and ``expert``: the zero heads' slices zeroed
+    (``_mask_zero_heads``), each replicated KV head's summed over the
+    tensors that hold it (``_sum_kv_replicas``), and the leaves every
+    shard of a block holds whole (``sharding.tensor_replicated``) summed
+    over that block's group: the attention's over ``tensor``, the MLP's
+    over ``tensor`` and ``expert``."""
+    _mask_zero_heads(tree)
+    _sum_kv_replicas(tree)
     tp = tree.tp
     for attn, group in ((True, tp.attn_group), (False, tp.mlp_group)):
         if group is not None:
             for t in sharding.tensor_replicated(tree, attn):
                 t.grad = collectives.all_reduce(t.grad, group)
+
+
+def _mask_zero_heads(tree: sharding.Shards) -> None:
+    """Every zero head's slice of every head leaf's gradient zeroed
+    (``sharding.zero_heads``)."""
+    hd = tree.tp.hd
+    for x, axis, zeros in sharding.zero_heads(tree):
+        for j in zeros:
+            x.grad.narrow(axis, j * hd, hd).zero_()
+
+
+def _sum_kv_replicas(tree: sharding.Shards) -> None:
+    """Across processes, each replicated KV head's gradient summed over
+    every tensor that holds it (``sharding.kv_replicas``): this
+    process's, stacked by global head, then over the attention group, so
+    every replica takes it.  In one process a head's replicas are one
+    tensor, whose gradient autograd has summed."""
+    tp = tree.tp
+    if tp.attn_group is None:
+        return
+    for held in sharding.kv_replicas(tree):
+        g = held[0][0].grad
+        total = torch.zeros((tp.full_cfg.n_kv_heads,) + tuple(g.shape),
+                            dtype=g.dtype, device=g.device)
+        for x, h in held:
+            if h >= 0:
+                total[h] += x.grad
+        total = collectives.all_reduce(total, tp.attn_group)
+        for x, h in held:
+            if h >= 0:
+                x.grad = total[h]
 
 
 def make_step(optimizer: torch.optim.Optimizer, loss_fn):
@@ -263,6 +318,8 @@ def make_step(optimizer: torch.optim.Optimizer, loss_fn):
             _set_grads(loss, leaves, params)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
+        if isinstance(params, sharding.Shards):
+            sharding.write_back(params)
         return params, opt_state, loss.detach()
 
     return step
@@ -301,6 +358,8 @@ def make_lora_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
             t.grad = torch.zeros_like(t)
         optimizer.step()
         optimizer.zero_grad(set_to_none=True)
+        if isinstance(lora_bufs, sharding.Shards):
+            sharding.write_back(lora_bufs)
         return lora_bufs, opt_state, loss.detach()
 
     return step

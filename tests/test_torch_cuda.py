@@ -2296,6 +2296,40 @@ elif case == "pipe8b":  # ten full-parameter steps of the whole 8B, pipelined
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                flash_launches=fl.launches - f0,
                backward_launches=fl.backward_launches - b0)
+elif case == "layout14":  # 14:2 at tensor=4: LoRA then full steps, f32
+    from llm_instance_gateway_tpu_torch.models.configs import QWEN2_5_7B
+    cfg = dataclasses.replace(QWEN2_5_7B, **json.loads(os.environ["GRAFT_CFG"]))
+    tp = sharding.TensorParallel(cfg, mesh)
+    load = lambda key: multihost_check.load_tree(os.environ[key], dev)
+    whole, batch = load("GRAFT_WEIGHTS"), load("GRAFT_BATCH")
+    params = sharding.shard_params(whole, tp)
+    out["layout"] = tp.layout
+    for kind in ("lora", "full"):
+        if kind == "lora":
+            like = load("GRAFT_LORA")
+            tree = sharding.shard_lora(like, tp)
+            opt = train.make_optimizer(tree, lr=1e-3, weight_decay=0.1)
+            step = train.make_lora_train_step(cfg, opt)
+            args = (params, tree, None, batch["tokens"], batch["positions"],
+                    batch["slots"])
+        else:
+            like, tree = whole, params
+            opt = train.make_optimizer(tree, lr=1e-3, weight_decay=0.1)
+            step = train.make_full_train_step(cfg, opt)
+            args = (params, None, batch["tokens"], batch["positions"])
+        f0, b0 = fl.launches, fl.backward_launches
+        losses = [step(*args)[2].item()]
+        after = sharding.unshard(tree, like)  # raises where replicas differ
+        losses.append(step(*args)[2].item())
+        zero = max([x.narrow(a, j * tp.hd, tp.hd).abs().max().item()
+                    for x, a, js in sharding.zero_heads(tree) for j in js]
+                   or [0.0])
+        out[kind] = {"losses": losses, "zero_heads_max": zero,
+                     "flash_launches": fl.launches - f0,
+                     "backward_launches": fl.backward_launches - b0}
+        if rank == 0:
+            multihost_check.save_tree(os.path.join(
+                os.environ["GRAFT_OUT"], f"{kind}.npz"), after)
 else:  # ten Llama-3-8B steps: "lora" (rank 8) or "full"
     cfg = LLAMA3_8B
     tp = sharding.TensorParallel(cfg, mesh)
@@ -2449,6 +2483,124 @@ def test_processes_ring_8b_sequence4_across_cards():
                                         "ranks": res}), flush=True)
     assert all(r["backend"] == ["nccl"] and r["row_finite"] for r in res)
     assert len({r["argmax"] for r in res}) == 1, res
+
+
+# Qwen2.5-0.5B's head layout (14:2 at hd 64) at two layers and a cut
+# vocabulary: the head plan at tensor=4 is 4:1 a shard, each KV head on two
+# cards, each group of 7 query heads padded with a zero head.
+LAYOUT14 = dict(name="qwen-14-2", vocab_size=4096, d_model=896, n_layers=2,
+                n_heads=14, n_kv_heads=2, head_dim=64, d_ff=4864)
+
+
+def test_processes_padded_layout_steps_across_cards(tmp_path):
+    """14:2 at tensor=4, one process a card over NCCL (each KV head's
+    replicas on two cards), f32: a LoRA step and a full-parameter step
+    (weight decay 0.1) against the same steps on one card at tensor=1:
+    the first loss within 1e-5 relative, its update over lr within 1e-3
+    where one card's |grad| clears 1e-3 of its leaf's largest, the second
+    loss within 1e-5 relative; every process's zero heads exactly 0 and
+    its KV replicas bitwise equal (``unshard``'s check); flash and its
+    backward as often on each card as on the one card."""
+    import copy
+    import dataclasses
+    import json
+
+    from llm_instance_gateway_tpu_torch.models import lora, transformer
+    from llm_instance_gateway_tpu_torch.models.configs import QWEN2_5_7B
+    from llm_instance_gateway_tpu_torch.parallel import multihost_check
+    from llm_instance_gateway_tpu_torch.training import train
+
+    _cards(4)
+    cfg = dataclasses.replace(QWEN2_5_7B, **LAYOUT14)
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    whole = transformer.init_params(cfg, seed=22, dtype=torch.float32,
+                                    device=dev)
+    for name in ("wq_b", "wk_b", "wv_b"):
+        leaf = whole["layers"][name]
+        leaf.copy_(torch.randn(leaf.shape, device=dev, generator=gen) * 0.5)
+    bufs = lora.init_lora_buffers(cfg, torch.float32, dev)
+    for t, (d_in, _d_out) in lora.target_dims(cfg).items():
+        bufs[f"{t}_a"][:, 0, :, :8] = torch.randn(
+            (cfg.n_layers, d_in, 8), device=dev, generator=gen) / d_in ** 0.5
+    bufs["scale"][0] = 2.0
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), device=dev,
+                           generator=gen)
+    batch = {"tokens": tokens,
+             "positions": torch.arange(512, device=dev).repeat(2, 1),
+             "slots": torch.zeros(2, dtype=torch.int32, device=dev)}
+    paths = {key: str(tmp_path / f"{key}.npz") for key in ("w", "l", "b")}
+    for key, tree in zip("wlb", (whole, bufs, batch)):
+        multihost_check.save_tree(paths[key], tree)
+    want = {}
+    for kind in ("lora", "full"):
+        tree = copy.deepcopy(bufs if kind == "lora" else whole)
+        opt = train.make_optimizer(tree, lr=1e-3, weight_decay=0.1)
+        grads = {}
+        adam = opt.step
+
+        def keep(*a, tree=tree, grads=grads, adam=adam, **kw):
+            if not grads:
+                grads.update(_flat({k: v.grad for k, v in _leaf_items(tree)}))
+            return adam(*a, **kw)
+        opt.step = keep
+        if kind == "lora":
+            step = train.make_lora_train_step(cfg, opt)
+            args = (whole, tree, None, batch["tokens"], batch["positions"],
+                    batch["slots"])
+        else:
+            step = train.make_full_train_step(cfg, opt)
+            args = (tree, None, batch["tokens"], batch["positions"])
+        before = _flat(dict(_leaf_items(tree)))
+        f0, b0 = fl.launches, fl.backward_launches
+        losses = [step(*args)[2].item()]
+        after = _flat(dict(_leaf_items(tree)))
+        losses.append(step(*args)[2].item())
+        launches = (fl.launches - f0, fl.backward_launches - b0)
+        want[kind] = (losses, before, after, grads, launches)
+    res = _processes(4, "layout14", "tensor=4", {
+        "GRAFT_CFG": json.dumps(LAYOUT14), "GRAFT_WEIGHTS": paths["w"],
+        "GRAFT_LORA": paths["l"], "GRAFT_BATCH": paths["b"],
+        "GRAFT_OUT": str(tmp_path)})
+    print("[processes4] " + json.dumps({"case": "layout14",
+                                        "axes": "tensor=4", "ranks": res,
+                                        "one_card": {k: v[0] for k, v in
+                                                     want.items()}}),
+          flush=True)
+    for kind, (losses, before, after, grads, launches) in want.items():
+        for r in res:
+            assert r["backend"] == ["nccl"]
+            got = r[kind]
+            assert got["zero_heads_max"] == 0.0, (kind, r)
+            for i in range(2):
+                assert abs(got["losses"][i] - losses[i]) <= 1e-5 * abs(
+                    losses[i]), (kind, i, got["losses"], losses)
+            # One shard a card: one card's launches at tensor=1.
+            assert (got["flash_launches"],
+                    got["backward_launches"]) == launches, (kind, r)
+        trained = multihost_check.load_tree(str(tmp_path / f"{kind}.npz"))
+        trained = _flat(dict(_leaf_items(trained)))
+        for path, w in after.items():
+            g = grads[path].abs()
+            sure = g > 1e-3 * g.max().clamp_min(1e-30)
+            du = (trained[path].double() - before[path].double()) / 1e-3
+            dw = (w.double() - before[path].double()) / 1e-3
+            err = (du - dw).abs()[sure]
+            assert err.numel() == 0 or err.max().item() < 1e-3, (kind, path)
+
+
+def _leaf_items(tree, prefix=()):
+    """(path, tensor) over a nested dict of tensors."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_items(v, prefix + (k,))
+        else:
+            yield "/".join(prefix + (k,)), v
+
+
+def _flat(items: dict) -> dict:
+    """path -> a detached copy on the host."""
+    return {k: v.detach().cpu().clone() for k, v in items.items()}
 
 
 # axes -> microbatches of the 4 x 1024-token batch (one row each, or with

@@ -26,9 +26,9 @@ prefix cache and on int8 lanes; an adapter hot-swapped at run time; a hop
 from tensor=4 (the wire in tensor=1's layout, the attach filling every
 replica); 6:3 at ``sequence=2, tensor=2`` (the ring) against the
 reference's engine there and the port's ``sequence=1``; 14:2 at tensor=4
-over two processes against one; training's refusal by name; and a
-planted non-zero ``wo`` row at a zero head, which the logits check must
-catch.
+over two processes against one; and a planted non-zero ``wo`` row at a
+zero head, which the logits check must catch.  Training on these layouts
+is ``tests/test_torch_layouts_train.py``'s.
 
 Tolerances: logits within ``ATOL`` (1e-5, f32 summation order); after a
 step that writes an int8 KV cache within ``INT8_KV_ATOL`` (2e-3: a value
@@ -65,14 +65,12 @@ from llm_instance_gateway_tpu_torch.ops import sharded_attention as tsa  # noqa:
 from llm_instance_gateway_tpu_torch.ops.quant import quantize_params  # noqa: E402
 from llm_instance_gateway_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from llm_instance_gateway_tpu_torch.parallel import multihost_check  # noqa: E402
-from llm_instance_gateway_tpu_torch.parallel import pipeline as tpipe  # noqa: E402
 from llm_instance_gateway_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from llm_instance_gateway_tpu_torch.server import engine as teng  # noqa: E402
 from llm_instance_gateway_tpu_torch.server import kv_transfer as tkv  # noqa: E402
 from llm_instance_gateway_tpu_torch.server.lora_manager import (  # noqa: E402
     LoRAManager as TLoRA,
 )
-from llm_instance_gateway_tpu_torch.training import train as ttrain  # noqa: E402
 
 F32 = torch.float32
 ATOL = 1e-5
@@ -754,32 +752,3 @@ def test_two_processes_14_2_tensor4(tmp_path):
             toks = _run(eng, prompts)
             assert lines[0][i] == ";".join(",".join(map(str, o))
                                            for o in toks), (extra, t)
-
-
-# ---------------------------------------------------------------------------
-# Training refuses these layouts by name
-# ---------------------------------------------------------------------------
-
-
-def test_training_refuses_layout_by_name():
-    cfg, _ = MODELS["14:2"]
-    params = model_params(cfg)
-    tp = tsh.TensorParallel(cfg, port_mesh(tensor=4))
-    sp = tsh.shard_params(params, tp)
-    tokens = torch.arange(1, 17)[None].expand(2, 16).clone()
-    positions = torch.arange(16)[None].expand(2, 16).clone()
-    with pytest.raises(ValueError, match=r"a sharded train step does not "
-                       r"run on .*14:2 over tensor=4, 4:1 a shard"):
-        ttrain.causal_lm_loss(cfg, sp, tokens, positions)
-    with pytest.raises(ValueError, match=r"14:2 over tensor=4"):
-        tsh.unshard(sp, params)
-    staged = tpipe.stage_params(cfg, params, 2)
-    with pytest.raises(ValueError, match=r"a pipelined train step does not "
-                       r"run on .*14:2 over tensor=4"):
-        tpipe.make_pipeline_train_step(
-            cfg, ttrain.make_optimizer(staged), 2, 2,
-            mesh=port_mesh(pipe=2, tensor=4))
-    # A layout the reference's kernels split still trains.
-    ok = tsh.shard_params(params, tsh.TensorParallel(cfg,
-                                                     port_mesh(tensor=2)))
-    assert torch.isfinite(ttrain.causal_lm_loss(cfg, ok, tokens, positions))

@@ -15,7 +15,12 @@ tensor=2`` over four (one position a process: tensor across processes
 inside a stage), ``fsdp=2,pipe=2,tensor=2`` over four (fsdp and pipe
 across) and ``pipe=2,tensor=2,sequence=2`` over four (tensor across,
 the sequence replicated inside), and Gemma-2B's tiny config (tied
-embeddings, MQA) at ``pipe=2`` over two.  Each step launches flash and
+embeddings, MQA) at ``pipe=2`` over two; over four, one position a
+process: ``pipe=2,sequence=2``, Mixtral's tiny config at
+``pipe=2,expert=2`` and a head layout the reference's kernels do not
+split, 6:3 at ``pipe=2,tensor=2`` (the head plan's 4:2 a shard, the
+second shard's last KV head a zero head with its two zero query
+heads).  Each step launches flash and
 the flash backward exactly (L/pp) x M times per local tensor shard and
 local stage in every process.  ``pipeline_forward``'s logits at
 ``pp2tp4`` against the reference's sharded forward (rtol/atol 5e-4, the
@@ -47,6 +52,7 @@ import pytest
 
 from llm_instance_gateway_tpu.models import transformer as jtf
 from llm_instance_gateway_tpu.models.configs import GEMMA_2B as JGEMMA
+from llm_instance_gateway_tpu.models.configs import TINY_MOE_TEST as JTINY_MOE
 from llm_instance_gateway_tpu.models.configs import TINY_TEST as JTINY
 from llm_instance_gateway_tpu.parallel import mesh as jmesh
 from llm_instance_gateway_tpu.parallel import pipeline as jpipe
@@ -70,9 +76,14 @@ NOISE_FLOOR = 1e-3
 FWD_TOL = 5e-4  # tests/test_pipeline.py's sharded forward
 LR = 1e-3
 
-# tests/test_pipeline.py's config, and Gemma-2B's tiny one at its depth.
+# tests/test_pipeline.py's config, Gemma-2B's tiny one at its depth, its
+# widths at 6:3 heads, and Mixtral's tiny one.
 MODELS = {"llama": dataclasses.replace(JTINY, name="tiny-pipe", n_layers=4),
-          "gemma": dataclasses.replace(JGEMMA.tiny(), n_layers=4)}
+          "gemma": dataclasses.replace(JGEMMA.tiny(), n_layers=4),
+          "layout63": dataclasses.replace(JTINY, name="tiny-pipe",
+                                          n_layers=4, n_heads=6,
+                                          n_kv_heads=3),
+          "moe": JTINY_MOE}
 
 WORKER = r"""
 import dataclasses, json, os, sys
@@ -80,7 +91,8 @@ sys.path.insert(0, os.environ["GRAFT_REPO"])
 import numpy as np
 import torch
 from llm_instance_gateway_tpu_torch.models import transformer
-from llm_instance_gateway_tpu_torch.models.configs import GEMMA_2B, TINY_TEST
+from llm_instance_gateway_tpu_torch.models.configs import (
+    GEMMA_2B, TINY_MOE_TEST, TINY_TEST)
 from llm_instance_gateway_tpu_torch.ops import flash_attention as tfa
 from llm_instance_gateway_tpu_torch.parallel import multihost_check, pipeline
 from llm_instance_gateway_tpu_torch.parallel.mesh import (
@@ -94,7 +106,11 @@ lr = float(os.environ["GRAFT_LR"])
 out_dir = os.environ["GRAFT_OUT"]
 models = {"llama": dataclasses.replace(TINY_TEST, name="tiny-pipe",
                                        n_layers=4),
-          "gemma": dataclasses.replace(GEMMA_2B.tiny(), n_layers=4)}
+          "gemma": dataclasses.replace(GEMMA_2B.tiny(), n_layers=4),
+          "layout63": dataclasses.replace(TINY_TEST, name="tiny-pipe",
+                                          n_layers=4, n_heads=6,
+                                          n_kv_heads=3),
+          "moe": TINY_MOE_TEST}
 
 calls = {"forward": 0, "backward": 0}
 fwd, bwd = tfa._forward, tfa.flash_attention_backward
@@ -251,6 +267,9 @@ RUNS = {
     "fsdp2pp2tp2": ("llama", "fsdp=2,pipe=2,tensor=2", 2, "step", "", 4, 8),
     "pp2tp2sp2": ("llama", "pipe=2,tensor=2,sequence=2", 2, "step", "", 4,
                   4),
+    "pp2sp2": ("llama", "pipe=2,sequence=2", 2, "step", "", 4, 4),
+    "moe_pp2ep2": ("moe", "pipe=2,expert=2", 2, "step", "", 4, 2),
+    "layout63_pp2tp2": ("layout63", "pipe=2,tensor=2", 2, "step", "", 4, 4),
 }
 
 
