@@ -237,8 +237,12 @@ Phases, each printing its own line; any failure raises (exit code != 0):
 19. processes — the port across two processes on cuda:0, gloo between
    them (``phase_processes``, after phase 18's pipe half), the 8B's
    widths at ``PROC_LAYERS`` (8) of its 32 layers: ``--mesh
-   tensor=2`` served in lockstep and its decode logits against one
-   process's with planted faults, the 8B LoRA step at tensor=2 and
+   tensor=2`` served in lockstep (the sync loop, then the pipelined
+   loop with the adaptive planner token for token the same, then a
+   handoff parked past its TTL with rank 1's clock frozen, released on
+   both ranks: the ``lockstep`` line of ``[walls]``) and its decode
+   logits against one process's with planted faults, the 8B LoRA step
+   at tensor=2 and
    data=2; ``--mesh sequence=2`` (each process a whole 8B tree and its
    own lane cache): the 6001-token prompt in one ring program a process,
    its K/V exchanged, tokens equal across the ranks, the ring's last
@@ -5885,6 +5889,14 @@ PROC_SEQ_FAULTS = ("block_dropped", "blocks_reversed")
 # half the experts, 4 of 8).
 PROC_MOE_LAYERS = 4
 PROC_MOE_TRAIN_STEPS = 2
+# Lockstep beyond the sync loop: PROC_PROMPTS again through the pipelined
+# loop with the adaptive planner (blocks of up to PROC_ADAPTIVE steps),
+# then a seeded handoff of PROC_HANDOFF_TOKENS parked behind them with
+# every slot busy, past a TTL of PROC_TTL_S, rank 1's engine clock frozen:
+# the first process's verdict releases it on both.
+PROC_ADAPTIVE = 8
+PROC_HANDOFF_TOKENS = 32
+PROC_TTL_S = 1e-3
 
 # The worker each of the two processes runs (``multihost_check.
 # run_two_process``): it imports the port and this script's helpers only.
@@ -5899,13 +5911,12 @@ from llm_instance_gateway_tpu_torch.models import lora, transformer
 from llm_instance_gateway_tpu_torch.models.configs import LLAMA3_8B
 from llm_instance_gateway_tpu_torch.models.configs import MIXTRAL_8X7B
 from llm_instance_gateway_tpu_torch.parallel import (
-    collectives, long_context, sharding)
+    collectives, long_context, multihost_check, sharding)
 from llm_instance_gateway_tpu_torch.parallel.mesh import (
     Mesh, MeshConfig, initialize_distributed, make_mesh, world)
 from llm_instance_gateway_tpu_torch.parallel.ring_attention import (
     ring_attention_blocks)
-from llm_instance_gateway_tpu_torch.server.engine import (
-    Engine, EngineConfig, Request, SamplingParams)
+from llm_instance_gateway_tpu_torch.server.engine import Engine, EngineConfig
 from llm_instance_gateway_tpu_torch.training import train
 
 initialize_distributed()
@@ -5946,35 +5957,34 @@ def free():
     torch.cuda.empty_cache()
 
 
-def engine_for(params, mesh, max_seq_len=1024):
-    return Engine(cfg, params, EngineConfig(
-        decode_slots=4, max_seq_len=max_seq_len,
-        prefill_buckets=(16, 64, 128, 512, 1024)),
+def engine_for(params, mesh, max_seq_len=1024, **options):
+    # ``params`` whole, or another engine's shard tree on ``mesh``.
+    return Engine(cfg, params, EngineConfig(**{
+        "decode_slots": 4, "max_seq_len": max_seq_len,
+        "prefill_buckets": (16, 64, 128, 512, 1024), **options}),
         eos_id=None, dtype=torch.bfloat16, seed=0, device=dev, mesh=mesh,
         cuda_graphs=False)
 
 
-def serve(engine, which=None):
-    # Every request submitted before start(): both loops see one queue.
-    reqs = [Request(prompt_tokens=list(p), max_new_tokens=s.PROC_NEW,
-                    sampling=SamplingParams(temperature=0.0))
-            for p in which or prompts]
-    for r in reqs:
-        engine.submit(r)
-    steps0 = engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
+def serve(engine, which=None, **options):
+    # Every request submitted before start() (multihost_check.serve: both
+    # loops see one queue): its result with this run's launches.
     s.reset_launches()
-    t0 = time.time()
-    engine.start()
-    try:
-        for r in reqs:
-            if not r.done.wait(300) or r.error is not None:
-                raise SystemExit(f"rank {rank}: request failed: {r.error}")
-    finally:
-        engine.stop()
-    steps = int(engine.metrics_snapshot()["dispatch_steps_hist"]["sum"]
-                - steps0)
-    return ([list(r.output_tokens) for r in reqs], s.read_launches(),
-            steps, time.time() - t0)
+    res = multihost_check.serve(engine, which or prompts, s.PROC_NEW,
+                                timeout_s=300, **options)
+    res["launches"] = s.read_launches()
+    if res["errors"]:
+        raise SystemExit(f"rank {rank}: request failed: {res['errors']}")
+    return res
+
+
+def exact(res, what, prefilled=len(prompts)):
+    # Flash once a layer a prompt prefilled, the lane kernel once a layer
+    # a dispatched step.
+    s.check_only(res["launches"], {
+        "flash_prefill": prefilled * cfg.n_layers,
+        "decode_attention": res["dispatch_steps"] * cfg.n_layers},
+        f"processes rank {rank} {what}")
 
 
 def lane(c, d):
@@ -6187,7 +6197,8 @@ for r in range(size):
         if rank == 0:
             views = Mesh(MeshConfig(tensor=2), (dev, dev))
             one = engine_for(full, views)
-            ref["tokens"], _, _, ref["serve_s"] = serve(one)
+            res = serve(one)
+            ref["tokens"], ref["serve_s"] = res["tokens"], res["wall_s"]
             ref["logits"], ref["step"] = decode_logits(
                 one.params, one.tp, lambda step: timed_step(step, False))
             del one
@@ -6198,8 +6209,9 @@ for r in range(size):
             free()
             views = Mesh(MeshConfig(sequence=2), (dev, dev))
             one = engine_for(full, views, s.PROC_SEQ_MAX_LEN)
-            ref["seq_tokens"], _, _, ref["seq_serve_s"] = serve(one,
-                                                                seq_prompts)
+            res = serve(one, seq_prompts)
+            ref["seq_tokens"], ref["seq_serve_s"] = (res["tokens"],
+                                                     res["wall_s"])
             ref["seq_row"], ref["seq_ring"] = ring_timed(one.params, views,
                                                          False)
             del one
@@ -6214,14 +6226,47 @@ for r in range(size):
     dist.barrier()
 
 # -- tensor=2 across the two processes ---------------------------------------
-out["tokens"], launches, steps, out["serve_s"] = serve(engine)
-s.check_only(launches, {
-    "flash_prefill": len(prompts) * cfg.n_layers,
-    "decode_attention": steps * cfg.n_layers}, f"processes rank {rank} serve")
-out["serve_launches"], out["decode_steps"] = launches, steps
+res = serve(engine)
+exact(res, "serve")
+out["tokens"], out["serve_s"] = res["tokens"], res["wall_s"]
+out["serve_launches"], out["decode_steps"] = (res["launches"],
+                                              res["dispatch_steps"])
 mark("serve")
 params = engine.params
 del engine
+free()
+
+# -- the same prompts through the pipelined loop and the planner, then the
+# TTL sweep with rank 1's clock frozen, over the same shard tree ----------
+both = dict(pipeline_decode=True, adaptive_steps=s.PROC_ADAPTIVE)
+res = serve(engine_for(params, mesh, **both))
+exact(res, "pipelined serve")
+if res["tokens"] != out["tokens"]:
+    raise SystemExit(f"rank {rank}: the pipelined loop read back "
+                     f"{res['tokens']}, the sync loop {out['tokens']}")
+if sum(1 for n in res["dispatch_counts"] if n) < 2:
+    raise SystemExit(f"rank {rank}: one block size only: "
+                     f"{res['dispatch_counts']}")
+out["pipelined"] = res
+mark("pipelined serve")
+# The sync loop again, warm, beside the pipelined run (the first serve
+# above pays each process's first collectives and allocations).
+res = serve(engine_for(params, mesh))
+exact(res, "warm sync serve")
+if res["tokens"] != out["tokens"]:
+    raise SystemExit(f"rank {rank}: the warm sync serve read back "
+                     f"{res['tokens']}, the first {out['tokens']}")
+out["sync_warm"] = res
+mark("warm sync serve")
+handoff = multihost_check.seeded_handoff(
+    cfg, s.PROC_HANDOFF_TOKENS, s.PROC_SEED, s.PROC_NEW, torch.bfloat16)
+res = serve(engine_for(params, mesh, decode_slots=len(prompts),
+                       handoff_ttl_s=s.PROC_TTL_S, **both),
+            handoff=handoff, freeze_clock=rank == 1)
+# The handoff is released before a slot frees: no prefill, no decode row.
+exact(res, "TTL serve")
+out["ttl"] = res
+mark("ttl serve")
 free()
 
 
@@ -6299,29 +6344,17 @@ for r in range(size):
         del params
         free()
     dist.barrier()
-rings = {"n": 0}
-plain_ring = engine._ring
-
-
-def counted_ring(*args, **kwargs):
-    rings["n"] += 1
-    return plain_ring(*args, **kwargs)
-
-
-engine._ring = counted_ring
-out["seq_tokens"], launches, steps, out["seq_serve_s"] = serve(engine,
-                                                               seq_prompts)
+res = serve(engine, seq_prompts)
 # The ring runs no kernel of the port (its block products are torch ops);
 # the two bucketed prompts run flash, decode the lane kernel.
-s.check_only(launches, {
-    "flash_prefill": (len(seq_prompts) - 1) * cfg.n_layers,
-    "decode_attention": steps * cfg.n_layers},
-    f"processes rank {rank} sequence=2 serve")
-if rings["n"] != 1:
-    raise SystemExit(f"rank {rank}: {rings['n']} ring programs for one long "
-                     "prompt")
-out["seq_serve_launches"], out["seq_decode_steps"] = launches, steps
-out["seq_ring_programs"] = rings["n"]
+exact(res, "sequence=2 serve", len(seq_prompts) - 1)
+if res["paths"]["ring"] != 1:
+    raise SystemExit(f"rank {rank}: {res['paths']['ring']} ring programs "
+                     "for one long prompt")
+out["seq_tokens"], out["seq_serve_s"] = res["tokens"], res["wall_s"]
+out["seq_serve_launches"], out["seq_decode_steps"] = (res["launches"],
+                                                      res["dispatch_steps"])
+out["seq_ring_programs"] = res["paths"]["ring"]
 mark("sequence=2 serve")
 params, tp = engine.params, engine.tp
 del engine
@@ -6402,7 +6435,16 @@ def phase_processes(torch) -> dict:
     tensor=2`` served eagerly with every request submitted before
     ``start()``: both processes' greedy tokens identical, counted against
     the one-process tensor=2 engine's (views, reported), exact launches
-    per process; the decode step after a 700-token prefill, its logits on
+    per process; the same prompts through the pipelined loop with the
+    adaptive planner (PROC_ADAPTIVE) over the same shard tree, token for
+    token the sync loop's, launches exact against the dispatched steps,
+    more than one block size, then the sync loop again (warm, the wall
+    to set beside the pipelined one); a seeded handoff parked behind them with
+    every slot busy past PROC_TTL_S, rank 1's engine clock frozen: both
+    ranks release it (``kv_release`` says ``ttl``) through the first
+    process's broadcast verdict, with the same tokens for the rest, its
+    wire bytes the same by hash; the decode step after a 700-token
+    prefill, its logits on
     both ranks bitwise equal and within MESH_LOGIT_TOL of one process's,
     with PROC_FAULTS planted each beyond it; an eager decode step's wall,
     device ms and collectives' host ms beside one process's.  The 8B LoRA
@@ -6458,6 +6500,22 @@ def phase_processes(torch) -> dict:
     seq_differ = sum(int(a != b) for got, want in zip(r0["seq_tokens"],
                                                       r0["ref_seq_tokens"])
                      for a, b in zip(got, want))
+    # Lockstep beyond the sync loop (each worker held its pipelined
+    # tokens to its sync ones and its launches to its dispatched steps).
+    if r0["pipelined"]["tokens"] != r1["pipelined"]["tokens"]:
+        raise AssertionError("processes pipelined: the ranks read back "
+                             "different tokens")
+    ttl = [r["ttl"] for r in res]
+    for key in ("tokens", "finish", "handoff_sha256", "dispatch_steps",
+                "broadcasts", "ledger_sweeps"):
+        if ttl[0][key] != ttl[1][key]:
+            raise AssertionError(f"processes TTL: the ranks' {key} differ: "
+                                 f"{ttl[0][key]} / {ttl[1][key]}")
+    for rank, t in enumerate(ttl):
+        if (t["finish"][-1] != "cancelled" or t["broadcasts"] < 1
+                or [e["reason"] for e in t["kv_release"]] != ["ttl"]):
+            raise AssertionError(f"processes TTL: rank {rank} did not "
+                                 f"release the parked handoff: {t}")
     for axes, row in r0["lora"].items():
         if not row["first_loss_rel_err"] <= PIPE_LOSS_TOL:
             raise AssertionError(f"processes LoRA {axes}: first loss "
@@ -6468,7 +6526,9 @@ def phase_processes(torch) -> dict:
                                  f"from one process's: {row}")
     launches: dict = {}
     for r in res:
-        for part in ([r["serve_launches"], r["seq_serve_launches"]]
+        for part in ([r["serve_launches"], r["seq_serve_launches"],
+                      r["pipelined"]["launches"], r["sync_warm"]["launches"],
+                      r["ttl"]["launches"]]
                      + [row["launches"] for row in r["lora"].values()]):
             for name, n in part.items():
                 launches[name] = launches.get(name, 0) + n
@@ -6492,6 +6552,27 @@ def phase_processes(torch) -> dict:
             "ring": {"one_process": r0["ref_seq_ring"],
                      "rank0": r0["seq_ring"], "rank1": r1["seq_ring"]}},
         "one_process_moe_lora": r0["ref_moe_lora"],
+        "lockstep": {
+            "walls": {"sync_serve_s": [r["serve_s"] for r in res],
+                      "pipelined_serve_s": [r["pipelined"]["wall_s"]
+                                            for r in res],
+                      "warm_sync_serve_s": [r["sync_warm"]["wall_s"]
+                                            for r in res],
+                      "ttl_serve_s": [t["wall_s"] for t in ttl]},
+            "decode_steps": {"sync": r0["decode_steps"],
+                             "pipelined": r0["pipelined"]["dispatch_steps"],
+                             "warm_sync": r0["sync_warm"]["dispatch_steps"],
+                             "ttl": ttl[0]["dispatch_steps"]},
+            "dispatch_counts": r0["pipelined"]["dispatch_counts"],
+            "launches": {"pipelined": [r["pipelined"]["launches"]
+                                       for r in res],
+                         "warm_sync": [r["sync_warm"]["launches"]
+                                       for r in res],
+                         "ttl": [t["launches"] for t in ttl]},
+            "ttl": {"finish": ttl[0]["finish"],
+                    "broadcasts": ttl[0]["broadcasts"],
+                    "ledger_sweeps": ttl[0]["ledger_sweeps"],
+                    "handoff_sha256": ttl[0]["handoff_sha256"]}},
         "worker_walls": [r["walls"] for r in res]}
     log("processes", f"greedy tokens differing from one process: {differ} "
         f"of {out['tokens_differing']['of']} (bf16; reported, not gated)")
@@ -7411,6 +7492,8 @@ def main() -> int:
     done("pipe")
     processes = phase_processes(torch)
     done("processes")
+    log("walls", "phase 19 (lockstep): "
+        + json.dumps(processes["lockstep"]["walls"]))
     pipe_processes = phase_pipe_processes(torch, pipe.pop("reference"))
     done("pipe processes")
     log("walls", "phase 18 (data, fsdp and pipe): " + json.dumps(

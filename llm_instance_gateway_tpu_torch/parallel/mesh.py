@@ -35,7 +35,8 @@ the others' from them: process p owns positions ``[p * total / N, (p + 1)
 positions that differ only in ``tensor``, in ``tensor`` and ``expert``,
 in ``fsdp``, in ``data``, in ``sequence`` (the ring's K/V exchange), in
 ``data`` and ``sequence`` (the training loss and gradient sums) or in
-``pipe`` (a pipeline stage's neighbours, ``parallel/pipeline.py``)
+``pipe`` (a pipeline stage's neighbours, ``parallel/pipeline.py``), and
+over every process (``group(*AXES)``: the serving engine's TTL verdicts)
 (``Mesh.group``).  Where ``pipe`` > 1 a process owns one stage (pipe
 across processes) or every stage (pipe inside it).  Their backend follows one
 rule, logged when the mesh is made: NCCL when every process's positions
@@ -67,11 +68,13 @@ SERVED_AXES = AXES
 # the attention reduction (tensor), the MLP reduction (tensor and expert),
 # the fsdp gather, the data-parallel sums, the ring's K/V exchange
 # (sequence), the training sums over the batch's rows and positions
-# (data and sequence) and a pipeline stage's neighbours (pipe: the
+# (data and sequence), a pipeline stage's neighbours (pipe: the
 # positions at the same coordinates in every stage, between which
-# activations and their gradients go point to point).
+# activations and their gradients go point to point) and every process
+# (all the axes: the lockstep engine's agreement on its clock's
+# decisions).
 GROUP_AXES = (("tensor",), ("tensor", "expert"), ("fsdp",), ("data",),
-              ("sequence",), ("data", "sequence"), ("pipe",))
+              ("sequence",), ("data", "sequence"), ("pipe",), AXES)
 # How long a collective (and the world's rendezvous) waits for its peers
 # before it raises: a divergence between processes becomes a failure, not
 # a hang.

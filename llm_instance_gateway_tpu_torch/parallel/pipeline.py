@@ -92,8 +92,8 @@ def stage_params(cfg: ModelConfig, params: Params, pipe: int) -> Params:
 def _stage_mesh(mesh: Mesh, i: int) -> Mesh:
     """Stage i's grid: the positions with pipe coordinate i, over the
     mesh's other axes; across processes with the world mesh's owners,
-    rank and process groups (every group but ``("pipe",)`` keys on the
-    pipe coordinate, so each is the stage's own)."""
+    rank and process groups (every group over axes without ``pipe`` keys
+    on the pipe coordinate, so each is the stage's own)."""
     c = mesh.config
     idx = [mesh.device_index(data=d, fsdp=f, pipe=i, tensor=t, expert=e,
                              sequence=j)
@@ -107,7 +107,7 @@ def _stage_mesh(mesh: Mesh, i: int) -> Mesh:
         return Mesh(grid, devices)
     return Mesh(grid, devices, tuple(mesh.processes[k] for k in idx),
                 mesh.rank, {axes: g for axes, g in mesh.groups.items()
-                            if axes != ("pipe",)})
+                            if "pipe" not in axes})
 
 
 def _local_stages(mesh: Mesh) -> list[int]:

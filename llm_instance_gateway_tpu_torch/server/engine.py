@@ -43,7 +43,8 @@ synchronous loop and the pipelined one).
   ``PrefillHandoff``; ``attach_prefilled`` parks a handoff's KV in
   ``decode_wait`` (first token emitted at once), from where the drain
   inserts it like a prefill-ahead, mapping cached prefix blocks first.
-  Handoff imports parked past ``handoff_ttl_s`` are swept.
+  Handoff imports parked past ``handoff_ttl_s`` are swept (across
+  processes on the first process's clock, its verdicts broadcast).
 - **Penalties** (OpenAI presence / frequency over generated tokens): a
   [B, V_padded] int32 count buffer, allocated at the first penalized
   request, is one more fixed-address buffer of the decode block, whose
@@ -95,11 +96,15 @@ synchronous loop and the pipelined one).
   reference's multi-controller engine does: each holds its own shards
   and issues the same collectives in the same order, so every request is
   submitted to every process before ``start()``, sampling is greedy or
-  seeded alike, and the sync loop runs eagerly; ``tensor``, ``expert``,
-  ``fsdp`` and ``sequence`` may span processes (over ``sequence`` each
-  process runs the ring on its blocks, inserts the whole prompt's K/V,
-  exchanged, into its own cache and decodes on that replica), and every
-  process reads back the same tokens (``parallel/multihost_check.py``).
+  seeded alike, and either loop (the adaptive planner and the handoff
+  TTL included) runs eagerly; ``tensor``, ``expert``, ``fsdp`` and
+  ``sequence`` may span processes (over ``sequence`` each process runs
+  the ring on its blocks, inserts the whole prompt's K/V, exchanged,
+  into its own cache and decodes on that replica), and every process
+  reads back the same tokens (``parallel/multihost_check.py``).  Every
+  host decision reads only state lockstep keeps the same, except the
+  TTL sweep's clock: the mesh's first process decides which parked
+  handoffs expire, and its verdicts reach the others by broadcast.
 
 Same ``EngineConfig`` fields and defaults, ``SamplingParams``, ``Request``
 and ``metrics_snapshot()`` keys as the reference.
@@ -123,7 +128,8 @@ from torch.profiler import record_function
 from llm_instance_gateway_tpu_torch.models import paged as paged_lib
 from llm_instance_gateway_tpu_torch.models import transformer
 from llm_instance_gateway_tpu_torch.models.configs import ModelConfig
-from llm_instance_gateway_tpu_torch.parallel import sharding
+from llm_instance_gateway_tpu_torch.parallel import collectives, sharding
+from llm_instance_gateway_tpu_torch.parallel.mesh import AXES
 from llm_instance_gateway_tpu_torch.server import kv_transfer
 from llm_instance_gateway_tpu_torch.server.decode_graphs import DecodeGraphs
 from llm_instance_gateway_tpu_torch.server.kv_ledger import KvLedger
@@ -280,9 +286,11 @@ class _Slot:
 
 class _HostBatch:
     """One device-to-host transfer for a set of device tensors: on the card
-    each is copied into pinned memory without waiting, behind one event,
-    and the first ``host()`` waits for that event alone — not for work
-    queued after it, such as the next decode block."""
+    each is copied into pinned memory without waiting, behind one event
+    on their card's stream (not the thread's current card: an engine on
+    cuda:1 runs in a thread whose current card is cuda:0), and the first
+    ``host()`` waits for that event alone — not for work queued after
+    it, such as the next decode block."""
 
     __slots__ = ("_host", "_event", "_np")
 
@@ -295,7 +303,7 @@ class _HostBatch:
                 h.copy_(t, non_blocking=True)
                 self._host.append(h)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(tensors[0].device))
         else:
             self._host = list(tensors)
         self._np = None
@@ -400,9 +408,12 @@ class Engine:
         # shard, and the host logic below stays one copy.
         self.mesh = mesh
         self.tp = self._tensor_parallel(model_cfg, mesh, cuda_graphs)
+        # Every process of a mesh across processes: the TTL verdicts'
+        # broadcast (``_ttl_expired``); None inside one process.
+        self._lockstep = mesh.group(*AXES) if mesh is not None else None
         if self.tp is not None:
             device = self.tp.device(0)
-            params = sharding.shard_params(params, self.tp)
+            params = self._own_shards(params)
             if lora_manager is not None:
                 lora_manager.place(self.tp)
         self.params = params
@@ -609,15 +620,29 @@ class Engine:
                 "eagerly (cuda_graphs=False, --no-cuda-graphs)")
         return tp
 
+    def _own_shards(self, params):
+        """``params`` cut for this engine's grid: a whole tree through
+        ``sharding.shard_params``, or a ``Shards`` another engine on the
+        same mesh holds, taken as it is (two engines share one copy)."""
+        if not isinstance(params, sharding.Shards):
+            return sharding.shard_params(params, self.tp)
+        if params.tp.mesh != self.mesh or params.tp.full_cfg != self.model_cfg:
+            raise ValueError("params were sharded for another mesh or "
+                             "model; pass the whole tree")
+        return params
+
     def _lockstep_rules(self, shape: dict, cuda_graphs: bool) -> None:
         """The serving rules of a mesh across processes, each refused by
         name: ``data`` (a value the host reads must be fully replicated,
         the reference's rule, and a data group's rows live on one
-        process), CUDA graphs (queued as speed work, as across cards),
-        and the host decisions that read the clock or the device's
-        progress rather than the queue (the pipelined loop, the adaptive
-        planner, the handoff TTL sweep): one process deciding otherwise
-        than another hangs both inside a collective."""
+        process) and CUDA graphs (queued as speed work, as across cards).
+        The lockstep contract stands beside them: every request submitted
+        to every process before ``start()``, greedy or alike-seeded
+        sampling, either loop, eager.  Both loops and the adaptive
+        planner decide from the queue, the parked list, the streams and
+        the slots, which that contract keeps the same on every process;
+        the handoff TTL sweep reads the clock, so its verdicts come from
+        the mesh's first process (``_ttl_expired``)."""
         if shape.get("data", 1) > 1:
             raise ValueError(
                 f"data={shape['data']} on a mesh across processes: every "
@@ -629,15 +654,6 @@ class Engine:
                 "CUDA graphs across processes are queued in ROADMAP.md's "
                 "speed list (as across cards); serve eagerly "
                 "(cuda_graphs=False, --no-cuda-graphs)")
-        for name, on in (("pipeline_decode", self.cfg.pipeline_decode),
-                         ("adaptive_steps", self.cfg.adaptive_steps > 0),
-                         ("handoff_ttl_s", self.cfg.handoff_ttl_s > 0)):
-            if on:
-                raise ValueError(
-                    f"{name} on a mesh across processes: its decisions "
-                    "read the clock or the device's progress, which the "
-                    "processes do not share (lockstep serving runs the "
-                    "sync loop)")
 
     def _make_cache(self, make):
         """``make(cfg, device, rows)``'s cache, per shard under a mesh (a
@@ -1853,10 +1869,8 @@ class Engine:
         ttl = self.cfg.handoff_ttl_s
         keep = collections.deque()
         swept = False
-        for w in self.decode_wait:
+        for w, expired in zip(self.decode_wait, self._ttl_expired(now)):
             cancelled = w.request.cancelled.is_set()
-            expired = (ttl > 0 and w.from_handoff and w.t_parked
-                       and now - w.t_parked > ttl)
             if cancelled or expired:
                 self._parked_kv_tokens -= w.k.shape[2]
                 if self.kv_ledger is not None:
@@ -1879,6 +1893,29 @@ class Engine:
             self.decode_wait = keep
             self._usage_sync_kv()
         return swept
+
+    def _ttl_expired(self, now: float) -> list[bool]:
+        """Per ``decode_wait`` entry, whether it is a handoff import parked
+        longer than ``handoff_ttl_s``.  Across processes the clocks
+        differ, and a handoff one process releases while another inserts
+        it hangs both inside a collective: the mesh's first process
+        decides for every parked handoff and broadcasts its verdicts over
+        all the mesh's processes.  Only with a TTL set and a handoff
+        parked, which lockstep keeps the same everywhere, so an idle loop
+        issues no collective."""
+        ttl = self.cfg.handoff_ttl_s
+        mine = [bool(ttl > 0 and w.from_handoff and w.t_parked
+                     and now - w.t_parked > ttl) for w in self.decode_wait]
+        parked = [i for i, w in enumerate(self.decode_wait)
+                  if w.from_handoff]
+        if ttl <= 0 or self._lockstep is None or not parked:
+            return mine
+        verdict = collectives.broadcast(
+            torch.tensor([mine[i] for i in parked], dtype=torch.uint8,
+                         device=self.device), 0, self._lockstep)
+        for i, v in zip(parked, verdict.tolist()):
+            mine[i] = bool(v)
+        return mine
 
     def _drain_decode_wait(self, pipelined: bool) -> bool:
         did = self._sweep_decode_wait()

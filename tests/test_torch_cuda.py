@@ -2192,6 +2192,27 @@ if case == "serve":
         eng.stop()
     out["tokens"] = [list(r.output_tokens) for r in reqs]
     out["ring_programs"] = len(rings)
+    # The pipelined loop with the adaptive planner over the same shards,
+    # then a seeded handoff parked past its TTL behind every slot busy,
+    # the engine clock frozen on every process but the first.
+    jobs = json.loads(os.environ["GRAFT_JOBS"])
+    prompts, budgets = [p for p, _ in jobs], [m for _, m in jobs]
+    both = dict(pipeline_decode=True, adaptive_steps=8)
+
+    def again(**options):
+        return Engine(cfg, eng.params, EngineConfig(**{
+            "decode_slots": 4, "max_seq_len": 256,
+            "prefill_buckets": (16, 64), **options}), eos_id=None,
+            dtype=torch.float32, device=dev, mesh=mesh, cuda_graphs=False)
+
+    out["pipelined"] = multihost_check.serve(again(**both), prompts,
+                                             budgets)["tokens"]
+    handoff = multihost_check.seeded_handoff(cfg, 24, 5)
+    ttl = multihost_check.serve(
+        again(decode_slots=len(jobs), handoff_ttl_s=1e-3, **both), prompts,
+        budgets, handoff=handoff, freeze_clock=rank > 0)
+    out["ttl"] = {k: ttl[k] for k in ("tokens", "finish", "broadcasts",
+                                      "kv_release", "handoff_sha256")}
 elif case == "ring8b":  # Llama-3-8B's ring prefill of a 6001-token prompt
     from llm_instance_gateway_tpu_torch.parallel import collectives, long_context
     from torch.profiler import ProfilerActivity, profile
@@ -2378,14 +2399,15 @@ print("[processes] " + json.dumps(out), flush=True)
 """
 
 
-def _processes(n: int, case: str, axes: str, env=None) -> list:
+def _processes(n: int, case: str, axes: str, env=None,
+               timeout_s: float = 600) -> list:
     """The worker's result per process, ``n`` processes one card each."""
     import json
 
     from llm_instance_gateway_tpu_torch.parallel import multihost_check
 
     outs = multihost_check.run_processes(
-        PROCESSES_WORKER, n, n_local=1, timeout_s=600,
+        PROCESSES_WORKER, n, n_local=1, timeout_s=timeout_s,
         env={"GRAFT_CASE": case, "GRAFT_MESH": axes, **(env or {})})
     return [json.loads(line.split(" ", 1)[1])
             for line in multihost_check.ok_lines(outs, "[processes] ")]
@@ -2397,9 +2419,14 @@ def test_processes_serve_as_one_process_across_cards(narrow, tmp_path, axes):
     """One process a card (four, or two at sequence=2), NCCL between them,
     the narrow f32 model with four KV heads (so tensor=4 splits them) at
     ``axes``: every process reads back the greedy tokens of the
-    one-process engine that drives the same mesh over the cards; over
-    ``sequence`` a prompt beyond the largest bucket runs one ring program
-    a process, its K/V exchanged between the cards."""
+    one-process engine that drives the same mesh over the cards, through
+    the sync loop and through the pipelined loop with the adaptive
+    planner; over ``sequence`` a prompt beyond the largest bucket runs one
+    ring program a process, its K/V exchanged between the cards.  A
+    seeded handoff parked past a 1 ms TTL behind every slot busy, every
+    clock but the first process's frozen: every process releases it
+    (``kv_release`` says ``ttl``) through the first process's verdict,
+    broadcast over NCCL, with the same tokens for the rest."""
     import dataclasses
     import json
 
@@ -2426,11 +2453,17 @@ def test_processes_serve_as_one_process_across_cards(narrow, tmp_path, axes):
         "d_ff", "vocab_size", "max_lora_slots", "max_lora_rank")}
     res = _processes(mesh_cfg.total, "serve", axes, {
         "GRAFT_CFG": json.dumps(fields), "GRAFT_WEIGHTS": weights,
-        "GRAFT_JOBS": json.dumps([[p, m] for p, m, _ in jobs])})
+        "GRAFT_JOBS": json.dumps([[p, m] for p, m, _ in jobs])},
+        timeout_s=240)
     assert all(r["backend"] == ["nccl"] for r in res), res
     for r in res:
         assert r["tokens"] == [list(t) for t in ref], (r["rank"], axes)
+        assert r["pipelined"] == r["tokens"], (r["rank"], axes)
         assert r["ring_programs"] == int(mesh_cfg.sequence > 1), r
+        assert r["ttl"] == res[0]["ttl"], (r["rank"], axes)
+    ttl = res[0]["ttl"]
+    assert ttl["finish"][-1] == "cancelled" and ttl["broadcasts"] > 0, ttl
+    assert [e["reason"] for e in ttl["kv_release"]] == ["ttl"], ttl
 
 
 @pytest.mark.parametrize("case,axes", [("lora", "data=2,tensor=2"),

@@ -360,6 +360,7 @@ serve("data=2,tensor=2")
 serve("tensor=2,sequence=2")
 serve("tensor=4", pipeline_decode=True)
 serve("tensor=4", adaptive_steps=4)
+serve("tensor=4", handoff_ttl_s=5.0)
 trains(TINY_MOE_TEST, "expert=4")
 trains(TINY_TEST, "tensor=2,sequence=2")
 trains(TINY_TEST, "pipe=2,tensor=2")
@@ -375,16 +376,19 @@ def test_axes_that_cannot_span_processes_are_refused_by_name():
              if line.startswith(("REFUSED", "SERVED"))}
     want = {
         "REFUSED serve data=2,tensor=2 {}": "data=2",
-        "REFUSED serve tensor=4 {'pipeline_decode': True}": "pipeline_decode",
-        "REFUSED serve tensor=4 {'adaptive_steps': 4}": "adaptive_steps",
         "REFUSED train pipe=2,tensor=2": "pipe=2",
     }
     for key, name in want.items():
         assert key in lines, (key, sorted(lines))
         assert name in lines[key] and "process" in lines[key], lines[key]
     # Served across processes since the ring and the expert gradients
-    # span them.
+    # span them, and since lockstep serving runs the pipelined loop, the
+    # adaptive planner and the handoff TTL (its verdicts the first
+    # process's).
     for key in ("SERVED serve tensor=2,sequence=2 {}",
+                "SERVED serve tensor=4 {'pipeline_decode': True}",
+                "SERVED serve tensor=4 {'adaptive_steps': 4}",
+                "SERVED serve tensor=4 {'handoff_ttl_s': 5.0}",
                 "SERVED train expert=4", "SERVED train tensor=2,sequence=2"):
         assert key in lines, (key, sorted(lines))
 
