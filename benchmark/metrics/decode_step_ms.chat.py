@@ -1,0 +1,6 @@
+"""Decode block under chat traffic: the engine profiler's decode block
+walls over their steps, inside the window."""
+
+
+def read(w):
+    return w.decode_step_ms()

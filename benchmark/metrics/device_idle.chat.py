@@ -1,0 +1,6 @@
+"""Device: share of the traced slice with no kernel, copy or fill running
+(``torch.profiler``), under chat traffic, in percent."""
+
+
+def read(w):
+    return w.device_idle_pct()
